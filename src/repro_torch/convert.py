@@ -1,0 +1,90 @@
+"""Carry a reference param tree into the port.
+
+``params_from_numpy(model, tree)`` takes the JAX package's param tree as
+numpy arrays (``jax.tree.map(np.asarray, params)``) — fp leaves, or
+quantized ``{"w_q", "w_scale"}`` leaves stacked ``(n_periods, nb, bi, bo)`` /
+``(n_periods, nb, bo)`` — and returns the same tree of tensors on
+``device``, checked against the shapes the port's model expects. Both
+packages then compute the same function on the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":        # ml_dtypes bf16: exact via f32
+        return torch.from_numpy(arr.astype(np.float32)).to(device,
+                                                           torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def _shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _shapes(v, f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _shapes(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tuple(tree.shape)
+
+
+def params_from_numpy(model, tree: Any, device=None):
+    """Convert a reference param tree (numpy leaves) for ``model``.
+
+    Raises ``ValueError`` when the tree's structure or a leaf shape differs
+    from a fresh init of the same model (quantized leaves are checked
+    against the quantized form)."""
+    dev = device_lib.resolve(device)
+    out = _convert(tree, dev)
+    # the expected structure, from an init on the meta device (shapes only)
+    want = model.init(0, device="meta")
+    if any("w_q" in leaf for leaf in _leaf_dicts(out)):
+        want = _quantized_like(model, want)
+    got_shapes, want_shapes = dict(_shapes(out)), dict(_shapes(want))
+    if got_shapes != want_shapes:
+        diff = sorted(set(got_shapes.items()) ^ set(want_shapes.items()))
+        raise ValueError(f"param tree does not match {model.cfg.name}: {diff[:6]}")
+    return out
+
+
+def _leaf_dicts(tree):
+    if isinstance(tree, dict):
+        if "w" in tree or "w_q" in tree:
+            yield tree
+        for v in tree.values():
+            yield from _leaf_dicts(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaf_dicts(v)
+
+
+def _quantized_like(model, params):
+    """Shape template of the quantized tree (meta tensors, no arithmetic)."""
+    from repro_torch.core.export import _copy_tree, _iter_packed_leaves
+
+    out = _copy_tree(params)
+    for parent, key, _lin, _tag in _iter_packed_leaves(model, out):
+        w = parent[key]["w"]
+        new = {k: v for k, v in parent[key].items() if k != "w"}
+        new["w_q"] = torch.empty(w.shape, dtype=torch.int8, device="meta")
+        new["w_scale"] = torch.empty(w.shape[:-2] + w.shape[-1:],
+                                     dtype=torch.float32, device="meta")
+        parent[key] = new
+    return out

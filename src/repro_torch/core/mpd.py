@@ -1,0 +1,109 @@
+"""MPDLinear — one (possibly compressed) linear layer (the port of
+``repro.core.mpd`` for the ``dense`` and ``packed`` modes).
+
+Params are plain dicts of tensors under the reference's key names: ``w``
+(dense ``(d_in, d_out)`` or packed ``(nb, bi, bo)``), optional ``b``, or the
+quantized ``{"w_q" int8, "w_scale" f32}`` leaf of the export pass. The
+packed forward is pack gather -> block-diagonal matmul (bias and activation
+fused into the kernel epilogue) -> unpack gather.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from . import fold as fold_lib
+from .mask import MaskSpec
+
+Params = Dict[str, Any]
+
+MODES = ("dense", "masked_dense", "packed")
+
+
+@dataclasses.dataclass(frozen=True)
+class MPDLinearSpec:
+    """Static config of one (possibly compressed) linear layer."""
+
+    d_in: int
+    d_out: int
+    mask: Optional[MaskSpec]  # None => plain dense layer
+    mode: str = "packed"
+    use_bias: bool = True
+    skip_in_perm: bool = False
+    skip_out_perm: bool = False
+
+    def __post_init__(self):
+        assert self.mode in MODES, self.mode
+        if self.mask is not None:
+            assert self.mask.d_in == self.d_in and self.mask.d_out == self.d_out
+
+    @property
+    def compressed(self) -> bool:
+        return self.mask is not None and self.mode != "dense"
+
+    def param_count(self) -> int:
+        n = self.d_in * self.d_out
+        if self.compressed:
+            n //= self.mask.nb
+        return n + (self.d_out if self.use_bias else 0)
+
+
+def _init_scale(d_in: int) -> float:
+    return float(1.0 / np.sqrt(d_in))
+
+
+def init(generator: torch.Generator, spec: MPDLinearSpec,
+         dtype=torch.float32, device=None) -> Params:
+    """Normal init with the dense layer's fan-in scale ``1/sqrt(d_in)``,
+    drawn from ``generator`` (which must live on ``device``)."""
+    if spec.mode == "masked_dense" and spec.mask is not None:
+        raise NotImplementedError("masked_dense training is not ported yet")
+    if spec.mask is None or spec.mode == "dense":
+        shape = (spec.d_in, spec.d_out)
+    else:
+        m = spec.mask
+        shape = (m.nb, m.block_in, m.block_out)
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32) * _init_scale(spec.d_in)
+    p: Params = {"w": w.to(dtype)}
+    if spec.use_bias:
+        p["b"] = torch.zeros((spec.d_out,), dtype=dtype, device=device)
+    return p
+
+
+def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
+          activation: Optional[str] = None) -> torch.Tensor:
+    """``y = act(x @ W_eff + b)`` for the dense and packed modes.
+
+    On the packed mode the bias is re-indexed into packed order and rides
+    the kernel epilogue with the activation (elementwise activations commute
+    with the output permutation); quantized leaves route to the int8 form.
+    """
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant import is_quantized
+
+    b = params["b"] if spec.use_bias else None
+    if spec.mask is None or spec.mode == "dense":
+        y = x @ params["w"]
+        if b is not None:
+            y = y + b
+        return ref.ACTIVATIONS[activation](y)
+    if spec.mode == "masked_dense":
+        raise NotImplementedError("masked_dense training is not ported yet")
+    m = spec.mask
+    xp = fold_lib.pack_inputs(m, x, skip=spec.skip_in_perm)
+    bp = None
+    if b is not None:
+        idx = fold_lib.gather_index(m, "bias", b.device)
+        bp = b if idx is None else b.index_select(-1, idx)
+    if is_quantized(params):
+        yp = ops.bdmm_quant(xp, params["w_q"], params["w_scale"], bp,
+                            activation=activation)
+    else:
+        yp = ops.bdmm(xp, params["w"], bp, activation=activation)
+    return fold_lib.unpack_outputs(m, yp, skip=spec.skip_out_perm)
+

@@ -1,0 +1,121 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, compiled for ``sm_90a``. The first kernel call builds every
+source at once (one ``nvcc`` process per source, all started together) into
+``src/repro_torch/_build/`` (listed in ``.gitignore``); the file name carries
+a hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. Nothing here runs at import time: the CPU tests
+import every module on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("bdmm", "paged_attention", "paged_prefill")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}      # nvcc output per source (ptxas -v lines)
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelError("nvcc not found: the CUDA kernels build only where the "
+                      "CUDA toolkit is installed")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source that has no up-to-date library, in parallel.
+    Returns ``{name: library path}``; raises :class:`KernelError` with
+    nvcc's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: BUILD_DIR / f"{n}-{_digest(n)}.so" for n in SOURCES}
+    procs = {}
+    for name, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed: List[str] = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)        # atomic: a half-written library never loads
+    if failed:
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built on first use)."""
+    if name not in _libs:
+        paths = build_all()
+        for n, path in paths.items():
+            if n not in _libs:
+                _libs[n] = ctypes.CDLL(str(path))
+    return _libs[name]
+
+
+def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if code != 0:
+        fn = getattr(lib, f"{prefix}_error_string")
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise KernelError(f"{prefix}: CUDA error {code}: "
+                          f"{fn(code).decode(errors='replace')}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current PyTorch stream of ``device`` as a raw handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Kernel inputs must be contiguous CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -1,0 +1,125 @@
+"""Plain PyTorch versions of the kernels (the port of ``repro.kernels.ref``).
+
+They repeat the reference's arithmetic order step for step, so on the CPU
+the port matches the JAX jnp route to float32 rounding; on the card they
+are what each CUDA kernel is held against. ``ACTIVATIONS`` is the one
+registry both the kernel epilogues and the model graph draw from.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+ACTIVATIONS = {
+    None: lambda x: x,
+    "relu": torch.relu,
+    # tanh approximation, as jax.nn.gelu's default
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "sqrelu": lambda x: torch.square(torch.relu(x)),
+}
+
+
+def bdmm_ref(x, wp, bias=None, activation: Optional[str] = None):
+    """Block-diagonal matmul: ``(..., nb*bi) x (nb, bi, bo) -> (..., nb*bo)``.
+    ``bias`` is packed ``(nb*bo,)``. Computed in the input dtype, like the
+    reference einsum."""
+    nb, bi, bo = wp.shape
+    lead = x.shape[:-1]
+    xb = x.reshape(*lead, nb, bi)
+    y = torch.einsum("...nk,nko->...no", xb, wp).reshape(*lead, nb * bo)
+    if bias is not None:
+        y = y + bias
+    return ACTIVATIONS[activation](y)
+
+
+def bdmm_quant_ref(x, wq, scale, bias=None, activation: Optional[str] = None):
+    """Int8-weight block-diagonal matmul, in the kernel's order: raw
+    int·x products accumulated in f32 (bf16·int8 products are exact in
+    f32), then ``* scale`` per output channel, then bias, then activation,
+    then the cast to the input dtype.
+
+    ``wq: (nb, bi, bo)`` int8; ``scale: (nb, bo)`` f32."""
+    nb, bi, bo = wq.shape
+    lead = x.shape[:-1]
+    xb = x.reshape(*lead, nb, bi).float()
+    y = torch.einsum("...nk,nko->...no", xb, wq.float())
+    y = y * scale
+    if bias is not None:
+        y = y + bias.reshape(nb, bo).float()
+    y = ACTIVATIONS[activation](y).to(x.dtype)
+    return y.reshape(*lead, nb * bo)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
+    """Paged-attention decode: gather each row's pages into a contiguous KV
+    view and run the dense decode computation (f32 softmax, ``-1e30``
+    masking, ``p`` cast to the V dtype before PV).
+
+    ``q: (B, H, Dh)``; pools ``(n_pages, page_size, Kh, Dh)``;
+    ``block_tables: (B, P)`` int32; ``lengths: (B,)``. Returns ``(B, H, Dh)``.
+    """
+    B, H, Dh = q.shape
+    _, page_size, n_kv, _ = k_pages.shape
+    P = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, P * page_size, n_kv, Dh).to(q.dtype)
+    v = v_pages[bt].reshape(B, P * page_size, n_kv, Dh).to(q.dtype)
+    g = H // n_kv
+    q5 = q.reshape(B, 1, n_kv, g, Dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k).float()
+    logits = logits * Dh ** -0.5
+    valid = (torch.arange(P * page_size, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    logits = torch.where(valid[:, None, None, None, :], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    # masked columns have p == 0 exactly; zeroing their V as well keeps a
+    # stale NaN out of the sum (0 * NaN) and changes no finite result
+    v = torch.where(valid[:, :, None, None], v, torch.zeros((), dtype=v.dtype,
+                                                             device=v.device))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v)
+    return o.reshape(B, 1, H, Dh)[:, 0]
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, bt_row, start: int,
+                                chunk_len: int):
+    """Chunked-prefill attention for ONE request's chunk against its paged
+    context: query ``t`` (global position ``start + t``) attends to
+    ``kv_pos <= start + t`` and ``kv_pos < start + chunk_len``.
+
+    ``q: (Tc, H, Dh)``; ``bt_row: (P,)``. The chunk's own K/V must already
+    be scattered into the pool. Returns ``(Tc, H, Dh)``; rows past
+    ``chunk_len`` are padding the caller never reads."""
+    Tc, H, Dh = q.shape
+    _, page_size, n_kv, _ = k_pages.shape
+    P = bt_row.shape[0]
+    S = P * page_size
+    bt = bt_row.long()
+    k = k_pages[bt].reshape(1, S, n_kv, Dh).to(q.dtype)
+    v = v_pages[bt].reshape(1, S, n_kv, Dh).to(q.dtype)
+    g = H // n_kv
+    q5 = q.reshape(1, Tc, n_kv, g, Dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k).float()
+    logits = logits * Dh ** -0.5
+    dev = q.device
+    q_pos = start + torch.arange(Tc, device=dev)
+    kv_pos = torch.arange(S, device=dev)
+    neg = torch.tensor(NEG_INF, device=dev)
+    cmask = q_pos[:, None] >= kv_pos[None, :]
+    logits = torch.where(cmask[None, None, None], logits, neg)
+    kv_valid = kv_pos < start + chunk_len
+    logits = torch.where(kv_valid[None, None, None, None, :], logits, neg)
+    p = torch.softmax(logits, dim=-1)
+    # positions past the depth: p == 0 and V zeroed (NaN-safe, see above)
+    v = torch.where(kv_valid[None, :, None, None], v,
+                    torch.zeros((), dtype=v.dtype, device=v.device))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return o.reshape(1, Tc, H, Dh)[0]

@@ -1,0 +1,159 @@
+"""Attention over the paged KV pool (the port of the paged-serving part of
+``repro.models.attention``: ``AttentionSpec``, ``_qkv``,
+``init_paged_cache``, ``apply_decode_paged``, ``prefill_chunk_paged``).
+
+Unlike the reference, whose arrays are immutable, the page pools and the
+per-slot ``pos`` counters are updated **in place** (``index_put_``); the
+functions still return the cache so call sites read like the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.policy import CompressionPolicy
+from . import layers
+from .linear import Linear
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    causal: bool = True
+    rope: str = "rope"  # rope | none
+    rope_theta: float = 10000.0
+    use_bias: bool = False
+    wq: Linear = None
+    wk: Linear = None
+    wv: Linear = None
+    wo: Linear = None
+
+    @staticmethod
+    def make(policy: CompressionPolicy, d_model, n_heads, n_kv_heads, head_dim,
+             *, causal=True, rope="rope", rope_theta=1e4, use_bias=False,
+             seed_salt=0, fuse_perms=False) -> "AttentionSpec":
+        if fuse_perms:
+            raise NotImplementedError("mpd_fuse q/k/v sharing is not ported")
+        if rope not in ("rope", "none"):
+            raise NotImplementedError(f"rope={rope!r} is not ported")
+
+        def mk(d_in, d_out, kind, salt):
+            return Linear.make(policy, d_in, d_out, kind, use_bias=use_bias,
+                               seed_salt=seed_salt * 4 + salt)
+        return AttentionSpec(
+            d_model, n_heads, n_kv_heads, head_dim, causal, rope, rope_theta,
+            use_bias,
+            wq=mk(d_model, n_heads * head_dim, "attn_qkv", 0),
+            wk=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 1),
+            wv=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 2),
+            wo=mk(n_heads * head_dim, d_model, "attn_out", 3),
+        )
+
+    def init(self, generator: torch.Generator, dtype=torch.float32,
+             device=None):
+        return {n: getattr(self, n).init(generator, dtype, device)
+                for n in ("wq", "wk", "wv", "wo")}
+
+
+def _qkv(spec: AttentionSpec, params, x, positions):
+    B, T, _ = x.shape
+    q = spec.wq.apply(params["wq"], x).reshape(B, T, spec.n_heads, spec.head_dim)
+    k = spec.wk.apply(params["wk"], x).reshape(B, T, spec.n_kv_heads,
+                                               spec.head_dim)
+    v = spec.wv.apply(params["wv"], x).reshape(B, T, spec.n_kv_heads,
+                                               spec.head_dim)
+    if spec.rope == "rope":
+        cos, sin = layers.rope_cos_sin(positions, spec.head_dim,
+                                       spec.rope_theta)
+        q = layers.apply_rope(q, cos, sin)
+        k = layers.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def init_paged_cache(spec: AttentionSpec, n_slots: int, n_pages: int,
+                     page_size: int, dtype=torch.float32, device=None):
+    """A global K/V page pool plus a per-slot ``pos``. Page 0 is the
+    reserved null page: block-table entries past a request's depth point at
+    it, so padded scatters always hit a valid pool index."""
+    shape = (n_pages, page_size, spec.n_kv_heads, spec.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
+
+
+def apply_decode_paged(spec: AttentionSpec, params, x, cache, block_tables,
+                       live=None):
+    """One decode step against the paged KV pool. x: (B, 1, D).
+
+    ``cache``: {"kp"/"vp": (n_pages, page_size, Kh, Dh), "pos": (B,)}. The
+    new K/V is scattered at ``(page, offset)`` from each row's ``pos``, then
+    attention runs through :func:`repro_torch.kernels.ops.paged_attention`.
+    ``live`` (B,) bool masks the rows actually decoding; it is load-bearing:
+    a non-live row (mid chunked prefill) holds a real block table, and its
+    clipped page index could alias an already-prefilled shared page, so
+    non-live rows scatter to the null page and their ``pos`` freezes.
+    """
+    from repro_torch.kernels import ops
+
+    B, T, _ = x.shape
+    assert T == 1
+    kp, vp = cache["kp"], cache["vp"]
+    page_size = kp.shape[1]
+    P = block_tables.shape[1]
+    pos = cache["pos"]
+    q, k_new, v_new = _qkv(spec, params, x, pos[:, None])
+    pidx = torch.clamp(pos // page_size, 0, P - 1).long()
+    pages = torch.gather(block_tables, 1, pidx[:, None])[:, 0].long()
+    if live is not None:
+        pages = torch.where(live, pages, torch.zeros_like(pages))
+    offs = (pos % page_size).long()
+    kp.index_put_((pages, offs), k_new[:, 0].to(kp.dtype))
+    vp.index_put_((pages, offs), v_new[:, 0].to(vp.dtype))
+    o = ops.paged_attention(q[:, 0], kp, vp, block_tables, pos + 1)
+    y = spec.wo.apply(params["wo"],
+                      o.reshape(B, 1, spec.n_heads * spec.head_dim))
+    pos.add_(1 if live is None else live.to(pos.dtype))
+    return y, cache
+
+
+def prefill_chunk_paged(spec: AttentionSpec, params, x, cache, bt_row,
+                        slot: int, start: int, chunk_len: int):
+    """One page-aligned prefill chunk of a single request (batch 1).
+
+    ``x: (1, Tc, D)`` with ``Tc`` a page multiple and ``start`` page-aligned;
+    ``chunk_len <= Tc`` real tokens. The chunk's K/V is scattered into its
+    pages — a padded tail reaching past the table goes to the null page, not
+    to a clamped index that would overwrite real K/V — then the chunk
+    attends over the request's whole cached context through
+    :func:`repro_torch.kernels.ops.paged_prefill_attention`.
+    """
+    from repro_torch.kernels import ops
+
+    B, Tc, _ = x.shape
+    assert B == 1
+    kp, vp = cache["kp"], cache["vp"]
+    page_size = kp.shape[1]
+    P = bt_row.shape[0]
+    assert Tc % page_size == 0, (Tc, page_size)
+    n_chunk_pages = Tc // page_size
+    dev = x.device
+    positions = (start + torch.arange(Tc, device=dev))[None]
+    q, k, v = _qkv(spec, params, x, positions)
+    idx = start // page_size + torch.arange(n_chunk_pages, device=dev)
+    page_ids = torch.where(idx < P, bt_row[torch.clamp(idx, 0, P - 1)].long(),
+                           torch.zeros_like(idx))
+    Kh, Dh = spec.n_kv_heads, spec.head_dim
+    kp.index_put_((page_ids,), k[0].reshape(n_chunk_pages, page_size, Kh,
+                                            Dh).to(kp.dtype))
+    vp.index_put_((page_ids,), v[0].reshape(n_chunk_pages, page_size, Kh,
+                                            Dh).to(vp.dtype))
+    o = ops.paged_prefill_attention(q[0], kp, vp, bt_row, start, chunk_len)
+    y = spec.wo.apply(params["wo"],
+                      o.reshape(1, Tc, spec.n_heads * spec.head_dim))
+    cache["pos"][slot] = start + chunk_len
+    return y, cache

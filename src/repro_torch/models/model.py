@@ -1,0 +1,238 @@
+"""Model assembly for the attention family (the port of
+``repro.models.model`` for ``pattern=("attn",)``: config, init, paged caches,
+``decode_step`` and ``prefill_chunk``).
+
+Params keep the reference's tree and key names — block params stacked per
+pattern period on a leading axis (``params["blocks"][i]["mixer"]["wq"]["w"]``
+has shape ``(n_periods, nb, bi, bo)``) — so a JAX param tree converts leaf by
+leaf (:mod:`repro_torch.convert`). The reference's ``scan`` over periods is
+a Python loop over leading-axis views. Caches are updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core.policy import CompressionPolicy
+from . import attention as attn_lib
+from . import layers
+from .ffn import FFNSpec
+from .linear import Linear
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Field-for-field the reference config; only ``pattern=("attn",)``
+    with token frontends is ported so far."""
+    name: str = "model"
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 2
+    n_kv_heads: int = 2
+    d_ff: int = 256
+    vocab: int = 256
+    head_dim: int = 0               # 0 -> d_model // n_heads
+    norm: str = "rms"               # rms | ln | none (olmo)
+    ffn_kind: str = "swiglu"        # swiglu | gelu | relu
+    use_bias: bool = False
+    causal: bool = True
+    rope: str = "rope"              # rope | none
+    rope_theta: float = 10000.0
+    pattern: Tuple[str, ...] = ("attn",)
+    frontend: str = "token"
+    dtype: str = "float32"
+    mpd_c: int = 1
+    mpd_mode: str = "packed"
+    mpd_min_block: int = 8
+    mpd_permuted: bool = True
+    mpd_seed: int = 0
+    mpd_per_kind: Tuple[Tuple[str, int], ...] = ()
+    mpd_fuse: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def policy(self) -> CompressionPolicy:
+        return CompressionPolicy(
+            c=self.mpd_c, per_kind=dict(self.mpd_per_kind) or None,
+            min_block=self.mpd_min_block, permuted=self.mpd_permuted,
+            seed=self.mpd_seed, mode=self.mpd_mode)
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return device_lib.DTYPES[self.dtype]
+
+
+def _layer(tree, i: int):
+    """Period ``i`` of a stacked param tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: List[Any]):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+class Model:
+    """Static specs here, params as plain dicts of tensors."""
+
+    def __init__(self, cfg: ModelConfig):
+        if tuple(cfg.pattern) != ("attn",):
+            raise NotImplementedError(
+                f"{cfg.name}: pattern {cfg.pattern} — only attention models "
+                "are ported (mamba, moe and rwkv are not yet)")
+        if cfg.frontend != "token":
+            raise NotImplementedError("only token frontends are ported")
+        self.cfg = cfg
+        self.n_periods = cfg.n_layers // len(cfg.pattern)
+        pol = cfg.policy
+        self.block_specs = [self._make_block(pol, kind, i)
+                            for i, kind in enumerate(cfg.pattern)]
+        self.unembed = Linear.make(pol, cfg.d_model, cfg.vocab, "unembed")
+        self._sqrt_d = math.sqrt(cfg.d_model)
+
+    def _make_block(self, pol: CompressionPolicy, kind: str, idx: int):
+        cfg = self.cfg
+        return {
+            "kind": kind,
+            "mixer": attn_lib.AttentionSpec.make(
+                pol, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                causal=cfg.causal, rope=cfg.rope, rope_theta=cfg.rope_theta,
+                use_bias=cfg.use_bias, seed_salt=idx + 1,
+                fuse_perms=cfg.mpd_fuse),
+            "ffn": FFNSpec.make(pol, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
+                                cfg.use_bias, seed_salt=idx + 100,
+                                fuse_perms=cfg.mpd_fuse),
+        }
+
+    # ----------------------------------------------------------------- params
+    def init(self, seed: int = 0, device=None) -> Dict[str, Any]:
+        """Random init from ``seed`` on ``device`` (the CUDA device unless
+        ``device="cpu"``). Draws differ from ``jax.random``; parity tests
+        carry the reference's params over with :mod:`repro_torch.convert`.
+        ``device="meta"`` builds the shape template only."""
+        dev = device_lib.resolve(device)
+        cfg = self.cfg
+        dtype = cfg.tdtype
+        gen = (None if dev.type == "meta"
+               else torch.Generator(device=dev).manual_seed(seed))
+        params: Dict[str, Any] = {
+            "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dtype,
+                                           dev)}
+        params["blocks"] = []
+        for spec in self.block_specs:
+            periods = [{
+                "norm1": layers.init_norm(cfg.norm, cfg.d_model, dev),
+                "mixer": spec["mixer"].init(gen, dtype, dev),
+                "norm2": layers.init_norm(cfg.norm, cfg.d_model, dev),
+                "ffn": spec["ffn"].init(gen, dtype, dev),
+            } for _ in range(self.n_periods)]
+            params["blocks"].append(_stack(periods))
+        params["final_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dev)
+        params["unembed"] = self.unembed.init(gen, dtype, dev)
+        return params
+
+    def init_paged_caches(self, n_slots: int, n_pages: int, page_size: int,
+                          dtype=None, device=None) -> List[Dict[str, Any]]:
+        """Per pattern position: K/V pools ``(n_periods, n_pages, page_size,
+        Kh, Dh)`` (page 0 is the null page) and ``pos (n_periods, n_slots)``."""
+        dev = device_lib.resolve(device)
+        dtype = dtype or self.cfg.tdtype
+        caches = []
+        for spec in self.block_specs:
+            one = [attn_lib.init_paged_cache(spec["mixer"], n_slots, n_pages,
+                                             page_size, dtype, dev)
+                   for _ in range(self.n_periods)]
+            caches.append(_stack(one))
+        return caches
+
+    # ---------------------------------------------------------------- forward
+    def _embed(self, params, tokens):
+        x = layers.embed(params["embed"], tokens)
+        # sqrt(d_model) rounded to the config dtype first, as the reference's
+        # weak-typed scalar is (host-side: no device copy per step)
+        return x * float(torch.tensor(self._sqrt_d, dtype=x.dtype))
+
+    def _ffn_residual(self, spec, p, x):
+        h2 = layers.apply_norm(self.cfg.norm, p["norm2"], x)
+        return x + spec["ffn"].apply(p["ffn"], h2)
+
+    def decode_step(self, params, tokens, caches, block_tables, live=None):
+        """One token step of the paged engine. ``tokens (B,)``;
+        ``block_tables (B, P)`` int32 shared by every attention layer;
+        ``live (B,)`` bool marks the rows actually decoding (non-live rows
+        compute but write nothing). Returns ``(logits (B, vocab), caches)``;
+        the caches are updated in place."""
+        cfg = self.cfg
+        x = self._embed(params, tokens[:, None])
+        for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
+                                        caches):
+            for i in range(self.n_periods):
+                p = _layer(pstack, i)
+                c = _layer(cstack, i)
+                h = layers.apply_norm(cfg.norm, p["norm1"], x)
+                y, _ = attn_lib.apply_decode_paged(
+                    spec["mixer"], p["mixer"], h, c, block_tables, live=live)
+                x = self._ffn_residual(spec, p, x + y)
+        x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+        return self.unembed.apply(params["unembed"], x[:, 0]), caches
+
+    def prefill_chunk(self, params, tokens, caches, bt_row, slot: int,
+                      start: int, chunk_len: int, final: bool = True):
+        """One page-aligned chunk of a single request's prefill (batch 1).
+
+        ``tokens (1, Tc)`` with ``Tc`` a page multiple; ``start`` (host int,
+        page-aligned) is the chunk's global offset; ``chunk_len <= Tc`` real
+        tokens (the final chunk is right-padded). Returns ``(logits (1,
+        vocab) at the last real token, caches)`` on the final chunk and
+        ``(None, caches)`` otherwise (no final norm or unembed)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
+                                        caches):
+            for i in range(self.n_periods):
+                p = _layer(pstack, i)
+                c = _layer(cstack, i)
+                h = layers.apply_norm(cfg.norm, p["norm1"], x)
+                y, _ = attn_lib.prefill_chunk_paged(
+                    spec["mixer"], p["mixer"], h, c, bt_row, slot, start,
+                    chunk_len)
+                x = self._ffn_residual(spec, p, x + y)
+        if not final:
+            return None, caches
+        x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+        x_last = x[:, max(chunk_len - 1, 0)]
+        return self.unembed.apply(params["unembed"], x_last), caches
+
+    # ------------------------------------------------------------- accounting
+    def block_linears(self, spec) -> List[Tuple[Tuple[str, str], Linear]]:
+        """(param key path, Linear) pairs of one block spec."""
+        mixer, ffn = spec["mixer"], spec["ffn"]
+        out = [(("mixer", n), getattr(mixer, n)) for n in ("wq", "wk", "wv", "wo")]
+        out.append((("ffn", "w_up"), ffn.w_up))
+        if ffn.w_gate is not None:
+            out.append((("ffn", "w_gate"), ffn.w_gate))
+        out.append((("ffn", "w_down"), ffn.w_down))
+        return out
+
+    def param_count(self) -> int:
+        cfg = self.cfg
+        n = cfg.vocab * cfg.d_model + self.unembed.param_count()
+        for spec in self.block_specs:
+            n += self.n_periods * sum(l.param_count()
+                                      for _, l in self.block_linears(spec))
+        return n
+
+
+def build(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,18 @@
+"""repro_torch.serve — the paged continuous-batching engine of the port.
+
+A fixed decode batch of ``n_slots`` rows over a global KV page pool with
+block tables, ref-counted prefix reuse and chunked prefill; FCFS admission
+gated by page-pool pressure; per-request sampling and stop conditions.
+"""
+
+from .cache import NULL_PAGE, PagedCache, PagePool, PrefixTrie
+from .engine import Engine
+from .metrics import RequestMetrics, ServeMetrics
+from .sampling import SamplingParams, sample
+from .scheduler import Request, RequestState, Scheduler
+
+__all__ = [
+    "Engine", "PagedCache", "PagePool", "PrefixTrie", "NULL_PAGE",
+    "ServeMetrics", "RequestMetrics", "SamplingParams", "sample", "Request",
+    "RequestState", "Scheduler",
+]

@@ -1,0 +1,276 @@
+"""Paged KV memory for the continuous-batching engine (the port of the
+paged half of ``repro.serve.cache``: ``PagePool``, ``PrefixTrie``,
+``PagedCache``; single-pool trie, no speculative-decoding slack).
+
+Attention K/V lives in a global pool of fixed-size pages per layer; each
+request holds an ordered list of page ids (its block table); a host-side
+free list hands pages out; a ref-counted prefix trie keyed on page-aligned
+prompt chunks lets requests that share a prompt prefix reuse prefilled
+pages. Cached pages are immutable — extending a shared prefix allocates
+fresh pages. Page 0 is the reserved null page.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+NULL_PAGE = 0
+
+
+class PagePool:
+    """Host-side page allocator: a free list plus per-page refcounts. Page
+    0 is the null page (never handed out); a page is free at refcount 0."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError(f"pool needs >= 2 pages (null + 1), got {n_pages}")
+        self.n_pages = n_pages
+        self.ref = np.zeros(n_pages, np.int32)
+        self.ref[NULL_PAGE] = 1                          # permanently pinned
+        self._free = list(range(n_pages - 1, 0, -1))     # pop() -> lowest id
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def allocated_count(self) -> int:
+        """Pages held by at least one owner (excluding null)."""
+        return (self.n_pages - 1) - len(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError("page pool exhausted")
+        pid = self._free.pop()
+        assert self.ref[pid] == 0, pid
+        self.ref[pid] = 1
+        return pid
+
+    def retain(self, pid: int) -> None:
+        assert pid != NULL_PAGE and self.ref[pid] > 0, pid
+        self.ref[pid] += 1
+
+    def release(self, pid: int) -> None:
+        assert pid != NULL_PAGE and self.ref[pid] > 0, pid
+        self.ref[pid] -= 1
+        if self.ref[pid] == 0:
+            self._free.append(pid)
+
+
+class PrefixTrie:
+    """Ref-counted prefix cache keyed on page-aligned prompt chunks.
+
+    A node is a full page of prompt tokens keyed by the whole token prefix
+    it completes; matching walks page by page and stops at the first miss,
+    so eviction is leaf-first (LRU among nodes no other cached node
+    extends). The trie holds one pool ref per node: a page whose only
+    holder is the trie (ref == 1) is evictable.
+    """
+
+    def __init__(self, pool: PagePool, page_size: int):
+        self.pool = pool
+        self.page_size = page_size
+        self.nodes: Dict[Tuple[int, ...], int] = {}
+        self._tick = 0
+        self._last_use: Dict[Tuple[int, ...], int] = {}
+        self._n_children: Dict[Tuple[int, ...], int] = {}
+
+    def __len__(self) -> int:
+        return len(self.nodes)
+
+    def is_reclaimable(self, pid: int) -> bool:
+        return self.pool.ref[pid] == 1
+
+    def match(self, prompt: np.ndarray, max_pages: int,
+              touch: bool = True) -> List[int]:
+        """Page ids of the longest cached page-aligned prefix (read-only;
+        the caller takes refs). ``touch=False`` is the capacity probe and
+        does not bump LRU recency."""
+        ps = self.page_size
+        toks = tuple(int(t) for t in prompt[: max_pages * ps])
+        pages: List[int] = []
+        if touch:
+            self._tick += 1
+        for j in range(max_pages):
+            key = toks[: (j + 1) * ps]
+            if len(key) < (j + 1) * ps or key not in self.nodes:
+                break
+            pages.append(self.nodes[key])
+            if touch:
+                self._last_use[key] = self._tick
+        return pages
+
+    def insert(self, prompt: np.ndarray, page_index: int, pid: int) -> bool:
+        """Cache page ``page_index`` of ``prompt`` (full and prefilled).
+        Takes one ref; no-op if already cached."""
+        key = tuple(int(t) for t in prompt[: (page_index + 1) * self.page_size])
+        if key in self.nodes:
+            return False
+        self.nodes[key] = pid
+        parent = key[:-self.page_size]
+        if parent in self.nodes:
+            self._n_children[parent] = self._n_children.get(parent, 0) + 1
+        self.pool.retain(pid)
+        self._tick += 1
+        self._last_use[key] = self._tick
+        return True
+
+    def evictable(self) -> List[Tuple[int, Tuple[int, ...]]]:
+        """(last_use, key) of trie-only leaves."""
+        return [(self._last_use[key], key)
+                for key, pid in self.nodes.items()
+                if self.is_reclaimable(pid) and not self._n_children.get(key)]
+
+    def evict_one(self) -> Optional[int]:
+        """Drop the LRU evictable leaf, freeing its page; returns the page
+        id or None."""
+        cands = self.evictable()
+        if not cands:
+            return None
+        _, key = min(cands)
+        pid = self.nodes.pop(key)
+        self._last_use.pop(key, None)
+        self._n_children.pop(key, None)
+        parent = key[:-self.page_size]
+        if parent in self._n_children:
+            self._n_children[parent] -= 1
+            if not self._n_children[parent]:
+                del self._n_children[parent]
+        self.pool.release(pid)
+        return pid
+
+    def evictable_count(self) -> int:
+        return len(self.evictable())
+
+    def reclaimable_count(self) -> int:
+        """Pages cascading leaf eviction could hand back: every trie-only
+        node (request refs are upward-closed along a chain)."""
+        return int(sum(1 for pid in self.nodes.values()
+                       if self.is_reclaimable(pid)))
+
+
+class PagedCache:
+    """Owns the device page pools, the host block tables, the allocator and
+    the prefix trie. Admission reserves a request's worst-case page count
+    (prompt + ``max_new_tokens``); decode pages materialise lazily against
+    that reservation, so an admitted request can always finish."""
+
+    def __init__(self, model, n_slots: int, max_len: int, *,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 device=None):
+        self.model = model
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.max_pages = math.ceil(max_len / page_size)
+        if n_pages is None:
+            n_pages = n_slots * self.max_pages + 1     # dense-equivalent + null
+        self.n_pages = n_pages
+        self.caches = model.init_paged_caches(n_slots, n_pages, page_size,
+                                              device=device)
+        self.dtype = self.caches[0]["kp"].dtype
+        self.device = self.caches[0]["kp"].device
+        self.pool = PagePool(n_pages)
+        self.trie = PrefixTrie(self.pool, page_size)
+        self.block_tables = np.zeros((n_slots, self.max_pages), np.int32)
+        self.dirty = True
+        self.reserved = 0
+        self._slot_reserved = [0] * n_slots
+        self.page_bytes = sum((c["kp"].nbytes + c["vp"].nbytes) // n_pages
+                              for c in self.caches)
+        self.token_bytes = self.page_bytes / page_size
+        self.dense_reserved_bytes = int(n_slots * max_len * self.token_bytes)
+
+    # ------------------------------------------------------------ accounting
+    def kv_bytes_allocated(self) -> int:
+        return self.pool.allocated_count * self.page_bytes
+
+    def pages_for(self, n_tokens: int) -> int:
+        return math.ceil(n_tokens / self.page_size)
+
+    def available(self) -> int:
+        """Free pages plus trie pages reclaimable by cascading eviction,
+        minus outstanding reservations."""
+        return (self.pool.free_count + self.trie.reclaimable_count()
+                - self.reserved)
+
+    # ------------------------------------------------------------- admission
+    def _match(self, prompt: np.ndarray, touch: bool = True) -> List[int]:
+        if len(prompt) <= self.page_size:
+            return []
+        # never the entire prompt: the last token's logits must be computed
+        cap = (len(prompt) - 1) // self.page_size
+        return self.trie.match(prompt, cap, touch=touch)
+
+    def can_admit(self, prompt_len: int, max_new_tokens: int,
+                  prompt: Optional[np.ndarray] = None) -> bool:
+        matched = self._match(prompt, touch=False) if prompt is not None else []
+        total = self.pages_for(prompt_len + max_new_tokens)
+        # trie-only matched pages count as available but admission pins them
+        pinned = sum(1 for pid in matched if self.trie.is_reclaimable(pid))
+        return total - len(matched) + pinned <= self.available()
+
+    def _alloc_page(self) -> int:
+        if self.pool.free_count == 0 and self.trie.evict_one() is None:
+            raise RuntimeError("page pool exhausted with nothing evictable — "
+                               "admission reservation accounting is broken")
+        return self.pool.alloc()
+
+    def admit_request(self, slot: int, prompt: np.ndarray,
+                      max_new_tokens: int) -> int:
+        """Build the slot's block table from trie-matched prefix pages plus
+        fresh prompt pages, and reserve the worst-case decode pages.
+        Returns the number of prefix tokens whose prefill is skipped."""
+        matched = self._match(prompt)
+        for pid in matched:
+            self.pool.retain(pid)
+        n_prompt_pages = self.pages_for(len(prompt))
+        row = self.block_tables[slot]
+        row[:] = NULL_PAGE
+        row[:len(matched)] = matched
+        for j in range(len(matched), n_prompt_pages):
+            row[j] = self._alloc_page()
+        n_res = self.pages_for(len(prompt) + max_new_tokens) - n_prompt_pages
+        self.reserved += n_res
+        self._slot_reserved[slot] = n_res
+        self.dirty = True
+        return len(matched) * self.page_size
+
+    # -------------------------------------------------------------- runtime
+    def publish_prefix(self, prompt: np.ndarray, slot: int, upto_tokens: int,
+                       from_tokens: int = 0) -> None:
+        """Insert the slot's full, prefilled prompt pages in tokens
+        ``[from_tokens, upto_tokens)`` into the trie (partial pages never:
+        decode may still write into the last prompt page)."""
+        n_full = min(upto_tokens, len(prompt)) // self.page_size
+        row = self.block_tables[slot]
+        for j in range(from_tokens // self.page_size, n_full):
+            self.trie.insert(prompt, j, int(row[j]))
+
+    def ensure_decode_page(self, slot: int, write_pos: int) -> None:
+        """Materialise the page covering ``write_pos`` from the slot's
+        reservation."""
+        j = write_pos // self.page_size
+        if self.block_tables[slot, j] == NULL_PAGE:
+            self.block_tables[slot, j] = self._alloc_page()
+            self.reserved -= 1
+            self._slot_reserved[slot] -= 1
+            self.dirty = True
+
+    def pages_used(self, slot: int, kv_len: int) -> int:
+        """Block-table width needed to cover ``kv_len`` cached tokens."""
+        return min(self.pages_for(max(kv_len, 1)), self.max_pages)
+
+    def free_slot(self, slot: int) -> None:
+        """Release the slot's page refs (trie-cached pages persist) and its
+        remaining reservation."""
+        row = self.block_tables[slot]
+        for pid in row[row != NULL_PAGE]:
+            self.pool.release(int(pid))
+        row[:] = NULL_PAGE
+        self.reserved -= self._slot_reserved[slot]
+        self._slot_reserved[slot] = 0
+        self.dirty = True

@@ -1,0 +1,224 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips (at run time, through the
+``cuda_device`` fixture) where there is no NVIDIA GPU: a CUDA kernel has no
+CPU mode. The file imports no JAX, so it runs on a machine that has only
+PyTorch:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances, |kernel - plain| <= atol + rtol |plain|: float32 atol 1e-4 /
+rtol 1e-4 for bdmm (f32 accumulation order) and 2e-5 / 1e-4 for attention
+(online vs one-shot softmax); bf16 bdmm atol 1e-3 / rtol 2e-2 (one bf16
+rounding in the kernel against up to three in the plain path). bf16
+attention is held against the plain version computed in float32 on the same
+bf16 values: the kernel rounds each p to bf16 before PV and rounds the output
+once, each within u = 2^-8 relative, so |kernel - plain_f32| <= 2e-5 +
+u (|plain_f32| + sum_j p_j |v_j|), the last term being the plain version run
+on |V|. The same rule must reject the plain output with one page of context
+left out.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import bdmm as tbdmm
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import paged_prefill as tpp
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.quant import quantize_blocks
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided at run time, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    atol, rtol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2e-2)}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def _attn_within(got, plain32, dtype):
+    """Whether ``got`` is within the attention tolerance of the f32 plain
+    version; ``plain32(abs_v)`` runs it on V or on |V|."""
+    want = plain32(False)
+    if dtype == torch.float32:
+        lim = 2e-5 + 1e-4 * want.abs()
+    else:
+        lim = 2e-5 + 2.0 ** -8 * (want.abs() + plain32(True))
+    return bool(((got.float() - want).abs() <= lim).all())
+
+
+# ---------------------------------------------------------------------- bdmm
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 33, 64])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_bdmm_matches_plain(cuda_device, quant, m, dtype):
+    """Both grids (decode-shaped for m <= 32), ragged bo (1000 is no
+    multiple of the 32- or 64-column tiles), bias and silu epilogue."""
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    nb, bi, bo = 8, 256, 1000
+    x = torch.randn((m, nb * bi), generator=g, device=cuda_device).to(dtype)
+    w = torch.randn((nb, bi, bo), generator=g, device=cuda_device) * bi ** -0.5
+    b = (0.1 * torch.randn((nb * bo,), generator=g, device=cuda_device)).to(dtype)
+    before = dict(tbdmm.launches)
+    if quant:
+        wq, s = quantize_blocks(w)
+        got = tbdmm.bdmm(x, wq, b, s, activation="silu")
+        want = tref.bdmm_quant_ref(x, wq, s, b, "silu")
+    else:
+        got = tbdmm.bdmm(x, w.to(dtype), b, activation="silu")
+        want = tref.bdmm_ref(x.float(), w.to(dtype).float(), b.float(),
+                             "silu").to(dtype)
+    grid = "bdmm_decode" if m <= tbdmm.SMALL_M_MAX else "bdmm"
+    assert tbdmm.launches[grid] == before[grid] + 1
+    _close(got, want, dtype)
+
+
+def test_bdmm_raises_instead_of_falling_back(cuda_device):
+    x = torch.zeros(2, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        tbdmm.bdmm(x, torch.zeros(4, 16, 8, device=cuda_device),
+                   activation="gelu")
+    with pytest.raises(ValueError):
+        tbdmm.bdmm(x.cpu(), torch.zeros(4, 16, 8, device=cuda_device))
+
+
+# ------------------------------------------------------------ paged attention
+def _pool_case(B, H, Kh, Dh, ps, n_pages, P, seed, dev, dtype):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Dh)).astype(np.float32)
+    kp = rng.standard_normal((n_pages, ps, Kh, Dh)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, Kh, Dh)).astype(np.float32)
+    ln = rng.integers(1, P * ps + 1, size=(B,)).astype(np.int32)
+    ln[0] = 1
+    pool = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((B, P), np.int32)
+    for b in range(B):
+        n = -(-int(ln[b]) // ps)
+        bt[b, :n] = pool[b * P:b * P + n]
+    t = lambda a, d=None: torch.from_numpy(a).to(dev, d)
+    return t(q, dtype), t(kp, dtype), t(vp, dtype), t(bt), t(ln)
+
+
+DECODE_SHAPES = [  # (B, H, Kh, Dh, page_size, n_pages, P)
+    (4, 4, 4, 16, 8, 24, 5),
+    (3, 8, 2, 32, 16, 20, 4),
+    (4, 16, 16, 128, 16, 140, 34),     # olmo-1b heads, page 16
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_paged_attention_matches_plain(cuda_device, shape, dtype):
+    """Ragged lengths (one of them 1), null-page entries, and NaN in the
+    null page and past every length: the kernel must never read them."""
+    q, kp, vp, bt, ln = _pool_case(*shape, seed=11, dev=cuda_device,
+                                   dtype=dtype)
+    ps = shape[4]
+    f32 = [t.float() for t in (q, kp, vp)]
+    plain32 = lambda abs_v, lengths=ln: tref.paged_attention_ref(
+        f32[0], f32[1], f32[2].abs() if abs_v else f32[2], bt, lengths)
+    dropped = plain32(False, (ln - ps).clamp(min=1))
+    kp[0] = vp[0] = float("nan")
+    for b, L in enumerate(ln.tolist()):
+        last = int(bt[b, (L - 1) // ps])
+        kp[last, (L - 1) % ps + 1:] = float("nan")
+        vp[last, (L - 1) % ps + 1:] = float("nan")
+    got = tpa.paged_attention(q, kp, vp, bt, ln)
+    assert torch.isfinite(got).all()
+    assert _attn_within(got, plain32, dtype)
+    assert not _attn_within(dropped, plain32, dtype)
+
+
+PREFILL_SHAPES = [  # (H, Kh, Dh, page_size, n_pages, P, Tc, start, chunk_len)
+    (4, 4, 16, 8, 24, 8, 16, 0, 16),
+    (4, 4, 16, 8, 24, 8, 16, 16, 11),
+    (8, 2, 16, 4, 32, 8, 8, 8, 5),
+    (16, 16, 128, 16, 40, 16, 64, 128, 37),   # olmo-1b heads, chunk 64
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", PREFILL_SHAPES)
+def test_paged_prefill_matches_plain(cuda_device, shape, dtype):
+    """Start past page 0, short final chunk, NaN in every cold page."""
+    H, Kh, Dh, ps, n_pages, P, Tc, start, clen = shape
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    q = t(rng.standard_normal((Tc, H, Dh)).astype(np.float32)).to(dtype)
+    kp = t(rng.standard_normal((n_pages, ps, Kh, Dh)).astype(np.float32)).to(dtype)
+    vp = t(rng.standard_normal((n_pages, ps, Kh, Dh)).astype(np.float32)).to(dtype)
+    bt = t(rng.choice(np.arange(1, n_pages), size=P, replace=False)
+           .astype(np.int32))
+    f32 = [x.float() for x in (q, kp, vp)]
+    plain32 = lambda abs_v, n=clen: tref.paged_prefill_attention_ref(
+        f32[0], f32[1], f32[2].abs() if abs_v else f32[2], bt, start, n)
+    dropped = plain32(False, max(clen - ps, 1))
+    depth = start + clen
+    n_live = -(-depth // ps)
+    cold = bt[n_live:].long()
+    kp[cold] = vp[cold] = float("nan")
+    last = int(bt[n_live - 1])
+    kp[last, (depth - 1) % ps + 1:] = vp[last, (depth - 1) % ps + 1:] = float("nan")
+    got = tpp.paged_prefill_attention(q, kp, vp, bt, start, clen)
+    assert torch.isfinite(got).all()
+    assert _attn_within(got, plain32, dtype)
+    assert not _attn_within(dropped, plain32, dtype)
+
+
+# -------------------------------------------------------------------- routing
+def test_backend_torch_skips_kernels(cuda_device):
+    x = torch.randn(4, 64, device=cuda_device)
+    w = torch.randn(4, 16, 24, device=cuda_device)
+    ops.reset_launch_counts()
+    ops.set_backend("torch")
+    try:
+        plain = ops.bdmm(x, w)
+    finally:
+        ops.set_backend("cuda")
+    assert ops.launch_counts()["bdmm_decode"] == 0
+    kern = ops.bdmm(x, w)
+    assert ops.launch_counts()["bdmm_decode"] == 1
+    torch.testing.assert_close(kern, plain, atol=1e-4, rtol=1e-4)
+
+
+def test_engine_kernel_route_equals_plain_route(cuda_device):
+    """The smoke model served on the card through the kernels and through
+    the plain versions gives the same greedy streams at float32, and the
+    kernel run launched every kernel."""
+    from repro_torch.configs.common import get_config
+    from repro_torch.core.export import quantize_packed
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+
+    cfg = get_config("olmo-1b", smoke=True)
+    model = build(cfg)
+    params, _ = quantize_packed(model, model.init(0, device=cuda_device))
+    streams = {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        try:
+            reqs = make_requests(cfg, n_requests=5, rate=1e9, prompt_len=40,
+                                 gen=8, seed=3, shared_prefix=16)
+            # chunks of 40 tokens take the general bdmm grid (m > 32)
+            streams[backend] = Engine(model, params, n_slots=2, max_len=48,
+                                      page_size=8,
+                                      prefill_chunk_tokens=40).run(reqs)
+        finally:
+            ops.set_backend("cuda")
+        counts = ops.launch_counts()
+        assert all(n > 0 for n in counts.values()) == (backend == "cuda"), counts
+    assert streams["cuda"] == streams["torch"]
