@@ -7,15 +7,18 @@ NVIDIA card.
 Phases, each printed as one JSON line:
 
 1. ``device`` — the card's name and ``nvidia-smi`` name / power limit.
-2. ``build``  — compile every CUDA kernel of the serving path from
+2. ``build``  — compile every CUDA kernel of the port from
    ``src/repro_torch/csrc`` with nvcc (sm_90a) and load it.
 3. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card at the main path's shapes (bdmm fp/int8 at m in {1, 4, 64} for the
    olmo-1b projection shapes; paged decode attention with ragged lengths,
    null-page entries and NaN past every length; paged prefill at start 0
-   and 128 with a short final chunk and NaN-poisoned cold pages), within
-   the tolerance printed beside each check; time kernel, plain version and,
-   where one exists, a single PyTorch library call.
+   and 128 with a short final chunk and NaN-poisoned cold pages; the masked
+   matmul in both orientations and the SDDMM at m = 2048 tokens for the
+   four olmo-1b projection shapes at bf16 and f32, off-mask SDDMM entries
+   exactly 0), within the tolerance printed beside each check; time
+   kernel, plain version and, where one exists, a single PyTorch library
+   call.
 4. ``serve`` — olmo-1b at its published widths (16 layers, d 2048, vocab
    50304, every projection packed with mpd_c=8 and quantized to int8, bf16)
    served by the paged engine: 4 slots, page 16, prefill chunk 64, 8
@@ -25,6 +28,23 @@ Phases, each printed as one JSON line:
 5. ``exact`` — the same configuration in float32, served once through the
    kernels and once with ``ops.set_backend("torch")`` (plain versions on
    the card) on the same requests: the greedy streams must be identical.
+6. ``train`` — olmo-1b at its published widths in ``masked_dense`` mode
+   (the paper-faithful training of Algorithm 1: dense bf16 weights under
+   permuted block masks, mpd_c=8), random init from seed 0, ``SyntheticLM``
+   batches of 4 x 512 tokens, 4 AdamW steps through
+   ``repro_torch.train.run``. Every loss finite, the first within 1.0 of
+   ln(50304); every off-mask weight exactly 0 after the last step; the
+   masked-matmul kernels (both orientations) and the SDDMM launched
+   (counters reset just before, read just after). Then one more step under
+   torch.profiler: device time by kernel family.
+7. ``train_exact`` — one step of the same model cut to 4 layers in float32
+   on the first batch, through the kernels and through the plain versions:
+   loss and updated params agree within the stated tolerance.
+8. ``fold`` — the paper's deploy chain on the card: the float32 model of
+   phase 7 folded to packed (``to_packed``) gives the masked-dense logits
+   within the stated tolerance, and the bf16 model trained in phase 6,
+   folded and quantized to int8, serves 2 greedy requests on the paged
+   engine through the kernels.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -68,6 +88,39 @@ TOL = {
 # where sum_j p_j |v_j| is the plain version run on |V|. (The plain version
 # at bf16 rounds every score to bf16 as well, which alone moves p by ~2^-8.)
 ATTN_BF16 = {"atol": 2e-5, "u": 2.0 ** -8}
+# The masked matmul and its weight gradient are held against the plain
+# version computed in f32 on the same values with a matmul-shaped bound,
+#   |kernel - plain_f32| <= atol + u_out |plain_f32| + u_sum |x| @ |M o W|
+# (|bias| added; for the SDDMM (|x|^T @ |g|) o M). bf16 inputs and their
+# products are exact in f32, so at both dtypes the sums differ only in their
+# order, within a few 2^-24 of the magnitude (u_sum = 2^-16); at bf16 the
+# kernel also rounds its output once, within bf16's unit roundoff 2^-8 |y|
+# (u_out = 2^-8: exactly one rounding fits, so worst cases read close to 1).
+# Near-zero outputs make a plain rtol meaningless. The same rule must reject
+# the plain output with one mask block dropped.
+MM_TOL = {"bfloat16": {"atol": 2e-5, "u_out": 2.0 ** -8, "u_sum": 2.0 ** -16},
+          "float32": {"atol": 2e-5, "u_out": 2.0 ** -16, "u_sum": 2.0 ** -16}}
+MM_RULE = "atol + u_out * |plain_f32| + u_sum * |x| @ |M o W|"
+# (name, d_in, d_out, activation): the masked-dense projections of olmo-1b
+MM_SHAPES = [("qkvo", 2048, 2048, None), ("up_gate", 2048, 8192, "silu"),
+             ("down", 8192, 2048, None), ("unembed", 2048, 50304, None)]
+MM_TOKENS = 2048                                 # 4 sequences x 512
+# cuBLAS / cuBLASLt kernel names (attention einsums, CE) in the profiler
+LIBRARY_GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
+SERVING_KERNELS = ("bdmm", "bdmm_decode", "paged_attention",
+                   "paged_prefill_attention")
+MASKED_KERNELS = ("masked_matmul", "masked_matmul_t", "sddmm_masked")
+TRAIN = {"batch": 4, "seq": 512, "steps": 4}
+# train_exact: one step at f32 of the model cut to this depth, with SGD
+# (lr 1, clipped to norm 1) so the update is linear in the gradient. Updated
+# params agree to |p_kernel - p_plain| <= 1e-7 + 1e-3 |p_plain - p_0|: a few
+# f32 ulps of the params plus 1e-3 of each update, from the gradients'
+# summation order. A gradient off by a mask block moves updates by 100 %.
+EXACT_LAYERS = 4
+EXACT_TOL = {"atol": 1e-7, "update_rtol": 1e-3, "loss_rtol": 1e-5}
+# fold: logits of the folded packed model against the masked-dense model at
+# f32 (bdmm over the blocks vs the masked matmul over the full K).
+FOLD_TOL = {"atol": 1e-4, "rtol": 1e-4}
 
 
 def emit(obj) -> None:
@@ -154,12 +207,19 @@ def check_bdmm(torch, dev, timer, rows, summary):
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [(s, m, q, "bfloat16") for s in BDMM_SHAPES for m in (1, 4, 64)
              for q in (False, True)]
+    cases = [c + ("fwd",) for c in cases]
     # the f32 forms the exactness phase runs, one per grid
-    cases += [(BDMM_SHAPES[1], m, True, "float32") for m in (4, 64)]
-    for (name, nb, bi, bo, act), m, quant, dt in cases:
+    cases += [(BDMM_SHAPES[1], m, True, "float32", "fwd") for m in (4, 64)]
+    # packed-mode training at olmo-1b's bf16 and 4 x 512 tokens: the forward
+    # and dx = g @ blockdiag(wp)^T, a bdmm over the transposed blocks
+    cases += [(s, MM_TOKENS, False, "bfloat16", role) for s in BDMM_SHAPES
+              for role in ("fwd", "dx")]
+    for (name, nb, bi, bo, act), m, quant, dt, role in cases:
         dtype = getattr(torch, dt)
-        x = torch.randn((m, nb * bi), generator=gen, device=dev).to(dtype)
         w = torch.randn((nb, bi, bo), generator=gen, device=dev) * bi ** -0.5
+        if role == "dx":
+            w, bi, bo, act = w.transpose(1, 2).contiguous(), bo, bi, None
+        x = torch.randn((m, nb * bi), generator=gen, device=dev).to(dtype)
         if quant:
             wq, scale = quantize_blocks(w)
             run = lambda: bk.bdmm(x, wq, None, scale, activation=act)
@@ -179,7 +239,7 @@ def check_bdmm(torch, dev, timer, rows, summary):
         b_ms, b_by = bound(nbytes, 2.0 * m * nb * bi * bo, dt)
         grid = "bdmm_decode" if m <= bk.SMALL_M_MAX else "bdmm"
         row = {"phase": "kernels", "kernel": grid, "shape": name, "m": m,
-               "weights": "int8" if quant else dt, "dtype": dt,
+               "role": role, "weights": "int8" if quant else dt, "dtype": dt,
                "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
                "ok": ok, "ms": timer.ms(run), "plain_ms": timer.ms(plain),
                "library_ms": timer.ms(library) if library else None,
@@ -359,6 +419,115 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
             s["at"] = f"Tc=64 start={start} chunk_len={clen}"
 
 
+def mm_close(torch, got, want32, mag, dtype):
+    """(ok, max |got - want32|, max of the error over its limit) under the
+    matmul-shaped rule of MM_TOL."""
+    tol = MM_TOL[dtype]
+    lim = tol["atol"] + tol["u_out"] * want32.abs() + tol["u_sum"] * mag
+    err = (got.float() - want32).abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= lim).all())
+    return ok, float(err.max()), float((err / lim).max())
+
+
+def check_masked(torch, dev, timer, rows, summary):
+    """The masked matmul (both orientations) and the SDDMM at the olmo-1b
+    masked-dense shapes, m = 2048 tokens, bf16 and f32."""
+    from repro_torch.core.fold import mask_tensor
+    from repro_torch.core.mask import block_id_of, make_mask_spec
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    m = MM_TOKENS
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for name, d_in, d_out, act in MM_SHAPES:
+            spec = make_mask_spec(d_in, d_out, 8, seed=d_out)
+            mask = mask_tensor(spec, dev)
+            in_block = torch.as_tensor(block_id_of(spec)[0], device=dev)
+            dropped = mask * (in_block != 0).to(torch.uint8)[:, None]
+            r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+            x = r(m, d_in).to(dtype)
+            w = (r(d_in, d_out) * d_in ** -0.5).to(dtype)
+            gy = r(m, d_out).to(dtype)
+            b = (0.1 * r(d_out)).to(dtype) if act else None
+            x32, w32, g32 = x.float(), w.float(), gy.float()
+            b32 = None if b is None else b.float()
+            wm = w * mask.to(dtype)                   # library yardstick only
+            es = x.element_size()
+            nnz = int(mask.sum())
+            cases = {
+                "masked_matmul": dict(
+                    run=lambda: mk.masked_matmul(x, w, mask, b, activation=act),
+                    plain=lambda: ref.masked_matmul_ref(x, w, mask, b, act),
+                    want=lambda mk_: ref.masked_matmul_ref(x32, w32, mk_, b32,
+                                                           act),
+                    mag=lambda: x32.abs() @ (w32.abs() * mask)
+                    + (0 if b32 is None else b32.abs()),
+                    library=lambda: torch.matmul(x, wm),
+                    nbytes=(m * d_in + d_in * d_out + m * d_out) * es
+                    + d_in * d_out + (0 if b is None else d_out * 4)),
+                "masked_matmul_t": dict(
+                    run=lambda: mk.masked_matmul(gy, w, mask,
+                                                 transpose_rhs=True),
+                    plain=lambda: ref.masked_matmul_t_ref(gy, w, mask),
+                    want=lambda mk_: ref.masked_matmul_t_ref(g32, w32, mk_),
+                    mag=lambda: g32.abs() @ (w32.abs() * mask).T,
+                    library=lambda: torch.matmul(gy, wm.T),
+                    nbytes=(m * d_out + d_in * d_out + m * d_in) * es
+                    + d_in * d_out),
+                "sddmm_masked": dict(
+                    run=lambda: mk.sddmm_masked(x, gy, mask),
+                    plain=lambda: ref.matmul_masked_grad_ref(x, gy, mask),
+                    want=lambda mk_: ref.matmul_masked_grad_ref(x32, g32, mk_),
+                    mag=lambda: (x32.abs().T @ g32.abs()) * mask,
+                    library=lambda: torch.matmul(x.T, gy),
+                    nbytes=(m * d_in + m * d_out + d_in * d_out) * es
+                    + d_in * d_out),
+            }
+            for kname, c in cases.items():
+                got = c["run"]()
+                want, mag = c["want"](mask), c["mag"]()
+                ok, err, ratio = mm_close(torch, got, want, mag, dt)
+                rejects = not mm_close(torch, c["want"](dropped), want, mag,
+                                       dt)[0]
+                exact_zeros = None
+                if kname == "sddmm_masked":
+                    exact_zeros = bool((got[mask == 0] == 0).all())
+                    ok = ok and exact_zeros
+                del got, want, mag
+                ok = ok and rejects
+                b_ms, b_by = bound(c["nbytes"], 2.0 * m * nnz, dt)
+                row = {"phase": "kernels", "kernel": kname, "shape": name,
+                       "m": m, "d_in": d_in, "d_out": d_out,
+                       "activation": act, "dtype": dt, "max_abs_err": err,
+                       "err_over_tol": ratio,
+                       "tol": dict(MM_TOL[dt], rule=MM_RULE),
+                       "rejects_dropped_block": rejects,
+                       "offmask_exact_zero": exact_zeros, "ok": ok,
+                       "ms": timer.ms(c["run"]),
+                       "plain_ms": timer.ms(c["plain"]),
+                       "library_ms": timer.ms(c["library"]),
+                       "library": "one torch.matmul on the pre-masked "
+                       "weight (mask multiply not timed)"
+                       if kname != "sddmm_masked" else
+                       "one torch.matmul x^T @ g (mask not applied)",
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows.append(row)
+                emit(row)
+                s = summary[kname]
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                s["err_over_tol"] = max(s["err_over_tol"], ratio)
+                s["ok"] = s["ok"] and ok
+                if dt == "bfloat16" and name == "up_gate":
+                    s.update({k: row[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by")})
+                    s["at"] = f"bf16 up/gate {d_in}x{d_out}, m={m}"
+            del x, w, gy, wm, mask, dropped
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ serving
 def olmo_engine(torch, dev, dtype, seed=0):
     from repro_torch.core import export
@@ -417,7 +586,7 @@ def serve_phase(torch, dev, ops):
     done = summary["n_done"] == len(reqs) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
-    ok = done and all(n > 0 for n in launches.values())
+    ok = done and all(launches[k] > 0 for k in SERVING_KERNELS)
     row = {"phase": "serve", "ok": ok, "config": {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "vocab": cfg.vocab, "mpd_c": cfg.mpd_c, "weights": "int8",
@@ -516,6 +685,248 @@ def exact_phase(torch, dev, ops):
     return row
 
 
+# ----------------------------------------------------------------- training
+
+
+def off_mask_clean(torch, model, params) -> bool:
+    """Every off-mask weight of every masked-dense linear is exactly 0."""
+    from repro_torch.core.export import iter_linear_leaves
+    from repro_torch.core.fold import mask_tensor
+    for parent, key, lin, _ in iter_linear_leaves(model, params,
+                                                  "masked_dense"):
+        w = parent[key]["w"]
+        off = mask_tensor(lin.spec.mask, w.device) == 0
+        if bool((w[..., off] != 0).any()):
+            return False
+    return True
+
+
+def train_phase(torch, dev, ops):
+    """4 AdamW steps of olmo-1b masked_dense at full width, bf16."""
+    import resource
+    from repro_torch.configs.common import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, make_train_step, run
+
+    cfg = get_config("olmo-1b", mpd_mode="masked_dense")
+    model = build(cfg)
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                       global_batch=TRAIN["batch"], seed=0)
+    data_s = time.perf_counter() - t0
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    steps = TRAIN["steps"]
+    # the launcher's optimizer at --steps 4 (no warm-up steps)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-3, clip_norm=1.0,
+                                     schedule="cosine",
+                                     warmup_steps=min(20, steps // 5),
+                                     total_steps=steps), log_every=1)
+    log = []
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = run(model, tcfg, data, steps, params=params, log_fn=log.append)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["history"]
+    clean = off_mask_clean(torch, model, out["params"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    p50 = statistics.median(out["step_s"])
+    window = train_window(torch, model, out["params"], out["opt_state"],
+                          make_train_step(model, tcfg), data, dev)
+    finite = all(math.isfinite(v) for v in losses)
+    ok = (finite and abs(losses[0] - math.log(cfg.vocab)) <= 1.0 and clean
+          and all(launches[k] > 0 for k in MASKED_KERNELS))
+    dense = model.matmul_params(dense=True)
+    useful = model.matmul_params(dense=False)
+    row = {"phase": "train", "ok": ok, "config": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "mpd_c": cfg.mpd_c,
+        "mpd_mode": cfg.mpd_mode, "dtype": cfg.dtype, **TRAIN,
+        "params": model.param_count()},
+        "losses": losses, "ln_vocab": math.log(cfg.vocab),
+        "offmask_exact_zero": clean, "step_s": out["step_s"],
+        "step_ms_p50": p50 * 1e3, "tokens_per_s": tokens / p50,
+        "flop_share_dense": 6.0 * dense * tokens / p50 / PEAK_OPS["bfloat16"],
+        "flop_share_useful": 6.0 * useful * tokens / p50
+        / PEAK_OPS["bfloat16"],
+        "matmul_params_dense": dense, "matmul_params_useful": useful,
+        "peak_mem_bytes": peak, "init_s": init_s,
+        "data_setup_s": data_s, "data_table_bytes": data.table_bytes,
+        "host_maxrss_growth_bytes": (rss1 - rss0) * 1024,
+        "log": log, "train_window": window, "launches": launches}
+    emit(row)
+    return row, model, out["params"], data
+
+
+def train_window(torch, model, params, opt_state, step_fn, data, dev):
+    """Where a train step's time goes: one more step under torch.profiler,
+    device time by kernel family. The device entries are None when the
+    profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in data.next().items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        float(out[2]["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    cuda = torch.autograd.DeviceType.CUDA
+    families = {"masked_matmul": 0.0, "masked_matmul_t": 0.0,
+                "sddmm_masked": 0.0, "library_gemm": 0.0, "other": 0.0}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != cuda:
+            continue
+        t = getattr(e, "self_device_time_total", 0) / 1e3
+        if "masked_mm_kernel" in e.name:
+            key = ("masked_matmul_t" if ", true>" in e.name
+                   else "masked_matmul")
+        elif "sddmm_kernel" in e.name:
+            key = "sddmm_masked"
+        elif any(k in e.name.lower() for k in LIBRARY_GEMM_NAMES):
+            key = "library_gemm"
+        else:
+            key = "other"
+        families[key] += t
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + t
+    device_ms = sum(families.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_ms,
+            "device_ms": families if device_ms > 0 else None,
+            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+            "top_kernels_ms": top}
+
+
+def train_exact_phase(torch, dev, ops, data):
+    """One f32 step of the model cut to EXACT_LAYERS, through the kernels
+    and through the plain versions, from the same init and first batch: in
+    masked_dense mode (the three masked kernels) and in packed mode (bdmm
+    forward and dx). Each route's launch counts are reset before it and
+    read after it: the kernel route must launch every kernel of its mode,
+    the plain route none."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.common import get_config
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig, init_state
+    from repro_torch.train import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(opt=OptConfig(kind="sgd", lr=1.0, momentum=0.0,
+                                     clip_norm=1.0))
+    data.step = 0
+    batch = {k: torch.from_numpy(v).to(dev, torch.long)
+             for k, v in data.next().items()}
+    modes, ok, masked = {}, True, None
+    for mode, kernels in (("masked_dense", MASKED_KERNELS),
+                          ("packed", ("bdmm",))):
+        cfg = get_config("olmo-1b", mpd_mode=mode, dtype="float32",
+                         n_layers=EXACT_LAYERS)
+        model = build(cfg)
+        params = model.init(0, device=dev)
+        step = make_train_step(model, tcfg)
+        res, counts = {}, {}
+        for backend in ("cuda", "torch"):
+            ops.set_backend(backend)
+            ops.reset_launch_counts()
+            try:
+                new, _, metrics = step(params, init_state(tcfg.opt, params),
+                                       batch)
+                res[backend] = (new, float(metrics["loss"]),
+                                float(metrics["grad_norm"]))
+            finally:
+                ops.set_backend("cuda")
+            torch.cuda.synchronize()
+            counts[backend] = ops.launch_counts()
+        (pk, lk, gk), (pp, lp, gp) = res["cuda"], res["torch"]
+        worst, max_err = 0.0, 0.0
+        for a, b, p0 in zip(tree_lib.leaves(pk), tree_lib.leaves(pp),
+                            tree_lib.leaves(params)):
+            lim = EXACT_TOL["atol"] + EXACT_TOL["update_rtol"] * (b - p0).abs()
+            err = (a - b).abs()
+            worst = max(worst, float((err / lim).max()))
+            max_err = max(max_err, float(err.max()))
+        loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
+        routes_ok = (all(counts["cuda"][k] > 0 for k in kernels)
+                     and not any(counts["torch"].values()))
+        mode_ok = math.isfinite(lk) and loss_ok and worst <= 1.0 and routes_ok
+        ok = ok and mode_ok
+        modes[mode] = {"ok": mode_ok, "loss_kernels": lk, "loss_plain": lp,
+                       "grad_norm_kernels": gk, "grad_norm_plain": gp,
+                       "param_max_abs_err": max_err,
+                       "param_err_over_tol": worst,
+                       "launches_kernel_route": counts["cuda"],
+                       "launches_plain_route": counts["torch"]}
+        if mode == "masked_dense":
+            masked = (model, pk)
+        del params, res, pp
+    row = {"phase": "train_exact", "ok": ok, "dtype": "float32",
+           "n_layers": EXACT_LAYERS, "cut": f"{EXACT_LAYERS} of 16 layers",
+           "widths": "full (d 2048, d_ff 8192, vocab 50304)",
+           "optimizer": "sgd lr 1, clip 1", "tol": EXACT_TOL, **modes}
+    emit(row)
+    return row, masked[0], masked[1], batch
+
+
+def fold_phase(torch, dev, ops, f32_model, f32_params, batch, bf16_model,
+               bf16_params):
+    """Train -> fold -> serve on the card: f32 logits of the folded model
+    against the masked-dense model, then the bf16 trained model folded to
+    int8 serving 2 greedy requests through the kernels."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    tokens = batch["inputs"][:1, :128]
+    pk_model, pk_params = f32_model.to_packed(f32_params)
+    want = f32_model.logits(f32_params, tokens)
+    got = pk_model.logits(pk_params, tokens)
+    err = (got - want).abs()
+    lim = FOLD_TOL["atol"] + FOLD_TOL["rtol"] * want.abs()
+    logits_ok = bool(torch.isfinite(got).all()) and bool((err <= lim).all())
+    del pk_params, want, got
+
+    q_model, q_params = bf16_model.to_packed(bf16_params, quantize="int8")
+    reqs = make_requests(q_model.cfg, n_requests=2, rate=1e9, prompt_len=256,
+                         gen=16, seed=5, shared_prefix=64)
+    ops.reset_launch_counts()
+    streams = Engine(q_model, q_params, n_slots=2, max_len=256 + 16,
+                     page_size=16, prefill_chunk_tokens=64).run(reqs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    served = (len(streams) == 2 and all(
+        len(streams[r.id]) == r.max_new_tokens
+        and all(0 <= t < q_model.cfg.vocab for t in streams[r.id])
+        for r in reqs))
+    kernels_used = all(launches[k] > 0 for k in SERVING_KERNELS)
+    row = {"phase": "fold", "ok": logits_ok and served and kernels_used,
+           "logits": {"dtype": "float32", "n_layers": f32_model.cfg.n_layers,
+                      "tokens": int(tokens.numel()), "tol": FOLD_TOL,
+                      "max_abs_err": float(err.max()),
+                      "err_over_tol": float((err / lim).max()),
+                      "ok": logits_ok},
+           "serve": {"dtype": "bfloat16", "weights": "int8",
+                     "n_layers": q_model.cfg.n_layers,
+                     "quant_max_rel_rms": q_model.quant_report["max_rel_rms"],
+                     "requests_done": sum(
+                         len(streams.get(r.id, ())) == r.max_new_tokens
+                         for r in reqs),
+                     "new_tokens": [len(v) for v in streams.values()],
+                     "launches": launches, "ok": served and kernels_used}}
+    emit(row)
+    return row
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -556,11 +967,19 @@ def main() -> int:
              "paged_prefill_attention":
                  "src/repro/kernels/paged_prefill.py:72 (_paged_prefill_kernel)",
              "paged_attention":
-                 "src/repro/kernels/paged_attention.py:56 (_paged_attn_kernel)"}
+                 "src/repro/kernels/paged_attention.py:56 (_paged_attn_kernel)",
+             "masked_matmul":
+                 "src/repro/kernels/masked_matmul.py:41 (_mm_kernel)",
+             "masked_matmul_t": "src/repro/kernels/masked_matmul.py:41 "
+                                "(_mm_kernel, transpose_rhs)",
+             "sddmm_masked":
+                 "src/repro/kernels/masked_matmul.py:141 (_sddmm_kernel)"}
     sources = {"bdmm": "src/repro_torch/csrc/bdmm.cu",
                "bdmm_decode": "src/repro_torch/csrc/bdmm.cu",
                "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill.cu",
-               "paged_attention": "src/repro_torch/csrc/paged_attention.cu"}
+               "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+               **{k: "src/repro_torch/csrc/masked_matmul.cu"
+                  for k in MASKED_KERNELS}}
     summary = {n: {"max_abs_err": 0.0, "err_over_tol": 0.0, "ok": True}
                for n in names}
     timer = Timer(torch, dev)
@@ -568,6 +987,7 @@ def main() -> int:
     check_bdmm(torch, dev, timer, rows, summary)
     check_paged_attention(torch, dev, timer, rows, summary)
     check_paged_prefill(torch, dev, timer, rows, summary)
+    check_masked(torch, dev, timer, rows, summary)
     del timer
     (OUT_DIR / "kernels.jsonl").write_text(
         "\n".join(json.dumps(r) for r in rows) + "\n")
@@ -578,6 +998,18 @@ def main() -> int:
         failed.append("serve")
     if not exact_phase(torch, dev, ops)["ok"]:
         failed.append("exact")
+    trained, bf16_model, bf16_params, data = train_phase(torch, dev, ops)
+    if not trained["ok"]:
+        failed.append("train")
+    launches = {k: launches[k] + trained["launches"][k] for k in launches}
+    exact, f32_model, f32_params, batch = train_exact_phase(torch, dev, ops,
+                                                            data)
+    if not exact["ok"]:
+        failed.append("train_exact")
+    del data
+    if not fold_phase(torch, dev, ops, f32_model, f32_params, batch,
+                      bf16_model, bf16_params)["ok"]:
+        failed.append("fold")
 
     kernels = []
     for n, replaces in names.items():

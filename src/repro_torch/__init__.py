@@ -10,15 +10,22 @@ Entry points run on the CUDA device unless the caller passes
 every kernel wrapper takes its plain PyTorch version; on a CUDA tensor it
 launches the kernel or raises.
 
-Ported so far (the paged int8 serving path):
+Ported so far (paged int8 serving, and single-device training in the
+paper-faithful masked-dense mode or the packed mode, folded to serving):
 
-- ``core``: masks, permutations, policy plans, fold gathers, MPD linear,
+- ``core``: masks, permutations, policy plans, fold/unfold and the fold
+  gathers, MPD linear in all three modes, ``fold_model`` and
   ``quantize_packed``;
-- ``kernels``: ``bdmm`` (general + decode-shaped), ``paged_attention``
-  (decode), ``paged_prefill_attention``, their plain versions and routing;
-- ``models``: norms, RoPE, embeddings, the unfused FFN, paged attention and
-  the attention-only ``Model``;
+- ``kernels``: ``bdmm`` (general + decode-shaped), ``masked_matmul`` (both
+  orientations) and ``sddmm_masked``, ``paged_attention`` (decode),
+  ``paged_prefill_attention``, their plain versions, routing and the
+  autograd rules;
+- ``models``: norms, RoPE, embeddings, the unfused FFN, training and paged
+  attention, and the attention-only ``Model`` (loss, mask projection,
+  ``to_packed``);
+- ``optim``, ``data`` (``SyntheticLM``), ``dist`` (the step-time monitor)
+  and ``train``: AdamW/SGD and the training loop;
 - ``serve``: page pool, prefix trie, scheduler, greedy/top-k sampling,
   metrics, and the paged continuous-batching ``Engine``;
-- ``launch.serve``: the serving launcher.
+- ``launch.serve`` and ``launch.train``: the launchers.
 """

@@ -1,11 +1,14 @@
-"""Carry a reference param tree into the port.
+"""Carry param trees between the reference and the port.
 
 ``params_from_numpy(model, tree)`` takes the JAX package's param tree as
-numpy arrays (``jax.tree.map(np.asarray, params)``) — fp leaves, or
-quantized ``{"w_q", "w_scale"}`` leaves stacked ``(n_periods, nb, bi, bo)`` /
-``(n_periods, nb, bo)`` — and returns the same tree of tensors on
-``device``, checked against the shapes the port's model expects. Both
-packages then compute the same function on the same weights.
+numpy arrays (``jax.tree.map(np.asarray, params)``) — dense, masked-dense or
+packed fp leaves, or quantized ``{"w_q", "w_scale"}`` leaves stacked
+``(n_periods, nb, bi, bo)`` / ``(n_periods, nb, bo)`` — and returns the same
+tree of tensors on ``device``, checked against the shapes the port's model
+expects. Both packages then compute the same function on the same weights.
+``params_to_numpy`` is its inverse, so a tree trained by the port can go
+back to the reference (bfloat16 leaves travel as float32, which holds them
+exactly, and come back as bfloat16).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import tree as tree_lib
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -50,7 +54,9 @@ def params_from_numpy(model, tree: Any, device=None):
 
     Raises ``ValueError`` when the tree's structure or a leaf shape differs
     from a fresh init of the same model (quantized leaves are checked
-    against the quantized form)."""
+    against the quantized form). A float32 leaf where the model holds
+    bfloat16 is rounded to bfloat16: exact for the float32 leaves of
+    :func:`params_to_numpy`."""
     dev = device_lib.resolve(device)
     out = _convert(tree, dev)
     # the expected structure, from an init on the meta device (shapes only)
@@ -61,7 +67,18 @@ def params_from_numpy(model, tree: Any, device=None):
     if got_shapes != want_shapes:
         diff = sorted(set(got_shapes.items()) ^ set(want_shapes.items()))
         raise ValueError(f"param tree does not match {model.cfg.name}: {diff[:6]}")
-    return out
+    return tree_lib.map_leaves(
+        lambda t, w: (t.to(torch.bfloat16) if t.dtype == torch.float32
+                      and w.dtype == torch.bfloat16 else t), out, want)
+
+
+def params_to_numpy(tree: Any):
+    """The param tree as numpy arrays (bfloat16 leaves as float32, exact):
+    the inverse of :func:`params_from_numpy`."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_lib.map_leaves(leaf, tree)
 
 
 def _leaf_dicts(tree):
@@ -77,10 +94,10 @@ def _leaf_dicts(tree):
 
 def _quantized_like(model, params):
     """Shape template of the quantized tree (meta tensors, no arithmetic)."""
-    from repro_torch.core.export import _copy_tree, _iter_packed_leaves
+    from repro_torch.core.export import iter_linear_leaves
 
-    out = _copy_tree(params)
-    for parent, key, _lin, _tag in _iter_packed_leaves(model, out):
+    out = tree_lib.copy_tree(params)
+    for parent, key, _lin, _tag in iter_linear_leaves(model, out):
         w = parent[key]["w"]
         new = {k: v for k, v in parent[key].items() if k != "w"}
         new["w_q"] = torch.empty(w.shape, dtype=torch.int8, device="meta")

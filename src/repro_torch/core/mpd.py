@@ -1,11 +1,21 @@
 """MPDLinear — one (possibly compressed) linear layer (the port of
-``repro.core.mpd`` for the ``dense`` and ``packed`` modes).
+``repro.core.mpd``).
+
+Three modes, as in the reference:
+
+* ``masked_dense`` — paper-faithful (Algorithm 1): the full dense weight,
+  with the binary mask multiplied into it on every forward (inside the
+  masked-matmul kernel) and re-applied after every optimizer update
+  (:func:`reapply_mask`). Off-mask gradients are exact zeros.
+* ``packed`` — the folded form: ``(nb, bi, bo)`` blocks between a pack and
+  an unpack gather, run by the block-diagonal matmul.
+* ``dense`` — no compression.
 
 Params are plain dicts of tensors under the reference's key names: ``w``
-(dense ``(d_in, d_out)`` or packed ``(nb, bi, bo)``), optional ``b``, or the
-quantized ``{"w_q" int8, "w_scale" f32}`` leaf of the export pass. The
-packed forward is pack gather -> block-diagonal matmul (bias and activation
-fused into the kernel epilogue) -> unpack gather.
+(dense or masked-dense ``(d_in, d_out)``, packed ``(nb, bi, bo)``), optional
+``b``, or the quantized ``{"w_q" int8, "w_scale" f32}`` leaf of the export
+pass. Bias and activation ride the kernel epilogue on the compressed modes.
+The mask is built on the device once per layer (:func:`fold.mask_tensor`).
 """
 
 from __future__ import annotations
@@ -59,29 +69,72 @@ def _init_scale(d_in: int) -> float:
 def init(generator: torch.Generator, spec: MPDLinearSpec,
          dtype=torch.float32, device=None) -> Params:
     """Normal init with the dense layer's fan-in scale ``1/sqrt(d_in)``,
-    drawn from ``generator`` (which must live on ``device``)."""
-    if spec.mode == "masked_dense" and spec.mask is not None:
-        raise NotImplementedError("masked_dense training is not ported yet")
-    if spec.mask is None or spec.mode == "dense":
+    drawn from ``generator`` (which must live on ``device``); a masked-dense
+    weight is masked after the draw, as the paper masks after a standard
+    init."""
+    if spec.mask is None or spec.mode in ("dense", "masked_dense"):
         shape = (spec.d_in, spec.d_out)
     else:
         m = spec.mask
         shape = (m.nb, m.block_in, m.block_out)
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) * _init_scale(spec.d_in)
-    p: Params = {"w": w.to(dtype)}
+    w = w.to(dtype)
+    if spec.mode == "masked_dense" and spec.mask is not None:
+        w = w * fold_lib.mask_tensor(spec.mask, w.device)
+    p: Params = {"w": w}
     if spec.use_bias:
         p["b"] = torch.zeros((spec.d_out,), dtype=dtype, device=device)
     return p
 
 
+def from_dense(spec: MPDLinearSpec, w_dense: torch.Tensor,
+               b: Optional[torch.Tensor] = None) -> Params:
+    """Params from an existing dense weight: kept (dense), masked
+    (masked_dense) or folded (packed); a missing bias is zeros."""
+    if spec.mask is None or spec.mode == "dense":
+        w = w_dense
+    elif spec.mode == "masked_dense":
+        w = w_dense * fold_lib.mask_tensor(spec.mask, w_dense.device)
+    else:
+        w = fold_lib.fold(spec.mask, w_dense)
+    p: Params = {"w": w}
+    if spec.use_bias:
+        p["b"] = (torch.zeros((spec.d_out,), dtype=w_dense.dtype,
+                              device=w_dense.device) if b is None else b)
+    return p
+
+
+def to_packed(spec: MPDLinearSpec, params: Params) -> Params:
+    """Fold a trained masked-dense layer into its packed form (Eq. 2)."""
+    if spec.mode != "masked_dense" or spec.mask is None:
+        raise ValueError(f"to_packed needs a masked_dense layer, got "
+                         f"mode={spec.mode!r}")
+    out: Params = {"w": fold_lib.fold(spec.mask, params["w"])}
+    if spec.use_bias:
+        out["b"] = params["b"]
+    return out
+
+
+def reapply_mask(spec: MPDLinearSpec, params: Params) -> Params:
+    """Algorithm 1 line 14: re-zero the off-mask weights after an update
+    (a no-op for the packed and dense modes). ``w`` may carry leading
+    stacked axes."""
+    if spec.mode != "masked_dense" or spec.mask is None:
+        return params
+    w = params["w"]
+    return dict(params, w=w * fold_lib.mask_tensor(spec.mask, w.device))
+
+
 def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
           activation: Optional[str] = None) -> torch.Tensor:
-    """``y = act(x @ W_eff + b)`` for the dense and packed modes.
+    """``y = act(x @ W_eff + b)`` for every mode.
 
-    On the packed mode the bias is re-indexed into packed order and rides
-    the kernel epilogue with the activation (elementwise activations commute
-    with the output permutation); quantized leaves route to the int8 form.
+    On the masked-dense mode the mask is multiplied into W inside the
+    masked-matmul kernel. On the packed mode the bias is re-indexed into
+    packed order and rides the kernel epilogue with the activation
+    (elementwise activations commute with the output permutation);
+    quantized leaves route to the int8 form.
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.quant import is_quantized
@@ -93,7 +146,9 @@ def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
             y = y + b
         return ref.ACTIVATIONS[activation](y)
     if spec.mode == "masked_dense":
-        raise NotImplementedError("masked_dense training is not ported yet")
+        mask = fold_lib.mask_tensor(spec.mask, params["w"].device)
+        return ops.masked_matmul(x, params["w"], mask, b,
+                                 activation=activation)
     m = spec.mask
     xp = fold_lib.pack_inputs(m, x, skip=spec.skip_in_perm)
     bp = None

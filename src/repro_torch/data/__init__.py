@@ -1,0 +1,5 @@
+"""Data sources of the port."""
+
+from .pipeline import SyntheticLM
+
+__all__ = ["SyntheticLM"]

@@ -2,12 +2,16 @@
 
 - ``bdmm``            : block-diagonal matmul, fp or int8 weights, general
                         and decode-shaped grids (``csrc/bdmm.cu``)
+- ``masked_matmul``   : ``act(x @ (M∘W) + b)`` in both orientations and the
+                        masked weight gradient ``(xᵀ g) ∘ M`` of
+                        masked-dense training (``csrc/masked_matmul.cu``)
 - ``paged_attention`` : decode-step attention over the paged KV pool
                         (``csrc/paged_attention.cu``)
 - ``paged_prefill``   : chunked-prefill attention over the same pool
                         (``csrc/paged_prefill.cu``)
 - ``quant``           : per-output-channel int8 block quantization
 - ``ops``             : backend routing (``set_backend("cuda" | "torch")``)
+                        and the autograd rules of bdmm and masked_matmul
 - ``ref``             : the plain PyTorch versions
 
 Kernels are built with ``nvcc`` on first use (``_build``), never at import.

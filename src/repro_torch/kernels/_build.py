@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("bdmm", "paged_attention", "paged_prefill")
+SOURCES = ("bdmm", "masked_matmul", "paged_attention", "paged_prefill")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
@@ -95,13 +95,15 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:
-    """Raise when a C entry point reported a CUDA error."""
+def check(lib: ctypes.CDLL, op: str, code: int) -> None:
+    """Raise when entry point ``op`` of ``lib`` reported a CUDA error (the
+    message comes from the library's one ``<source>_error_string``)."""
     if code != 0:
-        fn = getattr(lib, f"{prefix}_error_string")
+        source = next(n for n, loaded in _libs.items() if loaded is lib)
+        fn = getattr(lib, f"{source}_error_string")
         fn.restype = ctypes.c_char_p
         fn.argtypes = [ctypes.c_int]
-        raise KernelError(f"{prefix}: CUDA error {code}: "
+        raise KernelError(f"{op}: CUDA error {code}: "
                           f"{fn(code).decode(errors='replace')}")
 
 

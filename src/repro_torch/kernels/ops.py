@@ -1,5 +1,5 @@
-"""Kernel entry points with backend routing (the port of
-``repro.kernels.ops`` for the serving path).
+"""Kernel entry points with backend routing and autograd rules (the port of
+``repro.kernels.ops`` for the serving and training paths).
 
 * CPU tensors always take the plain PyTorch version.
 * CUDA tensors launch the hand-written kernel, which raises on anything it
@@ -9,22 +9,36 @@
   against their plain versions on the same inputs. The default is
   ``"cuda"``.
 
-The serving path has no backward pass, so nothing here carries an
-autograd rule yet.
+``bdmm`` and ``masked_matmul`` are differentiable, mirroring the
+reference's custom VJPs with ``torch.autograd.Function``. Outside
+differentiation the forward is one fused call (bias and activation in the
+kernel epilogue). Under grad with an activation, the forward runs the
+kernel without it, applies the activation outside and saves the
+pre-activation ``z``, so the backward needs no recompute. The backward of
+``masked_matmul`` is two more kernels, ``dx`` with the transposed
+orientation and ``dW`` with ``sddmm_masked`` (off-mask entries exactly 0);
+the mask gets no gradient. The backward of ``bdmm`` is a bdmm with
+transposed blocks for ``dx`` and an einsum for ``dwp``, which the reference
+also computes outside any kernel. The int8 and attention forms are
+inference-only.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import torch
+
 from . import bdmm as bdmm_kernel
+from . import masked_matmul as mm_kernel
 from . import paged_attention as paged_attn_kernel
 from . import paged_prefill as paged_prefill_kernel
 from . import ref
 
 BACKENDS = ("cuda", "torch")
 _BACKEND = "cuda"
-_KERNEL_MODULES = (bdmm_kernel, paged_attn_kernel, paged_prefill_kernel)
+_KERNEL_MODULES = (bdmm_kernel, mm_kernel, paged_attn_kernel,
+                   paged_prefill_kernel)
 
 
 def set_backend(name: str) -> None:
@@ -59,12 +73,64 @@ def _plain(*tensors) -> bool:
         t.device.type == "cpu" for t in tensors if t is not None)
 
 
-def bdmm(x, wp, bias=None, *, activation: Optional[str] = None):
-    """Fused block-diagonal matmul ``act(x @ blockdiag(wp) + bias)``,
-    ``(..., nb*bi) -> (..., nb*bo)``; ``bias`` packed ``(nb*bo,)``."""
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _act_bwd(activation: Optional[str], z, g):
+    """The upstream cotangent composed with the activation's gradient at the
+    pre-activation ``z``, by autograd through the registry entry, so the
+    backward cannot drift from the forward's definition."""
+    if activation is None:
+        return g
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        return torch.autograd.grad(ref.ACTIVATIONS[activation](zz), zz, g)[0]
+
+
+# ---------------------------------------------------------------------- bdmm
+def _bdmm_raw(x, wp, bias, activation):
     if _plain(x, wp, bias):
         return ref.bdmm_ref(x, wp, bias, activation)
     return bdmm_kernel.bdmm(x, wp, bias, activation=activation)
+
+
+class _Bdmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wp, bias, activation):
+        z = _bdmm_raw(x, wp, bias, None)
+        ctx.activation = activation
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.save_for_backward(x, wp, z if activation is not None else None)
+        return ref.ACTIVATIONS[activation](z)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wp, z = ctx.saved_tensors
+        nb, bi, bo = wp.shape
+        lead = x.shape[:-1]
+        g = _act_bwd(ctx.activation, z, g)
+        dx = dwp = db = None
+        if ctx.needs_input_grad[0]:
+            # dx[:, n] = g[:, n] @ wp[n]^T: a bdmm with transposed blocks
+            dx = _bdmm_raw(g, wp.transpose(1, 2).contiguous(), None,
+                           None).reshape(*lead, nb * bi)
+        if ctx.needs_input_grad[1]:
+            dwp = torch.einsum("tnk,tno->nko", x.reshape(-1, nb, bi),
+                               g.reshape(-1, nb, bo)).to(wp.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.reshape(-1, nb * bo).sum(0).to(ctx.bias_dtype)
+        return dx, dwp, db, None
+
+
+def bdmm(x, wp, bias=None, *, activation: Optional[str] = None):
+    """Differentiable fused block-diagonal matmul
+    ``act(x @ blockdiag(wp) + bias)``, ``(..., nb*bi) -> (..., nb*bo)``;
+    ``bias`` packed ``(nb*bo,)``."""
+    if not _needs_grad(x, wp, bias):
+        return _bdmm_raw(x, wp, bias, activation)
+    return _Bdmm.apply(x, wp, bias, activation)
 
 
 def bdmm_quant(x, wq, scale, bias=None, *, activation: Optional[str] = None):
@@ -75,6 +141,64 @@ def bdmm_quant(x, wq, scale, bias=None, *, activation: Optional[str] = None):
     return bdmm_kernel.bdmm(x, wq, bias, scale, activation=activation)
 
 
+# ------------------------------------------------------------- masked matmul
+def _masked_matmul_raw(x, w, mask, bias, activation):
+    if _plain(x, w, mask, bias):
+        return ref.masked_matmul_ref(x, w, mask, bias, activation)
+    return mm_kernel.masked_matmul(x, w, mask, bias, activation=activation)
+
+
+def masked_matmul_t(g, w, mask):
+    """``g @ (mask ∘ w)ᵀ`` for ``w``/``mask`` ``(d_in, d_out)``: the input
+    gradient of :func:`masked_matmul` (the kernel's ``transpose_rhs``
+    orientation)."""
+    if _plain(g, w, mask):
+        return ref.masked_matmul_t_ref(g, w, mask)
+    return mm_kernel.masked_matmul(g, w, mask, transpose_rhs=True)
+
+
+def sddmm_masked(x, g, mask):
+    """``(xᵀ @ g) ∘ mask`` over every leading axis: the weight gradient of
+    :func:`masked_matmul`, in x's dtype."""
+    if _plain(x, g, mask):
+        return ref.matmul_masked_grad_ref(x, g, mask)
+    return mm_kernel.sddmm_masked(x, g, mask)
+
+
+class _MaskedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mask, bias, activation):
+        z = _masked_matmul_raw(x, w, mask, bias, None)
+        ctx.activation = activation
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.save_for_backward(x, w, mask,
+                              z if activation is not None else None)
+        return ref.ACTIVATIONS[activation](z)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, mask, z = ctx.saved_tensors
+        g = _act_bwd(ctx.activation, z, g)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = masked_matmul_t(g, w, mask)
+        if ctx.needs_input_grad[1]:
+            dw = sddmm_masked(x, g, mask).to(w.dtype)
+        if ctx.needs_input_grad[3]:
+            db = g.reshape(-1, g.shape[-1]).sum(0).to(ctx.bias_dtype)
+        return dx, dw, None, db, None
+
+
+def masked_matmul(x, w, mask, bias=None, *, activation: Optional[str] = None):
+    """Differentiable ``act(x @ (mask ∘ w) + bias)``: ``x (..., d_in)``,
+    ``w (d_in, d_out)``, ``mask`` uint8 in w's layout (no gradient),
+    ``bias (d_out,)``. Off-mask weight gradients are exact zeros."""
+    if not _needs_grad(x, w, bias):
+        return _masked_matmul_raw(x, w, mask, bias, activation)
+    return _MaskedMatmul.apply(x, w, mask, bias, activation)
+
+
+# ------------------------------------------------------------------- serving
 def paged_attention(q, k_pages, v_pages, block_tables, lengths):
     """One decode step of attention against the paged KV pool."""
     if _plain(q, k_pages, v_pages, block_tables, lengths):

@@ -40,6 +40,31 @@ def bdmm_ref(x, wp, bias=None, activation: Optional[str] = None):
     return ACTIVATIONS[activation](y)
 
 
+def masked_matmul_ref(x, w, mask, bias=None, activation: Optional[str] = None):
+    """Paper-faithful masked matmul: ``act(x @ (mask ∘ w) + bias)``,
+    ``x (..., d_in)``, ``w``/``mask`` ``(d_in, d_out)``; computed in the
+    input dtype, like the reference's ``jnp.dot``."""
+    y = x @ (w * mask.to(w.dtype))
+    if bias is not None:
+        y = y + bias
+    return ACTIVATIONS[activation](y)
+
+
+def masked_matmul_t_ref(g, w, mask):
+    """The transposed form ``g @ (mask ∘ w)ᵀ``, ``w``/``mask`` ``(d_in,
+    d_out)``: the input gradient, as the reference's jnp backward computes
+    it."""
+    return g @ (w * mask.to(w.dtype)).T
+
+
+def matmul_masked_grad_ref(x, g, mask):
+    """Weight gradient of the masked matmul: ``(xᵀ @ g) ∘ mask`` summed over
+    every leading axis (an SDDMM: the output sampled by the mask). A
+    multiply, as in the reference: a non-finite sum gives NaN off the mask,
+    where the kernel writes an exact zero."""
+    return torch.einsum("...i,...o->io", x, g) * mask.to(x.dtype)
+
+
 def bdmm_quant_ref(x, wq, scale, bias=None, activation: Optional[str] = None):
     """Int8-weight block-diagonal matmul, in the kernel's order: raw
     int·x products accumulated in f32 (bf16·int8 products are exact in

@@ -1,6 +1,11 @@
-"""Attention over the paged KV pool (the port of the paged-serving part of
-``repro.models.attention``: ``AttentionSpec``, ``_qkv``,
-``init_paged_cache``, ``apply_decode_paged``, ``prefill_chunk_paged``).
+"""Attention (the port of ``repro.models.attention`` for the full-sequence
+training path and the paged serving path: ``AttentionSpec``, ``_qkv``,
+``_attend``, ``attend_full``, ``apply_train``, ``init_paged_cache``,
+``apply_decode_paged``, ``prefill_chunk_paged``).
+
+Training attention is plain PyTorch, as the reference's is plain jnp: f32
+softmax with ``-1e30`` causal masking, chunked over the query axis at
+``q_chunk`` so the logits of one chunk are alive at a time.
 
 Unlike the reference, whose arrays are immutable, the page pools and the
 per-slot ``pos`` counters are updated **in place** (``index_put_``); the
@@ -27,6 +32,7 @@ class AttentionSpec:
     causal: bool = True
     rope: str = "rope"  # rope | none
     rope_theta: float = 10000.0
+    q_chunk: int = 128
     use_bias: bool = False
     wq: Linear = None
     wk: Linear = None
@@ -35,8 +41,9 @@ class AttentionSpec:
 
     @staticmethod
     def make(policy: CompressionPolicy, d_model, n_heads, n_kv_heads, head_dim,
-             *, causal=True, rope="rope", rope_theta=1e4, use_bias=False,
-             seed_salt=0, fuse_perms=False) -> "AttentionSpec":
+             *, causal=True, rope="rope", rope_theta=1e4, q_chunk=128,
+             use_bias=False, seed_salt=0,
+             fuse_perms=False) -> "AttentionSpec":
         if fuse_perms:
             raise NotImplementedError("mpd_fuse q/k/v sharing is not ported")
         if rope not in ("rope", "none"):
@@ -47,7 +54,7 @@ class AttentionSpec:
                                seed_salt=seed_salt * 4 + salt)
         return AttentionSpec(
             d_model, n_heads, n_kv_heads, head_dim, causal, rope, rope_theta,
-            use_bias,
+            q_chunk, use_bias,
             wq=mk(d_model, n_heads * head_dim, "attn_qkv", 0),
             wk=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 1),
             wv=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 2),
@@ -73,6 +80,46 @@ def _qkv(spec: AttentionSpec, params, x, positions):
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _attend(q, k, v, q_pos, causal: bool):
+    """Attention of one query block against the full K/V: ``q (B, Tq, H,
+    Dh)``, ``k``/``v`` ``(B, S, Kh, Dh)``, ``q_pos (Tq,)`` global positions.
+    Scores in f32, ``p`` cast to V's dtype before PV; GQA by head groups."""
+    B, Tq, H, Dh = q.shape
+    S, Kh = k.shape[1], k.shape[2]
+    q5 = q.reshape(B, Tq, Kh, H // Kh, Dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k).float() * Dh ** -0.5
+    if causal:
+        kv_pos = torch.arange(S, device=q.device)
+        cmask = q_pos[:, None] >= kv_pos[None, :]
+        logits = logits.masked_fill(~cmask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    return o.reshape(B, Tq, H, Dh)
+
+
+def attend_full(spec: AttentionSpec, q, k, v):
+    """Training attention over the whole sequence, chunked over the query
+    axis at ``spec.q_chunk`` (one chunk when ``T`` is not a multiple)."""
+    B, T, H, Dh = q.shape
+    cq = spec.q_chunk
+    pos = torch.arange(T, device=q.device)
+    if T <= cq or T % cq:
+        return _attend(q, k, v, pos, spec.causal)
+    return torch.cat([_attend(q[:, i:i + cq], k, v, pos[i:i + cq],
+                              spec.causal) for i in range(0, T, cq)], dim=1)
+
+
+def apply_train(spec: AttentionSpec, params, x):
+    """Full-sequence attention (training) at positions ``0..T-1``.
+    ``x: (B, T, D)``."""
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    q, k, v = _qkv(spec, params, x, positions)
+    o = attend_full(spec, q, k, v)
+    return spec.wo.apply(params["wo"],
+                         o.reshape(B, T, spec.n_heads * spec.head_dim))
 
 
 def init_paged_cache(spec: AttentionSpec, n_slots: int, n_pages: int,

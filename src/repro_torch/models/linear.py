@@ -34,6 +34,3 @@ class Linear:
         """Forward with the bias/activation epilogue fused into the kernel
         call; quantized leaves route to the int8 kernels."""
         return mpd.apply(self.spec, params, x, activation=activation)
-
-    def param_count(self) -> int:
-        return self.spec.param_count()

@@ -1,12 +1,18 @@
 """Model assembly for the attention family (the port of
-``repro.models.model`` for ``pattern=("attn",)``: config, init, paged caches,
-``decode_step`` and ``prefill_chunk``).
+``repro.models.model`` for ``pattern=("attn",)``: config, init, the
+full-sequence ``forward``/``logits``/``train_loss``, the mask projection and
+fold of masked-dense training, paged caches, ``decode_step`` and
+``prefill_chunk``).
 
 Params keep the reference's tree and key names — block params stacked per
 pattern period on a leading axis (``params["blocks"][i]["mixer"]["wq"]["w"]``
 has shape ``(n_periods, nb, bi, bo)``) — so a JAX param tree converts leaf by
 leaf (:mod:`repro_torch.convert`). The reference's ``scan`` over periods is
-a Python loop over leading-axis views. Caches are updated in place.
+a Python loop over leading-axis views (``torch.unbind`` on the training
+path, so the gradient of a stacked leaf is one stack, not one full-size
+scatter per period). Caches are updated in place. The reference's
+``remat="block"`` rematerialization is not ported: the training path keeps
+its activations.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch import tree as tree_lib
 from repro_torch.core.policy import CompressionPolicy
 from . import attention as attn_lib
 from . import layers
@@ -45,6 +52,8 @@ class ModelConfig:
     rope_theta: float = 10000.0
     pattern: Tuple[str, ...] = ("attn",)
     frontend: str = "token"
+    q_chunk: int = 128
+    loss_chunk: int = 512           # CE sequence chunk
     dtype: str = "float32"
     mpd_c: int = 1
     mpd_mode: str = "packed"
@@ -75,6 +84,14 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` periods of a stacked param tree, by ``torch.unbind``."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _stack(trees: List[Any]):
@@ -108,7 +125,7 @@ class Model:
             "mixer": attn_lib.AttentionSpec.make(
                 pol, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 causal=cfg.causal, rope=cfg.rope, rope_theta=cfg.rope_theta,
-                use_bias=cfg.use_bias, seed_salt=idx + 1,
+                q_chunk=cfg.q_chunk, use_bias=cfg.use_bias, seed_salt=idx + 1,
                 fuse_perms=cfg.mpd_fuse),
             "ffn": FFNSpec.make(pol, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
                                 cfg.use_bias, seed_salt=idx + 100,
@@ -167,6 +184,74 @@ class Model:
         h2 = layers.apply_norm(self.cfg.norm, p["norm2"], x)
         return x + spec["ffn"].apply(p["ffn"], h2)
 
+    def _apply_block(self, spec, p, x):
+        """One attention block over the full sequence."""
+        h = layers.apply_norm(self.cfg.norm, p["norm1"], x)
+        x = x + attn_lib.apply_train(spec["mixer"], p["mixer"], h)
+        return self._ffn_residual(spec, p, x)
+
+    def forward(self, params, tokens):
+        """Full-sequence trunk: ``tokens (B, T)`` -> final-normed hidden
+        states ``(B, T, d_model)`` (the reference also returns a MoE aux
+        loss, always 0 for the attention family)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        per_spec = [_unstack(pstack, self.n_periods)
+                    for pstack in params["blocks"]]
+        for i in range(self.n_periods):
+            for spec, periods in zip(self.block_specs, per_spec):
+                x = self._apply_block(spec, periods[i], x)
+        return layers.apply_norm(cfg.norm, params["final_norm"], x)
+
+    def logits(self, params, tokens):
+        return self.unembed.apply(params["unembed"],
+                                  self.forward(params, tokens))
+
+    def _ce_chunk(self, params, x_chunk, labels_chunk):
+        lg = self.unembed.apply(params["unembed"], x_chunk).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels_chunk[..., None].long())[..., 0]
+        return lse - ll
+
+    def train_loss(self, params, batch):
+        """Mean next-token cross-entropy, in f32, over ``batch = {"inputs":
+        (B, T), "labels": (B, T)}``; the unembed and CE run per sequence
+        chunk of ``loss_chunk`` tokens (one chunk when T is no multiple)."""
+        x = self.forward(params, batch["inputs"])
+        labels = batch["labels"]
+        T = labels.shape[1]
+        c = min(self.cfg.loss_chunk, T)
+        if T % c:
+            c = T
+        ce = torch.cat([self._ce_chunk(params, x[:, i:i + c],
+                                       labels[:, i:i + c])
+                        for i in range(0, T, c)], dim=1)
+        return ce.mean()
+
+    # --------------------------------------------- masked-dense training
+    def mask_projection(self, params):
+        """Re-apply every binary mask after an optimizer update (paper
+        Algorithm 1 line 14). Returns a new tree; packed and dense leaves
+        are shared, masked-dense weights are new tensors."""
+        from repro_torch.core import export as export_lib
+        from repro_torch.core import mpd
+
+        out = tree_lib.copy_tree(params)
+        for parent, key, lin, _ in export_lib.iter_linear_leaves(
+                self, out, "masked_dense"):
+            parent[key] = mpd.reapply_mask(lin.spec, parent[key])
+        return out
+
+    def to_packed(self, params, *, fuse: bool = False, quantize=None):
+        """Fold this trained masked-dense model into its packed twin (Eq. 2
+        model-wide); ``quantize="int8"`` also quantizes the blocks. Returns
+        ``(packed_model, packed_params)``; see
+        :func:`repro_torch.core.export.fold_model`."""
+        from repro_torch.core import export as export_lib
+        return export_lib.fold_model(self, params, fuse=fuse,
+                                     quantize=quantize)
+
+    # ----------------------------------------------------------------- serve
     def decode_step(self, params, tokens, caches, block_tables, live=None):
         """One token step of the paged engine. ``tokens (B,)``;
         ``block_tables (B, P)`` int32 shared by every attention layer;
@@ -226,12 +311,26 @@ class Model:
         return out
 
     def param_count(self) -> int:
-        cfg = self.cfg
-        n = cfg.vocab * cfg.d_model + self.unembed.param_count()
-        for spec in self.block_specs:
-            n += self.n_periods * sum(l.param_count()
-                                      for _, l in self.block_linears(spec))
-        return n
+        """Elements of every param leaf (a masked-dense weight counts in
+        full), from an init on the meta device."""
+        return sum(t.numel()
+                   for t in tree_lib.leaves(self.init(0, device="meta")))
+
+    def matmul_params(self, *, dense: bool) -> int:
+        """Weights of every projection (unembed included, the embedding
+        gather excluded). ``dense=False`` counts each compressed linear at
+        its packed size, as the reference's ``active_matmul_params`` does;
+        ``dense=True`` counts what a masked-dense kernel multiplies
+        (``d_in * d_out``). Model FLOPs per token are six times this."""
+        def count(lin):
+            s = lin.spec
+            if not dense:
+                return s.param_count()
+            return s.d_in * s.d_out + (s.d_out if s.use_bias else 0)
+
+        n = sum(count(lin) for spec in self.block_specs
+                for _, lin in self.block_linears(spec))
+        return self.n_periods * n + count(self.unembed)
 
 
 def build(cfg: ModelConfig) -> Model:

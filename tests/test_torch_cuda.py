@@ -17,13 +17,31 @@ once, each within u = 2^-8 relative, so |kernel - plain_f32| <= 2e-5 +
 u (|plain_f32| + sum_j p_j |v_j|), the last term being the plain version run
 on |V|. The same rule must reject the plain output with one page of context
 left out.
+
+The masked matmul (both orientations) and its weight gradient are held
+against the plain version computed in float32 on the same values with a
+matmul-shaped bound, |kernel - plain_f32| <= 2e-5 + u_out |plain_f32| +
+u_sum |x| @ |M∘W|. The sums differ only in their order (bf16 inputs and
+their products are exact in f32), within a few 2^-24 of the magnitude:
+u_sum = 2^-16 at both dtypes. At bf16 the kernel also rounds its output
+once, within bf16's unit roundoff 2^-8 of it: u_out = 2^-8, which admits
+exactly one rounding (2^-16 at float32). The same rule
+must reject the plain output with one mask block dropped, and every
+off-mask weight gradient from the kernel must be exactly 0.
+
+A train step of the smoke model, masked-dense or packed, gives the same
+loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
+as through the plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.fold import mask_tensor
+from repro_torch.core.mask import block_id_of, make_mask_spec
 from repro_torch.kernels import bdmm as tbdmm
+from repro_torch.kernels import masked_matmul as tmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import paged_prefill as tpp
@@ -92,6 +110,149 @@ def test_bdmm_raises_instead_of_falling_back(cuda_device):
                    activation="gelu")
     with pytest.raises(ValueError):
         tbdmm.bdmm(x.cpu(), torch.zeros(4, 16, 8, device=cuda_device))
+
+
+# ------------------------------------------------------------- masked matmul
+def _mm_within(got, want32, mag, dtype):
+    u_out = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -16
+    lim = 2e-5 + u_out * want32.abs() + 2.0 ** -16 * mag
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got.float() - want32).abs() <= lim).all())
+
+
+def _mm_case(m, d_in, d_out, dev, dtype, seed):
+    """Inputs at ``dtype``, a permuted 8-block mask, and the same mask with
+    block 0's rows dropped."""
+    spec = make_mask_spec(d_in, d_out, 8, seed=seed)
+    mask = mask_tensor(spec, dev)
+    in_block = torch.as_tensor(block_id_of(spec)[0], device=dev)
+    dropped = mask * (in_block != 0).to(torch.uint8)[:, None]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x, w = r(m, d_in).to(dtype), (r(d_in, d_out) * d_in ** -0.5).to(dtype)
+    gy, b = r(m, d_out).to(dtype), (0.1 * r(d_out)).to(dtype)
+    return mask, dropped, x, w, gy, b
+
+
+# (m, d_in, d_out): every edge ragged against the 128x128x16 tiles in one
+MM_SHAPES = [(64, 256, 512), (100, 384, 200), (33, 136, 1000)]
+
+
+@pytest.mark.parametrize("act", [None, "silu", "gelu", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MM_SHAPES)
+def test_masked_matmul_matches_plain(cuda_device, shape, dtype, act):
+    mask, dropped, x, w, _, b = _mm_case(*shape, cuda_device, dtype, seed=7)
+    before = tmm.launches["masked_matmul"]
+    got = tmm.masked_matmul(x, w, mask, b, activation=act)
+    assert tmm.launches["masked_matmul"] == before + 1
+    x32, w32, b32 = x.float(), w.float(), b.float()
+    want = tref.masked_matmul_ref(x32, w32, mask, b32, act)
+    mag = x32.abs() @ (w32.abs() * mask) + b32.abs()
+    assert _mm_within(got, want, mag, dtype)
+    assert not _mm_within(tref.masked_matmul_ref(x32, w32, dropped, b32, act),
+                          want, mag, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MM_SHAPES)
+def test_masked_matmul_transposed_matches_plain(cuda_device, shape, dtype):
+    mask, dropped, _, w, gy, _ = _mm_case(*shape, cuda_device, dtype, seed=8)
+    before = tmm.launches["masked_matmul_t"]
+    got = tmm.masked_matmul(gy, w, mask, transpose_rhs=True)
+    assert tmm.launches["masked_matmul_t"] == before + 1
+    g32, w32 = gy.float(), w.float()
+    want = tref.masked_matmul_t_ref(g32, w32, mask)
+    mag = g32.abs() @ (w32.abs() * mask).T
+    assert _mm_within(got, want, mag, dtype)
+    assert not _mm_within(tref.masked_matmul_t_ref(g32, w32, dropped), want,
+                          mag, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MM_SHAPES)
+def test_sddmm_matches_plain_with_exact_zeros(cuda_device, shape, dtype):
+    mask, dropped, x, _, gy, _ = _mm_case(*shape, cuda_device, dtype, seed=9)
+    before = tmm.launches["sddmm_masked"]
+    got = tmm.sddmm_masked(x, gy, mask)
+    assert tmm.launches["sddmm_masked"] == before + 1
+    assert torch.all(got[mask == 0] == 0)
+    x32, g32 = x.float(), gy.float()
+    want = tref.matmul_masked_grad_ref(x32, g32, mask)
+    mag = (x32.abs().T @ g32.abs()) * mask
+    assert _mm_within(got, want, mag, dtype)
+    assert not _mm_within(tref.matmul_masked_grad_ref(x32, g32, dropped),
+                          want, mag, dtype)
+
+
+def test_sddmm_off_mask_stays_zero_on_non_finite_sums(cuda_device):
+    """An infinite input makes non-finite sums; off the mask the kernel
+    still writes exact zeros (a select, where the plain multiply gives
+    NaN)."""
+    mask, _, x, _, gy, _ = _mm_case(32, 64, 64, cuda_device, torch.float32, 3)
+    x[0, :] = float("inf")
+    got = tmm.sddmm_masked(x, gy, mask)
+    assert torch.all(got[mask == 0] == 0)
+    assert not torch.isfinite(got[mask == 1]).all()
+
+
+def test_masked_kernels_raise_instead_of_falling_back(cuda_device):
+    mask, _, x, w, gy, _ = _mm_case(64, 256, 512, cuda_device, torch.float32, 1)
+    with pytest.raises(ValueError):
+        tmm.masked_matmul(x, w, mask.float())            # not a binary mask
+    with pytest.raises(ValueError):
+        tmm.masked_matmul(x, w, mask, activation="sigmoid")
+    with pytest.raises(ValueError):
+        tmm.masked_matmul(x.cpu(), w, mask)              # mixed devices
+    with pytest.raises(ValueError):
+        tmm.sddmm_masked(x, gy.bfloat16(), mask)
+
+
+def test_masked_training_step_kernel_route_equals_plain(cuda_device):
+    """One masked-dense train step of the smoke model on the card, through
+    the kernels and through the plain versions: the same loss and grads
+    within the f32 tolerance, all three masked kernels launched on the
+    kernel route and none on the plain route."""
+    _train_step_routes(cuda_device, "masked_dense",
+                       ("masked_matmul", "masked_matmul_t", "sddmm_masked"))
+
+
+def test_packed_training_step_kernel_route_equals_plain(cuda_device):
+    """The same in packed mode: the forward and ``dx`` of every compressed
+    linear run the bdmm kernel (general grid, 64 tokens)."""
+    _train_step_routes(cuda_device, "packed", ("bdmm",))
+
+
+def _train_step_routes(cuda_device, mode, kernels):
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.common import get_config
+    from repro_torch.models import build
+
+    model = build(get_config("olmo-1b", smoke=True, mpd_mode=mode))
+    params = model.init(0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    toks = torch.randint(0, 96, (2, 33), generator=g, device=cuda_device)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        try:
+            live = [p.detach().requires_grad_(True)
+                    for p in tree_lib.leaves(params)]
+            loss = model.train_loss(tree_lib.unflatten(params, live), batch)
+            out[backend] = (loss, torch.autograd.grad(loss, live))
+        finally:
+            ops.set_backend("cuda")
+        counts = ops.launch_counts()
+        if backend == "cuda":
+            assert all(counts[k] > 0 for k in kernels), counts
+        else:
+            assert not any(counts.values()), counts
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], atol=1e-5,
+                               rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["torch"][1]):
+        torch.testing.assert_close(a, b, atol=2e-6, rtol=1e-4)
 
 
 # ------------------------------------------------------------ paged attention
@@ -196,7 +357,7 @@ def test_backend_torch_skips_kernels(cuda_device):
 def test_engine_kernel_route_equals_plain_route(cuda_device):
     """The smoke model served on the card through the kernels and through
     the plain versions gives the same greedy streams at float32, and the
-    kernel run launched every kernel."""
+    kernel run launched every serving kernel."""
     from repro_torch.configs.common import get_config
     from repro_torch.core.export import quantize_packed
     from repro_torch.launch.serve import make_requests
@@ -220,5 +381,7 @@ def test_engine_kernel_route_equals_plain_route(cuda_device):
         finally:
             ops.set_backend("cuda")
         counts = ops.launch_counts()
-        assert all(n > 0 for n in counts.values()) == (backend == "cuda"), counts
+        serving = ("bdmm", "bdmm_decode", "paged_attention",
+                   "paged_prefill_attention")
+        assert all(counts[k] > 0 for k in serving) == (backend == "cuda"), counts
     assert streams["cuda"] == streams["torch"]

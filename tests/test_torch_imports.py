@@ -30,6 +30,7 @@ def test_port_imports_without_jax():
     ``jax`` and ``repro`` cannot be imported at all."""
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.convert" in mods
+    assert "repro_torch.train.loop" in mods and "repro_torch.data.pipeline" in mods
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
