@@ -16,9 +16,15 @@ Phases, each printed as one JSON line:
    and 128 with a short final chunk and NaN-poisoned cold pages; the masked
    matmul in both orientations and the SDDMM at m = 2048 tokens for the
    four olmo-1b projection shapes at bf16 and f32, off-mask SDDMM entries
-   exactly 0), within the tolerance printed beside each check; time
+   exactly 0; the fused MLP at olmo-1b's perm-fused FFN width, nb 8, bi
+   256, f 1024, bo 256, at m = 4 and 64, int8 / bf16 / f32 weights, gated,
+   a plain-gelu form with every bias and a ragged m = 37, f = 1000 case,
+   each of which must also reject the plain output with one f tile of
+   w_down zeroed), within the tolerance printed beside each check; time
    kernel, plain version and, where one exists, a single PyTorch library
-   call.
+   call (for the fused MLP, which no single call computes, a composition:
+   three torch.bmm and the gate for fp weights, the port's unfused route of
+   three bdmm launches and the gate for int8).
 4. ``serve`` — olmo-1b at its published widths (16 layers, d 2048, vocab
    50304, every projection packed with mpd_c=8 and quantized to int8, bf16)
    served by the paged engine: 4 slots, page 16, prefill chunk 64, 8
@@ -45,6 +51,19 @@ Phases, each printed as one JSON line:
    within the stated tolerance, and the bf16 model trained in phase 6,
    folded and quantized to int8, serves 2 greedy requests on the paged
    engine through the kernels.
+9. ``fused_deploy`` — the Fig-3 deploy chain at olmo-1b's published
+   widths: the model built in ``masked_dense`` mode with ``mpd_fuse`` from
+   seed 0 takes one AdamW step on the next ``SyntheticLM`` batch of phase
+   6's stream, is folded with the permutation fusion and quantized to int8
+   and written as a packed artifact (``export_packed``) to a temporary
+   directory, loaded back (``load_packed``: bit-identical to the in-memory
+   fold, every FFN on the fused route) and served on the ``serve`` phase's
+   engine and traffic. Every FFN is one ``fused_ffn`` launch: launches equal
+   16 x model calls, and bdmm launches per model call are 3 x 16 fewer than
+   in phase 4.
+10. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
+   streams through the kernels (fused_ffn on every FFN) and through the
+   plain versions must be identical.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -110,6 +129,7 @@ LIBRARY_GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
 SERVING_KERNELS = ("bdmm", "bdmm_decode", "paged_attention",
                    "paged_prefill_attention")
 MASKED_KERNELS = ("masked_matmul", "masked_matmul_t", "sddmm_masked")
+BDMM_KERNELS = ("bdmm", "bdmm_decode")
 TRAIN = {"batch": 4, "seq": 512, "steps": 4}
 # train_exact: one step at f32 of the model cut to this depth, with SGD
 # (lr 1, clipped to norm 1) so the update is linear in the gradient. Updated
@@ -118,9 +138,40 @@ TRAIN = {"batch": 4, "seq": 512, "steps": 4}
 # summation order. A gradient off by a mask block moves updates by 100 %.
 EXACT_LAYERS = 4
 EXACT_TOL = {"atol": 1e-7, "update_rtol": 1e-3, "loss_rtol": 1e-5}
+# The fused MLP is held against its plain version computed in f32 on the
+# same values with the matmul-shaped rule of MM_TOL, its magnitude term
+#   mag = (|h| + dh) @ |Wd| (* s_down) + |b_down|,
+#   dh  = |act(g)| |x|@|Wu| + ACT_SLOPE |u| |x|@|Wg|   (gated; else
+#         ACT_SLOPE |x|@|Wu|), with the scales and |biases| of each sum,
+# bounding how far the summation order of the up and gate sums moves the
+# hidden before the down sum adds its own (ACT_SLOPE bounds |act'| of silu,
+# gelu and relu). The same rule must reject the plain output with the first
+# f tile (64 channels) of w_down zeroed.
+ACT_SLOPE = 1.2
+FFN_RULE = ("atol + u_out * |plain_f32| + u_sum * ((|h| + dh) @ |Wd| "
+            "+ |b_down|)")
+# (label, m, weights, dtype, activation, gated, biases, f): olmo-1b's fused
+# FFN at mpd_c=8 is nb 8, bi 256, f 1024, bo 256; m = 4 is a decode step
+# of 4 slots, m = 64 one prefill chunk
+FFN_DIMS = (8, 256, 256)                          # nb, bi, bo
+FFN_CASES = [
+    ("decode", 4, "int8", "bfloat16", "silu", True, False, 1024),
+    ("prefill", 64, "int8", "bfloat16", "silu", True, False, 1024),
+    ("decode", 4, "fp", "bfloat16", "silu", True, False, 1024),
+    ("prefill", 64, "fp", "bfloat16", "silu", True, False, 1024),
+    ("decode", 4, "fp", "float32", "silu", True, False, 1024),
+    ("prefill", 64, "fp", "float32", "silu", True, False, 1024),
+    ("decode", 4, "int8", "float32", "silu", True, False, 1024),
+    ("prefill", 64, "int8", "float32", "silu", True, False, 1024),
+    ("plain gelu, biases", 64, "fp", "bfloat16", "gelu", False, True, 1024),
+    ("ragged m and f, biases", 37, "int8", "bfloat16", "silu", True, True,
+     1000),
+]
 # fold: logits of the folded packed model against the masked-dense model at
 # f32 (bdmm over the blocks vs the masked matmul over the full K).
 FOLD_TOL = {"atol": 1e-4, "rtol": 1e-4}
+# exact_fused: the perm-fused model's f32 streams at this depth (16 = full)
+EXACT_FUSED_LAYERS = 16
 
 
 def emit(obj) -> None:
@@ -528,17 +579,196 @@ def check_masked(torch, dev, timer, rows, summary):
     torch.cuda.empty_cache()
 
 
+def ffn_plain32(torch, ref, a, act, w_down=None):
+    """The plain fused MLP in f32 on the same values, ``(y, mag)`` with
+    ``mag`` the magnitude term of the fused rule; ``w_down`` replaces the
+    down weight."""
+    f32 = {k: v if v.dtype == torch.int8 else v.float() for k, v in a.items()}
+    wd = f32["w_down"] if w_down is None else w_down
+    quant = a["w_up"].dtype == torch.int8
+
+    def proj(x, w, s, b, absolute=False):
+        if absolute:
+            x, w, b = x.abs(), w.abs(), None if b is None else b.abs()
+        if quant:
+            return ref.bdmm_quant_ref(x, w, s, b)
+        return ref.bdmm_ref(x, w.float(), b)
+    x, act_fn = f32["x"], ref.ACTIVATIONS[act]
+    up = (f32["w_up"], f32.get("s_up"), f32.get("b_up"))
+    u, ua = proj(x, *up), proj(x, *up, True)
+    if "w_gate" in a:
+        gate = (f32["w_gate"], f32.get("s_gate"), f32.get("b_gate"))
+        g, ga = act_fn(proj(x, *gate)), proj(x, *gate, True)
+        h, dh = g * u, g.abs() * ua + ACT_SLOPE * u.abs() * ga
+    else:
+        h, dh = act_fn(u), ACT_SLOPE * ua
+    down = (wd, f32.get("s_down"), f32.get("b_down"))
+    return proj(h, *down), proj(h.abs() + dh, *down, True)
+
+
+def check_fused_ffn(torch, dev, timer, rows, summary):
+    """The fused MLP at olmo-1b's perm-fused FFN width (FFN_CASES) against
+    its plain version, with the composed yardstick beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import bdmm as bk
+    from repro_torch.kernels import fused_ffn as fk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import quantize_blocks
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    nb, bi, bo = FFN_DIMS
+    for label, m, weights, dt, act, gated, biases, f in FFN_CASES:
+        dtype = getattr(torch, dt)
+        quant = weights == "int8"
+        r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        a = {"x": r(m, nb * bi).to(dtype)}
+        ws = {"w_up": r(nb, bi, f) * bi ** -0.5,
+              "w_down": r(nb, f, bo) * f ** -0.5}
+        if gated:
+            ws["w_gate"] = r(nb, bi, f) * bi ** -0.5
+        for k, w in ws.items():
+            if quant:
+                a[k], a["s_" + k[2:]] = quantize_blocks(w)
+            else:
+                a[k] = w.to(dtype)
+        if biases:
+            a["b_up"] = (0.1 * r(nb * f)).to(dtype)
+            a["b_down"] = (0.1 * r(nb * bo)).to(dtype)
+            if gated:
+                a["b_gate"] = (0.1 * r(nb * f)).to(dtype)
+        del ws
+        args = [a.get(k) for k in ("w_gate", "b_up", "b_gate", "b_down",
+                                   "s_up", "s_gate", "s_down")]
+        run = lambda: fk.fused_ffn(a["x"], a["w_up"], a["w_down"], *args,
+                                   activation=act)
+        if quant:
+            plain = lambda: ref.fused_ffn_quant_ref(
+                a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                a.get("b_up"), a.get("b_gate"), a.get("b_down"), a["s_up"],
+                a.get("s_gate"), a["s_down"], act)
+
+            def yard():                 # the port's unfused int8 route
+                u = bk.bdmm(a["x"], a["w_up"], a.get("b_up"), a["s_up"])
+                if gated:
+                    h = bk.bdmm(a["x"], a["w_gate"], a.get("b_gate"),
+                                a["s_gate"], activation=act) * u
+                else:
+                    h = ref.ACTIVATIONS[act](u)
+                return bk.bdmm(h, a["w_down"], a.get("b_down"), a["s_down"])
+            yard_label = "three bdmm launches and the gate (unfused route)"
+        else:
+            plain = lambda: ref.fused_ffn_ref(
+                a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                a.get("b_up"), a.get("b_gate"), a.get("b_down"), act)
+            xt = a["x"].view(m, nb, bi).transpose(0, 1)
+
+            def bmm(x3, w, b, n_out):
+                if b is None:
+                    return torch.bmm(x3, w)
+                return torch.baddbmm(b.view(nb, 1, n_out), x3, w)
+
+            def yard():                 # three torch.bmm and the gate
+                u = bmm(xt, a["w_up"], a.get("b_up"), f)
+                if gated:
+                    h = F.silu(bmm(xt, a["w_gate"], a.get("b_gate"), f)) * u
+                else:
+                    h = ref.ACTIVATIONS[act](u)
+                return bmm(h, a["w_down"], a.get("b_down"), bo)
+            yard_label = "three torch.bmm and the gate"
+        got = run()
+        want, mag = ffn_plain32(torch, ref, a, act)
+        ok, err, ratio = mm_close(torch, got, want, mag, dt)
+        wd = a["w_down"].clone()
+        wd[:, :fk.F_TILE] = 0
+        dropped, _ = ffn_plain32(torch, ref, a, act,
+                                 w_down=wd if quant else wd.float())
+        rejects = not mm_close(torch, dropped, want, mag, dt)[0]
+        ok = ok and rejects
+        del got, want, mag, dropped, wd
+        es = a["x"].element_size()
+        w_bytes = sum(a[k].numel() * a[k].element_size()
+                      for k in ("w_up", "w_gate", "w_down", "s_up", "s_gate",
+                                "s_down", "b_up", "b_gate", "b_down")
+                      if k in a)
+        nbytes = m * nb * bi * es + w_bytes + m * nb * bo * es
+        n_ops = 2.0 * m * nb * (bi * f * (2 if gated else 1) + f * bo)
+        b_ms, b_by = bound(nbytes, n_ops, dt)
+        row = {"phase": "kernels", "kernel": "fused_ffn", "case": label,
+               "m": m, "nb": nb, "bi": bi, "f": f, "bo": bo,
+               "weights": "int8" if quant else dt, "dtype": dt,
+               "activation": act, "gated": gated, "biases": biases,
+               "plan": fk.plan(m, nb, f, bo, torch.cuda.get_device_properties(
+                   dev).multi_processor_count),
+               "max_abs_err": err, "err_over_tol": ratio,
+               "tol": dict(MM_TOL[dt], rule=FFN_RULE, act_slope=ACT_SLOPE),
+               "rejects_zeroed_f_tile": rejects, "ok": ok,
+               "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+               "library_ms": None, "yardstick_ms": timer.ms(yard),
+               "yardstick": yard_label, "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit(row)
+        s = summary["fused_ffn"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["err_over_tol"] = max(s["err_over_tol"], ratio)
+        s["ok"] = s["ok"] and ok
+        if quant and dt == "bfloat16" and label == "decode":
+            s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "yardstick_ms", "yardstick",
+                                          "bound_ms", "bound_by")})
+            s["at"] = f"int8 gated, bf16, m={m} (decode), nb {nb} bi {bi} " \
+                      f"f {f} bo {bo}"
+        del a, args
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ serving
-def olmo_engine(torch, dev, dtype, seed=0):
+def olmo_engine(torch, dev, dtype, seed=0, **over):
     from repro_torch.core import export
     from repro_torch.configs.common import get_config
     from repro_torch.models import build
 
-    cfg = get_config("olmo-1b", dtype=dtype)
+    cfg = get_config("olmo-1b", dtype=dtype, **over)
     model = build(cfg)
     params, report = export.quantize_packed(model, model.init(seed, device=dev))
     torch.cuda.synchronize()
     return cfg, model, params, report
+
+
+SERVE_ENGINE = dict(n_slots=4, max_len=512 + 32, page_size=16,
+                    prefill_chunk_tokens=64)
+SERVE_TRAFFIC = dict(n_requests=8, rate=16.0, prompt_len=512, gen=32, seed=0,
+                     shared_prefix=128)
+
+
+def instrument(torch, model):
+    """Wrap ``model.decode_step`` and ``model.prefill_chunk`` (delete the
+    instance attributes to undo): host ms of each call on a synchronised
+    clock, and the number of calls that ran the unembed (every decode step
+    and the final chunk of each prefill)."""
+    calls = {"decode": [], "prefill": [], "unembed": 0}
+
+    def wrap(name, key):
+        fn = getattr(model, name)
+
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls[key].append((time.perf_counter() - t) * 1e3)
+            calls["unembed"] += out[0] is not None
+            return out
+        setattr(model, name, wrapper)
+    wrap("decode_step", "decode")
+    wrap("prefill_chunk", "prefill")
+    return calls
+
+
+def bdmm_per_call(launches, calls) -> float:
+    """bdmm launches per model call inside the layers (the unembed's one
+    launch per call that ran it taken out)."""
+    n = len(calls["decode"]) + len(calls["prefill"])
+    return (sum(launches[k] for k in BDMM_KERNELS) - calls["unembed"]) / n
 
 
 def serve_phase(torch, dev, ops):
@@ -548,8 +778,7 @@ def serve_phase(torch, dev, ops):
     t0 = time.perf_counter()
     cfg, model, params, report = olmo_engine(torch, dev, "bfloat16")
     setup_s = time.perf_counter() - t0
-    kw = dict(n_slots=4, max_len=512 + 32, page_size=16,
-              prefill_chunk_tokens=64)
+    kw = SERVE_ENGINE
     # warm-up: first-call costs (library loads, allocator growth) stay out
     # of the measured run
     warm = Engine(model, params, **kw)
@@ -558,22 +787,8 @@ def serve_phase(torch, dev, ops):
     del warm
 
     engine = Engine(model, params, **kw)
-    reqs = make_requests(cfg, n_requests=8, rate=16.0, prompt_len=512, gen=32,
-                         seed=0, shared_prefix=128)
-    step_ms = {"decode": [], "prefill": []}
-
-    def timed(fn, key):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            step_ms[key].append((time.perf_counter() - t) * 1e3)
-            return out
-        return wrapper
-
-    model.decode_step = timed(model.decode_step, "decode")
-    model.prefill_chunk = timed(model.prefill_chunk, "prefill")
+    reqs = make_requests(cfg, **SERVE_TRAFFIC)
+    calls = instrument(torch, model)
     ops.reset_launch_counts()
     summary = serve_stream(engine, reqs)
     torch.cuda.synchronize()
@@ -602,10 +817,12 @@ def serve_phase(torch, dev, ops):
         "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
         "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
         "e2e_p95_ms": summary["e2e_p95_s"] * 1e3,
-        "decode_steps": len(step_ms["decode"]),
-        "decode_step_ms_p50": statistics.median(step_ms["decode"]),
-        "prefill_chunks": len(step_ms["prefill"]),
-        "prefill_chunk_ms_p50": statistics.median(step_ms["prefill"]),
+        "decode_steps": len(calls["decode"]),
+        "decode_step_ms_p50": statistics.median(calls["decode"]),
+        "prefill_chunks": len(calls["prefill"]),
+        "prefill_chunk_ms_p50": statistics.median(calls["prefill"]),
+        "unembed_calls": calls["unembed"],
+        "bdmm_launches_per_call": bdmm_per_call(launches, calls),
         "decode_window": window,
         "occupancy_mean": summary["occupancy_mean"],
         "kv_bytes_allocated_peak": summary["kv_bytes_allocated_peak"],
@@ -641,7 +858,8 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     cuda = torch.autograd.DeviceType.CUDA
     families = {"bdmm_decode_kernel": 0.0, "bdmm_general_kernel": 0.0,
-                "paged_attention_kernel": 0.0, "other": 0.0}
+                "fused_ffn_kernel": 0.0, "paged_attention_kernel": 0.0,
+                "other": 0.0}
     for e in prof.events():
         if e.device_type != cuda:
             continue
@@ -654,22 +872,30 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16):
             "device_busy_share": device_ms / wall_ms if device_ms > 0 else None}
 
 
-def exact_phase(torch, dev, ops):
+def exact_phase(torch, dev, ops, fuse=False):
+    """f32 greedy streams through the kernels and through the plain
+    versions (``fuse``: of the perm-fused model, ``exact_fused``, which must
+    also launch fused_ffn on the kernel route and nothing on the plain
+    route)."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Engine
 
-    cfg, model, params, _ = olmo_engine(torch, dev, "float32")
+    over = dict(mpd_fuse=True, n_layers=EXACT_FUSED_LAYERS) if fuse else {}
+    cfg, model, params, _ = olmo_engine(torch, dev, "float32", **over)
     kw = dict(n_slots=4, max_len=256 + 16, page_size=16,
               prefill_chunk_tokens=64)
-    streams = {}
+    streams, counts = {}, {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
+        ops.reset_launch_counts()
         try:
             reqs = make_requests(cfg, n_requests=6, rate=1e9, prompt_len=256,
                                  gen=16, seed=1, shared_prefix=64)
             streams[backend] = Engine(model, params, **kw).run(reqs)
         finally:
             ops.set_backend("cuda")
+        torch.cuda.synchronize()
+        counts[backend] = ops.launch_counts()
     a, b = streams["cuda"], streams["torch"]
     diverge = []
     for rid in sorted(a):
@@ -677,12 +903,152 @@ def exact_phase(torch, dev, ops):
             first = next((i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
                           if x != y), min(len(a[rid]), len(b[rid])))
             diverge.append({"request": rid, "first_index": first})
-    row = {"phase": "exact", "ok": not diverge, "dtype": "float32",
-           "n_layers": cfg.n_layers, "requests": len(a),
+    routes_ok = not fuse or (counts["cuda"]["fused_ffn"] > 0
+                             and not any(counts["torch"].values()))
+    row = {"phase": "exact_fused" if fuse else "exact",
+           "ok": not diverge and routes_ok, "dtype": "float32",
+           "weights": "int8", "n_layers": cfg.n_layers,
+           "cut": f"{cfg.n_layers} of 16 layers", "requests": len(a),
            "tokens": sum(len(v) for v in a.values()),
            "diverging_requests": diverge}
+    if fuse:
+        row.update(mpd_fuse=True, launches_kernel_route=counts["cuda"],
+                   launches_plain_route=counts["torch"])
     emit(row)
     return row
+
+
+def fused_deploy_phase(torch, dev, ops, data, served):
+    """The Fig-3 deploy chain at full width: masked_dense + mpd_fuse, one
+    AdamW step, fold with the permutation fusion and int8, export_packed,
+    load_packed, and the serve phase's traffic on the loaded artifact."""
+    import tempfile
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs.common import get_config
+    from repro_torch.launch.serve import make_requests, serve_stream
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.serve import Engine
+    from repro_torch.train import TrainConfig, run
+
+    cfg = get_config("olmo-1b", mpd_mode="masked_dense", mpd_fuse=True)
+    model = build(cfg)
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-3, clip_norm=1.0,
+                                     schedule="cosine", warmup_steps=0,
+                                     total_steps=1), log_every=1)
+    t0 = time.perf_counter()
+    out = run(model, tcfg, data, 1, params=model.init(0, device=dev),
+              log_fn=lambda line: None)
+    trained, loss = out["params"], out["history"][0]
+    del out
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        d = ckpt_lib.export_packed(tmp, 1, model, trained, fuse=True,
+                                   quantize="int8")
+        export_s = time.perf_counter() - t0
+        artifact_bytes = sum(p.stat().st_size for p in Path(d).iterdir())
+        t0 = time.perf_counter()
+        served_model, params = ckpt_lib.load_packed(tmp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    _, mem = model.to_packed(trained, fuse=True, quantize="int8")
+    del trained
+    got = list(tree_lib.leaves_with_paths(params))
+    want = list(tree_lib.leaves_with_paths(mem))
+    identical = len(got) == len(want) and all(
+        ka == kb and a.dtype == b.dtype and torch.equal(a, b)
+        for (ka, a), (kb, b) in zip(got, want))
+    del got, want, mem
+    fused = all(b["ffn"].fused_packed() for b in served_model.block_specs)
+    torch.cuda.empty_cache()
+
+    warm = Engine(served_model, params, **SERVE_ENGINE)
+    warm.run(make_requests(served_model.cfg, n_requests=2, rate=1e9,
+                           prompt_len=128, gen=4, seed=99))
+    del warm
+    engine = Engine(served_model, params, **SERVE_ENGINE)
+    reqs = make_requests(served_model.cfg, **SERVE_TRAFFIC)
+    calls = instrument(torch, served_model)
+    ops.reset_launch_counts()
+    summary = serve_stream(engine, reqs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    del served_model.decode_step, served_model.prefill_chunk
+    n_calls = len(calls["decode"]) + len(calls["prefill"])
+    layers = served_model.cfg.n_layers
+    turns = route_turns(torch, dev, served_model, params)
+    window = decode_window(torch, served_model, params, SERVE_ENGINE,
+                           served_model.cfg)
+    per_call = bdmm_per_call(launches, calls)
+    launches_ok = (launches["fused_ffn"] == layers * n_calls
+                   and served["bdmm_launches_per_call"] - per_call
+                   == 3 * layers)
+    done = summary["n_done"] == len(reqs) and all(
+        len(r.generated) == r.max_new_tokens
+        and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
+    ok = identical and fused and done and launches_ok and math.isfinite(
+        loss) and all(launches[k] > 0 for k in SERVING_KERNELS)
+    row = {"phase": "fused_deploy", "ok": ok, "config": {
+        "arch": cfg.name, "n_layers": layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "mpd_c": cfg.mpd_c,
+        "train": f"masked_dense + mpd_fuse, 1 AdamW step of "
+                 f"{TRAIN['batch']} x {TRAIN['seq']} tokens",
+        "served": "packed, perm-fused, int8, bf16", **SERVE_ENGINE},
+        "train_loss": loss, "train_s": train_s, "export_s": export_s,
+        "load_s": load_s,
+        "artifact_bytes": artifact_bytes, "loaded_equals_fold": identical,
+        "every_ffn_fused": fused,
+        "quant_max_rel_rms": served_model.quant_report["max_rel_rms"],
+        "requests_done": summary["n_done"], "requests": len(reqs),
+        "new_tokens": [len(r.generated) for r in reqs],
+        "tok_s": summary["agg_tok_s"], "elapsed_s": summary["elapsed_s"],
+        "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
+        "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
+        "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
+        "decode_steps": len(calls["decode"]),
+        "decode_step_ms_p50": statistics.median(calls["decode"]),
+        "prefill_chunks": len(calls["prefill"]),
+        "prefill_chunk_ms_p50": statistics.median(calls["prefill"]),
+        "model_calls": n_calls, "unembed_calls": calls["unembed"],
+        "fused_ffn_launches_expected": layers * n_calls,
+        "bdmm_launches_per_call": per_call,
+        "bdmm_launches_per_call_serve_phase":
+            served["bdmm_launches_per_call"],
+        "launches_ok": launches_ok, "launches": launches,
+        "route_turns": turns, "decode_window": window}
+    emit(row)
+    return row
+
+
+def route_turns(torch, dev, fused_model, fused_params):
+    """The serve phase's traffic on the serve phase's unfused model and on
+    the fused one, in turns (unfused, fused, fused, unfused): the host
+    clock drifts between the phases of one run, so only turns compare the
+    two routes end to end. Launch counts are not read here."""
+    from repro_torch.launch.serve import make_requests, serve_stream
+    from repro_torch.serve import Engine
+
+    _, u_model, u_params, _ = olmo_engine(torch, dev, "bfloat16")
+    pairs = {"unfused": (u_model, u_params),
+             "fused": (fused_model, fused_params)}
+    turns = []
+    for route in ("unfused", "fused", "fused", "unfused"):
+        model, params = pairs[route]
+        engine = Engine(model, params, **SERVE_ENGINE)
+        calls = instrument(torch, model)
+        summary = serve_stream(engine, make_requests(model.cfg,
+                                                     **SERVE_TRAFFIC))
+        torch.cuda.synchronize()
+        del model.decode_step, model.prefill_chunk
+        turns.append({
+            "route": route, "tok_s": summary["agg_tok_s"],
+            "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
+            "decode_step_ms_p50": statistics.median(calls["decode"]),
+            "prefill_chunk_ms_p50": statistics.median(calls["prefill"])})
+    return turns
 
 
 # ----------------------------------------------------------------- training
@@ -973,43 +1339,69 @@ def main() -> int:
              "masked_matmul_t": "src/repro/kernels/masked_matmul.py:41 "
                                 "(_mm_kernel, transpose_rhs)",
              "sddmm_masked":
-                 "src/repro/kernels/masked_matmul.py:141 (_sddmm_kernel)"}
+                 "src/repro/kernels/masked_matmul.py:141 (_sddmm_kernel)",
+             "fused_ffn": "src/repro/kernels/fused_ffn.py:58 (_ffn_kernel)"}
     sources = {"bdmm": "src/repro_torch/csrc/bdmm.cu",
                "bdmm_decode": "src/repro_torch/csrc/bdmm.cu",
                "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill.cu",
                "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                **{k: "src/repro_torch/csrc/masked_matmul.cu"
-                  for k in MASKED_KERNELS}}
+                  for k in MASKED_KERNELS},
+               "fused_ffn": "src/repro_torch/csrc/fused_ffn.cu"}
     summary = {n: {"max_abs_err": 0.0, "err_over_tol": 0.0, "ok": True}
                for n in names}
     timer = Timer(torch, dev)
     rows = []
-    check_bdmm(torch, dev, timer, rows, summary)
-    check_paged_attention(torch, dev, timer, rows, summary)
-    check_paged_prefill(torch, dev, timer, rows, summary)
-    check_masked(torch, dev, timer, rows, summary)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+    timed("kernels_bdmm", check_bdmm, torch, dev, timer, rows, summary)
+    timed("kernels_attention", check_paged_attention, torch, dev, timer, rows,
+          summary)
+    timed("kernels_prefill", check_paged_prefill, torch, dev, timer, rows,
+          summary)
+    timed("kernels_masked", check_masked, torch, dev, timer, rows, summary)
+    timed("kernels_fused_ffn", check_fused_ffn, torch, dev, timer, rows,
+          summary)
     del timer
     (OUT_DIR / "kernels.jsonl").write_text(
         "\n".join(json.dumps(r) for r in rows) + "\n")
     failed = [f"kernel {r['kernel']} {r}" for r in rows if not r["ok"]]
-    served = serve_phase(torch, dev, ops)
+    served = timed("serve", serve_phase, torch, dev, ops)
     launches = served["launches"]
     if not served["ok"]:
         failed.append("serve")
-    if not exact_phase(torch, dev, ops)["ok"]:
+    if not timed("exact", exact_phase, torch, dev, ops)["ok"]:
         failed.append("exact")
-    trained, bf16_model, bf16_params, data = train_phase(torch, dev, ops)
+    trained, bf16_model, bf16_params, data = timed("train", train_phase,
+                                                   torch, dev, ops)
     if not trained["ok"]:
         failed.append("train")
-    launches = {k: launches[k] + trained["launches"][k] for k in launches}
-    exact, f32_model, f32_params, batch = train_exact_phase(torch, dev, ops,
-                                                            data)
+    exact, f32_model, f32_params, batch = timed(
+        "train_exact", train_exact_phase, torch, dev, ops, data)
     if not exact["ok"]:
         failed.append("train_exact")
-    del data
-    if not fold_phase(torch, dev, ops, f32_model, f32_params, batch,
-                      bf16_model, bf16_params)["ok"]:
+    if not timed("fold", fold_phase, torch, dev, ops, f32_model, f32_params,
+                 batch, bf16_model, bf16_params)["ok"]:
         failed.append("fold")
+    del f32_model, f32_params, batch, bf16_model, bf16_params
+    torch.cuda.empty_cache()
+    deployed = timed("fused_deploy", fused_deploy_phase, torch, dev, ops,
+                     data, served)
+    del data
+    if not deployed["ok"]:
+        failed.append("fused_deploy")
+    if not timed("exact_fused", exact_phase, torch, dev, ops, True)["ok"]:
+        failed.append("exact_fused")
+    # the main path's launches: serving, training, and the fused deploy
+    launches = {k: sum(p["launches"][k] for p in (served, trained, deployed))
+                for k in launches}
+    emit({"phase": "timing", "seconds": seconds,
+          "total_s": sum(seconds.values())})
 
     kernels = []
     for n, replaces in names.items():
@@ -1021,7 +1413,10 @@ def main() -> int:
                         "ms": s.get("ms"), "plain_ms": s.get("plain_ms"),
                         "bound_ms": s.get("bound_ms"),
                         "bound_by": s.get("bound_by"),
-                        "library_ms": s.get("library_ms"), "at": s.get("at")})
+                        "library_ms": s.get("library_ms"), "at": s.get("at"),
+                        **({"yardstick_ms": s.get("yardstick_ms"),
+                            "yardstick": s.get("yardstick")}
+                           if "yardstick" in s else {})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

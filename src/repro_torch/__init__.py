@@ -10,19 +10,23 @@ Entry points run on the CUDA device unless the caller passes
 every kernel wrapper takes its plain PyTorch version; on a CUDA tensor it
 launches the kernel or raises.
 
-Ported so far (paged int8 serving, and single-device training in the
-paper-faithful masked-dense mode or the packed mode, folded to serving):
+Ported so far (paged int8 serving; single-device training in the
+paper-faithful masked-dense mode or the packed mode, folded to serving; and
+the paper's Fig-3 deploy chain through a packed artifact on disk):
 
-- ``core``: masks, permutations, policy plans, fold/unfold and the fold
-  gathers, MPD linear in all three modes, ``fold_model`` and
-  ``quantize_packed``;
-- ``kernels``: ``bdmm`` (general + decode-shaped), ``masked_matmul`` (both
-  orientations) and ``sddmm_masked``, ``paged_attention`` (decode),
-  ``paged_prefill_attention``, their plain versions, routing and the
-  autograd rules;
-- ``models``: norms, RoPE, embeddings, the unfused FFN, training and paged
-  attention, and the attention-only ``Model`` (loss, mask projection,
-  ``to_packed``);
+- ``core``: masks (with ``chain_specs``), permutations, policy plans,
+  fold/unfold and the fold gathers, MPD linear in all three modes,
+  ``fold_model``, the permutation-fusion rewrite and ``quantize_packed``
+  (int8, int4 storage);
+- ``kernels``: ``bdmm`` (general + decode-shaped), ``fused_ffn``,
+  ``masked_matmul`` (both orientations) and ``sddmm_masked``,
+  ``paged_attention`` (decode), ``paged_prefill_attention``, their plain
+  versions, routing and the autograd rules;
+- ``models``: norms, RoPE, embeddings, the unfused and the fused FFN,
+  training and paged attention, and the attention-only ``Model`` (loss,
+  mask projection, ``to_packed``);
+- ``checkpoint``: ``save``/``restore`` and the packed artifact
+  (``export_packed``/``load_packed``), in the reference's format;
 - ``optim``, ``data`` (``SyntheticLM``), ``dist`` (the step-time monitor)
   and ``train``: AdamW/SGD and the training loop;
 - ``serve``: page pool, prefix trie, scheduler, greedy/top-k sampling,

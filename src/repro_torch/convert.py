@@ -3,7 +3,8 @@
 ``params_from_numpy(model, tree)`` takes the JAX package's param tree as
 numpy arrays (``jax.tree.map(np.asarray, params)``) — dense, masked-dense or
 packed fp leaves, or quantized ``{"w_q", "w_scale"}`` leaves stacked
-``(n_periods, nb, bi, bo)`` / ``(n_periods, nb, bo)`` — and returns the same
+``(n_periods, nb, bi, bo)`` / ``(n_periods, nb, bo)``, of a plain or a
+perm-fused model — and returns the same
 tree of tensors on ``device``, checked against the shapes the port's model
 expects. Both packages then compute the same function on the same weights.
 ``params_to_numpy`` is its inverse, so a tree trained by the port can go
@@ -38,15 +39,8 @@ def _convert(tree, device):
     return _tensor(tree, device)
 
 
-def _shapes(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _shapes(v, f"{prefix}/{k}")
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _shapes(v, f"{prefix}[{i}]")
-    else:
-        yield prefix, tuple(tree.shape)
+def _shapes(tree):
+    return {k: tuple(v.shape) for k, v in tree_lib.leaves_with_paths(tree)}
 
 
 def params_from_numpy(model, tree: Any, device=None):
@@ -62,8 +56,9 @@ def params_from_numpy(model, tree: Any, device=None):
     # the expected structure, from an init on the meta device (shapes only)
     want = model.init(0, device="meta")
     if any("w_q" in leaf for leaf in _leaf_dicts(out)):
-        want = _quantized_like(model, want)
-    got_shapes, want_shapes = dict(_shapes(out)), dict(_shapes(want))
+        from repro_torch.core.export import quantize_packed
+        want = quantize_packed(model, want, compute_report=False)[0]
+    got_shapes, want_shapes = _shapes(out), _shapes(want)
     if got_shapes != want_shapes:
         diff = sorted(set(got_shapes.items()) ^ set(want_shapes.items()))
         raise ValueError(f"param tree does not match {model.cfg.name}: {diff[:6]}")
@@ -90,18 +85,3 @@ def _leaf_dicts(tree):
     elif isinstance(tree, list):
         for v in tree:
             yield from _leaf_dicts(v)
-
-
-def _quantized_like(model, params):
-    """Shape template of the quantized tree (meta tensors, no arithmetic)."""
-    from repro_torch.core.export import iter_linear_leaves
-
-    out = tree_lib.copy_tree(params)
-    for parent, key, _lin, _tag in iter_linear_leaves(model, out):
-        w = parent[key]["w"]
-        new = {k: v for k, v in parent[key].items() if k != "w"}
-        new["w_q"] = torch.empty(w.shape, dtype=torch.int8, device="meta")
-        new["w_scale"] = torch.empty(w.shape[:-2] + w.shape[-1:],
-                                     dtype=torch.float32, device="meta")
-        parent[key] = new
-    return out

@@ -114,3 +114,23 @@ def block_id_of(spec: MaskSpec) -> Tuple[np.ndarray, np.ndarray]:
     in_block = spec.in_perm // spec.block_in
     out_block = spec.out_perm // spec.block_out
     return in_block.astype(np.int32), out_block.astype(np.int32)
+
+
+def chain_specs(dims: Tuple[int, ...], nb: int, seed: int = 0,
+                fuse: bool = True) -> Tuple[MaskSpec, ...]:
+    """Specs for a chain of FC layers ``dims[0] -> dims[1] -> ...``, drawn
+    from ``SeedSequence([seed, len(dims), nb])`` as the reference draws them.
+    With ``fuse=True`` layer ``i+1`` takes layer ``i``'s output permutation
+    as its input permutation (paper Fig. 3), so the folded chain needs no
+    gather between consecutive layers
+    (:func:`repro_torch.core.fold.inter_layer_perm` is the identity)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, len(dims), nb]))
+    specs = []
+    prev_out: Optional[np.ndarray] = None
+    for li in range(len(dims) - 1):
+        in_perm = prev_out if fuse else None
+        spec = make_mask_spec(dims[li], dims[li + 1], nb,
+                              seed=int(rng.integers(2**31)), in_perm=in_perm)
+        specs.append(spec)
+        prev_out = spec.out_perm
+    return tuple(specs)

@@ -127,14 +127,17 @@ def reapply_mask(spec: MPDLinearSpec, params: Params) -> Params:
 
 
 def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
-          activation: Optional[str] = None) -> torch.Tensor:
+          activation: Optional[str] = None,
+          packed_input: bool = False) -> torch.Tensor:
     """``y = act(x @ W_eff + b)`` for every mode.
 
     On the masked-dense mode the mask is multiplied into W inside the
     masked-matmul kernel. On the packed mode the bias is re-indexed into
     packed order and rides the kernel epilogue with the activation
     (elementwise activations commute with the output permutation);
-    quantized leaves route to the int8 form.
+    quantized leaves route to the int8 form. ``packed_input`` says that
+    ``x`` was packed already (a packed-mode layer then skips its input
+    gather), so layers that share an input permutation pack once.
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.quant import is_quantized
@@ -150,7 +153,7 @@ def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
         return ops.masked_matmul(x, params["w"], mask, b,
                                  activation=activation)
     m = spec.mask
-    xp = fold_lib.pack_inputs(m, x, skip=spec.skip_in_perm)
+    xp = fold_lib.pack_inputs(m, x, skip=spec.skip_in_perm or packed_input)
     bp = None
     if b is not None:
         idx = fold_lib.gather_index(m, "bias", b.device)

@@ -120,49 +120,6 @@ constexpr int D_KS = D_THREADS / D_CT;     // K slices per block: 32
 constexpr int D_KC = 128;                  // K rows staged per chunk
 constexpr int D_WARPS = D_THREADS / 32;
 
-// four adjacent weights as f32; vector load when aligned and in range
-template <typename W>
-__device__ __forceinline__ void load4(const W* __restrict__ p, int c0, int bo, bool vec,
-                                      float out[4]);
-
-template <>
-__device__ __forceinline__ void load4<int8_t>(const int8_t* __restrict__ p, int c0, int bo,
-                                              bool vec, float out[4]) {
-  if (vec && c0 + 3 < bo) {
-    const char4 v = *reinterpret_cast<const char4*>(p + c0);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = (c0 + j < bo) ? static_cast<float>(p[c0 + j]) : 0.f;
-  }
-}
-
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* __restrict__ p, int c0,
-                                                     int bo, bool vec, float out[4]) {
-  if (vec && c0 + 3 < bo) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p + c0);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = (c0 + j < bo) ? __bfloat162float(p[c0 + j]) : 0.f;
-  }
-}
-
-template <>
-__device__ __forceinline__ void load4<float>(const float* __restrict__ p, int c0, int bo,
-                                             bool vec, float out[4]) {
-  if (vec && c0 + 3 < bo) {
-    const float4 v = *reinterpret_cast<const float4*>(p + c0);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[j] = (c0 + j < bo) ? p[c0 + j] : 0.f;
-  }
-}
-
 template <typename T, typename W, int MT>
 __global__ void __launch_bounds__(D_THREADS)
 bdmm_decode_kernel(const T* __restrict__ x, const W* __restrict__ w,

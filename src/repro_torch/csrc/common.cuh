@@ -34,6 +34,50 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return 0.5f * v * (1.0f + tanhf(k * (v + 0.044715f * v * v * v)));
 }
 
+// p[c0 .. c0+3] as f32, zero past `bo`: one vector load when `vec` (the
+// caller guarantees 4-element alignment) and the four are in range
+template <typename W>
+__device__ __forceinline__ void load4(const W* __restrict__ p, int c0, int bo, bool vec,
+                                      float out[4]);
+
+template <>
+__device__ __forceinline__ void load4<int8_t>(const int8_t* __restrict__ p, int c0, int bo,
+                                              bool vec, float out[4]) {
+  if (vec && c0 + 3 < bo) {
+    const char4 v = *reinterpret_cast<const char4*>(p + c0);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = (c0 + j < bo) ? static_cast<float>(p[c0 + j]) : 0.f;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* __restrict__ p, int c0,
+                                                     int bo, bool vec, float out[4]) {
+  if (vec && c0 + 3 < bo) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p + c0);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = (c0 + j < bo) ? __bfloat162float(p[c0 + j]) : 0.f;
+  }
+}
+
+template <>
+__device__ __forceinline__ void load4<float>(const float* __restrict__ p, int c0, int bo,
+                                             bool vec, float out[4]) {
+  if (vec && c0 + 3 < bo) {
+    const float4 v = *reinterpret_cast<const float4*>(p + c0);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = (c0 + j < bo) ? p[c0 + j] : 0.f;
+  }
+}
+
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
     case ACT_SILU: return silu(v);

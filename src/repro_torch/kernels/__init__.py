@@ -2,6 +2,8 @@
 
 - ``bdmm``            : block-diagonal matmul, fp or int8 weights, general
                         and decode-shaped grids (``csrc/bdmm.cu``)
+- ``fused_ffn``       : the perm-fused packed MLP (up, gate, down) in one
+                        launch, fp or int8 weights (``csrc/fused_ffn.cu``)
 - ``masked_matmul``   : ``act(x @ (M∘W) + b)`` in both orientations and the
                         masked weight gradient ``(xᵀ g) ∘ M`` of
                         masked-dense training (``csrc/masked_matmul.cu``)
@@ -9,7 +11,8 @@
                         (``csrc/paged_attention.cu``)
 - ``paged_prefill``   : chunked-prefill attention over the same pool
                         (``csrc/paged_prefill.cu``)
-- ``quant``           : per-output-channel int8 block quantization
+- ``quant``           : per-output-channel int8 block quantization and int4
+                        nibble storage
 - ``ops``             : backend routing (``set_backend("cuda" | "torch")``)
                         and the autograd rules of bdmm and masked_matmul
 - ``ref``             : the plain PyTorch versions

@@ -9,6 +9,10 @@
   against their plain versions on the same inputs. The default is
   ``"cuda"``.
 
+``fused_ffn`` runs a perm-fused packed MLP as one kernel; it has no
+autograd rule in the port yet and raises under grad rather than fall back
+to a differentiable composition (see ROADMAP, the fused_ffn rule).
+
 ``bdmm`` and ``masked_matmul`` are differentiable, mirroring the
 reference's custom VJPs with ``torch.autograd.Function``. Outside
 differentiation the forward is one fused call (bias and activation in the
@@ -30,6 +34,7 @@ from typing import Dict, Optional
 import torch
 
 from . import bdmm as bdmm_kernel
+from . import fused_ffn as ffn_kernel
 from . import masked_matmul as mm_kernel
 from . import paged_attention as paged_attn_kernel
 from . import paged_prefill as paged_prefill_kernel
@@ -37,7 +42,7 @@ from . import ref
 
 BACKENDS = ("cuda", "torch")
 _BACKEND = "cuda"
-_KERNEL_MODULES = (bdmm_kernel, mm_kernel, paged_attn_kernel,
+_KERNEL_MODULES = (bdmm_kernel, ffn_kernel, mm_kernel, paged_attn_kernel,
                    paged_prefill_kernel)
 
 
@@ -196,6 +201,53 @@ def masked_matmul(x, w, mask, bias=None, *, activation: Optional[str] = None):
     if not _needs_grad(x, w, bias):
         return _masked_matmul_raw(x, w, mask, bias, activation)
     return _MaskedMatmul.apply(x, w, mask, bias, activation)
+
+
+# ----------------------------------------------------------------- fused MLP
+def _ffn_no_grad(name: str, *tensors) -> None:
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the fused MLP has no autograd rule in the port yet "
+            "(ROADMAP: the fused_ffn rule of repro/kernels/ops.py:246-312); "
+            "train a perm-fused model in masked_dense mode and fold it")
+
+
+def fused_ffn(x, w_up, w_down, *, w_gate=None, b_up=None, b_gate=None,
+              b_down=None, activation: Optional[str] = "silu"):
+    """Fused block-diagonal MLP, one kernel launch: ``(act(x@Wg+bg) *
+    (x@Wu+bu)) @ Wd + bd`` when gated, else ``act(x@Wu+bu) @ Wd + bd``.
+    ``x (..., nb*bi)``, ``w_up``/``w_gate (nb, bi, f)``, ``w_down (nb, f,
+    bo)``, biases packed. Inference only: raises under grad."""
+    if w_gate is None and b_gate is not None:
+        raise ValueError("fused_ffn: b_gate given but w_gate is None (the "
+                         "plain form has no gate bias to apply)")
+    tensors = (x, w_up, w_gate, w_down, b_up, b_gate, b_down)
+    _ffn_no_grad("fused_ffn", *tensors)
+    if _plain(*tensors):
+        return ref.fused_ffn_ref(x, w_up, w_down, w_gate, b_up, b_gate,
+                                 b_down, activation)
+    return ffn_kernel.fused_ffn(x, w_up, w_down, w_gate, b_up, b_gate, b_down,
+                                activation=activation)
+
+
+def fused_ffn_quant(x, w_up, w_down, *, s_up, s_down, w_gate=None,
+                    s_gate=None, b_up=None, b_gate=None, b_down=None,
+                    activation: Optional[str] = "silu"):
+    """Int8-weight fused block-diagonal MLP, one kernel launch; scales
+    ``s_up``/``s_gate (nb, f)`` and ``s_down (nb, bo)``, biases in true
+    scale. Inference only."""
+    if w_gate is None and (b_gate is not None or s_gate is not None):
+        raise ValueError("fused_ffn_quant: gate bias/scale given but w_gate "
+                         "is None")
+    tensors = (x, w_up, w_gate, w_down, s_up, s_gate, s_down, b_up, b_gate,
+               b_down)
+    _ffn_no_grad("fused_ffn_quant", *tensors)
+    if _plain(*tensors):
+        return ref.fused_ffn_quant_ref(x, w_up, w_down, w_gate, b_up, b_gate,
+                                       b_down, s_up, s_gate, s_down,
+                                       activation)
+    return ffn_kernel.fused_ffn(x, w_up, w_down, w_gate, b_up, b_gate, b_down,
+                                s_up, s_gate, s_down, activation=activation)
 
 
 # ------------------------------------------------------------------- serving

@@ -27,6 +27,13 @@ ACTIVATIONS = {
 }
 
 
+def gated(activation: Optional[str]):
+    """The gated hidden epilogue ``act(gate) * up`` of fused MLPs
+    (``"silu"`` is SwiGLU), as a callable ``(gate, up) -> h``."""
+    act = ACTIVATIONS[activation]
+    return lambda g, u: act(g) * u
+
+
 def bdmm_ref(x, wp, bias=None, activation: Optional[str] = None):
     """Block-diagonal matmul: ``(..., nb*bi) x (nb, bi, bo) -> (..., nb*bo)``.
     ``bias`` is packed ``(nb*bo,)``. Computed in the input dtype, like the
@@ -81,6 +88,42 @@ def bdmm_quant_ref(x, wq, scale, bias=None, activation: Optional[str] = None):
         y = y + bias.reshape(nb, bo).float()
     y = ACTIVATIONS[activation](y).to(x.dtype)
     return y.reshape(*lead, nb * bo)
+
+
+def fused_ffn_ref(x, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
+                  b_down=None, activation: Optional[str] = "silu"):
+    """Block-diagonal fused MLP (the perm-fused packed FFN, hidden in block
+    order): ``h = act(x@Wg + bg) * (x@Wu + bu)`` when gated, else
+    ``h = act(x@Wu + bu)``; returns ``h @ Wd + bd``. ``x (..., nb*bi)``,
+    ``w_up``/``w_gate (nb, bi, f)``, ``w_down (nb, f, bo)``, biases packed
+    ``(nb*f,)`` / ``(nb*bo,)``. Each projection is a :func:`bdmm_ref` in the
+    input dtype, as the reference composes it."""
+    if w_gate is None and b_gate is not None:
+        raise ValueError("fused_ffn_ref: b_gate given but w_gate is None")
+    u = bdmm_ref(x, w_up, b_up)
+    if w_gate is not None:
+        h = gated(activation)(bdmm_ref(x, w_gate, b_gate), u)
+    else:
+        h = ACTIVATIONS[activation](u)
+    return bdmm_ref(h, w_down, b_down)
+
+
+def fused_ffn_quant_ref(x, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
+                        b_down=None, s_up=None, s_gate=None, s_down=None,
+                        activation: Optional[str] = "silu"):
+    """Int8-weight fused MLP: each projection is a :func:`bdmm_quant_ref`
+    (raw product in f32, then its scale, then its bias, cast to the input
+    dtype), so ``s_up``/``s_gate (nb, f)`` rescale before the hidden
+    epilogue and ``s_down (nb, bo)`` comes after the f-sum."""
+    if w_gate is None and (b_gate is not None or s_gate is not None):
+        raise ValueError(
+            "fused_ffn_quant_ref: gate bias/scale given but w_gate is None")
+    u = bdmm_quant_ref(x, w_up, s_up, b_up)
+    if w_gate is not None:
+        h = gated(activation)(bdmm_quant_ref(x, w_gate, s_gate, b_gate), u)
+    else:
+        h = ACTIVATIONS[activation](u)
+    return bdmm_quant_ref(h, w_down, s_down, b_down)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):

@@ -6,7 +6,11 @@ synthetic Poisson request stream.
 builds the config in memory with a random packed init from ``--seed`` on
 the CUDA device (``--device cpu`` runs on the CPU), optionally quantizes
 every packed projection to int8, and serves ``--requests`` synthetic
-requests. Prompts are drawn with ``np.random.default_rng(seed)``; prompt
+requests. ``--mpd-fuse`` builds the Fig-3 perm-fused model, whose FFNs run
+as one fused kernel each. ``--ckpt-dir DIR`` serves the packed artifact in
+``DIR/packed`` instead (written by ``launch.train --fold-to-packed`` or by
+the JAX package's ``export_packed``): its recorded config, fusion and
+quantization win over the flags. Prompts are drawn with ``np.random.default_rng(seed)``; prompt
 lengths lie in ``[prompt_len/2, prompt_len]``, output budgets in
 ``[gen/2, gen]``, and ``--shared-prefix N`` makes the first N prompt tokens
 identical across requests so the prefix trie gets hits.
@@ -78,21 +82,49 @@ def serve_stream(engine, requests, *, idle_sleep=0.0005):
 
 
 def load_model(arch, *, smoke=False, dtype=None, n_layers=None, quantize="",
-               seed=0, device=None):
-    """(cfg, model, params): the config with its overrides, a random packed
-    init from ``seed`` on ``device``, int8-quantized when asked."""
+               seed=0, device=None, mpd_fuse=False, ckpt_dir=""):
+    """(cfg, model, params): the packed artifact under ``ckpt_dir`` when
+    there is one, else the config with its overrides and a random packed
+    init from ``seed`` on ``device``; quantized when asked and not already
+    so."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.kernels.quant import BITS
+
     over = {}
     if dtype:
         over["dtype"] = dtype
     if n_layers:
         over["n_layers"] = n_layers
-    cfg = get_config(arch, smoke=smoke, **over)
-    model = build(cfg)
-    params = model.init(seed, device=device)
+    if mpd_fuse:
+        over["mpd_fuse"] = True
+    if ckpt_dir:
+        if not ckpt_lib.has_packed(ckpt_dir):
+            raise SystemExit(f"no packed export under {ckpt_dir}/packed "
+                             "(restoring train checkpoints is not ported)")
+        if over:
+            log.info("note: packed export found; its recorded config wins, "
+                     "ignoring %s", sorted(over))
+        model, params = ckpt_lib.load_packed(ckpt_dir, device=device)
+        stored = getattr(model, "quant_report", None)
+        log.info("loaded packed export from %s/packed%s", ckpt_dir,
+                 f" (quantized, {stored['bits']}-bit)" if stored else "")
+        if quantize and stored:
+            log.info("note: export already quantized (%d-bit); its stored "
+                     "form wins, ignoring --quantize %s", stored["bits"],
+                     quantize)
+            quantize = ""
+        cfg = model.cfg
+    else:
+        cfg = get_config(arch, smoke=smoke, **over)
+        model = build(cfg)
+        params = model.init(seed, device=device)
     if quantize:
-        params, report = export_lib.quantize_packed(model, params, bits=8)
-        log.info("quantized packed weights to int8: %d layers, max rel-rms "
-                 "err %.2e", report["n_layers"], report["max_rel_rms"])
+        params, report = export_lib.quantize_packed(model, params,
+                                                    bits=BITS[quantize])
+        model.quant_report = report
+        log.info("quantized packed weights to %s: %d layers, max rel-rms "
+                 "err %.2e", quantize, report["n_layers"],
+                 report["max_rel_rms"])
     return cfg, model, params
 
 
@@ -103,6 +135,10 @@ def main(argv=None):
                    help="paged KV engine (the only engine ported so far)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--quantize", choices=("int8",), default="")
+    p.add_argument("--mpd-fuse", action="store_true",
+                   help="Fig-3 perm-fused FFNs (one fused kernel each)")
+    p.add_argument("--ckpt-dir", default="",
+                   help="serve the packed artifact in <ckpt-dir>/packed")
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA device (cpu runs "
                    "on the host)")
@@ -134,7 +170,8 @@ def main(argv=None):
         raise SystemExit(str(e))
     cfg, model, params = load_model(
         args.arch, smoke=args.smoke, dtype=args.dtype, n_layers=args.n_layers,
-        quantize=args.quantize, seed=args.seed, device=device)
+        quantize=args.quantize, seed=args.seed, device=device,
+        mpd_fuse=args.mpd_fuse, ckpt_dir=args.ckpt_dir)
     log.info("serving %s on %s: %s params (%d layers, %s)", cfg.name, device,
              f"{model.param_count():,}", cfg.n_layers, cfg.dtype)
     engine = Engine(model, params, n_slots=args.slots,

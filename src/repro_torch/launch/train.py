@@ -9,6 +9,19 @@ launcher's optimizer: AdamW, clip 1.0, cosine schedule with
 ``min(20, steps // 5)`` warm-up steps. ``--mpd-mode masked_dense`` is the
 paper-faithful mode (dense weights under a binary mask, re-applied after
 every update); the config's own mode is ``packed``.
+
+The deploy chain of the paper (train masked-dense, fold, serve)::
+
+    python -m repro_torch.launch.train --arch olmo-1b --mpd-mode masked_dense \
+        --mpd-fuse --steps 4 --fold-to-packed --quantize int8 --ckpt-dir DIR
+
+``--mpd-fuse`` builds the masks aligned for the Fig-3 permutation fusion;
+``--fold-to-packed`` folds the trained weights after the last step (with the
+fusion rewrite under ``--mpd-fuse``, quantized with ``--quantize``) and
+writes the packed artifact to ``DIR/packed``, which
+``python -m repro_torch.launch.serve --paged --ckpt-dir DIR`` serves.
+``--ckpt-dir`` is used for that export only: periodic train checkpoints
+and resume are not ported.
 """
 
 from __future__ import annotations
@@ -33,9 +46,21 @@ def main(argv=None):
     p.add_argument("--global-batch", type=int, default=8)
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--mpd-c", type=int, default=0, help="0 = config default")
+    p.add_argument("--mpd-fuse", action="store_true",
+                   help="Fig-3 aligned masks (masked_dense training only: "
+                   "packed training of a fused FFN has no autograd rule yet)")
     p.add_argument("--mpd-mode", choices=("", "packed", "masked_dense"),
                    default="", help="override the config's training "
                    "parameterization (masked_dense = paper-faithful)")
+    p.add_argument("--fold-to-packed", action="store_true",
+                   help="after training, fold the masked_dense weights into "
+                   "a packed artifact (<ckpt-dir>/packed); with --mpd-fuse "
+                   "the FFNs run the one-launch fused kernel when served")
+    p.add_argument("--quantize", choices=("", "int8", "int4"), default="",
+                   help="with --fold-to-packed: quantize the packed export "
+                   "(int8 execution; int4 = nibble-packed storage)")
+    p.add_argument("--ckpt-dir", default="",
+                   help="where --fold-to-packed writes the artifact")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the init and of the data stream")
     p.add_argument("--device", default=None,
@@ -46,8 +71,27 @@ def main(argv=None):
     over = {}
     if args.mpd_c:
         over["mpd_c"] = args.mpd_c
+    if args.mpd_fuse:
+        over["mpd_fuse"] = True
     if args.mpd_mode:
         over["mpd_mode"] = args.mpd_mode
+    if args.quantize and not args.fold_to_packed:
+        raise SystemExit("--quantize quantizes the packed export; add "
+                         "--fold-to-packed")
+    if args.fold_to_packed:
+        if not args.ckpt_dir:
+            raise SystemExit("--fold-to-packed needs --ckpt-dir for the "
+                             "packed export")
+        if over.setdefault("mpd_mode", "masked_dense") != "masked_dense":
+            raise SystemExit("--fold-to-packed folds a masked_dense run; "
+                             "drop --mpd-mode packed")
+    elif args.ckpt_dir:
+        raise SystemExit("--ckpt-dir without --fold-to-packed: periodic "
+                         "train checkpoints and resume are not ported")
+    if args.mpd_fuse and over.get("mpd_mode") != "masked_dense":
+        raise SystemExit("--mpd-fuse trains in masked_dense mode only (add "
+                         "--mpd-mode masked_dense): packed training of the "
+                         "fused FFN needs its autograd rule, not ported")
     try:
         device = device_lib.resolve(args.device)
     except device_lib.NoCudaDevice as e:
@@ -63,6 +107,20 @@ def main(argv=None):
     out = run(model, tcfg, data, num_steps=args.steps, seed=args.seed,
               device=device)
     print(f"final loss {out['history'][-1]:.4f}")
+
+    if args.fold_to_packed:
+        import dataclasses
+
+        from repro_torch.checkpoint import checkpoint as ckpt_lib
+        d = ckpt_lib.export_packed(args.ckpt_dir, args.steps, model,
+                                   out["params"], fuse=args.mpd_fuse,
+                                   quantize=args.quantize or None)
+        n_pk = build(dataclasses.replace(cfg, mpd_mode="packed")).param_count()
+        print(f"packed export: {d} ({n_pk:,} params, was "
+              f"{model.param_count():,}"
+              + (f", {args.quantize}-quantized" if args.quantize else "")
+              + ")")
+    return out
 
 
 if __name__ == "__main__":

@@ -15,9 +15,13 @@ functions still return the cache so call sites read like the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
+from repro_torch.core import fold as fold_lib
+from repro_torch.core.mask import make_mask_spec
 from repro_torch.core.policy import CompressionPolicy
 from . import layers
 from .linear import Linear
@@ -44,22 +48,47 @@ class AttentionSpec:
              *, causal=True, rope="rope", rope_theta=1e4, q_chunk=128,
              use_bias=False, seed_salt=0,
              fuse_perms=False) -> "AttentionSpec":
-        if fuse_perms:
-            raise NotImplementedError("mpd_fuse q/k/v sharing is not ported")
+        """``fuse_perms``: k and v take q's input permutation (each keeps its
+        own output permutation: RoPE and the head split need natural output
+        order), so :func:`_qkv` packs ``x`` once for all three."""
         if rope not in ("rope", "none"):
             raise NotImplementedError(f"rope={rope!r} is not ported")
+        overrides = {}
+        if fuse_perms:
+            mq = policy.plan(d_model, n_heads * head_dim, "attn_qkv",
+                             seed_salt=seed_salt * 4 + 0)
+            if mq is not None:
+                for name, salt in (("wk", 1), ("wv", 2)):
+                    d_out = n_kv_heads * head_dim
+                    m = policy.plan(d_model, d_out, "attn_qkv",
+                                    seed_salt=seed_salt * 4 + salt)
+                    if m is not None and m.nb == mq.nb:
+                        overrides[name] = make_mask_spec(
+                            d_model, d_out, m.nb, seed=m.seed,
+                            in_perm=mq.in_perm, out_perm=m.out_perm)
 
-        def mk(d_in, d_out, kind, salt):
+        def mk(d_in, d_out, kind, salt, name=None):
             return Linear.make(policy, d_in, d_out, kind, use_bias=use_bias,
-                               seed_salt=seed_salt * 4 + salt)
+                               seed_salt=seed_salt * 4 + salt,
+                               mask_override=overrides.get(name))
         return AttentionSpec(
             d_model, n_heads, n_kv_heads, head_dim, causal, rope, rope_theta,
             q_chunk, use_bias,
             wq=mk(d_model, n_heads * head_dim, "attn_qkv", 0),
-            wk=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 1),
-            wv=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 2),
+            wk=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 1, "wk"),
+            wv=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 2, "wv"),
             wo=mk(n_heads * head_dim, d_model, "attn_out", 3),
         )
+
+    @functools.cached_property
+    def shared_pack(self) -> bool:
+        """Whether q, k and v are packed projections with one input
+        permutation, so one gather of ``x`` feeds all three."""
+        specs = [getattr(self, n).spec for n in ("wq", "wk", "wv")]
+        return all(s.mode == "packed" and s.mask is not None
+                   and not s.skip_in_perm for s in specs) and all(
+            np.array_equal(s.mask.in_perm, specs[0].mask.in_perm)
+            for s in specs[1:])
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
@@ -69,11 +98,15 @@ class AttentionSpec:
 
 def _qkv(spec: AttentionSpec, params, x, positions):
     B, T, _ = x.shape
-    q = spec.wq.apply(params["wq"], x).reshape(B, T, spec.n_heads, spec.head_dim)
-    k = spec.wk.apply(params["wk"], x).reshape(B, T, spec.n_kv_heads,
-                                               spec.head_dim)
-    v = spec.wv.apply(params["wv"], x).reshape(B, T, spec.n_kv_heads,
-                                               spec.head_dim)
+    packed = spec.shared_pack
+    if packed:
+        x = fold_lib.pack_inputs(spec.wq.spec.mask, x)
+
+    def proj(name):
+        return getattr(spec, name).apply(params[name], x, packed_input=packed)
+    q = proj("wq").reshape(B, T, spec.n_heads, spec.head_dim)
+    k = proj("wk").reshape(B, T, spec.n_kv_heads, spec.head_dim)
+    v = proj("wv").reshape(B, T, spec.n_kv_heads, spec.head_dim)
     if spec.rope == "rope":
         cos, sin = layers.rope_cos_sin(positions, spec.head_dim,
                                        spec.rope_theta)

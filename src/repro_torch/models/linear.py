@@ -18,19 +18,28 @@ class Linear:
 
     @staticmethod
     def make(policy: CompressionPolicy, d_in: int, d_out: int, kind: str, *,
-             use_bias: bool = False, seed_salt: int = 0) -> "Linear":
-        """Resolve the projection's mask from the policy (the permutation
-        fusion overrides of the reference come with the fused FFN route)."""
-        mask = policy.plan(d_in, d_out, kind, seed_salt=seed_salt)
+             use_bias: bool = False, seed_salt: int = 0, mask_override=None,
+             skip_in_perm: bool = False,
+             skip_out_perm: bool = False) -> "Linear":
+        """Resolve the projection's mask from the policy. ``mask_override``
+        and the skip flags carry the paper's Fig-3 permutation fusion:
+        adjacent layers take masks whose permutations cancel, and the
+        runtime gathers are skipped. A skip applies only in packed mode."""
+        mask = (mask_override if mask_override is not None
+                else policy.plan(d_in, d_out, kind, seed_salt=seed_salt))
         mode = policy.mode if mask is not None else "dense"
-        return Linear(mpd.MPDLinearSpec(d_in, d_out, mask, mode=mode,
-                                        use_bias=use_bias))
+        return Linear(mpd.MPDLinearSpec(
+            d_in, d_out, mask, mode=mode, use_bias=use_bias,
+            skip_in_perm=skip_in_perm and mode == "packed",
+            skip_out_perm=skip_out_perm and mode == "packed"))
 
     def init(self, generator: torch.Generator, dtype=torch.float32,
              device=None):
         return mpd.init(generator, self.spec, dtype, device)
 
-    def apply(self, params, x, *, activation=None):
+    def apply(self, params, x, *, activation=None, packed_input=False):
         """Forward with the bias/activation epilogue fused into the kernel
-        call; quantized leaves route to the int8 kernels."""
-        return mpd.apply(self.spec, params, x, activation=activation)
+        call; quantized leaves route to the int8 kernels. ``packed_input``:
+        ``x`` is already in this layer's packed input order."""
+        return mpd.apply(self.spec, params, x, activation=activation,
+                         packed_input=packed_input)

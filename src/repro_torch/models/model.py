@@ -244,7 +244,9 @@ class Model:
 
     def to_packed(self, params, *, fuse: bool = False, quantize=None):
         """Fold this trained masked-dense model into its packed twin (Eq. 2
-        model-wide); ``quantize="int8"`` also quantizes the blocks. Returns
+        model-wide); ``fuse=True`` also applies the Fig-3 permutation-fusion
+        rewrite and ``quantize="int8"`` (or ``"int4"``) quantizes the
+        blocks. Returns
         ``(packed_model, packed_params)``; see
         :func:`repro_torch.core.export.fold_model`."""
         from repro_torch.core import export as export_lib

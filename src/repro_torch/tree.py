@@ -4,19 +4,28 @@ order in both packages."""
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Iterator, List
+from typing import Any, Iterable, Iterator, List, Tuple
+
+
+def leaves_with_paths(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` in the reference's flatten order: dict keys sorted,
+    lists by index, ``None`` dropped, a path being the keys and indices
+    joined by ``/`` (``blocks/0/ffn/w_up/w``), as
+    ``repro.checkpoint`` names a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_paths(v, f"{prefix}{i}/")
+    elif tree is not None:
+        yield prefix[:-1], tree
 
 
 def leaves(tree) -> Iterator[Any]:
     """The leaves of ``tree``, dict keys sorted."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from leaves(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from leaves(v)
-    else:
-        yield tree
+    for _, leaf in leaves_with_paths(tree):
+        yield leaf
 
 
 def unflatten(like, new_leaves: Iterable[Any]):
@@ -29,7 +38,7 @@ def unflatten(like, new_leaves: Iterable[Any]):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):
             return [build(v) for v in node]
-        return next(it)
+        return None if node is None else next(it)
 
     out = build(like)
     rest: List[Any] = list(it)

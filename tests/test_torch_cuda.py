@@ -29,6 +29,14 @@ exactly one rounding (2^-16 at float32). The same rule
 must reject the plain output with one mask block dropped, and every
 off-mask weight gradient from the kernel must be exactly 0.
 
+The fused MLP is held against its plain version computed in float32 on the
+same values, |kernel - plain_f32| <= 2e-5 + u_out |plain_f32| + 2^-16 mag,
+where mag = (|h| + dh) @ |Wd| (times s_down) + |b_down| and dh = |act(g)|
+|x|@|Wu| + 1.2 |u| |x|@|Wg| bounds how far the summation order of the up
+and gate sums moves the hidden (1.2 bounds |act'| for silu, gelu and relu;
+1.2 |x|@|Wu| for the plain form). u_out as above. The same rule must reject
+the plain output with the first f tile (64 channels) of w_down zeroed.
+
 A train step of the smoke model, masked-dense or packed, gives the same
 loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
 as through the plain versions.
@@ -41,6 +49,7 @@ import torch
 from repro_torch.core.fold import mask_tensor
 from repro_torch.core.mask import block_id_of, make_mask_spec
 from repro_torch.kernels import bdmm as tbdmm
+from repro_torch.kernels import fused_ffn as tffn
 from repro_torch.kernels import masked_matmul as tmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
@@ -385,3 +394,165 @@ def test_engine_kernel_route_equals_plain_route(cuda_device):
                    "paged_prefill_attention")
         assert all(counts[k] > 0 for k in serving) == (backend == "cuda"), counts
     assert streams["cuda"] == streams["torch"]
+
+
+# ------------------------------------------------------------- fused MLP
+ACT_SLOPE = 1.2           # >= max |act'| of silu (1.1), gelu (1.13), relu
+
+
+def _ffn_case(dev, m, nb, bi, f, bo, dtype, quant, gated, bias, seed):
+    """Inputs at ``dtype``; int8 weights with their scales when ``quant``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x = r(m, nb * bi).to(dtype)
+    ws = {"w_up": r(nb, bi, f) * bi ** -0.5, "w_down": r(nb, f, bo) * f ** -0.5}
+    if gated:
+        ws["w_gate"] = r(nb, bi, f) * bi ** -0.5
+    a = {"x": x}
+    for k, w in ws.items():
+        if quant:
+            a[k], a["s_" + k[2:]] = quantize_blocks(w)
+        else:
+            a[k] = w.to(dtype)
+    if bias:
+        a["b_up"] = (0.1 * r(nb * f)).to(dtype)
+        a["b_down"] = (0.1 * r(nb * bo)).to(dtype)
+        if gated:
+            a["b_gate"] = (0.1 * r(nb * f)).to(dtype)
+    return a
+
+
+def _ffn_plain32(a, act, w_down=None):
+    """The plain fused MLP in f32 on the same values: ``(y, |y| bound of
+    the summation-order error)``; ``w_down`` replaces the down weight."""
+    f32 = {k: v.float() if v.dtype != torch.int8 else v for k, v in a.items()}
+    wd = f32["w_down"] if w_down is None else w_down
+    quant = a["w_up"].dtype == torch.int8
+
+    def proj(x, w, s, b, absolute=False):
+        if absolute:
+            x, w = x.abs(), w.abs()
+            b = None if b is None else b.abs()
+        if quant:
+            return tref.bdmm_quant_ref(x, w, s, b)
+        return tref.bdmm_ref(x, w.float(), b)
+    x = f32["x"]
+    u = proj(x, f32["w_up"], f32.get("s_up"), f32.get("b_up"))
+    ua = proj(x, f32["w_up"], f32.get("s_up"), f32.get("b_up"), True)
+    fn = tref.ACTIVATIONS[act]
+    if "w_gate" in a:
+        gt = proj(x, f32["w_gate"], f32.get("s_gate"), f32.get("b_gate"))
+        ga = proj(x, f32["w_gate"], f32.get("s_gate"), f32.get("b_gate"), True)
+        h = fn(gt) * u
+        dh = fn(gt).abs() * ua + ACT_SLOPE * u.abs() * ga
+    else:
+        h = fn(u)
+        dh = ACT_SLOPE * ua
+    y = proj(h, wd, f32.get("s_down"), f32.get("b_down"))
+    mag = proj(h.abs() + dh, wd, f32.get("s_down"), f32.get("b_down"), True)
+    return y, mag
+
+
+def _ffn_within(got, want32, mag, dtype):
+    u_out = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -16
+    lim = 2e-5 + u_out * want32.abs() + 2.0 ** -16 * mag
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got.float() - want32).abs() <= lim).all())
+
+
+# (m, nb, bi, f, bo): decode and a prefill chunk at olmo-1b's width, then
+# every edge ragged (m, bi, f and bo against the 4..64-row, 32-deep, 64-f
+# and 256-column tiles; f = 200 splits into 4 tiles, the last partial)
+FFN_SHAPES = [(4, 8, 256, 1024, 256), (64, 8, 256, 1024, 256),
+              (1, 2, 40, 200, 24), (37, 3, 72, 200, 300), (100, 2, 64, 130, 20)]
+
+
+@pytest.mark.parametrize("act,gated,bias", [("silu", True, False),
+                                            ("gelu", False, True),
+                                            ("silu", True, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
+                                 bias):
+    m, nb, bi, f, bo = shape
+    a = _ffn_case(cuda_device, m, nb, bi, f, bo, dtype, quant, gated, bias,
+                  seed=m + f)
+    before = tffn.launches["fused_ffn"]
+    got = tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                         a.get("b_up"), a.get("b_gate"), a.get("b_down"),
+                         a.get("s_up"), a.get("s_gate"), a.get("s_down"),
+                         activation=act)
+    assert tffn.launches["fused_ffn"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, nb * bo)
+    want, mag = _ffn_plain32(a, act)
+    assert _ffn_within(got, want, mag, dtype)
+    wd = a["w_down"].clone()
+    wd[:, :tffn.F_TILE] = 0
+    dropped, _ = _ffn_plain32(a, act, w_down=wd if quant else wd.float())
+    assert not _ffn_within(dropped, want, mag, dtype)
+    # the split-f reduction runs in a fixed order: bit-identical reruns
+    again = tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                           a.get("b_up"), a.get("b_gate"), a.get("b_down"),
+                           a.get("s_up"), a.get("s_gate"), a.get("s_down"),
+                           activation=act)
+    assert torch.equal(got, again)
+
+
+def test_fused_ffn_raises_instead_of_falling_back(cuda_device):
+    a = _ffn_case(cuda_device, 4, 2, 16, 32, 8, torch.float32, False, True,
+                  False, 0)
+    with pytest.raises(ValueError):
+        tffn.fused_ffn(a["x"].cpu(), a["w_up"], a["w_down"], a["w_gate"])
+    with pytest.raises(ValueError):
+        tffn.fused_ffn(a["x"], a["w_up"].bfloat16(), a["w_down"], a["w_gate"])
+    with pytest.raises(ValueError):
+        tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a["w_gate"],
+                       activation="sigmoid")
+    with pytest.raises(ValueError):
+        tffn.fused_ffn(a["x"], a["w_up"].transpose(1, 2).contiguous()
+                       .transpose(1, 2), a["w_down"], a["w_gate"])
+    q = _ffn_case(cuda_device, 4, 2, 16, 32, 8, torch.float32, True, True,
+                  False, 0)
+    with pytest.raises(ValueError, match="s_up"):
+        tffn.fused_ffn(q["x"], q["w_up"], q["w_down"], q["w_gate"])
+    with pytest.raises(NotImplementedError, match="autograd"):
+        ops.fused_ffn(a["x"].requires_grad_(True), a["w_up"], a["w_down"],
+                      w_gate=a["w_gate"])
+
+
+def test_fused_model_engine_kernel_route_equals_plain_route(cuda_device):
+    """A perm-fused int8 smoke model served on the card: every FFN is one
+    fused_ffn launch per model call, and the greedy streams at float32 equal
+    the plain route's."""
+    from repro_torch.configs.common import get_config
+    from repro_torch.core.export import quantize_packed
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+
+    cfg = get_config("olmo-1b", smoke=True, mpd_fuse=True)
+    model = build(cfg)
+    params, _ = quantize_packed(model, model.init(0, device=cuda_device))
+    calls = []
+    for name in ("decode_step", "prefill_chunk"):
+        fn = getattr(model, name)
+        setattr(model, name, lambda *a, fn=fn, **k: (calls.append(1),
+                                                     fn(*a, **k))[1])
+    streams = {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        calls.clear()
+        try:
+            reqs = make_requests(cfg, n_requests=5, rate=1e9, prompt_len=40,
+                                 gen=8, seed=3, shared_prefix=16)
+            streams[backend] = Engine(model, params, n_slots=2, max_len=48,
+                                      page_size=8,
+                                      prefill_chunk_tokens=40).run(reqs)
+        finally:
+            ops.set_backend("cuda")
+        want = cfg.n_layers * len(calls) if backend == "cuda" else 0
+        assert ops.launch_counts()["fused_ffn"] == want
+    assert streams["cuda"] == streams["torch"]
+

@@ -1,0 +1,316 @@
+"""Port parity, the Fig-3 fused FFN route: the plain fused MLP against the
+JAX package's oracle and its Pallas kernel (interpret mode); perm-fused
+masks and specs element for element; the post-hoc permutation-fusion
+rewrite; the fold of a perm-fused model to packed (fp and int8) and its
+logits; int4 nibble packing.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+Tolerances at float32: the fused MLP max |port - jax| <= 2e-5 of max |jax|
+(the same products summed in other orders); model logits atol 1e-5, rtol
+1e-5 (as tests/test_torch_model.py). Masks, permutations, skip flags,
+folded trees and int4 nibbles are held exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import common as jcommon
+from repro.core import export as jexport
+from repro.core import mask as jmask
+from repro.core.policy import CompressionPolicy as JPolicy
+from repro.kernels import fused_ffn as jffn
+from repro.kernels import quant as jquant
+from repro.kernels import ref as jref
+from repro.models import ModelConfig as JModelConfig
+from repro.models import build as jbuild
+from repro.models.attention import AttentionSpec as JAttentionSpec
+from repro.models.ffn import FFNSpec as JFFNSpec
+from repro_torch import tree as tree_lib
+from repro_torch.configs import common as tcommon
+from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core import mask as tmask
+from repro_torch.core.policy import CompressionPolicy as TPolicy
+from repro_torch.kernels import fused_ffn as tffn
+from repro_torch.kernels import ops
+from repro_torch.kernels import quant as tquant
+from repro_torch.models import ModelConfig as TModelConfig
+from repro_torch.models import build as tbuild
+from repro_torch.models.attention import AttentionSpec as TAttentionSpec
+from repro_torch.models.ffn import FFNSpec as TFFNSpec
+
+REL = 2e-5
+ATOL = RTOL = 1e-5
+
+
+def _relerr(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+
+
+def _ffn_inputs(seed, m, nb, bi, f, bo, gated, use_bias, quant=False):
+    rng = np.random.default_rng(seed)
+    r = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
+    a = {"x": r(m, nb * bi), "w_up": r(nb, bi, f, sc=0.2),
+         "w_down": r(nb, f, bo, sc=0.2),
+         "w_gate": r(nb, bi, f, sc=0.2) if gated else None,
+         "b_up": r(nb * f, sc=0.1) if use_bias else None,
+         "b_gate": r(nb * f, sc=0.1) if use_bias and gated else None,
+         "b_down": r(nb * bo, sc=0.1) if use_bias else None}
+    if quant:
+        for w, s in (("w_up", "s_up"), ("w_gate", "s_gate"),
+                     ("w_down", "s_down")):
+            if a[w] is not None:
+                q, sc = jquant.quantize_blocks(a[w])
+                a[w], a[s] = np.array(q), np.array(sc)
+            else:
+                a[s] = None
+    return a
+
+
+def _jax(a):
+    return {k: None if v is None else jnp.asarray(v) for k, v in a.items()}
+
+
+def _torch(a):
+    return {k: None if v is None else torch.from_numpy(v) for k, v in a.items()}
+
+
+# ------------------------------------------------------------- fused MLP
+@pytest.mark.parametrize("f", [40, 64])
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("gated", [True, False])
+def test_plain_fused_ffn_matches_jax_oracle_and_interpret_kernel(
+        gated, use_bias, f):
+    """f = 40 is no multiple of the interpret kernel's tile (bf = 8 pads
+    nothing, so m = 13 pads the row tile instead)."""
+    a = _ffn_inputs(0, 13, 4, 16, f, 12, gated, use_bias)
+    act = "silu" if gated else "gelu"
+    t = _torch(a)
+    got = ops.fused_ffn(t["x"], t["w_up"], t["w_down"], w_gate=t["w_gate"],
+                        b_up=t["b_up"], b_gate=t["b_gate"],
+                        b_down=t["b_down"], activation=act).numpy()
+    j = _jax(a)
+    want = jref.fused_ffn_ref(j["x"], j["w_up"], j["w_down"],
+                              w_gate=j["w_gate"], b_up=j["b_up"],
+                              b_gate=j["b_gate"], b_down=j["b_down"],
+                              activation=act)
+    kern = jffn.fused_ffn(j["x"], j["w_up"], j["w_down"], j["w_gate"],
+                          j["b_up"], j["b_gate"], j["b_down"], activation=act,
+                          interpret=True, bm=8, bf=8)
+    assert _relerr(got, want) < REL
+    assert _relerr(got, kern) < REL
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_plain_fused_ffn_int8_matches_jax(gated):
+    """The int8 form: scales before the bias and the gate, s_down after the
+    f-sum, against ``fused_ffn_quant_ref`` and the interpret kernel."""
+    a = _ffn_inputs(1, 9, 4, 16, 24, 8, gated, True, quant=True)
+    act = "silu" if gated else "relu"
+    t, j = _torch(a), _jax(a)
+    kw = lambda d: {k: d[k] for k in ("w_gate", "b_up", "b_gate", "b_down",
+                                      "s_up", "s_gate", "s_down")}
+    got = ops.fused_ffn_quant(t["x"], t["w_up"], t["w_down"], activation=act,
+                              **kw(t)).numpy()
+    want = jref.fused_ffn_quant_ref(j["x"], j["w_up"], j["w_down"],
+                                    activation=act, **kw(j))
+    kern = jffn.fused_ffn(j["x"], j["w_up"], j["w_down"], activation=act,
+                          interpret=True, bm=8, bf=8, **kw(j))
+    assert _relerr(got, want) < REL
+    assert _relerr(got, kern) < REL
+
+
+def test_fused_ffn_raises_under_grad_and_on_bad_inputs():
+    a = _torch(_ffn_inputs(2, 4, 2, 8, 16, 8, True, False))
+    x = a["x"].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="autograd"):
+        ops.fused_ffn(x, a["w_up"], a["w_down"], w_gate=a["w_gate"])
+    with pytest.raises(ValueError, match="b_gate"):
+        ops.fused_ffn(a["x"], a["w_up"], a["w_down"], b_gate=a["w_up"][0, 0])
+    with torch.no_grad():               # no grad is taken: the plain route
+        ops.fused_ffn(x, a["w_up"], a["w_down"], w_gate=a["w_gate"])
+
+
+def test_kernel_plan_fills_the_card_at_olmo_width():
+    """(rows per block, f splits, f tiles per block) at olmo-1b's fused FFN
+    (nb 8, f 1024, bo 256) on 132 SMs: decode and one prefill chunk split
+    f 16 ways (128 blocks); a long prefill needs no split."""
+    assert tffn.plan(4, 8, 1024, 256, 132) == (4, 16, 1)
+    assert tffn.plan(64, 8, 1024, 256, 132) == (64, 16, 1)
+    assert tffn.plan(37, 8, 1000, 256, 132) == (64, 16, 1)
+    assert tffn.plan(2048, 8, 1024, 256, 132) == (64, 1, 16)
+    bm, split, fpb = tffn.plan(256, 8, 1024, 256, 132)
+    assert split * fpb >= 16 and (split - 1) * fpb < 16
+
+
+# ------------------------------------------------------- masks and specs
+def _same_mask(tm, jm):
+    if jm is None:
+        return tm is None
+    return (tm.nb == jm.nb and tm.seed == jm.seed
+            and np.array_equal(tm.in_perm, jm.in_perm)
+            and np.array_equal(tm.out_perm, jm.out_perm))
+
+
+def _same_linear(tl, jl):
+    ts, js = tl.spec, jl.spec
+    return (_same_mask(ts.mask, js.mask) and ts.mode == js.mode
+            and ts.skip_in_perm == js.skip_in_perm
+            and ts.skip_out_perm == js.skip_out_perm
+            and ts.use_bias == js.use_bias)
+
+
+@pytest.mark.parametrize("mode", ["packed", "masked_dense"])
+@pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+def test_fused_ffn_and_attention_specs_equal_reference(kind, mode):
+    kw = dict(c=4, seed=3, mode=mode)
+    tp, jp = TPolicy(**kw), JPolicy(**kw)
+    tf = TFFNSpec.make(tp, 64, 256, kind, seed_salt=5, fuse_perms=True)
+    jf = JFFNSpec.make(jp, 64, 256, kind, seed_salt=5, fuse_perms=True)
+    for name in ("w_up", "w_gate", "w_down"):
+        if getattr(jf, name) is None:
+            assert getattr(tf, name) is None
+        else:
+            assert _same_linear(getattr(tf, name), getattr(jf, name)), name
+    assert tf.fused_packed() == jf.fused_packed() == (mode == "packed")
+    ta = TAttentionSpec.make(tp, 64, 4, 2, 16, seed_salt=2, fuse_perms=True)
+    ja = JAttentionSpec.make(jp, 64, 4, 2, 16, seed_salt=2, fuse_perms=True)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert _same_linear(getattr(ta, name), getattr(ja, name)), name
+    assert ta.shared_pack == (mode == "packed")
+
+
+def test_fused_ffn_falls_back_without_compression():
+    """With nothing to compress (c = 1) ``fuse_perms`` builds the unfused,
+    dense form, as the reference does."""
+    tf = TFFNSpec.make(TPolicy(c=1), 64, 128, fuse_perms=True)
+    jf = JFFNSpec.make(JPolicy(c=1), 64, 128, fuse_perms=True)
+    for name in ("w_up", "w_gate", "w_down"):
+        assert _same_linear(getattr(tf, name), getattr(jf, name)), name
+    assert tf.w_up.spec.mode == "dense" and not tf.fused_packed()
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_chain_specs_equal_reference(fuse):
+    dims = (32, 64, 48, 16)
+    got = tmask.chain_specs(dims, 4, seed=7, fuse=fuse)
+    want = jmask.chain_specs(dims, 4, seed=7, fuse=fuse)
+    assert len(got) == len(want) == 3
+    assert all(_same_mask(g, w) for g, w in zip(got, want))
+
+
+# --------------------------------------------------------- fold and logits
+def _md_pair(train_fuse, use_bias=False, dtype="float32"):
+    """A masked-dense model in both packages with the same params (random
+    per-index biases, so a wrong gate-bias re-index shows)."""
+    kw = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+              vocab=96, mpd_c=4, mpd_mode="masked_dense", mpd_fuse=train_fuse,
+              use_bias=use_bias, dtype=dtype)
+    jm, tm = jbuild(JModelConfig(**kw)), tbuild(TModelConfig(**kw))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(42)
+    jp = jax.tree.map(lambda x: x + (0.1 * rng.standard_normal(x.shape))
+                      .astype(x.dtype) if x.ndim == 2 else x, jp)
+    jp = jm.mask_projection(jax.tree.map(jnp.asarray, jp))
+    jp = jax.tree.map(np.asarray, jp)
+    return jm, jp, tm, params_from_numpy(tm, jp, device="cpu")
+
+
+def _trees_equal(t_tree, j_tree):
+    got = [(k, v.detach().numpy()) for k, v in tree_lib.leaves_with_paths(t_tree)]
+    want = jax.tree.leaves(j_tree)
+    return len(got) == len(want) and all(
+        g.dtype == np.asarray(w).dtype and np.array_equal(g, np.asarray(w))
+        for (_, g), w in zip(got, want))
+
+
+@pytest.mark.parametrize("train_fuse", [False, True])
+def test_posthoc_perm_fusion_equals_reference(train_fuse):
+    """``apply_perm_fusion`` on the folded packed model: the rewritten specs
+    (a merged gather, or the identity when the masks were built aligned),
+    the re-indexed gate bias and the logits equal the reference's."""
+    jm, jp, tm, tp = _md_pair(train_fuse, use_bias=True)
+    jpm, jpp = jm.to_packed(jp, fuse=True)
+    tpm, tpp = tm.to_packed(tp, fuse=True)
+    for tb, jb in zip(tpm.block_specs, jpm.block_specs):
+        for name in ("w_up", "w_gate", "w_down"):
+            assert _same_linear(getattr(tb["ffn"], name),
+                                getattr(jb["ffn"], name)), name
+        assert tb["ffn"].fused_packed() == jb["ffn"].fused_packed() == train_fuse
+    assert _trees_equal(tpp, jpp)
+    toks = np.random.default_rng(1).integers(0, 96, (2, 8))
+    want = np.asarray(jpm.logits(jpp, jnp.asarray(toks)))
+    got = tpm.logits(tpp, torch.as_tensor(toks)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    # the rewrite changes the dataflow, not the function
+    upm, upp = tm.to_packed(tp, fuse=False)
+    np.testing.assert_allclose(upm.logits(upp, torch.as_tensor(toks)).numpy(),
+                               got, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_fused_fold_and_logits_match_reference(quantize):
+    """``to_packed(fuse=True)`` of an ``mpd_fuse`` model gives the
+    reference's packed tree exactly, and its logits (the FFNs on the fused
+    route) within 1e-5 at f32."""
+    jm, jp, tm, tp = _md_pair(True)
+    jpm, jpp = jm.to_packed(jp, fuse=True, quantize=quantize)
+    tpm, tpp = tm.to_packed(tp, fuse=True, quantize=quantize)
+    assert all(b["ffn"].fused_packed() for b in tpm.block_specs)
+    assert _trees_equal(tpp, jpp)
+    if quantize:
+        assert tpm.quant_report["n_layers"] == jpm.quant_report["n_layers"]
+        np.testing.assert_allclose(tpm.quant_report["max_rel_rms"],
+                                   jpm.quant_report["max_rel_rms"], rtol=1e-5)
+    toks = np.random.default_rng(2).integers(0, 96, (2, 12))
+    want = np.asarray(jpm.logits(jpp, jnp.asarray(toks)))
+    ops.reset_launch_counts()
+    got = tpm.logits(tpp, torch.as_tensor(toks)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    # and the tree travels back to the reference unchanged
+    back = params_to_numpy(tpp)
+    assert all(np.array_equal(a, np.asarray(b)) for a, b in
+               zip(jax.tree.leaves(back), jax.tree.leaves(jpp)))
+
+
+def test_packed_fused_model_from_jax_params_matches_logits():
+    """A packed ``mpd_fuse`` model built directly (no fold), params carried
+    from a JAX init."""
+    cfg = dict(mpd_fuse=True)
+    jm = jbuild(jcommon.get_config("olmo-1b", smoke=True, **cfg))
+    tm = tbuild(tcommon.get_config("olmo-1b", smoke=True, **cfg))
+    jp = jm.init(jax.random.PRNGKey(3))
+    jq, _ = jexport.quantize_packed(jm, jp)
+    toks = np.random.default_rng(3).integers(0, 96, (1, 10))
+    for tree in (jp, jq):
+        tp = params_from_numpy(tm, jax.tree.map(np.asarray, tree), device="cpu")
+        want = np.asarray(jm.logits(tree, jnp.asarray(toks)))
+        got = tm.logits(tp, torch.as_tensor(toks)).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+# ------------------------------------------------------------------- int4
+@pytest.mark.parametrize("bi", [6, 7])
+def test_int4_nibbles_equal_reference(bi):
+    rng = np.random.default_rng(bi)
+    q = rng.integers(-8, 8, size=(3, bi, 5)).astype(np.int8)
+    packed = tquant.pack_int4(torch.from_numpy(q))
+    want = np.asarray(jquant.pack_int4(jnp.asarray(q)))
+    assert packed.dtype == torch.uint8 and np.array_equal(packed.numpy(), want)
+    assert np.array_equal(tquant.unpack_int4(packed, bi).numpy(), q)
+    assert np.array_equal(np.asarray(jquant.unpack_int4(jnp.asarray(want), bi)),
+                          q)
+
+
+def test_int4_quantize_matches_reference():
+    jm, jp, tm, tp = _md_pair(True)
+    jpm, jpp = jm.to_packed(jp, fuse=True, quantize="int4")
+    tpm, tpp = tm.to_packed(tp, fuse=True, quantize="int4")
+    assert _trees_equal(tpp, jpp)
+    assert tpm.quant_report["bits"] == 4
+    assert max(int(leaf["w_q"].abs().max()) for leaf in (
+        tpp["blocks"][0]["ffn"]["w_up"], tpp["unembed"])) <= 7
+

@@ -31,6 +31,8 @@ def test_port_imports_without_jax():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.convert" in mods
     assert "repro_torch.train.loop" in mods and "repro_torch.data.pipeline" in mods
+    assert ("repro_torch.checkpoint.checkpoint" in mods
+            and "repro_torch.kernels.fused_ffn" in mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
