@@ -13,18 +13,21 @@ Phases, each printed as one JSON line:
    card at the main path's shapes (bdmm fp/int8 at m in {1, 4, 64} for the
    olmo-1b projection shapes; paged decode attention with ragged lengths,
    null-page entries and NaN past every length; paged prefill at start 0
-   and 128 with a short final chunk and NaN-poisoned cold pages; the masked
-   matmul in both orientations and the SDDMM at m = 2048 tokens for the
-   four olmo-1b projection shapes at bf16 and f32, off-mask SDDMM entries
-   exactly 0; the fused MLP at olmo-1b's perm-fused FFN width, nb 8, bi
-   256, f 1024, bo 256, at m = 4 and 64, int8 / bf16 / f32 weights, gated,
-   a plain-gelu form with every bias and a ragged m = 37, f = 1000 case,
-   each of which must also reject the plain output with one f tile of
-   w_down zeroed), within the tolerance printed beside each check; time
-   kernel, plain version and, where one exists, a single PyTorch library
-   call (for the fused MLP, which no single call computes, a composition:
-   three torch.bmm and the gate for fp weights, the port's unfused route of
-   three bdmm launches and the gate for int8).
+   and 128 with a short final chunk and NaN-poisoned cold pages; the
+   speculative verify window of 5 queries (and of 1, bit for bit the decode
+   kernel, and of 2; a GQA window of two tiles) with the same poison; the
+   masked matmul in both orientations and the SDDMM at m = 2048 tokens for
+   the four olmo-1b projection shapes at bf16 and f32, off-mask SDDMM
+   entries exactly 0, and the forward at the served rows m = 4, 20 and 64;
+   the fused MLP at olmo-1b's perm-fused FFN width, nb 8, bi 256, f 1024,
+   bo 256, at m = 4 and 64, int8 / bf16 / f32 weights, gated, a plain-gelu
+   form with every bias and a ragged m = 37, f = 1000 case, each of which
+   must also reject the plain output with one f tile of w_down zeroed),
+   within the tolerance printed beside each check; time kernel, plain
+   version and, where one exists, a single PyTorch library call (for the
+   fused MLP, which no single call computes, a composition: three
+   torch.bmm and the gate for fp weights, the port's unfused route of three
+   bdmm launches and the gate for int8).
 4. ``serve`` — olmo-1b at its published widths (16 layers, d 2048, vocab
    50304, every projection packed with mpd_c=8 and quantized to int8, bf16)
    served by the paged engine: 4 slots, page 16, prefill chunk 64, 8
@@ -34,7 +37,14 @@ Phases, each printed as one JSON line:
 5. ``exact`` — the same configuration in float32, served once through the
    kernels and once with ``ops.set_backend("torch")`` (plain versions on
    the card) on the same requests: the greedy streams must be identical.
-6. ``train`` — olmo-1b at its published widths in ``masked_dense`` mode
+6. ``exact_spec`` — phase 5's model and requests with speculative decoding
+   (k = 4), the draft perfect (the target itself) or skewed (seed 7),
+   through the kernels and through the plain versions: every greedy stream
+   equals phase 5's kernel-route stream; acceptance > 0.9 with the perfect
+   draft and < 1 with the skewed one; verify launches 16 x verify calls on
+   the kernel route and no launch on the plain route; both page pools
+   conserved at drain.
+7. ``train`` — olmo-1b at its published widths in ``masked_dense`` mode
    (the paper-faithful training of Algorithm 1: dense bf16 weights under
    permuted block masks, mpd_c=8), random init from seed 0, ``SyntheticLM``
    batches of 4 x 512 tokens, 4 AdamW steps through
@@ -43,25 +53,34 @@ Phases, each printed as one JSON line:
    masked-matmul kernels (both orientations) and the SDDMM launched
    (counters reset just before, read just after). Then one more step under
    torch.profiler: device time by kernel family.
-7. ``train_exact`` — one step of the same model cut to 4 layers in float32
+8. ``train_exact`` — one step of the same model cut to 4 layers in float32
    on the first batch, through the kernels and through the plain versions:
    loss and updated params agree within the stated tolerance.
-8. ``fold`` — the paper's deploy chain on the card: the float32 model of
-   phase 7 folded to packed (``to_packed``) gives the masked-dense logits
-   within the stated tolerance, and the bf16 model trained in phase 6,
+9. ``fold`` — the paper's deploy chain on the card: the float32 model of
+   phase 8 folded to packed (``to_packed``) gives the masked-dense logits
+   within the stated tolerance, and the bf16 model trained in phase 7,
    folded and quantized to int8, serves 2 greedy requests on the paged
    engine through the kernels.
-9. ``fused_deploy`` — the Fig-3 deploy chain at olmo-1b's published
+10. ``fused_deploy`` — the Fig-3 deploy chain at olmo-1b's published
    widths: the model built in ``masked_dense`` mode with ``mpd_fuse`` from
    seed 0 takes one AdamW step on the next ``SyntheticLM`` batch of phase
-   6's stream, is folded with the permutation fusion and quantized to int8
+   7's stream, is folded with the permutation fusion and quantized to int8
    and written as a packed artifact (``export_packed``) to a temporary
    directory, loaded back (``load_packed``: bit-identical to the in-memory
    fold, every FFN on the fused route) and served on the ``serve`` phase's
    engine and traffic. Every FFN is one ``fused_ffn`` launch: launches equal
    16 x model calls, and bdmm launches per model call are 3 x 16 fewer than
    in phase 4.
-10. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
+11. ``spec`` — speculative decoding as the deployment runs it: phase 10's
+   trained masked_dense bf16 target drafted by the int8 artifact it
+   exported (k = 4), on phase 4's traffic, in turns (non-spec, spec, spec,
+   non-spec): 8 of 8 served in every turn, every token in the vocabulary,
+   the verify, masked matmul, fused MLP and decode-attention kernels
+   launched in the spec turns, both pools conserved; decode tok/s, TTFT,
+   e2e, tokens per step, acceptance, the decode step and how many greedy
+   streams equal the non-spec ones per turn; then profiled windows of
+   non-spec and spec steps.
+12. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
    streams through the kernels (fused_ffn on every FFN) and through the
    plain versions must be identical.
 
@@ -172,6 +191,8 @@ FFN_CASES = [
 FOLD_TOL = {"atol": 1e-4, "rtol": 1e-4}
 # exact_fused: the perm-fused model's f32 streams at this depth (16 = full)
 EXACT_FUSED_LAYERS = 16
+# draft tokens proposed per speculative step (the launcher's default)
+SPEC_K = 4
 
 
 def emit(obj) -> None:
@@ -470,6 +491,95 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
             s["at"] = f"Tc=64 start={start} chunk_len={clen}"
 
 
+# (H, Kh, Tq, lengths, dtype): the spec phase's window (4 slots, k = 4) at the
+# end of the serve traffic's depths, one query (the decode kernel, bitwise),
+# two queries, and a GQA 4:1 window of two tiles
+VERIFY_CASES = [
+    (16, 16, 5, [511, 530, 544, 548], "bfloat16"),   # timed
+    (16, 16, 5, [511, 530, 544, 548], "float32"),
+    (16, 16, 1, [1, 37, 300, 548], "bfloat16"),
+    (16, 16, 1, [1, 37, 300, 548], "float32"),
+    (16, 16, 2, [2, 17, 300, 548], "bfloat16"),
+    (16, 4, 5, [5, 16, 250, 548], "bfloat16"),
+]
+
+
+def check_paged_verify(torch, dev, timer, rows, summary):
+    """The speculative verify window against its plain version, with NaN
+    in the null page and past every length; one query also bit for bit
+    against the decode kernel."""
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    ps, P, dh = 16, 35, 128
+    for idx, (H, kh, Tq, lengths, dt) in enumerate(VERIFY_CASES):
+        dtype = getattr(torch, dt)
+        B = len(lengths)
+        n_pages = B * P + 1
+        kp, vp = _pool(torch, dev, gen, n_pages, ps, kh, dh, dtype)
+        q = torch.randn((B, Tq, H, dh), generator=gen, device=dev).to(dtype)
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+        bt = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        for b, L in enumerate(lengths):
+            n = math.ceil(L / ps)
+            bt[b, :n] = perm[b * P:b * P + n].int()
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+        def plain32(v_mode, ln=ln, q=q, kp=kp, vp=vp, bt=bt):
+            v = vp.float().abs() if v_mode == "abs" else vp.float()
+            return ref.paged_attention_verify_ref(q.float(), kp.float(), v,
+                                                  bt, ln)
+        dropped = ref.paged_attention_verify_ref(
+            q.float(), kp.float(), vp.float(), bt, (ln - ps).clamp(min=Tq))
+        kpp, vpp = kp.clone(), vp.clone()
+        kpp[0] = float("nan")
+        vpp[0] = float("nan")
+        for b, L in enumerate(lengths):
+            last = int(bt[b, (L - 1) // ps])
+            kpp[last, (L - 1) % ps + 1:] = float("nan")
+            vpp[last, (L - 1) % ps + 1:] = float("nan")
+        run = lambda: pk.paged_attention_verify(q, kpp, vpp, bt, ln)
+        got = run()
+        ok, err, ratio, tol, rejects = attn_check(torch, got, plain32,
+                                                  dropped, dt)
+        bitwise = None
+        if Tq == 1:
+            bitwise = bool(torch.equal(got[:, 0], pk.paged_attention(
+                q[:, 0], kpp, vpp, bt, ln)))
+            ok = ok and bitwise
+        es = q.element_size()
+        nbytes = (2 * q.numel() * es + 2 * sum(lengths) * kh * dh * es
+                  + bt.numel() * 4 + B * 4)
+        visible = sum(L - Tq + t + 1 for L in lengths for t in range(Tq))
+        b_ms, b_by = bound(nbytes, 4.0 * H * dh * visible, dt)
+        kv_pos = torch.arange(P * ps, device=dev)
+        horizon = ln[:, None] - (Tq - 1) + torch.arange(Tq, device=dev)
+        mask = (kv_pos[None, None, :] < horizon[:, :, None])[:, None]
+        lib = _gather_sdpa(torch, q.transpose(1, 2), kp, vp, bt, mask,
+                           H // kh)
+        row = {"phase": "kernels", "kernel": "paged_attention_verify",
+               "H": H, "Kh": kh, "Tq": Tq, "lengths": lengths, "dtype": dt,
+               "q_tile": pk.verify_q_tile(Tq, H // kh, dh),
+               "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
+               "rejects_dropped_page": rejects,
+               "bitwise_equals_decode_kernel": bitwise, "ok": ok,
+               "ms": timer.ms(run),
+               "plain_ms": timer.ms(lambda: ref.paged_attention_verify_ref(
+                   q, kp, vp, bt, ln)),
+               "library_ms": timer.ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit(row)
+        s = summary["paged_attention_verify"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["err_over_tol"] = max(s["err_over_tol"], ratio)
+        s["ok"] = s["ok"] and ok
+        if idx == 0:
+            s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")})
+            s["at"] = f"B=4 Tq=5 H=Kh=16 lengths={lengths}"
+
+
 def mm_close(torch, got, want32, mag, dtype):
     """(ok, max |got - want32|, max of the error over its limit) under the
     matmul-shaped rule of MM_TOL."""
@@ -576,6 +686,69 @@ def check_masked(torch, dev, timer, rows, summary):
                         "bound_by")})
                     s["at"] = f"bf16 up/gate {d_in}x{d_out}, m={m}"
             del x, w, gy, wm, mask, dropped
+    torch.cuda.empty_cache()
+
+
+# m rows of a masked-dense target served: a decode step of 4 slots, a
+# verify window of 4 x 5, a prefill chunk
+MM_SERVE_M = (4, 20, 64)
+
+
+def check_masked_serving(torch, dev, timer, rows, summary):
+    """The masked matmul forward at the rows a served masked-dense model
+    gives it: the bf16 up/gate projection with silu and bias, under the
+    MM_TOL rule, which must reject one mask block dropped."""
+    from repro_torch.core.fold import mask_tensor
+    from repro_torch.core.mask import block_id_of, make_mask_spec
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    name, d_in, d_out, act = MM_SHAPES[1]
+    spec = make_mask_spec(d_in, d_out, 8, seed=d_out)
+    mask = mask_tensor(spec, dev)
+    in_block = torch.as_tensor(block_id_of(spec)[0], device=dev)
+    dropped = mask * (in_block != 0).to(torch.uint8)[:, None]
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    w = (r(d_in, d_out) * d_in ** -0.5).bfloat16()
+    b = (0.1 * r(d_out)).bfloat16()
+    w32, b32 = w.float(), b.float()
+    wm = w * mask.bfloat16()
+    s = summary["masked_matmul"]
+    s["serving_rows"] = []
+    for m in MM_SERVE_M:
+        x = r(m, d_in).bfloat16()
+        x32 = x.float()
+        run = lambda: mk.masked_matmul(x, w, mask, b, activation=act)
+        want = ref.masked_matmul_ref(x32, w32, mask, b32, act)
+        mag = x32.abs() @ (w32.abs() * mask) + b32.abs()
+        ok, err, ratio = mm_close(torch, run(), want, mag, "bfloat16")
+        rejects = not mm_close(torch, ref.masked_matmul_ref(
+            x32, w32, dropped, b32, act), want, mag, "bfloat16")[0]
+        ok = ok and rejects
+        nbytes = (m * d_in + d_in * d_out + m * d_out) * 2 + d_in * d_out \
+            + d_out * 4
+        b_ms, b_by = bound(nbytes, 2.0 * m * int(mask.sum()), "bfloat16")
+        row = {"phase": "kernels", "kernel": "masked_matmul", "shape": name,
+               "role": "serve", "m": m, "d_in": d_in, "d_out": d_out,
+               "activation": act, "dtype": "bfloat16", "max_abs_err": err,
+               "err_over_tol": ratio,
+               "tol": dict(MM_TOL["bfloat16"], rule=MM_RULE),
+               "rejects_dropped_block": rejects, "ok": ok,
+               "ms": timer.ms(run),
+               "plain_ms": timer.ms(lambda: ref.masked_matmul_ref(
+                   x, w, mask, b, act)),
+               "library_ms": timer.ms(lambda: torch.matmul(x, wm)),
+               "library": "one torch.matmul on the pre-masked weight",
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit(row)
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["err_over_tol"] = max(s["err_over_tol"], ratio)
+        s["ok"] = s["ok"] and ok
+        s["serving_rows"].append({k: row[k] for k in (
+            "m", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    del w, wm, mask, dropped
     torch.cuda.empty_cache()
 
 
@@ -831,17 +1004,18 @@ def serve_phase(torch, dev, ops):
     return row
 
 
-def decode_window(torch, model, params, kw, cfg, n_steps=16):
-    """Where a steady decode step's time goes: 16 decode steps of 4 live
-    slots at the serve phase's context depths (~250-540 tokens), under
-    torch.profiler. Returns wall ms per step, device kernel ms per step by
-    kernel family, and the device's busy share; the device entries are None
-    when the profiler records no device activity."""
+def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
+    """Where a steady decode step's time goes: ``n_steps`` decode steps
+    (speculative steps with ``spec_draft``) of 4 live slots at the serve
+    phase's context depths (~250-540 tokens), under torch.profiler.
+    Returns wall ms per step, device kernel ms per step by kernel family,
+    and the device's busy share; the device entries are None when the
+    profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Engine
 
-    eng = Engine(model, params, **kw)
+    eng = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K, **kw)
     for r in make_requests(cfg, n_requests=4, rate=1e9, prompt_len=448,
                            gen=32, seed=7, shared_prefix=128):
         r.max_new_tokens = 96           # every slot stays live in the window
@@ -859,6 +1033,7 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16):
     cuda = torch.autograd.DeviceType.CUDA
     families = {"bdmm_decode_kernel": 0.0, "bdmm_general_kernel": 0.0,
                 "fused_ffn_kernel": 0.0, "paged_attention_kernel": 0.0,
+                "paged_verify_kernel": 0.0, "masked_mm_kernel": 0.0,
                 "other": 0.0}
     for e in prof.events():
         if e.device_type != cuda:
@@ -872,26 +1047,30 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16):
             "device_busy_share": device_ms / wall_ms if device_ms > 0 else None}
 
 
+EXACT_ENGINE = dict(n_slots=4, max_len=256 + 16, page_size=16,
+                    prefill_chunk_tokens=64)
+EXACT_TRAFFIC = dict(n_requests=6, rate=1e9, prompt_len=256, gen=16, seed=1,
+                     shared_prefix=64)
+
+
 def exact_phase(torch, dev, ops, fuse=False):
     """f32 greedy streams through the kernels and through the plain
     versions (``fuse``: of the perm-fused model, ``exact_fused``, which must
     also launch fused_ffn on the kernel route and nothing on the plain
-    route)."""
+    route). Returns the row and ``(cfg, model, params, kernel-route
+    streams)``."""
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Engine
 
     over = dict(mpd_fuse=True, n_layers=EXACT_FUSED_LAYERS) if fuse else {}
     cfg, model, params, _ = olmo_engine(torch, dev, "float32", **over)
-    kw = dict(n_slots=4, max_len=256 + 16, page_size=16,
-              prefill_chunk_tokens=64)
     streams, counts = {}, {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
         ops.reset_launch_counts()
         try:
-            reqs = make_requests(cfg, n_requests=6, rate=1e9, prompt_len=256,
-                                 gen=16, seed=1, shared_prefix=64)
-            streams[backend] = Engine(model, params, **kw).run(reqs)
+            reqs = make_requests(cfg, **EXACT_TRAFFIC)
+            streams[backend] = Engine(model, params, **EXACT_ENGINE).run(reqs)
         finally:
             ops.set_backend("cuda")
         torch.cuda.synchronize()
@@ -915,7 +1094,193 @@ def exact_phase(torch, dev, ops, fuse=False):
         row.update(mpd_fuse=True, launches_kernel_route=counts["cuda"],
                    launches_plain_route=counts["torch"])
     emit(row)
+    return row, (cfg, model, params, a)
+
+
+def instrument_steps(torch, engine):
+    """Host ms of every decode step of ``engine`` (a speculative step when
+    spec decoding is on) on a synchronised clock, and the number of verify
+    calls; delete the instance attributes to undo."""
+    calls = {"step": [], "verify": 0}
+    name = "_step_spec" if engine.spec_active else "_step_decode"
+    step, verify = getattr(engine, name), engine._verify
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        calls["step"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def counted_verify(*a):
+        calls["verify"] += 1
+        return verify(*a)
+    setattr(engine, name, timed_step)
+    engine._verify = counted_verify
+    return calls
+
+
+def pools_conserved(engine) -> bool:
+    """Every page of both pools is free or held by the trie alone, and no
+    reservation or table entry is left."""
+    caches = [engine.cache] + ([engine.draft_cache]
+                               if engine.draft_cache is not None else [])
+    return all(c.reserved == 0 and not c.block_tables.any()
+               and c.pool.free_count + len(c.trie) == c.pool.n_pages - 1
+               for c in caches)
+
+
+def exact_spec_phase(torch, dev, ops, exact_run):
+    """Greedy speculative decoding of the ``exact`` phase's f32 model and
+    requests, with a perfect draft (the target itself) and a skewed one (the
+    same config at seed 7), through the kernels and through the plain
+    versions: every stream equals the non-spec kernel-route stream."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    cfg, model, params, base = exact_run
+    _, skew_model, skew_params, _ = olmo_engine(torch, dev, "float32", seed=7)
+    drafts = {"perfect": (model, params), "skewed": (skew_model, skew_params)}
+    out, ok = {}, True
+    for name, draft in drafts.items():
+        streams, res = {}, {}
+        for backend in ("cuda", "torch"):
+            ops.set_backend(backend)
+            ops.reset_launch_counts()
+            try:
+                engine = Engine(model, params, spec_draft=draft,
+                                spec_k=SPEC_K, **EXACT_ENGINE)
+                calls = instrument_steps(torch, engine)
+                streams[backend] = engine.run(make_requests(cfg,
+                                                            **EXACT_TRAFFIC))
+            finally:
+                ops.set_backend("cuda")
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            s = engine.metrics.summary()
+            res[backend] = {
+                "acceptance": s["draft_acceptance_rate"],
+                "tokens_per_step": s["tokens_per_step_mean"],
+                "verify_calls": calls["verify"], "launches": counts,
+                "pools_conserved": pools_conserved(engine)}
+        k_route, p_route = res["cuda"], res["torch"]
+        diverge = [rid for rid in sorted(base)
+                   if not (streams["cuda"][rid] == streams["torch"][rid]
+                           == base[rid])]
+        acc = k_route["acceptance"]
+        acc_ok = acc > 0.9 if name == "perfect" else acc < 1.0
+        launches_ok = (k_route["launches"]["paged_attention_verify"]
+                       == cfg.n_layers * k_route["verify_calls"] > 0
+                       and not any(p_route["launches"].values()))
+        draft_ok = (not diverge and acc_ok and launches_ok
+                    and k_route["pools_conserved"]
+                    and p_route["pools_conserved"])
+        ok = ok and draft_ok
+        out[name] = {"ok": draft_ok, "diverging_requests": diverge,
+                     "acceptance_ok": acc_ok, "launches_ok": launches_ok,
+                     "kernel_route": k_route, "plain_route": p_route}
+    row = {"phase": "exact_spec", "ok": ok, "dtype": "float32",
+           "weights": "int8", "n_layers": cfg.n_layers, "spec_k": SPEC_K,
+           "requests": len(base), "tokens": sum(len(v) for v in base.values()),
+           **out}
+    emit(row)
     return row
+
+
+def spec_phase(torch, dev, ops, target, draft):
+    """Speculative decoding as the deployment runs it: the masked_dense +
+    mpd_fuse bf16 target of ``fused_deploy`` drafted by its own loaded int8
+    artifact, k = 4, on the serve phase's traffic, in turns (non-spec, spec,
+    spec, non-spec), then profiled windows of non-spec and of spec steps."""
+    from repro_torch.launch.serve import make_requests, serve_stream
+    from repro_torch.serve import Engine
+
+    model, params = target
+    cfg = model.cfg
+    for spec in (None, draft):          # warm-up of both routes
+        Engine(model, params, spec_draft=spec, spec_k=SPEC_K,
+               **SERVE_ENGINE).run(make_requests(cfg, n_requests=2, rate=1e9,
+                                                 prompt_len=128, gen=8,
+                                                 seed=99))
+    turns, streams, ok = [], {}, True
+    launches = {}
+    for route in ("plain_decode", "spec", "spec", "plain_decode"):
+        engine = Engine(model, params,
+                        spec_draft=draft if route == "spec" else None,
+                        spec_k=SPEC_K, **SERVE_ENGINE)
+        reqs = make_requests(cfg, **SERVE_TRAFFIC)
+        calls = instrument_steps(torch, engine)
+        ops.reset_launch_counts()
+        summary = serve_stream(engine, reqs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        done = summary["n_done"] == len(reqs) and all(
+            len(r.generated) == r.max_new_tokens
+            and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
+        got = {r.id: list(r.generated) for r in reqs}
+        # decode tok/s: the tokens decode steps emitted (each request's
+        # first token comes from its prefill) over the steps' host time
+        decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+        turn = {"route": route, "requests_done": summary["n_done"],
+                "decode_tok_s": decode_tokens / (sum(calls["step"]) / 1e3),
+                "tok_s": summary["agg_tok_s"],
+                "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
+                "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
+                "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
+                "e2e_p95_ms": summary["e2e_p95_s"] * 1e3,
+                "tokens_per_step_mean": summary["tokens_per_step_mean"],
+                "draft_acceptance_rate": summary["draft_acceptance_rate"],
+                "decode_steps": len(calls["step"]),
+                "decode_step_ms_p50": statistics.median(calls["step"]),
+                "prefill_tokens_reused": engine.n_prefill_tokens_skipped,
+                "pools_conserved": pools_conserved(engine),
+                "launches": counts}
+        turn_ok = done and turn["pools_conserved"]
+        if route == "spec":
+            turn_ok = turn_ok and all(counts[k] > 0 for k in (
+                "paged_attention_verify", "masked_matmul", "fused_ffn",
+                "paged_attention"))
+            launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+            base = streams["plain_decode"]
+            same = [rid for rid in sorted(base) if got[rid] == base[rid]]
+            turn["streams_equal_non_spec"] = f"{len(same)} of {len(base)}"
+            turn["divergence"] = [divergence(torch, model, params, r,
+                                             base[r.id])
+                                  for r in reqs if got[r.id] != base[r.id]]
+        else:
+            streams.setdefault(route, got)
+        turn["ok"] = turn_ok
+        ok = ok and turn_ok
+        turns.append(turn)
+    windows = {"decode": decode_window(torch, model, params, SERVE_ENGINE,
+                                       cfg, n_steps=8),
+               "spec": decode_window(torch, model, params, SERVE_ENGINE, cfg,
+                                     spec_draft=draft, n_steps=8)}
+    row = {"phase": "spec", "ok": ok, "config": {
+        "target": f"{cfg.name} masked_dense + mpd_fuse, bf16, 1 AdamW step "
+                  "(fused_deploy)", "draft": "its perm-fused int8 fold, "
+                  "loaded from the exported artifact",
+        "spec_k": SPEC_K, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, **SERVE_ENGINE},
+        "turns": turns, "windows": windows, "launches": launches}
+    emit(row)
+    return row
+
+
+def divergence(torch, model, params, req, base):
+    """Where a spec stream first leaves the non-spec stream, and the gap
+    between the target's two largest logits there (one full-sequence
+    forward of the prompt and the common tokens)."""
+    first = next((i for i, (a, b) in enumerate(zip(req.generated, base))
+                  if a != b), min(len(req.generated), len(base)))
+    toks = list(req.prompt) + base[:first]
+    with torch.no_grad():
+        lg = model.logits(params, torch.tensor([toks], device=params[
+            "embed"]["table"].device))[0, -1].float()
+    top = torch.topk(lg, 2).values
+    return {"request": req.id, "first_index": first,
+            "top2_logit_gap": float(top[0] - top[1])}
 
 
 def fused_deploy_phase(torch, dev, ops, data, served):
@@ -955,7 +1320,6 @@ def fused_deploy_phase(torch, dev, ops, data, served):
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     _, mem = model.to_packed(trained, fuse=True, quantize="int8")
-    del trained
     got = list(tree_lib.leaves_with_paths(params))
     want = list(tree_lib.leaves_with_paths(mem))
     identical = len(got) == len(want) and all(
@@ -1020,7 +1384,7 @@ def fused_deploy_phase(torch, dev, ops, data, served):
         "launches_ok": launches_ok, "launches": launches,
         "route_turns": turns, "decode_window": window}
     emit(row)
-    return row
+    return row, (model, trained), (served_model, params)
 
 
 def route_turns(torch, dev, fused_model, fused_params):
@@ -1340,14 +1704,17 @@ def main() -> int:
                                 "(_mm_kernel, transpose_rhs)",
              "sddmm_masked":
                  "src/repro/kernels/masked_matmul.py:141 (_sddmm_kernel)",
-             "fused_ffn": "src/repro/kernels/fused_ffn.py:58 (_ffn_kernel)"}
+             "fused_ffn": "src/repro/kernels/fused_ffn.py:58 (_ffn_kernel)",
+             "paged_attention_verify": "src/repro/kernels/paged_attention.py:"
+                                       "109 (_paged_verify_kernel)"}
     sources = {"bdmm": "src/repro_torch/csrc/bdmm.cu",
                "bdmm_decode": "src/repro_torch/csrc/bdmm.cu",
                "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill.cu",
                "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
                **{k: "src/repro_torch/csrc/masked_matmul.cu"
                   for k in MASKED_KERNELS},
-               "fused_ffn": "src/repro_torch/csrc/fused_ffn.cu"}
+               "fused_ffn": "src/repro_torch/csrc/fused_ffn.cu",
+               "paged_attention_verify": "src/repro_torch/csrc/paged_verify.cu"}
     summary = {n: {"max_abs_err": 0.0, "err_over_tol": 0.0, "ok": True}
                for n in names}
     timer = Timer(torch, dev)
@@ -1364,7 +1731,11 @@ def main() -> int:
           summary)
     timed("kernels_prefill", check_paged_prefill, torch, dev, timer, rows,
           summary)
+    timed("kernels_verify", check_paged_verify, torch, dev, timer, rows,
+          summary)
     timed("kernels_masked", check_masked, torch, dev, timer, rows, summary)
+    timed("kernels_masked_serving", check_masked_serving, torch, dev, timer,
+          rows, summary)
     timed("kernels_fused_ffn", check_fused_ffn, torch, dev, timer, rows,
           summary)
     del timer
@@ -1375,8 +1746,14 @@ def main() -> int:
     launches = served["launches"]
     if not served["ok"]:
         failed.append("serve")
-    if not timed("exact", exact_phase, torch, dev, ops)["ok"]:
+    exact, exact_run = timed("exact", exact_phase, torch, dev, ops)
+    if not exact["ok"]:
         failed.append("exact")
+    if not timed("exact_spec", exact_spec_phase, torch, dev, ops,
+                 exact_run)["ok"]:
+        failed.append("exact_spec")
+    del exact_run
+    torch.cuda.empty_cache()
     trained, bf16_model, bf16_params, data = timed("train", train_phase,
                                                    torch, dev, ops)
     if not trained["ok"]:
@@ -1390,15 +1767,22 @@ def main() -> int:
         failed.append("fold")
     del f32_model, f32_params, batch, bf16_model, bf16_params
     torch.cuda.empty_cache()
-    deployed = timed("fused_deploy", fused_deploy_phase, torch, dev, ops,
-                     data, served)
+    deployed, target, draft = timed("fused_deploy", fused_deploy_phase, torch,
+                                    dev, ops, data, served)
     del data
     if not deployed["ok"]:
         failed.append("fused_deploy")
-    if not timed("exact_fused", exact_phase, torch, dev, ops, True)["ok"]:
+    spec = timed("spec", spec_phase, torch, dev, ops, target, draft)
+    if not spec["ok"]:
+        failed.append("spec")
+    del target, draft
+    torch.cuda.empty_cache()
+    if not timed("exact_fused", exact_phase, torch, dev, ops, True)[0]["ok"]:
         failed.append("exact_fused")
-    # the main path's launches: serving, training, and the fused deploy
-    launches = {k: sum(p["launches"][k] for p in (served, trained, deployed))
+    # the main path's launches: serving, training, the fused deploy and the
+    # speculative turns
+    launches = {k: sum(p["launches"][k]
+                       for p in (served, trained, deployed, spec))
                 for k in launches}
     emit({"phase": "timing", "seconds": seconds,
           "total_s": sum(seconds.values())})
@@ -1416,7 +1800,9 @@ def main() -> int:
                         "library_ms": s.get("library_ms"), "at": s.get("at"),
                         **({"yardstick_ms": s.get("yardstick_ms"),
                             "yardstick": s.get("yardstick")}
-                           if "yardstick" in s else {})})
+                           if "yardstick" in s else {}),
+                        **({"serving_rows": s["serving_rows"]}
+                           if "serving_rows" in s else {})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

@@ -8,7 +8,8 @@
                         masked weight gradient ``(xᵀ g) ∘ M`` of
                         masked-dense training (``csrc/masked_matmul.cu``)
 - ``paged_attention`` : decode-step attention over the paged KV pool
-                        (``csrc/paged_attention.cu``)
+                        (``csrc/paged_attention.cu``) and the speculative
+                        verify window (``csrc/paged_verify.cu``)
 - ``paged_prefill``   : chunked-prefill attention over the same pool
                         (``csrc/paged_prefill.cu``)
 - ``quant``           : per-output-channel int8 block quantization and int4

@@ -260,6 +260,17 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths):
                                              block_tables, lengths)
 
 
+def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths):
+    """Speculative-verify attention: a ``(B, Tq, H, Dh)`` window of queries
+    per row against the paged KV pool, causal inside the window
+    (``lengths`` is the depth at the last window token)."""
+    if _plain(q, k_pages, v_pages, block_tables, lengths):
+        return ref.paged_attention_verify_ref(q, k_pages, v_pages,
+                                              block_tables, lengths)
+    return paged_attn_kernel.paged_attention_verify(q, k_pages, v_pages,
+                                                    block_tables, lengths)
+
+
 def paged_prefill_attention(q, k_pages, v_pages, bt_row, start, chunk_len):
     """Chunked-prefill attention for one request's ``(Tc, H, Dh)`` chunk
     against its paged context (chunk K/V already in the pool)."""

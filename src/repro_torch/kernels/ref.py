@@ -157,6 +157,43 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     return o.reshape(B, 1, H, Dh)[:, 0]
 
 
+def paged_attention_verify_ref(q, k_pages, v_pages, block_tables, lengths):
+    """Paged-attention verify window (speculative decoding): ``Tq`` queries
+    per row, query ``t`` at position ``lengths[b] - Tq + t`` attending to
+    ``kv_pos < lengths[b] - (Tq-1) + t`` (the window's K/V already in the
+    pool). The decode computation per query: f32 softmax, ``-1e30``
+    masking, ``p`` cast to the V dtype before PV; with ``Tq == 1`` it is
+    :func:`paged_attention_ref`.
+
+    ``q: (B, Tq, H, Dh)``; ``lengths: (B,)`` the depth at the last query.
+    Returns ``(B, Tq, H, Dh)``."""
+    B, Tq, H, Dh = q.shape
+    _, page_size, n_kv, _ = k_pages.shape
+    P = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, P * page_size, n_kv, Dh).to(q.dtype)
+    v = v_pages[bt].reshape(B, P * page_size, n_kv, Dh).to(q.dtype)
+    g = H // n_kv
+    q5 = q.reshape(B, Tq, n_kv, g, Dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q5, k).float()
+    logits = logits * Dh ** -0.5
+    dev = q.device
+    lengths = lengths.to(dev)
+    kv_pos = torch.arange(P * page_size, device=dev)
+    per_q_len = lengths[:, None] - (Tq - 1 - torch.arange(Tq, device=dev))
+    valid = kv_pos[None, None, :] < per_q_len[:, :, None]        # (B, Tq, S)
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.tensor(NEG_INF, device=dev))
+    p = torch.softmax(logits, dim=-1)
+    # positions past the row's depth: p == 0 and V zeroed (NaN-safe, as in
+    # paged_attention_ref); inside the window V was just written
+    live = kv_pos[None, :] < lengths[:, None]
+    v = torch.where(live[:, :, None, None], v, torch.zeros((), dtype=v.dtype,
+                                                           device=dev))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(q.dtype), v)
+    return o.reshape(B, Tq, H, Dh)
+
+
 def paged_prefill_attention_ref(q, k_pages, v_pages, bt_row, start: int,
                                 chunk_len: int):
     """Chunked-prefill attention for ONE request's chunk against its paged

@@ -13,7 +13,10 @@ the JAX package's ``export_packed``): its recorded config, fusion and
 quantization win over the flags. Prompts are drawn with ``np.random.default_rng(seed)``; prompt
 lengths lie in ``[prompt_len/2, prompt_len]``, output budgets in
 ``[gen/2, gen]``, and ``--shared-prefix N`` makes the first N prompt tokens
-identical across requests so the prefix trie gets hits.
+identical across requests so the prefix trie gets hits. ``--spec-draft DIR``
+turns on speculative decoding with the packed artifact in ``DIR/packed`` as
+the draft (typically the target's own folded int8 export), proposing
+``--spec-k`` tokens a step.
 """
 
 from __future__ import annotations
@@ -128,6 +131,22 @@ def load_model(arch, *, smoke=False, dtype=None, n_layers=None, quantize="",
     return cfg, model, params
 
 
+def load_spec_draft(spec_dir, *, device=None):
+    """(model, params) of the draft for speculative decoding: the packed
+    artifact under ``spec_dir``."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+
+    if not ckpt_lib.has_packed(spec_dir):
+        raise SystemExit(f"--spec-draft needs a packed export under "
+                         f"{spec_dir}/packed (write one with `train "
+                         "--fold-to-packed` or export_packed)")
+    draft, params = ckpt_lib.load_packed(spec_dir, device=device)
+    q = getattr(draft, "quant_report", None)
+    log.info("spec draft: packed export from %s/packed%s", spec_dir,
+             f" (quantized, {q['bits']}-bit)" if q else "")
+    return draft, params
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", choices=ARCHS, required=True)
@@ -158,10 +177,18 @@ def main(argv=None):
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="prefill chunk tokens (page multiple); 0 = 4 pages")
     p.add_argument("--shared-prefix", type=int, default=0)
+    p.add_argument("--spec-draft", default="",
+                   help="speculative decoding (requires --paged): directory "
+                   "with a packed export to deploy as the draft model")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens proposed per verify window")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if args.spec_draft and not args.paged:
+        raise SystemExit("--spec-draft requires --paged (the verify window "
+                         "scatters into paged KV)")
     if not args.paged:
         raise SystemExit("only the paged engine is ported: pass --paged")
     try:
@@ -174,10 +201,13 @@ def main(argv=None):
         mpd_fuse=args.mpd_fuse, ckpt_dir=args.ckpt_dir)
     log.info("serving %s on %s: %s params (%d layers, %s)", cfg.name, device,
              f"{model.param_count():,}", cfg.n_layers, cfg.dtype)
+    spec_draft = (load_spec_draft(args.spec_draft, device=device)
+                  if args.spec_draft else None)
     engine = Engine(model, params, n_slots=args.slots,
                     max_len=args.prompt_len + args.gen, page_size=args.page_size,
                     n_pages=args.pages or None,
-                    prefill_chunk_tokens=args.prefill_chunk or None)
+                    prefill_chunk_tokens=args.prefill_chunk or None,
+                    spec_draft=spec_draft, spec_k=args.spec_k)
     requests = make_requests(cfg, n_requests=args.requests, rate=args.rate,
                              prompt_len=args.prompt_len, gen=args.gen,
                              seed=args.seed, shared_prefix=args.shared_prefix)
@@ -197,6 +227,10 @@ def main(argv=None):
              "reused via prefix cache)", c.page_size, c.n_pages,
              s["kv_bytes_allocated_peak"] / 1e6, s["kv_bytes_reserved"] / 1e6,
              engine.n_prefill_tokens, engine.n_prefill_tokens_skipped)
+    if engine.spec_active:
+        log.info("spec decode: k=%d, %.2f tokens/step, %.0f%% draft "
+                 "acceptance", engine.spec_k, s["tokens_per_step_mean"],
+                 s["draft_acceptance_rate"] * 100)
     return s
 
 

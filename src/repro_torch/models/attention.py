@@ -1,7 +1,7 @@
 """Attention (the port of ``repro.models.attention`` for the full-sequence
 training path and the paged serving path: ``AttentionSpec``, ``_qkv``,
 ``_attend``, ``attend_full``, ``apply_train``, ``init_paged_cache``,
-``apply_decode_paged``, ``prefill_chunk_paged``).
+``apply_decode_paged``, ``apply_verify_paged``, ``prefill_chunk_paged``).
 
 Training attention is plain PyTorch, as the reference's is plain jnp: f32
 softmax with ``-1e30`` causal masking, chunked over the query axis at
@@ -198,6 +198,42 @@ def apply_decode_paged(spec: AttentionSpec, params, x, cache, block_tables,
     y = spec.wo.apply(params["wo"],
                       o.reshape(B, 1, spec.n_heads * spec.head_dim))
     pos.add_(1 if live is None else live.to(pos.dtype))
+    return y, cache
+
+
+def apply_verify_paged(spec: AttentionSpec, params, x, cache, block_tables,
+                       live=None):
+    """Speculative-verify window against the paged KV pool. x: (B, Tq, D).
+
+    The window's ``Tq`` tokens sit at positions ``pos .. pos+Tq-1`` with
+    ``pos = cache["pos"]`` the accepted depth the engine set
+    (``Model.set_paged_pos``). Each token's K/V is scattered to its
+    ``(page, offset)`` (non-live rows to the null page, as in
+    :func:`apply_decode_paged`), then all ``Tq`` queries attend in one
+    :func:`repro_torch.kernels.ops.paged_attention_verify` call, causal
+    inside the window. ``pos`` is left **unchanged**: in spec mode the host
+    owns the depth and rejected positions are simply written over next
+    step.
+    """
+    from repro_torch.kernels import ops
+
+    B, Tq, _ = x.shape
+    kp, vp = cache["kp"], cache["vp"]
+    page_size = kp.shape[1]
+    P = block_tables.shape[1]
+    pos = cache["pos"]
+    pos_bt = pos[:, None] + torch.arange(Tq, device=x.device)[None, :]
+    q, k_new, v_new = _qkv(spec, params, x, pos_bt)
+    pidx = torch.clamp(pos_bt // page_size, 0, P - 1).long()
+    pages = torch.gather(block_tables, 1, pidx).long()          # (B, Tq)
+    if live is not None:
+        pages = torch.where(live[:, None], pages, torch.zeros_like(pages))
+    offs = (pos_bt % page_size).long()
+    kp.index_put_((pages, offs), k_new.to(kp.dtype))
+    vp.index_put_((pages, offs), v_new.to(vp.dtype))
+    o = ops.paged_attention_verify(q, kp, vp, block_tables, pos + Tq)
+    y = spec.wo.apply(params["wo"],
+                      o.reshape(B, Tq, spec.n_heads * spec.head_dim))
     return y, cache
 
 

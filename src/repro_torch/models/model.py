@@ -1,8 +1,9 @@
 """Model assembly for the attention family (the port of
 ``repro.models.model`` for ``pattern=("attn",)``: config, init, the
 full-sequence ``forward``/``logits``/``train_loss``, the mask projection and
-fold of masked-dense training, paged caches, ``decode_step`` and
-``prefill_chunk``).
+fold of masked-dense training, paged caches, ``decode_step``,
+``prefill_chunk`` and the speculative-decoding hooks ``set_paged_pos`` and
+``verify_step``).
 
 Params keep the reference's tree and key names — block params stacked per
 pattern period on a leading axis (``params["blocks"][i]["mixer"]["wq"]["w"]``
@@ -273,6 +274,48 @@ class Model:
                 x = self._ffn_residual(spec, p, x + y)
         x = layers.apply_norm(cfg.norm, params["final_norm"], x)
         return self.unembed.apply(params["unembed"], x[:, 0]), caches
+
+    @property
+    def spec_decode_supported(self) -> bool:
+        """Speculative decoding rolls a window back by truncating the block
+        table, which only attention blocks allow (recurrent state cannot be
+        re-scored). Every block the port builds is attention."""
+        return all(s["kind"] in ("attn", "attn_moe") for s in self.block_specs)
+
+    def set_paged_pos(self, caches, pos):
+        """Write the host's accepted depth ``pos (B,)`` into every attention
+        layer's paged-cache ``pos``, **in place** (the reference returns new
+        caches); returns the caches. The spec engine calls it before each
+        propose and verify, which is what makes rollback free: rejected
+        positions are written over under the corrected depth next step."""
+        for spec, c in zip(self.block_specs, caches):
+            if spec["kind"] in ("attn", "attn_moe"):
+                c["pos"].copy_(pos.to(c["pos"].dtype)[None].expand_as(c["pos"]))
+        return caches
+
+    def verify_step(self, params, tokens, caches, block_tables, live=None):
+        """Speculative-verify window: score ``tokens (B, Tq)`` — the pending
+        token and the draft's k proposals — against the paged KV pool in one
+        pass; ``logits[:, i]`` is the prediction for the token after window
+        position ``i``, what :meth:`decode_step` gives when the window is fed
+        one token at a time. The caller sets the accepted depth first
+        (:meth:`set_paged_pos`); ``pos`` stays there. Returns ``(logits (B,
+        Tq, vocab), caches)``, the caches updated in place."""
+        assert self.spec_decode_supported, \
+            "verify_step: recurrent blocks cannot roll state back"
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
+                                        caches):
+            for i in range(self.n_periods):
+                p = _layer(pstack, i)
+                c = _layer(cstack, i)
+                h = layers.apply_norm(cfg.norm, p["norm1"], x)
+                y, _ = attn_lib.apply_verify_paged(
+                    spec["mixer"], p["mixer"], h, c, block_tables, live=live)
+                x = self._ffn_residual(spec, p, x + y)
+        x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+        return self.unembed.apply(params["unembed"], x), caches
 
     def prefill_chunk(self, params, tokens, caches, bt_row, slot: int,
                       start: int, chunk_len: int, final: bool = True):

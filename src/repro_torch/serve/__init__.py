@@ -2,10 +2,12 @@
 
 A fixed decode batch of ``n_slots`` rows over a global KV page pool with
 block tables, ref-counted prefix reuse and chunked prefill; FCFS admission
-gated by page-pool pressure; per-request sampling and stop conditions.
+gated by page-pool pressure; per-request sampling and stop conditions;
+speculative decoding with a draft model.
 """
 
-from .cache import NULL_PAGE, PagedCache, PagePool, PrefixTrie
+from .cache import (NULL_PAGE, PagedCache, PagePool, PrefixTrie,
+                    publish_prefix_shared, share_trie)
 from .engine import Engine
 from .metrics import RequestMetrics, ServeMetrics
 from .sampling import SamplingParams, sample
@@ -14,5 +16,5 @@ from .scheduler import Request, RequestState, Scheduler
 __all__ = [
     "Engine", "PagedCache", "PagePool", "PrefixTrie", "NULL_PAGE",
     "ServeMetrics", "RequestMetrics", "SamplingParams", "sample", "Request",
-    "RequestState", "Scheduler",
+    "RequestState", "Scheduler", "share_trie", "publish_prefix_shared",
 ]

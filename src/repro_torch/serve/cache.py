@@ -1,6 +1,7 @@
 """Paged KV memory for the continuous-batching engine (the port of the
-paged half of ``repro.serve.cache``: ``PagePool``, ``PrefixTrie``,
-``PagedCache``; single-pool trie, no speculative-decoding slack).
+paged half of ``repro.serve.cache``: ``PagePool``, ``PrefixTrie`` over one
+pool or several, ``PagedCache`` with the speculative window's slack and
+``rollback``, ``share_trie`` and ``publish_prefix_shared``).
 
 Attention K/V lives in a global pool of fixed-size pages per layer; each
 request holds an ordered list of page ids (its block table); a host-side
@@ -13,7 +14,7 @@ fresh pages. Page 0 is the reserved null page.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -68,12 +69,19 @@ class PrefixTrie:
     so eviction is leaf-first (LRU among nodes no other cached node
     extends). The trie holds one pool ref per node: a page whose only
     holder is the trie (ref == 1) is evictable.
+
+    Shared mode (speculative decoding): built over a sequence of pools, a
+    node holds a tuple of page ids, one per pool; draft and target hit and
+    are evicted as a unit, and a node is evictable only when every pool's
+    ref is the trie's alone. Built over one pool, node values are ints.
     """
 
-    def __init__(self, pool: PagePool, page_size: int):
-        self.pool = pool
+    def __init__(self, pool, page_size: int):
+        self.pools: Tuple[PagePool, ...] = (
+            tuple(pool) if isinstance(pool, (list, tuple)) else (pool,))
+        self.pool = self.pools[0]
         self.page_size = page_size
-        self.nodes: Dict[Tuple[int, ...], int] = {}
+        self.nodes: Dict[Tuple[int, ...], Any] = {}
         self._tick = 0
         self._last_use: Dict[Tuple[int, ...], int] = {}
         self._n_children: Dict[Tuple[int, ...], int] = {}
@@ -81,17 +89,23 @@ class PrefixTrie:
     def __len__(self) -> int:
         return len(self.nodes)
 
-    def is_reclaimable(self, pid: int) -> bool:
-        return self.pool.ref[pid] == 1
+    @staticmethod
+    def _as_tuple(value) -> Tuple[int, ...]:
+        return value if isinstance(value, tuple) else (value,)
+
+    def is_reclaimable(self, value) -> bool:
+        """Whether the trie is a node's only holder in every pool."""
+        return all(pool.ref[pid] == 1
+                   for pool, pid in zip(self.pools, self._as_tuple(value)))
 
     def match(self, prompt: np.ndarray, max_pages: int,
-              touch: bool = True) -> List[int]:
-        """Page ids of the longest cached page-aligned prefix (read-only;
+              touch: bool = True) -> List[Any]:
+        """Node values of the longest cached page-aligned prefix (read-only;
         the caller takes refs). ``touch=False`` is the capacity probe and
         does not bump LRU recency."""
         ps = self.page_size
         toks = tuple(int(t) for t in prompt[: max_pages * ps])
-        pages: List[int] = []
+        pages: List[Any] = []
         if touch:
             self._tick += 1
         for j in range(max_pages):
@@ -103,17 +117,21 @@ class PrefixTrie:
                 self._last_use[key] = self._tick
         return pages
 
-    def insert(self, prompt: np.ndarray, page_index: int, pid: int) -> bool:
-        """Cache page ``page_index`` of ``prompt`` (full and prefilled).
-        Takes one ref; no-op if already cached."""
+    def insert(self, prompt: np.ndarray, page_index: int, pid) -> bool:
+        """Cache page ``page_index`` of ``prompt`` (full and prefilled):
+        ``pid`` an int, or a tuple of one page id per pool. Takes one ref
+        per pool; no-op if already cached."""
         key = tuple(int(t) for t in prompt[: (page_index + 1) * self.page_size])
         if key in self.nodes:
             return False
+        pids = self._as_tuple(pid)
+        assert len(pids) == len(self.pools), (pids, len(self.pools))
         self.nodes[key] = pid
         parent = key[:-self.page_size]
         if parent in self.nodes:
             self._n_children[parent] = self._n_children.get(parent, 0) + 1
-        self.pool.retain(pid)
+        for pool, p in zip(self.pools, pids):
+            pool.retain(p)
         self._tick += 1
         self._last_use[key] = self._tick
         return True
@@ -124,9 +142,9 @@ class PrefixTrie:
                 for key, pid in self.nodes.items()
                 if self.is_reclaimable(pid) and not self._n_children.get(key)]
 
-    def evict_one(self) -> Optional[int]:
-        """Drop the LRU evictable leaf, freeing its page; returns the page
-        id or None."""
+    def evict_one(self):
+        """Drop the LRU evictable leaf, freeing its page(s); returns the
+        node value or None."""
         cands = self.evictable()
         if not cands:
             return None
@@ -139,15 +157,16 @@ class PrefixTrie:
             self._n_children[parent] -= 1
             if not self._n_children[parent]:
                 del self._n_children[parent]
-        self.pool.release(pid)
+        for pool, p in zip(self.pools, self._as_tuple(pid)):
+            pool.release(p)
         return pid
 
     def evictable_count(self) -> int:
         return len(self.evictable())
 
     def reclaimable_count(self) -> int:
-        """Pages cascading leaf eviction could hand back: every trie-only
-        node (request refs are upward-closed along a chain)."""
+        """Pages (per pool) cascading leaf eviction could hand back: every
+        trie-only node (request refs are upward-closed along a chain)."""
         return int(sum(1 for pid in self.nodes.values()
                        if self.is_reclaimable(pid)))
 
@@ -155,17 +174,22 @@ class PrefixTrie:
 class PagedCache:
     """Owns the device page pools, the host block tables, the allocator and
     the prefix trie. Admission reserves a request's worst-case page count
-    (prompt + ``max_new_tokens``); decode pages materialise lazily against
-    that reservation, so an admitted request can always finish."""
+    (prompt + ``max_new_tokens`` + ``slack_tokens``); decode pages
+    materialise lazily against that reservation, so an admitted request can
+    always finish. ``slack_tokens``: speculative decoding writes a k-token
+    window past the accepted depth, so a slot can need pages beyond prompt
+    + ``max_new_tokens``; the slack widens the block table and every
+    reservation by that much."""
 
     def __init__(self, model, n_slots: int, max_len: int, *,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 device=None):
+                 device=None, slack_tokens: int = 0):
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
         self.page_size = page_size
-        self.max_pages = math.ceil(max_len / page_size)
+        self.slack_tokens = slack_tokens
+        self.max_pages = math.ceil((max_len + slack_tokens) / page_size)
         if n_pages is None:
             n_pages = n_slots * self.max_pages + 1     # dense-equivalent + null
         self.n_pages = n_pages
@@ -175,6 +199,8 @@ class PagedCache:
         self.device = self.caches[0]["kp"].device
         self.pool = PagePool(n_pages)
         self.trie = PrefixTrie(self.pool, page_size)
+        # this cache's place in a shared trie's node tuples (share_trie)
+        self._trie_slot = 0
         self.block_tables = np.zeros((n_slots, self.max_pages), np.int32)
         self.dirty = True
         self.reserved = 0
@@ -198,19 +224,27 @@ class PagedCache:
                 - self.reserved)
 
     # ------------------------------------------------------------- admission
-    def _match(self, prompt: np.ndarray, touch: bool = True) -> List[int]:
+    def _match_nodes(self, prompt: np.ndarray, touch: bool = True) -> List[Any]:
+        """Trie node values (page ids, or per-pool tuples when shared) of
+        the longest cached prefix."""
         if len(prompt) <= self.page_size:
             return []
         # never the entire prompt: the last token's logits must be computed
         cap = (len(prompt) - 1) // self.page_size
         return self.trie.match(prompt, cap, touch=touch)
 
+    def _match(self, prompt: np.ndarray, touch: bool = True) -> List[int]:
+        """This pool's page ids of the longest cached prefix."""
+        return [v[self._trie_slot] if isinstance(v, tuple) else v
+                for v in self._match_nodes(prompt, touch)]
+
     def can_admit(self, prompt_len: int, max_new_tokens: int,
                   prompt: Optional[np.ndarray] = None) -> bool:
-        matched = self._match(prompt, touch=False) if prompt is not None else []
-        total = self.pages_for(prompt_len + max_new_tokens)
+        matched = (self._match_nodes(prompt, touch=False)
+                   if prompt is not None else [])
+        total = self.pages_for(prompt_len + max_new_tokens + self.slack_tokens)
         # trie-only matched pages count as available but admission pins them
-        pinned = sum(1 for pid in matched if self.trie.is_reclaimable(pid))
+        pinned = sum(1 for v in matched if self.trie.is_reclaimable(v))
         return total - len(matched) + pinned <= self.available()
 
     def _alloc_page(self) -> int:
@@ -233,7 +267,8 @@ class PagedCache:
         row[:len(matched)] = matched
         for j in range(len(matched), n_prompt_pages):
             row[j] = self._alloc_page()
-        n_res = self.pages_for(len(prompt) + max_new_tokens) - n_prompt_pages
+        n_res = (self.pages_for(len(prompt) + max_new_tokens
+                                + self.slack_tokens) - n_prompt_pages)
         self.reserved += n_res
         self._slot_reserved[slot] = n_res
         self.dirty = True
@@ -245,6 +280,8 @@ class PagedCache:
         """Insert the slot's full, prefilled prompt pages in tokens
         ``[from_tokens, upto_tokens)`` into the trie (partial pages never:
         decode may still write into the last prompt page)."""
+        assert len(self.trie.pools) == 1, \
+            "shared trie: publish with publish_prefix_shared"
         n_full = min(upto_tokens, len(prompt)) // self.page_size
         row = self.block_tables[slot]
         for j in range(from_tokens // self.page_size, n_full):
@@ -264,6 +301,28 @@ class PagedCache:
         """Block-table width needed to cover ``kv_len`` cached tokens."""
         return min(self.pages_for(max(kv_len, 1)), self.max_pages)
 
+    def rollback(self, slot: int, keep_tokens: int) -> int:
+        """Truncate the slot's block table to the pages covering
+        ``keep_tokens`` accepted tokens, releasing the pages past them (the
+        rejection path of speculative decoding; the K/V written there is
+        written over next step). Only private decode pages lie past the
+        accepted depth, so every release frees a page, and it goes back to
+        the slot's reservation. Returns the number of pages released."""
+        keep_pages = self.pages_for(max(keep_tokens, 0))
+        row = self.block_tables[slot]
+        n = 0
+        for j in range(keep_pages, self.max_pages):
+            pid = int(row[j])
+            if pid != NULL_PAGE:
+                self.pool.release(pid)
+                row[j] = NULL_PAGE
+                n += 1
+        if n:
+            self.reserved += n
+            self._slot_reserved[slot] += n
+            self.dirty = True
+        return n
+
     def free_slot(self, slot: int) -> None:
         """Release the slot's page refs (trie-cached pages persist) and its
         remaining reservation."""
@@ -274,3 +333,35 @@ class PagedCache:
         self.reserved -= self._slot_reserved[slot]
         self._slot_reserved[slot] = 0
         self.dirty = True
+
+
+# --------------------------------------------------------------- shared trie
+def share_trie(caches: List[PagedCache]) -> PrefixTrie:
+    """Give ``caches`` one token-keyed trie whose nodes hold a page id per
+    cache's pool (speculative decoding: draft and target hit a shared
+    prefix, and lose it, as a unit, and a hit is counted once). Call before
+    any admission."""
+    ps = caches[0].page_size
+    assert all(c.page_size == ps for c in caches), "page_size must match"
+    trie = PrefixTrie([c.pool for c in caches], ps)
+    for i, c in enumerate(caches):
+        assert len(c.trie) == 0, "share_trie must run before any publish"
+        c.trie = trie
+        c._trie_slot = i
+    return trie
+
+
+def publish_prefix_shared(caches: List[PagedCache], prompt: np.ndarray,
+                          slot: int, upto_tokens: int,
+                          from_tokens: int = 0) -> None:
+    """:meth:`PagedCache.publish_prefix` for a shared trie: insert the
+    slot's full, prefilled prompt pages in tokens ``[from_tokens,
+    upto_tokens)`` as joint nodes. Every cache must have prefilled that
+    range into the same slot."""
+    trie = caches[0].trie
+    assert all(c.trie is trie for c in caches), "caches must share one trie"
+    ps = trie.page_size
+    n_full = min(upto_tokens, len(prompt)) // ps
+    for j in range(from_tokens // ps, n_full):
+        trie.insert(prompt, j, tuple(int(c.block_tables[slot, j])
+                                     for c in caches))

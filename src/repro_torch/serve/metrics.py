@@ -1,7 +1,8 @@
 """Serving metrics (the part of ``repro.serve.metrics`` the engine summary
 reads): per-request TTFT and end-to-end latency, aggregate tok/s, slot
-occupancy, prefill accounting and KV bytes. The clock is injectable;
-nothing here touches the device.
+occupancy, prefill accounting, KV bytes and the speculative-decoding
+counters (tokens per decode step, draft acceptance). The clock is
+injectable; nothing here touches the device.
 """
 
 from __future__ import annotations
@@ -21,6 +22,26 @@ class RequestMetrics:
     t_done: Optional[float] = None
     n_prompt: int = 0
     n_generated: int = 0
+    # decode steps taken, draft tokens proposed and accepted (a non-spec
+    # step counts one token and no proposals)
+    n_decode_steps: int = 0
+    n_draft_proposed: int = 0
+    n_draft_accepted: int = 0
+
+    @property
+    def tokens_per_step(self) -> Optional[float]:
+        """Mean advance per decode step (1.0 without speculation, up to
+        k+1 with it); the first token comes from prefill and is left out."""
+        if self.n_decode_steps == 0:
+            return None
+        return max(self.n_generated - 1, 0) / self.n_decode_steps
+
+    @property
+    def acceptance_rate(self) -> Optional[float]:
+        """Fraction of proposed draft tokens the target accepted."""
+        if self.n_draft_proposed == 0:
+            return None
+        return self.n_draft_accepted / self.n_draft_proposed
 
     @property
     def ttft(self) -> Optional[float]:
@@ -79,6 +100,16 @@ class ServeMetrics:
         if m.t_first_token is None:
             m.t_first_token = self.clock()
 
+    def on_decode_step(self, req_id: int, n_tokens: int,
+                       n_proposed: int = 0, n_accepted: int = 0) -> None:
+        """One decode step advanced ``req_id`` by ``n_tokens``; a spec step
+        also reports its draft window: ``n_proposed`` offered, ``n_accepted``
+        taken (the bonus token is in ``n_tokens`` only)."""
+        m = self.requests[req_id]
+        m.n_decode_steps += 1
+        m.n_draft_proposed += n_proposed
+        m.n_draft_accepted += n_accepted
+
     def on_done(self, req_id: int) -> None:
         t = self.clock()
         self.requests[req_id].t_done = t
@@ -114,6 +145,9 @@ class ServeMetrics:
         total_tokens = sum(m.n_generated for m in done)
         elapsed = ((self.t_last - self.t_start)
                    if done and self.t_start is not None else 0.0)
+        tps = [m.tokens_per_step for m in done
+               if m.tokens_per_step is not None]
+        proposed = sum(m.n_draft_proposed for m in done)
         return {
             "n_requests": len(self.requests),
             "n_done": len(done),
@@ -129,6 +163,10 @@ class ServeMetrics:
             "e2e_p95_s": _pct(e2es, 0.95),
             "occupancy_mean": (sum(self._occupancy) / len(self._occupancy)
                                if self._occupancy else 0.0),
+            "tokens_per_step_mean": sum(tps) / len(tps) if tps else 0.0,
+            "draft_acceptance_rate": (
+                sum(m.n_draft_accepted for m in done) / proposed
+                if proposed else 0.0),
             "prefill_tokens_computed": self.prefill_tokens_computed,
             "prefill_kv_bytes_read": self.prefill_kv_bytes_read,
             "kv_bytes_reserved": self.kv_bytes_reserved,

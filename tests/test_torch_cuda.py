@@ -16,7 +16,8 @@ bf16 values: the kernel rounds each p to bf16 before PV and rounds the output
 once, each within u = 2^-8 relative, so |kernel - plain_f32| <= 2e-5 +
 u (|plain_f32| + sum_j p_j |v_j|), the last term being the plain version run
 on |V|. The same rule must reject the plain output with one page of context
-left out.
+left out. The speculative verify window takes the same rule; with one query
+it is the decode kernel's output bit for bit.
 
 The masked matmul (both orientations) and its weight gradient are held
 against the plain version computed in float32 on the same values with a
@@ -345,6 +346,136 @@ def test_paged_prefill_matches_plain(cuda_device, shape, dtype):
     assert torch.isfinite(got).all()
     assert _attn_within(got, plain32, dtype)
     assert not _attn_within(dropped, plain32, dtype)
+
+
+# ------------------------------------------------------ speculative verify
+def _verify_case(B, Tq, H, Kh, Dh, ps, P, lengths, seed, dev, dtype):
+    """A window of ``Tq`` queries per row over ragged ``lengths`` (each at
+    least ``Tq``), table entries past each length on the null page, and NaN
+    in the null page and past every length."""
+    rng = np.random.default_rng(seed)
+    n_pages = B * P + 1
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    q, kp, vp = (t(f(B, Tq, H, Dh)).to(dtype),
+                 t(f(n_pages, ps, Kh, Dh)).to(dtype),
+                 t(f(n_pages, ps, Kh, Dh)).to(dtype))
+    pool = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((B, P), np.int32)
+    for b, L in enumerate(lengths):
+        n = -(-L // ps)
+        bt[b, :n] = pool[b * P:b * P + n]
+    bt, ln = t(bt), t(np.asarray(lengths, np.int32))
+    f32 = [x.float() for x in (q, kp, vp)]
+    plain32 = lambda abs_v, lengths=ln: tref.paged_attention_verify_ref(
+        f32[0], f32[1], f32[2].abs() if abs_v else f32[2], bt, lengths)
+    kp[0] = vp[0] = float("nan")
+    for b, L in enumerate(lengths):
+        last = int(bt[b, (L - 1) // ps])
+        kp[last, (L - 1) % ps + 1:] = float("nan")
+        vp[last, (L - 1) % ps + 1:] = float("nan")
+    return q, kp, vp, bt, ln, plain32
+
+
+VERIFY_SHAPES = [  # (B, Tq, H, Kh, Dh, page_size, P, lengths)
+    (4, 5, 16, 16, 128, 16, 35, [511, 530, 544, 548]),  # olmo-1b, k = 4
+    (4, 1, 16, 16, 128, 16, 35, [511, 530, 544, 548]),
+    (4, 2, 16, 16, 128, 16, 35, [2, 17, 300, 548]),
+    (4, 5, 16, 4, 128, 16, 35, [5, 16, 250, 548]),      # GQA 4:1, two tiles
+    (3, 3, 8, 2, 32, 8, 6, [3, 9, 40]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", VERIFY_SHAPES)
+def test_paged_attention_verify_matches_plain(cuda_device, shape, dtype):
+    B, Tq, H, Kh, Dh, ps, P, lengths = shape
+    q, kp, vp, bt, ln, plain32 = _verify_case(B, Tq, H, Kh, Dh, ps, P,
+                                              lengths, 17, cuda_device, dtype)
+    dropped = plain32(False, (ln - ps).clamp(min=Tq))
+    before = tpa.launches["paged_attention_verify"]
+    got = tpa.paged_attention_verify(q, kp, vp, bt, ln)
+    assert tpa.launches["paged_attention_verify"] == before + 1
+    assert torch.isfinite(got).all()
+    assert _attn_within(got, plain32, dtype)
+    assert not _attn_within(dropped, plain32, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_verify_one_query_is_the_decode_kernel(cuda_device,
+                                                               dtype):
+    """A window of one query runs the decode kernel's page loop on the same
+    rows: bit for bit the same output."""
+    q, kp, vp, bt, ln, _ = _verify_case(4, 1, 16, 16, 128, 16, 35,
+                                        [1, 37, 300, 548], 19, cuda_device,
+                                        dtype)
+    got = tpa.paged_attention_verify(q, kp, vp, bt, ln)
+    want = tpa.paged_attention(q[:, 0], kp, vp, bt, ln)
+    assert torch.equal(got[:, 0], want)
+
+
+def test_paged_attention_verify_raises_instead_of_falling_back(cuda_device):
+    q, kp, vp, bt, ln, _ = _verify_case(2, 3, 4, 4, 16, 8, 3, [3, 20], 1,
+                                        cuda_device, torch.float32)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_verify(q.cpu(), kp, vp, bt, ln)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_verify(q, kp, vp, bt[:1], ln)
+    with pytest.raises(ValueError):
+        tpa.paged_attention_verify(q[:, :, :3], kp, vp, bt, ln)   # H % Kh
+
+
+@pytest.mark.parametrize("m", [4, 20, 64])
+def test_masked_matmul_at_serving_rows(cuda_device, m):
+    """A masked-dense model served: the bf16 up/gate projection with silu
+    and bias at a decode step of 4 slots (m 4), a verify window of 4 x 5
+    (m 20) and a prefill chunk (m 64)."""
+    mask, dropped, x, w, _, b = _mm_case(m, 2048, 8192, cuda_device,
+                                         torch.bfloat16, seed=m)
+    got = tmm.masked_matmul(x, w, mask, b, activation="silu")
+    x32, w32, b32 = x.float(), w.float(), b.float()
+    want = tref.masked_matmul_ref(x32, w32, mask, b32, "silu")
+    mag = x32.abs() @ (w32.abs() * mask) + b32.abs()
+    assert _mm_within(got, want, mag, torch.bfloat16)
+    assert not _mm_within(tref.masked_matmul_ref(x32, w32, dropped, b32,
+                                                 "silu"),
+                          want, mag, torch.bfloat16)
+
+
+def test_spec_engine_kernel_route_equals_plain_and_non_spec(cuda_device):
+    """The smoke model served with speculative decoding on the card: greedy
+    streams at float32 through the kernels equal the plain route's and the
+    non-spec streams, and every verify ran the verify kernel once per
+    layer."""
+    from repro_torch.configs.common import get_config
+    from repro_torch.core.export import quantize_packed
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+
+    cfg = get_config("olmo-1b", smoke=True)
+    model = build(cfg)
+    params, _ = quantize_packed(model, model.init(0, device=cuda_device))
+    kw = dict(n_slots=2, max_len=48, page_size=8, prefill_chunk_tokens=40)
+    reqs = lambda: make_requests(cfg, n_requests=5, rate=1e9, prompt_len=40,
+                                 gen=8, seed=3, shared_prefix=16)
+    base = Engine(model, params, **kw).run(reqs())
+    streams = {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        try:
+            eng = Engine(model, params, spec_draft=(model, params), spec_k=3,
+                         **kw)
+            verifies = []
+            fn = eng._verify
+            eng._verify = lambda *a: (verifies.append(1), fn(*a))[1]
+            streams[backend] = eng.run(reqs())
+        finally:
+            ops.set_backend("cuda")
+        want = cfg.n_layers * len(verifies) if backend == "cuda" else 0
+        assert ops.launch_counts()["paged_attention_verify"] == want
+    assert streams["cuda"] == streams["torch"] == base
 
 
 # -------------------------------------------------------------------- routing

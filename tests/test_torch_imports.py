@@ -33,6 +33,9 @@ def test_port_imports_without_jax():
     assert "repro_torch.train.loop" in mods and "repro_torch.data.pipeline" in mods
     assert ("repro_torch.checkpoint.checkpoint" in mods
             and "repro_torch.kernels.fused_ffn" in mods)
+    assert ("repro_torch.kernels.paged_attention" in mods
+            and "repro_torch.serve.sampling" in mods
+            and "repro_torch.launch.serve" in mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
@@ -40,6 +43,13 @@ def test_port_imports_without_jax():
         f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
         f"for name in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
+        "from repro_torch.kernels import paged_attention, ops, ref, _build\n"
+        "from repro_torch.serve import sampling, cache\n"
+        "assert callable(paged_attention.paged_attention_verify)\n"
+        "assert callable(ops.paged_attention_verify)\n"
+        "assert callable(ref.paged_attention_verify_ref)\n"
+        "assert 'paged_verify' in _build.SOURCES\n"
+        "assert callable(sampling.spec_accept) and callable(cache.share_trie)\n"
         "leaked = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "          or m == 'repro' or m.startswith('repro.')]\n"
         "assert all(sys.modules[m] is None for m in leaked), leaked\n"
