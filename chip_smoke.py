@@ -148,6 +148,10 @@ LIBRARY_GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
 SERVING_KERNELS = ("bdmm", "bdmm_decode", "paged_attention",
                    "paged_prefill_attention")
 MASKED_KERNELS = ("masked_matmul", "masked_matmul_t", "sddmm_masked")
+# the masked matmul's CUDA kernels (csrc/masked_matmul.cu), one profiler
+# family: the tc and small-m tensor-core bodies, the split-K reduction and
+# the f32 SIMT body; a trailing ", true>" marks transpose_rhs
+MASKED_MM_FAMILY = "masked_mm_"
 BDMM_KERNELS = ("bdmm", "bdmm_decode")
 TRAIN = {"batch": 4, "seq": 512, "steps": 4}
 # train_exact: one step at f32 of the model cut to this depth, with SGD
@@ -197,6 +201,21 @@ SPEC_K = 4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def mm_routes():
+    """The masked matmul's launches by CUDA body (``tc``, ``tc_small_m``,
+    ``simt_f32``) since the last ``ops.reset_launch_counts``."""
+    from repro_torch.kernels import masked_matmul as mk
+    return dict(mk.routes)
+
+
+def run_routed(fn):
+    """``(fn(), the masked matmul bodies that fn launched)``."""
+    before = mm_routes()
+    out = fn()
+    after = mm_routes()
+    return out, sorted(k for k in after if after[k] != before[k])
 
 
 def smi_line() -> str:
@@ -647,7 +666,7 @@ def check_masked(torch, dev, timer, rows, summary):
                     + d_in * d_out),
             }
             for kname, c in cases.items():
-                got = c["run"]()
+                got, used = run_routed(c["run"])
                 want, mag = c["want"](mask), c["mag"]()
                 ok, err, ratio = mm_close(torch, got, want, mag, dt)
                 rejects = not mm_close(torch, c["want"](dropped), want, mag,
@@ -658,6 +677,14 @@ def check_masked(torch, dev, timer, rows, summary):
                     ok = ok and exact_zeros
                 del got, want, mag
                 ok = ok and rejects
+                plan = None
+                if kname != "sddmm_masked":     # the body the plan names ran
+                    k_, n_ = (d_out, d_in) if kname.endswith("_t") else (
+                        d_in, d_out)
+                    pl = mk.plan(m, k_, n_, dtype)
+                    plan = {"route": pl.route, "tile": pl.tile,
+                            "grid": pl.grid, "split": pl.split}
+                    ok = ok and used == [pl.route]
                 b_ms, b_by = bound(c["nbytes"], 2.0 * m * nnz, dt)
                 row = {"phase": "kernels", "kernel": kname, "shape": name,
                        "m": m, "d_in": d_in, "d_out": d_out,
@@ -666,6 +693,7 @@ def check_masked(torch, dev, timer, rows, summary):
                        "tol": dict(MM_TOL[dt], rule=MM_RULE),
                        "rejects_dropped_block": rejects,
                        "offmask_exact_zero": exact_zeros, "ok": ok,
+                       "routes_launched": used, "plan": plan,
                        "ms": timer.ms(c["run"]),
                        "plain_ms": timer.ms(c["plain"]),
                        "library_ms": timer.ms(c["library"]),
@@ -685,6 +713,7 @@ def check_masked(torch, dev, timer, rows, summary):
                         "ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by")})
                     s["at"] = f"bf16 up/gate {d_in}x{d_out}, m={m}"
+                    s["cuda_body"] = used
             del x, w, gy, wm, mask, dropped
     torch.cuda.empty_cache()
 
@@ -716,16 +745,29 @@ def check_masked_serving(torch, dev, timer, rows, summary):
     wm = w * mask.bfloat16()
     s = summary["masked_matmul"]
     s["serving_rows"] = []
+    # one block of rows, served at every m: a row's output must not depend
+    # on how many rows share its call (greedy spec streams equal non-spec
+    # streams only if verify at m = 20 scores as decode at m = 4 does)
+    x_all = r(max(MM_SERVE_M), d_in).bfloat16()
+    outs = {m: mk.masked_matmul(x_all[:m], w, mask, b, activation=act)
+            for m in (1,) + MM_SERVE_M}
+    ref_rows = outs[4]
+    invariant = all(torch.equal(y[:min(m, 4)], ref_rows[:min(m, 4)])
+                    for m, y in outs.items())
+    del outs
     for m in MM_SERVE_M:
-        x = r(m, d_in).bfloat16()
+        x = x_all[:m]
         x32 = x.float()
         run = lambda: mk.masked_matmul(x, w, mask, b, activation=act)
         want = ref.masked_matmul_ref(x32, w32, mask, b32, act)
         mag = x32.abs() @ (w32.abs() * mask) + b32.abs()
-        ok, err, ratio = mm_close(torch, run(), want, mag, "bfloat16")
+        got, used = run_routed(run)
+        ok, err, ratio = mm_close(torch, got, want, mag, "bfloat16")
         rejects = not mm_close(torch, ref.masked_matmul_ref(
             x32, w32, dropped, b32, act), want, mag, "bfloat16")[0]
-        ok = ok and rejects
+        pl = mk.plan(m, d_in, d_out, torch.bfloat16)
+        ok = (ok and rejects and invariant and used == [pl.route]
+              and pl.route == "tc_small_m")
         nbytes = (m * d_in + d_in * d_out + m * d_out) * 2 + d_in * d_out \
             + d_out * 4
         b_ms, b_by = bound(nbytes, 2.0 * m * int(mask.sum()), "bfloat16")
@@ -734,7 +776,12 @@ def check_masked_serving(torch, dev, timer, rows, summary):
                "activation": act, "dtype": "bfloat16", "max_abs_err": err,
                "err_over_tol": ratio,
                "tol": dict(MM_TOL["bfloat16"], rule=MM_RULE),
-               "rejects_dropped_block": rejects, "ok": ok,
+               "rejects_dropped_block": rejects,
+               "batch_invariant": invariant,
+               "batch_invariant_at": "rows 0-3 bit for bit at m = 1, 4, 20, 64",
+               "routes_launched": used,
+               "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
+                        "split": pl.split}, "ok": ok,
                "ms": timer.ms(run),
                "plain_ms": timer.ms(lambda: ref.masked_matmul_ref(
                    x, w, mask, b, act)),
@@ -747,8 +794,10 @@ def check_masked_serving(torch, dev, timer, rows, summary):
         s["err_over_tol"] = max(s["err_over_tol"], ratio)
         s["ok"] = s["ok"] and ok
         s["serving_rows"].append({k: row[k] for k in (
-            "m", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
-    del w, wm, mask, dropped
+            "m", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "batch_invariant")})
+        s["serving_rows"][-1]["split"] = pl.split
+    del w, wm, mask, dropped, x_all
     torch.cuda.empty_cache()
 
 
@@ -1033,7 +1082,7 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
     cuda = torch.autograd.DeviceType.CUDA
     families = {"bdmm_decode_kernel": 0.0, "bdmm_general_kernel": 0.0,
                 "fused_ffn_kernel": 0.0, "paged_attention_kernel": 0.0,
-                "paged_verify_kernel": 0.0, "masked_mm_kernel": 0.0,
+                "paged_verify_kernel": 0.0, MASKED_MM_FAMILY: 0.0,
                 "other": 0.0}
     for e in prof.events():
         if e.device_type != cuda:
@@ -1215,6 +1264,7 @@ def spec_phase(torch, dev, ops, target, draft):
         summary = serve_stream(engine, reqs)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        routes = mm_routes()
         done = summary["n_done"] == len(reqs) and all(
             len(r.generated) == r.max_new_tokens
             and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
@@ -1235,8 +1285,11 @@ def spec_phase(torch, dev, ops, target, draft):
                 "decode_step_ms_p50": statistics.median(calls["step"]),
                 "prefill_tokens_reused": engine.n_prefill_tokens_skipped,
                 "pools_conserved": pools_conserved(engine),
-                "launches": counts}
-        turn_ok = done and turn["pools_conserved"]
+                "launches": counts, "mm_routes": routes}
+        # the bf16 target's rows (decode 4, verify 20, prefill chunks of
+        # 64) take the small-m tensor-core body, never the f32 SIMT one
+        turn_ok = (done and turn["pools_conserved"]
+                   and routes["tc_small_m"] > 0 and routes["simt_f32"] == 0)
         if route == "spec":
             turn_ok = turn_ok and all(counts[k] > 0 for k in (
                 "paged_attention_verify", "masked_matmul", "fused_ffn",
@@ -1464,6 +1517,7 @@ def train_phase(torch, dev, ops):
     out = run(model, tcfg, data, steps, params=params, log_fn=log.append)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    routes = mm_routes()
     del params
     peak = torch.cuda.max_memory_allocated()
     losses = out["history"]
@@ -1473,8 +1527,11 @@ def train_phase(torch, dev, ops):
     window = train_window(torch, model, out["params"], out["opt_state"],
                           make_train_step(model, tcfg), data, dev)
     finite = all(math.isfinite(v) for v in losses)
+    # bf16 at m = 2048: the masked matmul on the tiled tensor-core body,
+    # never on the f32 SIMT one
     ok = (finite and abs(losses[0] - math.log(cfg.vocab)) <= 1.0 and clean
-          and all(launches[k] > 0 for k in MASKED_KERNELS))
+          and all(launches[k] > 0 for k in MASKED_KERNELS)
+          and routes["tc"] > 0 and routes["simt_f32"] == 0)
     dense = model.matmul_params(dense=True)
     useful = model.matmul_params(dense=False)
     row = {"phase": "train", "ok": ok, "config": {
@@ -1492,7 +1549,8 @@ def train_phase(torch, dev, ops):
         "peak_mem_bytes": peak, "init_s": init_s,
         "data_setup_s": data_s, "data_table_bytes": data.table_bytes,
         "host_maxrss_growth_bytes": (rss1 - rss0) * 1024,
-        "log": log, "train_window": window, "launches": launches}
+        "log": log, "train_window": window, "launches": launches,
+        "mm_routes": routes}
     emit(row)
     return row, model, out["params"], data
 
@@ -1521,7 +1579,7 @@ def train_window(torch, model, params, opt_state, step_fn, data, dev):
         if e.device_type != cuda:
             continue
         t = getattr(e, "self_device_time_total", 0) / 1e3
-        if "masked_mm_kernel" in e.name:
+        if MASKED_MM_FAMILY in e.name:
             key = ("masked_matmul_t" if ", true>" in e.name
                    else "masked_matmul")
         elif "sddmm_kernel" in e.name:
@@ -1566,7 +1624,7 @@ def train_exact_phase(torch, dev, ops, data):
         model = build(cfg)
         params = model.init(0, device=dev)
         step = make_train_step(model, tcfg)
-        res, counts = {}, {}
+        res, counts, routes = {}, {}, {}
         for backend in ("cuda", "torch"):
             ops.set_backend(backend)
             ops.reset_launch_counts()
@@ -1579,6 +1637,7 @@ def train_exact_phase(torch, dev, ops, data):
                 ops.set_backend("cuda")
             torch.cuda.synchronize()
             counts[backend] = ops.launch_counts()
+            routes[backend] = mm_routes()
         (pk, lk, gk), (pp, lp, gp) = res["cuda"], res["torch"]
         worst, max_err = 0.0, 0.0
         for a, b, p0 in zip(tree_lib.leaves(pk), tree_lib.leaves(pp),
@@ -1588,8 +1647,12 @@ def train_exact_phase(torch, dev, ops, data):
             worst = max(worst, float((err / lim).max()))
             max_err = max(max_err, float(err.max()))
         loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
+        # f32 stays on the exact SIMT body
+        f32_mm = counts["cuda"]["masked_matmul"] + counts["cuda"]["masked_matmul_t"]
         routes_ok = (all(counts["cuda"][k] > 0 for k in kernels)
-                     and not any(counts["torch"].values()))
+                     and not any(counts["torch"].values())
+                     and routes["cuda"]["simt_f32"] == f32_mm
+                     and not any(routes["torch"].values()))
         mode_ok = math.isfinite(lk) and loss_ok and worst <= 1.0 and routes_ok
         ok = ok and mode_ok
         modes[mode] = {"ok": mode_ok, "loss_kernels": lk, "loss_plain": lp,
@@ -1597,7 +1660,8 @@ def train_exact_phase(torch, dev, ops, data):
                        "param_max_abs_err": max_err,
                        "param_err_over_tol": worst,
                        "launches_kernel_route": counts["cuda"],
-                       "launches_plain_route": counts["torch"]}
+                       "launches_plain_route": counts["torch"],
+                       "mm_routes_kernel_route": routes["cuda"]}
         if mode == "masked_dense":
             masked = (model, pk)
         del params, res, pp
@@ -1802,7 +1866,9 @@ def main() -> int:
                             "yardstick": s.get("yardstick")}
                            if "yardstick" in s else {}),
                         **({"serving_rows": s["serving_rows"]}
-                           if "serving_rows" in s else {})})
+                           if "serving_rows" in s else {}),
+                        **({"cuda_body": s["cuda_body"]}
+                           if "cuda_body" in s else {})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

@@ -9,22 +9,91 @@
 Both launch ``csrc/masked_matmul.cu`` on tensors of one CUDA device; the
 mask is ``uint8`` in W's layout. :mod:`repro_torch.kernels.ops`
 sends CPU tensors to the plain versions before they get here. ``launches``
-counts kernel launches per kernel (the two orientations separately).
+counts kernel launches per kernel (the two orientations separately);
+``routes`` counts the masked matmul's launches by the body that ran them
+(:func:`plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
+# the masked matmul's bodies (csrc/masked_matmul.cu Route)
+ROUTES = {"simt_f32": 0, "tc": 1, "tc_small_m": 2}
+SMALL_M_MAX = 64           # rows that take the small-m tensor-core route
+TILE_K = 64                # K step of the tensor-core routes
+# output tile (MMA M side, MMA N side) each route is built for: tokens x
+# channels on tc, channels x tokens on tc_small_m, tokens x channels on SIMT
+TILES = {"simt_f32": (128, 128), "tc": (256, 128), "tc_small_m": (64, 64)}
+SMS = 132                  # the H100's streaming multiprocessors
+MIN_SPLIT_STEPS = 4        # K steps a split keeps at least
 
 launches = {"masked_matmul": 0, "masked_matmul_t": 0, "sddmm_masked": 0}
+routes = {r: 0 for r in ROUTES}
 _entries = {}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one masked matmul runs on the card: the body, its output tile,
+    the grid, and the split of K over blocks (split ``s`` covers ``[s *
+    k_chunk, min(K, (s + 1) * k_chunk))``)."""
+    route: str
+    tile: Tuple[int, int]
+    grid: Tuple[int, int, int]
+    split: int
+    k_chunk: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
+    """The launch plan of ``masked_matmul`` for ``x (m, k)`` and an output
+    of ``n`` channels. f32 takes the SIMT body; bf16 the tensor cores, with
+    ``m <= SMALL_M_MAX`` rows on the small-m body, whose tiles and K split
+    follow from ``(k, n)`` alone so that a row's result does not depend on
+    ``m``. The small-m body splits K until every SM has a block and, where
+    the split allows, two (two fit an SM), each split keeping at least
+    ``MIN_SPLIT_STEPS`` K steps. ``transpose_rhs`` changes the layout of W,
+    not the work, so both orientations share a plan."""
+    if dtype == torch.float32:
+        route = "simt_f32"
+    elif dtype == torch.bfloat16:
+        route = "tc_small_m" if m <= SMALL_M_MAX else "tc"
+    else:
+        raise ValueError(f"masked_matmul kernel: dtype {dtype}")
+    tile = TILES[route]
+    k_all = _cdiv(k, TILE_K) * TILE_K
+    if route == "simt_f32":
+        return Plan(route, tile, (_cdiv(n, tile[1]), _cdiv(m, tile[0]), 1),
+                    1, k_all)
+    if route == "tc":        # a 1-D grid, walked in groups of token tiles
+        return Plan(route, tile, (_cdiv(n, tile[1]) * _cdiv(m, tile[0]), 1, 1),
+                    1, k_all)
+    tiles, steps = _cdiv(n, tile[0]), _cdiv(k, TILE_K)
+    want = max(_cdiv(SMS, tiles), round(2 * SMS / tiles))
+    split = max(1, min(want, steps // MIN_SPLIT_STEPS))
+    k_chunk = _cdiv(steps, split) * TILE_K
+    split = _cdiv(k, k_chunk)
+    return Plan(route, tile, (tiles, 1, split), split, k_chunk)
+
+
+def _vec(t: torch.Tensor, row_bytes: int) -> int:
+    """The widest copy (16, 8, 4, 2 or 1 bytes) that every row start of the
+    row-major ``t`` is aligned to."""
+    for v in (16, 8, 4, 2):
+        if t.data_ptr() % v == 0 and row_bytes % v == 0:
+            return v
+    return 1
 
 
 def _launcher(name: str):
@@ -33,7 +102,7 @@ def _launcher(name: str):
         P, I = ctypes.c_void_p, ctypes.c_int
         if name == "mm":
             fn = lib.masked_matmul_launch
-            fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+            fn.argtypes = [P, P, P, P, P, P] + [I] * 14 + [P]
         else:
             fn = lib.sddmm_masked_launch
             fn.argtypes = [P, P, P, P, I, I, I, I, P]
@@ -84,13 +153,22 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y.reshape(*lead, n)
+    p = plan(m, k, n, x.dtype)
+    ws = (torch.empty((p.split, m, n), dtype=torch.float32, device=x.device)
+          if p.split > 1 else None)
+    w_row = k if transpose_rhs else n
     lib, fn = _launcher("mm")
     code = fn(x2.data_ptr(), wc.data_ptr(), mk.data_ptr(),
-              b.data_ptr() if b is not None else None, y.data_ptr(), m, k, n,
+              b.data_ptr() if b is not None else None, y.data_ptr(),
+              ws.data_ptr() if ws is not None else None, m, k, n,
               _build.DTYPE_CODES[x.dtype], int(transpose_rhs),
-              ACT_CODES[activation], _build.stream_ptr(x.device))
+              ACT_CODES[activation], ROUTES[p.route], *p.tile, p.split,
+              p.k_chunk, _vec(x2, k * x2.element_size()),
+              _vec(wc, w_row * wc.element_size()), _vec(mk, w_row),
+              _build.stream_ptr(x.device))
     _build.check(lib, "masked_matmul", code)
     launches["masked_matmul_t" if transpose_rhs else "masked_matmul"] += 1
+    routes[p.route] += 1
     return y.reshape(*lead, n)
 
 

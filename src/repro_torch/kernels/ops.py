@@ -66,9 +66,13 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's launch count (and the masked matmul's tally by
+    route)."""
     for mod in _KERNEL_MODULES:
         for k in mod.launches:
             mod.launches[k] = 0
+    for r in mm_kernel.routes:
+        mm_kernel.routes[r] = 0
 
 
 def _plain(*tensors) -> bool:

@@ -130,10 +130,10 @@ def _mm_within(got, want32, mag, dtype):
         ((got.float() - want32).abs() <= lim).all())
 
 
-def _mm_case(m, d_in, d_out, dev, dtype, seed):
-    """Inputs at ``dtype``, a permuted 8-block mask, and the same mask with
-    block 0's rows dropped."""
-    spec = make_mask_spec(d_in, d_out, 8, seed=seed)
+def _mm_case(m, d_in, d_out, dev, dtype, seed, nb=8):
+    """Inputs at ``dtype``, a permuted ``nb``-block mask, and the same mask
+    with block 0's rows dropped."""
+    spec = make_mask_spec(d_in, d_out, nb, seed=seed)
     mask = mask_tensor(spec, dev)
     in_block = torch.as_tensor(block_id_of(spec)[0], device=dev)
     dropped = mask * (in_block != 0).to(torch.uint8)[:, None]
@@ -177,6 +177,82 @@ def test_masked_matmul_transposed_matches_plain(cuda_device, shape, dtype):
     assert _mm_within(got, want, mag, dtype)
     assert not _mm_within(tref.masked_matmul_t_ref(g32, w32, dropped), want,
                           mag, dtype)
+
+
+# (m, d_in, d_out, nb) against the tensor-core tiles: m 1, the route border
+# (64 | 65), K no multiple of 64, and rows aligned to 8, 4, 2 and 1 bytes
+# (mask rows of 1000, 200, 250 and 75 bytes; bf16 rows of 260 and 150)
+MM_RAGGED = [(1, 200, 1000, 8), (65, 136, 200, 8), (64, 130, 250, 2),
+             (3, 75, 45, 5)]
+
+
+@pytest.mark.parametrize("act", [None, "silu", "gelu", "relu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
+@pytest.mark.parametrize("shape", MM_RAGGED)
+def test_masked_matmul_ragged_shapes(cuda_device, shape, transpose, dtype,
+                                     act):
+    """Both orientations with bias and every activation on ragged and
+    unaligned shapes: each launches its route's kernel (no fallback) and
+    passes the matmul-shaped rule, which rejects the dropped block."""
+    m, d_in, d_out, nb = shape
+    mask, dropped, x, w, gy, _ = _mm_case(m, d_in, d_out, cuda_device, dtype,
+                                          seed=11, nb=nb)
+    inp = gy if transpose else x
+    n = d_in if transpose else d_out
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    b = (0.1 * torch.randn(n, generator=g, device=cuda_device)).to(dtype)
+    route = tmm.plan(m, inp.shape[1], n, dtype).route
+    before = tmm.routes[route]
+    got = tmm.masked_matmul(inp, w, mask, b, activation=act,
+                            transpose_rhs=transpose)
+    assert tmm.routes[route] == before + 1
+    i32, w32, b32 = inp.float(), w.float(), b.float()
+
+    def plain(mk):
+        wm = w32 * mk
+        return tref.ACTIVATIONS[act](i32 @ (wm.T if transpose else wm) + b32)
+
+    wa = w32.abs() * mask
+    mag = i32.abs() @ (wa.T if transpose else wa) + b32.abs()
+    want = plain(mask)
+    assert _mm_within(got, want, mag, dtype)
+    assert not _mm_within(plain(dropped), want, mag, dtype)
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
+def test_masked_matmul_rows_do_not_depend_on_m(cuda_device, transpose):
+    """The up/gate projection's first rows are bit for bit the same in
+    calls of 1, 4, 20 and 64 rows: the small-m plan depends on (K, N)
+    alone, so greedy spec streams (verify at m = 20) can equal non-spec
+    streams (decode at m = 4)."""
+    mask, _, x, w, gy, b = _mm_case(64, 2048, 8192, cuda_device,
+                                    torch.bfloat16, seed=5)
+    inp, bias = (gy, None) if transpose else (x, b)
+    run = lambda rows: tmm.masked_matmul(  # noqa: E731
+        inp[:rows], w, mask, bias, activation=None if transpose else "silu",
+        transpose_rhs=transpose)
+    base = run(4)
+    for m in (1, 20, 64):
+        r = min(m, 4)
+        assert torch.equal(run(m)[:r], base[:r]), m
+
+
+@pytest.mark.parametrize("m,dtype,route", [
+    (1, torch.bfloat16, "tc_small_m"), (64, torch.bfloat16, "tc_small_m"),
+    (65, torch.bfloat16, "tc"), (2048, torch.bfloat16, "tc"),
+    (4, torch.float32, "simt_f32"), (2048, torch.float32, "simt_f32")])
+def test_masked_matmul_route_tally(cuda_device, m, dtype, route):
+    """bf16 takes the small-m tensor-core body at m <= 64 and the tiled one
+    above, f32 the SIMT body, in both orientations; the tally by route
+    shows which ran."""
+    mask, _, x, w, gy, _ = _mm_case(m, 256, 512, cuda_device, dtype, seed=2)
+    for inp, transpose in ((x, False), (gy, True)):
+        before = dict(tmm.routes)
+        tmm.masked_matmul(inp, w, mask, transpose_rhs=transpose)
+        after = dict(tmm.routes)
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == route) for k in after}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
