@@ -1,0 +1,262 @@
+"""Time the port's bdmm general grid and its SDDMM on the card, and break
+their tensor-core bodies down by part.
+
+    python benchmarks/torch_bdmm.py              # --mode time
+    python benchmarks/torch_bdmm.py --mode breakdown
+
+``time``: bf16 ``bdmm`` at olmo-1b's four packed shapes (nb 8; q/k/v/o,
+up/gate with silu, down, unembed), forward and dx (the transposed-blocks
+orientation) at m = 2048 tokens (4 x 512, packed training), and the forward
+with bf16 and int8 blocks at m = 64 (one prefill chunk), each against the
+plain version (max |error| in f32) and, for bf16 blocks, one ``torch.bmm``
+over the same blocks; then the bf16 SDDMM at the four masked-dense
+projection shapes at m = 2048 against its plain version and one
+``torch.matmul`` ``xᵀ @ g``. Each row names the body that ran.
+
+``breakdown``: builds variants of ``csrc/bdmm.cu`` and
+``csrc/masked_matmul.cu`` with one part of a tensor-core body removed (the
+wgmmas, the output stores - bdmm's TMA stores, the SDDMM's masked stores -
+or both) and times each on the up/gate shape at m = 2048 (bdmm forward and
+dx, the SDDMM). A variant computes wrong values; only its time means
+anything. What is left when a part is gone bounds what that part costs.
+
+Times are CUDA-event medians of 10 calls with the L2 cache flushed before
+each. Needs an NVIDIA GPU (sm_90a) and nvcc; prints one JSON object a line
+and the card's name and power limit last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+from repro_torch.core.fold import mask_tensor  # noqa: E402
+from repro_torch.core.mask import make_mask_spec  # noqa: E402
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import bdmm as bk  # noqa: E402
+from repro_torch.kernels import masked_matmul as mk  # noqa: E402
+from repro_torch.kernels.quant import quantize_blocks  # noqa: E402
+
+# (name, nb, bi, bo, activation): olmo-1b's packed projections at mpd_c=8
+BDMM_SHAPES = [("qkvo", 8, 256, 256, None), ("up_gate", 8, 256, 1024, "silu"),
+               ("down", 8, 1024, 256, None), ("unembed", 8, 256, 6288, None)]
+# (name, d_in, d_out): olmo-1b's masked-dense projections
+MM_SHAPES = [("qkvo", 2048, 2048), ("up_gate", 2048, 8192),
+             ("down", 8192, 2048), ("unembed", 2048, 50304)]
+
+# the parts of a body a breakdown variant drops: (source, exact text, with)
+PARTS = {
+    "bdmm_mma": ("bdmm",
+                 "        wgmma<BT_BQ, 0, TRANS ? 0 : 1>(acc, desc_k(sx + wg * 8192, kk),\n"
+                 "                                       TRANS ? desc_k(sw, kk) : desc_mn(sw, kk));\n",
+                 "        (void)sw;\n"),
+    "bdmm_store": ("bdmm",
+                   "      tma_store(&maps.y, smem_u32(out), ch0, blk, tok0 + wg * 64);\n"
+                   "      tma_store(&maps.y, smem_u32(out) + 8192, ch0 + 64, blk, tok0 + wg * 64);\n",
+                   ""),
+    "sddmm_mma": ("masked_matmul",
+                  "        wgmma<SD_BQ, 1, 1>(acc[j], desc_mn(sx + (wg * 2 + j) * 8192, kk), db);\n",
+                  "        (void)db;\n"),
+    "sddmm_store": ("masked_matmul",
+                    "      *reinterpret_cast<uint4*>(a.dw + off) = v;\n",
+                    "      if (v.x == 0x12345u) a.dw[0] = from_f32<bf16>(1.f);\n"),
+}
+VARIANTS = {"full": (), "no_store": ("store",), "no_mma": ("mma",),
+            "loads_only": ("mma", "store")}
+
+
+def timer(dev):
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def ms(fn, iters=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        torch.cuda._sleep(50_000_000)
+        for a, b in ev:
+            flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return sorted(a.elapsed_time(b) for a, b in ev)[iters // 2]
+    return ms
+
+
+def routed(fn):
+    """``fn()`` and the general-grid bodies it launched."""
+    before = dict(bk.routes)
+    out = fn()
+    return out, sorted(r for r in bk.routes if bk.routes[r] != before[r])
+
+
+def mode_time(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    for name, nb, bi, bo, act in BDMM_SHAPES:
+        w = r(nb, bi, bo) * bi ** -0.5
+        wb = w.bfloat16()
+        for m, role, quant in ((2048, "fwd", False), (2048, "dx", False),
+                               (64, "fwd", False), (64, "fwd", True)):
+            dx = role == "dx"
+            k, n = (bo, bi) if dx else (bi, bo)
+            a = None if dx else act
+            x = r(m, nb * k).bfloat16()
+            if quant:
+                wq, s = quantize_blocks(w)
+                run = lambda: bk.bdmm(x, wq, None, s, activation=a)  # noqa: E731
+                plain = lambda: ref.bdmm_quant_ref(x, wq, s, None, a)  # noqa: E731
+                want = ref.bdmm_quant_ref(x.float(), wq, s, None, a)
+                library = None
+            else:
+                run = lambda: bk.bdmm(x, wb, activation=a, transpose=dx)  # noqa: E731
+                if dx:
+                    plain = lambda: ref.bdmm_t_ref(x, wb)  # noqa: E731
+                    want = ref.bdmm_t_ref(x.float(), wb.float())
+                    library = lambda: torch.bmm(  # noqa: E731
+                        x.view(m, nb, k).transpose(0, 1), wb.transpose(1, 2))
+                else:
+                    plain = lambda: ref.bdmm_ref(x, wb, None, a)  # noqa: E731
+                    want = ref.bdmm_ref(x.float(), wb.float(), None, a)
+                    library = lambda: torch.bmm(  # noqa: E731
+                        x.view(m, nb, k).transpose(0, 1), wb)
+            got, used = routed(run)
+            print(json.dumps({
+                "kernel": "bdmm", "shape": name, "m": m, "role": role,
+                "weights": "int8" if quant else "bfloat16", "routes": used,
+                "max_abs_err": float((got.float() - want).abs().max()),
+                "ms": ms(run), "plain_ms": ms(plain),
+                "library_ms": ms(library) if library else None}), flush=True)
+            del x, got, want
+    m = 2048
+    for name, d_in, d_out in MM_SHAPES:
+        mask = mask_tensor(make_mask_spec(d_in, d_out, 8, seed=1), dev)
+        x, g = r(m, d_in).bfloat16(), r(m, d_out).bfloat16()
+        run = lambda: mk.sddmm_masked(x, g, mask)  # noqa: E731
+        want = ref.matmul_masked_grad_ref(x.float(), g.float(), mask)
+        before = dict(mk.sddmm_routes)
+        got = run()
+        print(json.dumps({
+            "kernel": "sddmm_masked", "shape": name, "m": m,
+            "routes": sorted(k for k in mk.sddmm_routes
+                             if mk.sddmm_routes[k] != before[k]),
+            "max_abs_err": float((got.float() - want).abs().max()),
+            "offmask_exact_zero": bool((got[mask == 0] == 0).all()),
+            "ms": ms(run),
+            "plain_ms": ms(lambda: ref.matmul_masked_grad_ref(x, g, mask)),
+            "library_ms": ms(lambda: torch.matmul(x.T, g))}), flush=True)
+        del mask, x, g, got, want
+
+
+def build_variants(out_dir: Path):
+    """``{(source, variant): launch function}`` for every variant of both
+    sources, built in parallel."""
+    procs = {}
+    for source in ("bdmm", "masked_matmul"):
+        src = (_build.CSRC / f"{source}.cu").read_text()
+        prefix = "bdmm" if source == "bdmm" else "sddmm"
+        for name, drop in VARIANTS.items():
+            text = src
+            for part in drop:
+                _, old, new = PARTS[f"{prefix}_{part}"]
+                if old not in text:
+                    raise SystemExit(f"breakdown: part {prefix}_{part} not found "
+                                     "in the source; update PARTS")
+                text = text.replace(old, new)
+            cu = out_dir / f"{source}_{name}.cu"
+            cu.write_text(text)
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                   "-o", str(out_dir / f"{source}_{name}.so"), str(cu)]
+            procs[(source, name)] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for (source, name), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {source} {name}:\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(out_dir / f"{source}_{name}.so"))
+        if source == "bdmm":
+            fn = lib.bdmm_launch
+            fn.argtypes = [P, P, P, P, P, P] + [I] * 15 + [P]
+        else:
+            fn = lib.sddmm_masked_launch
+            fn.argtypes = [P, P, P, P] + [I] * 8 + [P]
+        fn.restype = I
+        fns[(source, name)] = fn
+    return fns
+
+
+def mode_breakdown(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    m, nb, bi, bo = 2048, 8, 256, 1024
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build_variants(Path(tmp))
+
+        def check(code):
+            if code:
+                raise SystemExit(f"launch failed: CUDA error {code}")
+
+        w = (r(nb, bi, bo) * bi ** -0.5).bfloat16()
+        bias = (0.1 * r(nb * bo)).float()
+        x, g = r(m, nb * bi).bfloat16(), r(m, nb * bo).bfloat16()
+        y, dx = (torch.empty(m, nb * bo, dtype=torch.bfloat16, device=dev),
+                 torch.empty(m, nb * bi, dtype=torch.bfloat16, device=dev))
+
+        def bdmm_call(fn, inp, out, k, n, trans, b, act):
+            p = bk.plan(m, nb, k, n, torch.bfloat16, torch.bfloat16, trans)
+            check(fn(inp.data_ptr(), w.data_ptr(), None,
+                     b.data_ptr() if b is not None else None, out.data_ptr(),
+                     None, m, nb, k, n, 1, 0, act, bk.ROUTES[p.route],
+                     int(trans), 1, 16, 16, p.grid[0], 1, p.k_chunk, stream))
+        mask = mask_tensor(make_mask_spec(2048, 8192, 8, seed=1), dev)
+        xs, gs = r(m, 2048).bfloat16(), r(m, 8192).bfloat16()
+        dw = torch.empty(2048, 8192, dtype=torch.bfloat16, device=dev)
+        for name in VARIANTS:
+            fb, fs = fns[("bdmm", name)], fns[("masked_matmul", name)]
+            print(json.dumps({
+                "variant": name, "m": m, "bdmm": f"up/gate nb {nb} {bi}x{bo}",
+                "fwd_silu_bias_ms": ms(lambda: bdmm_call(fb, x, y, bi, bo, False,
+                                                         bias, 1)),
+                "fwd_ms": ms(lambda: bdmm_call(fb, x, y, bi, bo, False, None, 0)),
+                "dx_ms": ms(lambda: bdmm_call(fb, g, dx, bo, bi, True, None, 0)),
+                "sddmm": "up/gate 2048x8192",
+                "sddmm_ms": ms(lambda: check(fs(
+                    xs.data_ptr(), gs.data_ptr(), mask.data_ptr(), dw.data_ptr(),
+                    m, 2048, 8192, 1, mk.SDDMM_ROUTES["tc"], 16, 16, 16,
+                    stream)))}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("time", "breakdown"), default="time")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_bdmm: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    ms = timer(dev)
+    (mode_time if args.mode == "time" else mode_breakdown)(dev, ms)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,32 +1,67 @@
-// Block-diagonal matmul for Hopper (sm_90a): the MPDCompress inference op.
+// Block-diagonal matmul for Hopper (sm_90a): the MPDCompress inference op
+// and the packed training path's forward and input gradient.
 //
 // Replaces the Pallas TPU bodies in src/repro/kernels/bdmm.py:
 //   _bdmm_kernel         (general grid, K accumulated over grid steps)
 //   _bdmm_decode_kernel  (decode-shaped grid, m <= 32, full K per step)
 //
-// For packed inputs x (m, nb*bi) and packed diagonal blocks w (nb, bi, bo):
-//   y[:, n*bo:(n+1)*bo] = act(x[:, n*bi:(n+1)*bi] @ w[n] (* scale[n]) + b[n])
-// with w either the activation type (f32 / bf16) or int8 with a per-output
-// channel f32 scale (nb, bo). Products accumulate in f32; the epilogue runs
-// scale -> bias -> activation -> cast, the reference's order.
+// For packed inputs x (m, nb*k) and packed diagonal blocks w:
+//   y[:, n*N:(n+1)*N] = act(x[:, n*k:(n+1)*k] @ B_n (* scale[n]) + b[n])
+// with B_n = w[n] for w (nb, k, N), or B_n = w[n]^T for w (nb, N, k) (the
+// transposed-blocks orientation: the input gradient dx = g @ blockdiag(w)^T
+// reads w as stored, no transposed copy). w is the activation type (f32 /
+// bf16) or int8 with a per-output-channel f32 scale (nb, N). Products
+// accumulate in f32; the epilogue runs scale -> bias -> activation -> cast,
+// the reference's order. kernels/bdmm.py::plan picks the body:
 //
-// What bounds it on the H100:
-// * decode (m <= 32): the weight stream. The int8 blocks of one olmo-1b
-//   decode step are ~147 MB, ~44 us at 3.35 TB/s; the activations are a few
-//   KB. The decode kernel therefore reads every weight byte exactly once for
-//   all m rows: a block owns (block n, 32 output columns), stages the m input
-//   rows of one K chunk in shared memory, and each thread streams 4 adjacent
-//   columns of a K slice with one vector load per row (4 B of int8), keeping
-//   m x 4 f32 sums in registers. K slices are reduced by warp shuffles and one
-//   shared-memory pass in a fixed order, so results are deterministic.
-// * general (prefill chunks, m = 64 tokens): 2*m*bi*bo/nb operations against
-//   the same weight bytes; at m = 64 still far below the ~295 op/B ridge of
-//   the bf16 tensor cores, so this first version is a plain shared-memory
-//   tiled f32 SIMT GEMM (64x64 output tile per block, 4x4 per thread,
-//   K in steps of 16). wgmma/TMA belong to a later change.
-// Ragged m/bo/K edges are masked in-kernel; nothing is padded or copied.
+// * decode (m <= 32, forward): the weight stream. The int8 blocks of one
+//   olmo-1b decode step are ~147 MB, ~44 us at 3.35 TB/s; the activations
+//   are a few KB. The decode kernel therefore reads every weight byte
+//   exactly once for all m rows: a block owns (block n, 32 output columns),
+//   stages the m input rows of one K chunk in shared memory, and each thread
+//   streams 4 adjacent columns of a K slice with one vector load per row
+//   (4 B of int8), keeping m x 4 f32 sums in registers. K slices are reduced
+//   by warp shuffles and one shared-memory pass in a fixed order, so results
+//   are deterministic.
+// * tc (bf16 x and w above 32 rows, and the transposed form at any m, where
+//   TMA can read the rows: packed training at 4 x 512 tokens, forward and
+//   dx, and bf16 prefill chunks). At olmo-1b's packed shapes (K 256 or 1024,
+//   N 256-6288 a block) the output or the gradient input dominates the bytes
+//   (up/gate at m = 2048: 46 MB, 0.0138 ms at 3.35 TB/s) and K is only 4-16
+//   steps of 64, so a tile's epilogue weighs as much as its loads. One
+//   persistent block an SM walks the 128 token x 128 channel tiles of every
+//   diagonal block: a producer thread loads each K step with TMA through
+//   3-D tensor maps, x as (m, nb, k) and w as (nb, k, N) or (nb, N, k), so a
+//   block's K edge is a tensor edge and TMA zero-fills past it (a 2-D box at
+//   column n*k + k0 would read the next block's columns when k is no
+//   multiple of 64), into a 6-stage ring that it keeps full across tile
+//   boundaries; two consumer warpgroups run wgmma m64n128k16 (x K-major; w
+//   MN-major forward, K-major transposed) and hand stages back by mbarrier.
+//   A consumer stages its bf16 rows in a 128-byte-swizzled buffer and one
+//   thread writes them with TMA stores through y seen as (m, nb, N), which
+//   clip at the block's N columns and at m; the warpgroup goes on to the
+//   next tile while the store drains. Staging and storing inline cost two
+//   thirds of the time at K = 256 (the loads stalled behind them).
+// * tc_small_m (bf16 x with int8 w above 32 rows - the served prefill
+//   chunk is 64 tokens - and rows TMA refuses): A and B swap, the 64 output
+//   channels take wgmma's 64-row side and 64 tokens its N side (m64n64k16,
+//   rows past m zero), so no token row is padded. One warpgroup copies each
+//   K step with cp.async (the widest piece the rows allow) into 4 stages;
+//   each thread widens the int8 pieces it copied to bf16 in the swizzled
+//   layout (exact: |q| <= 127) and fences them for the async proxy before
+//   the one barrier of the step publishes the stage. The scale is applied in
+//   the epilogue, per output channel. Where the tiles fill under half the
+//   SMs, K is split over blocks and a second pass adds the f32 partial sums
+//   in the fixed order s = 0, 1, ... (no float atomics).
+// * simt_f32 (f32 x, m > 32, and the transposed form at any m): f32 stays
+//   exact f32 (no TF32: the parity routes' tolerances would not hold), a
+//   plain shared-memory tiled SIMT GEMM (64x64 output tile per block, 4x4 a
+//   thread, K in steps of 16).
+// Ragged m / N / K edges are zero-filled by the copies or masked in-kernel;
+// nothing is padded or copied outside the kernels. Every sum is added in a
+// fixed order, so results do not depend on the blocks' order.
 
-#include "common.cuh"
+#include "tc.cuh"
 
 namespace repro_torch {
 namespace {
@@ -43,21 +78,23 @@ __device__ __forceinline__ float epilogue(float v, const float* __restrict__ sca
   return v;
 }
 
-template <typename T, typename W>
+// The SIMT body: block blockIdx.y of x (m, nb*k) times B_n, w (nb, k, n) or
+// with TRANS (nb, n, k), into y (m, nb*n).
+template <bool TRANS, typename T, typename W>
 __global__ void __launch_bounds__(G_THREADS)
 bdmm_general_kernel(const T* __restrict__ x, const W* __restrict__ w,
                     const float* __restrict__ scale, const float* __restrict__ bias,
-                    T* __restrict__ y, int m, int nb, int bi, int bo, int act) {
+                    T* __restrict__ y, int m, int nb, int k, int n, int act) {
   __shared__ float As[GK][GM + 4];  // x tile, k-major
   __shared__ float Bs[GK][GN + 4];  // w tile
-  const int n = blockIdx.y;
+  const int blk = blockIdx.y;
   const int col0 = blockIdx.x * GN;
   const int row0 = blockIdx.z * GM;
   const int tid = threadIdx.x;
   const int tr = tid / 16, tc = tid % 16;
-  const long ldx = static_cast<long>(nb) * bi;
-  const T* xb = x + static_cast<long>(n) * bi;
-  const W* wb = w + static_cast<long>(n) * bi * bo;
+  const long ldx = static_cast<long>(nb) * k;
+  const T* xb = x + static_cast<long>(blk) * k;
+  const W* wb = w + static_cast<long>(blk) * k * n;
 
   float acc[4][4];
 #pragma unroll
@@ -65,20 +102,22 @@ bdmm_general_kernel(const T* __restrict__ x, const W* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < bi; k0 += GK) {
+  for (int k0 = 0; k0 < k; k0 += GK) {
 #pragma unroll
     for (int i = 0; i < (GM * GK) / G_THREADS; ++i) {
       const int idx = tid + i * G_THREADS;
       const int r = idx / GK, kk = idx % GK;
       const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < m && gk < bi) ? to_f32(xb[gr * ldx + gk]) : 0.f;
+      As[kk][r] = (gr < m && gk < k) ? to_f32(xb[gr * ldx + gk]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (GK * GN) / G_THREADS; ++i) {
       const int idx = tid + i * G_THREADS;
-      const int kk = idx / GN, c = idx % GN;
+      // consecutive threads read consecutive addresses in either layout
+      const int kk = TRANS ? idx % GK : idx / GN, c = TRANS ? idx / GK : idx % GN;
       const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < bi && gc < bo) ? to_f32(wb[static_cast<long>(gk) * bo + gc]) : 0.f;
+      const long off = TRANS ? static_cast<long>(gc) * k + gk : static_cast<long>(gk) * n + gc;
+      Bs[kk][c] = (gk < k && gc < n) ? to_f32(wb[off]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -96,7 +135,7 @@ bdmm_general_kernel(const T* __restrict__ x, const W* __restrict__ w,
     __syncthreads();
   }
 
-  const long ldy = static_cast<long>(nb) * bo;
+  const long ldy = static_cast<long>(nb) * n;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gr = row0 + tr * 4 + i;
@@ -104,8 +143,8 @@ bdmm_general_kernel(const T* __restrict__ x, const W* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gc = col0 + tc * 4 + j;
-      if (gc >= bo) continue;
-      const long pidx = static_cast<long>(n) * bo + gc;
+      if (gc >= n) continue;
+      const long pidx = static_cast<long>(blk) * n + gc;
       y[gr * ldy + pidx] = from_f32<T>(epilogue(acc[i][j], scale, bias, pidx, act));
     }
   }
@@ -216,17 +255,399 @@ void launch_decode(const void* x, const void* w, const float* scale, const float
 #undef REPRO_DECODE
 }
 
-template <typename T, typename W>
-void launch(const void* x, const void* w, const float* scale, const float* bias, void* y,
-            int m, int nb, int bi, int bo, int act, int decode, int vec, cudaStream_t stream) {
-  if (decode) {
-    launch_decode<T, W>(x, w, scale, bias, y, m, nb, bi, bo, act, vec, stream);
-  } else {
-    const dim3 grid((bo + GN - 1) / GN, nb, (m + GM - 1) / GM);
-    bdmm_general_kernel<T, W><<<grid, G_THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const W*>(w), scale, bias,
-        static_cast<T*>(y), m, nb, bi, bo, act);
+}  // namespace
+
+// ============================================== tensor-core bodies (bf16)
+namespace tc {
+namespace {
+
+struct BArgs {
+  const bf16* x;       // (m, nb * k)
+  const void* w;       // (nb, k, n), or (nb, n, k) transposed; bf16 or int8
+  const float* scale;  // (nb, n) for int8 w, else null
+  const float* bias;   // (nb * n,) or null
+  bf16* y;             // (m, nb * n)
+  float* ws;           // (split, m, nb * n) partial sums when split > 1
+  int m, nb, k, n, act;
+  int vec_x, vec_w;    // copy width in bytes of the rows of x and w
+  int split, k_chunk;  // tc_small_m: K split over blocks, K range of a split
+};
+
+// scale -> bias -> activation of output channel ch of block blk
+__device__ __forceinline__ float bdmm_out(const BArgs& a, int blk, int ch, float v) {
+  if (ch >= a.n) return 0.f;
+  const long p = static_cast<long>(blk) * a.n + ch;
+  if (a.scale) v *= __ldg(a.scale + p);
+  if (a.bias) v += __ldg(a.bias + p);
+  return activate_tc(v, a.act);
+}
+
+// ------------------------------------------------------------------- tc
+constexpr int BT_CW = 2;            // consumer warpgroups, 64 token rows each
+constexpr int BT_BP = 64 * BT_CW;   // tokens of a tile
+constexpr int BT_BQ = 128;          // channels of a tile
+constexpr int BT_STAGES = 6;  // 192 KB ring + 32 KB staging: one block an SM
+constexpr int BT_X = BT_BP * TK * 2, BT_W = BT_BQ * TK * 2, BT_BYTES = BT_X + BT_W;
+// a consumer's staged output: 64 token rows x 128 channels as two 128-byte
+// swizzled panels of 64 channels, the boxes of the output's TMA stores
+constexpr int BT_OUT = 64 * BT_BQ * 2;
+constexpr int BT_THREADS = BT_CW * WG_THREADS + 32;  // + one producer warp
+
+// TMA descriptors of x as (m, nb, k), w as (nb, k, n) or (nb, n, k), and y
+// as (m, nb, n).
+struct BMaps {
+  CUtensorMap x, w, y;
+};
+
+// Tile i of the grid walk: channel tile fastest, then token tile, then
+// block, so consecutive tiles share their x tile.
+__device__ __forceinline__ void bt_tile(const BArgs& a, int i, int& blk, int& tok0, int& ch0) {
+  const int nt = (a.n + BT_BQ - 1) / BT_BQ, mt = (a.m + BT_BP - 1) / BT_BP;
+  ch0 = (i % nt) * BT_BQ;
+  tok0 = (i / nt % mt) * BT_BP;
+  blk = i / nt / mt;
+}
+
+// bias -> activation of one consumer's accumulators (64 x 128; thread
+// element 4g + 2h + e at row 16 warp + lane / 4 + 8h, column 8g + 2 (lane %
+// 4) + e), rounded to bf16 into the two swizzled panels at out.
+template <int ACT>
+__device__ __forceinline__ void bt_stage(uint8_t* out, const float (&acc)[BT_BQ / 2],
+                                         const float* bias, int nv, int t) {
+  const int warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int g = 0; g < BT_BQ / 8; ++g) {
+    const int c = 8 * g + 2 * (lane % 4);  // nv: the tile's channels in range
+    const float b0 = bias && c < nv ? __ldg(bias + c) : 0.f;
+    const float b1 = bias && c + 1 < nv ? __ldg(bias + c + 1) : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + lane / 4 + 8 * h;
+      float v0 = acc[4 * g + 2 * h] + b0, v1 = acc[4 * g + 2 * h + 1] + b1;
+      if (ACT == ACT_SILU) {
+        v0 = activate_tc(v0, ACT_SILU);
+        v1 = activate_tc(v1, ACT_SILU);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(out + (g / 8) * 8192 + r * 128 +
+                                         (((g % 8) ^ (r % 8)) << 4) + 4 * (lane % 4)) =
+          __floats2bfloat162_rn(v0, v1);
+    }
   }
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ... The producer thread
+// runs ahead through the ring across tile boundaries, so the next tile's
+// loads are in flight while the consumers finish a tile. A consumer stages
+// its rows in shared memory and one of its threads stores them with TMA,
+// asynchronously: the warpgroup goes on to the next tile at once, and waits
+// for that store to have read the staging only a tile later. (A K split for
+// grids of few tiles measured no faster: its second pass costs what it
+// saves.)
+template <bool TRANS>
+__global__ void __launch_bounds__(BT_THREADS, 1)
+    bdmm_general_tc_kernel(const BArgs a, const __grid_constant__ BMaps maps) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s0 = smem_u32(smem);
+  uint8_t* staging = smem + BT_STAGES * BT_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + BT_CW * BT_OUT);  // landed
+  uint64_t* empty = full + BT_STAGES;  // consumed: the producer may refill
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  const int tiles = ((a.n + BT_BQ - 1) / BT_BQ) * ((a.m + BT_BP - 1) / BT_BP) * a.nb;
+  const int steps = (a.k + TK - 1) / TK;
+  if (tid == 0) {
+    for (int s = 0; s < BT_STAGES; ++s) {
+      bar_init(full + s, 1);           // the issuing thread, plus the copies' bytes
+      bar_init(empty + s, 4 * BT_CW);  // every consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == BT_CW) {
+    if (tid != BT_CW * WG_THREADS) return;
+    int q = 0;  // loads issued: step q uses stage q % STAGES
+#pragma unroll 1
+    for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+      int blk, tok0, ch0;
+      bt_tile(a, i, blk, tok0, ch0);
+#pragma unroll 1
+      for (int t = 0; t < steps; ++t, ++q) {
+        const int st = q % BT_STAGES, k0 = t * TK;
+        const uint32_t sx = s0 + st * BT_BYTES, sw = sx + BT_X;
+        if (q >= BT_STAGES) bar_wait(empty + st, ((q / BT_STAGES) & 1) ^ 1);
+        bar_expect(full + st, BT_BYTES);
+        tma_load(sx, &maps.x, k0, blk, tok0, full + st);
+        if (TRANS) {
+          tma_load(sw, &maps.w, k0, ch0, blk, full + st);
+        } else {
+          tma_load(sw, &maps.w, ch0, k0, blk, full + st);
+          tma_load(sw + 8192, &maps.w, ch0 + 64, k0, blk, full + st);
+        }
+      }
+    }
+    return;
+  }
+
+  const bool lane0 = tid % 32 == 0, leader = tid % WG_THREADS == 0;
+  const int t = tid % WG_THREADS;
+  uint8_t* out = staging + wg * BT_OUT;
+  float acc[BT_BQ / 2];
+  int q = 0;  // steps consumed
+#pragma unroll 1
+  for (int i = blockIdx.x; i < tiles; i += gridDim.x) {
+    int blk, tok0, ch0;
+    bt_tile(a, i, blk, tok0, ch0);
+#pragma unroll
+    for (int j = 0; j < BT_BQ / 2; ++j) acc[j] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s, ++q) {
+      const int st = q % BT_STAGES;
+      bar_wait(full + st, (q / BT_STAGES) & 1);
+      const uint32_t sx = s0 + st * BT_BYTES, sw = sx + BT_X;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma<BT_BQ, 0, TRANS ? 0 : 1>(acc, desc_k(sx + wg * 8192, kk),
+                                       TRANS ? desc_k(sw, kk) : desc_mn(sw, kk));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (s > 0 && lane0) bar_arrive(empty + (q - 1) % BT_STAGES);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane0) bar_arrive(empty + (q - 1) % BT_STAGES);
+    // the previous tile's store has read the staging
+    if (leader) bulk_wait<0, true>();
+    asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
+    const float* bias = a.bias ? a.bias + static_cast<long>(blk) * a.n + ch0 : nullptr;
+    if (a.act == ACT_SILU)
+      bt_stage<ACT_SILU>(out, acc, bias, a.n - ch0, t);
+    else
+      bt_stage<ACT_NONE>(out, acc, bias, a.n - ch0, t);
+    fence_async_smem();
+    asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
+    if (leader) {
+      tma_store(&maps.y, smem_u32(out), ch0, blk, tok0 + wg * 64);
+      tma_store(&maps.y, smem_u32(out) + 8192, ch0 + 64, blk, tok0 + wg * 64);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait<0, false>();
+}
+
+// ----------------------------------------------------------- tc_small_m
+constexpr int BS_TILE = 64;  // channels (wgmma's M side) and tokens (its N side)
+constexpr int BS_STAGES = 4;
+
+template <bool INT8>
+struct SmallStage {
+  // x tile, the bf16 w tile wgmma reads, and the int8 w tile as copied
+  static constexpr int X = BS_TILE * TK * 2, W = BS_TILE * TK * 2, Q = INT8 ? BS_TILE * TK : 0;
+  static constexpr int BYTES = X + W + Q;
+  static_assert(X % 1024 == 0 && W % 1024 == 0 && Q % 1024 == 0, "swizzled tiles stay aligned");
+};
+
+// 16 int8 weights as 16 bf16 (exact: every int8 value is a bf16 value)
+__device__ __forceinline__ uint4 widen8(uint2 q) {
+  uint4 out;
+  uint32_t* o = &out.x;
+  const uint32_t w[2] = {q.x, q.y};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t v = w[i / 2];
+    const int sh = 16 * (i % 2);
+    const __nv_bfloat162 p = __floats2bfloat162_rn(
+        static_cast<float>(static_cast<int8_t>((v >> sh) & 0xFF)),
+        static_cast<float>(static_cast<int8_t>((v >> (sh + 8)) & 0xFF)));
+    memcpy(o + i, &p, 4);
+  }
+  return out;
+}
+
+// y^T tile = B_n^T x^T: 64 channels from ch0 of block blockIdx.y (A = w,
+// MN-major forward, K-major transposed) times 64 tokens from tok0 (B = x,
+// K-major; rows past m are zero), over split z's K range, blockIdx.z =
+// token tile + token tiles * z. With a split the f32 partial sums go to the
+// workspace and bdmm_reduce_kernel finishes them.
+template <bool TRANS, bool INT8>
+__global__ void __launch_bounds__(WG_THREADS) bdmm_general_small_kernel(const BArgs a) {
+  using S = SmallStage<INT8>;
+  static_assert(!(TRANS && INT8), "int8 blocks run forward only");
+  constexpr int NT = WG_THREADS;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, ch0 = blockIdx.x * BS_TILE, blk = blockIdx.y;
+  const int tok_tiles = (a.m + BS_TILE - 1) / BS_TILE, z = blockIdx.z / tok_tiles;
+  const int tok0 = (blockIdx.z % tok_tiles) * BS_TILE, kb = z * a.k_chunk;
+  const int steps = (min(a.k, kb + a.k_chunk) - kb + TK - 1) / TK;
+  constexpr int ES = INT8 ? 1 : 2;  // bytes of a weight
+  const auto* wb = static_cast<const uint8_t*>(a.w) + static_cast<long>(blk) * a.k * a.n * ES;
+  const Rows gx{reinterpret_cast<const uint8_t*>(a.x) + static_cast<long>(blk) * a.k * 2,
+                2L * a.nb * a.k, a.m, 2 * a.k, a.vec_x};
+  const Rows gw = TRANS ? Rows{wb, static_cast<long>(a.k) * ES, a.n, a.k * ES, a.vec_w}
+                        : Rows{wb, static_cast<long>(a.n) * ES, a.k, a.n * ES, a.vec_w};
+  auto issue = [&](int t) {
+    const uint32_t sx = s0 + (t % BS_STAGES) * S::BYTES, sw = sx + S::X, sq = sw + S::W;
+    const int k0 = kb + t * TK;
+#pragma unroll
+    for (int i = 0; i < BS_TILE * 8 / NT; ++i) {
+      const int idx = tid + i * NT, r = idx / 8, c = idx % 8;
+      copy_chunk(sx + KMajor{}(r, c), gx, tok0 + r, 2 * k0 + 16 * c);
+    }
+    if constexpr (INT8) {  // k rows of 64 int8 channels, 4 chunks a row
+#pragma unroll
+      for (int i = 0; i < TK * 4 / NT; ++i) {
+        const int idx = tid + i * NT, r = idx / 4, c = idx % 4;
+        copy_chunk(sq + r * 64 + 16 * c, gw, k0 + r, ch0 + 16 * c);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BS_TILE * 8 / NT; ++i) {
+        const int idx = tid + i * NT, r = idx / 8, c = idx % 8;
+        if (TRANS)
+          copy_chunk(sw + KMajor{}(r, c), gw, ch0 + r, 2 * k0 + 16 * c);
+        else
+          copy_chunk(sw + MNMajor{}(r, c), gw, k0 + r, 2 * ch0 + 16 * c);
+      }
+    }
+  };
+  float acc[BS_TILE / 2];
+#pragma unroll
+  for (int i = 0; i < BS_TILE / 2; ++i) acc[i] = 0.f;
+
+  // Stage t % STAGES holds step t. A thread waits for its own copies,
+  // widens its own int8 pieces and fences them for the async proxy; the one
+  // barrier a step then publishes the stage and retires step t - 2's wgmmas
+  // (waited for at step t - 1), so its stage takes step t + STAGES - 2.
+#pragma unroll
+  for (int t = 0; t < BS_STAGES - 2; ++t) {
+    if (t < steps) issue(t);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % BS_STAGES;
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(BS_STAGES - 3) : "memory");
+    uint8_t* stage = smem + st * S::BYTES;
+    if constexpr (INT8) {
+#pragma unroll
+      for (int i = 0; i < TK * 4 / NT; ++i) {
+        const int idx = tid + i * NT, r = idx / 4, c = idx % 4;
+        const uint4 q = *reinterpret_cast<const uint4*>(stage + S::X + S::W + r * 64 + 16 * c);
+        *reinterpret_cast<uint4*>(stage + S::X + MNMajor{}(r, 2 * c)) = widen8(make_uint2(q.x, q.y));
+        *reinterpret_cast<uint4*>(stage + S::X + MNMajor{}(r, 2 * c + 1)) =
+            widen8(make_uint2(q.z, q.w));
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+    if (t + BS_STAGES - 2 < steps) issue(t + BS_STAGES - 2);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const uint32_t sx = s0 + st * S::BYTES, sw = sx + S::X;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk)
+      wgmma<BS_TILE, TRANS ? 0 : 1, 0>(acc, TRANS ? desc_k(sw, kk) : desc_mn(sw, kk),
+                                       desc_k(sx, kk));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // accumulator 4g + 2h + e sits at channel row 16 warp + lane / 4 + 8h,
+  // token column 8g + 2 (lane % 4) + e
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
+  const long ldy = static_cast<long>(a.nb) * a.n;
+  float* part = a.split > 1 ? a.ws + static_cast<long>(z) * a.m * ldy : nullptr;
+#pragma unroll
+  for (int g = 0; g < BS_TILE / 8; ++g)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tok = tok0 + 8 * g + c0 + e, ch = ch0 + r0 + 8 * h;
+        if (tok >= a.m || ch >= a.n) continue;
+        const long off = tok * ldy + static_cast<long>(blk) * a.n + ch;
+        const float v = acc[4 * g + 2 * h + e];
+        if (part)
+          part[off] = v;
+        else
+          a.y[off] = from_f32<bf16>(bdmm_out(a, blk, ch, v));
+      }
+}
+
+// y = act(sum_z ws[z] (* scale) + bias): the split partial sums added in the
+// fixed order z = 0, 1, ..., so the result does not depend on the blocks'
+// order.
+__global__ void bdmm_reduce_kernel(const BArgs a) {
+  const long ldy = static_cast<long>(a.nb) * a.n, total = a.m * ldy;
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float v = 0.f;
+  for (int z = 0; z < a.split; ++z) v += a.ws[z * total + i];
+  const int p = static_cast<int>(i % ldy);
+  a.y[i] = from_f32<bf16>(bdmm_out(a, p / a.n, p % a.n, v));
+}
+
+}  // namespace
+}  // namespace tc
+
+namespace {
+
+// routes (kernels/bdmm.py ROUTES)
+enum Route { ROUTE_DECODE = 0, ROUTE_SIMT_F32 = 1, ROUTE_TC = 2, ROUTE_TC_SMALL_M = 3 };
+
+template <bool TRANS, typename W>
+void launch_simt(const void* x, const void* w, const float* scale, const float* bias, void* y,
+                 int m, int nb, int k, int n, int act, cudaStream_t stream) {
+  const dim3 grid((n + GN - 1) / GN, nb, (m + GM - 1) / GM);
+  bdmm_general_kernel<TRANS, float, W><<<grid, G_THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const W*>(w), scale, bias,
+      static_cast<float*>(y), m, nb, k, n, act);
+}
+
+template <bool TRANS, bool INT8>
+cudaError_t launch_small(const tc::BArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n + tc::BS_TILE - 1) / tc::BS_TILE, a.nb,
+                  (a.m + tc::BS_TILE - 1) / tc::BS_TILE * a.split);
+  const int bytes = tc::BS_STAGES * tc::SmallStage<INT8>::BYTES + 1024;  // + alignment slack
+  cudaError_t e =
+      tc::launch(tc::bdmm_general_small_kernel<TRANS, INT8>, tc::WG_THREADS, bytes, grid, s, a);
+  if (e == cudaSuccess && a.split > 1) {
+    const long total = static_cast<long>(a.m) * a.nb * a.n;
+    tc::bdmm_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(a);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
+template <bool TRANS>
+cudaError_t launch_tc(const tc::BArgs& a, int blocks, cudaStream_t s) {
+  tc::BMaps maps{};
+  const long k = a.k, n = a.n, nb = a.nb, m = a.m;
+  // x as (m, nb, k); w as (nb, k, n) or, transposed, (nb, n, k); y as (m,
+  // nb, n): a block's K and N edges are tensor edges
+  const long xd[3] = {k, nb, m}, xs[2] = {2 * k, 2 * nb * k};
+  const long wd[3] = {TRANS ? k : n, TRANS ? n : k, nb}, ws[2] = {2 * wd[0], 2 * k * n};
+  const long yd[3] = {n, nb, m}, ys[2] = {2 * n, 2 * nb * n};
+  const int xb[3] = {tc::TK, 1, tc::BT_BP}, wbx[3] = {tc::TK, TRANS ? tc::BT_BQ : tc::TK, 1};
+  const int yb[3] = {64, 1, 64};
+  if (!tc::tensor_map_nd(&maps.x, a.x, 2, 3, xd, xs, xb, true) ||
+      !tc::tensor_map_nd(&maps.w, a.w, 2, 3, wd, ws, wbx, true) ||
+      !tc::tensor_map_nd(&maps.y, a.y, 2, 3, yd, ys, yb, true))
+    return cudaErrorNotSupported;
+  const int bytes = tc::BT_STAGES * tc::BT_BYTES + tc::BT_CW * tc::BT_OUT + 1024 +
+                    2 * tc::BT_STAGES * 8;  // + alignment slack, the mbarriers
+  return tc::launch(tc::bdmm_general_tc_kernel<TRANS>, tc::BT_THREADS, bytes, dim3(blocks), s,
+                    a, maps);
 }
 
 }  // namespace
@@ -234,27 +655,66 @@ void launch(const void* x, const void* w, const float* scale, const float* bias,
 
 using namespace repro_torch;
 
-// x_dtype: DT_F32 or DT_BF16; w_int8: 0 -> w has x's dtype, 1 -> int8 (+ scale)
-// decode: 1 -> decode-shaped kernel (m <= 32), 0 -> general kernel
-// Returns cudaGetLastError() after the launch (0 on success).
+// y (m, nb*n) = act(x (m, nb*k) @ blockdiag(B) (* scale) + bias): B_n = w[n]
+// for w (nb, k, n), or w[n]^T for w (nb, n, k) with transpose. x_dtype:
+// DT_F32 or DT_BF16 (y the same); w_int8: 0 -> w has x's dtype, 1 -> int8
+// with scale (nb, n) f32. The launch plan (kernels/bdmm.py::plan): route 0
+// decode (m <= 32, forward), 1 simt_f32 (f32 x), 2 tc (bf16 x and w; x, w
+// and the rows of both 16-byte aligned; `blocks` persistent blocks), 3
+// tc_small_m (bf16 x, bf16 or, forward only, int8 w; K split over `split`
+// blocks of k_chunk, a multiple of 64, with ws an f32 (split, m, nb*n)
+// workspace when split > 1). vec: the decode kernel's 4-element loads of w
+// rows are aligned; vec_x / vec_w: the copy width in bytes of the rows of x
+// and w. Returns cudaGetLastError() after the launches.
 extern "C" int bdmm_launch(const void* x, const void* w, const float* scale,
-                           const float* bias, void* y, int m, int nb, int bi, int bo,
-                           int x_dtype, int w_int8, int act, int decode, int vec,
+                           const float* bias, void* y, float* ws, int m, int nb, int k, int n,
+                           int x_dtype, int w_int8, int act, int route, int transpose,
+                           int vec, int vec_x, int vec_w, int blocks, int split, int k_chunk,
                            void* stream) {
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
-  if (m <= 0 || nb <= 0 || bi <= 0 || bo <= 0 || (decode && m > 32))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || nb <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_SILU) return bad;
+  if (w_int8 && (transpose || !scale)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == DT_BF16) {
-    if (w_int8) launch<__nv_bfloat16, int8_t>(x, w, scale, bias, y, m, nb, bi, bo, act, decode, vec, s);
-    else launch<__nv_bfloat16, __nv_bfloat16>(x, w, scale, bias, y, m, nb, bi, bo, act, decode, vec, s);
-  } else if (x_dtype == DT_F32) {
-    if (w_int8) launch<float, int8_t>(x, w, scale, bias, y, m, nb, bi, bo, act, decode, vec, s);
-    else launch<float, float>(x, w, scale, bias, y, m, nb, bi, bo, act, decode, vec, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (route == ROUTE_DECODE) {
+    if (m > 32 || transpose) return bad;
+    if (x_dtype == DT_BF16) {
+      if (w_int8) launch_decode<__nv_bfloat16, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
+      else launch_decode<__nv_bfloat16, __nv_bfloat16>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
+    } else if (x_dtype == DT_F32) {
+      if (w_int8) launch_decode<float, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
+      else launch_decode<float, float>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
+    } else {
+      return bad;
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (route == ROUTE_SIMT_F32) {
+    if (x_dtype != DT_F32) return bad;
+    if (w_int8) launch_simt<false, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, s);
+    else if (transpose) launch_simt<true, float>(x, w, scale, bias, y, m, nb, k, n, act, s);
+    else launch_simt<false, float>(x, w, scale, bias, y, m, nb, k, n, act, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (x_dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
+  if (split < 1 || k_chunk <= 0 || k_chunk % tc::TK || static_cast<long>(split) * k_chunk < k ||
+      static_cast<long>(split - 1) * k_chunk >= k || (split > 1 && ws == nullptr))
+    return bad;
+  const tc::BArgs a{static_cast<const __nv_bfloat16*>(x), w, scale, bias,
+                    static_cast<__nv_bfloat16*>(y), ws, m, nb, k, n, act, vec_x, vec_w,
+                    split, k_chunk};
+  cudaError_t e;
+  if (route == ROUTE_TC) {
+    if (w_int8 || vec_x != 16 || vec_w != 16 || k % 8 || n % 8 || split != 1 || blocks < 1)
+      return bad;
+    e = transpose ? launch_tc<true>(a, blocks, s) : launch_tc<false>(a, blocks, s);
+  } else if (route == ROUTE_TC_SMALL_M) {
+    e = w_int8 ? launch_small<false, true>(a, s)
+               : transpose ? launch_small<true, false>(a, s) : launch_small<false, false>(a, s);
+  } else {
+    return bad;
+  }
+  return static_cast<int>(e);
 }
 
 extern "C" const char* bdmm_error_string(int code) {

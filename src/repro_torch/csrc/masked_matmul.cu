@@ -52,7 +52,13 @@
 // * simt_f32 (f32, any m). f32 stays exact f32 (TF32 would not hold the
 //   parity routes' tolerances): a shared-memory tiled f32 SIMT GEMM, a 128 x
 //   128 output tile per block of 256 threads, 8 x 8 outputs a thread, K in
-//   steps of 16. The sddmm runs on the same SIMT body.
+//   steps of 16. The f32 sddmm runs on the same SIMT body.
+//
+// The sddmm in bf16 (sddmm_tc_kernel) is the tc body's shape with the token
+// axis as K: A = x^T and B = g both read MN-major straight from the rows of
+// x and g, one TMA producer thread and no pass over a landed stage, the
+// mask read once per output tile in the epilogue and applied as a select.
+// At m = 2048 its loads from L2 are its floor (~6 TB/s).
 //
 // Ragged edges are zero-filled by the copies (TMA boxes out of range, or
 // cp.async with a short source size): K need not be a multiple of 64 nor m
@@ -65,9 +71,7 @@
 // reduction range itself and owns its sums in registers: Hopper blocks run
 // in parallel and in no order.
 
-#include <cuda.h>
-
-#include "common.cuh"
+#include "tc.cuh"
 
 namespace repro_torch {
 namespace {
@@ -216,12 +220,11 @@ sddmm_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+}  // namespace
+
 // ============================================== tensor-core routes (bf16)
 namespace tc {
-
-using bf16 = __nv_bfloat16;
-constexpr int TK = 64;           // K step: one 128-byte swizzle row of bf16
-constexpr int WG_THREADS = 128;  // one warpgroup
+namespace {
 
 struct Args {
   const bf16* x;        // (m, k)
@@ -238,66 +241,6 @@ struct Args {
 struct Maps {
   CUtensorMap x, w, mask;
 };
-
-// A row-major matrix in device memory seen as `rows` rows of `row_bytes`
-// bytes, `ld` bytes apart, each row start aligned to `vec` bytes.
-struct Rows {
-  const uint8_t* base;
-  long ld;
-  int rows, row_bytes, vec;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled K-major
-// tile: rows of 64 bf16 (128 bytes), chunk c stored at c ^ (r % 8). This is
-// the layout TMA's SWIZZLE_128B writes and wgmma's 128B mode reads.
-struct KMajor {
-  __device__ __forceinline__ uint32_t operator()(int r, int c) const {
-    return r * 128 + ((c ^ (r & 7)) << 4);
-  }
-};
-// The same swizzle MN-major: k row r holds 64 MN values per 8 KB panel,
-// chunk c (8 MN values) in panel c / 8.
-struct MNMajor {
-  __device__ __forceinline__ uint32_t operator()(int r, int c) const {
-    return (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-  }
-};
-
-// Copy 16 bytes into shared memory at `dst`, `valid` of them from `src`
-// and the rest zero. With vec >= 4 the copy is asynchronous (cp.async of
-// vec-byte pieces); narrower-aligned rows are loaded and stored here.
-__device__ __forceinline__ void copy16(uint32_t dst, const uint8_t* src, const uint8_t* base,
-                                       int valid, int vec) {
-  if (vec == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(valid > 0 ? src : base), "r"(valid) : "memory");
-  } else if (vec == 8) {
-#pragma unroll
-    for (int o = 0; o < 16; o += 8) {
-      const int v = min(max(valid - o, 0), 8);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst + o),
-                   "l"(v > 0 ? src + o : base), "r"(v) : "memory");
-    }
-  } else if (vec == 4) {
-#pragma unroll
-    for (int o = 0; o < 16; o += 4) {
-      const int v = min(max(valid - o, 0), 4);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + o),
-                   "l"(v > 0 ? src + o : base), "r"(v) : "memory");
-    }
-  } else {
-    uint32_t q[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int b = 0; b < 16; ++b)
-      if (b < valid) q[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
-    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(q[0]), "r"(q[1]),
-                 "r"(q[2]), "r"(q[3]) : "memory");
-  }
-}
 
 // w * m for two bf16 weights and bytes sel_lo, sel_hi of the mask word m4:
 // byte b placed under the exponent of 2^23 is the float 2^23 + b, so
@@ -432,109 +375,6 @@ __device__ __forceinline__ void mask_stage(uint8_t* sw, const uint8_t* sm, int t
   }
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major tiles
-// use only the stride between 8-row groups (sbo, 1024 bytes); MN-major
-// tiles also the stride between 64-wide MN panels (lbo).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// D (64 x N, f32, in registers) += A (64 x 16) B (16 x N), both from shared
-// memory; TA / TB: 0 = K-major, 1 = MN-major (transposed).
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
-
-template <int BQ, int TA, int TB>
-__device__ __forceinline__ void wgmma(float (&d)[BQ / 2], uint64_t da, uint64_t db) {
-  if constexpr (BQ == 128)
-    wgmma_n128<TA, TB>(d, da, db);
-  else
-    wgmma_n64<TA, TB>(d, da, db);
-}
-
-// Keep the compiler from moving accumulator accesses across an asynchronous
-// wgmma that owns the registers.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// The activation of the tensor-core epilogues: silu through the fast
-// exponential and division, a few f32 ulps from the reference and far below
-// the bf16 rounding that follows (the IEEE forms call a slow path that cost
-// the m = 2048 epilogue more than its whole product); the others as the
-// reference computes them.
-__device__ __forceinline__ float activate_tc(float v, int act) {
-  return act == ACT_SILU ? __fdividef(v, 1.0f + __expf(-v)) : activate(v, act);
-}
-
-__device__ __forceinline__ uint32_t bar_u32(const uint64_t* b) { return smem_u32(b); }
-__device__ __forceinline__ void bar_init(const uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_u32(b)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(const uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar_u32(b)) : "memory");
-}
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void bar_wait(const uint64_t* b, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar_u32(b)), "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(const uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_u32(b)),
-               "r"(bytes) : "memory");
-}
-// 2-D TMA load of the box at (c0 innermost, c1) into shared memory at dst,
-// completing on barrier b; the box's bytes outside the tensor are zero.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         const uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(bar_u32(b)), "r"(c0), "r"(c1) : "memory");
-}
-
 // tc_small_m epilogue: write accumulator `acc` (MMA rows = 64 channels from
 // ch0, columns = tokens) to y, or to split `z` of the workspace.
 // Accumulator 4g + 2h + e of a thread sits at MMA row 16 warp + lane / 4 +
@@ -577,10 +417,6 @@ struct Stage {
   static constexpr int X = XR * TK * 2, W = WC * TK * 2, M = WC * TK, BYTES = X + W + M;
   static_assert(X % 1024 == 0 && W % 1024 == 0 && M % 1024 == 0, "swizzled tiles stay aligned");
 };
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
 
 // ------------------------------------------------------------ tc_small_m
 // y^T tile = (M o W)^T x^T: one warpgroup, 64 channels on wgmma's M side
@@ -837,6 +673,189 @@ __global__ void __launch_bounds__((TC_CW + TC_PW) * WG_THREADS, 1)
   }
 }
 
+// ------------------------------------------------------------ sddmm tc
+// dW tile = (x^T g) o M: 256 input channels (rows of dW) x 128 output
+// channels per block, the m tokens reduced in K steps of 64. Warpgroups 0
+// and 1 consume: each owns 128 rows (two m64n128k16 row slices, 128 f32
+// accumulators a thread) and issues wgmma with A = x^T and B = g, both
+// MN-major as x and g lie in memory (wgmma's transpose bits), so neither is
+// transposed anywhere. Warpgroup 2 produces: one thread loads each stage
+// with TMA (four 64 x 64 boxes of x, two of g; a ragged m is zero past the
+// tensor's last row) or, for rows TMA refuses, all its threads copy with
+// cp.async and arrive once their copies have landed. No pass touches a
+// landed stage. The epilogue stages the bf16 tile in shared memory and
+// writes it 16 bytes a thread, each value selected by its mask byte, read
+// once here: off-mask entries are exact zeros whatever the sum.
+struct SddmmArgs {
+  const bf16* x;        // (m, d_in)
+  const bf16* g;        // (m, d_out)
+  const uint8_t* mask;  // (d_in, d_out)
+  bf16* dw;             // (d_in, d_out)
+  int m, d_in, d_out;
+  int vec_x, vec_g, vec_m;  // copy width in bytes of each operand's rows
+};
+
+struct SddmmMaps {
+  CUtensorMap x, g;
+};
+
+constexpr int SD_CW = 2, SD_BP = 128 * SD_CW, SD_BQ = 128;  // tile: dW rows x columns
+constexpr int SD_STAGES = 4, SD_LAG = 2;  // cp.async steps in flight before a stage is marked
+constexpr int SD_X = SD_BP * TK * 2, SD_G = SD_BQ * TK * 2, SD_BYTES = SD_X + SD_G;
+static_assert(SD_BP * OUT_LD <= SD_STAGES * SD_BYTES, "the output stages in the ring");
+
+// The epilogue: each consumer's 128 rows rounded to bf16 and staged in
+// shared memory (padded rows, OUT_LD bytes: the 8 rows of a store hit
+// distinct banks; thread element 4g + 2h + e of slice j at row 64 j + 16
+// warp + lane / 4 + 8h, column 8g + 2 (lane % 4) + e), then written 16 bytes
+// a thread, 16 threads a row, each value selected by its mask byte.
+__device__ __forceinline__ void store_sddmm(const SddmmArgs& a, const float (&acc)[2][64],
+                                            uint8_t* buf, int row0, int col0, int wg, int tid) {
+  const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int g = 0; g < 16; ++g)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = j * 64 + warp * 16 + lane / 4 + 8 * h, c = 8 * g + c0;
+        *reinterpret_cast<__nv_bfloat162*>(buf + r * OUT_LD + c * 2) =
+            __floats2bfloat162_rn(acc[j][4 * g + 2 * h], acc[j][4 * g + 2 * h + 1]);
+      }
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
+  const bool vec = a.d_out % 8 == 0 && a.vec_m >= 8;
+#pragma unroll 4
+  for (int i = t; i < 128 * (SD_BQ / 8); i += WG_THREADS) {
+    const int r = i / (SD_BQ / 8), c = i % (SD_BQ / 8);
+    const int row = row0 + wg * 128 + r, col = col0 + 8 * c;
+    if (row >= a.d_in || col >= a.d_out) continue;
+    const long off = static_cast<long>(row) * a.d_out + col;
+    uint4 v = *reinterpret_cast<const uint4*>(buf + r * OUT_LD + c * 16);
+    if (vec) {
+      const uint2 mk = __ldg(reinterpret_cast<const uint2*>(a.mask + off));
+      uint32_t* e = &v.x;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t m2 = (q < 2 ? mk.x : mk.y) >> (16 * (q % 2));
+        e[q] &= ((m2 & 0xFFu) ? 0xFFFFu : 0u) | ((m2 & 0xFF00u) ? 0xFFFF0000u : 0u);
+      }
+      *reinterpret_cast<uint4*>(a.dw + off) = v;
+    } else {
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      for (int q = 0; q < 8 && col + q < a.d_out; ++q)
+        a.dw[off + q] = a.mask[off + q] ? e[q] : from_f32<bf16>(0.f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__((SD_CW + 1) * WG_THREADS, 1)
+    sddmm_tc_kernel(const SddmmArgs a, const __grid_constant__ SddmmMaps maps) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint32_t s0 = smem_u32(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SD_STAGES * SD_BYTES);  // landed
+  uint64_t* empty = full + SD_STAGES;  // consumed: the producer may refill
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  const int mt = (a.d_in + SD_BP - 1) / SD_BP, nt = (a.d_out + SD_BQ - 1) / SD_BQ;
+  const int per = RASTER * nt, first = blockIdx.x / per * RASTER;
+  const int size = min(mt - first, RASTER), local = blockIdx.x % per;
+  const int row0 = (first + local % size) * SD_BP, col0 = local / size * SD_BQ;
+  const int steps = (a.m + TK - 1) / TK;
+  const bool tma = a.vec_x == 16 && a.vec_g == 16;
+  if (tid == 0) {
+    for (int s = 0; s < SD_STAGES; ++s) {
+      bar_init(full + s, tma ? 1 : WG_THREADS);  // the issuing thread, or every copier
+      bar_init(empty + s, 4 * SD_CW);            // every consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == SD_CW) {
+    const int pt = tid - SD_CW * WG_THREADS;
+    if (tma) {
+      if (pt != 0) return;
+#pragma unroll 1
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % SD_STAGES, t0 = t * TK;
+        const uint32_t sx = s0 + st * SD_BYTES, sg = sx + SD_X;
+        if (t >= SD_STAGES) bar_wait(empty + st, ((t / SD_STAGES) & 1) ^ 1);
+        bar_expect(full + st, SD_BYTES);
+#pragma unroll
+        for (int p = 0; p < SD_BP / 64; ++p)
+          tma_load(sx + p * 8192, &maps.x, row0 + 64 * p, t0, full + st);
+#pragma unroll
+        for (int p = 0; p < SD_BQ / 64; ++p)
+          tma_load(sg + p * 8192, &maps.g, col0 + 64 * p, t0, full + st);
+      }
+      return;
+    }
+    const Rows gx{reinterpret_cast<const uint8_t*>(a.x), 2L * a.d_in, a.m, 2 * a.d_in, a.vec_x};
+    const Rows gg{reinterpret_cast<const uint8_t*>(a.g), 2L * a.d_out, a.m, 2 * a.d_out,
+                  a.vec_g};
+    // Step t is copied at iteration t and marked landed at t + SD_LAG.
+#pragma unroll 1
+    for (int t = 0; t < steps + SD_LAG; ++t) {
+      if (t >= SD_LAG) {
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(SD_LAG - 1) : "memory");
+        fence_async_smem();
+        bar_arrive(full + (t - SD_LAG) % SD_STAGES);
+      }
+      if (t < steps) {
+        const int st = t % SD_STAGES, t0 = t * TK;
+        const uint32_t sx = s0 + st * SD_BYTES, sg = sx + SD_X;
+        if (t >= SD_STAGES) bar_wait(empty + st, ((t / SD_STAGES) & 1) ^ 1);
+#pragma unroll 4
+        for (int i = pt; i < TK * (SD_BP / 8); i += WG_THREADS) {
+          const int r = i / (SD_BP / 8), c = i % (SD_BP / 8);
+          copy_chunk(sx + MNMajor{}(r, c), gx, t0 + r, 2 * row0 + 16 * c);
+        }
+#pragma unroll 4
+        for (int i = pt; i < TK * (SD_BQ / 8); i += WG_THREADS) {
+          const int r = i / (SD_BQ / 8), c = i % (SD_BQ / 8);
+          copy_chunk(sg + MNMajor{}(r, c), gg, t0 + r, 2 * col0 + 16 * c);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    return;
+  }
+
+  const bool lane0 = tid % 32 == 0;
+  float acc[2][SD_BQ / 2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < SD_BQ / 2; ++q) acc[j][q] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % SD_STAGES;
+    bar_wait(full + st, (t / SD_STAGES) & 1);
+    const uint32_t sx = s0 + st * SD_BYTES, sg = sx + SD_X;
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      const uint64_t db = desc_mn(sg, kk);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wgmma<SD_BQ, 1, 1>(acc[j], desc_mn(sx + (wg * 2 + j) * 8192, kk), db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    if (t > 0 && lane0) bar_arrive(empty + (t - 1) % SD_STAGES);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  // every wgmma of both consumers has retired: the ring is free
+  asm volatile("bar.sync 1, %0;\n" ::"n"(SD_CW * WG_THREADS) : "memory");
+  store_sddmm(a, acc, smem + wg * 128 * OUT_LD, row0, col0, wg, tid);
+}
+
 // y = act(sum_s ws[s] + bias), the split partial sums added in the fixed
 // order s = 0, 1, ..., so the result does not depend on the blocks' order.
 __global__ void masked_mm_reduce_kernel(const float* __restrict__ ws,
@@ -851,69 +870,22 @@ __global__ void masked_mm_reduce_kernel(const float* __restrict__ ws,
   y[i] = from_f32<bf16>(activate_tc(v, act));
 }
 
-template <class Kernel, class... P>
-cudaError_t launch(Kernel kern, int threads, int bytes, dim3 grid, cudaStream_t s,
-                   const P&... params) {
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  kern<<<grid, threads, bytes, s>>>(params...);
-  return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major (rows, cols) matrix of 1- or 2-byte elements as boxes of
-// (box_rows, box_cols), 128-byte swizzled (the wgmma tiles) or plain (the
-// mask tiles). Rows and base must be 16-byte aligned.
-bool tensor_map(CUtensorMap* map, const void* base, int elem_bytes, long rows, long cols,
-                int box_rows, int box_cols, bool swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-            2, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
+}  // namespace
 }  // namespace tc
 
-template <typename T>
-void launch_sddmm(const void* x, const void* g, const uint8_t* mask, void* dw,
-                  int m, int d_in, int d_out, cudaStream_t s) {
+namespace {
+
+void launch_sddmm_f32(const void* x, const void* g, const uint8_t* mask, void* dw, int m,
+                      int d_in, int d_out, cudaStream_t s) {
   const dim3 grid((d_out + BN - 1) / BN, (d_in + BM - 1) / BM);
-  sddmm_kernel<T><<<grid, THREADS, 0, s>>>(static_cast<const T*>(x), static_cast<const T*>(g),
-                                           mask, static_cast<T*>(dw), m, d_in, d_out);
+  sddmm_kernel<float><<<grid, THREADS, 0, s>>>(static_cast<const float*>(x),
+                                               static_cast<const float*>(g), mask,
+                                               static_cast<float*>(dw), m, d_in, d_out);
 }
 
 // routes (kernels/masked_matmul.py ROUTES) and the tiles each is built for
 enum Route { ROUTE_SIMT_F32 = 0, ROUTE_TC = 1, ROUTE_TC_SMALL_M = 2 };
 constexpr int TC_STAGES = 4, SMALL_STAGES = 4, SMALL_TILE = 64;
-
-bool vec_ok(int v) { return v == 1 || v == 2 || v == 4 || v == 8 || v == 16; }
-
 
 }  // namespace
 }  // namespace repro_torch
@@ -950,7 +922,7 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t*
       masked_mm_simt_kernel<float, false><<<grid, THREADS, 0, s>>>(xt, wt, mask, bias, yt, m, k, n, act);
     return static_cast<int>(cudaGetLastError());
   }
-  if (dtype != DT_BF16 || !vec_ok(vec_x) || !vec_ok(vec_w) || !vec_ok(vec_m)) return bad;
+  if (dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w) || !tc::vec_ok(vec_m)) return bad;
   if (split < 1 || k_chunk <= 0 || k_chunk % tc::TK || static_cast<long>(split) * k_chunk < k ||
       static_cast<long>(split - 1) * k_chunk >= k || (split > 1 && ws == nullptr))
     return bad;
@@ -998,20 +970,37 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t*
 }
 
 // dw (d_in, d_out) = (x^T @ g) o M for x (m, d_in), g (m, d_out), mask
-// (d_in, d_out); x, g and dw share one dtype (DT_F32 or DT_BF16).
+// (d_in, d_out); x, g and dw share one dtype. route (kernels/masked_matmul.py
+// SDDMM_ROUTES): ROUTE_SIMT_F32 for DT_F32, ROUTE_TC for DT_BF16, with the
+// copy width in bytes of the rows of x, g and the mask (x and g by TMA when
+// both are 16). Returns cudaGetLastError() after the launch.
 extern "C" int sddmm_masked_launch(const void* x, const void* g, const uint8_t* mask,
-                                   void* dw, int m, int d_in, int d_out, int dtype,
-                                   void* stream) {
+                                   void* dw, int m, int d_in, int d_out, int dtype, int route,
+                                   int vec_x, int vec_g, int vec_m, void* stream) {
   cudaGetLastError();
-  if (m <= 0 || d_in <= 0 || d_out <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || d_in <= 0 || d_out <= 0) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_BF16)
-    launch_sddmm<__nv_bfloat16>(x, g, mask, dw, m, d_in, d_out, s);
-  else if (dtype == DT_F32)
-    launch_sddmm<float>(x, g, mask, dw, m, d_in, d_out, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (route == ROUTE_SIMT_F32) {
+    if (dtype != DT_F32) return bad;
+    launch_sddmm_f32(x, g, mask, dw, m, d_in, d_out, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route != ROUTE_TC || dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_g) ||
+      !tc::vec_ok(vec_m))
+    return bad;
+  const tc::SddmmArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+                        mask, static_cast<__nv_bfloat16*>(dw), m, d_in, d_out, vec_x, vec_g, vec_m};
+  tc::SddmmMaps maps{};
+  if (vec_x == 16 && vec_g == 16) {  // else the producers copy by cp.async
+    if (!tc::tensor_map(&maps.x, x, 2, m, d_in, tc::TK, tc::TK, true) ||
+        !tc::tensor_map(&maps.g, g, 2, m, d_out, tc::TK, tc::TK, true))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+  const dim3 grid(((d_in + tc::SD_BP - 1) / tc::SD_BP) * ((d_out + tc::SD_BQ - 1) / tc::SD_BQ));
+  const int bytes = tc::SD_STAGES * tc::SD_BYTES + 1024 + 2 * tc::SD_STAGES * 8;
+  return static_cast<int>(
+      tc::launch(tc::sddmm_tc_kernel, (tc::SD_CW + 1) * 128, bytes, grid, s, a, maps));
 }
 
 extern "C" const char* masked_matmul_error_string(int code) {

@@ -1,0 +1,313 @@
+// Tensor-core building blocks for Hopper (sm_90a) shared by the port's bf16
+// GEMM bodies (masked_matmul.cu, bdmm.cu): 128-byte-swizzled shared-memory
+// layouts, wgmma descriptors and instructions, mbarriers, TMA loads and
+// tensor maps, and cp.async copies for rows that TMA refuses.
+#pragma once
+
+#include <cuda.h>
+#include <string.h>
+
+#include "common.cuh"
+
+namespace repro_torch {
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int TK = 64;           // K step: one 128-byte swizzle row of bf16
+constexpr int WG_THREADS = 128;  // one warpgroup
+
+// A row-major matrix in device memory seen as `rows` rows of `row_bytes`
+// bytes, `ld` bytes apart, each row start aligned to `vec` bytes.
+struct Rows {
+  const uint8_t* base;
+  long ld;
+  int rows, row_bytes, vec;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled K-major
+// tile: rows of 64 bf16 (128 bytes), chunk c stored at c ^ (r % 8). This is
+// the layout TMA's SWIZZLE_128B writes and wgmma's 128B mode reads.
+struct KMajor {
+  __device__ __forceinline__ uint32_t operator()(int r, int c) const {
+    return r * 128 + ((c ^ (r & 7)) << 4);
+  }
+};
+// The same swizzle MN-major: k row r holds 64 MN values per 8 KB panel,
+// chunk c (8 MN values) in panel c / 8.
+struct MNMajor {
+  __device__ __forceinline__ uint32_t operator()(int r, int c) const {
+    return (c >> 3) * 8192 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  }
+};
+
+// Copy 16 bytes into shared memory at `dst`, `valid` of them from `src`
+// and the rest zero. With vec >= 4 the copy is asynchronous (cp.async of
+// vec-byte pieces); narrower-aligned rows are loaded and stored here.
+__device__ __forceinline__ void copy16(uint32_t dst, const uint8_t* src, const uint8_t* base,
+                                       int valid, int vec) {
+  if (vec == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(valid > 0 ? src : base), "r"(valid) : "memory");
+  } else if (vec == 8) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 8) {
+      const int v = min(max(valid - o, 0), 8);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst + o),
+                   "l"(v > 0 ? src + o : base), "r"(v) : "memory");
+    }
+  } else if (vec == 4) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) {
+      const int v = min(max(valid - o, 0), 4);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + o),
+                   "l"(v > 0 ? src + o : base), "r"(v) : "memory");
+    }
+  } else {
+    uint32_t q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (b < valid) q[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(q[0]), "r"(q[1]),
+                 "r"(q[2]), "r"(q[3]) : "memory");
+  }
+}
+
+// Chunk c of the 16-byte chunks of row r of g, from column byte col_byte
+// on: `valid` bytes in range (0 past the last row or the row's end).
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const Rows& g, int r, int col_byte) {
+  const int valid = r < g.rows ? min(max(g.row_bytes - col_byte, 0), 16) : 0;
+  copy16(dst, g.base + static_cast<long>(r) * g.ld + col_byte, g.base, valid, g.vec);
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major tiles
+// use only the stride between 8-row groups (sbo, 1024 bytes); MN-major
+// tiles also the stride between 64-wide MN panels (lbo).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// Descriptors of k16 slice kk of a 64-deep stage: K-major rows of 128
+// bytes, or MN-major panels of 8 KB whose k rows are 128 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + kk * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 128, 8192, 1024);
+}
+
+// D (64 x N, f32, in registers) += A (64 x 16) B (16 x N), both from shared
+// memory; TA / TB: 0 = K-major, 1 = MN-major (transposed).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int BQ, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[BQ / 2], uint64_t da, uint64_t db) {
+  if constexpr (BQ == 128)
+    wgmma_n128<TA, TB>(d, da, db);
+  else
+    wgmma_n64<TA, TB>(d, da, db);
+}
+
+// Keep the compiler from moving accumulator accesses across an asynchronous
+// wgmma that owns the registers.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Generic-proxy writes to shared memory (cp.async, st.shared) made visible
+// to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The activation of the tensor-core epilogues: silu through the fast
+// exponential and division, a few f32 ulps from the reference and far below
+// the bf16 rounding that follows (the IEEE forms call a slow path that cost
+// the m = 2048 epilogue more than its whole product); the others as the
+// reference computes them.
+__device__ __forceinline__ float activate_tc(float v, int act) {
+  return act == ACT_SILU ? __fdividef(v, 1.0f + __expf(-v)) : activate(v, act);
+}
+
+__device__ __forceinline__ uint32_t bar_u32(const uint64_t* b) { return smem_u32(b); }
+__device__ __forceinline__ void bar_init(const uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar_u32(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_arrive(const uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar_u32(b)) : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void bar_wait(const uint64_t* b, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar_u32(b)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(const uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar_u32(b)),
+               "r"(bytes) : "memory");
+}
+// 2-D TMA load of the box at (c0 innermost, c1) into shared memory at dst,
+// completing on barrier b; the box's bytes outside the tensor are zero.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         const uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(bar_u32(b)), "r"(c0), "r"(c1) : "memory");
+}
+// The same for a 3-D tensor map, coordinates innermost first.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, const uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(bar_u32(b)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// 3-D TMA store of the box at (c0 innermost, c1, c2) from shared memory at
+// src: elements outside the tensor are not written. Completion is tracked
+// by bulk groups of the issuing thread.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the issuing thread's bulk groups but the newest N have read
+// their shared memory (READ) or completed.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <class Kernel, class... P>
+cudaError_t launch(Kernel kern, int threads, int bytes, dim3 grid, cudaStream_t s,
+                   const P&... params) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, threads, bytes, s>>>(params...);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor of `rank` dims of 1- or 2-byte elements, dims[0] innermost and
+// contiguous, strides[i] the bytes between steps of dims[i + 1], read in
+// boxes of box[0..rank), 128-byte swizzled (the wgmma tiles) or plain.
+// The base and every stride must be 16-byte aligned.
+inline bool tensor_map_nd(CUtensorMap* map, const void* base, int elem_bytes, int rank,
+                          const long* dims, const long* strides, const int* box, bool swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn || rank < 2 || rank > 3) return false;
+  cuuint64_t d[3], st[2];
+  cuuint32_t bx[3], unit[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    if (i + 1 < rank) st[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  return fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+            rank, const_cast<void*>(base), d, st, bx, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (rows, cols) matrix as boxes of (box_rows, box_cols).
+inline bool tensor_map(CUtensorMap* map, const void* base, int elem_bytes, long rows, long cols,
+                       int box_rows, int box_cols, bool swizzle) {
+  const long dims[2] = {cols, rows}, strides[1] = {cols * elem_bytes};
+  const int box[2] = {box_cols, box_rows};
+  return tensor_map_nd(map, base, elem_bytes, 2, dims, strides, box, swizzle);
+}
+
+inline bool vec_ok(int v) { return v == 1 || v == 2 || v == 4 || v == 8 || v == 16; }
+
+}  // namespace tc
+}  // namespace repro_torch

@@ -14,16 +14,29 @@ numpy's bounded int64 draw for a range below 2^32 takes one 32-bit draw per
 value, and the bit generator carries any buffered half-word across calls,
 so the chunked draw is the same stream as the one-shot draw (a CPU test
 holds the two equal).
+
+The table depends on ``(vocab, seed)`` alone, so the drawn tables are kept
+(the last ``TABLES_KEPT``) and shared, read-only, by every stream with the
+same pair: a serving run that makes request streams and a training stream
+from one seed draws its 5 GB table once. ``TABLE_DRAWS`` records each draw
+and the seconds it took.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, Iterator
+import time
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
 TABLE_ROWS_PER_DRAW = 1024
+TABLES_KEPT = 2              # drawn tables kept for reuse, newest last
+
+_tables: "collections.OrderedDict[Tuple[int, int], np.ndarray]" = \
+    collections.OrderedDict()
+TABLE_DRAWS: List[Dict[str, float]] = []   # {"vocab", "seed", "seconds"}
 
 
 def _table_dtype(vocab: int):
@@ -31,6 +44,35 @@ def _table_dtype(vocab: int):
         if vocab - 1 <= np.iinfo(dt).max:
             return dt
     return np.int64
+
+
+def draw_table(vocab: int, seed: int) -> np.ndarray:
+    """The ``vocab x vocab`` transition table of ``(vocab, seed)``, drawn
+    afresh in row chunks (the reference's values, stored narrow)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 17]))
+    table = np.empty((vocab, vocab), _table_dtype(vocab))
+    for r in range(0, vocab, TABLE_ROWS_PER_DRAW):
+        n = min(TABLE_ROWS_PER_DRAW, vocab - r)
+        table[r:r + n] = rng.integers(0, vocab, size=(n, vocab))
+    return table
+
+
+def transition_table(vocab: int, seed: int) -> np.ndarray:
+    """The kept table of ``(vocab, seed)``, drawn on first use (read-only,
+    shared by every stream that asks for it)."""
+    key = (vocab, seed)
+    if key in _tables:
+        _tables.move_to_end(key)
+        return _tables[key]
+    t0 = time.perf_counter()
+    table = draw_table(vocab, seed)
+    table.flags.writeable = False
+    TABLE_DRAWS.append({"vocab": vocab, "seed": seed,
+                        "seconds": time.perf_counter() - t0})
+    _tables[key] = table
+    while len(_tables) > TABLES_KEPT:
+        _tables.popitem(last=False)
+    return table
 
 
 @dataclasses.dataclass
@@ -47,13 +89,8 @@ class SyntheticLM:
         if self.global_batch % self.shard_count:
             raise ValueError(f"global_batch {self.global_batch} is not a "
                              f"multiple of shard_count {self.shard_count}")
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 17]))
         # hidden order-2 Markov structure (shared across shards)
-        v = self.vocab
-        self._trans = np.empty((v, v), _table_dtype(v))
-        for r in range(0, v, TABLE_ROWS_PER_DRAW):
-            n = min(TABLE_ROWS_PER_DRAW, v - r)
-            self._trans[r:r + n] = rng.integers(0, v, size=(n, v))
+        self._trans = transition_table(self.vocab, self.seed)
         self._noise_p = 0.1
 
     @property

@@ -113,6 +113,16 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def copy_width(t: torch.Tensor, row_bytes: int) -> int:
+    """The widest copy (16, 8, 4, 2 or 1 bytes) that every row start of the
+    row-major ``t`` (rows of ``row_bytes``) is aligned to; 16 is what TMA
+    needs."""
+    for v in (16, 8, 4, 2):
+        if t.data_ptr() % v == 0 and row_bytes % v == 0:
+            return v
+    return 1
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Kernel inputs must be contiguous CUDA tensors on one device."""
     dev = tensors[0].device

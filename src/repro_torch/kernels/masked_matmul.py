@@ -4,14 +4,15 @@
 * :func:`masked_matmul` — ``y = act(x @ (M∘W) + b)``; with ``transpose_rhs``
   ``y = x @ (M∘W)ᵀ``, which is the input gradient ``dx = g @ (M∘W)ᵀ``.
 * :func:`sddmm_masked` — ``dW = (xᵀ @ g) ∘ M``, the weight gradient; off-mask
-  entries are exact zeros.
+  entries are exact zeros. bf16 runs on a tensor-core body, f32 on the
+  exact SIMT one.
 
 Both launch ``csrc/masked_matmul.cu`` on tensors of one CUDA device; the
 mask is ``uint8`` in W's layout. :mod:`repro_torch.kernels.ops`
 sends CPU tensors to the plain versions before they get here. ``launches``
 counts kernel launches per kernel (the two orientations separately);
 ``routes`` counts the masked matmul's launches by the body that ran them
-(:func:`plan`).
+(:func:`plan`), ``sddmm_routes`` the SDDMM's.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from . import _build
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 # the masked matmul's bodies (csrc/masked_matmul.cu Route)
 ROUTES = {"simt_f32": 0, "tc": 1, "tc_small_m": 2}
+# the SDDMM's bodies: the same codes, bf16 on tc, f32 on simt_f32
+SDDMM_ROUTES = {"simt_f32": 0, "tc": 1}
 SMALL_M_MAX = 64           # rows that take the small-m tensor-core route
 TILE_K = 64                # K step of the tensor-core routes
 # output tile (MMA M side, MMA N side) each route is built for: tokens x
@@ -37,6 +40,7 @@ MIN_SPLIT_STEPS = 4        # K steps a split keeps at least
 
 launches = {"masked_matmul": 0, "masked_matmul_t": 0, "sddmm_masked": 0}
 routes = {r: 0 for r in ROUTES}
+sddmm_routes = {r: 0 for r in SDDMM_ROUTES}
 _entries = {}
 
 
@@ -87,13 +91,7 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
     return Plan(route, tile, (tiles, 1, split), split, k_chunk)
 
 
-def _vec(t: torch.Tensor, row_bytes: int) -> int:
-    """The widest copy (16, 8, 4, 2 or 1 bytes) that every row start of the
-    row-major ``t`` is aligned to."""
-    for v in (16, 8, 4, 2):
-        if t.data_ptr() % v == 0 and row_bytes % v == 0:
-            return v
-    return 1
+_vec = _build.copy_width
 
 
 def _launcher(name: str):
@@ -105,7 +103,7 @@ def _launcher(name: str):
             fn.argtypes = [P, P, P, P, P, P] + [I] * 14 + [P]
         else:
             fn = lib.sddmm_masked_launch
-            fn.argtypes = [P, P, P, P, I, I, I, I, P]
+            fn.argtypes = [P, P, P, P] + [I] * 8 + [P]
         fn.restype = I
         _entries[name] = (lib, fn)
     return _entries[name]
@@ -192,10 +190,14 @@ def sddmm_masked(x: torch.Tensor, g: torch.Tensor,
     if m == 0:
         return torch.zeros((d_in, d_out), dtype=x.dtype, device=x.device)
     dw = torch.empty((d_in, d_out), dtype=x.dtype, device=x.device)
+    route = "tc" if x.dtype == torch.bfloat16 else "simt_f32"
     lib, fn = _launcher("sddmm")
     code = fn(x2.data_ptr(), g2.data_ptr(), mk.data_ptr(), dw.data_ptr(), m,
-              d_in, d_out, _build.DTYPE_CODES[x.dtype],
+              d_in, d_out, _build.DTYPE_CODES[x.dtype], SDDMM_ROUTES[route],
+              _vec(x2, d_in * x2.element_size()),
+              _vec(g2, d_out * g2.element_size()), _vec(mk, d_out),
               _build.stream_ptr(x.device))
     _build.check(lib, "sddmm_masked", code)
     launches["sddmm_masked"] += 1
+    sddmm_routes[route] += 1
     return dw

@@ -22,9 +22,9 @@ pre-activation ``z``, so the backward needs no recompute. The backward of
 ``masked_matmul`` is two more kernels, ``dx`` with the transposed
 orientation and ``dW`` with ``sddmm_masked`` (off-mask entries exactly 0);
 the mask gets no gradient. The backward of ``bdmm`` is a bdmm with
-transposed blocks for ``dx`` and an einsum for ``dwp``, which the reference
-also computes outside any kernel. The int8 and attention forms are
-inference-only.
+transposed blocks for ``dx`` (the kernel reads the blocks as stored) and an
+einsum for ``dwp``, which the reference also computes outside any kernel.
+The int8 and attention forms are inference-only.
 """
 
 from __future__ import annotations
@@ -66,13 +66,13 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count (and the masked matmul's tally by
-    route)."""
-    for mod in _KERNEL_MODULES:
-        for k in mod.launches:
-            mod.launches[k] = 0
-    for r in mm_kernel.routes:
-        mm_kernel.routes[r] = 0
+    """Zero every kernel's launch count (and the tallies by route of bdmm's
+    general grid, the masked matmul and the SDDMM)."""
+    for counts in (*(mod.launches for mod in _KERNEL_MODULES),
+                   bdmm_kernel.routes, mm_kernel.routes,
+                   mm_kernel.sddmm_routes):
+        for k in counts:
+            counts[k] = 0
 
 
 def _plain(*tensors) -> bool:
@@ -105,6 +105,15 @@ def _bdmm_raw(x, wp, bias, activation):
     return bdmm_kernel.bdmm(x, wp, bias, activation=activation)
 
 
+def bdmm_t(g, wp):
+    """``g @ blockdiag(wp)ᵀ``, ``(..., nb*bo) -> (..., nb*bi)``: the input
+    gradient of :func:`bdmm` (the kernel's transposed-blocks orientation,
+    reading ``wp`` as stored)."""
+    if _plain(g, wp):
+        return ref.bdmm_t_ref(g, wp)
+    return bdmm_kernel.bdmm(g, wp, transpose=True)
+
+
 class _Bdmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wp, bias, activation):
@@ -123,8 +132,7 @@ class _Bdmm(torch.autograd.Function):
         dx = dwp = db = None
         if ctx.needs_input_grad[0]:
             # dx[:, n] = g[:, n] @ wp[n]^T: a bdmm with transposed blocks
-            dx = _bdmm_raw(g, wp.transpose(1, 2).contiguous(), None,
-                           None).reshape(*lead, nb * bi)
+            dx = bdmm_t(g, wp).reshape(*lead, nb * bi)
         if ctx.needs_input_grad[1]:
             dwp = torch.einsum("tnk,tno->nko", x.reshape(-1, nb, bi),
                                g.reshape(-1, nb, bo)).to(wp.dtype)

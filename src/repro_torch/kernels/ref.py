@@ -47,6 +47,13 @@ def bdmm_ref(x, wp, bias=None, activation: Optional[str] = None):
     return ACTIVATIONS[activation](y)
 
 
+def bdmm_t_ref(g, wp):
+    """The transposed-blocks form ``g @ blockdiag(wp)ᵀ``, ``(..., nb*bo) x
+    (nb, bi, bo) -> (..., nb*bi)``: the input gradient of :func:`bdmm_ref`,
+    as the reference's backward computes it."""
+    return bdmm_ref(g, wp.transpose(1, 2).contiguous())
+
+
 def masked_matmul_ref(x, w, mask, bias=None, activation: Optional[str] = None):
     """Paper-faithful masked matmul: ``act(x @ (mask ∘ w) + bias)``,
     ``x (..., d_in)``, ``w``/``mask`` ``(d_in, d_out)``; computed in the

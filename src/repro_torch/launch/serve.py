@@ -10,7 +10,9 @@ requests. ``--mpd-fuse`` builds the Fig-3 perm-fused model, whose FFNs run
 as one fused kernel each. ``--ckpt-dir DIR`` serves the packed artifact in
 ``DIR/packed`` instead (written by ``launch.train --fold-to-packed`` or by
 the JAX package's ``export_packed``): its recorded config, fusion and
-quantization win over the flags. Prompts are drawn with ``np.random.default_rng(seed)``; prompt
+quantization win over the flags. Prompt tokens are the first batch of a
+``SyntheticLM`` stream of ``--seed``, and ``np.random.default_rng(seed)``
+draws the arrivals, lengths and budgets, as the JAX launcher does; prompt
 lengths lie in ``[prompt_len/2, prompt_len]``, output budgets in
 ``[gen/2, gen]``, and ``--shared-prefix N`` makes the first N prompt tokens
 identical across requests so the prefix trie gets hits. ``--spec-draft DIR``
@@ -32,6 +34,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs.common import ARCHS, get_config
 from repro_torch.core import export as export_lib
+from repro_torch.data import SyntheticLM
 from repro_torch.models import build
 from repro_torch.serve import Engine, Request, SamplingParams
 
@@ -43,12 +46,16 @@ def make_requests(cfg, *, n_requests, rate, prompt_len, gen, seed=0,
     """Synthetic Poisson request stream: exponential inter-arrivals at
     ``rate`` req/s, prompt lengths in [prompt_len/2, prompt_len], output
     budgets in [gen/2, gen]; the first ``shared_prefix`` prompt tokens are
-    identical across requests."""
+    identical across requests. Field for field the requests of
+    ``repro.launch.serve.make_requests``: the tokens come from the first
+    ``SyntheticLM`` batch of ``seed``, ``default_rng(seed)`` draws the rest
+    in the reference's order."""
     if rate <= 0:
         raise ValueError(f"arrival rate must be positive, got {rate}")
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, size=(max(n_requests, 1), prompt_len),
-                        dtype=np.int32)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=prompt_len,
+                       global_batch=max(n_requests, 1), seed=seed)
+    toks = data.next()["inputs"]
     if shared_prefix:
         toks[:, :shared_prefix] = toks[0, :shared_prefix]
     t = 0.0

@@ -38,6 +38,14 @@ and gate sums moves the hidden (1.2 bounds |act'| for silu, gelu and relu;
 1.2 |x|@|Wu| for the plain form). u_out as above. The same rule must reject
 the plain output with the first f tile (64 channels) of w_down zeroed.
 
+bdmm's tensor-core bodies (bf16 above 32 rows, both orientations) take
+the bf16 rule above against the plain version in float32 on the same
+values, which must reject the plain output with one block of the weights
+zeroed; the transposed orientation equals a forward bdmm over a transposed
+copy of the blocks bit for bit. The SDDMM's tensor-core body takes the
+matmul-shaped rule and writes exact zeros off the mask, NaN and Inf inputs
+included.
+
 A train step of the smoke model, masked-dense or packed, gives the same
 loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
 as through the plain versions.
@@ -111,6 +119,131 @@ def test_bdmm_matches_plain(cuda_device, quant, m, dtype):
     grid = "bdmm_decode" if m <= tbdmm.SMALL_M_MAX else "bdmm"
     assert tbdmm.launches[grid] == before[grid] + 1
     _close(got, want, dtype)
+
+
+def _within(got, want, dtype):
+    """Whether ``got`` is within ``_close``'s tolerance of ``want``."""
+    atol, rtol = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 2e-2)}[dtype]
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
+
+
+def _bdmm_case(m, nb, bi, bo, dev, seed, quant=False, transpose=False):
+    """bf16 inputs for one bdmm (x of width nb*bo when transposed), blocks
+    (int8 with a scale when ``quant``), a bias of the output width, and the
+    f32 plain output with silu; ``plain(wp)`` recomputes it for other
+    blocks."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    k, n = (bo, bi) if transpose else (bi, bo)
+    x = r(m, nb * k).bfloat16()
+    w = r(nb, bi, bo) * k ** -0.5
+    b = (0.1 * r(nb * n)).bfloat16()
+    if quant:
+        wq, s = quantize_blocks(w)
+
+        def plain(wp):
+            return tref.bdmm_quant_ref(x.float(), wp, s, b.float(), "silu")
+        return x, (wq, s), b, plain
+    wb = w.bfloat16()
+
+    def plain(wp):
+        y = (tref.bdmm_t_ref if transpose else tref.bdmm_ref)(x.float(), wp.float())
+        return tref.ACTIVATIONS["silu"](y + b.float())
+    return x, (wb, None), b, plain
+
+
+# (m, nb, bi, bo) against the tensor-core tiles: m 33, 65 and 300 (no
+# multiple of the 64- or 128-token tiles), nb 3, bi and bo no multiples of
+# 64 (bo 200 and 136 no multiple of the 128-channel tile), the unembed's bo
+# 6288, and rows TMA refuses (bo 75: 150-byte bf16 rows)
+BDMM_RAGGED = [(33, 3, 200, 136), (65, 3, 136, 200), (300, 3, 200, 136),
+               (300, 3, 136, 200), (200, 2, 256, 6288), (65, 3, 100, 75),
+               (300, 3, 100, 75)]
+
+
+@pytest.mark.parametrize("quant,transpose", [(False, False), (False, True),
+                                             (True, False)],
+                         ids=["bf16-fwd", "bf16-t", "int8-fwd"])
+@pytest.mark.parametrize("shape", BDMM_RAGGED)
+def test_bdmm_tensor_core_bodies_ragged_shapes(cuda_device, shape, quant,
+                                               transpose):
+    """The general grid's bf16 bodies with bias, silu and (int8, forward:
+    the inference weights) the scale, both orientations, on ragged and
+    unaligned shapes: the body the plan names ran (a tensor-core one), and
+    the bf16 rule holds."""
+    m, nb, bi, bo = shape
+    x, (wp, s), b, plain = _bdmm_case(m, nb, bi, bo, cuda_device, seed=m + bo,
+                                      quant=quant, transpose=transpose)
+    k, n = (bo, bi) if transpose else (bi, bo)
+    route = tbdmm.plan(m, nb, k, n, torch.bfloat16, wp.dtype, transpose,
+                       tbdmm._build.copy_width(x, k * 2),
+                       tbdmm._build.copy_width(wp, bo * wp.element_size())).route
+    assert route in ("tc", "tc_small_m")
+    before = dict(tbdmm.routes)
+    got = tbdmm.bdmm(x, wp, b, s, activation="silu", transpose=transpose)
+    after = dict(tbdmm.routes)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    _close(got, plain(wp).bfloat16(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [64, 2048])
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
+def test_bdmm_rule_rejects_a_zeroed_block(cuda_device, m, transpose):
+    """The bf16 rule that the kernel passes at the olmo-1b up/gate shape
+    rejects the plain output with block 3 of the weights zeroed."""
+    x, (wp, _), b, plain = _bdmm_case(m, 8, 256, 1024, cuda_device, seed=3,
+                                      transpose=transpose)
+    got = tbdmm.bdmm(x, wp, b, activation="silu", transpose=transpose)
+    assert _within(got, plain(wp).bfloat16(), torch.bfloat16)
+    zeroed = wp.clone()
+    zeroed[3] = 0
+    assert not _within(plain(zeroed).bfloat16(), plain(wp).bfloat16(),
+                       torch.bfloat16)
+    assert not _within(got, plain(zeroed).bfloat16(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,dtype", [(64, torch.bfloat16), (300, torch.bfloat16),
+                                     (2048, torch.bfloat16), (64, torch.float32)])
+def test_bdmm_dx_equals_the_transposed_copy_route(cuda_device, m, dtype):
+    """dx through the transposed-blocks orientation, which reads the blocks
+    as stored, equals the former route (a forward bdmm over a transposed
+    copy of the blocks) bit for bit: the same body, tiles and K order."""
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    nb, bi, bo = 8, 256, 1024
+    gy = torch.randn((m, nb * bo), generator=g, device=cuda_device).to(dtype)
+    wp = (torch.randn((nb, bi, bo), generator=g, device=cuda_device)
+          * bo ** -0.5).to(dtype)
+    got = tbdmm.bdmm(gy, wp, transpose=True)
+    want = tbdmm.bdmm(gy, wp.transpose(1, 2).contiguous())
+    assert torch.equal(got, want)
+    assert torch.equal(ops.bdmm_t(gy, wp), got)
+
+
+@pytest.mark.parametrize("m,dtype,quant,transpose,route", [
+    (1, torch.bfloat16, False, False, None), (1, torch.bfloat16, False, True, "tc"),
+    (64, torch.bfloat16, True, False, "tc_small_m"),
+    (64, torch.bfloat16, False, False, "tc"),
+    (129, torch.bfloat16, False, True, "tc"), (2048, torch.bfloat16, False, False, "tc"),
+    (2048, torch.bfloat16, True, False, "tc_small_m"),
+    (64, torch.float32, False, True, "simt_f32"), (2048, torch.float32, True, False, "simt_f32")])
+def test_bdmm_route_tally(cuda_device, m, dtype, quant, transpose, route):
+    """bf16 bdmm above 32 rows runs on a tensor-core body (bf16 blocks on
+    the tiled one, int8 blocks on the small-m one), f32 on the SIMT body;
+    the forward at m <= 32 keeps the decode grid; the tally shows which."""
+    x, (wp, s), b, plain = _bdmm_case(m, 8, 256, 512, cuda_device, seed=1,
+                                      quant=quant, transpose=transpose)
+    x = x.to(dtype)
+    wp = wp if quant else wp.to(dtype)
+    before, dec = dict(tbdmm.routes), tbdmm.launches["bdmm_decode"]
+    got = tbdmm.bdmm(x, wp, b, s, activation="silu", transpose=transpose)
+    after = dict(tbdmm.routes)
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == route) for r in after}
+    assert tbdmm.launches["bdmm_decode"] == dec + (route is None)
+    if dtype == torch.bfloat16:
+        _close(got, plain(wp).bfloat16(), dtype)
 
 
 def test_bdmm_raises_instead_of_falling_back(cuda_device):
@@ -280,6 +413,51 @@ def test_sddmm_off_mask_stays_zero_on_non_finite_sums(cuda_device):
     got = tmm.sddmm_masked(x, gy, mask)
     assert torch.all(got[mask == 0] == 0)
     assert not torch.isfinite(got[mask == 1]).all()
+
+
+# (m, d_in, d_out, nb) for the SDDMM's tensor-core body: m no multiple of
+# the 64-token step, d_in / d_out no multiple of the 256 x 128 tile, and rows
+# TMA refuses (d_in 100 / d_out 75: 200- and 150-byte rows, masks of 75)
+SDDMM_RAGGED = [(100, 384, 200, 8), (33, 136, 1000, 8), (65, 100, 75, 5),
+                (2048, 256, 512, 8)]
+
+
+@pytest.mark.parametrize("shape", SDDMM_RAGGED)
+def test_sddmm_tensor_core_body_ragged_and_non_finite(cuda_device, shape):
+    """bf16 SDDMM on the tensor-core body at ragged and unaligned shapes:
+    the rule holds and rejects a dropped block, off-mask entries are exact
+    zeros; then with an infinite and a NaN token row the off-mask entries
+    stay exact zeros (the select) while on-mask sums go non-finite."""
+    m, d_in, d_out, nb = shape
+    mask, dropped, x, _, gy, _ = _mm_case(m, d_in, d_out, cuda_device,
+                                          torch.bfloat16, seed=m, nb=nb)
+    before = dict(tmm.sddmm_routes)
+    got = tmm.sddmm_masked(x, gy, mask)
+    assert tmm.sddmm_routes["tc"] == before["tc"] + 1
+    assert tmm.sddmm_routes["simt_f32"] == before["simt_f32"]
+    assert torch.all(got[mask == 0] == 0)
+    x32, g32 = x.float(), gy.float()
+    want = tref.matmul_masked_grad_ref(x32, g32, mask)
+    mag = (x32.abs().T @ g32.abs()) * mask
+    assert _mm_within(got, want, mag, torch.bfloat16)
+    assert not _mm_within(tref.matmul_masked_grad_ref(x32, g32, dropped),
+                          want, mag, torch.bfloat16)
+    x[0, :] = float("inf")
+    gy[m - 1, :] = float("nan")
+    bad = tmm.sddmm_masked(x, gy, mask)
+    assert torch.all(bad[mask == 0] == 0)
+    assert not torch.isfinite(bad[mask == 1]).any()
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt_f32")])
+def test_sddmm_route_tally(cuda_device, dtype, route):
+    mask, _, x, _, gy, _ = _mm_case(2048, 256, 512, cuda_device, dtype, seed=2)
+    before = dict(tmm.sddmm_routes)
+    tmm.sddmm_masked(x, gy, mask)
+    after = dict(tmm.sddmm_routes)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
 
 
 def test_masked_kernels_raise_instead_of_falling_back(cuda_device):

@@ -22,10 +22,13 @@ import pytest
 from repro.configs import common as jcommon
 from repro.core import export as jexport
 from repro.models import build as jbuild
+from repro.launch.serve import make_requests as jmake_requests
 from repro.serve import Engine as JEngine
 from repro.serve import Request as JRequest
 from repro_torch.configs import common as tcommon
 from repro_torch.convert import params_from_numpy
+from repro_torch.data import SyntheticLM
+from repro_torch.data import pipeline as tpipeline
 from repro_torch.launch.serve import make_requests
 from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, PagedCache, PagePool, PrefixTrie, Request
@@ -230,6 +233,51 @@ def test_make_requests_semantics():
     again = make_requests(cfg, n_requests=8, rate=16.0, prompt_len=48, gen=32,
                           seed=0, shared_prefix=16)
     assert all((a.prompt == b.prompt).all() for a, b in zip(reqs, again))
+
+
+@pytest.mark.parametrize("n_requests", [1, 4])
+@pytest.mark.parametrize("shared_prefix", [0, 16])
+def test_make_requests_equals_reference(shared_prefix, n_requests):
+    """The port's request stream is the JAX launcher's, field for field:
+    ids, prompt tokens (the first SyntheticLM batch of the seed), budgets,
+    arrival times and sampling seeds."""
+    cfg = tcommon.get_config("olmo-1b", smoke=True)
+    kw = dict(n_requests=n_requests, rate=16.0, prompt_len=48, gen=16,
+              seed=3, shared_prefix=shared_prefix)
+    got = make_requests(cfg, **kw)
+    want = jmake_requests(jcommon.get_config("olmo-1b", smoke=True), **kw)
+    assert len(got) == len(want) == n_requests
+    for a, b in zip(got, want):
+        assert a.id == b.id
+        np.testing.assert_array_equal(np.asarray(a.prompt),
+                                      np.asarray(b.prompt))
+        assert a.max_new_tokens == b.max_new_tokens
+        assert a.arrival_time == b.arrival_time
+        assert a.sampling.seed == b.sampling.seed
+        assert a.sampling.temperature == b.sampling.temperature == 0.0
+
+
+def test_transition_table_is_drawn_once_per_vocab_and_seed(monkeypatch):
+    """A kept table equals a freshly drawn one, is drawn once for each
+    (vocab, seed) whatever the stream's length and batch, and cannot be
+    written through a stream."""
+    monkeypatch.setattr(tpipeline, "_tables", tpipeline.collections.OrderedDict())
+    monkeypatch.setattr(tpipeline, "TABLE_DRAWS", [])
+    a = SyntheticLM(vocab=96, seq_len=8, global_batch=2, seed=4)
+    b = SyntheticLM(vocab=96, seq_len=48, global_batch=5, seed=4)
+    c = SyntheticLM(vocab=97, seq_len=8, global_batch=2, seed=4)
+    d = SyntheticLM(vocab=96, seq_len=8, global_batch=2, seed=5)
+    assert a._trans is b._trans
+    assert [(r["vocab"], r["seed"]) for r in tpipeline.TABLE_DRAWS] == [
+        (96, 4), (97, 4), (96, 5)]
+    np.testing.assert_array_equal(a._trans, tpipeline.draw_table(96, 4))
+    np.testing.assert_array_equal(c._trans, tpipeline.draw_table(97, 4))
+    np.testing.assert_array_equal(d._trans, tpipeline.draw_table(96, 5))
+    assert not a._trans.flags.writeable
+    # past TABLES_KEPT the oldest table goes and is drawn again on demand
+    SyntheticLM(vocab=96, seq_len=8, global_batch=2, seed=4)
+    assert len(tpipeline._tables) == tpipeline.TABLES_KEPT
+    assert len(tpipeline.TABLE_DRAWS) == 4
 
 
 def test_page_pool_refcounts():

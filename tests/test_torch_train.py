@@ -18,6 +18,7 @@ differences above move a weight by at most a few lr·1e-4). Batches, masks,
 folds and off-mask zeros are held exactly.
 """
 
+import collections
 import math
 
 import jax
@@ -149,6 +150,7 @@ def test_synthetic_lm_chunked_table_equals_one_shot(monkeypatch, rows):
     included) and stored narrow equals the reference's one-shot int64
     draw, value for value."""
     monkeypatch.setattr(tpipeline, "TABLE_ROWS_PER_DRAW", rows)
+    monkeypatch.setattr(tpipeline, "_tables", collections.OrderedDict())
     for vocab in (96, 301):
         got = SyntheticLM(vocab=vocab, seq_len=4, global_batch=1, seed=1)
         want = JSyntheticLM(vocab=vocab, seq_len=4, global_batch=1, seed=1)
