@@ -12,10 +12,14 @@ Phases, each printed as one JSON line:
 3. ``kernels`` — hold each kernel against its plain PyTorch version on the
    card at the main path's shapes (bdmm fp/int8 at m in {1, 4, 64} for the
    olmo-1b projection shapes; paged decode attention with ragged lengths,
-   null-page entries and NaN past every length; paged prefill at start 0
-   and 128 with a short final chunk and NaN-poisoned cold pages; the
-   speculative verify window of 5 queries (and of 1, bit for bit the decode
-   kernel, and of 2; a GQA window of two tiles) with the same poison; the
+   lengths around a split's edge (63, 64, 65), null-page entries and NaN
+   past every length; paged prefill at start 0, 128 and 448 with a short
+   final chunk and NaN-poisoned cold pages; the speculative verify window
+   of 5 queries (and of 1, and of 2; a GQA window of two tiles; windows
+   across a split's edge) with the same poison, every query bit for bit the
+   decode kernel at its own length over tables 35 and 64 pages wide; each
+   attention case on the body its dtype takes, split-KV on the tensor
+   cores at bf16 and SIMT at f32, from the route tally; the
    masked matmul in both orientations and the SDDMM at m = 2048 tokens for
    the four olmo-1b projection shapes at bf16 and f32, off-mask SDDMM
    entries exactly 0, and the forward at the served rows m = 4, 20 and 64;
@@ -33,7 +37,9 @@ Phases, each printed as one JSON line:
    served by the paged engine: 4 slots, page 16, prefill chunk 64, 8
    requests of 256-512 prompt tokens with a 128-token shared prefix and
    16-32 new tokens. Launch counters are reset just before and read just
-   after; every kernel must have launched.
+   after; every kernel must have launched, every attention call on the
+   tensor-core body, and the profiled decode window must count the
+   attention combine kernel in its family.
 5. ``exact`` — the same configuration in float32, served once through the
    kernels and once with ``ops.set_backend("torch")`` (plain versions on
    the card) on the same requests: the greedy streams must be identical.
@@ -236,6 +242,12 @@ def run_routed(fn, counts=None):
     return out, sorted(k for k in counts if counts[k] != before[k])
 
 
+def attn_body(dtype: str) -> str:
+    """The body the paged-attention kernels must run at olmo-1b's shapes:
+    the split-KV scheme on the tensor cores at bf16, SIMT at f32."""
+    return "split_tc" if dtype == "bfloat16" else "split_kv"
+
+
 def smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -427,6 +439,9 @@ def check_paged_attention(torch, dev, timer, rows, summary):
         (16, 16, [511, 512, 530, 544], "bfloat16"),   # timed: end of the run
         (16, 4, [1, 16, 17, 250], "bfloat16"),         # GQA 4:1
         (16, 16, [1, 37, 300, 544], "float32"),
+        # around a split's edge: S * 16 - 1, S * 16 and S * 16 + 1 positions
+        (16, 16, [1, 63, 64, 65], "bfloat16"),
+        (16, 16, [1, 63, 64, 65], "float32"),
     ]
     for idx, (H, kh, lengths, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -456,8 +471,10 @@ def check_paged_attention(torch, dev, timer, rows, summary):
             kpp[last, (L - 1) % ps + 1:] = float("nan")
             vpp[last, (L - 1) % ps + 1:] = float("nan")
         run = lambda: pk.paged_attention(q, kpp, vpp, bt, ln)
-        ok, err, ratio, tol, rejects = attn_check(torch, run(), plain32,
+        got, used = run_routed(run, pk.routes)
+        ok, err, ratio, tol, rejects = attn_check(torch, got, plain32,
                                                   dropped, dt)
+        ok = ok and used == [attn_body(dt)]
         es = q.element_size()
         kv_tok = sum(lengths)
         nbytes = 2 * q.numel() * es + 2 * kv_tok * kh * dh * es + bt.numel() * 4
@@ -468,7 +485,7 @@ def check_paged_attention(torch, dev, timer, rows, summary):
         lib = _gather_sdpa(torch, q[:, :, None, :], kp, vp, bt, mask, H // kh)
         row = {"phase": "kernels", "kernel": "paged_attention", "H": H,
                "Kh": kh, "lengths": lengths, "dtype": dt, "max_abs_err": err,
-               "err_over_tol": ratio, "tol": tol,
+               "err_over_tol": ratio, "tol": tol, "routes_launched": used,
                "rejects_dropped_page": rejects, "ok": ok, "ms": timer.ms(run),
                "plain_ms": timer.ms(lambda: ref.paged_attention_ref(
                    q, kp, vp, bt, ln)),
@@ -483,9 +500,11 @@ def check_paged_attention(torch, dev, timer, rows, summary):
             s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")})
             s["at"] = f"B=4 H=Kh=16 lengths={lengths}"
+            s["cuda_body"] = used
 
 
 def check_paged_prefill(torch, dev, timer, rows, summary):
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_prefill as pk
     from repro_torch.kernels import ref
 
@@ -497,6 +516,7 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
         (16, 16, 448, 64, "bfloat16"),     # timed: last chunk of 512 tokens
         (16, 4, 128, 37, "bfloat16"),       # GQA 4:1
         (16, 16, 128, 37, "float32"),
+        (16, 16, 448, 21, "bfloat16"),      # a short last chunk at 448
     ]
     for idx, (H, kh, start, clen, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -523,8 +543,10 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
         kpp[last, (depth - 1) % ps + 1:] = float("nan")
         vpp[last, (depth - 1) % ps + 1:] = float("nan")
         run = lambda: pk.paged_prefill_attention(q, kpp, vpp, bt, start, clen)
-        ok, err, ratio, tol, rejects = attn_check(torch, run(), plain32,
+        got, used = run_routed(run, pa.routes)
+        ok, err, ratio, tol, rejects = attn_check(torch, got, plain32,
                                                   dropped, dt)
+        ok = ok and used == [attn_body(dt)]
         es = q.element_size()
         nbytes = 2 * q.numel() * es + 2 * depth * kh * dh * es + bt.numel() * 4
         visible = sum(min(start + t + 1, depth) for t in range(Tc))
@@ -538,7 +560,7 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
         row = {"phase": "kernels", "kernel": "paged_prefill_attention",
                "H": H, "Kh": kh, "Tc": Tc, "start": start,
                "chunk_len": clen, "dtype": dt, "max_abs_err": err,
-               "err_over_tol": ratio, "tol": tol,
+               "err_over_tol": ratio, "tol": tol, "routes_launched": used,
                "rejects_dropped_page": rejects, "ok": ok, "ms": timer.ms(run),
                "plain_ms": timer.ms(lambda: ref.paged_prefill_attention_ref(
                    q, kp, vp, bt, start, clen)),
@@ -553,11 +575,13 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
             s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")})
             s["at"] = f"Tc=64 start={start} chunk_len={clen}"
+            s["cuda_body"] = used
 
 
 # (H, Kh, Tq, lengths, dtype): the spec phase's window (4 slots, k = 4) at the
 # end of the serve traffic's depths, one query (the decode kernel, bitwise),
-# two queries, and a GQA 4:1 window of two tiles
+# two queries, a GQA 4:1 window of two tiles, and windows across a split's
+# edge
 VERIFY_CASES = [
     (16, 16, 5, [511, 530, 544, 548], "bfloat16"),   # timed
     (16, 16, 5, [511, 530, 544, 548], "float32"),
@@ -565,13 +589,34 @@ VERIFY_CASES = [
     (16, 16, 1, [1, 37, 300, 548], "float32"),
     (16, 16, 2, [2, 17, 300, 548], "bfloat16"),
     (16, 4, 5, [5, 16, 250, 548], "bfloat16"),
+    # windows across a split's edge (S * 16 = 64 positions)
+    (16, 16, 5, [5, 64, 65, 68], "bfloat16"),
+    (16, 16, 5, [5, 64, 65, 68], "float32"),
 ]
+
+
+def window_equals_decode(torch, pk, got, q, kp, vp, bt, ln, wide_P=64):
+    """Whether every query t of the window ``got`` equals, bit for bit, the
+    decode kernel at its own length ``ln - (Tq - 1) + t``, and the window
+    and the decode kernel over the block table widened to ``wide_P``
+    columns (null entries) equal both."""
+    Tq = q.shape[1]
+    wide = torch.zeros((bt.shape[0], wide_P), dtype=bt.dtype, device=bt.device)
+    wide[:, :bt.shape[1]] = bt
+    same = torch.equal(pk.paged_attention_verify(q, kp, vp, wide, ln), got)
+    for t in range(Tq):
+        at = ln - (Tq - 1) + t
+        for table in (bt, wide):
+            same = same and torch.equal(
+                got[:, t], pk.paged_attention(q[:, t].contiguous(), kp, vp,
+                                              table, at))
+    return bool(same)
 
 
 def check_paged_verify(torch, dev, timer, rows, summary):
     """The speculative verify window against its plain version, with NaN
-    in the null page and past every length; one query also bit for bit
-    against the decode kernel."""
+    in the null page and past every length; every query bit for bit
+    against the decode kernel at its own length, over two table widths."""
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ref
 
@@ -604,9 +649,11 @@ def check_paged_verify(torch, dev, timer, rows, summary):
             kpp[last, (L - 1) % ps + 1:] = float("nan")
             vpp[last, (L - 1) % ps + 1:] = float("nan")
         run = lambda: pk.paged_attention_verify(q, kpp, vpp, bt, ln)
-        got = run()
+        got, used = run_routed(run, pk.routes)
         ok, err, ratio, tol, rejects = attn_check(torch, got, plain32,
                                                   dropped, dt)
+        each = window_equals_decode(torch, pk, got, q, kpp, vpp, bt, ln)
+        ok = ok and each and used == [attn_body(dt)]
         bitwise = None
         if Tq == 1:
             bitwise = bool(torch.equal(got[:, 0], pk.paged_attention(
@@ -624,10 +671,12 @@ def check_paged_verify(torch, dev, timer, rows, summary):
                            H // kh)
         row = {"phase": "kernels", "kernel": "paged_attention_verify",
                "H": H, "Kh": kh, "Tq": Tq, "lengths": lengths, "dtype": dt,
-               "q_tile": pk.verify_q_tile(Tq, H // kh, dh),
+               "q_tile": pk.plan(Tq, H, kh, dh, P, ps, dtype, B).q_tile,
                "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
-               "rejects_dropped_page": rejects,
-               "bitwise_equals_decode_kernel": bitwise, "ok": ok,
+               "rejects_dropped_page": rejects, "routes_launched": used,
+               "bitwise_equals_decode_kernel": bitwise,
+               "each_query_bitwise_decode_at_its_length_P35_P64": each,
+               "ok": ok,
                "ms": timer.ms(run),
                "plain_ms": timer.ms(lambda: ref.paged_attention_verify_ref(
                    q, kp, vp, bt, ln)),
@@ -642,6 +691,7 @@ def check_paged_verify(torch, dev, timer, rows, summary):
             s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")})
             s["at"] = f"B=4 Tq=5 H=Kh=16 lengths={lengths}"
+            s["cuda_body"] = used
 
 
 def mm_close(torch, got, want32, mag, dtype):
@@ -1047,6 +1097,7 @@ def bdmm_per_call(launches, calls) -> float:
 
 
 def serve_phase(torch, dev, ops):
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import make_requests, serve_stream
     from repro_torch.serve import Engine
 
@@ -1067,6 +1118,7 @@ def serve_phase(torch, dev, ops):
     summary = serve_stream(engine, reqs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    attn_routes = dict(pa.routes)
     del model.decode_step, model.prefill_chunk
 
     # where a steady decode step's time goes, from the profiler
@@ -1075,7 +1127,11 @@ def serve_phase(torch, dev, ops):
     done = summary["n_done"] == len(reqs) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
-    ok = done and all(launches[k] > 0 for k in SERVING_KERNELS)
+    # bf16 prefill chunks and decode steps on the tensor-core body
+    bodies = (attn_routes["split_tc"] == launches["paged_prefill_attention"]
+              + launches["paged_attention"] and attn_routes["split_kv"] == 0)
+    ok = (done and all(launches[k] > 0 for k in SERVING_KERNELS) and bodies
+          and window["combine_in_family"] is not False)
     row = {"phase": "serve", "ok": ok, "config": {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "vocab": cfg.vocab, "mpd_c": cfg.mpd_c, "weights": "int8",
@@ -1097,6 +1153,7 @@ def serve_phase(torch, dev, ops):
         "prefill_chunk_ms_p50": statistics.median(calls["prefill"]),
         "unembed_calls": calls["unembed"],
         "bdmm_launches_per_call": bdmm_per_call(launches, calls),
+        "attention_routes": attn_routes,
         "decode_window": window,
         "occupancy_mean": summary["occupancy_mean"],
         "kv_bytes_allocated_peak": summary["kv_bytes_allocated_peak"],
@@ -1132,21 +1189,31 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     cuda = torch.autograd.DeviceType.CUDA
+    # the paged kernels' combine (paged_attention_kernel_combine,
+    # paged_verify_kernel_combine) counts with its family
     families = {"bdmm_decode_kernel": 0.0, BDMM_GENERAL_FAMILY: 0.0,
                 "fused_ffn_kernel": 0.0, "paged_attention_kernel": 0.0,
                 "paged_verify_kernel": 0.0, MASKED_MM_FAMILY: 0.0,
                 "other": 0.0}
+    combines = {"seen": 0, "in_other": 0}
     for e in prof.events():
         if e.device_type != cuda:
             continue
         name = e.name.replace("bdmm_reduce_kernel", BDMM_GENERAL_FAMILY)
         key = next((k for k in families if k in name), "other")
         families[key] += getattr(e, "self_device_time_total", 0) / 1e3
+        if "_kernel_combine" in name:
+            combines["seen"] += 1
+            combines["in_other"] += key == "other"
     device_ms = sum(families.values()) / n_steps
     return {"steps": n_steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": ({k: v / n_steps for k, v in families.items()}
                                    if device_ms > 0 else None),
-            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None}
+            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+            "combine_launches": combines["seen"],
+            "combine_in_family": (combines["seen"] > 0
+                                  and combines["in_other"] == 0)
+            if device_ms > 0 else None}
 
 
 EXACT_ENGINE = dict(n_slots=4, max_len=256 + 16, page_size=16,
@@ -1295,6 +1362,7 @@ def spec_phase(torch, dev, ops, target, draft):
     mpd_fuse bf16 target of ``fused_deploy`` drafted by its own loaded int8
     artifact, k = 4, on the serve phase's traffic, in turns (non-spec, spec,
     spec, non-spec), then profiled windows of non-spec and of spec steps."""
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import make_requests, serve_stream
     from repro_torch.serve import Engine
 
@@ -1317,6 +1385,7 @@ def spec_phase(torch, dev, ops, target, draft):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         routes = mm_routes()
+        attn_routes = dict(pa.routes)
         done = summary["n_done"] == len(reqs) and all(
             len(r.generated) == r.max_new_tokens
             and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
@@ -1337,11 +1406,18 @@ def spec_phase(torch, dev, ops, target, draft):
                 "decode_step_ms_p50": statistics.median(calls["step"]),
                 "prefill_tokens_reused": engine.n_prefill_tokens_skipped,
                 "pools_conserved": pools_conserved(engine),
-                "launches": counts, "mm_routes": routes}
+                "launches": counts, "mm_routes": routes,
+                "attention_routes": attn_routes}
         # the bf16 target's rows (decode 4, verify 20, prefill chunks of
-        # 64) take the small-m tensor-core body, never the f32 SIMT one
+        # 64) take the small-m tensor-core body, never the f32 SIMT one;
+        # every attention call of the target and the draft (prefill chunks,
+        # decode steps, verify windows) the tensor-core attention body
         turn_ok = (done and turn["pools_conserved"]
-                   and routes["tc_small_m"] > 0 and routes["simt_f32"] == 0)
+                   and routes["tc_small_m"] > 0 and routes["simt_f32"] == 0
+                   and attn_routes["split_tc"] == sum(counts[k] for k in (
+                       "paged_prefill_attention", "paged_attention",
+                       "paged_attention_verify"))
+                   and attn_routes["split_kv"] == 0)
         if route == "spec":
             turn_ok = turn_ok and all(counts[k] > 0 for k in (
                 "paged_attention_verify", "masked_matmul", "fused_ffn",
@@ -1362,6 +1438,8 @@ def spec_phase(torch, dev, ops, target, draft):
                                        cfg, n_steps=8),
                "spec": decode_window(torch, model, params, SERVE_ENGINE, cfg,
                                      spec_draft=draft, n_steps=8)}
+    ok = ok and all(w["combine_in_family"] is not False
+                    for w in windows.values())
     row = {"phase": "spec", "ok": ok, "config": {
         "target": f"{cfg.name} masked_dense + mpd_fuse, bf16, 1 AdamW step "
                   "(fused_deploy)", "draft": "its perm-fused int8 fold, "

@@ -2,13 +2,18 @@
 //
 // Replaces the Pallas TPU body src/repro/kernels/paged_attention.py::
 // _paged_attn_kernel: one decode query per row b over the row's KV pages,
-// online softmax in f32, GQA groups folded into rows.
+// softmax in f32, GQA groups folded into rows.
 //
 // Layout: q (B, H, Dh); k_pages / v_pages (n_pages, page_size, Kh, Dh);
 // block_tables (B, P) int32; lengths (B,) int32 >= 1; out (B, H, Dh).
-// One block per (KV head, row): it reads its page ids from the block table
-// itself and stops at lengths[b] (see paged_attend.cuh for the body and for
-// what bounds it: the K/V bytes of the real context).
+// Design (paged_attend.cuh): split-KV, grid (splits, Kh, B), each block one
+// split of S pages of one row's context, then the combine. It is bound by
+// the K/V bytes of the real context; the split grid puts 9 x 16 x 4 = 576
+// blocks' loads in flight at olmo-1b's served decode step (one block per
+// (KV head, row) before: 64). bf16 runs the tensor-core body, f32 the SIMT
+// one. Each kernel function is the verify kernel's (paged_verify.cu) with
+// one query, so a verify window's query equals this kernel at its own
+// length bit for bit.
 
 #include "paged_attend.cuh"
 
@@ -16,33 +21,19 @@ namespace repro_torch {
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(PA_THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages, const int* __restrict__ block_tables,
-                       const int* __restrict__ lengths, T* __restrict__ out, int P,
-                       int n_pages, int ps, int H, int kh_n, int dh, float scale) {
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int length = max(lengths[b], 1);
-  const long row = static_cast<long>(b) * H * dh;
-  paged_attend_tile<T>(q + row, k_pages, v_pages, block_tables + static_cast<long>(b) * P,
-                       out + row, /*t0=*/0, /*nq=*/1, /*n_tok=*/1,
-                       /*pos0=*/length - 1, /*depth=*/length, P, n_pages, ps, H, kh_n, kh,
-                       dh, scale);
+__global__ void __launch_bounds__(SK_THREADS)
+    paged_attention_kernel(const SplitParams p) {
+  split_kv_block<T>(p);
+}
+
+__global__ void __launch_bounds__(32 * TC_MAX_WARPS)
+    paged_attention_kernel_tc(const SplitParams p) {
+  split_tc_block(p);
 }
 
 template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const int* bt, const int* lengths,
-           void* out, int B, int P, int n_pages, int ps, int H, int kh_n, int dh,
-           float scale, cudaStream_t stream) {
-  const int rows = H / kh_n;
-  const size_t smem = sizeof(float) * paged_smem_floats(rows, ps, dh);
-  cudaError_t err = set_smem(paged_attention_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_attention_kernel<T><<<dim3(kh_n, B), PA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt,
-      lengths, static_cast<T*>(out), P, n_pages, ps, H, kh_n, dh, scale);
-  return static_cast<int>(cudaGetLastError());
+__global__ void paged_attention_kernel_combine(const SplitParams p) {
+  combine_row<T>(p);
 }
 
 }  // namespace
@@ -50,23 +41,34 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt, const i
 
 using namespace repro_torch;
 
-// dtype: DT_F32 or DT_BF16 (q, pools and out share it).
-// Returns cudaGetLastError() after the launch (0 on success).
+// dtype: DT_F32 or DT_BF16 (q, pools and out share it); route:
+// ROUTE_SPLIT_TC (bf16) or ROUTE_SPLIT_KV; stages: STAGE_SPLIT |
+// STAGE_COMBINE. scratch: the f32 partials, B * H * n_splits * (2 + Dh)
+// floats (m and l pairs first). Returns cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int paged_attention_launch(const void* q, const void* k_pages, const void* v_pages,
                                       const int* block_tables, const int* lengths, void* out,
-                                      int B, int P, int n_pages, int page_size, int H,
-                                      int kh_n, int dh, float scale, int dtype,
+                                      float* scratch, int B, int P, int n_pages, int page_size,
+                                      int H, int kh_n, int dh, int n_splits, int split_pages,
+                                      int vec, float scale, int dtype, int route, int stages,
                                       void* stream) {
   cudaGetLastError();
-  if (B <= 0 || P <= 0 || kh_n <= 0 || H % kh_n != 0 || !paged_shape_ok(H / kh_n, dh))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (kh_n <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitParams p{q, k_pages, v_pages, block_tables, lengths,
+                      reinterpret_cast<float2*>(scratch),
+                      scratch + 2L * B * H * n_splits, out,
+                      /*n_tok=*/1, /*q_tile=*/1, n_splits, split_pages, P, n_pages, page_size,
+                      H, kh_n, dh, 0, 0, vec, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, block_tables, lengths, out, B, P,
-                                 n_pages, page_size, H, kh_n, dh, scale, s);
+    return launch_split<__nv_bfloat16>(p, B, dtype, route, stages,
+                                       paged_attention_kernel<__nv_bfloat16>,
+                                       paged_attention_kernel_tc,
+                                       paged_attention_kernel_combine<__nv_bfloat16>, s);
   if (dtype == DT_F32)
-    return launch<float>(q, k_pages, v_pages, block_tables, lengths, out, B, P, n_pages,
-                         page_size, H, kh_n, dh, scale, s);
+    return launch_split<float>(p, B, dtype, route, stages, paged_attention_kernel<float>,
+                               paged_attention_kernel_tc, paged_attention_kernel_combine<float>,
+                               s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -3,16 +3,22 @@
 // Replaces the Pallas TPU body src/repro/kernels/paged_prefill.py::
 // _paged_prefill_kernel: one request's chunk of Tc queries at global
 // positions start + t attends causally over the request's paged context
-// (trie-reused prefix pages included) plus the chunk itself, with an online
-// softmax, never materialising the (Tc, P * page_size) score matrix.
+// (trie-reused prefix pages included) plus the chunk itself, never
+// materialising the (Tc, P * page_size) score matrix.
 //
 // Layout: q (Tc, H, Dh); k_pages / v_pages (n_pages, page_size, Kh, Dh);
 // bt_row (P,) int32; out (Tc, H, Dh). Query t sees kv_pos <= start + t and
 // kv_pos < start + chunk_len; padded tail queries (t >= chunk_len) see the
 // whole real context, so their normaliser stays positive.
-// One block per (query tile of q_tile tokens, KV head). A block walks only
-// the pages with base < start + chunk_len and base <= its last query
-// position, so KV read grows with the real depth (see paged_attend.cuh).
+//
+// Design (paged_attend.cuh): grid (splits x query tiles, Kh), each block
+// one split of S pages against one tile of queries; then the combine. A
+// block skips a split that starts past its tile's last query position or
+// past start + chunk_len, so K/V read grows with the real depth. bf16 runs
+// the tensor-core body on tiles of 32 rows (at olmo-1b's chunk of 64 and
+// start 448, 8 splits x 2 tiles x 16 KV heads = 256 blocks, where one block
+// per 16-token tile and KV head made 64); f32, the parity route of the
+// exact phases, the SIMT body with no TF32.
 
 #include "paged_attend.cuh"
 
@@ -20,30 +26,18 @@ namespace repro_torch {
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(PA_THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                     const T* __restrict__ v_pages, const int* __restrict__ bt_row,
-                     T* __restrict__ out, int Tc, int q_tile, int start, int chunk_len, int P,
-                     int n_pages, int ps, int H, int kh_n, int dh, float scale) {
-  const int t0 = blockIdx.x * q_tile;
-  const int kh = blockIdx.y;
-  paged_attend_tile<T>(q, k_pages, v_pages, bt_row, out, t0, q_tile, Tc, /*pos0=*/start,
-                       /*depth=*/start + chunk_len, P, n_pages, ps, H, kh_n, kh, dh, scale);
+__global__ void __launch_bounds__(SK_THREADS)
+    paged_prefill_kernel(const SplitParams p) {
+  split_kv_block<T>(p);
+}
+
+__global__ void __launch_bounds__(32 * TC_MAX_WARPS) paged_prefill_kernel_tc(const SplitParams p) {
+  split_tc_block(p);
 }
 
 template <typename T>
-int launch(const void* q, const void* kp, const void* vp, const int* bt, void* out, int Tc,
-           int q_tile, int start, int chunk_len, int P, int n_pages, int ps, int H, int kh_n,
-           int dh, float scale, cudaStream_t stream) {
-  const int rows = q_tile * (H / kh_n);
-  const size_t smem = sizeof(float) * paged_smem_floats(rows, ps, dh);
-  cudaError_t err = set_smem(paged_prefill_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Tc + q_tile - 1) / q_tile, kh_n);
-  paged_prefill_kernel<T><<<grid, PA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp), bt,
-      static_cast<T*>(out), Tc, q_tile, start, chunk_len, P, n_pages, ps, H, kh_n, dh, scale);
-  return static_cast<int>(cudaGetLastError());
+__global__ void paged_prefill_kernel_combine(const SplitParams p) {
+  combine_row<T>(p);
 }
 
 }  // namespace
@@ -51,24 +45,34 @@ int launch(const void* q, const void* kp, const void* vp, const int* bt, void* o
 
 using namespace repro_torch;
 
-// dtype: DT_F32 or DT_BF16 (q, pools and out share it).
-// Returns cudaGetLastError() after the launch (0 on success).
+// dtype: DT_F32 or DT_BF16 (q, pools and out share it); route:
+// ROUTE_SPLIT_TC (bf16) or ROUTE_SPLIT_KV; stages: STAGE_SPLIT |
+// STAGE_COMBINE. scratch: the f32 partials, Tc * H * n_splits * (2 + Dh)
+// floats (m and l pairs first). Returns cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int paged_prefill_launch(const void* q, const void* k_pages, const void* v_pages,
-                                    const int* bt_row, void* out, int Tc, int q_tile,
-                                    int start, int chunk_len, int P, int n_pages,
-                                    int page_size, int H, int kh_n, int dh, float scale,
-                                    int dtype, void* stream) {
+                                    const int* bt_row, void* out, float* scratch, int Tc,
+                                    int q_tile, int start, int chunk_len, int P, int n_pages,
+                                    int page_size, int H, int kh_n, int dh, int n_splits,
+                                    int split_pages, int vec, float scale, int dtype,
+                                    int route, int stages, void* stream) {
   cudaGetLastError();
-  if (Tc <= 0 || q_tile <= 0 || P <= 0 || kh_n <= 0 || H % kh_n != 0 ||
-      start + chunk_len < 1 || !paged_shape_ok(q_tile * (H / kh_n), dh))
+  if (kh_n <= 0 || H <= 0 || start + chunk_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const SplitParams p{q, k_pages, v_pages, bt_row, nullptr,
+                      reinterpret_cast<float2*>(scratch),
+                      scratch + 2L * Tc * H * n_splits, out,
+                      Tc, q_tile, n_splits, split_pages, P, n_pages, page_size, H, kh_n, dh,
+                      start, chunk_len, vec, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, bt_row, out, Tc, q_tile, start,
-                                 chunk_len, P, n_pages, page_size, H, kh_n, dh, scale, s);
+    return launch_split<__nv_bfloat16>(p, 1, dtype, route, stages,
+                                       paged_prefill_kernel<__nv_bfloat16>,
+                                       paged_prefill_kernel_tc,
+                                       paged_prefill_kernel_combine<__nv_bfloat16>, s);
   if (dtype == DT_F32)
-    return launch<float>(q, k_pages, v_pages, bt_row, out, Tc, q_tile, start, chunk_len, P,
-                         n_pages, page_size, H, kh_n, dh, scale, s);
+    return launch_split<float>(p, 1, dtype, route, stages, paged_prefill_kernel<float>,
+                               paged_prefill_kernel_tc, paged_prefill_kernel_combine<float>, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,7 +5,9 @@ Layout: ``q (Tc, H, Dh)`` — one request's chunk at global positions
 ``start + t``; pools ``(n_pages, page_size, Kh, Dh)``; ``bt_row (P,)``
 int32; ``start`` and ``chunk_len`` host integers. Query ``t`` attends to
 ``kv_pos <= start + t`` and ``kv_pos < start + chunk_len``. It launches
-``csrc/paged_prefill.cu`` on tensors of one CUDA device.
+``csrc/paged_prefill.cu`` on tensors of one CUDA device, on the body that
+:func:`repro_torch.kernels.paged_attention.plan` picks: the tensor-core
+body for bf16, the SIMT body for f32.
 """
 
 from __future__ import annotations
@@ -15,8 +17,7 @@ import ctypes
 import torch
 
 from . import _build
-
-MAX_ROW_ELEMS = 2048    # q_tile * g * Dh: rows x Dh one 128-thread block owns
+from . import paged_attention as pa
 
 launches = {"paged_prefill_attention": 0}
 _entry = None
@@ -28,24 +29,10 @@ def _launcher():
         lib = _build.library("paged_prefill")
         fn = lib.paged_prefill_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
-                       ctypes.c_float, I, P]
+        fn.argtypes = [P] * 6 + [I] * 13 + [ctypes.c_float, I, I, I, P]
         fn.restype = I
         _entry = (lib, fn)
     return _entry
-
-
-def q_tile_for(Tc: int, g: int, Dh: int) -> int:
-    """Query tokens per block: the largest power of two <= ``Tc`` whose
-    ``q_tile * g`` rows of ``Dh`` columns one block can hold."""
-    cap = MAX_ROW_ELEMS // (g * Dh)
-    if cap < 1:
-        raise ValueError(f"paged_prefill kernel: g*Dh = {g * Dh} exceeds "
-                         f"{MAX_ROW_ELEMS}")
-    t = 1
-    while t * 2 <= min(Tc, cap):
-        t *= 2
-    return t
 
 
 def paged_prefill_attention(q, k_pages, v_pages, bt_row, start, chunk_len
@@ -59,18 +46,19 @@ def paged_prefill_attention(q, k_pages, v_pages, bt_row, start, chunk_len
         raise ValueError(f"paged_prefill_attention: q {tuple(q.shape)}, pool "
                          f"{tuple(k_pages.shape)}, row {tuple(bt_row.shape)}")
     start, chunk_len = int(start), int(chunk_len)
-    kp = k_pages.to(q.dtype).contiguous()
-    vp = v_pages.to(q.dtype).contiguous()
-    bt = bt_row.to(torch.int32).contiguous()
-    qc = q.contiguous()
-    _build.require_cuda("paged_prefill_attention", qc, kp, vp, bt)
+    qc, kp, vp, bt, vec = pa.launch_inputs(q, k_pages, v_pages, bt_row,
+                                           "paged_prefill_attention")
+    P = bt.shape[0]
+    p = pa.plan(Tc, H, n_kv, Dh, P, page_size, q.dtype, prefill=True)
     out = torch.empty_like(qc)
-    q_tile = q_tile_for(Tc, H // n_kv, Dh)
+    part = pa.scratch(Tc * H, p.splits, Dh, q.device)
     lib, fn = _launcher()
     code = fn(qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
-              out.data_ptr(), Tc, q_tile, start, chunk_len, bt.shape[0],
-              n_pages, page_size, H, n_kv, Dh, Dh ** -0.5,
-              _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q.device))
+              out.data_ptr(), part.data_ptr(), Tc, p.q_tile, start, chunk_len,
+              P, n_pages, page_size, H, n_kv, Dh, p.splits, pa.SPLIT_PAGES,
+              vec, Dh ** -0.5, _build.DTYPE_CODES[q.dtype],
+              pa.ROUTES[p.route], pa.STAGES, _build.stream_ptr(q.device))
     _build.check(lib, "paged_prefill", code)
     launches["paged_prefill_attention"] += 1
+    pa.routes[p.route] += 1
     return out

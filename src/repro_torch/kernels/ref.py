@@ -235,3 +235,67 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, bt_row, start: int,
                     torch.zeros((), dtype=v.dtype, device=v.device))
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
     return o.reshape(1, Tc, H, Dh)[0]
+
+
+def paged_split_partials_ref(q, k_pages, v_pages, block_tables, horizon,
+                             split_pages: int):
+    """What the split-KV blocks write, in plain torch: for every query row
+    and every split of ``split_pages`` pages (boundaries at multiples of
+    ``split_pages`` pages from position 0), the split's running max ``m``,
+    normaliser ``l`` and unnormalised output ``acc``, in f32, over the
+    positions the query sees (``kv_pos < horizon``); ``p`` is cast to the V
+    dtype before PV. A split the query sees nothing of gives the empty
+    partial (``-inf``, 0, 0).
+
+    ``q: (B, T, H, Dh)``; ``block_tables: (B, P)``; ``horizon: (B, T)``.
+    Returns ``m, l (B, T, H, S)`` and ``acc (B, T, H, S, Dh)``."""
+    B, T, H, Dh = q.shape
+    _, ps, n_kv, _ = k_pages.shape
+    P = block_tables.shape[1]
+    n_s = -(-P // split_pages)
+    sp = split_pages * ps
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(B, P * ps, n_kv, Dh).to(q.dtype)
+    v = v_pages[bt].reshape(B, P * ps, n_kv, Dh).to(q.dtype)
+    pad = n_s * sp - P * ps                          # the last split's tail
+    k = F.pad(k, (0, 0, 0, 0, 0, pad))
+    v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    horizon = horizon.to(dev)
+    kv_pos = torch.arange(n_s * sp, device=dev)
+    valid = kv_pos[None, None, :] < horizon[:, :, None]           # (B, T, S)
+    # positions past every query's horizon: V zeroed (NaN-safe, as above)
+    live = kv_pos[None, :] < horizon.max(dim=1).values[:, None]
+    v = torch.where(live[:, :, None, None], v,
+                    torch.zeros((), dtype=v.dtype, device=dev))
+    g = H // n_kv
+    q5 = q.reshape(B, T, n_kv, g, Dh)
+    s = torch.einsum("btkgd,bskd->btkgs", q5, k).float() * Dh ** -0.5
+    neg = torch.tensor(float("-inf"), device=dev)
+    s = torch.where(valid[:, :, None, None], s, neg)
+    s = s.reshape(B, T, n_kv, g, n_s, sp)
+    m = s.amax(dim=-1)
+    p = torch.where(s == neg, torch.zeros((), device=dev),
+                    torch.exp(s - m[..., None]))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("btkgns,bnskd->btkgnd", p.to(v.dtype),
+                       v.reshape(B, n_s, sp, n_kv, Dh)).float()
+    return (m.reshape(B, T, H, n_s), l.reshape(B, T, H, n_s),
+            acc.reshape(B, T, H, n_s, Dh))
+
+
+def combine_splits_ref(m, l, acc, dtype=torch.float32):
+    """The split-KV combine kernel in plain torch: ``M = max_s m_s``, then
+    ``L = sum_s w_s l_s`` and ``O = sum_s w_s acc_s`` with ``w_s =
+    exp(m_s - M)``, added in split order over the non-empty splits (an
+    empty split, ``m_s = -inf``, is skipped), and one division ``O / L``
+    cast to ``dtype``. ``m, l: (..., S)``; ``acc: (..., S, Dh)``."""
+    M = m.amax(dim=-1)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(acc[..., 0, :])
+    for s in range(m.shape[-1]):
+        live = m[..., s] != float("-inf")
+        w = torch.exp(torch.where(live, m[..., s] - M, torch.zeros_like(M)))
+        L = torch.where(live, L + w * l[..., s], L)
+        O = torch.where(live[..., None], O + w[..., None] * acc[..., s, :], O)
+    return (O / L.clamp_min(1e-30)[..., None]).to(dtype)

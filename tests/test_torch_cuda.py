@@ -16,8 +16,11 @@ bf16 values: the kernel rounds each p to bf16 before PV and rounds the output
 once, each within u = 2^-8 relative, so |kernel - plain_f32| <= 2e-5 +
 u (|plain_f32| + sum_j p_j |v_j|), the last term being the plain version run
 on |V|. The same rule must reject the plain output with one page of context
-left out. The speculative verify window takes the same rule; with one query
-it is the decode kernel's output bit for bit.
+left out. The speculative verify window takes the same rule, and each of
+its queries is the decode kernel's output at that query's own length bit
+for bit, over block tables of two widths. The three paged kernels run the
+split-KV scheme on the tensor-core body at bf16 and the SIMT body at f32,
+as their route tally shows.
 
 The masked matmul (both orientations) and its weight gradient are held
 against the plain version computed in float32 on the same values with a
@@ -677,6 +680,102 @@ def test_paged_attention_verify_raises_instead_of_falling_back(cuda_device):
         tpa.paged_attention_verify(q, kp, vp, bt[:1], ln)
     with pytest.raises(ValueError):
         tpa.paged_attention_verify(q[:, :, :3], kp, vp, bt, ln)   # H % Kh
+
+
+@pytest.mark.parametrize("P", [35, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_verify_window_query_is_the_decode_kernel_at_its_length(cuda_device,
+                                                                dtype, P):
+    """Query t of a window at depth L equals the decode kernel at length
+    L - (Tq - 1) + t bit for bit (what keeps greedy speculative streams
+    equal to non-spec ones), on a table 35 or 64 pages wide, windows inside
+    a split and across a split's edge (S * 16 = 64 positions)."""
+    lengths = [5, 64, 66, 548]
+    q, kp, vp, bt, ln, _ = _verify_case(4, 5, 16, 16, 128, 16, 35, lengths,
+                                        23, cuda_device, dtype)
+    wide = torch.zeros((4, P), dtype=bt.dtype, device=cuda_device)
+    wide[:, :35] = bt
+    got = tpa.paged_attention_verify(q, kp, vp, wide, ln)
+    assert torch.equal(got, tpa.paged_attention_verify(q, kp, vp, bt, ln))
+    for t in range(5):
+        want = tpa.paged_attention(q[:, t].contiguous(), kp, vp, wide,
+                                   ln - 4 + t)
+        assert torch.equal(got[:, t], want), t
+
+
+@pytest.mark.parametrize("Tq", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_across_a_split_edge(cuda_device, dtype, Tq):
+    """Depths of 1 and S * 16 - 1, S * 16, S * 16 + 1 positions: the last
+    split of a row empty, full, or holding one position."""
+    lengths = [max(Tq, 1), 63, 64, 65]
+    q, kp, vp, bt, ln, plain32 = _verify_case(4, Tq, 16, 16, 128, 16, 8,
+                                              lengths, 29, cuda_device, dtype)
+    got = (tpa.paged_attention_verify(q, kp, vp, bt, ln) if Tq > 1 else
+           tpa.paged_attention(q[:, 0].contiguous(), kp, vp, bt, ln)[:, None])
+    assert torch.isfinite(got).all()
+    assert _attn_within(got, plain32, dtype)
+    assert not _attn_within(plain32(False, (ln - 16).clamp(min=Tq)), plain32,
+                            dtype)
+
+
+def _prefill_case(H, Kh, Tc, start, clen, seed, dev, dtype, ps=16, Dh=128):
+    """One request's chunk over a table of the engine's ladder width, its
+    entries past the depth on the null page; NaN there and past the
+    depth."""
+    rng = np.random.default_rng(seed)
+    P = 1 << (-(-(start + Tc) // ps) - 1).bit_length()
+    n_pages = P + 8
+    t = lambda a: torch.from_numpy(a).to(dev)
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    q = t(f(Tc, H, Dh)).to(dtype)
+    kp, vp = t(f(n_pages, ps, Kh, Dh)).to(dtype), t(f(n_pages, ps, Kh, Dh)).to(dtype)
+    bt = t(rng.choice(np.arange(1, n_pages), size=P, replace=False)
+           .astype(np.int32))
+    depth = start + clen
+    n_live = -(-depth // ps)
+    bt[n_live:] = 0
+    f32 = [x.float() for x in (q, kp, vp)]
+    plain32 = lambda abs_v, n=clen: tref.paged_prefill_attention_ref(
+        f32[0], f32[1], f32[2].abs() if abs_v else f32[2], bt, start, n)
+    kp[0] = vp[0] = float("nan")                  # every cold entry's page
+    last = int(bt[n_live - 1])
+    kp[last, (depth - 1) % ps + 1:] = vp[last, (depth - 1) % ps + 1:] = float("nan")
+    return q, kp, vp, bt, plain32
+
+
+@pytest.mark.parametrize("Kh", [16, 4])
+@pytest.mark.parametrize("start,clen", [(0, 50), (128, 37), (448, 21),
+                                        (448, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_at_served_starts(cuda_device, dtype, start, clen, Kh):
+    """olmo-1b's chunk of 64 at starts 0, 128 and 448 (a short last chunk
+    and a full one), 16 heads of 128 over 16 or 4 KV heads (GQA 4:1)."""
+    q, kp, vp, bt, plain32 = _prefill_case(16, Kh, 64, start, clen, 31,
+                                           cuda_device, dtype)
+    got = tpp.paged_prefill_attention(q, kp, vp, bt, start, clen)
+    assert torch.isfinite(got).all()
+    assert _attn_within(got, plain32, dtype)
+    assert not _attn_within(plain32(False, clen - 16), plain32, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_route_tally(cuda_device, dtype):
+    """All three kernels run the split-KV scheme, on the tensor-core body at
+    bf16 and on the SIMT body at f32."""
+    q, kp, vp, bt, ln, _ = _verify_case(4, 5, 16, 16, 128, 16, 35,
+                                        [5, 64, 300, 548], 37, cuda_device,
+                                        dtype)
+    ops.reset_launch_counts()
+    tpa.paged_attention(q[:, 0].contiguous(), kp, vp, bt, ln)
+    tpa.paged_attention_verify(q, kp, vp, bt, ln)
+    qp, kpp, vpp, btp, _ = _prefill_case(16, 16, 64, 128, 37, 41, cuda_device,
+                                         dtype)
+    tpp.paged_prefill_attention(qp, kpp, vpp, btp, 128, 37)
+    body = "split_tc" if dtype == torch.bfloat16 else "split_kv"
+    assert tpa.routes == {"split_kv": 0, "split_tc": 0, body: 3}
+    ops.reset_launch_counts()
+    assert not any(tpa.routes.values())
 
 
 @pytest.mark.parametrize("m", [4, 20, 64])

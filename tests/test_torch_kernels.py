@@ -21,7 +21,7 @@ from repro.kernels import quant as jquant
 from repro.kernels import ref as jref
 from repro_torch.kernels import bdmm as tbdmm
 from repro_torch.kernels import ops
-from repro_torch.kernels import paged_prefill as tpp
+from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
 
 ATOL, RTOL = 2e-5, 1e-5
@@ -212,12 +212,18 @@ def test_paged_prefill_cold_pages_stay_out():
 
 
 def test_q_tile_fits_the_block():
-    assert tpp.q_tile_for(64, 1, 128) == 16
-    assert tpp.q_tile_for(64, 4, 128) == 4
-    assert tpp.q_tile_for(16, 1, 16) == 16
-    assert tpp.q_tile_for(48, 1, 16) == 32
+    """A block's query tile: the tokens whose rows (a token's g = H / Kh
+    heads) fit the body's tile (tensor cores: 32 rows for a prefill chunk,
+    16 for a decode step or a verify window; SIMT: 16), split evenly."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tpa.plan(64, 16, 16, 128, 32, 16, bf, prefill=True).q_tile == 32
+    assert tpa.plan(64, 16, 4, 128, 32, 16, bf, prefill=True).q_tile == 8
+    assert tpa.plan(64, 16, 16, 128, 32, 16, f32, prefill=True).q_tile == 16
+    assert tpa.plan(48, 1, 1, 16, 8, 16, f32, prefill=True).q_tile == 16
+    assert tpa.plan(5, 16, 4, 128, 35, 16, bf, B=4).q_tile == 3
+    assert tpa.plan(5, 16, 4, 128, 35, 16, f32, B=4).q_tile == 3
     with pytest.raises(ValueError):
-        tpp.q_tile_for(8, 32, 128)
+        tpa.plan(8, 64, 1, 128, 4, 16, bf, prefill=True)
 
 
 # -------------------------------------------------------------------- routing
