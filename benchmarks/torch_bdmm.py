@@ -1,8 +1,11 @@
-"""Time the port's bdmm general grid and its SDDMM on the card, and break
-their tensor-core bodies down by part.
+"""Time the port's bdmm (general grid, decode grid) and its SDDMM on the
+card, and break their tensor-core bodies down by part.
 
     python benchmarks/torch_bdmm.py              # --mode time
     python benchmarks/torch_bdmm.py --mode breakdown
+    python benchmarks/torch_bdmm.py --mode decode
+    python benchmarks/torch_bdmm.py --mode decode_breakdown
+    python benchmarks/torch_bdmm.py --mode decode_sweep
 
 ``time``: bf16 ``bdmm`` at olmo-1b's four packed shapes (nb 8; q/k/v/o,
 up/gate with silu, down, unembed), forward and dx (the transposed-blocks
@@ -19,6 +22,22 @@ wgmmas, the output stores - bdmm's TMA stores, the SDDMM's masked stores -
 or both) and times each on the up/gate shape at m = 2048 (bdmm forward and
 dx, the SDDMM). A variant computes wrong values; only its time means
 anything. What is left when a part is gone bounds what that part costs.
+
+``decode``: the decode grid (m <= 32, bf16 x) at the four packed shapes,
+m = 1, 4, 20 and 32, with bf16 and int8 blocks, against the plain version,
+one ``torch.bmm`` (bf16 blocks) and the bound (bytes at 3.35 TB/s or bf16
+operations at 989 TFLOP/s), with the plan (split, K range) that ran.
+
+``decode_breakdown``: the decode grid's mma.sync body built with its
+phases cut (``-DREPRO_CUT``): the loads alone (every cp.async issued and
+waited for), then + the products (kept in shared memory, so that every
+mma is waited for), then the whole kernel (+ the epilogue and the split
+reduction), at the four shapes, m = 4 and 32, both kinds of blocks. The cut variants compute nothing useful; only their times mean
+anything.
+
+``decode_sweep``: the decode grid with K cut into ranges of 64, 128, ...
+rows a block (at most 8 splits, up to all of K) at the four shapes, m = 4
+and 32.
 
 Times are CUDA-event medians of 10 calls with the L2 cache flushed before
 each. Needs an NVIDIA GPU (sm_90a) and nvcc; prints one JSON object a line
@@ -190,7 +209,7 @@ def build_variants(out_dir: Path):
         lib = ctypes.CDLL(str(out_dir / f"{source}_{name}.so"))
         if source == "bdmm":
             fn = lib.bdmm_launch
-            fn.argtypes = [P, P, P, P, P, P] + [I] * 15 + [P]
+            fn.argtypes = [P] * 6 + [I] * 15 + [P]
         else:
             fn = lib.sddmm_masked_launch
             fn.argtypes = [P, P, P, P] + [I] * 8 + [P]
@@ -241,9 +260,129 @@ def mode_breakdown(dev, ms):
                     stream)))}), flush=True)
 
 
+DECODE_M = (1, 4, 20, 32)
+CUTS = {"loads": 1, "products": 2, "full": 0}
+
+
+def _decode_case(gen, dev, nb, bi, bo, m, quant):
+    """bf16 x, the blocks (bf16, or int8 with a scale) and what each moves."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    x = r(m, nb * bi).bfloat16()
+    w = r(nb, bi, bo) * bi ** -0.5
+    if quant:
+        wq, s = quantize_blocks(w)
+        return x, wq, s, wq.numel() + s.numel() * 4
+    wb = w.bfloat16()
+    return x, wb, None, wb.numel() * 2
+
+
+def mode_decode(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, nb, bi, bo, act in BDMM_SHAPES:
+        for quant in (False, True):
+            for m in DECODE_M:
+                x, wp, s, w_bytes = _decode_case(gen, dev, nb, bi, bo, m, quant)
+                run = lambda: bk.bdmm(x, wp, None, s, activation=act)  # noqa: E731
+                if quant:
+                    plain = lambda: ref.bdmm_quant_ref(x, wp, s, None, act)  # noqa: E731
+                    want = ref.bdmm_quant_ref(x.float(), wp, s, None, act)
+                    library = None
+                else:
+                    plain = lambda: ref.bdmm_ref(x, wp, None, act)  # noqa: E731
+                    want = ref.bdmm_ref(x.float(), wp.float(), None, act)
+                    library = lambda: torch.bmm(  # noqa: E731
+                        x.view(m, nb, bi).transpose(0, 1), wp)
+                got, used = routed(run)
+                p = bk.plan(m, nb, bi, bo, torch.bfloat16, wp.dtype)
+                nbytes = m * nb * bi * 2 + w_bytes + m * nb * bo * 2
+                bound = max(nbytes / 3.35e12, 2.0 * m * nb * bi * bo / 989e12) * 1e3
+                print(json.dumps({
+                    "kernel": "bdmm_decode", "shape": name, "m": m,
+                    "weights": "int8" if quant else "bfloat16", "routes": used,
+                    "split": p.split, "k_chunk": p.k_chunk, "grid": p.grid,
+                    "max_abs_err": float((got.float() - want).abs().max()),
+                    "ms": ms(run), "plain_ms": ms(plain),
+                    "library_ms": ms(library) if library else None,
+                    "bound_ms": bound}), flush=True)
+
+
+def mode_decode_breakdown(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = _build.variants("bdmm", {c: {"REPRO_CUT": v} if v else {}
+                                        for c, v in CUTS.items()}, Path(tmp))
+        fns = {c: lib.bdmm_launch for c, lib in libs.items()}
+        for fn in fns.values():
+            fn.argtypes = [P] * 6 + [I] * 15 + [P]
+            fn.restype = I
+        for name, nb, bi, bo, act in BDMM_SHAPES:
+            for quant in (False, True):
+                for m in (4, 32):
+                    x, wp, s, _ = _decode_case(gen, dev, nb, bi, bo, m, quant)
+                    p = bk.plan(m, nb, bi, bo, torch.bfloat16, wp.dtype)
+                    y = torch.empty(m, nb * bo, dtype=torch.bfloat16, device=dev)
+
+                    def call(fn):
+                        code = fn(x.data_ptr(), wp.data_ptr(),
+                                  s.data_ptr() if s is not None else None, None,
+                                  y.data_ptr(), None, m, nb, bi, bo, 1, int(quant), bk.ACT_CODES[act],
+                                  bk.ROUTES["decode_tc"], 0, 0,
+                                  _build.copy_width(x, bi * 2),
+                                  _build.copy_width(wp, bo * wp.element_size()),
+                                  1, p.split, p.k_chunk, stream)
+                        if code:
+                            raise SystemExit(f"launch failed: CUDA error {code}")
+                    print(json.dumps({
+                        "kernel": "bdmm_decode", "shape": name, "m": m,
+                        "weights": "int8" if quant else "bfloat16",
+                        "split": p.split,
+                        **{f"{c}_ms": ms(lambda: call(fn))
+                           for c, fn in fns.items()}}), flush=True)
+
+
+def mode_decode_sweep(dev, ms):
+    """The decode grid with K cut into other K ranges than the plan's (64,
+    128, ... rows a block, at most 8 splits, up to all of K): what the split
+    costs and buys."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib, fn = bk._launcher()
+    for name, nb, bi, bo, act in BDMM_SHAPES:
+        for quant in (False, True):
+            for m in (4, 32):
+                x, wp, s, _ = _decode_case(gen, dev, nb, bi, bo, m, quant)
+                y = torch.empty(m, nb * bo, dtype=torch.bfloat16, device=dev)
+                row = {"kernel": "bdmm_decode", "shape": name, "m": m,
+                       "weights": "int8" if quant else "bfloat16",
+                       "plan_k_chunk": bk.plan(m, nb, bi, bo, torch.bfloat16,
+                                               wp.dtype).k_chunk}
+                k_chunk = max(64, -(-bi // bk.DECODE_SPLIT_MAX))
+                while True:
+                    split = -(-bi // k_chunk)
+
+                    def call():
+                        code = fn(x.data_ptr(), wp.data_ptr(),
+                                  s.data_ptr() if s is not None else None, None,
+                                  y.data_ptr(), None, m, nb, bi, bo, 1, int(quant), bk.ACT_CODES[act],
+                                  bk.ROUTES["decode_tc"], 0, 0, 16, 16, 1, split,
+                                  k_chunk, stream)
+                        _build.check(lib, "bdmm", code)
+                    row[f"k{k_chunk}_ms"] = ms(call)
+                    if split == 1:
+                        break
+                    k_chunk *= 2
+                print(json.dumps(row), flush=True)
+
+
+MODES = {"time": mode_time, "breakdown": mode_breakdown, "decode": mode_decode,
+         "decode_breakdown": mode_decode_breakdown, "decode_sweep": mode_decode_sweep}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("time", "breakdown"), default="time")
+    ap.add_argument("--mode", choices=tuple(MODES), default="time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_bdmm: no CUDA device", file=sys.stderr)
@@ -251,7 +390,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     ms = timer(dev)
-    (mode_time if args.mode == "time" else mode_breakdown)(dev, ms)
+    MODES[args.mode](dev, ms)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -1,0 +1,243 @@
+"""Time the port's fused MLP (``fused_ffn``) on the card, and break its
+tensor-core body down by phase.
+
+    python benchmarks/torch_fused_ffn.py              # --mode time
+    python benchmarks/torch_fused_ffn.py --mode breakdown
+    python benchmarks/torch_fused_ffn.py --mode sweep
+
+``time``: olmo-1b's perm-fused FFN at mpd_c=8 (nb 8, bi 256, f 1024, bo
+256, gated silu) with bf16 x and int8 or bf16 weights at m = 4 (a decode
+step), 16, 37 and 64 (one prefill chunk), and f32 x at m = 4 and 64 (the
+exact parity route), each against the plain version, a composed yardstick
+(int8: the port's unfused route, three bdmm launches and the gate; bf16:
+three ``torch.bmm`` and the gate; no single PyTorch call computes the fused
+MLP) and the bound (bytes at 3.35 TB/s or operations at the dtype's peak),
+with the body and plan that ran.
+
+``breakdown``: ``csrc/fused_ffn.cu`` built with the tensor-core body's
+phases cut (``-DREPRO_CUT``): the loads alone (every cp.async issued and
+waited for), then + the products (GEMM 1, the hidden, GEMM 2, and the
+warps' partials stored, so that every mma is waited for), then the whole
+kernel (+ the warps' partials added, the cluster's split reduction and
+the epilogue), at m = 4 and 64 with int8 and bf16 weights.
+The cut variants compute nothing useful; only their times mean anything.
+
+``sweep``: the tensor-core body with the f axis cut into 16, 8, 4 or 2
+blocks (1, 2, 4 or 8 f tiles a block) at m = 4, 16 and 64.
+
+Times are CUDA-event medians of 10 calls with the L2 cache flushed before
+each (``--hot``: not flushed, so weights and the kernel's code stay in L2). Needs an NVIDIA GPU (sm_90a) and nvcc; prints one JSON object a line
+and the card's name and power limit last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import bdmm as bk  # noqa: E402
+from repro_torch.kernels import fused_ffn as fk  # noqa: E402
+from repro_torch.kernels.quant import quantize_blocks  # noqa: E402
+
+NB, BI, F_DIM, BO = 8, 256, 1024, 256       # olmo-1b's fused FFN at mpd_c=8
+CUTS = {"loads": 1, "products": 2, "full": 0}
+PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def timer(dev, flush_l2=True):
+    flush = torch.empty((64 << 20) if flush_l2 else 16, dtype=torch.uint8,
+                        device=dev)
+
+    def ms(fn, iters=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        torch.cuda._sleep(50_000_000)
+        for a, b in ev:
+            flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        return sorted(a.elapsed_time(b) for a, b in ev)[iters // 2]
+    return ms
+
+
+def case(gen, dev, m, dtype, quant):
+    """Inputs of one gated fused MLP: x, the three weights (int8 with their
+    scales when ``quant``) and the bytes they move."""
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    a = {"x": r(m, NB * BI).to(dtype)}
+    ws = {"w_up": r(NB, BI, F_DIM) * BI ** -0.5,
+          "w_gate": r(NB, BI, F_DIM) * BI ** -0.5,
+          "w_down": r(NB, F_DIM, BO) * F_DIM ** -0.5}
+    for k, w in ws.items():
+        if quant:
+            a[k], a["s_" + k[2:]] = quantize_blocks(w)
+        else:
+            a[k] = w.to(dtype)
+    nbytes = sum(t.numel() * t.element_size() for t in a.values())
+    return a, nbytes + m * NB * BO * a["x"].element_size()
+
+
+def mode_time(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = [(m, torch.bfloat16, q) for q in (True, False) for m in (4, 16, 37, 64)]
+    rows += [(m, torch.float32, q) for q in (True, False) for m in (4, 64)]
+    for m, dtype, quant in rows:
+        a, nbytes = case(gen, dev, m, dtype, quant)
+        scales = {k: a.get(k) for k in ("s_up", "s_gate", "s_down")}
+        run = lambda: fk.fused_ffn(a["x"], a["w_up"], a["w_down"],  # noqa: E731
+                                   a["w_gate"], **scales)
+        if quant:
+            plain = lambda: ref.fused_ffn_quant_ref(  # noqa: E731
+                a["x"], a["w_up"], a["w_down"], a["w_gate"], **scales)
+
+            def yard():
+                u = bk.bdmm(a["x"], a["w_up"], None, a["s_up"])
+                h = bk.bdmm(a["x"], a["w_gate"], None, a["s_gate"],
+                            activation="silu") * u
+                return bk.bdmm(h, a["w_down"], None, a["s_down"])
+        else:
+            plain = lambda: ref.fused_ffn_ref(  # noqa: E731
+                a["x"], a["w_up"], a["w_down"], a["w_gate"])
+            xt = a["x"].view(m, NB, BI).transpose(0, 1)
+
+            def yard():
+                u = torch.bmm(xt, a["w_up"])
+                return torch.bmm(F.silu(torch.bmm(xt, a["w_gate"])) * u,
+                                 a["w_down"])
+        before = dict(fk.routes)
+        got = run()
+        used = sorted(r for r in fk.routes if fk.routes[r] != before[r])
+        want = plain().float() if dtype == torch.float32 else None
+        ops = 2.0 * m * NB * (2 * BI * F_DIM + F_DIM * BO)
+        print(json.dumps({
+            "kernel": "fused_ffn", "m": m, "dtype": str(dtype)[6:],
+            "weights": "int8" if quant else str(dtype)[6:], "routes": used,
+            "plan": fk.plan(m, NB, F_DIM, BO, n_sm, dtype)._asdict(),
+            "max_abs_err_f32": (float((got.float() - want).abs().max())
+                                if want is not None else None),
+            "ms": ms(run), "plain_ms": ms(plain), "yardstick_ms": ms(yard),
+            "bound_ms": max(nbytes / 3.35e12, ops / PEAK[dtype]) * 1e3}),
+            flush=True)
+
+
+def build_cuts(out_dir: Path):
+    """``{cut: entry point}``: ``csrc/fused_ffn.cu`` built with each phase
+    cut of CUTS in parallel (the whole kernel from the package's build)."""
+    libs = _build.variants("fused_ffn", {c: {"REPRO_CUT": v} if v else {}
+                                         for c, v in CUTS.items()}, out_dir)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for c, lib in libs.items():
+        fn = lib.fused_ffn_launch
+        fn.argtypes = [P] * 13 + [I] * 15 + [P]
+        fn.restype = I
+        fns[c] = fn
+    return fns
+
+
+def mode_breakdown(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build_cuts(Path(tmp))
+        for quant in (True, False):
+            for m in (4, 64):
+                a, _ = case(gen, dev, m, torch.bfloat16, quant)
+                p = fk.plan(m, NB, F_DIM, BO, n_sm)
+                y = torch.empty(m, NB * BO, dtype=torch.bfloat16, device=dev)
+                ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+                vec_w = min(_build.copy_width(a[k], a[k].shape[2] * a[k].element_size())
+                            for k in ("w_up", "w_gate", "w_down"))
+
+                def call(fn):
+                    code = fn(ptr(a["x"]), ptr(a["w_up"]), ptr(a["w_gate"]),
+                              ptr(a["w_down"]), ptr(a.get("s_up")),
+                              ptr(a.get("s_gate")), ptr(a.get("s_down")), None,
+                              None, None, ptr(y), None, None, m, NB,
+                              BI, F_DIM, BO, 1, int(quant), fk.ACT_CODES["silu"],
+                              fk.ROUTES["tc"], p.rows, p.split, p.fpb, 1,
+                              _build.copy_width(a["x"], BI * 2), vec_w, stream)
+                    if code:
+                        raise SystemExit(f"launch failed: CUDA error {code}")
+                print(json.dumps({
+                    "kernel": "fused_ffn", "m": m,
+                    "weights": "int8" if quant else "bfloat16",
+                    "plan": p._asdict(),
+                    **{f"{c}_ms": ms(lambda: call(fn)) for c, fn in fns.items()}}),
+                    flush=True)
+
+
+SWEEP = ((16, 1), (8, 2), (4, 4), (2, 8))
+
+
+def mode_sweep(dev, ms):
+    """The tensor-core body with the f axis cut into other (split, f tiles a
+    block) than the plan's, at m = 4, 16 and 64: what the split costs and
+    buys."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib, fn = fk._launcher()
+    for quant in (True, False):
+        for m in (4, 16, 64):
+            a, _ = case(gen, dev, m, torch.bfloat16, quant)
+            y = torch.empty(m, NB * BO, dtype=torch.bfloat16, device=dev)
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            row = {"kernel": "fused_ffn", "m": m,
+                   "weights": "int8" if quant else "bfloat16"}
+            rows = fk.plan(m, NB, F_DIM, BO, 132).rows
+            for split, fpb in SWEEP:
+                def call():
+                    code = fn(ptr(a["x"]), ptr(a["w_up"]), ptr(a["w_gate"]),
+                              ptr(a["w_down"]), ptr(a.get("s_up")),
+                              ptr(a.get("s_gate")), ptr(a.get("s_down")), None,
+                              None, None, ptr(y), None, None, m, NB,
+                              BI, F_DIM, BO, 1, int(quant), fk.ACT_CODES["silu"],
+                              fk.ROUTES["tc"], rows, split, fpb, 1, 16, 16,
+                              stream)
+                    _build.check(lib, "fused_ffn", code)
+                row[f"split{split}_ms"] = ms(call)
+            print(json.dumps(row), flush=True)
+
+
+MODES = {"time": mode_time, "breakdown": mode_breakdown, "sweep": mode_sweep}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=tuple(MODES), default="time")
+    ap.add_argument("--hot", action="store_true",
+                    help="no L2 flush between calls: weights and code stay cached")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_fused_ffn: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    MODES[args.mode](dev, timer(dev, flush_l2=not args.hot))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

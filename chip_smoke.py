@@ -9,9 +9,13 @@ Phases, each printed as one JSON line:
 1. ``device`` — the card's name and ``nvidia-smi`` name / power limit.
 2. ``build``  — compile every CUDA kernel of the port from
    ``src/repro_torch/csrc`` with nvcc (sm_90a) and load it.
-3. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card at the main path's shapes (bdmm fp/int8 at m in {1, 4, 64} for the
-   olmo-1b projection shapes; paged decode attention with ragged lengths,
+3. ``kernels`` — first a probe of the timer: the first row it times
+   (bdmm qkvo, m = 1, bf16) before and after keeping the card busy for a
+   second, which then stays ahead of every timed row. Then hold each kernel
+   against its plain PyTorch version on the
+   card at the main path's shapes (bdmm fp/int8 at m in {1, 4, 20, 32, 64}
+   for the olmo-1b projection shapes, each row naming the body that ran;
+   paged decode attention with ragged lengths,
    lengths around a split's edge (63, 64, 65), null-page entries and NaN
    past every length; paged prefill at start 0, 128 and 448 with a short
    final chunk and NaN-poisoned cold pages; the speculative verify window
@@ -26,7 +30,8 @@ Phases, each printed as one JSON line:
    the fused MLP at olmo-1b's perm-fused FFN width, nb 8, bi 256, f 1024,
    bo 256, at m = 4 and 64, int8 / bf16 / f32 weights, gated, a plain-gelu
    form with every bias and a ragged m = 37, f = 1000 case, each of which
-   must also reject the plain output with one f tile of w_down zeroed),
+   must also reject the plain output with one f tile of w_down zeroed, and
+   must run on the body its dtype takes),
    within the tolerance printed beside each check; time kernel, plain
    version and, where one exists, a single PyTorch library call (for the
    fused MLP, which no single call computes, a composition: three
@@ -284,6 +289,39 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in ev)
 
+    def warm_up(self, seconds: float = 1.0) -> float:
+        """Keep the card busy with bf16 matmuls for ``seconds`` so that its
+        clocks have risen before the first timed row; returns the seconds
+        spent."""
+        torch = self.torch
+        a = torch.randn(4096, 4096, device=self.flush.device).bfloat16()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                a @ a
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+
+def timer_probe(torch, dev, timer) -> None:
+    """The first row the kernels phase times (bdmm qkvo, m = 1, bf16) timed
+    before and after the timer's warm-up: a first-timing cost shows as the
+    difference. The warm-up then stays ahead of every timed row."""
+    from repro_torch.kernels import bdmm as bk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, nb, bi, bo, _ = BDMM_SHAPES[0]
+    x = torch.randn((1, nb * bi), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((nb, bi, bo), generator=gen, device=dev)
+         * bi ** -0.5).bfloat16()
+    run = lambda: bk.bdmm(x, w)  # noqa: E731
+    cold = [timer.ms(run), timer.ms(run)]
+    warm_s = timer.warm_up()
+    warm = [timer.ms(run), timer.ms(run)]
+    emit({"phase": "timer_probe", "row": "bdmm_decode qkvo m=1 bf16",
+          "before_warm_up_ms": cold, "warm_up_s": warm_s,
+          "after_warm_up_ms": warm})
+
 
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -326,8 +364,11 @@ def check_bdmm(torch, dev, timer, rows, summary):
     from repro_torch.kernels.quant import quantize_blocks
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [(s, m, q, "bfloat16") for s in BDMM_SHAPES for m in (1, 4, 64)
-             for q in (False, True)]
+    # m = 1 and 4: decode steps; 20 and 32: a packed target's verify
+    # windows (4 slots x 5 tokens) at the top of the decode grid; 64: one
+    # prefill chunk
+    cases = [(s, m, q, "bfloat16") for s in BDMM_SHAPES
+             for m in (1, 4, 20, 32, 64) for q in (False, True)]
     cases = [c + ("fwd",) for c in cases]
     # the f32 forms the exactness phase runs, one per grid
     cases += [(BDMM_SHAPES[1], m, True, "float32", "fwd") for m in (4, 64)]
@@ -365,11 +406,12 @@ def check_bdmm(torch, dev, timer, rows, summary):
         ok, err, ratio, tol = close(torch, got, plain(), "bdmm", dt)
         del got
         pl = bk.plan(m, nb, k, n, dtype, torch.int8 if quant else dtype, dx)
-        grid = "bdmm_decode" if pl.route == "decode" else "bdmm"
-        # the body the plan names ran; bf16 above 32 rows on the tensor cores
-        ok = ok and used == ([] if grid == "bdmm_decode" else [pl.route])
-        if dt == "bfloat16" and grid == "bdmm":
-            ok = ok and pl.route in ("tc", "tc_small_m")
+        grid = "bdmm_decode" if pl.route in bk.DECODE_ROUTES else "bdmm"
+        # the body the plan names ran; bf16 on the tensor cores (mma.sync
+        # at m <= 32, wgmma above)
+        ok = ok and used == [pl.route]
+        if dt == "bfloat16":
+            ok = ok and pl.route in ("decode_tc", "tc", "tc_small_m")
         es = x.element_size()
         nbytes = m * nb * k * es + w_bytes + m * nb * n * es
         b_ms, b_by = bound(nbytes, 2.0 * m * nb * bi * bo, dt)
@@ -378,7 +420,7 @@ def check_bdmm(torch, dev, timer, rows, summary):
                "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
                "ok": ok, "routes_launched": used,
                "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
-                        "split": pl.split},
+                        "split": pl.split, "k_chunk": pl.k_chunk},
                "ms": timer.ms(run), "plain_ms": timer.ms(plain),
                "library_ms": timer.ms(library) if library else None,
                "library": "one torch.bmm over the blocks" if library else None,
@@ -398,8 +440,7 @@ def check_bdmm(torch, dev, timer, rows, summary):
             s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")})
             s["at"] = f"int8 {name} m={m}"
-            if grid == "bdmm":
-                s["cuda_body"] = used
+            s["cuda_body"] = used
         # the other general-grid rows of the main paths: a bf16 prefill
         # chunk, and packed training's forward and dx
         if grid == "bdmm" and name == "up_gate" and dt == "bfloat16" and (
@@ -996,7 +1037,7 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                     h = ref.ACTIVATIONS[act](u)
                 return bmm(h, a["w_down"], a.get("b_down"), bo)
             yard_label = "three torch.bmm and the gate"
-        got = run()
+        got, used = run_routed(run, fk.routes)
         want, mag = ffn_plain32(torch, ref, a, act)
         ok, err, ratio = mm_close(torch, got, want, mag, dt)
         wd = a["w_down"].clone()
@@ -1004,7 +1045,11 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
         dropped, _ = ffn_plain32(torch, ref, a, act,
                                  w_down=wd if quant else wd.float())
         rejects = not mm_close(torch, dropped, want, mag, dt)[0]
-        ok = ok and rejects
+        # the body the plan names ran: bf16 on the tensor cores
+        pl = fk.plan(m, nb, f, bo, torch.cuda.get_device_properties(
+            dev).multi_processor_count, dtype)
+        ok = ok and rejects and used == [pl.route]
+        ok = ok and (dt != "bfloat16" or pl.route == "tc")
         del got, want, mag, dropped, wd
         es = a["x"].element_size()
         w_bytes = sum(a[k].numel() * a[k].element_size()
@@ -1018,8 +1063,7 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                "m": m, "nb": nb, "bi": bi, "f": f, "bo": bo,
                "weights": "int8" if quant else dt, "dtype": dt,
                "activation": act, "gated": gated, "biases": biases,
-               "plan": fk.plan(m, nb, f, bo, torch.cuda.get_device_properties(
-                   dev).multi_processor_count),
+               "plan": pl._asdict(), "routes_launched": used,
                "max_abs_err": err, "err_over_tol": ratio,
                "tol": dict(MM_TOL[dt], rule=FFN_RULE, act_slope=ACT_SLOPE),
                "rejects_zeroed_f_tile": rejects, "ok": ok,
@@ -1038,6 +1082,7 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                                           "bound_ms", "bound_by")})
             s["at"] = f"int8 gated, bf16, m={m} (decode), nb {nb} bi {bi} " \
                       f"f {f} bo {bo}"
+            s["cuda_body"] = used
         del a, args
     torch.cuda.empty_cache()
 
@@ -1162,37 +1207,17 @@ def serve_phase(torch, dev, ops):
     return row
 
 
-def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
-    """Where a steady decode step's time goes: ``n_steps`` decode steps
-    (speculative steps with ``spec_draft``) of 4 live slots at the serve
-    phase's context depths (~250-540 tokens), under torch.profiler.
-    Returns wall ms per step, device kernel ms per step by kernel family,
-    and the device's busy share; the device entries are None when the
-    profiler records no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.serve import Engine
-
-    eng = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K, **kw)
-    for r in make_requests(cfg, n_requests=4, rate=1e9, prompt_len=448,
-                           gen=32, seed=0, shared_prefix=128):
-        r.max_new_tokens = 96           # every slot stays live in the window
-        eng.submit(r)
-    while eng._prefill_queue or eng.scheduler.waiting:
-        eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+def device_families(torch, prof, n):
+    """Device ms per unit (``n`` steps or chunks) by kernel family from a
+    profiler run, the busy time summed, and how many paged-attention combine
+    kernels it saw (in their family or in "other")."""
     cuda = torch.autograd.DeviceType.CUDA
     # the paged kernels' combine (paged_attention_kernel_combine,
-    # paged_verify_kernel_combine) counts with its family
-    families = {"bdmm_decode_kernel": 0.0, BDMM_GENERAL_FAMILY: 0.0,
-                "fused_ffn_kernel": 0.0, "paged_attention_kernel": 0.0,
+    # paged_verify_kernel_combine) counts with its family; "bdmm_decode" and
+    # "fused_ffn" take both bodies of each (bdmm_decode_tc_kernel and
+    # bdmm_decode_kernel, fused_ffn_tc_kernel and fused_ffn_kernel)
+    families = {"bdmm_decode": 0.0, BDMM_GENERAL_FAMILY: 0.0,
+                "fused_ffn": 0.0, "paged_attention_kernel": 0.0,
                 "paged_verify_kernel": 0.0, MASKED_MM_FAMILY: 0.0,
                 "other": 0.0}
     combines = {"seen": 0, "in_other": 0}
@@ -1205,15 +1230,54 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
         if "_kernel_combine" in name:
             combines["seen"] += 1
             combines["in_other"] += key == "other"
-    device_ms = sum(families.values()) / n_steps
+    return {k: v / n for k, v in families.items()}, sum(families.values()), combines
+
+
+def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
+    """Where a steady decode step's time goes: ``n_steps`` decode steps
+    (speculative steps with ``spec_draft``) of 4 live slots at the serve
+    phase's context depths (~250-540 tokens), under torch.profiler; the
+    prefill of those 4 requests (64-token chunks) is profiled on its way.
+    Returns wall ms per step, device kernel ms per step (per prefill chunk)
+    by kernel family, and the device's busy share; the device entries are
+    None when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    eng = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K, **kw)
+    for r in make_requests(cfg, n_requests=4, rate=1e9, prompt_len=448,
+                           gen=32, seed=0, shared_prefix=128):
+        r.max_new_tokens = 96           # every slot stays live in the window
+        eng.submit(r)
+    chunks0 = eng.n_prefill_chunks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        while eng._prefill_queue or eng.scheduler.waiting:
+            eng.step()
+        torch.cuda.synchronize()
+    chunks = eng.n_prefill_chunks - chunks0
+    prefill, prefill_ms, _ = device_families(torch, prof, max(chunks, 1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    families, busy, combines = device_families(torch, prof, n_steps)
+    device_ms = busy / n_steps
     return {"steps": n_steps, "wall_ms_per_step": wall_ms,
-            "device_ms_per_step": ({k: v / n_steps for k, v in families.items()}
-                                   if device_ms > 0 else None),
+            "device_ms_per_step": families if device_ms > 0 else None,
             "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
             "combine_launches": combines["seen"],
             "combine_in_family": (combines["seen"] > 0
                                   and combines["in_other"] == 0)
-            if device_ms > 0 else None}
+            if device_ms > 0 else None,
+            # the steps that ran the 4 prompts' chunks (some also decode
+            # the slots already live)
+            "prefill_chunks": chunks,
+            "prefill_device_ms_per_chunk": prefill if prefill_ms > 0 else None}
 
 
 EXACT_ENGINE = dict(n_slots=4, max_len=256 + 16, page_size=16,
@@ -1979,6 +2043,7 @@ def main() -> int:
         out = fn(*args)
         seconds[name] = time.perf_counter() - t
         return out
+    timed("timer_probe", timer_probe, torch, dev, timer)
     timed("kernels_bdmm", check_bdmm, torch, dev, timer, rows, summary)
     timed("kernels_attention", check_paged_attention, torch, dev, timer, rows,
           summary)

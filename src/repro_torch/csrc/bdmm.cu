@@ -14,15 +14,34 @@
 // accumulate in f32; the epilogue runs scale -> bias -> activation -> cast,
 // the reference's order. kernels/bdmm.py::plan picks the body:
 //
-// * decode (m <= 32, forward): the weight stream. The int8 blocks of one
-//   olmo-1b decode step are ~147 MB, ~44 us at 3.35 TB/s; the activations
-//   are a few KB. The decode kernel therefore reads every weight byte
-//   exactly once for all m rows: a block owns (block n, 32 output columns),
-//   stages the m input rows of one K chunk in shared memory, and each thread
-//   streams 4 adjacent columns of a K slice with one vector load per row
-//   (4 B of int8), keeping m x 4 f32 sums in registers. K slices are reduced
-//   by warp shuffles and one shared-memory pass in a fixed order, so results
-//   are deterministic.
+// * decode_tc (bf16 x, m <= 32, forward): the weight stream. The int8
+//   blocks of one olmo-1b decode step are ~147 MB, ~44 us at 3.35 TB/s; the
+//   activations are a few KB, and the products (a few GFLOP) are far below
+//   the tensor cores' rate. So the time is round trips: how many weight
+//   bytes are in flight at once, and how few dependent memory trips follow
+//   them. A block owns 64 output channels of one diagonal block over a K
+//   range of up to 256 rows: its whole slice (4 stages of 64 rows; deeper K
+//   is split over blocks, by a plan that depends on (nb, K, N) alone) and
+//   its token rows are requested with 16-byte cp.async copies before the
+//   first product, its scales and biases read meanwhile. The products run
+//   on mma.sync.m16n8k16 with channels on the 16-row side and tokens on the
+//   n8 side, so m pads only to 8 (mma.sync rather than wgmma: at m <= 32
+//   the work is far below the rate, and its fragments need no descriptors);
+//   int8 is widened to bf16 in registers by byte permutes, exactly. The
+//   output tile is staged in shared memory and leaves in 16-byte stores.
+//   A K split is one cluster: each block leaves its f32 partial in shared
+//   memory and, after a cluster barrier, adds a share of the tile from all
+//   of them in the fixed order rank 0, 1, ... (no workspace round trip, no
+//   float atomics, one launch).
+// * decode_simt (f32 x, m <= 32, forward): the parity route, exact f32 (no
+//   TF32). A block owns (block n, 32 output columns), stages the m input
+//   rows of one K chunk in shared memory, and each thread streams 4
+//   adjacent columns of a K slice, keeping m x 4 f32 sums in registers; K
+//   slices are reduced by warp shuffles and one shared-memory pass in a
+//   fixed order.
+//   Both decode bodies give row r of an m-row call bit for bit as row r of
+//   the same input cut to fewer rows (the speculative verify windows rely
+//   on it).
 // * tc (bf16 x and w above 32 rows, and the transposed form at any m, where
 //   TMA can read the rows: packed training at 4 x 512 tokens, forward and
 //   dx, and bf16 prefill chunks). At olmo-1b's packed shapes (K 256 or 1024,
@@ -267,10 +286,10 @@ struct BArgs {
   const float* scale;  // (nb, n) for int8 w, else null
   const float* bias;   // (nb * n,) or null
   bf16* y;             // (m, nb * n)
-  float* ws;           // (split, m, nb * n) partial sums when split > 1
+  float* ws;           // tc_small_m: (split, m, nb * n) partial sums when split > 1
   int m, nb, k, n, act;
   int vec_x, vec_w;    // copy width in bytes of the rows of x and w
-  int split, k_chunk;  // tc_small_m: K split over blocks, K range of a split
+  int split, k_chunk;  // tc_small_m, decode_tc: K split over blocks, K range of a split
 };
 
 // scale -> bias -> activation of output channel ch of block blk
@@ -584,6 +603,197 @@ __global__ void __launch_bounds__(WG_THREADS) bdmm_general_small_kernel(const BA
       }
 }
 
+// ------------------------------------------------------------ decode_tc
+// The bf16 decode grid (m <= 32). Block (channel tile, diagonal block,
+// split) owns 64 output channels of every token over one K range of
+// k_chunk rows (plan: the split depends on (nb, k, n) only). Its weight
+// slice and the token rows of that range are requested at once, K stage by
+// K stage (64 rows each, DC_STAGES of them in flight, a ring beyond), with
+// 16-byte cp.async copies. Warp w computes channels 16w .. 16w + 15 of every
+// token on mma.sync.m16n8k16: channels on the 16-row side (A = the weights,
+// read by ldmatrix.trans), tokens on the n8 side (B = x rows, ldmatrix), so
+// m pads only to 8. int8 weights are widened in registers after their
+// ldmatrix (widen_pairs): a lane's bytes hold channels 2gq and 2gq + 1,
+// which become A rows gq and gq + 8. A token's outputs depend on its own
+// x row only, with one instruction sequence whatever m is, so row r of an
+// m-row call is bit for bit row r of the same input cut to fewer rows.
+constexpr int DC_CH = 64;       // output channels of a block
+constexpr int DC_THREADS = 128;
+constexpr int DC_STAGES = 4;    // K stages in flight: a whole 256-row slice
+
+#ifndef REPRO_CUT
+#define REPRO_CUT 0  // breakdown variants (benchmarks/): 1 loads, 2 + products
+#endif
+
+template <bool INT8>
+struct DecodeStage {
+  static constexpr int W_ROW = INT8 ? 64 : 128;  // 64 channels as stored
+  static constexpr int W = TK * W_ROW;
+  static __host__ __device__ constexpr int bytes(int nt) { return W + nt * 8 * TK * 2; }
+  // the K ring, which the epilogue then reuses for the block's f32 partial
+  // (m x 64) or its bf16 output tile
+  static __host__ __device__ constexpr int ring(int slots, int nt) {
+    return slots * bytes(nt) > nt * 8 * DC_CH * 4 ? slots * bytes(nt) : nt * 8 * DC_CH * 4;
+  }
+};
+
+// scale -> bias -> activation -> bf16, each step rounded on its own so that
+// no call site contracts it differently
+__device__ __forceinline__ bf16 decode_out(float v, float scale, float bias, int act) {
+  return from_f32<bf16>(activate_tc(__fadd_rn(__fmul_rn(v, scale), bias), act));
+}
+
+template <bool INT8, int NT>
+__global__ void __launch_bounds__(DC_THREADS) bdmm_decode_tc_kernel(const BArgs a) {
+  using S = DecodeStage<INT8>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float s_scale[DC_CH], s_bias[DC_CH];
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, c = lane % 4;
+  const int ch0 = blockIdx.x * DC_CH, blk = blockIdx.y, z = blockIdx.z;
+  const int kb = z * a.k_chunk, steps = (min(a.k, kb + a.k_chunk) - kb + TK - 1) / TK;
+  const int slots = min(DC_STAGES, a.k_chunk / TK);
+  constexpr int ES = INT8 ? 1 : 2;
+  const Rows gw{static_cast<const uint8_t*>(a.w) + (static_cast<long>(blk) * a.k * a.n + ch0) * ES,
+                static_cast<long>(a.n) * ES, a.k, (a.n - ch0) * ES, a.vec_w};
+  const Rows gx{reinterpret_cast<const uint8_t*>(a.x) + static_cast<long>(blk) * a.k * 2,
+                2L * a.nb * a.k, a.m, 2 * a.k, a.vec_x};
+  auto issue = [&](int t) {
+    const uint32_t sw = s0 + (t % slots) * S::bytes(NT), sx = sw + S::W;
+    const int k0 = kb + t * TK;
+    constexpr int WC = S::W_ROW / 16;  // 16-byte chunks of a weight row
+#pragma unroll
+    for (int i = 0; i < TK * WC / DC_THREADS; ++i) {
+      const int idx = tid + i * DC_THREADS, r = idx / WC, q = idx % WC;
+      copy_chunk(sw + swz<S::W_ROW>(r, q), gw, k0 + r, 16 * q);
+    }
+#pragma unroll
+    for (int i = 0; i < (NT * 64 + DC_THREADS - 1) / DC_THREADS; ++i) {
+      const int idx = tid + i * DC_THREADS, r = idx / 8, q = idx % 8;
+      if (idx < NT * 64) copy_chunk(sx + swz<128>(r, q), gx, r, 2 * k0 + 16 * q);
+    }
+  };
+#pragma unroll 1
+  for (int t = 0; t < DC_STAGES; ++t) {
+    if (t < min(steps, slots)) issue(t);
+    cp_commit();
+  }
+  // the tile's scales and biases, read while the weights are in flight
+  if (tid < DC_CH) {
+    const long p = static_cast<long>(blk) * a.n + ch0 + tid;
+    const bool in = ch0 + tid < a.n;
+    s_scale[tid] = a.scale && in ? __ldg(a.scale + p) : 1.f;
+    s_bias[tid] = a.bias && in ? __ldg(a.bias + p) : 0.f;
+  }
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    cp_wait<DC_STAGES - 1>();
+    __syncthreads();
+    if (REPRO_CUT != 1) {
+      const uint32_t sw = s0 + (t % slots) * S::bytes(NT), sx = sw + S::W;
+#pragma unroll
+      for (int h2 = 0; h2 < TK / 32; ++h2) {  // two k16 steps at a time
+        uint32_t af[2][4];
+        if constexpr (INT8) {
+          // rows 32 h2 + 8j + lane % 8 (j = lane / 8) at the warp's chunk:
+          // r[0], r[1] rows 0-7, 8-15 of the first k16, r[2], r[3] the second
+          uint32_t r[4];
+          ldsm_x4_t(r, sw + swz<64>(32 * h2 + lane, warp));
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            widen_pairs(r[2 * h], af[h][0], af[h][1]);
+            widen_pairs(r[2 * h + 1], af[h][2], af[h][3]);
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            ldsm_x4_t(af[h], sw + swz<128>(32 * h2 + 16 * h + lane % 8 + 8 * (lane / 16),
+                                             2 * warp + (lane / 8) % 2));
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t b[4];
+          ldsm_x4(b, sx + swz<128>(8 * j + lane % 8, 4 * h2 + lane / 8));
+          mma_16816(acc[j], af[0], b[0], b[1]);
+          mma_16816(acc[j], af[1], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+    if (t + slots < steps) issue(t + slots);
+    cp_commit();
+  }
+  if (REPRO_CUT != 0) {  // a breakdown variant: the products kept in shared memory only
+    if (REPRO_CUT == 2) {
+      float* keep = reinterpret_cast<float*>(smem) + tid;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) keep[j * DC_THREADS] = acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+    }
+    return;
+  }
+
+  // accumulator e of tile j: token 8j + 2c + (e & 1), channel row gq (+ 8
+  // for e >= 2) as the weights' ldmatrix laid it out. The ring's bytes now
+  // hold the block's m x 64 tile: the f32 partial (split > 1), else the
+  // bf16 output, staged so that it leaves in 16-byte stores.
+  const long ldy = static_cast<long>(a.nb) * a.n;
+  bf16* out = a.y + static_cast<long>(blk) * a.n + ch0;
+  const bool vec_y = a.n % 8 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 15) == 0;
+  if (a.split > 1) {
+    float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * j + 2 * c + (e & 1);
+        const int cl = 16 * warp + (INT8 ? 2 * gq + (e >> 1) : gq + 8 * (e >> 1));
+        if (tok < a.m) part[tok * DC_CH + cl] = acc[j][e];
+      }
+    cluster_sync();
+    // groups of 4 channels of one token, shared out over the split's blocks
+    cluster_add<8>(s0, a.split, a.m * DC_CH / 4, [&](int g, float4 v) {
+      const int tok = g / (DC_CH / 4), cl = 4 * (g % (DC_CH / 4));
+      const float vs[4] = {v.x, v.y, v.z, v.w};
+      bf16 o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        o[q] = decode_out(vs[q], s_scale[cl + q], s_bias[cl + q], a.act);
+      bf16* dst = out + tok * ldy + cl;
+      if (vec_y && ch0 + cl + 4 <= a.n) {
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (ch0 + cl + q < a.n) dst[q] = o[q];
+      }
+    });
+    cluster_sync();  // the other blocks have read this block's partial
+    return;
+  }
+  bf16* tile = reinterpret_cast<bf16*>(smem);  // m x 64, 128-byte rows
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tok = 8 * j + 2 * c + (e & 1);
+      const int cl = 16 * warp + (INT8 ? 2 * gq + (e >> 1) : gq + 8 * (e >> 1));
+      tile[tok * DC_CH + cl] = decode_out(acc[j][e], s_scale[cl], s_bias[cl], a.act);
+    }
+  __syncthreads();
+  for (int idx = tid; idx < a.m * (DC_CH / 8); idx += DC_THREADS) {
+    const int tok = idx / (DC_CH / 8), cl = 8 * (idx % (DC_CH / 8));
+    bf16* dst = out + tok * ldy + cl;
+    if (vec_y && ch0 + cl + 8 <= a.n) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(tile + tok * DC_CH + cl);
+    } else {
+      for (int q = 0; q < 8 && ch0 + cl + q < a.n; ++q) dst[q] = tile[tok * DC_CH + cl + q];
+    }
+  }
+}
+
 // y = act(sum_z ws[z] (* scale) + bias): the split partial sums added in the
 // fixed order z = 0, 1, ..., so the result does not depend on the blocks'
 // order.
@@ -603,7 +813,32 @@ __global__ void bdmm_reduce_kernel(const BArgs a) {
 namespace {
 
 // routes (kernels/bdmm.py ROUTES)
-enum Route { ROUTE_DECODE = 0, ROUTE_SIMT_F32 = 1, ROUTE_TC = 2, ROUTE_TC_SMALL_M = 3 };
+enum Route {
+  ROUTE_DECODE_SIMT = 0,
+  ROUTE_SIMT_F32 = 1,
+  ROUTE_TC = 2,
+  ROUTE_TC_SMALL_M = 3,
+  ROUTE_DECODE_TC = 4
+};
+
+template <bool INT8>
+cudaError_t launch_decode_tc(const tc::BArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n + tc::DC_CH - 1) / tc::DC_CH, a.nb, a.split);
+  const int nt = (a.m + 7) / 8;
+  const int slots = a.k_chunk / tc::TK < tc::DC_STAGES ? a.k_chunk / tc::TK : tc::DC_STAGES;
+  const int bytes = tc::DecodeStage<INT8>::ring(slots, nt);
+  // the split's blocks form one cluster
+#define REPRO_DECODE_TC(NT_)                                                                  \
+  tc::launch_cluster(tc::bdmm_decode_tc_kernel<INT8, NT_>, tc::DC_THREADS, bytes, grid,       \
+                     dim3(1, 1, a.split), s, a)
+  switch (nt) {
+    case 1: return REPRO_DECODE_TC(1);
+    case 2: return REPRO_DECODE_TC(2);
+    case 3: return REPRO_DECODE_TC(3);
+    default: return REPRO_DECODE_TC(4);
+  }
+#undef REPRO_DECODE_TC
+}
 
 template <bool TRANS, typename W>
 void launch_simt(const void* x, const void* w, const float* scale, const float* bias, void* y,
@@ -659,34 +894,30 @@ using namespace repro_torch;
 // for w (nb, k, n), or w[n]^T for w (nb, n, k) with transpose. x_dtype:
 // DT_F32 or DT_BF16 (y the same); w_int8: 0 -> w has x's dtype, 1 -> int8
 // with scale (nb, n) f32. The launch plan (kernels/bdmm.py::plan): route 0
-// decode (m <= 32, forward), 1 simt_f32 (f32 x), 2 tc (bf16 x and w; x, w
-// and the rows of both 16-byte aligned; `blocks` persistent blocks), 3
-// tc_small_m (bf16 x, bf16 or, forward only, int8 w; K split over `split`
-// blocks of k_chunk, a multiple of 64, with ws an f32 (split, m, nb*n)
-// workspace when split > 1). vec: the decode kernel's 4-element loads of w
-// rows are aligned; vec_x / vec_w: the copy width in bytes of the rows of x
-// and w. Returns cudaGetLastError() after the launches.
+// decode_simt (f32 x, m <= 32, forward), 1 simt_f32 (f32 x), 2 tc (bf16 x
+// and w; x, w and the rows of both 16-byte aligned; `blocks` persistent
+// blocks), 3 tc_small_m (bf16 x, bf16 or, forward only, int8 w), 4
+// decode_tc (bf16 x, m <= 32, forward). On tc_small_m and decode_tc K is
+// split over `split` blocks of k_chunk rows (a multiple of 64): tc_small_m
+// adds the splits from ws, an f32 (split, m, nb*n) workspace, decode_tc
+// inside a cluster of its split blocks (at most 8). vec: the decode_simt
+// kernel's 4-element loads of w rows are aligned; vec_x / vec_w: the copy
+// width in bytes of the rows of x and w.
+// Returns cudaGetLastError() after the launches.
 extern "C" int bdmm_launch(const void* x, const void* w, const float* scale,
-                           const float* bias, void* y, float* ws, int m, int nb, int k, int n,
-                           int x_dtype, int w_int8, int act, int route, int transpose,
-                           int vec, int vec_x, int vec_w, int blocks, int split, int k_chunk,
-                           void* stream) {
+                           const float* bias, void* y, float* ws, int m, int nb,
+                           int k, int n, int x_dtype, int w_int8, int act, int route,
+                           int transpose, int vec, int vec_x, int vec_w, int blocks, int split,
+                           int k_chunk, void* stream) {
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0 || nb <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_SILU) return bad;
   if (w_int8 && (transpose || !scale)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == ROUTE_DECODE) {
-    if (m > 32 || transpose) return bad;
-    if (x_dtype == DT_BF16) {
-      if (w_int8) launch_decode<__nv_bfloat16, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
-      else launch_decode<__nv_bfloat16, __nv_bfloat16>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
-    } else if (x_dtype == DT_F32) {
-      if (w_int8) launch_decode<float, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
-      else launch_decode<float, float>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
-    } else {
-      return bad;
-    }
+  if (route == ROUTE_DECODE_SIMT) {
+    if (m > 32 || transpose || x_dtype != DT_F32) return bad;
+    if (w_int8) launch_decode<float, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
+    else launch_decode<float, float>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
     return static_cast<int>(cudaGetLastError());
   }
   if (route == ROUTE_SIMT_F32) {
@@ -698,7 +929,7 @@ extern "C" int bdmm_launch(const void* x, const void* w, const float* scale,
   }
   if (x_dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
   if (split < 1 || k_chunk <= 0 || k_chunk % tc::TK || static_cast<long>(split) * k_chunk < k ||
-      static_cast<long>(split - 1) * k_chunk >= k || (split > 1 && ws == nullptr))
+      static_cast<long>(split - 1) * k_chunk >= k)
     return bad;
   const tc::BArgs a{static_cast<const __nv_bfloat16*>(x), w, scale, bias,
                     static_cast<__nv_bfloat16*>(y), ws, m, nb, k, n, act, vec_x, vec_w,
@@ -709,8 +940,12 @@ extern "C" int bdmm_launch(const void* x, const void* w, const float* scale,
       return bad;
     e = transpose ? launch_tc<true>(a, blocks, s) : launch_tc<false>(a, blocks, s);
   } else if (route == ROUTE_TC_SMALL_M) {
+    if (split > 1 && ws == nullptr) return bad;
     e = w_int8 ? launch_small<false, true>(a, s)
                : transpose ? launch_small<true, false>(a, s) : launch_small<false, false>(a, s);
+  } else if (route == ROUTE_DECODE_TC) {
+    if (m > 32 || transpose || split > 8) return bad;
+    e = w_int8 ? launch_decode_tc<true>(a, s) : launch_decode_tc<false>(a, s);
   } else {
     return bad;
   }

@@ -10,8 +10,7 @@
 // output channel f32 scales. Products accumulate in f32; s_up / s_gate
 // rescale each dot before its bias and the hidden epilogue (which needs true
 // scale values), s_down commutes with the f-sum and is applied once, last.
-// The hidden h stays in shared memory, in f32: it never reaches device
-// memory.
+// The hidden h never reaches device memory.
 //
 // What bounds it on the H100: the weight stream. At olmo-1b's full width
 // (nb 8, bi 256, f 1024, bo 256) the three int8 projections are 6.3 MB, 1.9
@@ -26,20 +25,42 @@
 // deterministic and the grid fills the card (128 blocks at the shapes
 // above). With one split the block writes y directly.
 //
-// Inside a block: the weight tiles are copied into shared memory as stored
-// (int8, bf16 or f32) with cp.async, every thread issuing all its copies
-// before waiting once, so a block's weights arrive in one round trip per K
-// chunk rather than one per load (at decode the loads, not the FMAs, set
-// the time). GEMM 1 takes the up/gate tiles (f tile of 64 channels) in K
-// chunks of 128 with x staged in f32 and accumulates u and g in registers;
-// the epilogue writes h (BM x 64) to shared memory; GEMM 2 adds h @ Wd,
-// whose whole 64 x 256 tile was copied during GEMM 1, into a BM x 256
-// register tile of y that lives across the block's f tiles. This first
-// version is f32 SIMT; tensor cores, TMA and wgmma are later work. Ragged
-// m, bi, f and bo are bounds-checked in the kernel: padded f channels give
-// h = 0 and read zero rows of Wd, so they contribute exactly 0.
+// Two bodies, chosen by x's dtype (kernels/fused_ffn.py plan):
+//
+// * tc (bf16 x, bf16 or int8 weights). A block owns one mma row tile of 16
+//   tokens (every tile through the same instructions, so a token's output
+//   does not depend on the chunk it rides in) x 256 output columns x 64 f
+//   channels (split 16 at f = 1024 for every m <= 64: 128 blocks at m <=
+//   16). Its Wu and Wg tiles (K stages of 64 rows, all in flight for bi <=
+//   256, a ring beyond), its x rows and its Wd tile are requested at once
+//   with 16-byte cp.async copies, the scales and biases read meanwhile.
+//   Warp w owns f channels 16w .. 16w + 15: GEMM 1 on mma.sync.m16n8k16
+//   with tokens on the 16-row side (A = x by ldmatrix, B = Wu / Wg by
+//   ldmatrix.trans, int8 widened in registers exactly), then scale, bias
+//   and gate in f32 on the accumulators. The hidden never leaves the
+//   registers: the m16n8 accumulators of two n8 tiles are the A fragment of
+//   a k16 step, so h feeds GEMM 2 directly, as a hi + lo pair of bf16 (two
+//   mma's; h - hi - lo is within 2^-16 |h|: the reference keeps h in f32
+//   for the down product, and one bf16 rounding of h inside a sum of 1024
+//   terms would add an error it does not have). GEMM 2 keeps the warp's
+//   partial over its 16 f for half the columns in registers; the four
+//   warps' partials meet in shared memory, a half at a time, and are added
+//   in warp order onto the block's f32 sums. The blocks of a tile's f split form one
+//   thread block cluster: after a cluster barrier each adds a share of the
+//   tile from all of their sums in rank order (no workspace, no float
+//   atomics, one launch), then s_down, b_down and the cast.
+// * simt_f32 (f32 x: the exact parity route, no TF32): the weight tiles are
+//   copied as stored with cp.async, every thread issuing all its copies
+//   before waiting once; GEMM 1 takes the up/gate tiles in K chunks of 128
+//   with x staged in f32 and accumulates u and g in registers; the epilogue
+//   writes h (BM x 64) to shared memory; GEMM 2 adds h @ Wd, whose whole 64
+//   x 256 tile was copied during GEMM 1, into a BM x 256 register tile of y
+//   that lives across the block's f tiles.
+// Ragged m, bi, f and bo are bounds-checked in the kernels: padded f
+// channels give h = 0 and read zero rows of Wd, so they contribute exactly
+// 0.
 
-#include "common.cuh"
+#include "tc.cuh"
 
 namespace repro_torch {
 namespace {
@@ -326,39 +347,396 @@ cudaError_t launch(const void* x, const void* wu, const void* wg, const void* wd
 }
 
 }  // namespace
+
+// =========================================================== tc (bf16 x)
+namespace tc {
+namespace {
+
+struct FArgs {
+  const bf16* x;                         // (m, nb * bi)
+  const void *wu, *wg, *wd;              // (nb, bi, f) x 2, (nb, f, bo): bf16 or int8
+  const float *su, *sg, *sd, *bu, *bg, *bd;
+  bf16* y;                               // (m, nb * bo)
+  int m, nb, bi, f, bo, act, split, fpb, n_chunks, vec_x, vec_w;
+};
+
+constexpr int FT_THREADS = 128;  // 4 warps, 16 f channels of the tile each
+constexpr int FT_ROWS = 16;      // tokens of a block: one mma row tile
+constexpr int FT_F = 64;         // f channels of a tile
+constexpr int FT_COLS = 256;     // output columns of a block
+constexpr int FT_STAGES = 4;     // GEMM-1 K stages in flight (bi <= 256: all)
+constexpr int FT_HALF = FT_COLS / 2;  // output columns of a GEMM-2 half
+constexpr int FT_LDS = FT_HALF + 8;  // row stride (floats) of a warp's partial
+
+#ifndef REPRO_CUT
+#define REPRO_CUT 0  // breakdown variants (benchmarks/): 1 loads, 2 + the products
+#endif
+
+// Shared memory of a block: the K ring (Wu, Wg and x rows of 64 K rows a
+// stage), whose bytes hold the four warps' partials once GEMM 1 is done;
+// the Wd tile; the block's f32 sums (16 x 256), which its cluster reads at
+// the end.
+template <bool INT8>
+struct FfnSmem {
+  static constexpr int W_ROW = INT8 ? 64 : 128;  // a K row of the 64-channel Wu / Wg tile
+  static constexpr int STAGE = 2 * TK * W_ROW + FT_ROWS * TK * 2;
+  static constexpr int D_ROW = FT_COLS * (INT8 ? 1 : 2);  // an f row of the Wd tile
+  static constexpr int D = FT_F * D_ROW;
+  static constexpr int SCRATCH = 4 * FT_ROWS * FT_LDS * 4;
+  static constexpr int SUMS = FT_ROWS * FT_COLS * 4;
+  static __host__ __device__ constexpr int ring(int slots) {
+    return slots * STAGE > SCRATCH ? slots * STAGE : SCRATCH;
+  }
+  static __host__ __device__ constexpr int bytes(int slots) { return ring(slots) + D + SUMS; }
+  // Wd rows: int8 GEMM 2 reads rows 2i and 2i + 1 in one ldmatrix, so its
+  // swizzle keys on r / 2
+  static __device__ __forceinline__ uint32_t d_off(int r, int c) {
+    if constexpr (INT8)
+      return swz<D_ROW, 2>(r, c);
+    else
+      return swz<D_ROW, 1>(r, c);
+  }
+};
+
+__host__ __device__ inline int ffn_slots(int bi) {
+  const int steps = (bi + TK - 1) / TK;
+  return steps < FT_STAGES ? steps : FT_STAGES;
+}
+
+template <bool INT8>
+__global__ void __launch_bounds__(FT_THREADS) fused_ffn_tc_kernel(const FArgs a) {
+  using L = FfnSmem<INT8>;
+  constexpr int ES = INT8 ? 1 : 2;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float s_sd[FT_COLS], s_bd[FT_COLS];
+  const uint32_t s0 = smem_u32(smem);
+  const int slots = ffn_slots(a.bi), steps = (a.bi + TK - 1) / TK;
+  const uint32_t sd = s0 + L::ring(slots);
+  float* scratch = reinterpret_cast<float*>(smem);  // the ring's bytes, after GEMM 1
+  float* sums = reinterpret_cast<float*>(smem + L::ring(slots) + L::D);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gq = lane / 4, c = lane % 4;
+  const int s = blockIdx.x, n = blockIdx.y;
+  const int r0 = blockIdx.z / a.n_chunks * FT_ROWS, c0 = blockIdx.z % a.n_chunks * FT_COLS;
+  const bool gated = a.wg != nullptr;
+  const int n_ft = (a.f + FT_F - 1) / FT_F;
+  const long wblk = static_cast<long>(n) * a.bi * a.f * ES;
+  const auto* wub = static_cast<const uint8_t*>(a.wu) + wblk;
+  const auto* wgb = gated ? static_cast<const uint8_t*>(a.wg) + wblk : wub;
+  const auto* wdb = static_cast<const uint8_t*>(a.wd) + static_cast<long>(n) * a.f * a.bo * ES;
+  const Rows gx{reinterpret_cast<const uint8_t*>(a.x) + static_cast<long>(n) * a.bi * 2,
+                2L * a.nb * a.bi, a.m, 2 * a.bi, a.vec_x};
+  // the down projection's scale and bias for the block's columns; the sums
+  for (int i = tid; i < FT_COLS; i += FT_THREADS) {
+    const long pc = static_cast<long>(n) * a.bo + c0 + i;
+    const bool in = c0 + i < a.bo;
+    s_sd[i] = a.sd && in ? __ldg(a.sd + pc) : 1.f;
+    s_bd[i] = a.bd && in ? __ldg(a.bd + pc) : 0.f;
+  }
+  for (int i = tid; i < FT_ROWS * FT_COLS; i += FT_THREADS) sums[i] = 0.f;
+
+#pragma unroll 1
+  for (int t = s * a.fpb; t < min((s + 1) * a.fpb, n_ft); ++t) {
+    const int f0 = t * FT_F;
+    const Rows gu{wub + f0 * ES, static_cast<long>(a.f) * ES, a.bi, (a.f - f0) * ES, a.vec_w};
+    const Rows gg{wgb + f0 * ES, static_cast<long>(a.f) * ES, a.bi, (a.f - f0) * ES, a.vec_w};
+    const Rows gd{wdb + (static_cast<long>(f0) * a.bo + c0) * ES, static_cast<long>(a.bo) * ES,
+                  a.f - f0, (a.bo - c0) * ES, a.vec_w};
+    auto issue = [&](int st) {
+      const uint32_t su = s0 + (st % slots) * L::STAGE, sg = su + TK * L::W_ROW;
+      const uint32_t sx = sg + TK * L::W_ROW;
+      constexpr int WC = L::W_ROW / 16;
+#pragma unroll
+      for (int i = 0; i < TK * WC / FT_THREADS; ++i) {
+        const int idx = tid + i * FT_THREADS, r = idx / WC, q = idx % WC;
+        copy_chunk(su + swz<L::W_ROW>(r, q), gu, st * TK + r, 16 * q);
+        if (gated) copy_chunk(sg + swz<L::W_ROW>(r, q), gg, st * TK + r, 16 * q);
+      }
+      copy_chunk(sx + swz<128>(tid / 8, tid % 8), gx, r0 + tid / 8, 2 * st * TK + 16 * (tid % 8));
+    };
+    // GEMM 1's stages, and with the last of them the Wd tile: every copy of
+    // the tile is in flight before the first product
+#pragma unroll 1
+    for (int st = 0; st < FT_STAGES; ++st) {
+      if (st < slots) issue(st);
+      if (st == FT_STAGES - 1) {
+        constexpr int DC = L::D_ROW / 16;
+#pragma unroll 4
+        for (int i = 0; i < FT_F * DC / FT_THREADS; ++i) {
+          const int idx = tid + i * FT_THREADS, r = idx / DC, q = idx % DC;
+          copy_chunk(sd + L::d_off(r, q), gd, r, 16 * q);
+        }
+      }
+      cp_commit();
+    }
+    // the up and gate scales and biases of this thread's 4 f channels (the
+    // hidden's order below), read while the tiles are in flight
+    float hs[4][4];  // [channel q = 2j + (e & 1)][su, bu, sg, bg]
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = q / 2, odd = q % 2;
+      const int fg = f0 + 16 * warp + (INT8 ? 2 * (2 * c + odd) + j : 8 * j + 2 * c + odd);
+      const long pf = static_cast<long>(n) * a.f + fg;
+      const bool in = fg < a.f;
+      hs[q][0] = a.su && in ? __ldg(a.su + pf) : 1.f;
+      hs[q][1] = a.bu && in ? __ldg(a.bu + pf) : 0.f;
+      hs[q][2] = a.sg && in ? __ldg(a.sg + pf) : 1.f;
+      hs[q][3] = a.bg && in ? __ldg(a.bg + pf) : 0.f;
+    }
+
+    // ------------------------------ GEMM 1: u, g = x @ Wu, x @ Wg (16 f)
+    // n8 tile j: int8 the even (j = 0) / odd (j = 1) columns of the warp's
+    // 16-byte chunk, bf16 columns 8j .. 8j + 7 of its 16
+    float au[2][4], ag[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) au[j][e] = ag[j][e] = 0.f;
+#pragma unroll 1
+    for (int st = 0; st < steps; ++st) {
+      cp_wait<FT_STAGES - 1>();
+      __syncthreads();
+      if (REPRO_CUT != 1) {
+        const uint32_t su = s0 + (st % slots) * L::STAGE, sg = su + TK * L::W_ROW;
+        const uint32_t sx = sg + TK * L::W_ROW;
+#pragma unroll
+        for (int h2 = 0; h2 < TK / 32; ++h2) {
+          uint32_t xa[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            ldsm_x4(xa[h], sx + swz<128>(lane % 16, 4 * h2 + 2 * h + lane / 16));
+          auto gemm1 = [&](uint32_t sw, float(&acc)[2][4]) {
+            if constexpr (INT8) {
+              // K rows 32 h2 + lane at the warp's chunk
+              uint32_t q[4];
+              ldsm_x4_t(q, sw + swz<64>(32 * h2 + lane, warp));
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                uint32_t e0, o0, e1, o1;
+                widen_pairs(q[2 * h], e0, o0);
+                widen_pairs(q[2 * h + 1], e1, o1);
+                mma_16816(acc[0], xa[h], e0, e1);
+                mma_16816(acc[1], xa[h], o0, o1);
+              }
+            } else {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                uint32_t q[4];
+                ldsm_x4_t(q, sw + swz<128>(32 * h2 + 16 * h + lane % 8 + 8 * ((lane / 8) % 2),
+                                           2 * warp + lane / 16));
+                mma_16816(acc[0], xa[h], q[0], q[1]);
+                mma_16816(acc[1], xa[h], q[2], q[3]);
+              }
+            }
+          };
+          gemm1(su, au);
+          if (gated) gemm1(sg, ag);
+        }
+      }
+      __syncthreads();
+      if (st + slots < steps) issue(st + slots);
+      cp_commit();
+    }
+    cp_wait<0>();
+    __syncthreads();
+    if (REPRO_CUT == 1) continue;
+
+    // ----------------------- the hidden: scale, bias, gate; hi + lo bf16
+    // accumulator e of tile j: token gq (+ 8 for e >= 2), f channel 16w +
+    // 8j + 2c + (e & 1), or with int8 16w + 2 (2c + (e & 1)) + j; GEMM 2
+    // reduces over f in that order
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float hv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int fl = 16 * warp + (INT8 ? 2 * (2 * c + (e & 1)) + j : 8 * j + 2 * c + (e & 1));
+        const float* q = hs[2 * j + (e & 1)];
+        float h = 0.f;  // padded channels contribute exactly 0
+        if (f0 + fl < a.f) {
+          const float u = __fadd_rn(__fmul_rn(au[j][e], q[0]), q[1]);
+          h = gated ? __fmul_rn(activate_tc(__fadd_rn(__fmul_rn(ag[j][e], q[2]), q[3]), a.act), u)
+                    : activate_tc(u, a.act);
+        }
+        hv[e] = h;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // q = 0: token gq, q = 1: token gq + 8
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(hv[2 * q], hv[2 * q + 1]);
+        const float2 back = __bfloat1622float2(hi);
+        ah[2 * j + q] = *reinterpret_cast<const uint32_t*>(&hi);
+        al[2 * j + q] = pack_bf16(__fsub_rn(hv[2 * q], back.x), __fsub_rn(hv[2 * q + 1], back.y));
+      }
+    }
+
+    // --------------------- GEMM 2: y += h @ Wd (16 f, 128 columns a half)
+    // The warp's partial over its 16 f for a half of the columns stays in
+    // registers (16 independent n8 tiles, hi then lo), then the four warps'
+    // partials meet once in shared memory and are added in warp order onto
+    // the block's sums.
+#pragma unroll 1
+    for (int hh = 0; hh < 2; ++hh) {
+      float acc[16][4];
+#pragma unroll
+      for (int cc = 0; cc < FT_HALF / 32; ++cc) {
+        const int ch = 4 * hh + cc;  // 32-column chunk of the 256
+        uint32_t b[4][2];            // the chunk's four n8 tiles
+        if constexpr (INT8) {
+          // f rows 16w + 2i (b0 b1) and 16w + 2i + 1 (b2 b3), i = lane % 8:
+          // the int8 hidden's k order; chunks of 16 columns whose even and
+          // odd columns are two n8 tiles
+          uint32_t q[4];
+          ldsm_x4_t(q, sd + L::d_off(16 * warp + 2 * (lane % 8) + (lane / 8) % 2, 2 * ch + lane / 16));
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            widen_pairs(q[2 * qq], b[2 * qq][0], b[2 * qq + 1][0]);
+            widen_pairs(q[2 * qq + 1], b[2 * qq][1], b[2 * qq + 1][1]);
+          }
+        } else {
+#pragma unroll
+          for (int qq = 0; qq < 2; ++qq) {
+            uint32_t q[4];
+            ldsm_x4_t(q, sd + L::d_off(16 * warp + lane % 8 + 8 * ((lane / 8) % 2),
+                                       4 * ch + 2 * qq + lane / 16));
+            b[2 * qq][0] = q[0];
+            b[2 * qq][1] = q[1];
+            b[2 * qq + 1][0] = q[2];
+            b[2 * qq + 1][1] = q[3];
+          }
+        }
+#pragma unroll
+        for (int T = 0; T < 4; ++T) {
+          float(&d)[4] = acc[4 * cc + T];
+          d[0] = d[1] = d[2] = d[3] = 0.f;
+          mma_16816(d, ah, b[T][0], b[T][1]);
+          mma_16816(d, al, b[T][0], b[T][1]);
+        }
+      }
+      // tile 4cc + T's column e: int8 32cc + 16 (T / 2) + 2 (2c + (e & 1)) +
+      // T % 2 (tiles T, T + 1 side by side), bf16 32cc + 8T + 2c + (e & 1)
+      float* mine = scratch + warp * FT_ROWS * FT_LDS;
+#pragma unroll
+      for (int cc = 0; cc < FT_HALF / 32; ++cc)
+#pragma unroll
+        for (int T = 0; T < 4; T += 2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = gq + 8 * (e >> 1);
+            if constexpr (INT8) {
+              const int col = 32 * cc + 8 * T + 2 * (2 * c + (e & 1));
+              *reinterpret_cast<float2*>(mine + row * FT_LDS + col) =
+                  make_float2(acc[4 * cc + T][e], acc[4 * cc + T + 1][e]);
+            } else if ((e & 1) == 0) {
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                *reinterpret_cast<float2*>(mine + row * FT_LDS + 32 * cc + 8 * (T + u) + 2 * c) =
+                    make_float2(acc[4 * cc + T + u][e], acc[4 * cc + T + u][e + 1]);
+            }
+          }
+      __syncthreads();
+      if (REPRO_CUT == 2) continue;
+#pragma unroll 4
+      for (int i = 0; i < FT_ROWS * FT_HALF / FT_THREADS; ++i) {
+        const int idx = tid + i * FT_THREADS, row = idx / FT_HALF, col = idx % FT_HALF;
+        float v = scratch[row * FT_LDS + col];
+#pragma unroll
+        for (int w = 1; w < 4; ++w) v = __fadd_rn(v, scratch[(w * FT_ROWS + row) * FT_LDS + col]);
+        float& sum = sums[row * FT_COLS + FT_HALF * hh + col];
+        sum = __fadd_rn(sum, v);
+      }
+      __syncthreads();  // the scratch (and, after the last, the ring) is reused
+    }
+  }
+  if (REPRO_CUT != 0) return;
+
+  // ------------------------------------------------------------ epilogue
+  // s_down, b_down, bf16, in 4 columns at a time. With a split the tile's
+  // blocks form one cluster and each adds a share of the tile from all of
+  // their sums, in rank order.
+  const long ldy = static_cast<long>(a.nb) * a.bo;
+  const int rows = min(FT_ROWS, a.m - r0);
+  bf16* y0 = a.y + static_cast<long>(r0) * ldy + static_cast<long>(n) * a.bo + c0;
+  const bool vec_y = a.bo % 4 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 7) == 0;
+  auto out = [&](int g, float4 v) {
+    const int row = g / (FT_COLS / 4), col = 4 * (g % (FT_COLS / 4));
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    bf16 o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      o[q] = from_f32<bf16>(__fadd_rn(__fmul_rn(vs[q], s_sd[col + q]), s_bd[col + q]));
+    bf16* dst = y0 + row * ldy + col;
+    if (vec_y && c0 + col + 4 <= a.bo) {
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c0 + col + q < a.bo) dst[q] = o[q];
+    }
+  };
+  if (a.split == 1) {
+    for (int g = tid; g < rows * FT_COLS / 4; g += FT_THREADS)
+      out(g, *reinterpret_cast<const float4*>(sums + 4 * g));
+    return;
+  }
+  cluster_sync();
+  cluster_add<16>(smem_u32(sums), a.split, rows * FT_COLS / 4, out);
+  cluster_sync();  // the other blocks have read this block's sums
+}
+
+}  // namespace
+}  // namespace tc
+
+namespace {
+
+template <bool INT8>
+cudaError_t launch_tc(const tc::FArgs& a, cudaStream_t s) {
+  using L = tc::FfnSmem<INT8>;
+  const dim3 grid(a.split, a.nb, (a.m + tc::FT_ROWS - 1) / tc::FT_ROWS * a.n_chunks);
+  // the f split of a tile is one cluster
+  return tc::launch_cluster(tc::fused_ffn_tc_kernel<INT8>, tc::FT_THREADS,
+                            L::bytes(tc::ffn_slots(a.bi)), grid, dim3(a.split, 1, 1), s, a);
+}
+
+}  // namespace
 }  // namespace repro_torch
 
 using namespace repro_torch;
 
-// x_dtype: DT_F32 or DT_BF16; w_int8: 0 -> weights in x's dtype, 1 -> int8
-// (+ scales). wg, the scales and the biases may be null. bm: rows per block
-// (4, 8, 16, 32 or 64); split: blocks along f, each owning fpb f tiles of 64;
-// part: split * m * nb * bo f32 (unused when split == 1); counters: one int
-// per (m tile, column chunk, block), zero on entry and left zero.
-// Returns cudaGetLastError() after the launch (0 on success).
+// route 0 (simt_f32): x_dtype DT_F32; bm rows per block (4, 8, 16, 32 or
+// 64). route 1 (tc): x_dtype DT_BF16; bm 16 rows per block (one mma row
+// tile); vec_x / vec_w the copy width in bytes of the rows of x and of the
+// weights. w_int8:
+// 0 -> weights in x's dtype, 1 -> int8 (+ scales). wg, the scales and the
+// biases may be null. split: blocks along f, each owning fpb f tiles of 64
+// (tc: the split is a cluster, at most 16 blocks). simt_f32 only: part,
+// split * m * nb * bo f32 (unused when split == 1), and counters, one int
+// per (m tile, column chunk, block), zero on entry and left zero. vec: the
+// SIMT body's weight rows take 4-element copies. Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int fused_ffn_launch(const void* x, const void* wu, const void* wg, const void* wd,
                                 const float* su, const float* sg, const float* sd,
                                 const float* bu, const float* bg, const float* bd, void* y,
                                 float* part, int* counters, int m, int nb, int bi, int f, int bo,
-                                int x_dtype, int w_int8, int act, int bm, int split, int fpb,
-                                int vec, void* stream) {
+                                int x_dtype, int w_int8, int act, int route, int bm, int split,
+                                int fpb, int vec, int vec_x, int vec_w, void* stream) {
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
-  if (m <= 0 || nb <= 0 || bi <= 0 || f <= 0 || bo <= 0 || split <= 0 || fpb <= 0 ||
-      (bm != 4 && bm != 8 && bm != 16 && bm != 32 && bm != 64) ||
-      (split > 1 && (part == nullptr || counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0 || nb <= 0 || bi <= 0 || f <= 0 || bo <= 0 || split <= 0 || fpb <= 0) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (x_dtype == DT_BF16) {
-    if (w_int8)
-      err = launch<__nv_bfloat16, int8_t>(x, wu, wg, wd, su, sg, sd, bu, bg, bd, y, part,
-                                          counters, m, nb, bi, f, bo, bm, act, split, fpb, vec,
-                                          s);
-    else
-      err = launch<__nv_bfloat16, __nv_bfloat16>(x, wu, wg, wd, su, sg, sd, bu, bg, bd, y, part,
-                                                 counters, m, nb, bi, f, bo, bm, act, split,
-                                                 fpb, vec, s);
-  } else if (x_dtype == DT_F32) {
+  if (route == 1) {
+    if (x_dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
+    const int n_chunks = (bo + tc::FT_COLS - 1) / tc::FT_COLS;
+    if (split > 16) return bad;
+    if (bm != tc::FT_ROWS) return bad;
+    const tc::FArgs a{static_cast<const __nv_bfloat16*>(x), wu, wg, wd, su, sg, sd, bu, bg, bd,
+                      static_cast<__nv_bfloat16*>(y), m, nb, bi, f, bo, act, split, fpb, n_chunks,
+                      vec_x, vec_w};
+    err = w_int8 ? launch_tc<true>(a, s) : launch_tc<false>(a, s);
+  } else if (route == 0 && x_dtype == DT_F32) {
+    if ((bm != 4 && bm != 8 && bm != 16 && bm != 32 && bm != 64) ||
+        (split > 1 && (part == nullptr || counters == nullptr)))
+      return bad;
     if (w_int8)
       err = launch<float, int8_t>(x, wu, wg, wd, su, sg, sd, bu, bg, bd, y, part, counters, m,
                                   nb, bi, f, bo, bm, act, split, fpb, vec, s);
@@ -366,7 +744,7 @@ extern "C" int fused_ffn_launch(const void* x, const void* wu, const void* wg, c
       err = launch<float, float>(x, wu, wg, wd, su, sg, sd, bu, bg, bd, y, part, counters, m,
                                  nb, bi, f, bo, bm, act, split, fpb, vec, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return bad;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

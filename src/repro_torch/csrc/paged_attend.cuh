@@ -367,28 +367,6 @@ __device__ void split_kv_block(const SplitParams& p) {
 }
 
 // ------------------------------------------------------------ split_tc_block
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-// D (16 x 8, f32) += A (16 x 16, bf16, row) B (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // rows of dh bf16 padded by 16 bytes: 8 rows at one column fall in 8
 // distinct bank groups for ldmatrix
 __host__ __device__ inline int tc_stride(int dh) { return dh * 2 + 16; }
@@ -430,7 +408,7 @@ __device__ inline void split_tc_block(const SplitParams& p) {
 #pragma unroll
   for (int kk = 0; kk < TC_MAX_DH / 16; ++kk)
     if (kk * 16 < dh)
-      ldsm_x4(qf[kk], q_s + (warp * 16 + lane % 16) * stride + (kk * 16 + (lane / 16) * 8) * 2);
+      tc::ldsm_x4(qf[kk], q_s + (warp * 16 + lane % 16) * stride + (kk * 16 + (lane / 16) * 8) * 2);
 
   // S = Q K^T: key tiles of 8, two a ldmatrix.x4
   float s[TC_MAX_KEYS / 8][4];
@@ -446,9 +424,9 @@ __device__ inline void split_tc_block(const SplitParams& p) {
     for (int kk = 0; kk < TC_MAX_DH / 16; ++kk) {
       if (kk * 16 >= dh) break;
       uint32_t b[4];
-      ldsm_x4(b, k_s + key * stride + (kk * 16 + ((lane / 8) % 2) * 8) * 2);
-      mma_16816(s[2 * jj], qf[kk], b[0], b[1]);
-      mma_16816(s[2 * jj + 1], qf[kk], b[2], b[3]);
+      tc::ldsm_x4(b, k_s + key * stride + (kk * 16 + ((lane / 8) % 2) * 8) * 2);
+      tc::mma_16816(s[2 * jj], qf[kk], b[0], b[1]);
+      tc::mma_16816(s[2 * jj + 1], qf[kk], b[2], b[3]);
     }
   }
 
@@ -496,18 +474,18 @@ __device__ inline void split_tc_block(const SplitParams& p) {
 #pragma unroll
   for (int kk = 0; kk < TC_MAX_KEYS / 16; ++kk) {
     if (kk * 16 >= sp) break;
-    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    const uint32_t a[4] = {tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                           tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
     const int key = kk * 16 + lane % 8 + ((lane / 8) % 2) * 8;
 #pragma unroll
     for (int nn = 0; nn < TC_MAX_DH / 16; ++nn) {
       if (nn * 16 >= dh) break;
       uint32_t b[4];
-      ldsm_x4_t(b, v_s + key * stride + (nn * 16 + (lane / 16) * 8) * 2);
-      mma_16816(o[2 * nn], a, b[0], b[1]);
-      mma_16816(o[2 * nn + 1], a, b[2], b[3]);
+      tc::ldsm_x4_t(b, v_s + key * stride + (nn * 16 + (lane / 16) * 8) * 2);
+      tc::mma_16816(o[2 * nn], a, b[0], b[1]);
+      tc::mma_16816(o[2 * nn + 1], a, b[2], b[3]);
     }
   }
 

@@ -44,15 +44,12 @@ struct MNMajor {
   }
 };
 
-// Copy 16 bytes into shared memory at `dst`, `valid` of them from `src`
-// and the rest zero. With vec >= 4 the copy is asynchronous (cp.async of
-// vec-byte pieces); narrower-aligned rows are loaded and stored here.
-__device__ __forceinline__ void copy16(uint32_t dst, const uint8_t* src, const uint8_t* base,
-                                       int valid, int vec) {
-  if (vec == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(valid > 0 ? src : base), "r"(valid) : "memory");
-  } else if (vec == 8) {
+// The narrower copies of copy16, out of line: every call site keeps only
+// the 16-byte fast path (the kernels' code is fetched from device memory
+// when the L2 holds none of it, so its size costs time).
+__device__ __noinline__ void copy16_narrow(uint32_t dst, const uint8_t* src, const uint8_t* base,
+                                           int valid, int vec) {
+  if (vec == 8) {
 #pragma unroll
     for (int o = 0; o < 16; o += 8) {
       const int v = min(max(valid - o, 0), 8);
@@ -68,12 +65,22 @@ __device__ __forceinline__ void copy16(uint32_t dst, const uint8_t* src, const u
     }
   } else {
     uint32_t q[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int b = 0; b < 16; ++b)
-      if (b < valid) q[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
+    for (int b = 0; b < valid; ++b) q[b >> 2] |= static_cast<uint32_t>(src[b]) << (8 * (b & 3));
     asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(q[0]), "r"(q[1]),
                  "r"(q[2]), "r"(q[3]) : "memory");
   }
+}
+
+// Copy 16 bytes into shared memory at `dst`, `valid` of them from `src`
+// and the rest zero. With vec >= 4 the copy is asynchronous (cp.async of
+// vec-byte pieces); narrower-aligned rows are loaded and stored here.
+__device__ __forceinline__ void copy16(uint32_t dst, const uint8_t* src, const uint8_t* base,
+                                       int valid, int vec) {
+  if (vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(valid > 0 ? src : base), "r"(valid) : "memory");
+  else
+    copy16_narrow(dst, src, base, valid, vec);
 }
 
 // Chunk c of the 16-byte chunks of row r of g, from column byte col_byte
@@ -244,18 +251,173 @@ __device__ __forceinline__ void bulk_wait() {
     asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------------------- mma.sync
+// The warp-level tensor-core path of the small-batch bodies (bdmm's decode
+// grid, the fused MLP, the paged-attention split body). Fragment layouts
+// (PTX ISA, mma.m16n8k16), lane = 4 gq + c: A holds rows gq and gq + 8,
+// columns 2c, 2c + 1 (+ 8); B columns gq, rows 2c, 2c + 1 (+ 8); C rows gq
+// (regs 0, 1) and gq + 8 (regs 2, 3), columns 2c, 2c + 1.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+// D (16 x 8, f32) += A (16 x 16, bf16, row) B (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ldmatrix.trans of int8 rows (8 rows of 16 bytes seen as 8 b16 columns)
+// gives lane 4 gq + c the 2 x 2 bytes of rows 2c, 2c + 1 at columns 2gq,
+// 2gq + 1: bytes 0..3 = [2c][2gq], [2c][2gq+1], [2c+1][2gq], [2c+1][2gq+1].
+// widen_pairs turns them into two bf16 pairs along the rows, exactly (|q| <=
+// 128 has at most 8 significant bits): `even` = column 2gq (rows 2c, 2c + 1),
+// `odd` = column 2gq + 1. Each byte goes to f32 as 2^23 + (q + 128) by a byte
+// permute, one subtraction gives q, and the upper halves of two f32 are two
+// bf16: 11 integer and f32 instructions for 4 weights, no conversions.
+__device__ __forceinline__ void widen_pairs(uint32_t v, uint32_t& even, uint32_t& odd) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float bias = 8388736.0f;  // 2^23 + 128
+  const uint32_t f0 = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)), bias));
+  const uint32_t f1 = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)), bias));
+  const uint32_t f2 = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)), bias));
+  const uint32_t f3 = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)), bias));
+  even = __byte_perm(f0, f2, 0x7632);
+  odd = __byte_perm(f1, f3, 0x7632);
+}
+
+// Swizzled shared-memory rows for ldmatrix: chunk c (16 bytes) of row r. A
+// 128-byte row keeps chunk c at c ^ (r % 8) (KMajor above); a 64-byte row
+// (64 int8 channels) at c ^ ((r / 2) % 4), so 8 consecutive rows at one
+// chunk fill the 8 bank groups; wider rows XOR the chunk's low 3 bits with
+// (r / ROW_DIV) % 8.
+template <int ROW_BYTES, int ROW_DIV = 1>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  if constexpr (ROW_BYTES == 64)
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  else
+    return r * ROW_BYTES + ((c ^ ((r / ROW_DIV) & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------- clusters
+// A split reduction inside one launch: the blocks of a split form a thread
+// block cluster (co-scheduled on one GPC), each leaves its f32 partial in
+// its own shared memory, and after a cluster barrier every block adds a
+// share of the outputs, reading the partials of the others over the
+// SM-to-SM network in the fixed order rank 0, 1, ... No workspace, no
+// ticket, no float atomics: the sums do not depend on the blocks' order.
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster arrives; the release / acquire
+// pair makes the shared-memory writes before it visible to the reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
+}
+// 4 floats at shared address `addr` (this block's layout) of block `rank`
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote) : "memory");
+  return v;
+}
+// Groups g of 4 outputs (0 <= g < groups), this block's share of them (g =
+// rank, rank + split, ...): the sum of the split partials at part + 4g of
+// every block, added from zero in rank order with every load in flight at
+// once (MAXS >= split); out(g, v) stores them.
+template <int MAXS, class Out>
+__device__ __forceinline__ void cluster_add(uint32_t part, int split, int groups, Out out) {
+  for (int g = cluster_rank() + split * static_cast<int>(threadIdx.x); g < groups;
+       g += split * static_cast<int>(blockDim.x)) {
+    float4 t[MAXS];
+#pragma unroll
+    for (int r = 0; r < MAXS; ++r)
+      if (r < split) t[r] = ld_cluster4(part + 16 * g, r);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < MAXS; ++r)
+      if (r < split) {
+        v.x = __fadd_rn(v.x, t[r].x);
+        v.y = __fadd_rn(v.y, t[r].y);
+        v.z = __fadd_rn(v.z, t[r].z);
+        v.w = __fadd_rn(v.w, t[r].w);
+      }
+    out(g, v);
+  }
+}
+
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// A kernel's `bytes` of dynamic shared memory allowed, with the largest
+// carveout (as many blocks as the bytes allow share an SM) and, for
+// clusters above 8 blocks, Hopper's non-portable sizes (at most 16).
+template <class Kernel>
+cudaError_t prepare(Kernel kern, int bytes, int cluster_blocks = 1) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && cluster_blocks > 8)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
 }
 
 template <class Kernel, class... P>
 cudaError_t launch(Kernel kern, int threads, int bytes, dim3 grid, cudaStream_t s,
                    const P&... params) {
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t e = prepare(kern, bytes);
   if (e != cudaSuccess) return e;
   kern<<<grid, threads, bytes, s>>>(params...);
   return cudaGetLastError();
+}
+
+// The same with the grid cut into clusters of `cluster` blocks (x, y, z).
+template <class... P>
+cudaError_t launch_cluster(void (*kern)(P...), int threads, int bytes, dim3 grid, dim3 cluster,
+                           cudaStream_t s, const P&... params) {
+  cudaError_t e = prepare(kern, bytes, cluster.x * cluster.y * cluster.z);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, params...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no

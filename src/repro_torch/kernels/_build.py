@@ -86,6 +86,31 @@ def build_all() -> Dict[str, Path]:
     return targets
 
 
+def variants(name: str, defines: Dict[str, Dict[str, int]],
+             out_dir: Path) -> Dict[str, ctypes.CDLL]:
+    """``csrc/<name>.cu`` built once for each entry of ``defines`` (a label
+    and its preprocessor symbols, such as a benchmark's phase cut
+    ``{"REPRO_CUT": 1}``; no symbols: the package's own build), in
+    parallel into ``out_dir``, and loaded. Raises :class:`KernelError` with
+    nvcc's output when a build fails."""
+    procs = {}
+    for label, syms in defines.items():
+        if not syms:
+            continue
+        out = out_dir / f"{name}_{label}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in syms.items()),
+               "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu")]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), out)
+    libs = {label: library(name) for label, syms in defines.items() if not syms}
+    for label, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise KernelError(f"nvcc failed for {name} {label}:\n{log[-3000:]}")
+        libs[label] = ctypes.CDLL(str(out))
+    return libs
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built on first use)."""
     if name not in _libs:

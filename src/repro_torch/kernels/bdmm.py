@@ -8,11 +8,11 @@ blocks ``wp (nb, bi, bo)``::
 and, with ``transpose=True``, ``y[..., n*bi:(n+1)*bi] = x[..., n*bo:(n+1)*bo]
 @ wp[n]ᵀ`` (the input gradient, reading ``wp`` as stored). It launches one
 of the bodies of ``csrc/bdmm.cu`` that :func:`plan` picks: the decode-shaped
-grid for ``m <= 32`` rows, the tensor-core bodies for bf16 and the SIMT
-body for f32 above. Inputs must lie on one CUDA device;
-:mod:`repro_torch.kernels.ops` sends CPU tensors to the plain version
-before they get here. ``launches`` counts kernel launches per grid shape,
-``routes`` the general grid's launches by the body that ran them.
+grid for ``m <= 32`` rows (mma.sync for bf16, SIMT for f32), the
+tensor-core bodies for bf16 and the SIMT body for f32 above. Inputs must lie
+on one CUDA device; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
+plain version before they get here. ``launches`` counts kernel launches per
+grid shape, ``routes`` the launches by the body that ran them.
 """
 
 from __future__ import annotations
@@ -28,17 +28,22 @@ from . import _build
 SMALL_M_MAX = 32                    # decode-shaped grid at or below this m
 TILE_K = 64                         # K step of the tensor-core bodies
 SMS = 132                           # the H100's streaming multiprocessors
+DECODE_K_CHUNK = 256                # decode_tc: K rows a block holds in flight (4 stages)
+DECODE_SPLIT_MAX = 8                # decode_tc: a K split is one cluster, at most 8 blocks
 ACT_CODES = {None: 0, "silu": 1}    # activations the kernel epilogue runs
 # the bodies of csrc/bdmm.cu (Route)
-ROUTES = {"decode": 0, "simt_f32": 1, "tc": 2, "tc_small_m": 3}
+ROUTES = {"decode_simt": 0, "simt_f32": 1, "tc": 2, "tc_small_m": 3,
+          "decode_tc": 4}
+DECODE_ROUTES = ("decode_tc", "decode_simt")
 # output tile each route is built for: (MMA M side, MMA N side) - tokens x
 # channels on tc and SIMT, channels x tokens on tc_small_m; the decode
-# grid's blocks own 32 channels of every row
-TILES = {"decode": (32, 32), "simt_f32": (64, 64), "tc": (128, 128),
-         "tc_small_m": (64, 64)}
+# grid's blocks own 64 (decode_tc) or 32 (decode_simt) channels of every
+# row
+TILES = {"decode_tc": (64, SMALL_M_MAX), "decode_simt": (32, SMALL_M_MAX),
+         "simt_f32": (64, 64), "tc": (128, 128), "tc_small_m": (64, 64)}
 
 launches = {"bdmm": 0, "bdmm_decode": 0}
-routes = {r: 0 for r in ROUTES if r != "decode"}
+routes = {r: 0 for r in ROUTES}
 _entry = None
 
 
@@ -66,18 +71,21 @@ def plan(m: int, nb: int, k: int, n: int, dtype: torch.dtype,
     reduce ``k`` and give ``n`` channels (``k, n = bo, bi`` transposed).
     ``vec_x`` / ``vec_w``: the copy width of the rows of x and the blocks
     (:func:`_build.copy_width`); TMA needs 16. The forward at ``m <=
-    SMALL_M_MAX`` keeps the decode grid; f32 takes the exact SIMT body; bf16
-    blocks take the tiled tensor-core body where TMA can read x and the
-    blocks (one persistent block an SM; it beat the small-m body at every m
-    from 33 to 128), else - and every int8 block - the small-m one, which
-    splits K when its tiles fill fewer than half the SMs, until two blocks
-    an SM have work."""
+    SMALL_M_MAX`` takes the decode grid: bf16 on mma.sync, a block a tile of
+    64 channels over up to ``DECODE_K_CHUNK`` rows of K (deeper K is split
+    over the blocks of one cluster), a plan that depends on ``(nb, k, n)``
+    only, never on ``m``; f32 on the exact SIMT decode body.
+    Above, f32 takes the exact SIMT body; bf16 blocks take the tiled
+    tensor-core body where TMA can read x and the blocks (one persistent
+    block an SM; it beat the small-m body at every m from 33 to 128), else
+    - and every int8 block - the small-m one, which splits K when its tiles
+    fill fewer than half the SMs, until two blocks an SM have work."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"bdmm kernel: x dtype {dtype}")
     if w_dtype == torch.int8 and transpose:
         raise ValueError("bdmm kernel: int8 blocks run forward only")
     if not transpose and m <= SMALL_M_MAX:
-        route = "decode"
+        route = "decode_tc" if dtype == torch.bfloat16 else "decode_simt"
     elif dtype == torch.float32:
         route = "simt_f32"
     elif w_dtype == torch.bfloat16 and vec_x == 16 and vec_w == 16:
@@ -86,8 +94,13 @@ def plan(m: int, nb: int, k: int, n: int, dtype: torch.dtype,
         route = "tc_small_m"
     tile = TILES[route]
     k_all = _cdiv(k, TILE_K) * TILE_K
-    if route == "decode":
-        return Plan(route, tile, (_cdiv(n, tile[1]), nb, 1), 1, k_all)
+    if route == "decode_simt":
+        return Plan(route, tile, (_cdiv(n, tile[0]), nb, 1), 1, k_all)
+    steps = _cdiv(k, TILE_K)
+    if route == "decode_tc":
+        k_chunk = max(DECODE_K_CHUNK, _cdiv(steps, DECODE_SPLIT_MAX) * TILE_K)
+        split = _cdiv(k, k_chunk)
+        return Plan(route, tile, (_cdiv(n, tile[0]), nb, split), split, k_chunk)
     if route == "simt_f32":
         return Plan(route, tile, (_cdiv(n, tile[1]), nb, _cdiv(m, tile[0])),
                     1, k_all)
@@ -95,7 +108,6 @@ def plan(m: int, nb: int, k: int, n: int, dtype: torch.dtype,
         tiles = _cdiv(n, tile[1]) * _cdiv(m, tile[0]) * nb
         return Plan(route, tile, (min(tiles, SMS), 1, 1), 1, k_all)
     tiles = _cdiv(n, tile[0]) * nb * _cdiv(m, tile[1])
-    steps = _cdiv(k, TILE_K)
     want = (1 if 2 * tiles >= SMS
             else max(_cdiv(SMS, tiles), round(2 * SMS / tiles)))
     k_chunk = _cdiv(steps, max(1, min(want, steps))) * TILE_K
@@ -108,9 +120,9 @@ def block_tiles(p: Plan, m: int, nb: int, n: int, bx: int, by: int,
                 bz: int) -> List[Tuple[int, int, int, int]]:
     """``(block n, first token, first channel, split)`` of every output tile
     that block ``(bx, by, bz)`` of plan ``p`` owns, as the kernel reads its
-    ``blockIdx`` (the decode grid's blocks own every token; tc's persistent
-    blocks walk the tiles ``bx, bx + grid[0], ...``, channel tile fastest,
-    then token tile, then block)."""
+    ``blockIdx`` (the decode grid's blocks own every token, decode_tc's
+    over K split ``bz``; tc's persistent blocks walk the tiles ``bx, bx +
+    grid[0], ...``, channel tile fastest, then token tile, then block)."""
     if p.route == "tc":
         nt, mt = _cdiv(n, p.tile[1]), _cdiv(m, p.tile[0])
         return [(i // nt // mt, i // nt % mt * p.tile[0], i % nt * p.tile[1], 0)
@@ -119,8 +131,8 @@ def block_tiles(p: Plan, m: int, nb: int, n: int, bx: int, by: int,
         tok_tiles = _cdiv(m, p.tile[1])
         return [(by, bz % tok_tiles * p.tile[1], bx * p.tile[0],
                  bz // tok_tiles)]
-    if p.route == "decode":
-        return [(by, 0, bx * p.tile[1], 0)]
+    if p.route in DECODE_ROUTES:
+        return [(by, 0, bx * p.tile[0], bz)]
     return [(by, bz * p.tile[0], bx * p.tile[1], 0)]
 
 
@@ -130,7 +142,7 @@ def _launcher():
         lib = _build.library("bdmm")
         fn = lib.bdmm_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P] + [I] * 15 + [P]
+        fn.argtypes = [P] * 6 + [I] * 15 + [P]
         fn.restype = I
         _entry = (lib, fn)
     return _entry
@@ -182,20 +194,17 @@ def bdmm(x: torch.Tensor, wp: torch.Tensor, bias: Optional[torch.Tensor] = None,
     vec_w = _build.copy_width(wp, wp.shape[2] * wp.element_size())
     p = plan(m, nb, k, n, x.dtype, wp.dtype, transpose, vec_x, vec_w)
     ws = (torch.empty((p.split, m, nb * n), dtype=torch.float32,
-                      device=x.device) if p.split > 1 else None)
+                      device=x.device)
+          if p.split > 1 and p.route == "tc_small_m" else None)
     lib, fn = _launcher()
     vec = int(bo % 4 == 0 and wp.data_ptr() % 16 == 0)
-    code = fn(x2.data_ptr(), wp.data_ptr(), s.data_ptr() if s is not None else None,
-              b.data_ptr() if b is not None else None, y.data_ptr(),
-              ws.data_ptr() if ws is not None else None,
-              m, nb, k, n, _build.DTYPE_CODES[x.dtype], int(quant),
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    code = fn(x2.data_ptr(), wp.data_ptr(), ptr(s), ptr(b), y.data_ptr(),
+              ptr(ws), m, nb, k, n, _build.DTYPE_CODES[x.dtype], int(quant),
               ACT_CODES[activation], ROUTES[p.route], int(transpose), vec,
               vec_x, vec_w, p.grid[0], p.split, p.k_chunk,
               _build.stream_ptr(x.device))
     _build.check(lib, "bdmm", code)
-    if p.route == "decode":
-        launches["bdmm_decode"] += 1
-    else:
-        launches["bdmm"] += 1
-        routes[p.route] += 1
+    launches["bdmm_decode" if p.route in DECODE_ROUTES else "bdmm"] += 1
+    routes[p.route] += 1
     return y.reshape(*lead, nb * n)

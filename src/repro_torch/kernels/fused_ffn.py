@@ -10,34 +10,62 @@ structure, and block ``n`` of the MLP is independent of the others::
 :func:`fused_ffn` runs that as one launch of ``csrc/fused_ffn.cu``: the
 ``(tokens, d_ff)`` hidden stays in the kernel and never reaches device
 memory. Weights are fp (x's dtype) or int8 with per-output-channel scales
-(``s_up``/``s_gate (nb, f)``, ``s_down (nb, bo)``). The f axis is split
-across blocks to fill the card; f32 partial sums meet in a workspace and
-the last block of each output tile reduces them in a fixed order, so the
-result is deterministic. Inputs must lie on one CUDA device;
+(``s_up``/``s_gate (nb, f)``, ``s_down (nb, bo)``). bf16 x runs on the
+tensor-core body (mma.sync; the hidden stays in registers as a hi + lo
+pair of bf16), f32 x on the exact SIMT body. The f axis is split across
+blocks to fill the card; the split's f32 partial sums are added in a fixed
+order (tc: inside a cluster of the split's blocks; SIMT: by the last block
+of each output tile, from a workspace), so the result is deterministic. Inputs must lie on one CUDA device;
 :mod:`repro_torch.kernels.ops` sends CPU tensors to the plain version
-before they get here. ``launches`` counts kernel launches.
+before they get here. ``launches`` counts kernel launches, ``routes`` the
+launches by the body that ran them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
-F_TILE = 64                         # f channels per tile (csrc FS)
-COLS_PER_BLOCK = 256                # output columns per block (csrc BO_T)
-ROW_TILES = (4, 8, 16, 32, 64)      # rows per block the kernel is built for
+F_TILE = 64                         # f channels per tile (csrc FS, FT_F)
+COLS_PER_BLOCK = 256                # output columns per block (csrc BO_T, FT_COLS)
+ROW_TILES = (4, 8, 16, 32, 64)      # rows per block of the SIMT body
+TC_ROWS = 16                        # rows per block of the tensor-core body
+SPLIT_M_MAX = 64                    # at or below, the tc split is the same for every m
+ROUTES = {"simt_f32": 0, "tc": 1}   # the bodies of csrc/fused_ffn.cu
+
+CLUSTER_MAX = 16                    # tc: a tile's f split is one cluster
 
 launches = {"fused_ffn": 0}
+routes = {r: 0 for r in ROUTES}
 _entry = None
-# per (device, stream): the int32 tickets of the split-f reduction; the
-# kernel leaves them zero, so one buffer serves every launch on the stream
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
 _sm_count: Dict[int, int] = {}
+_counters: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets of the SIMT body's split-f
+    reduction on the current stream; the kernel leaves them zero, so one
+    buffer serves every launch on the stream."""
+    key = (device.index, _build.stream_ptr(device))
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+class Plan(NamedTuple):
+    """How one fused MLP runs: the body, the rows of a block, the blocks
+    along f and the f tiles (of ``F_TILE``) each of them owns."""
+    route: str
+    rows: int
+    split: int
+    fpb: int
 
 
 def _launcher():
@@ -46,31 +74,42 @@ def _launcher():
         lib = _build.library("fused_ffn")
         fn = lib.fused_ffn_launch
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 13 + [I] * 12 + [P]
+        fn.argtypes = [P] * 13 + [I] * 15 + [P]
         fn.restype = I
         _entry = (lib, fn)
     return _entry
 
 
-def plan(m: int, nb: int, f: int, bo: int, n_sm: int) -> Tuple[int, int, int]:
-    """``(rows per block, blocks along f, f tiles per block)``: the smallest
-    row tile that holds ``m``, then enough f splits that the grid covers
-    the card's ``n_sm`` SMs (one block per SM by register use)."""
-    bm = next((t for t in ROW_TILES if m <= t), ROW_TILES[-1])
-    cells = -(-m // bm) * nb * -(-bo // COLS_PER_BLOCK)
+def plan(m: int, nb: int, f: int, bo: int, n_sm: int,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The body, rows per block, blocks along f and f tiles per block.
+
+    bf16 (``tc``): tiles of 16 tokens, a block each; up to ``SPLIT_M_MAX``
+    rows every f tile is its own block whatever m is (16 blocks along f at
+    f = 1024, 128 blocks at olmo-1b's width and m = 4), so a token's output
+    does not depend on the chunk it rides in; above, enough f splits that
+    the grid covers the card's ``n_sm`` SMs. A tile's split is one
+    cluster, so at most ``CLUSTER_MAX`` blocks. f32 (``simt_f32``): the
+    smallest row tile that holds ``m``, then enough f splits that the grid
+    covers the card (one block per SM by register use)."""
     n_ft = -(-f // F_TILE)
-    split = min(n_ft, max(1, -(-n_sm // cells)))
+    chunks = -(-bo // COLS_PER_BLOCK)
+    if dtype == torch.bfloat16:
+        route, bm = "tc", TC_ROWS
+    elif dtype == torch.float32:
+        route, bm = "simt_f32", next((t for t in ROW_TILES if m <= t),
+                                     ROW_TILES[-1])
+    else:
+        raise ValueError(f"fused_ffn kernel: x dtype {dtype}")
+    if route == "tc" and m <= SPLIT_M_MAX:
+        split = min(n_ft, CLUSTER_MAX)
+    else:
+        cells = -(-m // bm) * nb * chunks
+        split = min(n_ft, max(1, -(-n_sm // cells)))
+        if route == "tc":
+            split = min(split, CLUSTER_MAX)
     fpb = -(-n_ft // split)
-    return bm, -(-n_ft // fpb), fpb
-
-
-def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    key = (device.index, _build.stream_ptr(device))
-    buf = _counters.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[key] = buf
-    return buf
+    return Plan(route, bm, -(-n_ft // fpb), fpb)
 
 
 def _f32(t: Optional[torch.Tensor], shape, name: str):
@@ -145,21 +184,26 @@ def fused_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     if dev.index not in _sm_count:
         _sm_count[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    bm, split, fpb = plan(m, nb, f, bo, _sm_count[dev.index])
+    p = plan(m, nb, f, bo, _sm_count[dev.index], x.dtype)
     part = counters = None
-    if split > 1:
-        part = torch.empty((split, m, nb * bo), dtype=torch.float32, device=dev)
-        n_cells = -(-m // bm) * nb * -(-bo // COLS_PER_BLOCK)
-        counters = _counter_buffer(dev, n_cells)
+    if p.split > 1 and p.route == "simt_f32":
+        part = torch.empty((p.split, m, nb * bo), dtype=torch.float32,
+                           device=dev)
+        counters = _counter_buffer(dev, -(-m // p.rows) * nb
+                                   * -(-bo // COLS_PER_BLOCK))
     vec = int(f % 4 == 0 and bo % 4 == 0
               and all(w.data_ptr() % 16 == 0 for w in weights))
+    es = w_up.element_size()
+    vec_w = min(_build.copy_width(w, w.shape[2] * es) for w in weights)
     lib, fn = _launcher()
-    ptr = lambda t: None if t is None else t.data_ptr()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     code = fn(x2.data_ptr(), w_up.data_ptr(), ptr(w_gate), w_down.data_ptr(),
               *(ptr(t) for t in extras), y.data_ptr(), ptr(part),
               ptr(counters), m, nb, bi, f, bo, _build.DTYPE_CODES[x.dtype],
-              int(quant), ACT_CODES[activation], bm, split, fpb, vec,
+              int(quant), ACT_CODES[activation], ROUTES[p.route], p.rows,
+              p.split, p.fpb, vec, _build.copy_width(x2, bi * 2), vec_w,
               _build.stream_ptr(dev))
     _build.check(lib, "fused_ffn", code)
     launches["fused_ffn"] += 1
+    routes[p.route] += 1
     return y.reshape(*lead, nb * bo)

@@ -66,11 +66,11 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel's launch count (and the tallies by route of bdmm's
-    general grid, the masked matmul, the SDDMM and the paged attention
+    """Zero every kernel's launch count (and the tallies by route of bdmm,
+    the fused MLP, the masked matmul, the SDDMM and the paged attention
     kernels)."""
     for counts in (*(mod.launches for mod in _KERNEL_MODULES),
-                   bdmm_kernel.routes, mm_kernel.routes,
+                   bdmm_kernel.routes, ffn_kernel.routes, mm_kernel.routes,
                    mm_kernel.sddmm_routes, paged_attn_kernel.routes):
         for k in counts:
             counts[k] = 0

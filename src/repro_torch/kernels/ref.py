@@ -133,6 +133,81 @@ def fused_ffn_quant_ref(x, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
     return bdmm_quant_ref(h, w_down, s_down, b_down)
 
 
+def bdmm_split_ref(x, wp, bias=None, scale=None,
+                   activation: Optional[str] = None, k_chunk: int = 64):
+    """The order of bdmm's decode grid (``decode_tc``), in plain PyTorch: the
+    K range of each split (``k_chunk`` rows, from ``plan``) reduced in f32,
+    the split partials added in the order s = 0, 1, ... from zero, then
+    ``* scale``, ``+ bias``, the activation and one cast to x's dtype.
+    ``wp (nb, bi, bo)`` in x's dtype or int8 (with ``scale (nb, bo)``)."""
+    nb, bi, bo = wp.shape
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, nb, bi).float()
+    w = wp.float()
+    y = torch.zeros(xb.shape[0], nb, bo, dtype=torch.float32, device=x.device)
+    for k0 in range(0, bi, k_chunk):
+        y = y + torch.einsum("mnk,nko->mno", xb[..., k0:k0 + k_chunk],
+                             w[:, k0:k0 + k_chunk])
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float().reshape(nb, bo)
+    y = ACTIVATIONS[activation](y).to(x.dtype)
+    return y.reshape(*lead, nb * bo)
+
+
+def hi_lo(h):
+    """``h`` (f32) as the pair of bf16 values ``(hi, lo)`` the fused MLP's
+    tensor-core body feeds its down product: ``hi`` = bf16(h), ``lo`` =
+    bf16(h - hi), so ``hi + lo`` is within 2^-16 |h| of h."""
+    hi = h.to(torch.bfloat16)
+    return hi, (h - hi.float()).to(torch.bfloat16)
+
+
+def fused_ffn_split_ref(x, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
+                        b_down=None, s_up=None, s_gate=None, s_down=None,
+                        activation: Optional[str] = "silu", f_tile: int = 64,
+                        f_warp: int = 16):
+    """The order of the fused MLP's tensor-core body, in plain PyTorch. Per
+    f tile (one block of the split) and per ``f_warp`` channels of it (one
+    warp): u and g in f32, scale, bias and gate in f32, the hidden as a hi +
+    lo pair of bf16 and its down product in f32; the warps' partials added
+    in warp order, the tiles' in the order s = 0, 1, ... from zero; then
+    ``* s_down``, ``+ b_down`` and one cast to x's dtype. Weights in x's
+    dtype, or int8 with their scales."""
+    nb, bi, f = w_up.shape
+    bo = w_down.shape[2]
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, nb, bi).float()
+
+    def proj(w, s, b):
+        z = torch.einsum("mnk,nkf->mnf", xb, w.float())
+        if s is not None:
+            z = z * s.float()
+        if b is not None:
+            z = z + b.float().reshape(nb, f)
+        return z
+    u = proj(w_up, s_up, b_up)
+    act = ACTIVATIONS[activation]
+    h = act(proj(w_gate, s_gate, b_gate)) * u if w_gate is not None else act(u)
+    hi, lo = hi_lo(h)
+    wd = w_down.float()
+    y = torch.zeros(xb.shape[0], nb, bo, dtype=torch.float32, device=x.device)
+    for t0 in range(0, f, f_tile):
+        tile = None
+        for w0 in range(t0, min(t0 + f_tile, f), f_warp):
+            sl = slice(w0, min(w0 + f_warp, f))
+            part = (torch.einsum("mnf,nfo->mno", hi[..., sl].float(), wd[:, sl])
+                    + torch.einsum("mnf,nfo->mno", lo[..., sl].float(), wd[:, sl]))
+            tile = part if tile is None else tile + part
+        y = y + tile
+    if s_down is not None:
+        y = y * s_down.float()
+    if b_down is not None:
+        y = y + b_down.float().reshape(nb, bo)
+    return y.to(x.dtype).reshape(*lead, nb * bo)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     """Paged-attention decode: gather each row's pages into a contiguous KV
     view and run the dense decode computation (f32 softmax, ``-1e30``

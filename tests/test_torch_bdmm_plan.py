@@ -53,13 +53,17 @@ def test_olmo_shapes_take_the_named_route_and_tiles(nb, k, n, transpose, m):
     (300, torch.bfloat16, torch.int8, False),
     (70, torch.float32, torch.float32, True),
     (5, torch.float32, torch.float32, False),
-    (5, torch.bfloat16, torch.bfloat16, True)],
-    ids=["small_m", "tc", "tc-dx", "int8", "simt-dx", "decode", "tc-dx-m5"])
+    (5, torch.bfloat16, torch.bfloat16, True),
+    (5, torch.bfloat16, torch.bfloat16, False),
+    (32, torch.bfloat16, torch.int8, False)],
+    ids=["small_m", "tc", "tc-dx", "int8", "simt-dx", "decode", "tc-dx-m5",
+         "decode_tc", "decode_tc-int8"])
 @pytest.mark.parametrize("nb,k,n", [(3, 200, 136), (8, 256, 6288),
                                     (2, 100, 75), (8, 1024, 256)])
 def test_grid_covers_every_tile_once(route_args, nb, k, n):
-    """Every (block, token tile, channel tile) of the output belongs to
-    exactly one block of the grid, as the kernel reads its blockIdx."""
+    """Every (block, token tile, channel tile, K split) of the output
+    belongs to exactly one block of the grid, as the kernel reads its
+    blockIdx, and every split has its blocks."""
     m, dt, wdt, transpose = route_args
     p = tbdmm.plan(m, nb, k, n, dt, wdt, transpose)
     owned = [t for bx in range(p.grid[0]) for by in range(p.grid[1])
@@ -68,8 +72,8 @@ def test_grid_covers_every_tile_once(route_args, nb, k, n):
     assert len(owned) == len(set(owned))
     assert {t[3] for t in owned} == set(range(p.split))
     owned = [t[:3] for t in owned if t[3] == 0]
-    if p.route == "decode":
-        tok_step, ch_step = m, p.tile[1]
+    if p.route in tbdmm.DECODE_ROUTES:
+        tok_step, ch_step = m, p.tile[0]
     elif p.route == "tc_small_m":
         tok_step, ch_step = p.tile[1], p.tile[0]
     else:
@@ -105,7 +109,8 @@ def test_f32_always_takes_simt(m, w_dtype, transpose):
             tbdmm.plan(m, 8, 256, 1024, torch.float32, w_dtype, transpose)
         return
     p = tbdmm.plan(m, 8, 256, 1024, torch.float32, w_dtype, transpose)
-    want = "decode" if m <= tbdmm.SMALL_M_MAX and not transpose else "simt_f32"
+    want = ("decode_simt" if m <= tbdmm.SMALL_M_MAX and not transpose
+            else "simt_f32")
     assert p.route == want
 
 
@@ -114,10 +119,66 @@ def test_f32_always_takes_simt(m, w_dtype, transpose):
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
     (torch.float32, torch.float32), (torch.float32, torch.int8)])
 def test_small_m_forward_is_left_to_the_decode_grid(m, dtype, w_dtype):
+    """At m <= 32 the forward takes the decode grid: bf16 the mma.sync body
+    (64 channels a block; the unembed's 99 x 8 tiles fill the card without
+    a K split), f32 the exact SIMT body (32 channels a block)."""
     p = tbdmm.plan(m, 8, 256, 6288, dtype, w_dtype)
-    assert p.route == "decode" and p.grid == (_cdiv(6288, 32), 8, 1)
+    if dtype == torch.bfloat16:
+        assert (p.route, p.grid, p.split) == ("decode_tc", (_cdiv(6288, 64), 8, 1), 1)
+    else:
+        assert (p.route, p.grid) == ("decode_simt", (_cdiv(6288, 32), 8, 1))
     assert tbdmm.plan(tbdmm.SMALL_M_MAX + 1, 8, 256, 6288, dtype,
-                      w_dtype).route != "decode"
+                      w_dtype).route not in tbdmm.DECODE_ROUTES
+
+
+# the decode grid's K split at olmo-1b's packed shapes: (split, k_chunk). A
+# block holds up to 256 rows of K in flight (4 stages); only the down
+# projection's 1024 rows are split, over the 4 blocks of one cluster
+DECODE_SPLITS = {"qkvo": (1, 256), "up_gate": (1, 256), "down": (4, 256),
+                 "unembed": (1, 256)}
+
+
+@pytest.mark.parametrize("name", list(OLMO))
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.int8])
+def test_decode_grid_splits_k_at_olmo_shapes(name, w_dtype):
+    nb, bi, bo = OLMO[name]
+    p = tbdmm.plan(4, nb, bi, bo, torch.bfloat16, w_dtype)
+    assert (p.split, p.k_chunk) == DECODE_SPLITS[name]
+    assert p.grid == (_cdiv(bo, 64), nb, p.split)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nb,k,n", [(8, 256, 256), (8, 256, 1024),
+                                    (8, 1024, 256), (8, 256, 6288),
+                                    (3, 200, 136), (1, 8192, 64)])
+def test_decode_plan_does_not_depend_on_m(nb, k, n, w_dtype):
+    """Row r of an m-row call must be bit for bit row r of the same input
+    cut to fewer rows (the speculative verify windows hold the decode steps
+    to it): the decode grid's tiles, split and K ranges are the same for
+    every m from 1 to 32."""
+    plans = {tbdmm.plan(m, nb, k, n, torch.bfloat16, w_dtype)
+             for m in range(1, tbdmm.SMALL_M_MAX + 1)}
+    assert len(plans) == 1
+    f32 = {tbdmm.plan(m, nb, k, n, torch.float32, w_dtype)
+           for m in range(1, tbdmm.SMALL_M_MAX + 1)}
+    assert len(f32) == 1
+
+
+@pytest.mark.parametrize("k", [64, 100, 256, 1024, 6288])
+@pytest.mark.parametrize("nb,n", [(8, 256), (8, 1024), (3, 75), (1, 64),
+                                  (8, 6288)])
+def test_decode_split_covers_k_exactly_once(nb, n, k):
+    """The decode grid's K ranges are whole 64-row steps, at least 256 rows
+    (or all of K), non-empty, disjoint and cover [0, K) in at most 8 splits
+    (one cluster)."""
+    p = tbdmm.plan(4, nb, k, n, torch.bfloat16, torch.int8)
+    assert p.route == "decode_tc" and p.k_chunk % tbdmm.TILE_K == 0
+    assert p.k_chunk >= min(k, tbdmm.DECODE_K_CHUNK)
+    assert p.split <= tbdmm.DECODE_SPLIT_MAX     # a split is one cluster
+    rs = [(s * p.k_chunk, min(k, (s + 1) * p.k_chunk)) for s in range(p.split)]
+    assert rs[0][0] == 0 and rs[-1][1] == k
+    assert all(a < b for a, b in rs)
+    assert all(rs[i][1] == rs[i + 1][0] for i in range(len(rs) - 1))
 
 
 @pytest.mark.parametrize("m", [64, 2048])

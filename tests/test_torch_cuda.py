@@ -225,7 +225,10 @@ def test_bdmm_dx_equals_the_transposed_copy_route(cuda_device, m, dtype):
 
 
 @pytest.mark.parametrize("m,dtype,quant,transpose,route", [
-    (1, torch.bfloat16, False, False, None), (1, torch.bfloat16, False, True, "tc"),
+    (1, torch.bfloat16, False, False, "decode_tc"),
+    (4, torch.bfloat16, True, False, "decode_tc"),
+    (32, torch.float32, True, False, "decode_simt"),
+    (1, torch.bfloat16, False, True, "tc"),
     (64, torch.bfloat16, True, False, "tc_small_m"),
     (64, torch.bfloat16, False, False, "tc"),
     (129, torch.bfloat16, False, True, "tc"), (2048, torch.bfloat16, False, False, "tc"),
@@ -234,7 +237,8 @@ def test_bdmm_dx_equals_the_transposed_copy_route(cuda_device, m, dtype):
 def test_bdmm_route_tally(cuda_device, m, dtype, quant, transpose, route):
     """bf16 bdmm above 32 rows runs on a tensor-core body (bf16 blocks on
     the tiled one, int8 blocks on the small-m one), f32 on the SIMT body;
-    the forward at m <= 32 keeps the decode grid; the tally shows which."""
+    the forward at m <= 32 takes the decode grid (mma.sync at bf16, SIMT at
+    f32); the tally shows which."""
     x, (wp, s), b, plain = _bdmm_case(m, 8, 256, 512, cuda_device, seed=1,
                                       quant=quant, transpose=transpose)
     x = x.to(dtype)
@@ -244,9 +248,93 @@ def test_bdmm_route_tally(cuda_device, m, dtype, quant, transpose, route):
     after = dict(tbdmm.routes)
     assert {r: after[r] - before[r] for r in after} == {
         r: int(r == route) for r in after}
-    assert tbdmm.launches["bdmm_decode"] == dec + (route is None)
+    assert tbdmm.launches["bdmm_decode"] == dec + (route in tbdmm.DECODE_ROUTES)
     if dtype == torch.bfloat16:
         _close(got, plain(wp).bfloat16(), dtype)
+
+
+# olmo-1b's packed projections at mpd_c=8: (nb, bi, bo, activation)
+OLMO_BDMM = {"qkvo": (8, 256, 256, None), "up_gate": (8, 256, 1024, "silu"),
+             "down": (8, 1024, 256, None), "unembed": (8, 256, 6288, None)}
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float32, False),
+                                         (torch.float32, True)],
+                         ids=["bf16", "bf16-int8", "f32", "f32-int8"])
+@pytest.mark.parametrize("name", list(OLMO_BDMM))
+def test_bdmm_decode_rows_do_not_depend_on_m(cuda_device, name, dtype, quant):
+    """Row r of an m-row call on the decode grid is bit for bit row r of
+    the same input cut to fewer rows (the verify windows of m = 20 are held
+    to the decode steps at m = 4): rows of m = 20 and 32 equal the m = 1
+    and m = 4 calls, with bias and the projection's activation."""
+    nb, bi, bo, act = OLMO_BDMM[name]
+    g = torch.Generator(device=cuda_device).manual_seed(bi + bo)
+    x = torch.randn((32, nb * bi), generator=g, device=cuda_device).to(dtype)
+    w = torch.randn((nb, bi, bo), generator=g, device=cuda_device) * bi ** -0.5
+    b = 0.1 * torch.randn((nb * bo,), generator=g, device=cuda_device)
+    wp, s = quantize_blocks(w) if quant else (w.to(dtype), None)
+    run = lambda m: tbdmm.bdmm(x[:m], wp, b, s, activation=act)  # noqa: E731
+    before = dict(tbdmm.routes)
+    outs = {m: run(m) for m in (1, 4, 20, 32)}
+    body = "decode_tc" if dtype == torch.bfloat16 else "decode_simt"
+    assert tbdmm.routes[body] == before[body] + 4
+    assert bool(torch.isfinite(outs[32].float()).all())
+    for big in (20, 32):
+        for small in (1, 4):
+            assert torch.equal(outs[big][:small], outs[small])
+    assert torch.equal(outs[32][:20], outs[20])
+
+
+def _offset(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A copy of ``t`` whose storage starts ``elems`` elements past a
+    16-byte boundary (row starts no wider copy than that can read)."""
+    buf = torch.empty(t.numel() + elems + 16, dtype=t.dtype, device=t.device)
+    lead = (-buf.data_ptr() // t.element_size()) % (16 // t.element_size())
+    out = buf[lead + elems:lead + elems + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (m, nb, bi, bo, x offset, w offset) on the decode grid: the unembed's bo
+# 6288, bi and bo no multiples of the 64-row stage or the 64-channel tile,
+# bo 75 (150-byte bf16 and 75-byte int8 rows), and x or the blocks starting
+# off a 16-byte boundary
+DECODE_RAGGED = [(5, 8, 256, 6288, 0, 0), (32, 3, 200, 136, 0, 0),
+                 (1, 3, 200, 136, 1, 0), (20, 3, 136, 200, 0, 4),
+                 (7, 2, 100, 75, 2, 3), (32, 3, 1000, 24, 3, 0)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", DECODE_RAGGED)
+def test_bdmm_decode_grid_ragged_and_misaligned(cuda_device, shape, quant):
+    """The bf16 decode grid on ragged shapes and rows that are not 16-byte
+    aligned (copied in narrower pieces inside the kernel, never by a plain
+    fallback): the mma.sync body ran and the bf16 rule holds."""
+    m, nb, bi, bo, x_off, w_off = shape
+    x, (wp, s), b, plain = _bdmm_case(m, nb, bi, bo, cuda_device, seed=m + bi,
+                                      quant=quant)
+    x, wp = _offset(x, x_off), _offset(wp, w_off)
+    before = dict(tbdmm.routes)
+    got = tbdmm.bdmm(x, wp, b, s, activation="silu")
+    assert tbdmm.routes["decode_tc"] == before["decode_tc"] + 1
+    _close(got, plain(wp).bfloat16(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("m", [4, 32])
+def test_bdmm_decode_rule_rejects_a_zeroed_block(cuda_device, m, quant):
+    """The bf16 rule that the decode grid passes at the olmo-1b down shape
+    (K split over the 4 blocks of a cluster) rejects the plain output with
+    block 3 of the weights zeroed."""
+    x, (wp, s), b, plain = _bdmm_case(m, 8, 1024, 256, cuda_device, seed=5,
+                                      quant=quant)
+    got = tbdmm.bdmm(x, wp, b, s, activation="silu")
+    assert _within(got, plain(wp).bfloat16(), torch.bfloat16)
+    zeroed = wp.clone()
+    zeroed[3] = 0
+    assert not _within(got, plain(zeroed).bfloat16(), torch.bfloat16)
 
 
 def test_bdmm_raises_instead_of_falling_back(cuda_device):
@@ -946,9 +1034,11 @@ def _ffn_within(got, want32, mag, dtype):
 
 # (m, nb, bi, f, bo): decode and a prefill chunk at olmo-1b's width, then
 # every edge ragged (m, bi, f and bo against the 4..64-row, 32-deep, 64-f
-# and 256-column tiles; f = 200 splits into 4 tiles, the last partial)
+# and 256-column tiles; f = 200 splits into 4 tiles, the last partial), and
+# bi 320, deeper than the tensor-core body keeps resident (its K ring turns)
 FFN_SHAPES = [(4, 8, 256, 1024, 256), (64, 8, 256, 1024, 256),
-              (1, 2, 40, 200, 24), (37, 3, 72, 200, 300), (100, 2, 64, 130, 20)]
+              (1, 2, 40, 200, 24), (37, 3, 72, 200, 300), (100, 2, 64, 130, 20),
+              (20, 2, 320, 200, 24)]
 
 
 @pytest.mark.parametrize("act,gated,bias", [("silu", True, False),
@@ -962,12 +1052,15 @@ def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
     m, nb, bi, f, bo = shape
     a = _ffn_case(cuda_device, m, nb, bi, f, bo, dtype, quant, gated, bias,
                   seed=m + f)
-    before = tffn.launches["fused_ffn"]
+    before, routes = tffn.launches["fused_ffn"], dict(tffn.routes)
     got = tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
                          a.get("b_up"), a.get("b_gate"), a.get("b_down"),
                          a.get("s_up"), a.get("s_gate"), a.get("s_down"),
                          activation=act)
     assert tffn.launches["fused_ffn"] == before + 1
+    body = "tc" if dtype == torch.bfloat16 else "simt_f32"
+    assert {r: tffn.routes[r] - routes[r] for r in routes} == {
+        r: int(r == body) for r in routes}
     assert got.dtype == dtype and got.shape == (m, nb * bo)
     want, mag = _ffn_plain32(a, act)
     assert _ffn_within(got, want, mag, dtype)
@@ -981,6 +1074,30 @@ def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
                            a.get("s_up"), a.get("s_gate"), a.get("s_down"),
                            activation=act)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_fused_ffn_rows_do_not_depend_on_the_chunk(cuda_device, quant, dtype,
+                                                  gated):
+    """A token's output does not change with the chunk it rides in: the
+    rows of an m = 4 call (a decode step) equal the same tokens inside an m
+    = 64 call (a prefill chunk), and those of m = 37, bit for bit, at
+    olmo-1b's width."""
+    a = _ffn_case(cuda_device, 64, 8, 256, 1024, 256, dtype, quant, gated,
+                  True, seed=9)
+    act = "silu" if gated else "gelu"
+
+    def run(rows):
+        return tffn.fused_ffn(a["x"][rows], a["w_up"], a["w_down"],
+                              a.get("w_gate"), a.get("b_up"), a.get("b_gate"),
+                              a.get("b_down"), a.get("s_up"), a.get("s_gate"),
+                              a.get("s_down"), activation=act)
+    full = run(slice(0, 64))
+    assert torch.equal(run(slice(0, 4)), full[:4])
+    assert torch.equal(run(slice(16, 20)), full[16:20])
+    assert torch.equal(run(slice(0, 37)), full[:37])
 
 
 def test_fused_ffn_raises_instead_of_falling_back(cuda_device):

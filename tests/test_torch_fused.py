@@ -36,6 +36,7 @@ from repro_torch.core.policy import CompressionPolicy as TPolicy
 from repro_torch.kernels import fused_ffn as tffn
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as tquant
+from repro_torch.kernels import ref as tref
 from repro_torch.models import ModelConfig as TModelConfig
 from repro_torch.models import build as tbuild
 from repro_torch.models.attention import AttentionSpec as TAttentionSpec
@@ -135,15 +136,78 @@ def test_fused_ffn_raises_under_grad_and_on_bad_inputs():
 
 
 def test_kernel_plan_fills_the_card_at_olmo_width():
-    """(rows per block, f splits, f tiles per block) at olmo-1b's fused FFN
-    (nb 8, f 1024, bo 256) on 132 SMs: decode and one prefill chunk split
-    f 16 ways (128 blocks); a long prefill needs no split."""
-    assert tffn.plan(4, 8, 1024, 256, 132) == (4, 16, 1)
-    assert tffn.plan(64, 8, 1024, 256, 132) == (64, 16, 1)
-    assert tffn.plan(37, 8, 1000, 256, 132) == (64, 16, 1)
-    assert tffn.plan(2048, 8, 1024, 256, 132) == (64, 1, 16)
-    bm, split, fpb = tffn.plan(256, 8, 1024, 256, 132)
-    assert split * fpb >= 16 and (split - 1) * fpb < 16
+    """(body, rows per block, f splits, f tiles per block) at olmo-1b's
+    fused FFN (nb 8, f 1024, bo 256) on 132 SMs. bf16 (the tensor-core
+    body): 16-token tiles, every f tile its own block up to 64 rows (decode
+    and one prefill chunk: 16 x 8 blocks a row tile); a long prefill needs
+    no split. f32 (the SIMT body): the smallest row tile that holds m, and
+    f split 16 ways (128 blocks) at decode and one prefill chunk."""
+    bf16 = lambda m, f=1024: tuple(tffn.plan(m, 8, f, 256, 132))  # noqa: E731
+    assert bf16(4) == bf16(64) == ("tc", 16, 16, 1)
+    assert bf16(37, 1000) == ("tc", 16, 16, 1)
+    assert bf16(2048) == ("tc", 16, 1, 16)
+    f32 = lambda m, f=1024: tuple(tffn.plan(m, 8, f, 256, 132,  # noqa: E731
+                                            torch.float32))
+    assert f32(4) == ("simt_f32", 4, 16, 1)
+    assert f32(64) == ("simt_f32", 64, 16, 1)
+    assert f32(37, 1000) == ("simt_f32", 64, 16, 1)
+    assert f32(2048) == ("simt_f32", 64, 1, 16)
+    p = tffn.plan(256, 8, 1024, 256, 132, torch.float32)
+    assert p.split * p.fpb >= 16 and (p.split - 1) * p.fpb < 16
+
+
+@pytest.mark.parametrize("nb,f,bo", [(8, 1024, 256), (3, 200, 300),
+                                     (2, 130, 20)])
+def test_kernel_plan_does_not_depend_on_m_up_to_a_chunk(nb, f, bo):
+    """A token's output must not change with the chunk it rides in: the
+    tensor-core body's plan (rows per block, f splits, f tiles a block) is
+    the same for every m up to one prefill chunk (64 rows)."""
+    plans = {tffn.plan(m, nb, f, bo, 132) for m in range(1, tffn.SPLIT_M_MAX + 1)}
+    assert plans == {("tc", tffn.TC_ROWS, -(-f // tffn.F_TILE), 1)}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
+def test_split_f_hi_lo_order_matches_jax_interpret_kernel(gated, quant):
+    """The tensor-core body's order (``ref.fused_ffn_split_ref``: the hidden
+    in f32 as a hi + lo pair of bf16, its down product per 16 f channels
+    added in warp order, the 64-channel f tiles in split order from zero)
+    against the Pallas kernel in interpret mode at float32 (h and the down
+    product in f32). f = 200 leaves a partial last tile and warp. Tolerance,
+    elementwise: 2^-15 (|h| @ |Wd| (* s_down)) + 1e-5 |y| + 1e-6; hi + lo
+    is within 2^-16 |h| of h, and the rest is summation order. One bf16
+    rounding of h (2^-8 |h|) would not pass."""
+    a = _ffn_inputs(5, 9, 2, 40, 200, 24, gated, True, quant=quant)
+    act = "silu" if gated else "gelu"
+    t, j = _torch(a), _jax(a)
+    keys = ("w_gate", "b_up", "b_gate", "b_down", "s_up", "s_gate", "s_down")
+    got = tref.fused_ffn_split_ref(t["x"], t["w_up"], t["w_down"],
+                                   activation=act, **{k: t.get(k) for k in keys})
+    want = np.asarray(jffn.fused_ffn(j["x"], j["w_up"], j["w_down"],
+                                     activation=act, interpret=True, bm=8,
+                                     bf=8, **{k: j.get(k) for k in keys}))
+    # |h| @ |Wd| (* s_down), with h from the plain route's own pieces
+    nb, bi, f = a["w_up"].shape
+    xb = t["x"].reshape(-1, nb, bi)
+    proj = lambda w, s, b: (torch.einsum("mnk,nkf->mnf", xb, w.float())  # noqa: E731
+                            * (1 if s is None else s)
+                            + (0 if b is None else b.reshape(nb, f)))
+    u = proj(t["w_up"], t.get("s_up"), t["b_up"])
+    fn = tref.ACTIVATIONS[act]
+    h = (fn(proj(t["w_gate"], t.get("s_gate"), t["b_gate"])) * u if gated
+         else fn(u))
+    mag = torch.einsum("mnf,nfo->mno", h.abs(), t["w_down"].float().abs())
+    if quant:
+        mag = mag * t["s_down"]
+    mag = mag.reshape(want.shape).numpy()
+    lim = 2.0 ** -15 * mag + 1e-5 * np.abs(want) + 1e-6
+    assert (np.abs(got.numpy() - want) <= lim).all()
+    once = torch.einsum("mnf,nfo->mno", h.bfloat16().float(),
+                        t["w_down"].float())
+    if quant:
+        once = once * t["s_down"]
+    once = (once.reshape(want.shape) + t["b_down"]).numpy()
+    assert not (np.abs(once - want) <= lim).all()
 
 
 # ------------------------------------------------------- masks and specs

@@ -70,6 +70,40 @@ def test_bdmm_plain_matches_jax(quant, m, small_m, act):
     np.testing.assert_allclose(got, np.asarray(kern), atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 5, 32])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_bdmm_split_k_order_matches_jax_decode_kernel(quant, m, dtype):
+    """The decode grid's order (``ref.bdmm_split_ref``: the K ranges of the
+    plan's splits reduced in f32, added in split order, then scale, bias,
+    silu and one cast) against the Pallas decode kernel in interpret mode
+    (``small_m=True``, full K a step), at both dtypes, with the splits the
+    bf16 plan gives: bi 600 splits into 256, 256 and 88 rows. Tolerance: at float32 ATOL / RTOL (the sums differ in order only);
+    at bf16 one rounding step of the output (2^-7 relative), since both
+    round the same f32 sum once."""
+    x, w, s, b = _bdmm_case(m, quant, seed=11 + m, bi=600)
+    nb, bi, bo = w.shape
+    tdt = getattr(torch, dtype)
+    plan = tbdmm.plan(m, nb, bi, bo, torch.bfloat16,
+                      torch.int8 if quant else torch.bfloat16)
+    assert plan.route == "decode_tc" and (plan.split, plan.k_chunk) == (3, 256)
+    xt = _t(x).to(tdt)
+    wt = _t(w) if quant else _t(w).to(tdt)
+    got = tref.bdmm_split_ref(xt, wt, _t(b), None if s is None else _t(s),
+                              "silu", plan.k_chunk)
+    assert got.dtype == tdt
+    xj = jnp.asarray(x, dtype=dtype)
+    wj = jnp.asarray(w) if quant else jnp.asarray(w, dtype=dtype)
+    kern = jbdmm.bdmm(xj, wj, jnp.asarray(b), None if s is None else jnp.asarray(s),
+                      activation="silu", interpret=True, small_m=True)
+    want = np.asarray(kern.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=1e-6,
+                                   rtol=2 ** -7)
+
+
 def test_bdmm_int8_epilogue_order():
     """int8 epilogue at bf16: raw int products accumulated in f32 (bf16 x
     int8 products are exact there), then scale, then bias, then silu, then
