@@ -106,6 +106,9 @@ class Case:
         if kind == "prefill":
             Tc, start, clen = PREFILL
             self.B, self.T, self.start, self.clen = 1, Tc, start, clen
+            # the kernel reads (start, chunk_len) from the device
+            self.info = torch.tensor([start, clen], dtype=torch.int32,
+                                     device=dev)
             depths = [start + clen]
         else:
             lengths = DECODE_LENGTHS if kind == "decode" else VERIFY_LENGTHS
@@ -146,8 +149,8 @@ class Case:
                     part.data_ptr(), self.B, TQ, self.plan.q_tile, self.P,
                     self.n_pages, PS, H, KH, DH, *tail, stages, stream)
         else:
-            args = (*common, self.out.data_ptr(), part.data_ptr(), self.T,
-                    self.plan.q_tile, self.start, self.clen, self.P,
+            args = (*common, self.info.data_ptr(), self.out.data_ptr(),
+                    part.data_ptr(), self.T, self.plan.q_tile, self.P,
                     self.n_pages, PS, H, KH, DH, *tail, stages, stream)
         code = fn(*args)
         if code:
@@ -160,7 +163,7 @@ class Case:
             return pa.paged_attention_verify(self.q, self.kp, self.vp, self.bt,
                                              self.ln)
         return pp.paged_prefill_attention(self.q, self.kp, self.vp, self.bt[0],
-                                          self.start, self.clen)
+                                          self.info[0], self.info[1])
 
     def plain(self, f32=False):
         q, kp, vp = ((t.float() for t in (self.q, self.kp, self.vp)) if f32

@@ -41,20 +41,29 @@ Phases, each printed as one JSON line:
    50304, every projection packed with mpd_c=8 and quantized to int8, bf16)
    served by the paged engine: 4 slots, page 16, prefill chunk 64, 8
    requests of 256-512 prompt tokens with a 128-token shared prefix and
-   16-32 new tokens. Launch counters are reset just before and read just
-   after; every kernel must have launched, every attention call on the
-   tensor-core body, and the profiled decode window must count the
-   attention combine kernel in its family.
+   16-32 new tokens. The engine captures every program (decode step,
+   prefill chunk final and not) at every width rung as a CUDA graph first
+   (``warmup()``: its seconds and graph-pool bytes are reported) and serves
+   by replays, capturing nothing more. Launch counters are reset just
+   before and read just after; every kernel must have launched, every
+   attention call on the tensor-core body, and the profiled decode window
+   must count the attention combine kernel in its family. Then the same
+   traffic, every request arriving at once, in turns of an eager engine
+   (``graphs=False``) and a captured one (eager, captured, captured,
+   eager): all four greedy streams identical, the captured turns' launch
+   counts and route tallies equal to the eager turns'; per turn the step
+   and chunk p50s, TTFT, e2e, tok/s and a profiled decode window.
 5. ``exact`` — the same configuration in float32, served once through the
-   kernels and once with ``ops.set_backend("torch")`` (plain versions on
-   the card) on the same requests: the greedy streams must be identical.
+   kernels (captured) and once with ``ops.set_backend("torch")`` (plain
+   versions on the card, eager) on the same requests: the greedy streams
+   must be identical.
 6. ``exact_spec`` — phase 5's model and requests with speculative decoding
    (k = 4), the draft perfect (the target itself) or skewed (seed 7),
-   through the kernels and through the plain versions: every greedy stream
-   equals phase 5's kernel-route stream; acceptance > 0.9 with the perfect
-   draft and < 1 with the skewed one; verify launches 16 x verify calls on
-   the kernel route and no launch on the plain route; both page pools
-   conserved at drain.
+   through the kernels (captured) and through the plain versions (eager):
+   every greedy stream equals phase 5's kernel-route stream; acceptance >
+   0.9 with the perfect draft and < 1 with the skewed one; verify launches
+   16 x verify calls on the kernel route and no launch on the plain route;
+   both page pools conserved at drain.
 7. ``train`` — olmo-1b at its published widths in ``masked_dense`` mode
    (the paper-faithful training of Algorithm 1: dense bf16 weights under
    permuted block masks, mpd_c=8), random init from seed 0, ``SyntheticLM``
@@ -90,10 +99,11 @@ Phases, each printed as one JSON line:
    launched in the spec turns, both pools conserved; decode tok/s, TTFT,
    e2e, tokens per step, acceptance, the decode step and how many greedy
    streams equal the non-spec ones per turn; then profiled windows of
-   non-spec and spec steps.
+   non-spec and spec steps; then phase 4's eager and captured turns with
+   the spec engine.
 12. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
-   streams through the kernels (fused_ffn on every FFN) and through the
-   plain versions must be identical.
+   streams through the kernels (fused_ffn on every FFN, captured) and
+   through the plain versions (eager) must be identical.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -583,7 +593,11 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
         last = int(bt[n_live - 1])
         kpp[last, (depth - 1) % ps + 1:] = float("nan")
         vpp[last, (depth - 1) % ps + 1:] = float("nan")
-        run = lambda: pk.paged_prefill_attention(q, kpp, vpp, bt, start, clen)
+        # start and chunk_len reach the kernel as the device pair the
+        # engine's captured chunks pass (two adjacent int32 scalars)
+        info = torch.tensor([start, clen], dtype=torch.int32, device=dev)
+        run = lambda: pk.paged_prefill_attention(q, kpp, vpp, bt,  # noqa: E731
+                                                 info[0], info[1])
         got, used = run_routed(run, pa.routes)
         ok, err, ratio, tol, rejects = attn_check(torch, got, plain32,
                                                   dropped, dt)
@@ -1106,32 +1120,38 @@ SERVE_TRAFFIC = dict(n_requests=8, rate=16.0, prompt_len=512, gen=32, seed=0,
                      shared_prefix=128)
 # Every request stream and the training stream share seed 0, so the call
 # draws one SyntheticLM transition table (~5 GB at vocab 50304, 17-27 s).
-# Warm-up traffic: first-call costs stay out of the measured runs.
-WARM_TRAFFIC = dict(n_requests=2, rate=1e9, prompt_len=128, gen=4, seed=0)
 
 
-def instrument(torch, model):
-    """Wrap ``model.decode_step`` and ``model.prefill_chunk`` (delete the
-    instance attributes to undo): host ms of each call on a synchronised
-    clock, and the number of calls that ran the unembed (every decode step
-    and the final chunk of each prefill)."""
-    calls = {"decode": [], "prefill": [], "unembed": 0}
+def program_calls(engine):
+    """The engine's model calls as a serve phase reads them: host ms of
+    every decode step and every prefill chunk (runs of the decode and chunk
+    programs, eager calls or graph replays, on a synchronised clock: set
+    ``engine.time_programs`` before serving), and the number of calls that
+    ran the unembed (every decode step and the final chunk of each
+    prefill)."""
+    ms, runs = engine.run_ms, engine.runs
+    return {"decode": list(ms["decode"]),
+            "prefill": ms["chunk"] + ms["chunk_final"],
+            "unembed": runs["decode"] + runs["chunk_final"]}
 
-    def wrap(name, key):
-        fn = getattr(model, name)
 
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            calls[key].append((time.perf_counter() - t) * 1e3)
-            calls["unembed"] += out[0] is not None
-            return out
-        setattr(model, name, wrapper)
-    wrap("decode_step", "decode")
-    wrap("prefill_chunk", "prefill")
-    return calls
+def warm_engine(torch, engine):
+    """``engine.warmup()`` (every program captured at every width rung):
+    its seconds, the bytes the graphs' memory pools added to the reserved
+    device memory, and the graphs captured."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()            # each capture empties the cache too
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return {"warmup_s": seconds,
+            "graph_pool_bytes": torch.cuda.memory_reserved() - reserved,
+            "graphs_captured": engine.n_captures}
 
 
 def bdmm_per_call(launches, calls) -> float:
@@ -1150,24 +1170,26 @@ def serve_phase(torch, dev, ops):
     cfg, model, params, report = olmo_engine(torch, dev, "bfloat16")
     setup_s = time.perf_counter() - t0
     kw = SERVE_ENGINE
-    # warm-up: first-call costs (library loads, allocator growth) stay out
-    # of the measured run
-    warm = Engine(model, params, **kw)
-    warm.run(make_requests(cfg, **WARM_TRAFFIC))
-    del warm
-
+    # warm-up: every program captured at every width rung before the
+    # measured run (the first-call costs land there)
     engine = Engine(model, params, **kw)
+    warm = warm_engine(torch, engine)
     reqs = make_requests(cfg, **SERVE_TRAFFIC)
-    calls = instrument(torch, model)
+    engine.time_programs = True
     ops.reset_launch_counts()
     summary = serve_stream(engine, reqs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     attn_routes = dict(pa.routes)
-    del model.decode_step, model.prefill_chunk
+    calls = program_calls(engine)
+    captured_serving = engine.n_captures - warm["graphs_captured"]
+    prefill_tokens = (engine.n_prefill_tokens, engine.n_prefill_tokens_skipped)
+    del engine
 
     # where a steady decode step's time goes, from the profiler
     window = decode_window(torch, model, params, kw, cfg)
+    # the same traffic eager and captured, in turns
+    turns = graph_turns(torch, model, params, kw, cfg)
 
     done = summary["n_done"] == len(reqs) and all(
         len(r.generated) == r.max_new_tokens
@@ -1176,7 +1198,8 @@ def serve_phase(torch, dev, ops):
     bodies = (attn_routes["split_tc"] == launches["paged_prefill_attention"]
               + launches["paged_attention"] and attn_routes["split_kv"] == 0)
     ok = (done and all(launches[k] > 0 for k in SERVING_KERNELS) and bodies
-          and window["combine_in_family"] is not False)
+          and window["combine_in_family"] is not False
+          and captured_serving == 0 and turns["ok"])
     row = {"phase": "serve", "ok": ok, "config": {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "vocab": cfg.vocab, "mpd_c": cfg.mpd_c, "weights": "int8",
@@ -1185,8 +1208,8 @@ def serve_phase(torch, dev, ops):
         "requests_done": summary["n_done"], "requests": len(reqs),
         "prompt_tokens": [len(r.prompt) for r in reqs],
         "new_tokens": [len(r.generated) for r in reqs],
-        "prefill_tokens_computed": engine.n_prefill_tokens,
-        "prefill_tokens_reused": engine.n_prefill_tokens_skipped,
+        "prefill_tokens_computed": prefill_tokens[0],
+        "prefill_tokens_reused": prefill_tokens[1],
         "tok_s": summary["agg_tok_s"], "elapsed_s": summary["elapsed_s"],
         "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
         "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
@@ -1202,6 +1225,8 @@ def serve_phase(torch, dev, ops):
         "decode_window": window,
         "occupancy_mean": summary["occupancy_mean"],
         "kv_bytes_allocated_peak": summary["kv_bytes_allocated_peak"],
+        **warm, "graphs_captured_while_serving": captured_serving,
+        "graph_turns": turns,
         "launches": launches}
     emit(row)
     return row
@@ -1233,51 +1258,170 @@ def device_families(torch, prof, n):
     return {k: v / n for k, v in families.items()}, sum(families.values()), combines
 
 
-def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None):
+def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
+                  graphs=None, profile_prefill=True):
     """Where a steady decode step's time goes: ``n_steps`` decode steps
     (speculative steps with ``spec_draft``) of 4 live slots at the serve
     phase's context depths (~250-540 tokens), under torch.profiler; the
-    prefill of those 4 requests (64-token chunks) is profiled on its way.
-    Returns wall ms per step, device kernel ms per step (per prefill chunk)
-    by kernel family, and the device's busy share; the device entries are
-    None when the profiler records no device activity."""
+    prefill of those 4 requests (64-token chunks) is profiled on its way
+    (with ``profile_prefill``). The engine captures its programs
+    (``graphs``, the engine's argument) before the profile, so the profile
+    holds replays and no capture. Returns wall ms per step, device kernel
+    ms per step (per prefill chunk) by kernel family, and the device's busy
+    share; then the wall of ``n_steps`` more steps without the profiler
+    (whose recording of every host op slows the host, not the device) and
+    the busy share against it. The device entries are None when the
+    profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Engine
 
-    eng = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K, **kw)
+    t_start = time.perf_counter()
+    eng = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K,
+                 graphs=graphs, **kw)
+    eng.warmup()
     for r in make_requests(cfg, n_requests=4, rate=1e9, prompt_len=448,
                            gen=32, seed=0, shared_prefix=128):
         r.max_new_tokens = 96           # every slot stays live in the window
         eng.submit(r)
     chunks0 = eng.n_prefill_chunks
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prefill = None
+    if profile_prefill:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            while eng._prefill_queue or eng.scheduler.waiting:
+                eng.step()
+            torch.cuda.synchronize()
+        prefill, prefill_ms, _ = device_families(
+            torch, prof, max(eng.n_prefill_chunks - chunks0, 1))
+        prefill = prefill if prefill_ms > 0 else None
+    else:
         while eng._prefill_queue or eng.scheduler.waiting:
             eng.step()
         torch.cuda.synchronize()
     chunks = eng.n_prefill_chunks - chunks0
-    prefill, prefill_ms, _ = device_families(torch, prof, max(chunks, 1))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def steps():
+        live = 0
         t0 = time.perf_counter()
         for _ in range(n_steps):
+            live += int(eng._live.sum())
             eng.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        return (time.perf_counter() - t0) * 1e3 / n_steps, live / n_steps
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, live = steps()
     families, busy, combines = device_families(torch, prof, n_steps)
     device_ms = busy / n_steps
+    plain_wall_ms, plain_live = steps()
+    on = device_ms > 0
     return {"steps": n_steps, "wall_ms_per_step": wall_ms,
-            "device_ms_per_step": families if device_ms > 0 else None,
-            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+            "live_rows_per_step": live,
+            "device_ms_per_step": families if on else None,
+            "device_ms_per_step_total": device_ms if on else None,
+            "device_busy_share": device_ms / wall_ms if on else None,
+            "wall_ms_per_step_unprofiled": plain_wall_ms,
+            "live_rows_per_step_unprofiled": plain_live,
+            "device_busy_share_unprofiled":
+                device_ms / plain_wall_ms if on else None,
             "combine_launches": combines["seen"],
             "combine_in_family": (combines["seen"] > 0
                                   and combines["in_other"] == 0)
-            if device_ms > 0 else None,
+            if on else None,
             # the steps that ran the 4 prompts' chunks (some also decode
             # the slots already live)
             "prefill_chunks": chunks,
-            "prefill_device_ms_per_chunk": prefill if prefill_ms > 0 else None}
+            "prefill_device_ms_per_chunk": prefill,
+            "seconds": time.perf_counter() - t_start}
+
+
+def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
+    """The serve traffic served by eager and captured engines in turns
+    (eager, captured, captured, eager; speculative with ``spec_draft``).
+    Every request arrives at once, so the schedule, and with it every
+    launch count, does not depend on how fast the host is. Per turn: the
+    engine step's and the programs' p50 ms (synchronised clock), TTFT and
+    e2e p50/p95, tok/s, a profiled decode window and, captured, the
+    warmup's seconds and graph-pool bytes. ``ok``: the four turns' greedy
+    streams are identical and the captured turns' launch counts and route
+    tallies equal the eager turns'."""
+    import gc
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_requests, serve_stream
+    from repro_torch.serve import Engine
+
+    traffic = dict(SERVE_TRAFFIC, rate=1e9)
+    turns, streams, tallies = [], [], []
+    for graphs in (False, None, None, False):
+        t_turn = time.perf_counter()
+        engine = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K,
+                        graphs=graphs, **kw)
+        warm = warm_engine(torch, engine) if graphs is None else {}
+        reqs = make_requests(cfg, **traffic)
+        engine.time_programs = True
+        steps = instrument_steps(torch, engine)
+        ops.reset_launch_counts()
+        summary = serve_stream(engine, reqs)
+        torch.cuda.synchronize()
+        tallies.append([dict(d) for d in ops.counters()])
+        streams.append({r.id: list(r.generated) for r in reqs})
+        calls = program_calls(engine)
+        runs = dict(engine.runs)
+        draft_ms = engine.run_ms["draft_decode"]
+        verify_ms = engine.run_ms["verify"]
+        done = summary["n_done"] == len(reqs)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        window = decode_window(torch, model, params, kw, cfg,
+                               n_steps=8 if spec_draft else 16,
+                               spec_draft=spec_draft, graphs=graphs,
+                               profile_prefill=False)
+        turn = {"route": "eager" if graphs is False else "captured",
+                "requests_done": summary["n_done"],
+                "step_ms_p50": statistics.median(steps["step"]),
+                "decode_steps": len(steps["step"]),
+                "prefill_chunk_ms_p50": statistics.median(calls["prefill"]),
+                "prefill_chunks": len(calls["prefill"]),
+                "tok_s": summary["agg_tok_s"],
+                "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
+                "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
+                "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
+                "e2e_p95_ms": summary["e2e_p95_s"] * 1e3,
+                "program_runs": runs,
+                "window_wall_ms_per_step": window["wall_ms_per_step"],
+                "window_device_ms_per_step":
+                    window["device_ms_per_step_total"],
+                "window_busy_share": window["device_busy_share"],
+                "window_wall_ms_per_step_unprofiled":
+                    window["wall_ms_per_step_unprofiled"],
+                "window_busy_share_unprofiled":
+                    window["device_busy_share_unprofiled"],
+                "window_live_rows": window["live_rows_per_step"],
+                "window_device_ms_by_family": window["device_ms_per_step"],
+                **warm}
+        if spec_draft is None:
+            turn["decode_program_ms_p50"] = statistics.median(calls["decode"])
+        else:
+            turn["draft_decode_program_ms_p50"] = statistics.median(draft_ms)
+            turn["verify_program_ms_p50"] = statistics.median(verify_ms)
+            turn["tokens_per_step_mean"] = summary["tokens_per_step_mean"]
+        turn["ok"] = done
+        turn["seconds"] = time.perf_counter() - t_turn
+        turns.append(turn)
+    same_streams = all(st == streams[0] for st in streams)
+    same_counts = all(t == tallies[0] for t in tallies)
+    return {"ok": (same_streams and same_counts
+                   and all(t["ok"] for t in turns)),
+            "traffic": "serve traffic, every request arriving at t = 0",
+            "streams_identical": same_streams,
+            "launch_counts_and_routes_equal": same_counts,
+            "launches_per_turn": {k: v for d in tallies[0][:5]
+                                  for k, v in d.items()},
+            "turns": turns}
 
 
 EXACT_ENGINE = dict(n_slots=4, max_len=256 + 16, page_size=16,
@@ -1297,17 +1441,22 @@ def exact_phase(torch, dev, ops, fuse=False):
 
     over = dict(mpd_fuse=True, n_layers=EXACT_FUSED_LAYERS) if fuse else {}
     cfg, model, params, _ = olmo_engine(torch, dev, "float32", **over)
-    streams, counts = {}, {}
+    streams, counts, captures = {}, {}, {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
         ops.reset_launch_counts()
         try:
             reqs = make_requests(cfg, **EXACT_TRAFFIC)
-            streams[backend] = Engine(model, params, **EXACT_ENGINE).run(reqs)
+            # the kernel route captured, the plain route eager
+            engine = Engine(model, params, **EXACT_ENGINE,
+                            graphs=None if backend == "cuda" else False)
+            streams[backend] = engine.run(reqs)
         finally:
             ops.set_backend("cuda")
         torch.cuda.synchronize()
         counts[backend] = ops.launch_counts()
+        captures[backend] = engine.n_captures
+        del engine
     a, b = streams["cuda"], streams["torch"]
     diverge = []
     for rid in sorted(a):
@@ -1317,8 +1466,10 @@ def exact_phase(torch, dev, ops, fuse=False):
             diverge.append({"request": rid, "first_index": first})
     routes_ok = not fuse or (counts["cuda"]["fused_ffn"] > 0
                              and not any(counts["torch"].values()))
+    captured = captures["cuda"] > 0 and captures["torch"] == 0
     row = {"phase": "exact_fused" if fuse else "exact",
-           "ok": not diverge and routes_ok, "dtype": "float32",
+           "ok": not diverge and routes_ok and captured, "dtype": "float32",
+           "graphs_captured": captures,
            "weights": "int8", "n_layers": cfg.n_layers,
            "cut": f"{cfg.n_layers} of 16 layers", "requests": len(a),
            "tokens": sum(len(v) for v in a.values()),
@@ -1383,7 +1534,8 @@ def exact_spec_phase(torch, dev, ops, exact_run):
             ops.reset_launch_counts()
             try:
                 engine = Engine(model, params, spec_draft=draft,
-                                spec_k=SPEC_K, **EXACT_ENGINE)
+                                spec_k=SPEC_K, **EXACT_ENGINE,
+                                graphs=None if backend == "cuda" else False)
                 calls = instrument_steps(torch, engine)
                 streams[backend] = engine.run(make_requests(cfg,
                                                             **EXACT_TRAFFIC))
@@ -1396,6 +1548,7 @@ def exact_spec_phase(torch, dev, ops, exact_run):
                 "acceptance": s["draft_acceptance_rate"],
                 "tokens_per_step": s["tokens_per_step_mean"],
                 "verify_calls": calls["verify"], "launches": counts,
+                "graphs_captured": engine.n_captures,
                 "pools_conserved": pools_conserved(engine)}
         k_route, p_route = res["cuda"], res["torch"]
         diverge = [rid for rid in sorted(base)
@@ -1408,7 +1561,9 @@ def exact_spec_phase(torch, dev, ops, exact_run):
                        and not any(p_route["launches"].values()))
         draft_ok = (not diverge and acc_ok and launches_ok
                     and k_route["pools_conserved"]
-                    and p_route["pools_conserved"])
+                    and p_route["pools_conserved"]
+                    and k_route["graphs_captured"] > 0
+                    and p_route["graphs_captured"] == 0)
         ok = ok and draft_ok
         out[name] = {"ok": draft_ok, "diverging_requests": diverge,
                      "acceptance_ok": acc_ok, "launches_ok": launches_ok,
@@ -1432,16 +1587,15 @@ def spec_phase(torch, dev, ops, target, draft):
 
     model, params = target
     cfg = model.cfg
-    for spec in (None, draft):          # warm-up of both routes
-        Engine(model, params, spec_draft=spec, spec_k=SPEC_K,
-               **SERVE_ENGINE).run(make_requests(cfg, **dict(WARM_TRAFFIC,
-                                                             gen=8)))
     turns, streams, ok = [], {}, True
     launches = {}
     for route in ("plain_decode", "spec", "spec", "plain_decode"):
+        t_turn = time.perf_counter()
         engine = Engine(model, params,
                         spec_draft=draft if route == "spec" else None,
                         spec_k=SPEC_K, **SERVE_ENGINE)
+        # every program captured first: the first-call costs land there
+        warm = warm_engine(torch, engine)
         reqs = make_requests(cfg, **SERVE_TRAFFIC)
         calls = instrument_steps(torch, engine)
         ops.reset_launch_counts()
@@ -1469,7 +1623,9 @@ def spec_phase(torch, dev, ops, target, draft):
                 "decode_steps": len(calls["step"]),
                 "decode_step_ms_p50": statistics.median(calls["step"]),
                 "prefill_tokens_reused": engine.n_prefill_tokens_skipped,
-                "pools_conserved": pools_conserved(engine),
+                "pools_conserved": pools_conserved(engine), **warm,
+                "graphs_captured_while_serving":
+                    engine.n_captures - warm["graphs_captured"],
                 "launches": counts, "mm_routes": routes,
                 "attention_routes": attn_routes}
         # the bf16 target's rows (decode 4, verify 20, prefill chunks of
@@ -1477,6 +1633,7 @@ def spec_phase(torch, dev, ops, target, draft):
         # every attention call of the target and the draft (prefill chunks,
         # decode steps, verify windows) the tensor-core attention body
         turn_ok = (done and turn["pools_conserved"]
+                   and turn["graphs_captured_while_serving"] == 0
                    and routes["tc_small_m"] > 0 and routes["simt_f32"] == 0
                    and attn_routes["split_tc"] == sum(counts[k] for k in (
                        "paged_prefill_attention", "paged_attention",
@@ -1496,6 +1653,7 @@ def spec_phase(torch, dev, ops, target, draft):
         else:
             streams.setdefault(route, got)
         turn["ok"] = turn_ok
+        turn["seconds"] = time.perf_counter() - t_turn
         ok = ok and turn_ok
         turns.append(turn)
     windows = {"decode": decode_window(torch, model, params, SERVE_ENGINE,
@@ -1504,13 +1662,18 @@ def spec_phase(torch, dev, ops, target, draft):
                                      spec_draft=draft, n_steps=8)}
     ok = ok and all(w["combine_in_family"] is not False
                     for w in windows.values())
+    # the spec traffic eager and captured, in turns
+    spec_turns = graph_turns(torch, model, params, SERVE_ENGINE, cfg,
+                             spec_draft=draft)
+    ok = ok and spec_turns["ok"]
     row = {"phase": "spec", "ok": ok, "config": {
         "target": f"{cfg.name} masked_dense + mpd_fuse, bf16, 1 AdamW step "
                   "(fused_deploy)", "draft": "its perm-fused int8 fold, "
                   "loaded from the exported artifact",
         "spec_k": SPEC_K, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "vocab": cfg.vocab, **SERVE_ENGINE},
-        "turns": turns, "windows": windows, "launches": launches}
+        "turns": turns, "windows": windows, "graph_turns": spec_turns,
+        "launches": launches}
     emit(row)
     return row
 
@@ -1576,17 +1739,17 @@ def fused_deploy_phase(torch, dev, ops, data, served):
     fused = all(b["ffn"].fused_packed() for b in served_model.block_specs)
     torch.cuda.empty_cache()
 
-    warm = Engine(served_model, params, **SERVE_ENGINE)
-    warm.run(make_requests(served_model.cfg, **WARM_TRAFFIC))
-    del warm
     engine = Engine(served_model, params, **SERVE_ENGINE)
+    warm = warm_engine(torch, engine)
     reqs = make_requests(served_model.cfg, **SERVE_TRAFFIC)
-    calls = instrument(torch, served_model)
+    engine.time_programs = True
     ops.reset_launch_counts()
     summary = serve_stream(engine, reqs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    del served_model.decode_step, served_model.prefill_chunk
+    calls = program_calls(engine)
+    captured_serving = engine.n_captures - warm["graphs_captured"]
+    del engine
     n_calls = len(calls["decode"]) + len(calls["prefill"])
     layers = served_model.cfg.n_layers
     turns = route_turns(torch, dev, served_model, params)
@@ -1600,7 +1763,8 @@ def fused_deploy_phase(torch, dev, ops, data, served):
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
     ok = identical and fused and done and launches_ok and math.isfinite(
-        loss) and all(launches[k] > 0 for k in SERVING_KERNELS)
+        loss) and all(launches[k] > 0 for k in SERVING_KERNELS) and (
+        captured_serving == 0)
     row = {"phase": "fused_deploy", "ok": ok, "config": {
         "arch": cfg.name, "n_layers": layers, "d_model": cfg.d_model,
         "d_ff": cfg.d_ff, "vocab": cfg.vocab, "mpd_c": cfg.mpd_c,
@@ -1627,7 +1791,8 @@ def fused_deploy_phase(torch, dev, ops, data, served):
         "bdmm_launches_per_call": per_call,
         "bdmm_launches_per_call_serve_phase":
             served["bdmm_launches_per_call"],
-        "launches_ok": launches_ok, "launches": launches,
+        "launches_ok": launches_ok, "launches": launches, **warm,
+        "graphs_captured_while_serving": captured_serving,
         "route_turns": turns, "decode_window": window}
     emit(row)
     return row, (model, trained), (served_model, params)
@@ -1648,11 +1813,13 @@ def route_turns(torch, dev, fused_model, fused_params):
     for route in ("unfused", "fused", "fused", "unfused"):
         model, params = pairs[route]
         engine = Engine(model, params, **SERVE_ENGINE)
-        calls = instrument(torch, model)
+        engine.warmup()
+        engine.time_programs = True
         summary = serve_stream(engine, make_requests(model.cfg,
                                                      **SERVE_TRAFFIC))
         torch.cuda.synchronize()
-        del model.decode_step, model.prefill_chunk
+        calls = program_calls(engine)
+        del engine
         turns.append({
             "route": route, "tok_s": summary["agg_tok_s"],
             "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,

@@ -83,12 +83,12 @@ struct SplitParams {
   const void* v_pages;
   const int* bt;        // (B, P) block tables, row-major
   const int* lengths;   // (B,) depth at the last token, or null: prefill
+  const int* info;      // prefill: (start, chunk_len) on the device
   float2* ml;           // (q rows, splits): running max and normaliser
   float* acc;           // (q rows, splits, dh): unnormalised output
   void* out;            // like q
   int n_tok, q_tile, n_splits, split_pages;
   int P, n_pages, ps, H, kh_n, dh;
-  int start, chunk_len;  // prefill: positions start .. start + chunk_len - 1
   int vec;               // widest copy every K/V/q row start is aligned to
   float scale;
 };
@@ -120,8 +120,8 @@ __device__ __forceinline__ Tile tile_of(const SplitParams& p) {
     t.depth = max(p.lengths[t.b], p.n_tok);
     t.pos0 = t.depth - p.n_tok;
   } else {
-    t.depth = p.start + p.chunk_len;
-    t.pos0 = p.start;
+    t.pos0 = p.info[0];  // positions start .. start + chunk_len - 1
+    t.depth = t.pos0 + p.info[1];
   }
   t.sp = p.split_pages * p.ps;
   t.base = t.split * t.sp;

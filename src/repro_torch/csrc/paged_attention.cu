@@ -54,11 +54,11 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages, const 
                                       void* stream) {
   cudaGetLastError();
   if (kh_n <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const SplitParams p{q, k_pages, v_pages, block_tables, lengths,
+  const SplitParams p{q, k_pages, v_pages, block_tables, lengths, /*info=*/nullptr,
                       reinterpret_cast<float2*>(scratch),
                       scratch + 2L * B * H * n_splits, out,
                       /*n_tok=*/1, /*q_tile=*/1, n_splits, split_pages, P, n_pages, page_size,
-                      H, kh_n, dh, 0, 0, vec, scale};
+                      H, kh_n, dh, vec, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return launch_split<__nv_bfloat16>(p, B, dtype, route, stages,

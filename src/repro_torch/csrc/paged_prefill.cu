@@ -45,25 +45,26 @@ __global__ void paged_prefill_kernel_combine(const SplitParams p) {
 
 using namespace repro_torch;
 
-// dtype: DT_F32 or DT_BF16 (q, pools and out share it); route:
-// ROUTE_SPLIT_TC (bf16) or ROUTE_SPLIT_KV; stages: STAGE_SPLIT |
+// info: (start, chunk_len), two int32 on the device, read by every block
+// (so a captured launch replays at any start and length, and the host
+// never reads them back). dtype: DT_F32 or DT_BF16 (q, pools and out share
+// it); route: ROUTE_SPLIT_TC (bf16) or ROUTE_SPLIT_KV; stages: STAGE_SPLIT |
 // STAGE_COMBINE. scratch: the f32 partials, Tc * H * n_splits * (2 + Dh)
 // floats (m and l pairs first). Returns cudaGetLastError() after the
 // launches (0 on success).
 extern "C" int paged_prefill_launch(const void* q, const void* k_pages, const void* v_pages,
-                                    const int* bt_row, void* out, float* scratch, int Tc,
-                                    int q_tile, int start, int chunk_len, int P, int n_pages,
+                                    const int* bt_row, const int* info, void* out,
+                                    float* scratch, int Tc, int q_tile, int P, int n_pages,
                                     int page_size, int H, int kh_n, int dh, int n_splits,
                                     int split_pages, int vec, float scale, int dtype,
                                     int route, int stages, void* stream) {
   cudaGetLastError();
-  if (kh_n <= 0 || H <= 0 || start + chunk_len < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SplitParams p{q, k_pages, v_pages, bt_row, nullptr,
+  if (kh_n <= 0 || H <= 0 || info == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitParams p{q, k_pages, v_pages, bt_row, nullptr, info,
                       reinterpret_cast<float2*>(scratch),
                       scratch + 2L * Tc * H * n_splits, out,
                       Tc, q_tile, n_splits, split_pages, P, n_pages, page_size, H, kh_n, dh,
-                      start, chunk_len, vec, scale};
+                      vec, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return launch_split<__nv_bfloat16>(p, 1, dtype, route, stages,

@@ -58,11 +58,11 @@ extern "C" int paged_verify_launch(const void* q, const void* k_pages, const voi
                                    int dtype, int route, int stages, void* stream) {
   cudaGetLastError();
   if (kh_n <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const SplitParams p{q, k_pages, v_pages, block_tables, lengths,
+  const SplitParams p{q, k_pages, v_pages, block_tables, lengths, /*info=*/nullptr,
                       reinterpret_cast<float2*>(scratch),
                       scratch + 2L * B * Tq * H * n_splits, out,
                       Tq, q_tile, n_splits, split_pages, P, n_pages, page_size, H, kh_n, dh,
-                      0, 0, vec, scale};
+                      vec, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return launch_split<__nv_bfloat16>(p, B, dtype, route, stages,

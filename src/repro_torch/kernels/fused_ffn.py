@@ -50,7 +50,11 @@ _counters: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
 def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 tickets of the SIMT body's split-f
     reduction on the current stream; the kernel leaves them zero, so one
-    buffer serves every launch on the stream."""
+    buffer serves every launch on the stream. A call being captured into a
+    CUDA graph gets tickets of its own, zeroed inside the graph (in the
+    graph's memory pool), never the buffer of the capture stream."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(max(n, 1), dtype=torch.int32, device=device)
     key = (device.index, _build.stream_ptr(device))
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:

@@ -29,7 +29,7 @@ The int8 and attention forms are inference-only.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -65,13 +65,22 @@ def launch_counts() -> Dict[str, int]:
     return out
 
 
+def counters() -> Tuple[Dict[str, int], ...]:
+    """Every counting dict the kernel wrappers add to: each kernel module's
+    ``launches`` and the tallies by route of bdmm, the fused MLP, the
+    masked matmul, the SDDMM and the paged attention kernels. A captured
+    CUDA graph (:mod:`repro_torch.serve.graphs`) adds its capture's share
+    to them on every replay."""
+    return (*(mod.launches for mod in _KERNEL_MODULES), bdmm_kernel.routes,
+            ffn_kernel.routes, mm_kernel.routes, mm_kernel.sddmm_routes,
+            paged_attn_kernel.routes)
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel's launch count (and the tallies by route of bdmm,
     the fused MLP, the masked matmul, the SDDMM and the paged attention
     kernels)."""
-    for counts in (*(mod.launches for mod in _KERNEL_MODULES),
-                   bdmm_kernel.routes, ffn_kernel.routes, mm_kernel.routes,
-                   mm_kernel.sddmm_routes, paged_attn_kernel.routes):
+    for counts in counters():
         for k in counts:
             counts[k] = 0
 
@@ -286,9 +295,10 @@ def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths):
 
 def paged_prefill_attention(q, k_pages, v_pages, bt_row, start, chunk_len):
     """Chunked-prefill attention for one request's ``(Tc, H, Dh)`` chunk
-    against its paged context (chunk K/V already in the pool)."""
+    against its paged context (chunk K/V already in the pool); ``start``
+    and ``chunk_len`` host integers or 0-d tensors on q's device."""
     if _plain(q, k_pages, v_pages, bt_row):
         return ref.paged_prefill_attention_ref(q, k_pages, v_pages, bt_row,
-                                               int(start), int(chunk_len))
+                                               start, chunk_len)
     return paged_prefill_kernel.paged_prefill_attention(
         q, k_pages, v_pages, bt_row, start, chunk_len)

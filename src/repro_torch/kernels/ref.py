@@ -229,7 +229,7 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths):
     valid = (torch.arange(P * page_size, device=q.device)[None, :]
              < lengths.to(q.device)[:, None])
     logits = torch.where(valid[:, None, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+                         torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(logits, dim=-1)
     # masked columns have p == 0 exactly; zeroing their V as well keeps a
     # stale NaN out of the sum (0 * NaN) and changes no finite result
@@ -265,7 +265,7 @@ def paged_attention_verify_ref(q, k_pages, v_pages, block_tables, lengths):
     per_q_len = lengths[:, None] - (Tq - 1 - torch.arange(Tq, device=dev))
     valid = kv_pos[None, None, :] < per_q_len[:, :, None]        # (B, Tq, S)
     logits = torch.where(valid[:, None, None], logits,
-                         torch.tensor(NEG_INF, device=dev))
+                         torch.full((), NEG_INF, device=dev))
     p = torch.softmax(logits, dim=-1)
     # positions past the row's depth: p == 0 and V zeroed (NaN-safe, as in
     # paged_attention_ref); inside the window V was just written
@@ -276,11 +276,13 @@ def paged_attention_verify_ref(q, k_pages, v_pages, block_tables, lengths):
     return o.reshape(B, Tq, H, Dh)
 
 
-def paged_prefill_attention_ref(q, k_pages, v_pages, bt_row, start: int,
-                                chunk_len: int):
+def paged_prefill_attention_ref(q, k_pages, v_pages, bt_row, start,
+                                chunk_len):
     """Chunked-prefill attention for ONE request's chunk against its paged
     context: query ``t`` (global position ``start + t``) attends to
-    ``kv_pos <= start + t`` and ``kv_pos < start + chunk_len``.
+    ``kv_pos <= start + t`` and ``kv_pos < start + chunk_len``. ``start``
+    and ``chunk_len`` are host integers or 0-d tensors on q's device (the
+    masks are built on the device; nothing is read back).
 
     ``q: (Tc, H, Dh)``; ``bt_row: (P,)``. The chunk's own K/V must already
     be scattered into the pool. Returns ``(Tc, H, Dh)``; rows past
@@ -299,7 +301,7 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, bt_row, start: int,
     dev = q.device
     q_pos = start + torch.arange(Tc, device=dev)
     kv_pos = torch.arange(S, device=dev)
-    neg = torch.tensor(NEG_INF, device=dev)
+    neg = torch.full((), NEG_INF, device=dev)
     cmask = q_pos[:, None] >= kv_pos[None, :]
     logits = torch.where(cmask[None, None, None], logits, neg)
     kv_valid = kv_pos < start + chunk_len
@@ -346,7 +348,7 @@ def paged_split_partials_ref(q, k_pages, v_pages, block_tables, horizon,
     g = H // n_kv
     q5 = q.reshape(B, T, n_kv, g, Dh)
     s = torch.einsum("btkgd,bskd->btkgs", q5, k).float() * Dh ** -0.5
-    neg = torch.tensor(float("-inf"), device=dev)
+    neg = torch.full((), float("-inf"), device=dev)
     s = torch.where(valid[:, :, None, None], s, neg)
     s = s.reshape(B, T, n_kv, g, n_s, sp)
     m = s.amax(dim=-1)

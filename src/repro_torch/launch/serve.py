@@ -215,6 +215,12 @@ def main(argv=None):
                     n_pages=args.pages or None,
                     prefill_chunk_tokens=args.prefill_chunk or None,
                     spec_draft=spec_draft, spec_k=args.spec_k)
+    t0 = time.perf_counter()
+    engine.warmup()
+    if engine.use_graphs:
+        log.info("captured %d CUDA graphs (every program at every width "
+                 "rung) in %.1f s", engine.n_captures,
+                 time.perf_counter() - t0)
     requests = make_requests(cfg, n_requests=args.requests, rate=args.rate,
                              prompt_len=args.prompt_len, gen=args.gen,
                              seed=args.seed, shared_prefix=args.shared_prefix)

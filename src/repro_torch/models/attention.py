@@ -238,14 +238,18 @@ def apply_verify_paged(spec: AttentionSpec, params, x, cache, block_tables,
 
 
 def prefill_chunk_paged(spec: AttentionSpec, params, x, cache, bt_row,
-                        slot: int, start: int, chunk_len: int):
+                        slot, start, chunk_len):
     """One page-aligned prefill chunk of a single request (batch 1).
 
     ``x: (1, Tc, D)`` with ``Tc`` a page multiple and ``start`` page-aligned;
-    ``chunk_len <= Tc`` real tokens. The chunk's K/V is scattered into its
-    pages — a padded tail reaching past the table goes to the null page, not
-    to a clamped index that would overwrite real K/V — then the chunk
-    attends over the request's whole cached context through
+    ``chunk_len <= Tc`` real tokens. ``slot``, ``start`` and ``chunk_len``
+    are host integers or 0-d integer tensors on x's device (as the
+    reference takes device scalars): positions, page ids and the ``pos``
+    write are computed from them on the device, with no host read, so a
+    captured chunk replays at any slot, start and length. The chunk's K/V
+    is scattered into its pages — a padded tail reaching past the table goes
+    to the null page, not to a clamped index that would overwrite real K/V —
+    then the chunk attends over the request's whole cached context through
     :func:`repro_torch.kernels.ops.paged_prefill_attention`.
     """
     from repro_torch.kernels import ops
@@ -271,5 +275,12 @@ def prefill_chunk_paged(spec: AttentionSpec, params, x, cache, bt_row,
     o = ops.paged_prefill_attention(q[0], kp, vp, bt_row, start, chunk_len)
     y = spec.wo.apply(params["wo"],
                       o.reshape(1, Tc, spec.n_heads * spec.head_dim))
-    cache["pos"][slot] = start + chunk_len
+    pos = cache["pos"]
+    depth = start + chunk_len
+    if torch.is_tensor(slot) or torch.is_tensor(depth):
+        pos.index_put_((torch.as_tensor(slot, device=dev).reshape(1).long(),),
+                       torch.as_tensor(depth, device=dev).reshape(1)
+                       .to(pos.dtype))
+    else:
+        pos[slot] = depth
     return y, cache

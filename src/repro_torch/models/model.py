@@ -317,14 +317,18 @@ class Model:
         x = layers.apply_norm(cfg.norm, params["final_norm"], x)
         return self.unembed.apply(params["unembed"], x), caches
 
-    def prefill_chunk(self, params, tokens, caches, bt_row, slot: int,
-                      start: int, chunk_len: int, final: bool = True):
+    def prefill_chunk(self, params, tokens, caches, bt_row, slot, start,
+                      chunk_len, final: bool = True):
         """One page-aligned chunk of a single request's prefill (batch 1).
 
-        ``tokens (1, Tc)`` with ``Tc`` a page multiple; ``start`` (host int,
-        page-aligned) is the chunk's global offset; ``chunk_len <= Tc`` real
-        tokens (the final chunk is right-padded). Returns ``(logits (1,
-        vocab) at the last real token, caches)`` on the final chunk and
+        ``tokens (1, Tc)`` with ``Tc`` a page multiple; ``start``
+        (page-aligned) is the chunk's global offset; ``chunk_len <= Tc``
+        real tokens (the final chunk is right-padded). ``slot``, ``start``
+        and ``chunk_len`` are host integers or 0-d integer tensors on the
+        device, as the reference's scalars are; from tensors every
+        position, page id, the ``pos`` write and the last real token's row
+        are computed on the device. ``final`` is static. Returns ``(logits
+        (1, vocab) at the last real token, caches)`` on the final chunk and
         ``(None, caches)`` otherwise (no final norm or unembed)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
@@ -341,7 +345,11 @@ class Model:
         if not final:
             return None, caches
         x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-        x_last = x[:, max(chunk_len - 1, 0)]
+        if torch.is_tensor(chunk_len):
+            last = (chunk_len.to(x.device) - 1).clamp_min(0).reshape(1).long()
+            x_last = x.index_select(1, last)[:, 0]
+        else:
+            x_last = x[:, max(chunk_len - 1, 0)]
         return self.unembed.apply(params["unembed"], x_last), caches
 
     # ------------------------------------------------------------- accounting

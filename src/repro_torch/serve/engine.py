@@ -22,24 +22,40 @@ window in one :meth:`Model.verify_step`; acceptance advances each row by
 token-keyed prefix trie serves both pools. Greedy spec output is token for
 token the non-spec greedy output.
 
+Where the reference compiles one program per rung of the width ladder,
+the port captures one CUDA graph (:mod:`.graphs`) per (program, rung):
+the decode step, the draft's decode step, the verify window, the prefill
+chunk (final and not) and the draft's mirror chunk. Each reads static
+input buffers the engine fills before a replay (pending tokens, block
+tables, the live mask, accepted depths, the chunk's tokens and its slot,
+start and length as device scalars) and writes the page pools in place.
+A graph is captured on first use or by :meth:`Engine.warmup`, which
+captures the whole ladder, as the reference's ``warmup`` compiles it.
+Sampling stays eager between replays, with each request's generator on
+the host side: a speculative step is ``spec_k`` replays of the draft
+decode, each followed by ``propose_token``, then one verify replay.
+``graphs=False`` runs every program eagerly (what ``jax.disable_jit`` is
+to the reference); engines on the CPU always do.
+
 Greedy output is token-for-token what the reference engine produces on the
 same params and prompts. Not ported yet: the slot-dense engine,
 preemption, resilience (the fault sites, the degradation ladder and with
-it ``spec_suspended``), disaggregated handoff, ``warmup`` (PyTorch runs
-eagerly: there is nothing to compile ahead).
+it ``spec_suspended``), disaggregated handoff.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
-from typing import Deque, Dict, List, Optional, Sequence
+import time
+from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from . import sampling as sampling_lib
 from .cache import PagedCache, publish_prefix_shared, share_trie
+from .graphs import StepGraph
 from .metrics import ServeMetrics
 from .scheduler import Request, RequestState, Scheduler
 
@@ -50,16 +66,28 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+# the engine's programs (one graph each per width rung)
+PROGRAMS = ("decode", "draft_decode", "verify", "chunk", "chunk_final",
+            "draft_chunk")
+
+
 class Engine:
     """Paged continuous-batching engine around one model and its params.
     The device is the params' device. ``spec_draft=(model, params)`` turns
     on speculative decoding with ``spec_k`` proposals a step (the draft's
-    params on the same device)."""
+    params on the same device). ``graphs``: None captures the programs as
+    CUDA graphs on a CUDA device and runs them eagerly on the CPU; True
+    demands the graphs (a CPU device raises); False runs eagerly.
+
+    ``runs`` counts each program's runs (eager calls and replays);
+    with ``time_programs`` set, ``run_ms`` records each run's host ms on a
+    synchronised clock. ``n_captures`` counts the graphs captured."""
 
     def __init__(self, model, params, *, n_slots: int = 8, max_len: int = 128,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 spec_draft=None, spec_k: int = 4):
+                 spec_draft=None, spec_k: int = 4,
+                 graphs: Optional[bool] = None):
         cfg = model.cfg
         if not cfg.causal:
             raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
@@ -69,6 +97,12 @@ class Engine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.metrics = ServeMetrics()
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        elif graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device; the params "
+                             f"are on {self.device}")
+        self.use_graphs = bool(graphs)
 
         self.spec_k = int(spec_k)
         self.spec_active = False
@@ -99,7 +133,6 @@ class Engine:
                 n_pages=n_pages, device=self.device, slack_tokens=slack)
             # one token-keyed trie: draft and target hit a prefix as a unit
             share_trie([self.cache, self.draft_cache])
-            self._dbt_dev: Dict[int, torch.Tensor] = {}
         self.scheduler = Scheduler(n_slots, max_len, strict_buckets=False)
         ps = self.cache.page_size
         if prefill_chunk_tokens is None:
@@ -110,20 +143,43 @@ class Engine:
                 f"multiple of page_size({ps})")
         self.chunk_tokens = prefill_chunk_tokens
         self._prefill_queue: Deque[Request] = collections.deque()
-        self._bt_dev: Dict[int, torch.Tensor] = {}
         self.n_prefill_chunks = 0
         self.n_prefill_tokens = 0           # computed
         self.n_prefill_tokens_skipped = 0   # reused from the trie
 
         # per-slot sampling state: the pending token lives on the device,
         # the policy on the host
-        self._tokens = torch.zeros((n_slots,), dtype=torch.long,
-                                   device=self.device)
         self._temps = [0.0] * n_slots
         self._top_ks = [0] * n_slots
         self._gens: List[Optional[torch.Generator]] = [None] * n_slots
         self._live = np.zeros((n_slots,), bool)
-        self._live_dev: Optional[tuple] = None
+        self._live_sent: Optional[np.ndarray] = None
+
+        # the programs' static inputs: filled in place before a run, never
+        # rebound (a graph holds the addresses it was captured with);
+        # per-width tables and rows are made on first use
+        dev, B = self.device, n_slots
+        self._tokens = torch.zeros((B,), dtype=torch.long, device=dev)
+        self._live_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._chunk_toks = torch.zeros((1, self.chunk_tokens),
+                                       dtype=torch.long, device=dev)
+        # the chunk's slot, start and chunk_len, read as 0-d views
+        self._chunk_info = torch.zeros((3,), dtype=torch.int32, device=dev)
+        self._tables: Dict[Tuple[bool, int], torch.Tensor] = {}
+        self._tables_fresh: Dict[bool, Set[int]] = {False: set(),
+                                                    True: set()}
+        self._rows: Dict[Tuple[bool, int], torch.Tensor] = {}
+        if self.spec_active:
+            self._pos0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+            self._draft_in = torch.zeros((B,), dtype=torch.long, device=dev)
+            self._window = torch.zeros((B, self.spec_k + 1),
+                                       dtype=torch.long, device=dev)
+
+        self._graphs: Dict[Tuple[str, int], StepGraph] = {}
+        self.n_captures = 0
+        self.runs = {k: 0 for k in PROGRAMS}
+        self.run_ms: Dict[str, List[float]] = {k: [] for k in PROGRAMS}
+        self.time_programs = False
 
     # -------------------------------------------------------------- requests
     def submit(self, req: Request) -> None:
@@ -183,23 +239,22 @@ class Engine:
             ctx_pages = min(_next_pow2(self.cache.pages_for(pos + tc)),
                             self.cache.max_pages)
             final = pos + n_real >= plen
-            bt_row = torch.as_tensor(self.cache.block_tables[slot][:ctx_pages],
-                                     device=self.device)
-            toks_dev = torch.as_tensor(toks, device=self.device)
-            logits, _ = self.model.prefill_chunk(
-                self.params, toks_dev, self.cache.caches, bt_row, slot, pos,
-                n_real, final=final)
+            self._put(self._chunk_toks, toks)
+            self._put(self._chunk_info, np.array([slot, pos, n_real],
+                                                 np.int32))
+            self._put(self._row(ctx_pages),
+                      self.cache.block_tables[slot][:ctx_pages])
+            logits = self._run("chunk_final" if final else "chunk",
+                               ctx_pages)
             if self.spec_active:
                 # the draft's mirror of the chunk into its own pool; its
                 # logits are never sampled (the target samples), so no
                 # unembed
                 dc = self.draft_cache
                 dctx = min(_next_pow2(dc.pages_for(pos + tc)), dc.max_pages)
-                self.draft_model.prefill_chunk(
-                    self.draft_params, toks_dev, dc.caches,
-                    torch.as_tensor(dc.block_tables[slot][:dctx],
-                                    device=self.device),
-                    slot, pos, n_real, final=False)
+                self._put(self._row(dctx, draft=True),
+                          dc.block_tables[slot][:dctx])
+                self._run("draft_chunk", dctx)
             # the kernel reads only the pages at or below the causal horizon
             pages_read = min(self.cache.pages_for(pos + n_real), ctx_pages)
             self.metrics.on_prefill_kv_read(
@@ -225,29 +280,182 @@ class Engine:
                 self._emit(req, self._arm_slot(req, slot, logits[0]))
         return ran
 
+    # ------------------------------------------------ programs and inputs
+    @staticmethod
+    def _put(buf: torch.Tensor, host: np.ndarray) -> None:
+        """Copy host values into a static input buffer, in place (a small
+        host-to-device copy the host does not wait for)."""
+        buf.copy_(torch.from_numpy(np.ascontiguousarray(host)),
+                  non_blocking=True)
+
+    def _static(self, store: dict, key, shape) -> torch.Tensor:
+        """The int32 buffer ``store[key]``, made on first use."""
+        buf = store.get(key)
+        if buf is None:
+            buf = store[key] = torch.zeros(shape, dtype=torch.int32,
+                                           device=self.device)
+        return buf
+
+    def _row(self, width: int, draft: bool = False) -> torch.Tensor:
+        """The static block-table row of a prefill chunk ``width`` wide."""
+        return self._static(self._rows, (draft, width), (width,))
+
     def _live_mask_dev(self) -> torch.Tensor:
-        """Device copy of the liveness mask, re-uploaded only on change."""
-        if self._live_dev is None or not np.array_equal(self._live_dev[1],
-                                                        self._live):
-            self._live_dev = (torch.as_tensor(self._live, device=self.device),
-                              self._live.copy())
-        return self._live_dev[0]
+        """The static liveness mask, re-uploaded only on change."""
+        if self._live_sent is None or not np.array_equal(self._live_sent,
+                                                         self._live):
+            self._put(self._live_dev, self._live)
+            self._live_sent = self._live.copy()
+        return self._live_dev
 
     def _block_tables_dev(self, width: int, draft: bool = False
                           ) -> torch.Tensor:
-        """Device copy of the first ``width`` block-table columns of the
-        target's pool (the draft's with ``draft``), cached per width until
-        the host table changes."""
-        cache, memo = ((self.draft_cache, self._dbt_dev) if draft
-                       else (self.cache, self._bt_dev))
+        """The static copy of the first ``width`` block-table columns of the
+        target's pool (the draft's with ``draft``): one buffer per width,
+        refilled only when the host table has changed since."""
+        cache = self.draft_cache if draft else self.cache
+        fresh = self._tables_fresh[draft]
         if cache.dirty:
-            memo.clear()
+            fresh.clear()
             cache.dirty = False
-        if width not in memo:
-            memo[width] = torch.as_tensor(
-                np.ascontiguousarray(cache.block_tables[:, :width]),
-                device=self.device)
-        return memo[width]
+        buf = self._static(self._tables, (draft, width),
+                           (self.n_slots, width))
+        if width not in fresh:
+            self._put(buf, cache.block_tables[:, :width])
+            fresh.add(width)
+        return buf
+
+    def _program(self, kind: str, width: int):
+        """Program ``kind`` at ``width`` as a function of the static
+        inputs alone; returns its logits (None for a draft chunk)."""
+        m, p, caches = self.model, self.params, self.cache.caches
+        live = self._live_dev
+        if kind == "decode":
+            bt = self._block_tables_dev(width)
+            return lambda: m.decode_step(p, self._tokens, caches, bt,
+                                         live=live)[0]
+        slot, start, n = self._chunk_info.unbind(0)
+        if kind in ("chunk", "chunk_final"):
+            row = self._row(width)
+            return lambda: m.prefill_chunk(
+                p, self._chunk_toks, caches, row, slot, start, n,
+                final=kind == "chunk_final")[0]
+        dm, dp = self.draft_model, self.draft_params
+        dcaches = self.draft_cache.caches
+        if kind == "draft_decode":
+            bt = self._block_tables_dev(width, draft=True)
+            return lambda: dm.decode_step(dp, self._draft_in, dcaches, bt,
+                                          live=live)[0]
+        if kind == "draft_chunk":
+            row = self._row(width, draft=True)
+            return lambda: dm.prefill_chunk(dp, self._chunk_toks, dcaches,
+                                            row, slot, start, n,
+                                            final=False)[0]
+        assert kind == "verify", kind
+        bt = self._block_tables_dev(width)
+
+        def verify():
+            m.set_paged_pos(caches, self._pos0)
+            return m.verify_step(p, self._window, caches, bt, live=live)[0]
+        return verify
+
+    def _graph(self, kind: str, width: int) -> StepGraph:
+        """The captured graph of ``kind`` at ``width``; captured now if it
+        is not yet. The capture runs against null inputs (every block-table
+        entry the null page, no live row, a chunk of one token at slot 0),
+        so no real page is written, and puts back every static input and
+        both pools' ``pos`` afterwards: the engine's state is untouched."""
+        g = self._graphs.get((kind, width))
+        if g is not None:
+            return g
+        fn = self._program(kind, width)
+        draft = kind.startswith("draft")
+        if "chunk" in kind:
+            inputs = [self._row(width, draft)]
+        else:
+            inputs = [self._block_tables_dev(width, draft)]
+        inputs += [self._live_dev, self._chunk_info]
+        if self.spec_active:
+            inputs.append(self._pos0)
+        caches = self.cache.caches + (self.draft_cache.caches
+                                      if self.spec_active else [])
+        saved = [t.clone() for t in inputs
+                 + [c["pos"] for c in caches if "pos" in c]]
+        for t in inputs:
+            t.zero_()
+        self._chunk_info[2] = 1
+        try:
+            with torch.no_grad():
+                g = StepGraph(kind, width, fn, self.device)
+        finally:
+            for t, v in zip(inputs + [c["pos"] for c in caches
+                                      if "pos" in c], saved):
+                t.copy_(v)
+        self._graphs[(kind, width)] = g
+        self.n_captures += 1
+        return g
+
+    def _run(self, kind: str, width: int):
+        """One run of program ``kind`` at ``width``: a replay of its graph
+        (captured on first use) or an eager call."""
+        if self.time_programs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        if self.use_graphs:
+            out = self._graph(kind, width).replay()
+        else:
+            with torch.no_grad():
+                out = self._program(kind, width)()
+        if self.time_programs:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.run_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        self.runs[kind] += 1
+        return out
+
+    def decode_widths(self) -> List[int]:
+        """The active block-table widths paged decode can run at (the
+        power-of-two ladder, capped at ``max_pages``): one graph each of the
+        decode step (and in spec mode of the draft decode and the verify
+        window)."""
+        out, w = [], 1
+        while w < self.cache.max_pages:
+            out.append(w)
+            w *= 2
+        out.append(self.cache.max_pages)
+        return out
+
+    def prefill_widths(self) -> List[int]:
+        """The active block-table widths prefill chunks can run at: the
+        decode ladder truncated below the first chunk's width (a chunk
+        always attends over at least ``chunk_tokens`` of context, so the
+        narrower rungs never occur): one graph per rung per ``final``
+        variant (and in spec mode of the draft's mirror chunk)."""
+        w_min = min(_next_pow2(self.cache.pages_for(self.chunk_tokens)),
+                    self.cache.max_pages)
+        return [w for w in self.decode_widths() if w >= w_min]
+
+    def warmup(self) -> None:
+        """Capture every program at every width rung, so that serving never
+        pauses for a capture (the width grows with the deepest live
+        sequence): the decode step, or in spec mode the draft decode, the
+        verify window and the target's decode step, at every decode width;
+        the prefill chunk, final and not (and the draft's mirror in spec
+        mode), at every prefill width. Against the null page: no real page,
+        ``pos`` or pending token changes. Nothing to do for an eager engine
+        (``graphs=False``, the CPU)."""
+        if not self.use_graphs:
+            return
+        kinds = (("draft_decode", "verify", "decode") if self.spec_active
+                 else ("decode",))
+        for w in self.decode_widths():
+            for kind in kinds:
+                self._graph(kind, w)
+        chunks = ("chunk", "chunk_final") + (("draft_chunk",)
+                                             if self.spec_active else ())
+        for w in self.prefill_widths():
+            for kind in chunks:
+                self._graph(kind, w)
 
     def _emit(self, req: Request, tok: int) -> None:
         """Record one generated token; finish the request if it stops."""
@@ -321,11 +529,11 @@ class Engine:
             self.cache.ensure_decode_page(int(slot), wpos)
             needed = max(needed, self.cache.pages_used(int(slot), wpos + 1))
         width = min(_next_pow2(needed), self.cache.max_pages)
-        logits, _ = self.model.decode_step(
-            self.params, self._tokens, self.cache.caches,
-            self._block_tables_dev(width), live=self._live_mask_dev())
-        self._tokens = sampling_lib.sample(logits, self._temps, self._top_ks,
-                                           self._gens)
+        self._block_tables_dev(width)
+        self._live_mask_dev()
+        logits = self._run("decode", width)
+        self._tokens.copy_(sampling_lib.sample(logits, self._temps,
+                                               self._top_ks, self._gens))
         next_np = self._tokens.cpu().numpy()
 
         self.metrics.on_step(int(self._live.sum()), self.n_slots)
@@ -339,36 +547,39 @@ class Engine:
         return True
 
     # ------------------------------------------------- speculative decoding
-    def _propose(self, dbt, live, pos0):
-        """``spec_k`` draft decode steps from the accepted depth ``pos0``,
-        the pending token first, so the draft pool ends holding K/V for
-        window positions ``pos0 .. pos0+k-1``. Returns the proposals ``(B,
-        k)`` and the distributions ``q (B, k, V)`` they were drawn from."""
-        dm = self.draft_model
-        caches = dm.set_paged_pos(self.draft_cache.caches, pos0)
-        toks, seq_t, seq_q = self._tokens, [], []
+    def _propose(self, width: int):
+        """``spec_k`` draft decode steps from the accepted depth (the
+        static ``_pos0``), the pending token first, so the draft pool ends
+        holding K/V for window positions ``pos0 .. pos0+k-1``: ``spec_k``
+        runs of the draft decode program, each followed by
+        ``propose_token``. Returns the proposals ``(B, k)`` and the
+        distributions ``q (B, k, V)`` they were drawn from."""
+        self.draft_model.set_paged_pos(self.draft_cache.caches, self._pos0)
+        self._draft_in.copy_(self._tokens)
+        seq_t, seq_q = [], []
         for _ in range(self.spec_k):
-            logits, _ = dm.decode_step(self.draft_params, toks, caches, dbt,
-                                       live=live)
+            logits = self._run("draft_decode", width)
             toks, q = sampling_lib.propose_token(logits, self._temps,
                                                  self._top_ks, self._gens)
             seq_t.append(toks)
             seq_q.append(q)
+            self._draft_in.copy_(toks)
         return torch.stack(seq_t, dim=1), torch.stack(seq_q, dim=1)
 
-    def _verify(self, bt, live, pos0, draft_toks, draft_q):
+    def _verify(self, width: int, draft_toks, draft_q):
         """Score the window ``[pending, d_1 .. d_k]`` in one target pass
-        and accept. Returns ``(out (B, k+1), n_accepted (B,))`` and moves
-        each live slot's pending token to ``out[n_accepted]``."""
-        caches = self.model.set_paged_pos(self.cache.caches, pos0)
-        window = torch.cat([self._tokens[:, None], draft_toks], dim=1)
-        logits, _ = self.model.verify_step(self.params, window, caches, bt,
-                                           live=live)
+        (the verify program sets the accepted depth first) and accept.
+        Returns ``(out (B, k+1), n_accepted (B,))`` and moves each live
+        slot's pending token to ``out[n_accepted]``."""
+        self._window[:, 0].copy_(self._tokens)
+        self._window[:, 1:].copy_(draft_toks)
+        logits = self._run("verify", width)
         out, n_acc = sampling_lib.spec_accept(
             logits, draft_toks, draft_q, self._temps, self._top_ks,
             self._gens)
         new_tok = torch.gather(out, 1, n_acc[:, None])[:, 0]
-        self._tokens = torch.where(live, new_tok, self._tokens)
+        self._tokens.copy_(torch.where(self._live_dev, new_tok,
+                                       self._tokens))
         return out, n_acc
 
     def _step_spec(self) -> bool:
@@ -394,12 +605,12 @@ class Engine:
             needed = max(needed, self.cache.pages_used(int(slot),
                                                        wpos + k + 1))
         width = min(_next_pow2(needed), self.cache.max_pages)
-        live = self._live_mask_dev()
-        pos0_dev = torch.as_tensor(pos0, device=self.device)
-        draft_toks, draft_q = self._propose(
-            self._block_tables_dev(width, draft=True), live, pos0_dev)
-        out, n_acc = self._verify(self._block_tables_dev(width), live,
-                                  pos0_dev, draft_toks, draft_q)
+        self._live_mask_dev()
+        self._put(self._pos0, pos0)
+        self._block_tables_dev(width, draft=True)
+        self._block_tables_dev(width)
+        draft_toks, draft_q = self._propose(width)
+        out, n_acc = self._verify(width, draft_toks, draft_q)
         host = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
 
         self.metrics.on_step(int(self._live.sum()), self.n_slots)

@@ -847,6 +847,38 @@ def test_paged_prefill_at_served_starts(cuda_device, dtype, start, clen, Kh):
     assert not _attn_within(plain32(False, clen - 16), plain32, dtype)
 
 
+@pytest.mark.parametrize("start,clen", [(0, 50), (448, 21)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_reads_its_scalars_from_the_device(cuda_device, dtype,
+                                                        start, clen):
+    """start and chunk_len as host ints, as the device pair (two adjacent
+    int32 scalars, no copy) and as separate 0-d tensors give the same
+    output bit for bit; the pair's values change under one captured launch
+    without a new capture."""
+    q, kp, vp, bt, _ = _prefill_case(16, 16, 64, start, clen, 43, cuda_device,
+                                     dtype)
+    want = tpp.paged_prefill_attention(q, kp, vp, bt, start, clen)
+    info = torch.tensor([start, clen], dtype=torch.int32, device=cuda_device)
+    assert tpp.chunk_info(info[0], info[1], cuda_device).data_ptr() \
+        == info.data_ptr()
+    assert torch.equal(tpp.paged_prefill_attention(q, kp, vp, bt, info[0],
+                                                   info[1]), want)
+    sep = [torch.tensor(v, device=cuda_device) for v in (start, clen)]
+    assert torch.equal(tpp.paged_prefill_attention(q, kp, vp, bt, *sep), want)
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        tpp.paged_prefill_attention(q, kp, vp, bt, info[0], info[1])
+    torch.cuda.current_stream().wait_stream(s)
+    with torch.cuda.graph(g):
+        out = tpp.paged_prefill_attention(q, kp, vp, bt, info[0], info[1])
+    info.copy_(torch.tensor([start, clen - 5], dtype=torch.int32))
+    g.replay()
+    assert torch.equal(out, tpp.paged_prefill_attention(q, kp, vp, bt, start,
+                                                        clen - 5))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_route_tally(cuda_device, dtype):
     """All three kernels run the split-KV scheme, on the tensor-core body at
@@ -907,7 +939,7 @@ def test_spec_engine_kernel_route_equals_plain_and_non_spec(cuda_device):
         ops.reset_launch_counts()
         try:
             eng = Engine(model, params, spec_draft=(model, params), spec_k=3,
-                         **kw)
+                         graphs=None if backend == "cuda" else False, **kw)
             verifies = []
             fn = eng._verify
             eng._verify = lambda *a: (verifies.append(1), fn(*a))[1]
@@ -956,9 +988,10 @@ def test_engine_kernel_route_equals_plain_route(cuda_device):
             reqs = make_requests(cfg, n_requests=5, rate=1e9, prompt_len=40,
                                  gen=8, seed=3, shared_prefix=16)
             # chunks of 40 tokens take the general bdmm grid (m > 32)
-            streams[backend] = Engine(model, params, n_slots=2, max_len=48,
-                                      page_size=8,
-                                      prefill_chunk_tokens=40).run(reqs)
+            streams[backend] = Engine(
+                model, params, n_slots=2, max_len=48, page_size=8,
+                prefill_chunk_tokens=40,
+                graphs=None if backend == "cuda" else False).run(reqs)
         finally:
             ops.set_backend("cuda")
         counts = ops.launch_counts()
@@ -1135,25 +1168,216 @@ def test_fused_model_engine_kernel_route_equals_plain_route(cuda_device):
     cfg = get_config("olmo-1b", smoke=True, mpd_fuse=True)
     model = build(cfg)
     params, _ = quantize_packed(model, model.init(0, device=cuda_device))
-    calls = []
-    for name in ("decode_step", "prefill_chunk"):
-        fn = getattr(model, name)
-        setattr(model, name, lambda *a, fn=fn, **k: (calls.append(1),
-                                                     fn(*a, **k))[1])
     streams = {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
         ops.reset_launch_counts()
-        calls.clear()
         try:
             reqs = make_requests(cfg, n_requests=5, rate=1e9, prompt_len=40,
                                  gen=8, seed=3, shared_prefix=16)
-            streams[backend] = Engine(model, params, n_slots=2, max_len=48,
-                                      page_size=8,
-                                      prefill_chunk_tokens=40).run(reqs)
+            eng = Engine(model, params, n_slots=2, max_len=48, page_size=8,
+                         prefill_chunk_tokens=40,
+                         graphs=None if backend == "cuda" else False)
+            streams[backend] = eng.run(reqs)
         finally:
             ops.set_backend("cuda")
-        want = cfg.n_layers * len(calls) if backend == "cuda" else 0
-        assert ops.launch_counts()["fused_ffn"] == want
+        # model calls: the engine's program runs (eager calls or replays)
+        calls = sum(eng.runs.values())
+        want = cfg.n_layers * calls if backend == "cuda" else 0
+        assert calls > 0 and ops.launch_counts()["fused_ffn"] == want
     assert streams["cuda"] == streams["torch"]
 
+
+
+# ------------------------------------------------- captured serving steps
+GRAPH_KW = dict(n_slots=2, max_len=48, page_size=8, prefill_chunk_tokens=16)
+
+
+def _graph_model(dev, dtype):
+    from repro_torch.configs.common import get_config
+    from repro_torch.core.export import quantize_packed
+    from repro_torch.models import build
+
+    cfg = get_config("olmo-1b", smoke=True,
+                     dtype="float32" if dtype == torch.float32 else "bfloat16")
+    model = build(cfg)
+    params, _ = quantize_packed(model, model.init(0, device=dev))
+    return cfg, model, params
+
+
+def _graph_requests(cfg, n=5, seed=3):
+    from repro_torch.launch.serve import make_requests
+    return make_requests(cfg, n_requests=n, rate=1e9, prompt_len=40, gen=8,
+                         seed=seed, shared_prefix=16)
+
+
+def _graph_engine(dev, dtype, spec=True, graphs=None):
+    from repro_torch.serve import Engine
+    cfg, model, params = _graph_model(dev, dtype)
+    kw = dict(GRAPH_KW, graphs=graphs)
+    if spec:
+        kw.update(spec_draft=(model, params), spec_k=3)
+    return cfg, Engine(model, params, **kw)
+
+
+def _pools(eng):
+    caches = eng.cache.caches + (eng.draft_cache.caches if eng.spec_active
+                                 else [])
+    return [t for c in caches for t in c.values()]
+
+
+def _random_inputs(eng, kind, w, gen):
+    """Real-looking inputs for program ``kind`` at ``w``: tables and rows of
+    real pages, every row live, depths inside the table."""
+    dev, B, ps = eng.device, eng.n_slots, eng.cache.page_size
+    rand = lambda lo, hi, *shape: torch.randint(  # noqa: E731
+        lo, hi, shape, generator=gen, device=dev)
+    n_pages, vocab = eng.cache.n_pages, eng.model.cfg.vocab
+    # distinct pages: two writes to one page and offset land in no set order
+    pages = lambda n: torch.randperm(  # noqa: E731
+        n_pages - 1, generator=gen, device=dev)[:n].int() + 1
+    for draft in (False, True) if eng.spec_active else (False,):
+        eng._block_tables_dev(w, draft).copy_(pages(B * w).reshape(B, w))
+        eng._row(w, draft).copy_(pages(w))
+    eng._live_dev.fill_(True)
+    eng._tokens.copy_(rand(0, vocab, B))
+    if eng.spec_active:
+        k = eng.spec_k
+        eng._pos0.copy_(rand(0, max(w * ps - k, 1), B))
+        eng._draft_in.copy_(rand(0, vocab, B))
+        eng._window.copy_(rand(0, vocab, B, k + 1))
+    for t in _pools(eng):
+        if t.dim() == 2:                    # pos (n_periods, n_slots)
+            t.copy_(rand(0, w * ps, *t.shape))
+    tc = eng.chunk_tokens
+    start = ps * int(rand(0, max(w - tc // ps, 0) + 1, 1))
+    eng._chunk_info.copy_(torch.stack([rand(0, B, 1)[0],
+                                       torch.tensor(start, device=dev),
+                                       rand(1, tc + 1, 1)[0]]).int())
+
+
+def _replay_equals_eager(eng, kind, w):
+    pools = _pools(eng)
+    before = [t.clone() for t in pools]
+    with torch.no_grad():
+        want = eng._program(kind, w)()
+    want = None if want is None else want.clone()
+    eager = [t.clone() for t in pools]
+    for t, b in zip(pools, before):
+        t.copy_(b)
+    got = eng._graph(kind, w).replay()
+    torch.cuda.synchronize()
+    same = (got is None) == (want is None) and (
+        want is None or torch.equal(got, want))
+    return same and all(torch.equal(t, e) for t, e in zip(pools, eager))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_programs_equal_eager_calls_at_every_rung(cuda_device, dtype):
+    """Every program at every rung, replayed, gives the eager call's logits
+    and pools (K/V and pos) bit for bit, on inputs of real pages."""
+    cfg, eng = _graph_engine(cuda_device, dtype)
+    eng.run(_graph_requests(cfg))          # pools hold real K/V
+    eng.warmup()
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for w in eng.decode_widths():
+        for kind in ("decode", "draft_decode", "verify"):
+            _random_inputs(eng, kind, w, gen)
+            assert _replay_equals_eager(eng, kind, w), (kind, w)
+    for w in eng.prefill_widths():
+        for kind in ("chunk", "chunk_final", "draft_chunk"):
+            _random_inputs(eng, kind, w, gen)
+            assert _replay_equals_eager(eng, kind, w), (kind, w)
+
+
+def test_replay_reads_the_pools_as_they_are(cuda_device):
+    """A replay after the pools change computes on the new contents."""
+    cfg, eng = _graph_engine(cuda_device, torch.bfloat16, spec=False)
+    eng.run(_graph_requests(cfg))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    w = 4
+    _random_inputs(eng, "decode", w, gen)
+    pos = [c["pos"].clone() for c in eng.cache.caches]
+    first = eng._graph("decode", w).replay().clone()
+    for c, p in zip(eng.cache.caches, pos):
+        c["pos"].copy_(p)
+        c["kp"][1:].mul_(0.5)
+        c["vp"][1:].neg_()
+    assert _replay_equals_eager(eng, "decode", w)
+    for c, p in zip(eng.cache.caches, pos):
+        c["pos"].copy_(p)
+    assert not torch.equal(eng._graph("decode", w).replay(), first)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["decode", "spec"])
+def test_warmup_leaves_the_engine_state_untouched(cuda_device, spec):
+    """warmup() in the middle of serving (slots live, one mid-prefill)
+    changes no real page, no pos and no pending token, and the streams
+    stay those of an engine that never captured."""
+    cfg, eng = _graph_engine(cuda_device, torch.bfloat16, spec=spec)
+    _, eager = _graph_engine(cuda_device, torch.bfloat16, spec=spec,
+                             graphs=False)
+    streams, steps = [], 0
+    for e in (eng, eager):
+        reqs = _graph_requests(cfg, n=4, seed=5)
+        for r in reqs:
+            e.submit(r)
+        if e is eng:
+            while not (eng._prefill_queue and eng._live.any()):
+                eng.step()
+                steps += 1
+                assert steps < 50
+            state = [t.clone() for t in _pools(eng)] + [eng._tokens.clone()]
+            eng.warmup()
+            for a, b in zip(state, _pools(eng) + [eng._tokens]):
+                assert torch.equal(a[:, 1:], b[:, 1:]) if a.dim() == 5 \
+                    else torch.equal(a, b)
+        else:
+            for _ in range(steps):
+                e.step()
+        while e.has_work():
+            e.step()
+        streams.append({r.id: list(r.generated) for r in reqs})
+    assert streams[0] == streams[1]
+
+
+def _static_addresses(eng):
+    named = {"tokens": eng._tokens, "live": eng._live_dev,
+             "chunk_toks": eng._chunk_toks, "chunk_info": eng._chunk_info}
+    named.update({("table", *k): v for k, v in eng._tables.items()})
+    named.update({("row", *k): v for k, v in eng._rows.items()})
+    if eng.spec_active:
+        named.update(pos0=eng._pos0, draft_in=eng._draft_in,
+                     window=eng._window)
+    return {k: v.data_ptr() for k, v in named.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec", [False, True], ids=["decode", "spec"])
+def test_captured_serving_counts_equal_eager(cuda_device, spec, dtype):
+    """The same traffic served captured (after warmup) and eagerly: the
+    same streams, program runs, launch counts and route tallies; serving
+    captures nothing new, and params, pools and static inputs keep their
+    addresses."""
+    from repro_torch import tree as tree_lib
+    results = []
+    for graphs in (True, False):
+        cfg, eng = _graph_engine(cuda_device, dtype, spec=spec, graphs=graphs)
+        eng.warmup()
+        n = eng.n_captures
+        assert (n > 0) == graphs
+        held = lambda: [t.data_ptr() for t in (  # noqa: E731
+            *tree_lib.leaves(eng.params), *_pools(eng))]
+        addrs, statics = held(), _static_addresses(eng)
+        ops.reset_launch_counts()
+        streams = eng.run(_graph_requests(cfg, n=6, seed=7))
+        torch.cuda.synchronize()
+        assert eng.n_captures == n
+        assert held() == addrs
+        now = _static_addresses(eng)
+        assert {k: now[k] for k in statics} == statics
+        assert not graphs or now == statics
+        results.append((streams, dict(eng.runs),
+                        [dict(d) for d in ops.counters()]))
+    assert results[0] == results[1]
+    assert sum(results[0][2][0].values()) > 0
