@@ -104,6 +104,25 @@ Phases, each printed as one JSON line:
 12. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
    streams through the kernels (fused_ffn on every FFN, captured) and
    through the plain versions (eager) must be identical.
+13. ``paper`` — the paper's own experiments (benchmarks/torch_paper_repro.py):
+   LeNet-300-100 (800-300-100-10, float32) trained on TeacherStudent
+   batches of 50 for Table 1 (400 steps), Fig 4a (8 masks, 200 steps),
+   Fig 4b, the permutation ablation (400 steps) and Fig 5 (200 steps), one
+   JSON line per figure with the reference's CPU value beside each row;
+   Algorithm 1 (masked_dense at c = 10, 400 steps) folded with
+   ``mpd.to_packed`` must give the masked logits within ``FOLD_TOL`` and
+   the same accuracy; one eager inference pass per mode at batch 1, 50
+   and 2048. Launch counters are reset before and read after that run:
+   bdmm on simt_f32 forward and transposed, bdmm_decode on decode_simt and
+   the three masked kernels must have launched. Then the c = 10 run on the
+   plain route (within 0.5 points of the kernel route), one f32 step
+   kernel vs plain in packed and masked_dense mode under train_exact's
+   rule, every accuracy at least 90 %, and the speedup rows
+   (benchmarks/torch_speedup.py: one 2048 x 2048 layer at c = 8, the bdmm
+   and masked kernels, f32 and bf16; LeNet inference eager and captured).
+   The paper's relative claims are recorded, not gated. The kernels phase
+   also holds bdmm on f32 blocks at every LeNet block shape and the
+   masked kernels at LeNet's widths against their plain versions.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -224,6 +243,34 @@ FOLD_TOL = {"atol": 1e-4, "rtol": 1e-4}
 EXACT_FUSED_LAYERS = 16
 # draft tokens proposed per speculative step (the launcher's default)
 SPEC_K = 4
+# paper: LeNet-300-100 (800-300-100-10, f32) on TeacherStudent batches of
+# 50 (benchmarks/torch_paper_repro.py), at these step counts: Table 1, Fig
+# 4a (over 8 masks), the permutation ablation, Fig 5, and Algorithm 1
+# (masked_dense at c = 10, then folded)
+PAPER = {"table1": 400, "fig4a": 200, "fig4a_masks": 8, "ablation": 400,
+         "fig5": 200, "algorithm1": 400}
+PAPER_MIN_ACC = 90.0          # every accuracy, in %; chance is 10 %
+PAPER_ROUTE_GAP = 0.5         # points between the c = 10 kernel and plain routes
+# the reference's rows at the same step counts: benchmarks/paper_repro.py's
+# table1(400), fig4_masks(8, 200), fig4_permutation_ablation(400) and
+# fig5_sparsity(200), run on a CPU (jax 0.9.0)
+PAPER_REF_CPU = {
+    "table1_dense_acc": 94.24, "table1_mpd10x_acc": 95.26,
+    "table1_acc_delta_pts": -1.03, "fig4a_masks_acc_mean": 95.80,
+    "fig4a_masks_acc_min": 95.70, "fig4b_mask_sum_mean": 10.00,
+    "fig4b_mask_sum_std": 3.00, "fig4_permuted_acc": 95.26,
+    "fig4_nonpermuted_acc": 93.65, "fig4_permutation_gain_pts": 1.61,
+    "fig5_dense_acc": 94.92, "fig5_c4_acc": 95.70, "fig5_c8_acc": 95.70,
+    "fig5_c16_acc": 95.75}
+# compression factors whose LeNet-300-100 plans the kernels phase checks:
+# under uniform(c, min_block=1), c = 16 takes the c = 10 plan
+LENET_C = (10, 4, 8)
+# (m, role) of those blocks on the paper path: batch-1 inference (the
+# decode grid), a training batch (forward and dx), the 2048-sample eval
+LENET_BDMM_M = [(1, "fwd"), (50, "fwd"), (50, "dx"), (2048, "fwd")]
+# the speedup's blocks and their rows (512 tokens forward and dx, 2048)
+SPEEDUP_BLOCKS = (8, 256, 256)
+SPEEDUP_BDMM_M = [(512, "fwd"), (512, "dx"), (2048, "fwd")]
 
 
 def emit(obj) -> None:
@@ -795,7 +842,7 @@ def check_masked(torch, dev, timer, rows, summary):
                     mag=lambda: x32.abs() @ (w32.abs() * mask)
                     + (0 if b32 is None else b32.abs()),
                     library=lambda: torch.matmul(x, wm),
-                    nbytes=(m * d_in + d_in * d_out + m * d_out) * es
+                    nbytes=(m * d_in + nnz + m * d_out) * es
                     + d_in * d_out + (0 if b is None else d_out * 4)),
                 "masked_matmul_t": dict(
                     run=lambda: mk.masked_matmul(gy, w, mask,
@@ -804,7 +851,7 @@ def check_masked(torch, dev, timer, rows, summary):
                     want=lambda mk_: ref.masked_matmul_t_ref(g32, w32, mk_),
                     mag=lambda: g32.abs() @ (w32.abs() * mask).T,
                     library=lambda: torch.matmul(gy, wm.T),
-                    nbytes=(m * d_out + d_in * d_out + m * d_in) * es
+                    nbytes=(m * d_out + nnz + m * d_in) * es
                     + d_in * d_out),
                 "sddmm_masked": dict(
                     run=lambda: mk.sddmm_masked(x, gy, mask),
@@ -922,9 +969,9 @@ def check_masked_serving(torch, dev, timer, rows, summary):
         pl = mk.plan(m, d_in, d_out, torch.bfloat16)
         ok = (ok and rejects and invariant and used == [pl.route]
               and pl.route == "tc_small_m")
-        nbytes = (m * d_in + d_in * d_out + m * d_out) * 2 + d_in * d_out \
-            + d_out * 4
-        b_ms, b_by = bound(nbytes, 2.0 * m * int(mask.sum()), "bfloat16")
+        nnz = int(mask.sum())
+        nbytes = (m * d_in + nnz + m * d_out) * 2 + d_in * d_out + d_out * 4
+        b_ms, b_by = bound(nbytes, 2.0 * m * nnz, "bfloat16")
         row = {"phase": "kernels", "kernel": "masked_matmul", "shape": name,
                "role": "serve", "m": m, "d_in": d_in, "d_out": d_out,
                "activation": act, "dtype": "bfloat16", "max_abs_err": err,
@@ -1102,6 +1149,124 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
 
 
 # ------------------------------------------------------------------ serving
+def check_lenet(torch, dev, timer, rows, summary):
+    """bdmm on f32 blocks at every packed LeNet-300-100 block shape (the
+    head's bo = 1 and 2 among them) and at the speedup's 8 x 256 x 256, in
+    the roles the paper path gives it, and the masked matmul, its transpose
+    and the SDDMM at LeNet's masked-dense layers (c = 10), each against its
+    plain version on the card; f32 runs the SIMT bodies (decode_simt at m
+    <= 32, simt_f32 above and for dx)."""
+    from repro_torch.configs.lenet300 import LeNet300
+    from repro_torch.core.fold import mask_tensor
+    from repro_torch.core.policy import uniform
+    from repro_torch.kernels import bdmm as bk
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    specs = {c: LeNet300(policy=uniform(c, min_block=1)).specs
+             for c in LENET_C}
+    blocks = [(s.mask.nb, s.mask.block_in, s.mask.block_out)
+              for c in LENET_C for s in specs[c]]
+    cases = [(blk, m, role) for blk in blocks for m, role in LENET_BDMM_M]
+    cases += [(SPEEDUP_BLOCKS, m, role) for m, role in SPEEDUP_BDMM_M]
+    for (nb, bi, bo), m, role in cases:
+        dx = role == "dx"
+        k, n = (bo, bi) if dx else (bi, bo)
+        w = r(nb, bi, bo) * bi ** -0.5
+        x = r(m, nb * k)
+        xt = x.view(m, nb, k).transpose(0, 1)
+        if dx:
+            run = lambda: bk.bdmm(x, w, transpose=True)  # noqa: E731
+            plain = lambda: ref.bdmm_t_ref(x, w)  # noqa: E731
+            library = lambda: torch.bmm(xt, w.transpose(1, 2))  # noqa: E731
+        else:
+            run = lambda: bk.bdmm(x, w)  # noqa: E731
+            plain = lambda: ref.bdmm_ref(x, w)  # noqa: E731
+            library = lambda: torch.bmm(xt, w)  # noqa: E731
+        got, used = run_routed(run, bk.routes)
+        ok, err, ratio, tol = close(torch, got, plain(), "bdmm", "float32")
+        del got
+        pl = bk.plan(m, nb, k, n, torch.float32, torch.float32, dx)
+        grid = "bdmm_decode" if pl.route in bk.DECODE_ROUTES else "bdmm"
+        ok = ok and used == [pl.route] and pl.route in ("decode_simt",
+                                                        "simt_f32")
+        b_ms, b_by = bound(4.0 * (m * nb * k + nb * bi * bo + m * nb * n),
+                           2.0 * m * nb * bi * bo, "float32")
+        row = {"phase": "kernels", "kernel": grid, "shape": [nb, bi, bo],
+               "m": m, "role": role, "weights": "float32",
+               "dtype": "float32", "path": "paper",
+               "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
+               "ok": ok, "routes_launched": used,
+               "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid},
+               "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+               "library_ms": timer.ms(library),
+               "library": "one torch.bmm over the blocks",
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows.append(row)
+        emit(row)
+        s = summary[grid]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["err_over_tol"] = max(s["err_over_tol"], ratio)
+        s["ok"] = s["ok"] and ok
+    for spec in specs[10]:                  # the masked-dense layers at c = 10
+        d_in, d_out, nb = spec.d_in, spec.d_out, spec.mask.nb
+        mask = mask_tensor(spec.mask, dev)
+        w = r(d_in, d_out) * d_in ** -0.5 * mask
+        nnz = int(mask.sum())
+        for m, kname in ((1, "masked_matmul"), (50, "masked_matmul"),
+                         (50, "masked_matmul_t"), (50, "sddmm_masked"),
+                         (2048, "masked_matmul")):
+            x, gy = r(m, d_in), r(m, d_out)
+            if kname == "masked_matmul":
+                run = lambda: mk.masked_matmul(x, w, mask)  # noqa: E731
+                plain = lambda: ref.masked_matmul_ref(x, w, mask)  # noqa: E731
+                mag = x.abs() @ w.abs()
+                library = lambda: torch.matmul(x, w)  # noqa: E731
+                tally = mk.routes
+            elif kname == "masked_matmul_t":
+                run = lambda: mk.masked_matmul(gy, w, mask,  # noqa: E731
+                                               transpose_rhs=True)
+                plain = lambda: ref.masked_matmul_t_ref(gy, w, mask)  # noqa: E731
+                mag = gy.abs() @ w.abs().T
+                library = lambda: torch.matmul(gy, w.T)  # noqa: E731
+                tally = mk.routes
+            else:
+                run = lambda: mk.sddmm_masked(x, gy, mask)  # noqa: E731
+                plain = lambda: ref.matmul_masked_grad_ref(x, gy, mask)  # noqa: E731
+                mag = (x.abs().T @ gy.abs()) * mask
+                library = lambda: torch.matmul(x.T, gy)  # noqa: E731
+                tally = mk.sddmm_routes
+            got, used = run_routed(run, tally)
+            ok, err, ratio = mm_close(torch, got, plain(), mag, "float32")
+            if kname == "sddmm_masked":
+                ok = ok and bool((got[mask == 0] == 0).all())
+            ok = ok and used == ["simt_f32"]
+            del got
+            io = (m * d_in + m * d_out) * 4
+            # the mask, and the whole dW the SDDMM writes or the weights on
+            # the mask that the products read
+            wbytes = d_in * d_out + 4 * (d_in * d_out
+                                         if kname == "sddmm_masked" else nnz)
+            b_ms, b_by = bound(io + wbytes, 2.0 * m * nnz, "float32")
+            row = {"phase": "kernels", "kernel": kname, "shape": [d_in, d_out],
+                   "nb": nb, "m": m, "dtype": "float32", "path": "paper",
+                   "max_abs_err": err, "err_over_tol": ratio,
+                   "tol": dict(MM_TOL["float32"], rule=MM_RULE), "ok": ok,
+                   "routes_launched": used, "ms": timer.ms(run),
+                   "plain_ms": timer.ms(plain),
+                   "library_ms": timer.ms(library),
+                   "library": "one torch.matmul on the pre-masked weight",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            emit(row)
+            s = summary[kname]
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["err_over_tol"] = max(s["err_over_tol"], ratio)
+            s["ok"] = s["ok"] and ok
+
+
 def olmo_engine(torch, dev, dtype, seed=0, **over):
     from repro_torch.core import export
     from repro_torch.configs.common import get_config
@@ -2016,6 +2181,22 @@ def train_window(torch, model, params, opt_state, step_fn, data, dev):
             "top_kernels_ms": top}
 
 
+def update_errors(got, want, start):
+    """(max |got - want|, max of |got - want| over EXACT_TOL's limit
+    ``atol + update_rtol |want - start|``) over every leaf of two param
+    trees updated from ``start``."""
+    from repro_torch import tree as tree_lib
+
+    worst, max_err = 0.0, 0.0
+    for a, b, p0 in zip(tree_lib.leaves(got), tree_lib.leaves(want),
+                        tree_lib.leaves(start)):
+        lim = EXACT_TOL["atol"] + EXACT_TOL["update_rtol"] * (b - p0).abs()
+        err = (a - b).abs()
+        worst = max(worst, float((err / lim).max()))
+        max_err = max(max_err, float(err.max()))
+    return max_err, worst
+
+
 def train_exact_phase(torch, dev, ops, data):
     """One f32 step of the model cut to EXACT_LAYERS, through the kernels
     and through the plain versions, from the same init and first batch: in
@@ -2023,7 +2204,6 @@ def train_exact_phase(torch, dev, ops, data):
     forward and dx). Each route's launch counts are reset before it and
     read after it: the kernel route must launch every kernel of its mode,
     the plain route none."""
-    from repro_torch import tree as tree_lib
     from repro_torch.configs.common import get_config
     from repro_torch.models import build
     from repro_torch.optim import OptConfig, init_state
@@ -2057,13 +2237,7 @@ def train_exact_phase(torch, dev, ops, data):
             counts[backend] = ops.launch_counts()
             routes[backend] = mm_routes()
         (pk, lk, gk), (pp, lp, gp) = res["cuda"], res["torch"]
-        worst, max_err = 0.0, 0.0
-        for a, b, p0 in zip(tree_lib.leaves(pk), tree_lib.leaves(pp),
-                            tree_lib.leaves(params)):
-            lim = EXACT_TOL["atol"] + EXACT_TOL["update_rtol"] * (b - p0).abs()
-            err = (a - b).abs()
-            worst = max(worst, float((err / lim).max()))
-            max_err = max(max_err, float(err.max()))
+        max_err, worst = update_errors(pk, pp, params)
         loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
         # f32 stays on the exact SIMT body
         f32_mm = counts["cuda"]["masked_matmul"] + counts["cuda"]["masked_matmul_t"]
@@ -2139,6 +2313,190 @@ def fold_phase(torch, dev, ops, f32_model, f32_params, batch, bf16_model,
     return row
 
 
+def paper_rows(rows):
+    """``name,value,derived`` rows as dicts, each beside the reference's
+    CPU value of the same row where there is one."""
+    out = []
+    for text in rows:
+        name, value, derived = text.split(",", 2)
+        out.append({"name": name, "value": float(value.rstrip("x")),
+                    "derived": derived,
+                    "reference_cpu": PAPER_REF_CPU.get(name)})
+    return out
+
+
+def lenet_step_exact(torch, dev, ops):
+    """One f32 step of LeNet-300-100 at c = 10 from the same init and first
+    batch, through the kernels and through the plain versions, in packed
+    mode (bdmm forward and dx on the SIMT bodies) and in masked_dense mode
+    (the three masked kernels on their SIMT bodies), under train_exact's
+    rule (SGD, lr 1, clipped to norm 1). The kernel route must launch every
+    kernel of its mode, the plain route none."""
+    from benchmarks import torch_paper_repro as pr
+    from repro_torch.configs.lenet300 import LeNet300
+    from repro_torch.core.policy import uniform
+    from repro_torch.data import TeacherStudent
+    from repro_torch.kernels import bdmm as bk
+    from repro_torch.optim import OptConfig, init_state
+
+    ocfg = OptConfig(kind="sgd", lr=1.0, momentum=0.0, clip_norm=1.0)
+    batch = pr.to_device(TeacherStudent(seed=0).next(), dev)
+    modes, ok = {}, True
+    for mode, kernels in (("packed", ("bdmm",)),
+                          ("masked_dense", MASKED_KERNELS)):
+        model = LeNet300(policy=uniform(10, min_block=1), mode=mode)
+        params = model.init(0, device=dev)
+        step = pr.make_step(model, ocfg)
+        res, counts, routes = {}, {}, {}
+        for backend in ("cuda", "torch"):
+            ops.set_backend(backend)
+            ops.reset_launch_counts()
+            try:
+                new, _, loss = step(params, init_state(ocfg, params), batch)
+                res[backend] = (new, float(loss))
+            finally:
+                ops.set_backend("cuda")
+            torch.cuda.synchronize()
+            counts[backend] = ops.launch_counts()
+            routes[backend] = dict(all_routes(),
+                                   bdmm_dx=dict(bk.transposed_routes))
+        (pk, lk), (pp, lp) = res["cuda"], res["torch"]
+        max_err, worst = update_errors(pk, pp, params)
+        kr = routes["cuda"]
+        if mode == "packed":
+            bodies_ok = (kr["bdmm"]["simt_f32"] > kr["bdmm_dx"]["simt_f32"] > 0)
+        else:
+            bodies_ok = (kr["masked_matmul"]["simt_f32"]
+                         == counts["cuda"]["masked_matmul"]
+                         + counts["cuda"]["masked_matmul_t"]
+                         and kr["sddmm"]["simt_f32"] > 0)
+        routes_ok = (all(counts["cuda"][k] > 0 for k in kernels)
+                     and not any(counts["torch"].values()) and bodies_ok)
+        loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
+        mode_ok = math.isfinite(lk) and loss_ok and worst <= 1.0 and routes_ok
+        ok = ok and mode_ok
+        modes[mode] = {"ok": mode_ok, "loss_kernels": lk, "loss_plain": lp,
+                       "param_max_abs_err": max_err,
+                       "param_err_over_tol": worst,
+                       "launches_kernel_route": counts["cuda"],
+                       "launches_plain_route": counts["torch"],
+                       "routes_kernel_route": kr}
+    return {"ok": ok, "tol": EXACT_TOL, "optimizer": "sgd lr 1, clip 1",
+            **modes}
+
+
+def paper_phase(torch, dev, ops):
+    """The paper's own experiments on the card: LeNet-300-100 trained on
+    TeacherStudent (benchmarks/torch_paper_repro.py) for Table 1, Fig 4a/b,
+    the permutation ablation and Fig 5, Algorithm 1 (masked_dense at c =
+    10, folded with ``mpd.to_packed``), and one eager inference pass per
+    mode and batch; then, outside the counted run, the c = 10 run on the
+    plain route, one f32 step kernel vs plain, and the speedup rows
+    (benchmarks/torch_speedup.py)."""
+    from benchmarks import torch_paper_repro as pr
+    from benchmarks import torch_speedup as sp
+    from repro_torch.configs.lenet300 import LeNet300
+    from repro_torch.core import mpd
+    from repro_torch.core.policy import uniform
+    from repro_torch.data import TeacherStudent
+    from repro_torch.kernels import bdmm as bk
+
+    t0 = time.perf_counter()
+    c10 = uniform(10, min_block=1)
+    ops.reset_launch_counts()
+    figures = {
+        "table1": pr.table1(PAPER["table1"], device=dev),
+        "fig4": pr.fig4_masks(PAPER["fig4a_masks"], PAPER["fig4a"],
+                              device=dev),
+        "ablation": pr.fig4_permutation_ablation(PAPER["ablation"],
+                                                 device=dev),
+        "fig5": pr.fig5_sparsity(PAPER["fig5"], device=dev)}
+    masked = pr.train_lenet(c10, "masked_dense", steps=PAPER["algorithm1"],
+                            device=dev)
+    xs = sp.lenet_inputs(dev)
+    with torch.no_grad():
+        for _, model in sp.lenet_models():
+            params = model.init(0, device=dev)
+            for b in sp.LENET_BATCHES:
+                model.apply(params, xs[:b])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    routes = dict(all_routes(), bdmm_dx=dict(bk.transposed_routes))
+    train_s = time.perf_counter() - t0
+
+    # Algorithm 1's model folded to packed: the same logits within fold's
+    # rule, the same accuracy
+    m_model = LeNet300(policy=c10, mode="masked_dense")
+    p_model = LeNet300(policy=c10, mode="packed")
+    folded = [mpd.to_packed(s, p) for s, p in zip(m_model.specs,
+                                                   masked["params"])]
+    ev = pr.to_device(TeacherStudent(seed=0).eval_set(2048), dev)
+    with torch.no_grad():
+        want = m_model.apply(masked["params"], ev["inputs"])
+        got = p_model.apply(folded, ev["inputs"])
+        folded_acc = float(p_model.accuracy(folded, ev))
+    err = (got - want).abs()
+    lim = FOLD_TOL["atol"] + FOLD_TOL["rtol"] * want.abs()
+    fold_ok = (bool(torch.isfinite(got).all()) and bool((err <= lim).all())
+               and folded_acc == masked["accuracy"])
+    fold = {"ok": fold_ok, "tol": FOLD_TOL, "max_abs_err": float(err.max()),
+            "err_over_tol": float((err / lim).max()),
+            "masked_acc": masked["accuracy"] * 100,
+            "folded_acc": folded_acc * 100}
+
+    # the c = 10 run again on the plain route
+    ops.set_backend("torch")
+    try:
+        plain = pr.train_lenet(c10, steps=PAPER["table1"], device=dev)
+    finally:
+        ops.set_backend("cuda")
+    rows = {k: paper_rows(v) for k, v in figures.items()}
+    values = {r["name"]: r["value"] for v in rows.values() for r in v}
+    kernel_acc = values["table1_mpd10x_acc"]
+    plain_acc = plain["accuracy"] * 100
+    step = lenet_step_exact(torch, dev, ops)
+
+    accs = [r["value"] for v in rows.values() for r in v
+            if "_acc" in r["name"] and "delta" not in r["name"]]
+    accs += [fold["masked_acc"], fold["folded_acc"], plain_acc]
+    acc_ok = all(math.isfinite(a) and a >= PAPER_MIN_ACC for a in accs)
+    kernels_ok = (routes["bdmm"]["simt_f32"] > routes["bdmm_dx"]["simt_f32"] > 0
+                  and routes["bdmm"]["decode_simt"] > 0
+                  and all(launches[k] > 0 for k in MASKED_KERNELS))
+    gap_ok = abs(kernel_acc - plain_acc) <= PAPER_ROUTE_GAP
+    claims = {"table1_delta_within_1pt": values["table1_acc_delta_pts"] <= 1.0,
+              "permuted_above_nonpermuted":
+                  values["fig4_permuted_acc"] > values["fig4_nonpermuted_acc"],
+              "fig4b_mean_10": values["fig4b_mask_sum_mean"] == 10.0}
+    for name, v in rows.items():
+        emit({"phase": "paper", "figure": name, "rows": v})
+
+    t1 = time.perf_counter()
+    speed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        speed += sp.layer_speedup(dtype=dtype, device=dev)
+        speed += sp.kernel_bench(dtype=dtype, device=dev)
+    speed += sp.lenet_inference(device=dev)
+    speed = paper_rows(speed)
+    emit({"phase": "paper", "figure": "speedup", "rows": speed,
+          "timing": "median CUDA-event time of one warm call, a GPU sleep "
+                    "queued ahead; host_us: host clock per eager call"})
+    ok = (acc_ok and kernels_ok and gap_ok and fold_ok and step["ok"])
+    row = {"phase": "paper", "ok": ok, "steps": PAPER,
+           "model": "LeNet-300-100 (800-300-100-10), float32",
+           "data": "TeacherStudent seed 0, batch 50, eval 2048",
+           "reference_cpu": "benchmarks/paper_repro.py on a CPU, jax 0.9.0",
+           "accuracies_ok": acc_ok, "min_acc": min(accs),
+           "kernels_ok": kernels_ok, "launches": launches, "routes": routes,
+           "route_gap": {"kernel_acc": kernel_acc, "plain_acc": plain_acc,
+                         "limit_pts": PAPER_ROUTE_GAP, "ok": gap_ok},
+           "algorithm1_fold": fold, "step_exact": step,
+           "claims_recorded_not_gated": claims,
+           "train_s": train_s, "speedup_s": time.perf_counter() - t1}
+    emit(row)
+    return row
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import resource
@@ -2151,7 +2509,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path[:0] = [str(SRC), str(ROOT)]
     from repro_torch.kernels import _build, ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2223,6 +2581,7 @@ def main() -> int:
           rows, summary)
     timed("kernels_fused_ffn", check_fused_ffn, torch, dev, timer, rows,
           summary)
+    timed("kernels_lenet", check_lenet, torch, dev, timer, rows, summary)
     del timer
     (OUT_DIR / "kernels.jsonl").write_text(
         "\n".join(json.dumps(r) for r in rows) + "\n")
@@ -2264,10 +2623,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not timed("exact_fused", exact_phase, torch, dev, ops, True)[0]["ok"]:
         failed.append("exact_fused")
-    # the main path's launches: serving, training, the fused deploy and the
-    # speculative turns
+    torch.cuda.empty_cache()
+    paper = timed("paper", paper_phase, torch, dev, ops)
+    if not paper["ok"]:
+        failed.append("paper")
+    # the main path's launches: serving, training, the fused deploy, the
+    # speculative turns and the paper's experiments
     launches = {k: sum(p["launches"][k]
-                       for p in (served, trained, deployed, spec))
+                       for p in (served, trained, deployed, spec, paper))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,

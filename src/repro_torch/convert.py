@@ -4,8 +4,8 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``) — dense, masked-dense or
 packed fp leaves, or quantized ``{"w_q", "w_scale"}`` leaves stacked
 ``(n_periods, nb, bi, bo)`` / ``(n_periods, nb, bo)``, of a plain or a
-perm-fused model — and returns the same
-tree of tensors on ``device``, checked against the shapes the port's model
+perm-fused model, or LeNet-300-100's list of three layers — and returns
+the same tree of tensors on ``device``, checked against the shapes the port's model
 expects. Both packages then compute the same function on the same weights.
 ``params_to_numpy`` is its inverse, so a tree trained by the port can go
 back to the reference (bfloat16 leaves travel as float32, which holds them
@@ -44,7 +44,9 @@ def _shapes(tree):
 
 
 def params_from_numpy(model, tree: Any, device=None):
-    """Convert a reference param tree (numpy leaves) for ``model``.
+    """Convert a reference param tree (numpy leaves) for ``model``: an LM
+    of :func:`repro_torch.models.build`, or a ``LeNet300`` (a list of three
+    per-layer dicts).
 
     Raises ``ValueError`` when the tree's structure or a leaf shape differs
     from a fresh init of the same model (quantized leaves are checked
@@ -61,7 +63,8 @@ def params_from_numpy(model, tree: Any, device=None):
     got_shapes, want_shapes = _shapes(out), _shapes(want)
     if got_shapes != want_shapes:
         diff = sorted(set(got_shapes.items()) ^ set(want_shapes.items()))
-        raise ValueError(f"param tree does not match {model.cfg.name}: {diff[:6]}")
+        name = model.cfg.name if hasattr(model, "cfg") else repr(model)
+        raise ValueError(f"param tree does not match {name}: {diff[:6]}")
     return tree_lib.map_leaves(
         lambda t, w: (t.to(torch.bfloat16) if t.dtype == torch.float32
                       and w.dtype == torch.bfloat16 else t), out, want)

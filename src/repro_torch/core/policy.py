@@ -8,6 +8,11 @@ from typing import Dict, Optional
 
 from .mask import MaskSpec, divisible, make_mask_spec
 
+# layer kinds the model zoo tags its projections with
+KINDS = (
+    "attn_qkv", "attn_out", "mlp", "moe_expert", "ssm_proj", "unembed", "head",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class CompressionPolicy:
@@ -44,3 +49,12 @@ class CompressionPolicy:
             nb -= 1
         return None
 
+
+DENSE = CompressionPolicy(c=1)
+
+
+def uniform(c: int, min_block: int = 8, permuted: bool = True, seed: int = 0,
+            mode: str = "packed") -> CompressionPolicy:
+    """The paper's setting: one compression factor for every FC layer."""
+    return CompressionPolicy(c=c, min_block=min_block, permuted=permuted,
+                             seed=seed, mode=mode)

@@ -1,5 +1,5 @@
 """Data sources of the port."""
 
-from .pipeline import SyntheticLM
+from .pipeline import SyntheticLM, TeacherStudent
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "TeacherStudent"]

@@ -123,3 +123,69 @@ class SyntheticLM:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
             yield self.next()
+
+
+@dataclasses.dataclass
+class TeacherStudent:
+    """Frozen-teacher classification batches, the MNIST stand-in of the
+    paper-figure benchmarks (copy of ``repro.data.TeacherStudent``; numpy
+    only, bit-identical batches).
+
+    ``kind="clusters"`` (default): draws from ``n_classes`` well-separated
+    Gaussian clusters pushed through a fixed random nonlinear lift, learnable
+    to high accuracy as MNIST is. ``kind="argmax"``: the argmax of a random
+    tanh MLP on Gaussian inputs. ``d_in`` is 800 (MNIST's 784 padded) so that
+    c = 10 divides every FC layer of LeNet-300-100. Batch ``step`` is a
+    stateless function of ``(seed, step)``; the eval set is step ``-1``.
+    """
+
+    d_in: int = 800
+    n_classes: int = 10
+    batch: int = 50
+    seed: int = 0
+    step: int = 0
+    teacher_hidden: int = 64
+    kind: str = "clusters"
+    cluster_noise: float = 1.45
+
+    def __post_init__(self):
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, 31]))
+        self._w1 = rng.normal(size=(self.d_in, self.teacher_hidden)).astype(np.float32)
+        self._w1 /= np.sqrt(self.d_in)
+        self._w2 = rng.normal(size=(self.teacher_hidden, self.n_classes)).astype(np.float32)
+        self._w2 /= np.sqrt(self.teacher_hidden)
+        self._centers = rng.normal(size=(self.n_classes, 32)).astype(np.float32)
+        self._lift = rng.normal(size=(32, self.d_in)).astype(np.float32) / np.sqrt(32)
+
+    def _make(self, step: int, batch: int) -> Tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, 57, step + 2**31]))
+        if self.kind == "clusters":
+            y = rng.integers(0, self.n_classes, batch).astype(np.int32)
+            z = self._centers[y] + self.cluster_noise * rng.normal(
+                size=(batch, 32)).astype(np.float32)
+            x = np.tanh(z @ self._lift) + 0.20 * rng.normal(
+                size=(batch, self.d_in)).astype(np.float32)
+            return x.astype(np.float32), y
+        x = rng.normal(size=(batch, self.d_in)).astype(np.float32)
+        h = np.tanh(x @ self._w1)
+        y = np.argmax(h @ self._w2, axis=-1).astype(np.int32)
+        return x, y
+
+    def next(self) -> Dict[str, np.ndarray]:
+        x, y = self._make(self.step, self.batch)
+        self.step += 1
+        return {"inputs": x, "labels": y}
+
+    def eval_set(self, n: int = 2048) -> Dict[str, np.ndarray]:
+        x, y = self._make(-1, n)
+        return {"inputs": x, "labels": y}
+
+    def state(self) -> Dict[str, int]:
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, st: Dict[str, int]) -> None:
+        if st["seed"] != self.seed:
+            raise ValueError("restoring a TeacherStudent stream with another "
+                             f"seed: {st['seed']} != {self.seed}")
+        self.step = int(st["step"])

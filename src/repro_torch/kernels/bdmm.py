@@ -12,7 +12,8 @@ grid for ``m <= 32`` rows (mma.sync for bf16, SIMT for f32), the
 tensor-core bodies for bf16 and the SIMT body for f32 above. Inputs must lie
 on one CUDA device; :mod:`repro_torch.kernels.ops` sends CPU tensors to the
 plain version before they get here. ``launches`` counts kernel launches per
-grid shape, ``routes`` the launches by the body that ran them.
+grid shape, ``routes`` the launches by the body that ran them and
+``transposed_routes`` the transposed launches among those.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ TILES = {"decode_tc": (64, SMALL_M_MAX), "decode_simt": (32, SMALL_M_MAX),
 
 launches = {"bdmm": 0, "bdmm_decode": 0}
 routes = {r: 0 for r in ROUTES}
+transposed_routes = {r: 0 for r in ROUTES}
 _entry = None
 
 
@@ -207,4 +209,6 @@ def bdmm(x: torch.Tensor, wp: torch.Tensor, bias: Optional[torch.Tensor] = None,
     _build.check(lib, "bdmm", code)
     launches["bdmm_decode" if p.route in DECODE_ROUTES else "bdmm"] += 1
     routes[p.route] += 1
+    if transpose:
+        transposed_routes[p.route] += 1
     return y.reshape(*lead, nb * n)

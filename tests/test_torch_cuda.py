@@ -51,15 +51,19 @@ included.
 
 A train step of the smoke model, masked-dense or packed, gives the same
 loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
-as through the plain versions.
+as through the plain versions; so does a step of LeNet-300-100 at c = 10,
+whose f32 blocks bdmm runs on its SIMT bodies at every block shape the
+paper's policy gives (the f32 tolerance above).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.lenet300 import LeNet300
 from repro_torch.core.fold import mask_tensor
 from repro_torch.core.mask import block_id_of, make_mask_spec
+from repro_torch.core.policy import uniform
 from repro_torch.kernels import bdmm as tbdmm
 from repro_torch.kernels import fused_ffn as tffn
 from repro_torch.kernels import masked_matmul as tmm
@@ -579,7 +583,6 @@ def test_packed_training_step_kernel_route_equals_plain(cuda_device):
 
 
 def _train_step_routes(cuda_device, mode, kernels):
-    from repro_torch import tree as tree_lib
     from repro_torch.configs.common import get_config
     from repro_torch.models import build
 
@@ -588,6 +591,17 @@ def _train_step_routes(cuda_device, mode, kernels):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     toks = torch.randint(0, 96, (2, 33), generator=g, device=cuda_device)
     batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    _grads_agree_across_routes(lambda p: model.train_loss(p, batch), params,
+                               kernels)
+
+
+def _grads_agree_across_routes(loss_fn, params, kernels):
+    """``loss_fn(params)`` and its gradients through the kernels and
+    through the plain versions: the same within the f32 tolerance, every
+    kernel of ``kernels`` launched on the kernel route, none on the plain
+    route."""
+    from repro_torch import tree as tree_lib
+
     out = {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
@@ -595,7 +609,7 @@ def _train_step_routes(cuda_device, mode, kernels):
         try:
             live = [p.detach().requires_grad_(True)
                     for p in tree_lib.leaves(params)]
-            loss = model.train_loss(tree_lib.unflatten(params, live), batch)
+            loss = loss_fn(tree_lib.unflatten(params, live))
             out[backend] = (loss, torch.autograd.grad(loss, live))
         finally:
             ops.set_backend("cuda")
@@ -608,6 +622,61 @@ def _train_step_routes(cuda_device, mode, kernels):
                                rtol=1e-5)
     for a, b in zip(out["cuda"][1], out["torch"][1]):
         torch.testing.assert_close(a, b, atol=2e-6, rtol=1e-4)
+
+
+# LeNet-300-100's packed blocks under uniform(c, min_block=1): c = 10 (and
+# 16), c = 4, c = 8; the heads' bo of 1, 2 and 5 make the transposed form
+# reduce over K = 1, 2 or 5, and rows of 30, 75 or 5 floats are no multiple
+# of 16 bytes
+LENET_BLOCKS = [(s.mask.nb, s.mask.block_in, s.mask.block_out)
+                for c in (10, 4, 8)
+                for s in LeNet300(policy=uniform(c, min_block=1)).specs]
+
+
+@pytest.mark.parametrize("m,transpose,route", [
+    (1, False, "decode_simt"), (50, False, "simt_f32"),
+    (50, True, "simt_f32"), (2048, False, "simt_f32")],
+    ids=["b1", "b50", "b50-dx", "b2048"])
+@pytest.mark.parametrize("blocks", LENET_BLOCKS,
+                         ids=lambda b: "x".join(map(str, b)))
+def test_bdmm_f32_at_lenet_blocks(cuda_device, blocks, m, transpose, route):
+    """bdmm on f32 blocks at every LeNet block shape, in the paper path's
+    roles (batch-1 inference on the decode grid, a training batch forward
+    and dx, the 2048-sample eval), with the packed bias on the forward:
+    the SIMT body the plan names ran and the f32 tolerance holds."""
+    nb, bi, bo = blocks
+    g = torch.Generator(device=cuda_device).manual_seed(nb * bi + bo)
+    k, n = (bo, bi) if transpose else (bi, bo)
+    x = torch.randn((m, nb * k), generator=g, device=cuda_device)
+    w = torch.randn((nb, bi, bo), generator=g, device=cuda_device) * k ** -0.5
+    b = None if transpose else torch.randn((nb * n,), generator=g,
+                                           device=cuda_device)
+    before, t_before = dict(tbdmm.routes), dict(tbdmm.transposed_routes)
+    got = tbdmm.bdmm(x, w, b, transpose=transpose)
+    assert {r: tbdmm.routes[r] - before[r] for r in before} == {
+        r: int(r == route) for r in before}
+    assert {r: tbdmm.transposed_routes[r] - t_before[r] for r in t_before} == {
+        r: int(transpose and r == route) for r in t_before}
+    want = (tref.bdmm_t_ref(x, w) if transpose else tref.bdmm_ref(x, w, b))
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("mode,kernels", [
+    ("packed", ("bdmm",)),
+    ("masked_dense", ("masked_matmul", "masked_matmul_t", "sddmm_masked"))])
+def test_lenet_step_kernel_route_equals_plain(cuda_device, mode, kernels):
+    """One f32 step of LeNet-300-100 at c = 10 on a TeacherStudent batch of
+    50: loss and grads through the kernels equal the plain versions'."""
+    from repro_torch.data import TeacherStudent
+
+    model = LeNet300(policy=uniform(10, min_block=1), mode=mode)
+    params = model.init(0, device=cuda_device)
+    b = TeacherStudent(seed=0).next()
+    batch = {"inputs": torch.from_numpy(b["inputs"]).to(cuda_device),
+             "labels": torch.from_numpy(b["labels"]).to(cuda_device,
+                                                        torch.long)}
+    _grads_agree_across_routes(lambda p: model.loss(p, batch), params,
+                               kernels)
 
 
 # ------------------------------------------------------------ paged attention

@@ -15,6 +15,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+# the port's paper benchmarks (benchmarks/torch_*.py that a CPU test imports)
+BENCHMARKS = ["benchmarks.torch_paper_repro", "benchmarks.torch_speedup"]
 
 
 def _port_modules():
@@ -26,9 +28,12 @@ def _port_modules():
 
 
 def test_port_imports_without_jax():
-    """Every port module, and chip_smoke.py, imports in a process where
-    ``jax`` and ``repro`` cannot be imported at all."""
+    """Every port module, chip_smoke.py and the port's paper benchmarks
+    import in a process where ``jax`` and ``repro`` cannot be imported at
+    all."""
     mods = _port_modules()
+    assert ("repro_torch.configs.lenet300" in mods
+            and "repro_torch.core.policy" in mods)
     assert "repro_torch.serve.engine" in mods and "repro_torch.convert" in mods
     assert "repro_torch.train.loop" in mods and "repro_torch.data.pipeline" in mods
     assert ("repro_torch.checkpoint.checkpoint" in mods
@@ -41,7 +46,7 @@ def test_port_imports_without_jax():
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[blocked] = None\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
-        f"for name in {mods!r} + ['chip_smoke']:\n"
+        f"for name in {mods!r} + {BENCHMARKS!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "from repro_torch.kernels import paged_attention, ops, ref, _build\n"
         "from repro_torch.serve import sampling, cache\n"
@@ -50,6 +55,10 @@ def test_port_imports_without_jax():
         "assert callable(ref.paged_attention_verify_ref)\n"
         "assert 'paged_verify' in _build.SOURCES\n"
         "assert callable(sampling.spec_accept) and callable(cache.share_trie)\n"
+        "from repro_torch.data import TeacherStudent\n"
+        "from repro_torch.core.policy import uniform\n"
+        "assert TeacherStudent().next()['inputs'].shape == (50, 800)\n"
+        "assert uniform(10, min_block=1).c == 10\n"
         "leaked = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "          or m == 'repro' or m.startswith('repro.')]\n"
         "assert all(sys.modules[m] is None for m in leaked), leaked\n"
@@ -66,7 +75,8 @@ _FORBIDDEN = re.compile(
 
 
 def test_no_jax_or_repro_imports_in_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / (m.replace(".", "/") + ".py") for m in BENCHMARKS]
     assert len(files) > 20
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _FORBIDDEN.finditer(f.read_text())]
