@@ -2,12 +2,27 @@
 down by part.
 
     python benchmarks/torch_masked_mm.py              # --mode time
+    python benchmarks/torch_masked_mm.py --mode f32
+    python benchmarks/torch_masked_mm.py --mode f32_sweep
     python benchmarks/torch_masked_mm.py --mode breakdown
 
 ``time``: bf16 ``masked_matmul`` at olmo-1b's up/gate shape (2048 x 8192,
 silu and bias forward, none transposed) at m = 4, 20, 64 and 2048, both
 orientations, against the plain version in f32 (max |error|) and one
 ``torch.matmul`` on the pre-masked weight, with the plan each call takes.
+
+``f32``: the exact f32 bodies on the paper's path and the parity route:
+``masked_matmul`` at LeNet-300-100's three masked layers (c = 10) at m = 1,
+50 and 2048, forward and transposed, the SDDMM at m = 50 (and 2048), and
+olmo-1b's up/gate at m = 2048 (forward, transposed, SDDMM), each with its
+plan, the max |error| against the plain version, one ``torch.matmul`` on
+the same inputs (TF32 off) and the bound (bytes: x, the weights on the
+mask, the mask and y once, the SDDMM its whole dW; operations: 2 m nnz at
+67 TFLOP/s).
+
+``f32_sweep``: the same LeNet calls launched with other plans than
+``plan`` / ``sddmm_plan`` pick (the K split of ``simt_small_m`` and
+``simt_f32``, the SDDMM's tile), to choose between them inside one call.
 
 ``breakdown``: builds variants of ``csrc/masked_matmul.cu`` with one part of
 the tc body removed (the mask pass, the wgmmas, the output stores; or all
@@ -25,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -63,6 +79,10 @@ SPLIT = ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\\n" ::"n"(TC_PRO
 
 def timer(torch_mod, dev):
     flush = torch_mod.empty(64 << 20, dtype=torch_mod.uint8, device=dev)
+    a = torch_mod.randn(4096, 4096, device=dev)
+    for _ in range(100):      # bring the card's clocks up before the first row
+        a @ a
+    del a
 
     def ms(fn, iters=10):
         for _ in range(3):
@@ -109,6 +129,140 @@ def mode_time(dev, ms):
             "ms": ms(fwd), "ms_t": ms(tr),
             "library_ms": ms(lambda: torch.matmul(x, wm)),
             "library_ms_t": ms(lambda: torch.matmul(gy, wm.T))}), flush=True)
+
+
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# LeNet-300-100's masked-dense layers at c = 10 (d_in, d_out, nb)
+LENET = ((800, 300, 10), (300, 100, 10), (100, 10, 10))
+
+
+def f32_case(dev, gen, d_in, d_out, nb, m):
+    mask = mask_tensor(make_mask_spec(d_in, d_out, nb, seed=d_out), dev)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    w = r(d_in, d_out) * d_in ** -0.5
+    return mask, w, r(m, d_in), r(m, d_out)
+
+
+def bound_ms(nbytes, ops):
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def f32_rows(dev, ms, cases):
+    """(label, d_in, d_out, nb, m, kind) -> one JSON line each: kernel ms,
+    the plain version's max |error|, torch.matmul ms and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, d_in, d_out, nb, m, kind in cases:
+        mask, w, x, gy = f32_case(dev, gen, d_in, d_out, nb, m)
+        wm = w * mask
+        nnz = int(mask.sum())
+        if kind == "sddmm":
+            run = lambda: mk.sddmm_masked(x, gy, mask)  # noqa: E731
+            want = ref.matmul_masked_grad_ref(x, gy, mask)
+            lib = lambda: torch.matmul(x.T, gy)  # noqa: E731
+            pl = mk.sddmm_plan(d_in, d_out, torch.float32)
+            nbytes = (m * d_in + m * d_out + d_in * d_out) * 4 + d_in * d_out
+        else:
+            t = kind == "t"
+            inp = gy if t else x
+            run = lambda: mk.masked_matmul(  # noqa: E731
+                inp, w, mask, transpose_rhs=t)
+            want = (ref.masked_matmul_t_ref(gy, w, mask) if t
+                    else ref.masked_matmul_ref(x, w, mask))
+            lib = lambda: torch.matmul(inp, wm.T if t else wm)  # noqa: E731
+            k, n = (d_out, d_in) if t else (d_in, d_out)
+            pl = mk.plan(m, k, n, torch.float32)
+            nbytes = (m * k + nnz + m * n) * 4 + d_in * d_out
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * nnz)
+        # the lower of two medians: a process's first row has read up to
+        # 8x slow
+        kern, lib_ms = min(ms(run), ms(run)), min(ms(lib), ms(lib))
+        print(json.dumps({
+            "kernel": "sddmm_masked" if kind == "sddmm" else
+            ("masked_matmul_t" if kind == "t" else "masked_matmul"),
+            "shape": label, "d_in": d_in, "d_out": d_out, "m": m,
+            "plan": str(pl),
+            "max_abs_err": float((run() - want).abs().max()),
+            "ms": kern, "library_ms": lib_ms, "over_library": kern / lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}), flush=True)
+
+
+def mode_f32(dev, ms):
+    cases = []
+    for d_in, d_out, nb in LENET:
+        label = f"lenet {d_in}x{d_out}"
+        for m in (1, 50, 2048):
+            cases += [(label, d_in, d_out, nb, m, "fwd"),
+                      (label, d_in, d_out, nb, m, "t")]
+        cases += [(label, d_in, d_out, nb, m, "sddmm") for m in (50, 2048)]
+    cases += [("olmo up/gate", 2048, 8192, 8, 2048, kind)
+              for kind in ("fwd", "t", "sddmm")]
+    f32_rows(dev, ms, cases)
+
+
+def mode_f32_sweep(dev, ms):
+    """LeNet's f32 calls under other plans than ``plan`` / ``sddmm_plan``
+    pick, launched through the module's own entry points (the plan's own
+    choice is marked)."""
+    _, mm = mk._launcher("mm")
+    _, sd = mk._launcher("sddmm")
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def launch(fn, *args):
+        code = fn(*args, stream)
+        if code:
+            raise SystemExit(f"launch failed: CUDA error {code}")
+
+    for d_in, d_out, nb in LENET:
+        for m, t in ((1, False), (50, False), (50, True), (2048, False)):
+            mask, w, x, gy = f32_case(dev, gen, d_in, d_out, nb, m)
+            inp = gy if t else x
+            k, n = (d_out, d_in) if t else (d_in, d_out)
+            y = torch.empty(m, n, device=dev)
+            chosen = mk.plan(m, k, n, torch.float32)
+            want = (ref.masked_matmul_t_ref(gy, w, mask) if t
+                    else ref.masked_matmul_ref(x, w, mask))
+            splits = [s for s in (1, 2, 4, 8, 16)
+                      if s <= mk.SIMT_CLUSTER_MAX[chosen.route]
+                      and mk.k_chunk_of(k, s) is not None]
+            for split in splits:
+                run = functools.partial(
+                    launch, mm, inp.data_ptr(), w.data_ptr(), mask.data_ptr(),
+                    None, y.data_ptr(), None, m, k, n,
+                    _build.DTYPE_CODES[torch.float32], int(t), 0,
+                    mk.ROUTES[chosen.route], *chosen.tile, split,
+                    mk.k_chunk_of(k, split), mk._vec(inp, 4 * k),
+                    mk._vec(w, 4 * (k if t else n)),
+                    mk._vec(mask, k if t else n))
+                run()
+                print(json.dumps({
+                    "kernel": "masked_matmul_t" if t else "masked_matmul",
+                    "shape": f"{d_in}x{d_out}", "m": m,
+                    "route": chosen.route, "split": split,
+                    "blocks": chosen.grid[0] * chosen.grid[1] * split,
+                    "chosen": split == chosen.split,
+                    "max_abs_err": float((y - want).abs().max()),
+                    "ms": ms(run)}), flush=True)
+        m = 50
+        mask, w, x, gy = f32_case(dev, gen, d_in, d_out, nb, m)
+        dw = torch.empty(d_in, d_out, device=dev)
+        want = ref.matmul_masked_grad_ref(x, gy, mask)
+        chosen = mk.sddmm_plan(d_in, d_out, torch.float32)
+        for tile in mk.SDDMM_F32_TILES:
+            route = "simt_f32" if tile == mk.TILES["simt_f32"] else "simt_small_tile"
+            run = functools.partial(
+                launch, sd, x.data_ptr(), gy.data_ptr(), mask.data_ptr(),
+                dw.data_ptr(), m, d_in, d_out, _build.DTYPE_CODES[torch.float32],
+                mk.SDDMM_ROUTES[route], *tile, mk._vec(x, 4 * d_in),
+                mk._vec(gy, 4 * d_out), mk._vec(mask, d_out))
+            run()
+            print(json.dumps({
+                "kernel": "sddmm_masked", "shape": f"{d_in}x{d_out}", "m": m,
+                "tile": tile, "chosen": tile == chosen.tile,
+                "blocks": -(-d_in // tile[0]) * -(-d_out // tile[1]),
+                "max_abs_err": float((dw - want).abs().max()),
+                "ms": ms(run)}), flush=True)
 
 
 def build_variants(out_dir: Path):
@@ -181,9 +335,13 @@ def mode_breakdown(dev, ms):
                     flush=True)
 
 
+MODES = {"time": mode_time, "f32": mode_f32, "f32_sweep": mode_f32_sweep,
+         "breakdown": mode_breakdown}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("time", "breakdown"), default="time")
+    ap.add_argument("--mode", choices=tuple(MODES), default="time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_masked_mm: no CUDA device", file=sys.stderr)
@@ -191,7 +349,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     ms = timer(torch, dev)
-    (mode_time if args.mode == "time" else mode_breakdown)(dev, ms)
+    MODES[args.mode](dev, ms)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())

@@ -122,7 +122,10 @@ Phases, each printed as one JSON line:
    and masked kernels, f32 and bf16; LeNet inference eager and captured).
    The paper's relative claims are recorded, not gated. The kernels phase
    also holds bdmm on f32 blocks at every LeNet block shape and the
-   masked kernels at LeNet's widths against their plain versions.
+   masked kernels at LeNet's widths against their plain versions, each on
+   the f32 body its plan names (``simt_small_m`` up to 64 rows, the
+   pipelined ``simt_f32`` above; the SDDMM at the tile ``sddmm_plan``
+   picks).
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -279,7 +282,8 @@ def emit(obj) -> None:
 
 def mm_routes():
     """The masked matmul's launches by CUDA body (``tc``, ``tc_small_m``,
-    ``simt_f32``) since the last ``ops.reset_launch_counts``."""
+    ``simt_small_m``, ``simt_f32``) since the last
+    ``ops.reset_launch_counts``."""
     from repro_torch.kernels import masked_matmul as mk
     return dict(mk.routes)
 
@@ -796,6 +800,28 @@ def check_paged_verify(torch, dev, timer, rows, summary):
             s["cuda_body"] = used
 
 
+def masked_plan(mk, kname, m, d_in, d_out, dtype):
+    """The launch plan of a masked kernel call as a row records it: the
+    masked matmul's (K and N swap for the transposed form) or the
+    SDDMM's."""
+    if kname == "sddmm_masked":
+        pl = mk.sddmm_plan(d_in, d_out, dtype)
+        return {"route": pl.route, "tile": pl.tile, "grid": pl.grid}
+    k, n = (d_out, d_in) if kname == "masked_matmul_t" else (d_in, d_out)
+    pl = mk.plan(m, k, n, dtype)
+    return {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
+            "split": pl.split}
+
+
+def f32_row(s, row, at):
+    """Add an f32 row of a masked kernel to its summary: the kernels line
+    lists each with the body it ran, its time and its yardsticks."""
+    s.setdefault("f32_rows", []).append(
+        {"at": at, "cuda_body": row["routes_launched"],
+         **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by")}})
+
+
 def mm_close(torch, got, want32, mag, dtype):
     """(ok, max |got - want32|, max of the error over its limit) under the
     matmul-shaped rule of MM_TOL."""
@@ -875,17 +901,9 @@ def check_masked(torch, dev, timer, rows, summary):
                     ok = ok and exact_zeros
                 del got, want, mag
                 ok = ok and rejects
-                plan = None
-                if kname == "sddmm_masked":     # bf16 on the tensor cores
-                    ok = ok and used == (["tc"] if dt == "bfloat16"
-                                         else ["simt_f32"])
-                else:                           # the body the plan names ran
-                    k_, n_ = (d_out, d_in) if kname.endswith("_t") else (
-                        d_in, d_out)
-                    pl = mk.plan(m, k_, n_, dtype)
-                    plan = {"route": pl.route, "tile": pl.tile,
-                            "grid": pl.grid, "split": pl.split}
-                    ok = ok and used == [pl.route]
+                # the body the plan names ran (bf16 on the tensor cores)
+                plan = masked_plan(mk, kname, m, d_in, d_out, dtype)
+                ok = ok and used == [plan["route"]]
                 b_ms, b_by = bound(c["nbytes"], 2.0 * m * nnz, dt)
                 row = {"phase": "kernels", "kernel": kname, "shape": name,
                        "m": m, "d_in": d_in, "d_out": d_out,
@@ -915,6 +933,8 @@ def check_masked(torch, dev, timer, rows, summary):
                         "bound_by")})
                     s["at"] = f"bf16 up/gate {d_in}x{d_out}, m={m}"
                     s["cuda_body"] = used
+                if dt == "float32" and name == "up_gate":
+                    f32_row(s, row, f"olmo up/gate {d_in}x{d_out}, m={m}")
             del x, w, gy, wm, mask, dropped
     torch.cuda.empty_cache()
 
@@ -1154,8 +1174,10 @@ def check_lenet(torch, dev, timer, rows, summary):
     head's bo = 1 and 2 among them) and at the speedup's 8 x 256 x 256, in
     the roles the paper path gives it, and the masked matmul, its transpose
     and the SDDMM at LeNet's masked-dense layers (c = 10), each against its
-    plain version on the card; f32 runs the SIMT bodies (decode_simt at m
-    <= 32, simt_f32 above and for dx)."""
+    plain version on the card; f32 runs the SIMT bodies (bdmm: decode_simt
+    at m <= 32, simt_f32 above and for dx; the masked matmul: simt_small_m
+    at m <= 64, simt_f32 above; the SDDMM at the tile sddmm_plan picks),
+    each the one its plan names."""
     from repro_torch.configs.lenet300 import LeNet300
     from repro_torch.core.fold import mask_tensor
     from repro_torch.core.policy import uniform
@@ -1242,7 +1264,9 @@ def check_lenet(torch, dev, timer, rows, summary):
             ok, err, ratio = mm_close(torch, got, plain(), mag, "float32")
             if kname == "sddmm_masked":
                 ok = ok and bool((got[mask == 0] == 0).all())
-            ok = ok and used == ["simt_f32"]
+            # the f32 body the plan names ran
+            plan = masked_plan(mk, kname, m, d_in, d_out, torch.float32)
+            ok = ok and used == [plan["route"]]
             del got
             io = (m * d_in + m * d_out) * 4
             # the mask, and the whole dW the SDDMM writes or the weights on
@@ -1254,7 +1278,7 @@ def check_lenet(torch, dev, timer, rows, summary):
                    "nb": nb, "m": m, "dtype": "float32", "path": "paper",
                    "max_abs_err": err, "err_over_tol": ratio,
                    "tol": dict(MM_TOL["float32"], rule=MM_RULE), "ok": ok,
-                   "routes_launched": used, "ms": timer.ms(run),
+                   "routes_launched": used, "plan": plan, "ms": timer.ms(run),
                    "plain_ms": timer.ms(plain),
                    "library_ms": timer.ms(library),
                    "library": "one torch.matmul on the pre-masked weight",
@@ -1265,6 +1289,8 @@ def check_lenet(torch, dev, timer, rows, summary):
             s["max_abs_err"] = max(s["max_abs_err"], err)
             s["err_over_tol"] = max(s["err_over_tol"], ratio)
             s["ok"] = s["ok"] and ok
+            if d_in == 800:
+                f32_row(s, row, f"LeNet {d_in}x{d_out}, m={m}")
 
 
 def olmo_engine(torch, dev, dtype, seed=0, **over):
@@ -1638,10 +1664,11 @@ def exact_phase(torch, dev, ops, fuse=False):
            "weights": "int8", "n_layers": cfg.n_layers,
            "cut": f"{cfg.n_layers} of 16 layers", "requests": len(a),
            "tokens": sum(len(v) for v in a.values()),
-           "diverging_requests": diverge}
+           "diverging_requests": diverge,
+           "launches_kernel_route": counts["cuda"],
+           "launches_plain_route": counts["torch"]}
     if fuse:
-        row.update(mpd_fuse=True, launches_kernel_route=counts["cuda"],
-                   launches_plain_route=counts["torch"])
+        row["mpd_fuse"] = True
     emit(row)
     return row, (cfg, model, params, a)
 
@@ -1746,6 +1773,7 @@ def spec_phase(torch, dev, ops, target, draft):
     mpd_fuse bf16 target of ``fused_deploy`` drafted by its own loaded int8
     artifact, k = 4, on the serve phase's traffic, in turns (non-spec, spec,
     spec, non-spec), then profiled windows of non-spec and of spec steps."""
+    from repro_torch.kernels import masked_matmul as mk
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.serve import make_requests, serve_stream
     from repro_torch.serve import Engine
@@ -1794,12 +1822,13 @@ def spec_phase(torch, dev, ops, target, draft):
                 "launches": counts, "mm_routes": routes,
                 "attention_routes": attn_routes}
         # the bf16 target's rows (decode 4, verify 20, prefill chunks of
-        # 64) take the small-m tensor-core body, never the f32 SIMT one;
+        # 64) take the small-m tensor-core body, never an f32 SIMT one;
         # every attention call of the target and the draft (prefill chunks,
         # decode steps, verify windows) the tensor-core attention body
         turn_ok = (done and turn["pools_conserved"]
                    and turn["graphs_captured_while_serving"] == 0
-                   and routes["tc_small_m"] > 0 and routes["simt_f32"] == 0
+                   and routes["tc_small_m"] > 0
+                   and not any(routes[r] for r in mk.F32_ROUTES)
                    and attn_routes["split_tc"] == sum(counts[k] for k in (
                        "paged_prefill_attention", "paged_attention",
                        "paged_attention_verify"))
@@ -2014,6 +2043,7 @@ def train_phase(torch, dev, ops):
     import resource
     from repro_torch.configs.common import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import masked_matmul as mk
     from repro_torch.models import build
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig, make_train_step, run
@@ -2057,8 +2087,9 @@ def train_phase(torch, dev, ops):
     mm_r, sd_r = routes["masked_matmul"], routes["sddmm"]
     ok = (finite and abs(losses[0] - math.log(cfg.vocab)) <= 1.0 and clean
           and all(launches[k] > 0 for k in MASKED_KERNELS)
-          and mm_r["tc"] > 0 and mm_r["simt_f32"] == 0
-          and sd_r["tc"] > 0 and sd_r["simt_f32"] == 0)
+          and mm_r["tc"] > 0 and not any(mm_r[r] for r in mk.F32_ROUTES)
+          and sd_r["tc"] > 0
+          and not any(sd_r[r] for r in mk.SDDMM_F32_ROUTES))
     packed = train_packed(torch, dev, ops)
     ok = ok and packed["ok"]
     dense = model.matmul_params(dense=True)
@@ -2205,6 +2236,7 @@ def train_exact_phase(torch, dev, ops, data):
     read after it: the kernel route must launch every kernel of its mode,
     the plain route none."""
     from repro_torch.configs.common import get_config
+    from repro_torch.kernels import masked_matmul as mk
     from repro_torch.models import build
     from repro_torch.optim import OptConfig, init_state
     from repro_torch.train import TrainConfig, make_train_step
@@ -2239,11 +2271,11 @@ def train_exact_phase(torch, dev, ops, data):
         (pk, lk, gk), (pp, lp, gp) = res["cuda"], res["torch"]
         max_err, worst = update_errors(pk, pp, params)
         loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
-        # f32 stays on the exact SIMT body
+        # f32 stays on the exact SIMT bodies
         f32_mm = counts["cuda"]["masked_matmul"] + counts["cuda"]["masked_matmul_t"]
         routes_ok = (all(counts["cuda"][k] > 0 for k in kernels)
                      and not any(counts["torch"].values())
-                     and routes["cuda"]["simt_f32"] == f32_mm
+                     and sum(routes["cuda"][r] for r in mk.F32_ROUTES) == f32_mm
                      and not any(routes["torch"].values()))
         mode_ok = math.isfinite(lk) and loss_ok and worst <= 1.0 and routes_ok
         ok = ok and mode_ok
@@ -2337,6 +2369,7 @@ def lenet_step_exact(torch, dev, ops):
     from repro_torch.core.policy import uniform
     from repro_torch.data import TeacherStudent
     from repro_torch.kernels import bdmm as bk
+    from repro_torch.kernels import masked_matmul as mk
     from repro_torch.optim import OptConfig, init_state
 
     ocfg = OptConfig(kind="sgd", lr=1.0, momentum=0.0, clip_norm=1.0)
@@ -2365,11 +2398,12 @@ def lenet_step_exact(torch, dev, ops):
         kr = routes["cuda"]
         if mode == "packed":
             bodies_ok = (kr["bdmm"]["simt_f32"] > kr["bdmm_dx"]["simt_f32"] > 0)
-        else:
-            bodies_ok = (kr["masked_matmul"]["simt_f32"]
+        else:                   # every masked call on an f32 SIMT body
+            bodies_ok = (sum(kr["masked_matmul"][r] for r in mk.F32_ROUTES)
                          == counts["cuda"]["masked_matmul"]
                          + counts["cuda"]["masked_matmul_t"]
-                         and kr["sddmm"]["simt_f32"] > 0)
+                         and sum(kr["sddmm"][r] for r in mk.SDDMM_F32_ROUTES)
+                         == counts["cuda"]["sddmm_masked"] > 0)
         routes_ok = (all(counts["cuda"][k] > 0 for k in kernels)
                      and not any(counts["torch"].values()) and bodies_ok)
         loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
@@ -2473,12 +2507,14 @@ def paper_phase(torch, dev, ops):
 
     t1 = time.perf_counter()
     speed = []
+    ops.reset_launch_counts()       # the speedup rows' own launches
     for dtype in (torch.float32, torch.bfloat16):
         speed += sp.layer_speedup(dtype=dtype, device=dev)
         speed += sp.kernel_bench(dtype=dtype, device=dev)
     speed += sp.lenet_inference(device=dev)
     speed = paper_rows(speed)
     emit({"phase": "paper", "figure": "speedup", "rows": speed,
+          "launches": ops.launch_counts(),
           "timing": "median CUDA-event time of one warm call, a GPU sleep "
                     "queued ahead; host_us: host clock per eager call"})
     ok = (acc_ok and kernels_ok and gap_ok and fold_ok and step["ok"])
@@ -2657,7 +2693,9 @@ def main() -> int:
                         **({"serving_rows": s["serving_rows"]}
                            if "serving_rows" in s else {}),
                         **({"cuda_body": s["cuda_body"]}
-                           if "cuda_body" in s else {})})
+                           if "cuda_body" in s else {}),
+                        **({"f32_rows": s["f32_rows"]}
+                           if "f32_rows" in s else {})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

@@ -11,7 +11,7 @@
 // chip, so M o W is never written back, and the sddmm applies M in its
 // epilogue. Every product accumulates in f32 whatever the input type.
 //
-// The masked matmul has three routes; kernels/masked_matmul.py::plan picks
+// The masked matmul has four routes; kernels/masked_matmul.py::plan picks
 // one, its tiles and its K split from (m, K, N, dtype) and passes them here.
 //
 // * tc (bf16, m > 64: training, forward and dx). At olmo-1b's training
@@ -49,10 +49,13 @@
 //   0, 1, ... (no float atomics). Tiles, split and instruction shape depend
 //   on (K, N) alone, so a row's output is bit for bit the same at every m <=
 //   64.
-// * simt_f32 (f32, any m). f32 stays exact f32 (TF32 would not hold the
-//   parity routes' tolerances): a shared-memory tiled f32 SIMT GEMM, a 128 x
-//   128 output tile per block of 256 threads, 8 x 8 outputs a thread, K in
-//   steps of 16. The f32 sddmm runs on the same SIMT body.
+// * simt_small_m and simt_f32 (f32, m <= 64 and above; the f32 SDDMM on
+//   the tiled SIMT body with a tile plan of its own). f32 stays exact f32
+//   (TF32 would not hold the parity routes' tolerances): FFMA on the CUDA
+//   cores. At LeNet-300-100's widths (the paper's path: K and N of 800,
+//   300, 100, 10) a 128 x 128 tile leaves 1 to 3 blocks on 132 SMs, so
+//   both bodies split K over a thread block cluster and add the partials
+//   over DSMEM in rank order; see the simt namespace below.
 //
 // The sddmm in bf16 (sddmm_tc_kernel) is the tc body's shape with the token
 // axis as K: A = x^T and B = g both read MN-major straight from the rows of
@@ -76,149 +79,552 @@
 namespace repro_torch {
 namespace {
 
-// ====================================================== SIMT route (f32)
-constexpr int BM = 128, BN = 128, BK = 16, THREADS = 256;
-constexpr int LD = BM + 4;  // padded row of a shared tile: 2-way store conflicts at most
-static_assert(BM == BN, "one loader serves both operands");
+// ===================================================== SIMT routes (f32)
+// f32 stays exact f32: FFMA on the CUDA cores, no TF32, no tensor cores.
+// Every output is one fma chain over its K range in increasing k; a K split
+// is one thread block cluster whose partials are added over DSMEM in rank
+// order (tc::cluster_add), so a result never depends on the blocks' order
+// and a CUDA-graph replay equals the eager call bit for bit.
+namespace simt {
 
-// Both kinds of tile are staged by one loader. A "k-contiguous" operand is
-// read along its rows (x in (m, K), W in (N, K) for transpose_rhs) and a
-// "k-strided" operand along its columns (W in (K, N), and both x and g of the
-// sddmm, whose reduction axis is the token axis). Consecutive threads always
-// read consecutive addresses in device memory; the transpose into the
-// k-major shared tile happens on the store.
-//
-// Stage the k-major tile s[kk][rc] (kk < BK, rc < BM) of an operand whose
-// element (rc, k) lives at src[rc * ld + k] (KCONTIG) or src[k * ld + rc].
-// With a mask (same layout as src) each value is multiplied by it, as the
-// reference multiplies w by m.astype(w.dtype). Out-of-range entries are 0.
-template <bool KCONTIG, typename T>
-__device__ __forceinline__ void stage(float (*s)[LD], const T* __restrict__ src,
-                                      const uint8_t* __restrict__ mask, long ld,
-                                      int rc0, int rc_end, int k0, int k_end, int tid) {
+constexpr int CLUSTER_MAX = 16;  // a K split is one cluster (non-portable above 8)
+
+struct Args {
+  const float* x;       // (m, k); the SDDMM: x (m, d_in)
+  const float* w;       // (k, n), or (n, k) with TRANS_W; the SDDMM: g (m, d_out)
+  const uint8_t* mask;  // W's layout; the SDDMM: (d_in, d_out)
+  const float* bias;    // (n,) or null
+  float* y;             // (m, n); the SDDMM: dW (d_in, d_out)
+  int m, k, n, act;     // the SDDMM: m tokens, k = d_in, n = d_out
+  int split, k_chunk;   // blocks along K (blockIdx.z) and the K range of each
+  int vec_x, vec_w, vec_m;  // copy width in bytes of each operand's rows
+};
+
+// 4 mask bytes into shared memory at dst, `valid` of them from src and the
+// rest zero: one asynchronous copy where the rows are 4-byte aligned, else
+// loaded and stored here.
+__device__ __forceinline__ void copy4(uint32_t dst, const uint8_t* src, const uint8_t* base,
+                                      int valid, int vec) {
+  if (vec >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(valid > 0 ? src : base), "r"(valid) : "memory");
+  } else {
+    uint32_t q = 0;
+    for (int b = 0; b < valid; ++b) q |= static_cast<uint32_t>(src[b]) << (8 * b);
+    asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(q) : "memory");
+  }
+}
+
+// w * m for 4 weights and their 4 mask bytes, as the reference multiplies w
+// by m.astype(w.dtype): an off-mask NaN or inf still gives NaN.
+__device__ __forceinline__ float4 apply_mask(float4 v, uint32_t mk) {
+  v.x = __fmul_rn(v.x, static_cast<float>(mk & 0xFFu));
+  v.y = __fmul_rn(v.y, static_cast<float>((mk >> 8) & 0xFFu));
+  v.z = __fmul_rn(v.z, static_cast<float>((mk >> 16) & 0xFFu));
+  v.w = __fmul_rn(v.w, static_cast<float>(mk >> 24));
+  return v;
+}
+
+// y[r, c..c+3] = act(v + bias) for the 4 channels below n; one 16-byte
+// store where the row allows it.
+__device__ __forceinline__ void store4(const Args& a, int r, int c, float4 v) {
+  float o[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int rc = KCONTIG ? idx / BK : idx % BM;
-    const int kk = KCONTIG ? idx % BK : idx / BM;
-    const int grc = rc0 + rc, gk = k0 + kk;
-    float v = 0.f;
-    if (grc < rc_end && gk < k_end) {
-      const long off = KCONTIG ? static_cast<long>(grc) * ld + gk
-                               : static_cast<long>(gk) * ld + grc;
-      v = to_f32(src[off]);
-      if (mask) v *= static_cast<float>(mask[off]);
+  for (int q = 0; q < 4; ++q)
+    o[q] = activate(o[q] + (a.bias && c + q < a.n ? __ldg(a.bias + c + q) : 0.f), a.act);
+  float* dst = a.y + static_cast<long>(r) * a.n + c;
+  if (a.n % 4 == 0 && c + 4 <= a.n) {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c + q < a.n) dst[q] = o[q];
+  }
+}
+
+// -------------------------------------------------------- simt_small_m
+// m <= 64 rows (batch-1 inference, a training batch of 50, a served
+// model's decode rows). Bound by the W and mask stream (1.2 MB at LeNet's
+// 800 x 300), so the design is about spreading that stream over the card
+// and keeping it in flight. A block owns SM_NC output channels (lane l:
+// channel l) for all m rows, warp w rows 16 w .. 16 w + 15, held in
+// registers; warps whose rows all lie past m skip the products. K is
+// split over the z blocks of one cluster. W, its mask and x stream through
+// a ring of SM_STAGES cp.async stages of SM_TK k; the thread that copied a
+// W piece (4 weights) multiplies it by its 4 mask bytes, so one barrier a
+// stage publishes it. Tiles and split follow from (K, N) alone
+// (kernels/masked_matmul.py::plan) and no arithmetic depends on m, so a
+// row's output is bit for bit the same at every m <= 64.
+constexpr int SM_THREADS = 128, SM_ROWS = 64, SM_NC = 32, SM_TK = 32, SM_STAGES = 4;
+constexpr int SM_XLD = SM_TK + 4;  // padded k row of a channel-major W tile (TRANS_W)
+
+struct SmallStage {
+  static constexpr int X = SM_ROWS * SM_TK * 4;  // x rows of SM_TK floats
+  static constexpr int W = SM_NC * SM_XLD * 4;   // the W tile, either layout
+  static constexpr int M = SM_TK * SM_NC;        // one mask word per W piece
+  static constexpr int BYTES = X + W + M;
+  static_assert(BYTES % 16 == 0 && SM_ROWS * SM_NC * 4 <= SM_STAGES * BYTES,
+                "aligned stages; the partials fit the ring");
+};
+
+// Byte offset in the W tile of piece p (4 floats): k row p / (SM_NC / 4) of
+// SM_NC channels, or channel row p / (SM_TK / 4) of SM_XLD floats (TRANS_W).
+template <bool TRANS_W>
+__device__ __forceinline__ uint32_t small_w_off(int p) {
+  return TRANS_W ? ((p / (SM_TK / 4)) * SM_XLD + 4 * (p % (SM_TK / 4))) * 4 : 16 * p;
+}
+
+template <bool TRANS_W>
+__global__ void __launch_bounds__(SM_THREADS) masked_mm_simt_small_kernel(const Args a) {
+  using S = SmallStage;
+  constexpr int NC = SM_NC;
+  constexpr int PER = SM_TK * NC / 4 / SM_THREADS;  // W pieces a thread copies and masks
+  static_assert(PER * SM_THREADS * 4 == SM_TK * NC && NC == 32, "whole shares, a lane a channel");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t s0 = tc::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ch0 = blockIdx.x * NC;
+  const int kb = blockIdx.z * a.k_chunk, ke = min(a.k, kb + a.k_chunk);
+  const int steps = (ke - kb + SM_TK - 1) / SM_TK;
+  const auto* xb = reinterpret_cast<const uint8_t*>(a.x);
+  const auto* wb = reinterpret_cast<const uint8_t*>(a.w);
+
+  auto issue = [&](int t) {
+    const uint32_t st = s0 + (t % SM_STAGES) * S::BYTES;
+    const int k0 = kb + t * SM_TK;
+    for (int i = tid; i < a.m * (SM_TK / 4); i += SM_THREADS) {
+      const int r = i / (SM_TK / 4), q = i % (SM_TK / 4), kk = k0 + 4 * q;
+      tc::copy16(st + 16 * i, xb + (static_cast<long>(r) * a.k + kk) * 4, xb,
+                 4 * min(max(ke - kk, 0), 4), a.vec_x);
     }
-    s[kk][rc] = v;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int p = tid + i * SM_THREADS;
+      int valid;
+      long off;
+      if (TRANS_W) {  // channel row cr, k from kk
+        const int cr = p / (SM_TK / 4), kk = k0 + 4 * (p % (SM_TK / 4)), ch = ch0 + cr;
+        valid = ch < a.n ? min(max(ke - kk, 0), 4) : 0;
+        off = static_cast<long>(ch) * a.k + kk;
+      } else {        // k row kk, channels from ch
+        const int kk = k0 + p / (NC / 4), ch = ch0 + 4 * (p % (NC / 4));
+        valid = kk < ke ? min(max(a.n - ch, 0), 4) : 0;
+        off = static_cast<long>(kk) * a.n + ch;
+      }
+      tc::copy16(st + S::X + small_w_off<TRANS_W>(p), wb + off * 4, wb, 4 * valid, a.vec_w);
+      copy4(st + S::X + S::W + 4 * p, a.mask + off, a.mask, valid, a.vec_m);
+    }
+  };
+
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  const bool rows_here = warp * 16 < a.m;
+
+  // Stage t % SM_STAGES holds step t; SM_STAGES - 1 steps are in flight. A
+  // thread waits for its own copies and masks its own pieces; the barrier
+  // then publishes step t and frees the stage of step t - 1 for step t +
+  // SM_STAGES - 1.
+#pragma unroll
+  for (int t = 0; t < SM_STAGES - 1; ++t) {
+    if (t < steps) issue(t);
+    tc::cp_commit();
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    uint8_t* st = smem + (t % SM_STAGES) * S::BYTES;
+    tc::cp_wait<SM_STAGES - 2>();
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int p = tid + i * SM_THREADS;
+      float4* wp = reinterpret_cast<float4*>(st + S::X + small_w_off<TRANS_W>(p));
+      *wp = apply_mask(*wp, *reinterpret_cast<const uint32_t*>(st + S::X + S::W + 4 * p));
+    }
+    __syncthreads();
+    if (t + SM_STAGES - 1 < steps) issue(t + SM_STAGES - 1);
+    tc::cp_commit();
+    if (!rows_here) continue;
+    const float* xs = reinterpret_cast<const float*>(st) + warp * 16 * SM_TK;
+    const float* ws = reinterpret_cast<const float*>(st + S::X);
+#pragma unroll
+    for (int q = 0; q < SM_TK / 4; ++q) {
+      float wv[4];
+      if (TRANS_W) {
+        const float4 v = *reinterpret_cast<const float4*>(ws + lane * SM_XLD + 4 * q);
+        wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wv[e] = ws[(4 * q + e) * NC + lane];
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + i * SM_TK + 4 * q);
+        acc[i] = fmaf(xv.x, wv[0], acc[i]);
+        acc[i] = fmaf(xv.y, wv[1], acc[i]);
+        acc[i] = fmaf(xv.z, wv[2], acc[i]);
+        acc[i] = fmaf(xv.w, wv[3], acc[i]);
+      }
+    }
+  }
+
+  if (a.split == 1) {
+    const int c = ch0 + lane;
+    if (!rows_here || c >= a.n) return;
+    const float b = a.bias ? __ldg(a.bias + c) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = warp * 16 + i;
+      if (r < a.m) a.y[static_cast<long>(r) * a.n + c] = activate(acc[i] + b, a.act);
+    }
+    return;
+  }
+  // The split's partials (rows < m, NC channels) in shared memory; each
+  // block then adds a share of the tile from all of them, in rank order.
+  __syncthreads();  // every warp is done with the ring
+  float* part = reinterpret_cast<float*>(smem);
+  if (rows_here)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (warp * 16 + i < a.m) part[(warp * 16 + i) * NC + lane] = acc[i];
+  tc::cluster_sync();
+  tc::cluster_add<CLUSTER_MAX>(s0, a.split, a.m * NC / 4, [&](int g, float4 v) {
+    store4(a, g / (NC / 4), ch0 + 4 * (g % (NC / 4)), v);
+  });
+  tc::cluster_sync();  // the other blocks have read this block's partial
+}
+
+// ----------------------------------------------------- the tiled bodies
+// A BM x BN output tile a block, TM x TN outputs a thread, K in steps of
+// BK through two shared buffers: step t + 1 is loaded from device memory
+// into registers (16-byte loads where the rows allow) while step t is
+// multiplied, then stored k-major (transposed where the operand is
+// k-contiguous, masked where it is W) into the other buffer, so one barrier
+// a step orders both. Thread (tr, tc) owns rows tr * 4 + i (+ BM / 2 for i
+// >= 4 when TM = 8) and the same pattern of columns. BK is 32 where the
+// 128 x 128 tile's operands are read along K (transpose_rhs, the SDDMM):
+// a step then reads whole 128-byte lines of each row and whole 32-byte
+// sectors of the mask (olmo-1b's transposed up/gate 2.06 -> 1.96 ms, its
+// SDDMM 1.82 -> 1.64); 16 elsewhere (the forward ran 1.82 at 16, 1.95 at
+// 32; H100 80GB HBM3, 700 W).
+template <int BM, int BN, int TM, int TN, int BK_>
+struct Tile {
+  static constexpr int BK = BK_;
+  static constexpr int THREADS = (BM / TM) * (BN / TN);
+  static constexpr int LA = BM + 4, LB = BN + 4;  // padded rows of the k-major buffers
+  static constexpr int RING = 2 * BK * (LA + LB) * 4;
+  static __device__ __forceinline__ int row(int t, int i) {
+    return (i / 4) * (BM * 4 / TM) + t * 4 + i % 4;
+  }
+  static __device__ __forceinline__ int col(int t, int j) {
+    return (j / 4) * (BN * 4 / TN) + t * 4 + j % 4;
+  }
+};
+
+// One operand's share of a ROWS x BK step in registers, pieces of 4 floats
+// along its contiguous axis. Element (r, k) lives at src[r * ld + k]
+// (KCONTIG: x, W with TRANS_W) or src[k * ld + r] (W forward; x and g of
+// the SDDMM, whose K is the token axis). With MASK each piece keeps its 4
+// mask bytes (same layout as src) and is multiplied by them on the store:
+// nothing reads a load before the step's products, so the loads overlap
+// them. Out of range is 0.
+template <int ROWS, int BK, int THREADS, bool KCONTIG, bool MASK>
+struct Loader {
+  static constexpr int PER = ROWS * BK / 4 / THREADS;
+  static_assert(PER * THREADS * 4 == ROWS * BK, "whole shares");
+  float4 v[PER];
+  uint32_t mk[MASK ? PER : 1];
+
+  static __device__ __forceinline__ void piece(int p, int& r, int& k) {
+    if (KCONTIG) {
+      r = p / (BK / 4);
+      k = 4 * (p % (BK / 4));
+    } else {
+      k = p / (ROWS / 4);
+      r = 4 * (p % (ROWS / 4));
+    }
+  }
+
+  __device__ __forceinline__ void load(const float* __restrict__ src,
+                                       const uint8_t* __restrict__ mask, long ld, int r0,
+                                       int r_end, int k0, int k_end, bool vec, bool vec_m,
+                                       int tid) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int r, k;
+      piece(tid + i * THREADS, r, k);
+      const int gr = r0 + r, gk = k0 + k;
+      const bool in = KCONTIG ? gr < r_end : gk < k_end;
+      const int left = KCONTIG ? k_end - gk : r_end - gr;  // elements left on the row
+      const long off = KCONTIG ? gr * ld + gk : gk * ld + gr;
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in && vec && left >= 4) {
+        f = __ldg(reinterpret_cast<const float4*>(src + off));
+      } else if (in) {
+        if (left > 0) f.x = __ldg(src + off);
+        if (left > 1) f.y = __ldg(src + off + 1);
+        if (left > 2) f.z = __ldg(src + off + 2);
+        if (left > 3) f.w = __ldg(src + off + 3);
+      }
+      if (MASK) {
+        uint32_t q = 0;
+        if (in && vec_m && left >= 4) {
+          q = __ldg(reinterpret_cast<const unsigned int*>(mask + off));
+        } else if (in) {
+          for (int e = 0; e < min(left, 4); ++e)
+            q |= static_cast<uint32_t>(__ldg(mask + off + e)) << (8 * e);
+        }
+        mk[i] = q;
+      }
+      v[i] = f;
+    }
+  }
+
+  // into the k-major buffer s[k][r] (rows of ROWS + 4 floats)
+  __device__ __forceinline__ void store(float* s, int tid) const {
+    constexpr int LD = ROWS + 4;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int r, k;
+      piece(tid + i * THREADS, r, k);
+      const float4 f = MASK ? apply_mask(v[i], mk[i]) : v[i];
+      if (KCONTIG) {
+        s[(k + 0) * LD + r] = f.x;
+        s[(k + 1) * LD + r] = f.y;
+        s[(k + 2) * LD + r] = f.z;
+        s[(k + 3) * LD + r] = f.w;
+      } else {
+        *reinterpret_cast<float4*>(s + k * LD + r) = f;
+      }
+    }
+  }
+};
+
+// acc[i][j] += sum_kk a[kk][row(i)] * b[kk][col(j)] over one buffered step
+template <class T, int TM, int TN>
+__device__ __forceinline__ void tile_fma(const float* a, const float* b, float (&acc)[TM][TN],
+                                         int tr, int tc) {
+#pragma unroll
+  for (int kk = 0; kk < T::BK; ++kk) {
+    float av[TM], bv[TN];
+#pragma unroll
+    for (int h = 0; h < TM / 4; ++h) {
+      const float4 f = *reinterpret_cast<const float4*>(a + kk * T::LA + T::row(tr, 4 * h));
+      av[4 * h] = f.x; av[4 * h + 1] = f.y; av[4 * h + 2] = f.z; av[4 * h + 3] = f.w;
+    }
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const float4 f = *reinterpret_cast<const float4*>(b + kk * T::LB + T::col(tc, 4 * h));
+      bv[4 * h] = f.x; bv[4 * h + 1] = f.y; bv[4 * h + 2] = f.z; bv[4 * h + 3] = f.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// acc[i][j] += sum_kk a[kk][row(i)] * b[kk][col(j)] over one staged K step.
-// Thread (tr, tc) owns rows {tr*4 + i, 64 + tr*4 + i} and columns
-// {tc*4 + j, 64 + tc*4 + j}, i, j < 4.
-__device__ __forceinline__ void tile_fma(float (*a)[LD], float (*b)[LD],
-                                         float acc[8][8], int tr, int tc) {
-#pragma unroll
-  for (int kk = 0; kk < BK; ++kk) {
-    float av[8], bv[8];
-    const float4 a0 = *reinterpret_cast<const float4*>(&a[kk][tr * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&a[kk][64 + tr * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&b[kk][tc * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&b[kk][64 + tc * 4]);
-    av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-    av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-    bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-    bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// The pipelined K loop of one block over [kb, ke): step t + 1 is loaded
+// into registers before step t's products and stored after them.
+template <class T, int TM, int TN, class LA_, class LB_, class LoadA, class LoadB>
+__device__ __forceinline__ void tile_loop(float* sa, float* sb, LA_& la, LB_& lb, LoadA load_a,
+                                          LoadB load_b, int kb, int ke, float (&acc)[TM][TN],
+                                          int tr, int tc, int tid) {
+  constexpr int BK = T::BK;
+  const int steps = (ke - kb + BK - 1) / BK;
+  load_a(la, kb);
+  load_b(lb, kb);
+  la.store(sa, tid);
+  lb.store(sb, tid);
+  __syncthreads();
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int cur = t & 1;
+    const bool next = t + 1 < steps;
+    if (next) {
+      load_a(la, kb + (t + 1) * BK);
+      load_b(lb, kb + (t + 1) * BK);
+    }
+    tile_fma<T>(sa + cur * BK * T::LA, sb + cur * BK * T::LB, acc, tr, tc);
+    if (next) {
+      la.store(sa + (cur ^ 1) * BK * T::LA, tid);
+      lb.store(sb + (cur ^ 1) * BK * T::LB, tid);
+    }
+    __syncthreads();
   }
 }
 
-__device__ __forceinline__ int owned(int t, int i) { return (i / 4) * 64 + t * 4 + i % 4; }
+// simt_f32 (m > 64): y tile = act(x (M o W) + bias), 128 x 128 tokens x
+// channels, 8 x 8 a thread. At olmo-1b's widths the grid fills the card and
+// the body is bound by its FFMA issue rate (68.7 GFLOP for up/gate, 1.03 ms
+// at 67 TFLOP/s); where the grid is short of the SMs (LeNet at m = 2048: 48
+// tiles at N = 300) K is split over the z blocks of a cluster and the
+// partials added as in simt_small_m. One block an SM: at two, the 128
+// registers a thread spilled and up/gate ran 16 % slower (2.13 ms against
+// 1.84, H100 80GB HBM3, 700 W).
+template <bool TRANS_W>
+using MmTile = Tile<128, 128, 8, 8, TRANS_W ? 32 : 16>;
 
-// y (m, n) = act(x (m, k) @ B + bias), B = M o W with W (k, n), or
-// B = (M o W)^T with W (n, k) when TRANS_W.
-// Two blocks per SM: the epilogue's bias and activation would otherwise
-// take the kernel past 128 registers a thread and leave one block per SM.
-template <typename T, bool TRANS_W>
-__global__ void __launch_bounds__(THREADS, 2)
-masked_mm_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const uint8_t* __restrict__ mask, const float* __restrict__ bias,
-                      T* __restrict__ y, int m, int k, int n, int act) {
-  __shared__ __align__(16) float As[BK][LD];
-  __shared__ __align__(16) float Bs[BK][LD];
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+template <bool TRANS_W>
+__global__ void __launch_bounds__(MmTile<TRANS_W>::THREADS, 1)
+    masked_mm_simt_kernel(const Args a) {
+  using T = MmTile<TRANS_W>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = sa + 2 * T::BK * T::LA;
+  const int col0 = blockIdx.x * 128, row0 = blockIdx.y * 128;
+  const int kb = blockIdx.z * a.k_chunk, ke = min(a.k, kb + a.k_chunk);
+  const int tid = threadIdx.x, tr = tid / 16, tcol = tid % 16;
+  const bool vx = a.vec_x == 16, vw = a.vec_w == 16, vm = a.vec_m >= 4;
+  Loader<128, T::BK, T::THREADS, true, false> la;
+  Loader<128, T::BK, T::THREADS, TRANS_W, true> lb;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  tile_loop<T>(
+      sa, sb, la, lb,
+      [&](auto& l, int k0) { l.load(a.x, nullptr, a.k, row0, a.m, k0, ke, vx, false, tid); },
+      [&](auto& l, int k0) {
+        l.load(a.w, a.mask, TRANS_W ? a.k : a.n, col0, a.n, k0, ke, vw, vm, tid);
+      },
+      kb, ke, acc, tr, tcol, tid);
 
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    stage<true>(As, x, nullptr, k, row0, m, k0, k, tid);
-    stage<TRANS_W>(Bs, w, mask, TRANS_W ? k : n, col0, n, k0, k, tid);
-    __syncthreads();
-    tile_fma(As, Bs, acc, tr, tc);
-    __syncthreads();
-  }
-
+  if (a.split == 1) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + owned(tr, i);
-    if (r >= m) continue;
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 + T::row(tr, i);
+      if (r >= a.m) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + owned(tc, j);
-      if (c >= n) continue;
-      float v = acc[i][j];
-      if (bias) v += bias[c];
-      y[static_cast<long>(r) * n + c] = from_f32<T>(activate(v, act));
+      for (int h = 0; h < 2; ++h) {
+        const int c = col0 + T::col(tcol, 4 * h);
+        if (c < a.n)
+          store4(a, r, c, make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                      acc[i][4 * h + 3]));
+      }
     }
+    return;
   }
-}
-
-// dw (d_in, d_out) = (x^T @ g) o M over all m tokens; x (m, d_in), g (m, d_out).
-// Off-mask entries are written as exact zeros by a select, so a non-finite
-// sum cannot leak into them (the reference's multiply would give NaN there).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sddmm_kernel(const T* __restrict__ x, const T* __restrict__ g,
-             const uint8_t* __restrict__ mask, T* __restrict__ dw,
-             int m, int d_in, int d_out) {
-  __shared__ __align__(16) float As[BK][LD];
-  __shared__ __align__(16) float Bs[BK][LD];
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
-  float acc[8][8];
+  // the loop's last barrier freed the buffers: the 128 x 128 partial
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(part + T::row(tr, i) * 128 + T::col(tcol, 4 * h)) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  tc::cluster_sync();
+  const int rows = min(128, a.m - row0);
+  tc::cluster_add<CLUSTER_MAX>(tc::smem_u32(part), a.split, rows * 32, [&](int g, float4 v) {
+    const int c = col0 + 4 * (g % 32);
+    if (c < a.n) store4(a, row0 + g / 32, c, v);
+  });
+  tc::cluster_sync();  // the other blocks have read this block's partial
+}
 
-  for (int t0 = 0; t0 < m; t0 += BK) {
-    stage<false>(As, x, nullptr, d_in, row0, d_in, t0, m, tid);
-    stage<false>(Bs, g, nullptr, d_out, col0, d_out, t0, m, tid);
-    __syncthreads();
-    tile_fma(As, Bs, acc, tr, tc);
-    __syncthreads();
-  }
+// The SDDMM, f32: dW tile = (x^T g) o M, BM rows of dW (input channels) x
+// BN columns (output channels), the m tokens reduced in steps of BK; x and
+// g are both read along their rows (k-strided operands), so nothing is
+// transposed. kernels/masked_matmul.py::sddmm_plan picks the tile from
+// (d_in, d_out) so that the grid covers the SMs where the output allows:
+// 128 x 128 at olmo-1b's widths, 64 x 32 at LeNet's. Off-mask
+// entries are written as exact zeros by a select, so a non-finite sum
+// cannot leak into them (the reference's multiply would give NaN there); 4
+// consecutive dW floats leave as one 16-byte store with their 4 mask bytes
+// read as one word where d_out % 4 == 0.
+template <int BM, int BN, int TM, int TN, int BK>
+__global__ void __launch_bounds__(Tile<BM, BN, TM, TN, BK>::THREADS)
+    sddmm_simt_kernel(const Args a) {
+  using T = Tile<BM, BN, TM, TN, BK>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = sa + 2 * BK * T::LA;
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, tr = tid / (BN / TN), tcol = tid % (BN / TN);
+  const bool vx = a.vec_x == 16, vg = a.vec_w == 16;
+  Loader<BM, BK, T::THREADS, false, false> la;
+  Loader<BN, BK, T::THREADS, false, false> lb;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  tile_loop<T>(
+      sa, sb, la, lb,
+      [&](auto& l, int t0) { l.load(a.x, nullptr, a.k, row0, a.k, t0, a.m, vx, false, tid); },
+      [&](auto& l, int t0) { l.load(a.w, nullptr, a.n, col0, a.n, t0, a.m, vg, false, tid); },
+      0, a.m, acc, tr, tcol, tid);
 
+  const bool vec = a.n % 4 == 0 && a.vec_m >= 4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = row0 + owned(tr, i);
-    if (r >= d_in) continue;
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + T::row(tr, i);
+    if (r >= a.k) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + owned(tc, j);
-      if (c >= d_out) continue;
-      const long off = static_cast<long>(r) * d_out + c;
-      dw[off] = from_f32<T>(mask[off] ? acc[i][j] : 0.f);
+    for (int h = 0; h < TN / 4; ++h) {
+      const int c = col0 + T::col(tcol, 4 * h);
+      const long off = static_cast<long>(r) * a.n + c;
+      const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]};
+      if (vec && c + 4 <= a.n) {
+        const uint32_t mk = __ldg(reinterpret_cast<const unsigned int*>(a.mask + off));
+        *reinterpret_cast<float4*>(a.y + off) =
+            make_float4(mk & 0xFFu ? v[0] : 0.f, mk & 0xFF00u ? v[1] : 0.f,
+                        mk & 0xFF0000u ? v[2] : 0.f, mk & 0xFF000000u ? v[3] : 0.f);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c + q < a.n) a.y[off + q] = a.mask[off + q] ? v[q] : 0.f;
+      }
     }
   }
 }
+
+// ------------------------------------------------------------- launches
+template <class... P>
+cudaError_t launch_split(void (*kern)(P...), int threads, int bytes, dim3 grid, int split,
+                         cudaStream_t s, const Args& a) {
+  return split > 1 ? tc::launch_cluster(kern, threads, bytes, grid, dim3(1, 1, split), s, a)
+                   : tc::launch(kern, threads, bytes, grid, s, a);
+}
+
+// The masked matmul's f32 bodies: the tile (rows, channels) must be one
+// they are built for; split blocks along K (one cluster, <= CLUSTER_MAX)
+// of k_chunk each (a multiple of 4 floats).
+cudaError_t launch_mm(const Args& a, bool small, bool trans, int tile_p, int tile_q,
+                      cudaStream_t s) {
+  if (small) {
+    if (a.m > SM_ROWS || tile_p != SM_ROWS || tile_q != SM_NC) return cudaErrorInvalidValue;
+    const dim3 grid((a.n + SM_NC - 1) / SM_NC, 1, a.split);
+    const int bytes = SM_STAGES * SmallStage::BYTES;
+    return trans ? launch_split(masked_mm_simt_small_kernel<true>, SM_THREADS, bytes, grid,
+                                a.split, s, a)
+                 : launch_split(masked_mm_simt_small_kernel<false>, SM_THREADS, bytes, grid,
+                                a.split, s, a);
+  }
+  if (tile_p != 128 || tile_q != 128) return cudaErrorInvalidValue;
+  const dim3 grid((a.n + 127) / 128, (a.m + 127) / 128, a.split);
+  // the ring, or the 128 x 128 partial of a split if that is larger
+  const int part = a.split > 1 ? 128 * 128 * 4 : 0;
+  return trans ? launch_split(masked_mm_simt_kernel<true>, MmTile<true>::THREADS,
+                              max(part, MmTile<true>::RING), grid, a.split, s, a)
+               : launch_split(masked_mm_simt_kernel<false>, MmTile<false>::THREADS,
+                              max(part, MmTile<false>::RING), grid, a.split, s, a);
+}
+
+// The f32 SDDMM at one of the tiles (rows of dW x columns) it is built for.
+cudaError_t launch_sddmm(const Args& a, int tile_p, int tile_q, cudaStream_t s) {
+  const dim3 grid((a.n + tile_q - 1) / tile_q, (a.k + tile_p - 1) / tile_p);
+#define REPRO_SDDMM(BM_, BN_, TM_, TN_, BK_)                                                 \
+  tc::launch(sddmm_simt_kernel<BM_, BN_, TM_, TN_, BK_>,                                     \
+             Tile<BM_, BN_, TM_, TN_, BK_>::THREADS, Tile<BM_, BN_, TM_, TN_, BK_>::RING, grid, \
+             s, a)
+  if (tile_p == 128 && tile_q == 128) return REPRO_SDDMM(128, 128, 8, 8, 32);
+  if (tile_p == 64 && tile_q == 32) return REPRO_SDDMM(64, 32, 4, 4, 16);
+#undef REPRO_SDDMM
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace simt
 
 }  // namespace
 
@@ -875,17 +1281,18 @@ __global__ void masked_mm_reduce_kernel(const float* __restrict__ ws,
 
 namespace {
 
-void launch_sddmm_f32(const void* x, const void* g, const uint8_t* mask, void* dw, int m,
-                      int d_in, int d_out, cudaStream_t s) {
-  const dim3 grid((d_out + BN - 1) / BN, (d_in + BM - 1) / BM);
-  sddmm_kernel<float><<<grid, THREADS, 0, s>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(g), mask,
-                                               static_cast<float*>(dw), m, d_in, d_out);
-}
-
-// routes (kernels/masked_matmul.py ROUTES) and the tiles each is built for
-enum Route { ROUTE_SIMT_F32 = 0, ROUTE_TC = 1, ROUTE_TC_SMALL_M = 2 };
+// routes (kernels/masked_matmul.py ROUTES, SDDMM_ROUTES) and the tiles each
+// is built for
+enum Route { ROUTE_SIMT_F32 = 0, ROUTE_TC = 1, ROUTE_TC_SMALL_M = 2, ROUTE_SIMT_SMALL_M = 3 };
+enum SddmmRoute { SDDMM_SIMT_F32 = 0, SDDMM_TC = 1, SDDMM_SIMT_SMALL_TILE = 2 };
 constexpr int TC_STAGES = 4, SMALL_STAGES = 4, SMALL_TILE = 64;
+
+// A K split of split blocks of k_chunk each (a multiple of `unit`) covers
+// [0, k), every block's range non-empty.
+bool split_ok(int k, int split, int k_chunk, int unit, int max_split) {
+  return split >= 1 && split <= max_split && k_chunk > 0 && k_chunk % unit == 0 &&
+         static_cast<long>(split) * k_chunk >= k && static_cast<long>(split - 1) * k_chunk < k;
+}
 
 }  // namespace
 }  // namespace repro_torch
@@ -893,14 +1300,17 @@ constexpr int TC_STAGES = 4, SMALL_STAGES = 4, SMALL_TILE = 64;
 using namespace repro_torch;
 
 // y (m, n) = act(x (m, k) @ (M o W) + bias): W and mask (k, n), or (n, k)
-// with transpose_w (then y = x @ (M o W)^T). dtype: DT_F32 (route simt_f32)
-// or DT_BF16 (routes tc and tc_small_m) for x, W and y; bias f32 (n,) or
-// null. The launch plan (kernels/masked_matmul.py::plan): the route, its
-// output tile (tile_p rows of the MMA's M side, tile_q of its N side; they
-// must be the ones the route is built for), the K split and the K range of
-// each split (k_chunk, a multiple of 64; split > 1 only on tc_small_m, with
-// ws an f32 (split, m, n) workspace), and the copy width in bytes of the
-// rows of x, W and the mask. Returns cudaGetLastError() after the launches.
+// with transpose_w (then y = x @ (M o W)^T). dtype: DT_F32 (routes
+// simt_small_m for m <= 64 and simt_f32) or DT_BF16 (routes tc and
+// tc_small_m) for x, W and y; bias f32 (n,) or null. The launch plan
+// (kernels/masked_matmul.py::plan): the route, its output tile (tile_p rows
+// of the MMA's M side, tile_q of its N side; they must be one the route is
+// built for: the f32 routes take tokens x channels), the K split and the K
+// range of each split (k_chunk: a multiple of 64 on the bf16 routes, with
+// ws an f32 (split, m, n) workspace when tc_small_m splits; a multiple of 4
+// on the f32 routes, whose split is one cluster of at most 16 blocks and
+// needs no workspace), and the copy width in bytes of the rows of x, W and
+// the mask. Returns cudaGetLastError() after the launches.
 extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t* mask,
                                     const float* bias, void* y, float* ws, int m, int k, int n,
                                     int dtype, int transpose_w, int act, int route, int tile_p,
@@ -909,22 +1319,18 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t*
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_RELU) return bad;
+  if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_w) || !tc::vec_ok(vec_m)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == ROUTE_SIMT_F32) {
-    if (dtype != DT_F32 || split != 1 || tile_p != BM || tile_q != BN) return bad;
-    const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    const auto* xt = static_cast<const float*>(x);
-    const auto* wt = static_cast<const float*>(w);
-    auto* yt = static_cast<float*>(y);
-    if (transpose_w)
-      masked_mm_simt_kernel<float, true><<<grid, THREADS, 0, s>>>(xt, wt, mask, bias, yt, m, k, n, act);
-    else
-      masked_mm_simt_kernel<float, false><<<grid, THREADS, 0, s>>>(xt, wt, mask, bias, yt, m, k, n, act);
-    return static_cast<int>(cudaGetLastError());
+  if (route == ROUTE_SIMT_F32 || route == ROUTE_SIMT_SMALL_M) {
+    if (dtype != DT_F32 || !split_ok(k, split, k_chunk, 4, simt::CLUSTER_MAX)) return bad;
+    const simt::Args a{static_cast<const float*>(x), static_cast<const float*>(w), mask, bias,
+                       static_cast<float*>(y), m, k, n, act, split, k_chunk,
+                       vec_x, vec_w, vec_m};
+    return static_cast<int>(
+        simt::launch_mm(a, route == ROUTE_SIMT_SMALL_M, transpose_w != 0, tile_p, tile_q, s));
   }
-  if (dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w) || !tc::vec_ok(vec_m)) return bad;
-  if (split < 1 || k_chunk <= 0 || k_chunk % tc::TK || static_cast<long>(split) * k_chunk < k ||
-      static_cast<long>(split - 1) * k_chunk >= k || (split > 1 && ws == nullptr))
+  if (dtype != DT_BF16 || !split_ok(k, split, k_chunk, tc::TK, 1 << 30) ||
+      (split > 1 && ws == nullptr))
     return bad;
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
                    mask, bias, static_cast<__nv_bfloat16*>(y), ws, m, k, n, act, k_chunk,
@@ -970,24 +1376,31 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t*
 }
 
 // dw (d_in, d_out) = (x^T @ g) o M for x (m, d_in), g (m, d_out), mask
-// (d_in, d_out); x, g and dw share one dtype. route (kernels/masked_matmul.py
-// SDDMM_ROUTES): ROUTE_SIMT_F32 for DT_F32, ROUTE_TC for DT_BF16, with the
-// copy width in bytes of the rows of x, g and the mask (x and g by TMA when
-// both are 16). Returns cudaGetLastError() after the launch.
+// (d_in, d_out); x, g and dw share one dtype. The plan
+// (kernels/masked_matmul.py::sddmm_plan): route (SDDMM_ROUTES) and the
+// output tile, rows of dW x columns: SDDMM_TC for DT_BF16 at 256 x 128;
+// for DT_F32 SDDMM_SIMT_F32 at 128 x 128 or SDDMM_SIMT_SMALL_TILE at 64 x
+// 32. vec_*: the copy width in bytes of the rows of x, g and
+// the mask (bf16 x and g by TMA when both are 16). Returns
+// cudaGetLastError() after the launch.
 extern "C" int sddmm_masked_launch(const void* x, const void* g, const uint8_t* mask,
                                    void* dw, int m, int d_in, int d_out, int dtype, int route,
-                                   int vec_x, int vec_g, int vec_m, void* stream) {
+                                   int tile_p, int tile_q, int vec_x, int vec_g, int vec_m,
+                                   void* stream) {
   cudaGetLastError();
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0 || d_in <= 0 || d_out <= 0) return bad;
+  if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_g) || !tc::vec_ok(vec_m)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == ROUTE_SIMT_F32) {
-    if (dtype != DT_F32) return bad;
-    launch_sddmm_f32(x, g, mask, dw, m, d_in, d_out, s);
-    return static_cast<int>(cudaGetLastError());
+  if (route == SDDMM_SIMT_F32 || route == SDDMM_SIMT_SMALL_TILE) {
+    const bool big = tile_p == 128 && tile_q == 128;
+    if (dtype != DT_F32 || big != (route == SDDMM_SIMT_F32)) return bad;
+    const simt::Args a{static_cast<const float*>(x), static_cast<const float*>(g), mask, nullptr,
+                       static_cast<float*>(dw), m, d_in, d_out, ACT_NONE, 1, m,
+                       vec_x, vec_g, vec_m};
+    return static_cast<int>(simt::launch_sddmm(a, tile_p, tile_q, s));
   }
-  if (route != ROUTE_TC || dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_g) ||
-      !tc::vec_ok(vec_m))
+  if (route != SDDMM_TC || dtype != DT_BF16 || tile_p != tc::SD_BP || tile_q != tc::SD_BQ)
     return bad;
   const tc::SddmmArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
                         mask, static_cast<__nv_bfloat16*>(dw), m, d_in, d_out, vec_x, vec_g, vec_m};

@@ -5,14 +5,14 @@
   ``y = x @ (M∘W)ᵀ``, which is the input gradient ``dx = g @ (M∘W)ᵀ``.
 * :func:`sddmm_masked` — ``dW = (xᵀ @ g) ∘ M``, the weight gradient; off-mask
   entries are exact zeros. bf16 runs on a tensor-core body, f32 on the
-  exact SIMT one.
+  exact SIMT one at the tile :func:`sddmm_plan` picks.
 
 Both launch ``csrc/masked_matmul.cu`` on tensors of one CUDA device; the
 mask is ``uint8`` in W's layout. :mod:`repro_torch.kernels.ops`
 sends CPU tensors to the plain versions before they get here. ``launches``
 counts kernel launches per kernel (the two orientations separately);
 ``routes`` counts the masked matmul's launches by the body that ran them
-(:func:`plan`), ``sddmm_routes`` the SDDMM's.
+(:func:`plan`), ``sddmm_routes`` the SDDMM's (:func:`sddmm_plan`).
 """
 
 from __future__ import annotations
@@ -27,16 +27,35 @@ from . import _build
 
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 # the masked matmul's bodies (csrc/masked_matmul.cu Route)
-ROUTES = {"simt_f32": 0, "tc": 1, "tc_small_m": 2}
-# the SDDMM's bodies: the same codes, bf16 on tc, f32 on simt_f32
-SDDMM_ROUTES = {"simt_f32": 0, "tc": 1}
-SMALL_M_MAX = 64           # rows that take the small-m tensor-core route
+ROUTES = {"simt_f32": 0, "tc": 1, "tc_small_m": 2, "simt_small_m": 3}
+# the SDDMM's bodies (csrc/masked_matmul.cu SddmmRoute): bf16 on tc, f32 on
+# the SIMT body at 128 x 128 (simt_f32) or at a smaller tile
+SDDMM_ROUTES = {"simt_f32": 0, "tc": 1, "simt_small_tile": 2}
+# the exact f32 bodies (FFMA on the CUDA cores) of each
+F32_ROUTES = ("simt_small_m", "simt_f32")
+SDDMM_F32_ROUTES = ("simt_small_tile", "simt_f32")
+SMALL_M_MAX = 64           # rows that take the small-m routes
 TILE_K = 64                # K step of the tensor-core routes
 # output tile (MMA M side, MMA N side) each route is built for: tokens x
-# channels on tc, channels x tokens on tc_small_m, tokens x channels on SIMT
+# channels on tc and simt_f32, channels x tokens on tc_small_m
 TILES = {"simt_f32": (128, 128), "tc": (256, 128), "tc_small_m": (64, 64)}
+# simt_small_m: (rows held, channels a block)
+SIMT_SMALL_TILE = (64, 32)
+# the f32 SDDMM's tiles (rows of dW, columns), the larger tried first; bf16
+SDDMM_F32_TILES = ((128, 128), (64, 32))
+SDDMM_TC_TILE = (256, 128)
 SMS = 132                  # the H100's streaming multiprocessors
-MIN_SPLIT_STEPS = 4        # K steps a split keeps at least
+MIN_SPLIT_STEPS = 4        # K steps a tc_small_m split keeps at least
+# blocks of an f32 K split (one cluster): up to 16 small-m blocks (four
+# share an SM), 4 of simt_f32's (one an SM: clusters of 8 waited for whole
+# free halves of a GPC, 0.0384 ms against 0.0222 at LeNet's 300 x 100, m =
+# 2048, H100 80GB HBM3, 700 W)
+CLUSTER_MAX = 16
+SIMT_CLUSTER_MAX = {"simt_small_m": 16, "simt_f32": 4}
+# K a split of an f32 body keeps at least (a forward K step of simt_f32,
+# half a step of simt_small_m): at LeNet's K of 100 and 300 the deeper
+# splits ran fastest (benchmarks/torch_masked_mm.py --mode f32_sweep)
+SIMT_MIN_SPLIT_K = 16
 
 launches = {"masked_matmul": 0, "masked_matmul_t": 0, "sddmm_masked": 0}
 routes = {r: 0 for r in ROUTES}
@@ -48,7 +67,7 @@ _entries = {}
 class Plan:
     """How one masked matmul runs on the card: the body, its output tile,
     the grid, and the split of K over blocks (split ``s`` covers ``[s *
-    k_chunk, min(K, (s + 1) * k_chunk))``)."""
+    k_chunk, min(K, (s + 1) * k_chunk))``; blockIdx.z on every body)."""
     route: str
     tile: Tuple[int, int]
     grid: Tuple[int, int, int]
@@ -56,30 +75,69 @@ class Plan:
     k_chunk: int
 
 
+@dataclass(frozen=True)
+class SddmmPlan:
+    """How one SDDMM runs on the card: the body, its output tile (rows of
+    dW, columns) and the grid."""
+    route: str
+    tile: Tuple[int, int]
+    grid: Tuple[int, int, int]
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def k_chunk_of(k: int, split: int) -> Optional[int]:
+    """The K range of each of ``split`` blocks of an f32 body: a whole
+    multiple of 4 floats (16-byte copies); None where that leaves a block
+    an empty range."""
+    k_chunk = _cdiv(_cdiv(k, split), 4) * 4
+    return k_chunk if _cdiv(k, k_chunk) == split else None
+
+
+def _cluster_split(route: str, tiles: int, k: int) -> Tuple[int, int]:
+    """``(split, k_chunk)`` of an f32 body's K over one cluster: doubled
+    while ``tiles`` output tiles leave SMs idle, up to the route's
+    ``SIMT_CLUSTER_MAX``, each split keeping ``SIMT_MIN_SPLIT_K`` of K, then
+    halved until :func:`k_chunk_of` leaves no range empty."""
+    split = 1
+    while (split < SIMT_CLUSTER_MAX[route] and tiles * split < SMS
+           and k // (2 * split) >= SIMT_MIN_SPLIT_K):
+        split *= 2
+    while k_chunk_of(k, split) is None:
+        split //= 2
+    return split, k_chunk_of(k, split)
+
+
 def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
     """The launch plan of ``masked_matmul`` for ``x (m, k)`` and an output
-    of ``n`` channels. f32 takes the SIMT body; bf16 the tensor cores, with
-    ``m <= SMALL_M_MAX`` rows on the small-m body, whose tiles and K split
-    follow from ``(k, n)`` alone so that a row's result does not depend on
-    ``m``. The small-m body splits K until every SM has a block and, where
-    the split allows, two (two fit an SM), each split keeping at least
-    ``MIN_SPLIT_STEPS`` K steps. ``transpose_rhs`` changes the layout of W,
-    not the work, so both orientations share a plan."""
+    of ``n`` channels. ``m <= SMALL_M_MAX`` rows take a small-m body whose
+    tiles and K split follow from ``(k, n)`` alone, so that a row's result
+    does not depend on ``m``: bf16 ``tc_small_m`` (tensor cores; K split
+    until every SM has a block and, where the split allows, two, each split
+    keeping ``MIN_SPLIT_STEPS`` K steps), f32 ``simt_small_m`` (32 channels
+    a block, K split over a cluster). More
+    rows take the tiled bodies: bf16 ``tc``; f32 ``simt_f32``, whose K is
+    split over a cluster where its tiles leave SMs idle. ``transpose_rhs``
+    changes the layout of W, not the work, so both orientations share a
+    plan."""
     if dtype == torch.float32:
-        route = "simt_f32"
-    elif dtype == torch.bfloat16:
-        route = "tc_small_m" if m <= SMALL_M_MAX else "tc"
-    else:
+        if m <= SMALL_M_MAX:
+            tile = SIMT_SMALL_TILE
+            tiles = _cdiv(n, tile[1])
+            split, k_chunk = _cluster_split("simt_small_m", tiles, k)
+            return Plan("simt_small_m", tile, (tiles, 1, split), split,
+                        k_chunk)
+        tile = TILES["simt_f32"]
+        nt, mt = _cdiv(n, tile[1]), _cdiv(m, tile[0])
+        split, k_chunk = _cluster_split("simt_f32", nt * mt, k)
+        return Plan("simt_f32", tile, (nt, mt, split), split, k_chunk)
+    if dtype != torch.bfloat16:
         raise ValueError(f"masked_matmul kernel: dtype {dtype}")
+    route = "tc_small_m" if m <= SMALL_M_MAX else "tc"
     tile = TILES[route]
     k_all = _cdiv(k, TILE_K) * TILE_K
-    if route == "simt_f32":
-        return Plan(route, tile, (_cdiv(n, tile[1]), _cdiv(m, tile[0]), 1),
-                    1, k_all)
     if route == "tc":        # a 1-D grid, walked in groups of token tiles
         return Plan(route, tile, (_cdiv(n, tile[1]) * _cdiv(m, tile[0]), 1, 1),
                     1, k_all)
@@ -89,6 +147,26 @@ def plan(m: int, k: int, n: int, dtype: torch.dtype) -> Plan:
     k_chunk = _cdiv(steps, split) * TILE_K
     split = _cdiv(k, k_chunk)
     return Plan(route, tile, (tiles, 1, split), split, k_chunk)
+
+
+def sddmm_plan(d_in: int, d_out: int, dtype: torch.dtype) -> SddmmPlan:
+    """The launch plan of ``sddmm_masked`` for a ``(d_in, d_out)`` weight.
+    bf16 takes the tensor-core body (256 x 128 tiles). f32 takes 128 x 128
+    (``simt_f32``) where that grid covers the SMs, as at olmo-1b's widths,
+    else 64 x 32 (``simt_small_tile``: 130 blocks at LeNet's 800 x 300,
+    not 21). The token count does not enter."""
+    if dtype == torch.bfloat16:
+        tile = SDDMM_TC_TILE
+        return SddmmPlan("tc", tile, (_cdiv(d_in, tile[0])
+                                      * _cdiv(d_out, tile[1]), 1, 1))
+    if dtype != torch.float32:
+        raise ValueError(f"sddmm_masked kernel: dtype {dtype}")
+    for tile in SDDMM_F32_TILES:
+        grid = (_cdiv(d_out, tile[1]), _cdiv(d_in, tile[0]), 1)
+        if grid[0] * grid[1] >= SMS:
+            break
+    route = "simt_f32" if tile == TILES["simt_f32"] else "simt_small_tile"
+    return SddmmPlan(route, tile, grid)
 
 
 _vec = _build.copy_width
@@ -103,7 +181,7 @@ def _launcher(name: str):
             fn.argtypes = [P, P, P, P, P, P] + [I] * 14 + [P]
         else:
             fn = lib.sddmm_masked_launch
-            fn.argtypes = [P, P, P, P] + [I] * 8 + [P]
+            fn.argtypes = [P, P, P, P] + [I] * 10 + [P]
         fn.restype = I
         _entries[name] = (lib, fn)
     return _entries[name]
@@ -153,7 +231,7 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
         return y.reshape(*lead, n)
     p = plan(m, k, n, x.dtype)
     ws = (torch.empty((p.split, m, n), dtype=torch.float32, device=x.device)
-          if p.split > 1 else None)
+          if p.split > 1 and p.route == "tc_small_m" else None)
     w_row = k if transpose_rhs else n
     lib, fn = _launcher("mm")
     code = fn(x2.data_ptr(), wc.data_ptr(), mk.data_ptr(),
@@ -190,14 +268,14 @@ def sddmm_masked(x: torch.Tensor, g: torch.Tensor,
     if m == 0:
         return torch.zeros((d_in, d_out), dtype=x.dtype, device=x.device)
     dw = torch.empty((d_in, d_out), dtype=x.dtype, device=x.device)
-    route = "tc" if x.dtype == torch.bfloat16 else "simt_f32"
+    p = sddmm_plan(d_in, d_out, x.dtype)
     lib, fn = _launcher("sddmm")
     code = fn(x2.data_ptr(), g2.data_ptr(), mk.data_ptr(), dw.data_ptr(), m,
-              d_in, d_out, _build.DTYPE_CODES[x.dtype], SDDMM_ROUTES[route],
-              _vec(x2, d_in * x2.element_size()),
+              d_in, d_out, _build.DTYPE_CODES[x.dtype], SDDMM_ROUTES[p.route],
+              *p.tile, _vec(x2, d_in * x2.element_size()),
               _vec(g2, d_out * g2.element_size()), _vec(mk, d_out),
               _build.stream_ptr(x.device))
     _build.check(lib, "sddmm_masked", code)
     launches["sddmm_masked"] += 1
-    sddmm_routes[route] += 1
+    sddmm_routes[p.route] += 1
     return dw

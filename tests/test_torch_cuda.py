@@ -448,14 +448,20 @@ def test_masked_matmul_ragged_shapes(cuda_device, shape, transpose, dtype,
     assert not _mm_within(plain(dropped), want, mag, dtype)
 
 
+@pytest.mark.parametrize("dtype,d_in,d_out", [
+    (torch.bfloat16, 2048, 8192), (torch.float32, 2048, 8192),
+    (torch.float32, 800, 300)], ids=["bf16-up_gate", "f32-up_gate",
+                                     "f32-lenet800x300"])
 @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
-def test_masked_matmul_rows_do_not_depend_on_m(cuda_device, transpose):
-    """The up/gate projection's first rows are bit for bit the same in
-    calls of 1, 4, 20 and 64 rows: the small-m plan depends on (K, N)
-    alone, so greedy spec streams (verify at m = 20) can equal non-spec
-    streams (decode at m = 4)."""
-    mask, _, x, w, gy, b = _mm_case(64, 2048, 8192, cuda_device,
-                                    torch.bfloat16, seed=5)
+def test_masked_matmul_rows_do_not_depend_on_m(cuda_device, transpose, dtype,
+                                               d_in, d_out):
+    """The first rows are bit for bit the same in calls of 1, 4, 20 and 64
+    rows, bf16 (tc_small_m) and f32 (simt_small_m, whose K split is one
+    cluster): the small-m plans depend on (K, N) alone, so greedy spec
+    streams (verify at m = 20) can equal non-spec streams (decode at m =
+    4), and a LeNet row scores the same alone as in its batch."""
+    mask, _, x, w, gy, b = _mm_case(64, d_in, d_out, cuda_device, dtype,
+                                    seed=5, nb=10 if d_in == 800 else 8)
     inp, bias = (gy, None) if transpose else (x, b)
     run = lambda rows: tmm.masked_matmul(  # noqa: E731
         inp[:rows], w, mask, bias, activation=None if transpose else "silu",
@@ -469,11 +475,12 @@ def test_masked_matmul_rows_do_not_depend_on_m(cuda_device, transpose):
 @pytest.mark.parametrize("m,dtype,route", [
     (1, torch.bfloat16, "tc_small_m"), (64, torch.bfloat16, "tc_small_m"),
     (65, torch.bfloat16, "tc"), (2048, torch.bfloat16, "tc"),
-    (4, torch.float32, "simt_f32"), (2048, torch.float32, "simt_f32")])
+    (4, torch.float32, "simt_small_m"), (64, torch.float32, "simt_small_m"),
+    (65, torch.float32, "simt_f32"), (2048, torch.float32, "simt_f32")])
 def test_masked_matmul_route_tally(cuda_device, m, dtype, route):
-    """bf16 takes the small-m tensor-core body at m <= 64 and the tiled one
-    above, f32 the SIMT body, in both orientations; the tally by route
-    shows which ran."""
+    """Both dtypes take a small-m body at m <= 64 and a tiled one above
+    (bf16 on the tensor cores, f32 on the SIMT bodies), in both
+    orientations; the tally by route shows which ran."""
     mask, _, x, w, gy, _ = _mm_case(m, 256, 512, cuda_device, dtype, seed=2)
     for inp, transpose in ((x, False), (gy, True)):
         before = dict(tmm.routes)
@@ -544,10 +551,16 @@ def test_sddmm_tensor_core_body_ragged_and_non_finite(cuda_device, shape):
     assert not torch.isfinite(bad[mask == 1]).any()
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
-                                         (torch.float32, "simt_f32")])
-def test_sddmm_route_tally(cuda_device, dtype, route):
-    mask, _, x, _, gy, _ = _mm_case(2048, 256, 512, cuda_device, dtype, seed=2)
+@pytest.mark.parametrize("dtype,route,d_in,d_out", [
+    (torch.bfloat16, "tc", 256, 512), (torch.float32, "simt_f32", 2048, 2048),
+    (torch.float32, "simt_small_tile", 256, 512)])
+def test_sddmm_route_tally(cuda_device, dtype, route, d_in, d_out):
+    """bf16 on the tensor-core body; f32 on the SIMT body at 128 x 128
+    where those tiles cover the SMs, at a smaller tile where they would
+    not (the plan's choice)."""
+    assert tmm.sddmm_plan(d_in, d_out, dtype).route == route
+    mask, _, x, _, gy, _ = _mm_case(2048, d_in, d_out, cuda_device, dtype,
+                                    seed=2)
     before = dict(tmm.sddmm_routes)
     tmm.sddmm_masked(x, gy, mask)
     after = dict(tmm.sddmm_routes)
@@ -565,6 +578,113 @@ def test_masked_kernels_raise_instead_of_falling_back(cuda_device):
         tmm.masked_matmul(x.cpu(), w, mask)              # mixed devices
     with pytest.raises(ValueError):
         tmm.sddmm_masked(x, gy.bfloat16(), mask)
+
+
+# LeNet-300-100's masked-dense layers (d_in, d_out, nb) at c = 10 and c = 4:
+# K and N of 800, 300, 100 and 10, rows of 40 bytes and masks of 10
+LENET_MASKED = sorted({(s.d_in, s.d_out, s.mask.nb) for c in (10, 4)
+                       for s in LeNet300(policy=uniform(c, min_block=1)).specs})
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
+@pytest.mark.parametrize("m", [1, 50, 64, 65, 2048])
+@pytest.mark.parametrize("layer", LENET_MASKED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_masked_matmul_f32_at_lenet_layers(cuda_device, layer, m, transpose):
+    """The f32 masked matmul at every masked LeNet layer in the paper
+    path's roles (batch-1 inference, a training batch forward and dx, the
+    2048-sample eval) and at the route border (64 | 65): the body the plan
+    names ran (simt_small_m with its cluster K split, or the pipelined
+    simt_f32), the f32 rule holds, and it rejects a dropped mask block.
+    The forward carries the bias (an activation could clamp the dropped
+    block's few channels to the same zeros at m = 1)."""
+    d_in, d_out, nb = layer
+    mask, dropped, x, w, gy, b = _mm_case(m, d_in, d_out, cuda_device,
+                                          torch.float32, seed=m + d_in,
+                                          nb=nb)
+    inp, n = (gy, d_in) if transpose else (x, d_out)
+    bias = None if transpose else b
+    route = tmm.plan(m, inp.shape[1], n, torch.float32).route
+    assert route == ("simt_small_m" if m <= tmm.SMALL_M_MAX else "simt_f32")
+    before = dict(tmm.routes)
+    got = tmm.masked_matmul(inp, w, mask, bias, transpose_rhs=transpose)
+    assert {r: tmm.routes[r] - before[r] for r in before} == {
+        r: int(r == route) for r in before}
+
+    def plain(mk):
+        wm = w * mk
+        y = inp @ (wm.T if transpose else wm)
+        return y if transpose else y + b
+
+    wa = w.abs() * mask
+    mag = inp.abs() @ (wa.T if transpose else wa) + (0 if transpose
+                                                     else b.abs())
+    want = plain(mask)
+    assert _mm_within(got, want, mag, torch.float32)
+    assert not _mm_within(plain(dropped), want, mag, torch.float32)
+
+
+@pytest.mark.parametrize("m", [50, 2048])
+@pytest.mark.parametrize("layer", LENET_MASKED,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sddmm_f32_at_lenet_layers(cuda_device, layer, m):
+    """The f32 SDDMM at every masked LeNet layer (d_out 10 takes the scalar
+    epilogue): the body sddmm_plan names ran, the rule holds and rejects a
+    dropped block, off-mask entries are exact zeros; with an infinite and
+    a NaN token row they stay exact zeros while on-mask sums go
+    non-finite."""
+    d_in, d_out, nb = layer
+    mask, dropped, x, _, gy, _ = _mm_case(m, d_in, d_out, cuda_device,
+                                          torch.float32, seed=d_out, nb=nb)
+    route = tmm.sddmm_plan(d_in, d_out, torch.float32).route
+    before = dict(tmm.sddmm_routes)
+    got = tmm.sddmm_masked(x, gy, mask)
+    assert {r: tmm.sddmm_routes[r] - before[r] for r in before} == {
+        r: int(r == route) for r in before}
+    assert torch.all(got[mask == 0] == 0)
+    want = tref.matmul_masked_grad_ref(x, gy, mask)
+    mag = (x.abs().T @ gy.abs()) * mask
+    assert _mm_within(got, want, mag, torch.float32)
+    assert not _mm_within(tref.matmul_masked_grad_ref(x, gy, dropped), want,
+                          mag, torch.float32)
+    x[0, :] = float("inf")
+    gy[m - 1, :] = float("nan")
+    bad = tmm.sddmm_masked(x, gy, mask)
+    assert torch.all(bad[mask == 0] == 0)
+    assert not torch.isfinite(bad[mask == 1]).any()
+
+
+@pytest.mark.parametrize("kind,m,d_in,d_out", [
+    ("mm", 1, 800, 300), ("mm", 50, 800, 300), ("mm_t", 50, 800, 300),
+    ("mm", 4, 2048, 8192), ("mm", 2048, 800, 300), ("mm", 2048, 256, 512),
+    ("sddmm", 50, 800, 300),
+    ("sddmm", 2048, 2048, 2048)])
+def test_masked_f32_bodies_replay_equal_eager_calls(cuda_device, kind, m,
+                                                   d_in, d_out):
+    """A CUDA-graph replay of each f32 body (simt_small_m with and without
+    its cluster split, simt_f32 with and without one, the SDDMM at a small
+    tile and at 128 x 128) equals the eager call bit for bit: the bodies
+    keep no state between calls and add their split partials in a fixed
+    order."""
+    mask, _, x, w, gy, b = _mm_case(m, d_in, d_out, cuda_device,
+                                    torch.float32, seed=3,
+                                    nb=10 if d_in == 800 else 8)
+    run = {"mm": lambda: tmm.masked_matmul(x, w, mask, b, activation="relu"),
+           "mm_t": lambda: tmm.masked_matmul(gy, w, mask, transpose_rhs=True),
+           "sddmm": lambda: tmm.sddmm_masked(x, gy, mask)}[kind]
+    eager = run()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(cuda_device)
+        assert torch.equal(captured, eager)
 
 
 def test_masked_training_step_kernel_route_equals_plain(cuda_device):
