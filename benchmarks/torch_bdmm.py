@@ -6,6 +6,9 @@ card, and break their tensor-core bodies down by part.
     python benchmarks/torch_bdmm.py --mode decode
     python benchmarks/torch_bdmm.py --mode decode_breakdown
     python benchmarks/torch_bdmm.py --mode decode_sweep
+    python benchmarks/torch_bdmm.py --mode f32
+    python benchmarks/torch_bdmm.py --mode f32_sweep
+    python benchmarks/torch_bdmm.py --mode f32_breakdown
 
 ``time``: bf16 ``bdmm`` at olmo-1b's four packed shapes (nb 8; q/k/v/o,
 up/gate with silu, down, unembed), forward and dx (the transposed-blocks
@@ -39,8 +42,31 @@ anything.
 rows a block (at most 8 splits, up to all of K) at the four shapes, m = 4
 and 32.
 
+``f32``: the exact f32 bodies (``decode_simt``, ``simt_small``,
+``simt_f32``) at the paper path's shapes and the parity rows: the speedup
+layer's (8, 256, 256) blocks at m = 2048 and 512 (forward and dx), each of
+the nine LeNet blocks at m = 1, 50 (forward and dx) and 2048, and olmo-1b's
+int8 up/gate with f32 x at m = 64 and 4; each
+with its plan, the max |error| against the plain version, one
+``torch.bmm`` over the same blocks (for int8 blocks a labelled yardstick:
+``torch.bmm`` over the blocks widened to f32 outside the timed call, then
+the scale) and the bound (bytes at 3.35 TB/s or operations at 67 TFLOP/s).
+
+``f32_sweep``: the same calls launched under other plans than ``plan``
+picks (the small and the tiled body, K splits of 1 to 16), through
+``bdmm.launch``, so that the plan's choices are measured (the plan's own
+choice is marked).
+
+``f32_breakdown``: the f32 rows built as variants: on the small bodies
+with their phases cut (``-DREPRO_CUT``: the launch alone, the loads alone,
++ the products, the whole kernel with its sums and stores), on the tiled
+body with the forward's K step of 32 for 16 (``-DREPRO_SIMT_FWD_BK``) and
+8 channels a thread for 4 (``-DREPRO_SIMT_TN``: 256 threads for 512).
+A cut variant computes nothing useful; only its time means anything.
+
 Times are CUDA-event medians of 10 calls with the L2 cache flushed before
-each. Needs an NVIDIA GPU (sm_90a) and nvcc; prints one JSON object a line
+each, after the card's clocks are brought up. Needs an NVIDIA GPU (sm_90a)
+and nvcc; prints one JSON object a line
 and the card's name and power limit last.
 """
 
@@ -48,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -96,6 +123,10 @@ VARIANTS = {"full": (), "no_store": ("store",), "no_mma": ("mma",),
 
 def timer(dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    a = torch.randn(4096, 4096, device=dev)
+    for _ in range(100):      # bring the card's clocks up before the first row
+        a @ a
+    del a
 
     def ms(fn, iters=10):
         for _ in range(3):
@@ -209,7 +240,7 @@ def build_variants(out_dir: Path):
         lib = ctypes.CDLL(str(out_dir / f"{source}_{name}.so"))
         if source == "bdmm":
             fn = lib.bdmm_launch
-            fn.argtypes = [P] * 6 + [I] * 15 + [P]
+            fn.argtypes = [P] * 6 + [I] * 14 + [P]
         else:
             fn = lib.sddmm_masked_launch
             fn.argtypes = [P, P, P, P] + [I] * 8 + [P]
@@ -241,7 +272,7 @@ def mode_breakdown(dev, ms):
             check(fn(inp.data_ptr(), w.data_ptr(), None,
                      b.data_ptr() if b is not None else None, out.data_ptr(),
                      None, m, nb, k, n, 1, 0, act, bk.ROUTES[p.route],
-                     int(trans), 1, 16, 16, p.grid[0], 1, p.k_chunk, stream))
+                     int(trans), 16, 16, p.grid[0], 1, p.k_chunk, stream))
         mask = mask_tensor(make_mask_spec(2048, 8192, 8, seed=1), dev)
         xs, gs = r(m, 2048).bfloat16(), r(m, 8192).bfloat16()
         dw = torch.empty(2048, 8192, dtype=torch.bfloat16, device=dev)
@@ -315,7 +346,7 @@ def mode_decode_breakdown(dev, ms):
                                         for c, v in CUTS.items()}, Path(tmp))
         fns = {c: lib.bdmm_launch for c, lib in libs.items()}
         for fn in fns.values():
-            fn.argtypes = [P] * 6 + [I] * 15 + [P]
+            fn.argtypes = [P] * 6 + [I] * 14 + [P]
             fn.restype = I
         for name, nb, bi, bo, act in BDMM_SHAPES:
             for quant in (False, True):
@@ -328,7 +359,7 @@ def mode_decode_breakdown(dev, ms):
                         code = fn(x.data_ptr(), wp.data_ptr(),
                                   s.data_ptr() if s is not None else None, None,
                                   y.data_ptr(), None, m, nb, bi, bo, 1, int(quant), bk.ACT_CODES[act],
-                                  bk.ROUTES["decode_tc"], 0, 0,
+                                  bk.ROUTES["decode_tc"], 0,
                                   _build.copy_width(x, bi * 2),
                                   _build.copy_width(wp, bo * wp.element_size()),
                                   1, p.split, p.k_chunk, stream)
@@ -366,7 +397,7 @@ def mode_decode_sweep(dev, ms):
                         code = fn(x.data_ptr(), wp.data_ptr(),
                                   s.data_ptr() if s is not None else None, None,
                                   y.data_ptr(), None, m, nb, bi, bo, 1, int(quant), bk.ACT_CODES[act],
-                                  bk.ROUTES["decode_tc"], 0, 0, 16, 16, 1, split,
+                                  bk.ROUTES["decode_tc"], 0, 16, 16, 1, split,
                                   k_chunk, stream)
                         _build.check(lib, "bdmm", code)
                     row[f"k{k_chunk}_ms"] = ms(call)
@@ -376,8 +407,164 @@ def mode_decode_sweep(dev, ms):
                 print(json.dumps(row), flush=True)
 
 
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+LENET_BLOCKS = [(10, 80, 30), (10, 30, 10), (10, 10, 1), (4, 200, 75),
+                (4, 75, 25), (2, 50, 5), (5, 160, 60), (5, 60, 20), (5, 20, 2)]
+SPEEDUP = (8, 256, 256)
+UP_GATE = (8, 256, 1024)
+# (label, (nb, bi, bo), m, transpose, int8 blocks): every f32 row of
+# chip_smoke.py's kernels phase - each LeNet block at batch 1, a training
+# batch of 50 (forward and dx) and the 2048-sample eval, the speedup's
+# blocks, the int8 parity rows
+F32_ROWS = ([("speedup", SPEEDUP, m, t, False)
+             for m, t in ((2048, False), (512, False), (512, True))]
+            + [("lenet", blk, m, t, False) for blk in LENET_BLOCKS
+               for m, t in ((1, False), (50, False), (50, True), (2048, False))]
+            + [("parity up/gate", UP_GATE, m, False, True) for m in (64, 4)])
+
+
+def f32_case(gen, dev, blocks, m, transpose, quant):
+    """f32 x, the blocks (f32, or int8 with a scale), the plain version and
+    its output, the yardstick (one ``torch.bmm``; for int8 over blocks
+    widened beforehand, then the scale) and the blocks' bytes."""
+    nb, bi, bo = blocks
+    k, n = (bo, bi) if transpose else (bi, bo)
+    x = torch.randn((m, nb * k), generator=gen, device=dev)
+    w = torch.randn((nb, bi, bo), generator=gen, device=dev) * k ** -0.5
+    xt = x.view(m, nb, k).transpose(0, 1)
+    if quant:
+        wq, s = quantize_blocks(w)
+        wide = wq.float()
+        return dict(
+            x=x, wp=wq, s=s, plain=lambda: ref.bdmm_quant_ref(x, wq, s),
+            want=ref.bdmm_quant_ref(x, wq, s),
+            library=lambda: torch.bmm(xt, wide) * s[:, None, :],
+            library_label="yardstick: torch.bmm over the int8 blocks widened "
+                          "to f32 beforehand, then the scale",
+            w_bytes=wq.numel() + 4 * s.numel())
+    wt = w.transpose(1, 2) if transpose else w
+    plain = ((lambda: ref.bdmm_t_ref(x, w)) if transpose
+             else (lambda: ref.bdmm_ref(x, w)))
+    return dict(x=x, wp=w, s=None, plain=plain, want=plain(),
+                library=lambda: torch.bmm(xt, wt),
+                library_label="one torch.bmm over the blocks",
+                w_bytes=4 * w.numel())
+
+
+def f32_bound(m, blocks, transpose, w_bytes):
+    nb, bi, bo = blocks
+    nbytes = 4 * m * nb * (bi + bo) + w_bytes
+    b, o = nbytes / HBM_BYTES_PER_S * 1e3, 2.0 * m * nb * bi * bo / F32_OPS_PER_S * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def mode_f32(dev, ms):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, blocks, m, t, quant in F32_ROWS:
+        c = f32_case(gen, dev, blocks, m, t, quant)
+        run = lambda: bk.bdmm(c["x"], c["wp"], None, c["s"], transpose=t)  # noqa: E731
+        got, used = routed(run)
+        nb, bi, bo = blocks
+        k, n = (bo, bi) if t else (bi, bo)
+        p = bk.plan(m, nb, k, n, torch.float32, c["wp"].dtype, t)
+        b_ms, b_by = f32_bound(m, blocks, t, c["w_bytes"])
+        # the lower of two medians: a process's first rows read slow
+        kern, lib = min(ms(run), ms(run)), min(ms(c["library"]), ms(c["library"]))
+        print(json.dumps({
+            "kernel": "bdmm_f32", "shape": label, "blocks": blocks, "m": m,
+            "role": "dx" if t else "fwd",
+            "weights": "int8" if quant else "float32", "routes": used,
+            "plan": {"route": p.route, "tile": p.tile, "grid": p.grid,
+                     "split": p.split, "k_chunk": p.k_chunk},
+            "max_abs_err": float((got - c["want"]).abs().max()),
+            "ms": kern, "plain_ms": ms(c["plain"]),
+            ("yardstick_ms" if quant else "library_ms"): lib,
+            "library": c["library_label"], "over_library": kern / lib,
+            "bound_ms": b_ms, "bound_by": b_by}), flush=True)
+
+
+def mode_f32_sweep(dev, ms):
+    """The f32 rows under the small and the tiled body and K splits of 1
+    to 16 (8 on the tiled one), the plan's choice marked."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, blocks, m, t, quant in F32_ROWS:
+        c = f32_case(gen, dev, blocks, m, t, quant)
+        nb, bi, bo = blocks
+        k, n = (bo, bi) if t else (bi, bo)
+        chosen = bk.plan(m, nb, k, n, torch.float32, c["wp"].dtype, t)
+        x, wp = c["x"], c["wp"].contiguous()
+        s = None if c["s"] is None else c["s"].float().contiguous()
+        y = torch.empty(m, nb * n, device=dev)
+        small = "decode_simt" if chosen.route == "decode_simt" else "simt_small"
+        for route in (small, "simt_f32"):
+            for split in (1, 2, 4, 8, 16):
+                k_chunk = mk.k_chunk_of(k, split)
+                if k_chunk is None or (route == "simt_f32" and split > 8):
+                    continue
+                p = bk.Plan(route, bk.TILES[route], chosen.grid, split, k_chunk)
+                run = functools.partial(bk.launch, p, x, wp, s, None, y, None, t)
+                run()
+                print(json.dumps({
+                    "kernel": "bdmm_f32", "shape": label, "blocks": blocks,
+                    "m": m, "role": "dx" if t else "fwd",
+                    "weights": "int8" if quant else "float32",
+                    "route": route, "split": split, "k_chunk": k_chunk,
+                    "chosen": (route, split) == (chosen.route, chosen.split),
+                    "max_abs_err": float((y - c["want"]).abs().max()),
+                    "ms": min(ms(run), ms(run))}), flush=True)
+
+
+def mode_f32_breakdown(dev, ms):
+    """Each f32 row under its plan, built as variants: on the small bodies
+    with their phases cut (the launch alone, the loads alone, + the
+    products, the whole kernel); on the tiled body the build's against a
+    forward K step of 32 and against 8 channels a thread (256 threads)."""
+    variants = {"launch": {"REPRO_CUT": 3}, "loads": {"REPRO_CUT": 1},
+                "products": {"REPRO_CUT": 2}, "full": {},
+                "fwd_bk32": {"REPRO_SIMT_FWD_BK": 32}, "tn8": {"REPRO_SIMT_TN": 8}}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    P, I = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = _build.variants("bdmm", variants, Path(tmp))
+        fns = {c: lib.bdmm_launch for c, lib in libs.items()}
+        for fn in fns.values():
+            fn.argtypes = [P] * 6 + [I] * 14 + [P]
+            fn.restype = I
+        for label, blocks, m, t, quant in F32_ROWS:
+            c = f32_case(gen, dev, blocks, m, t, quant)
+            nb, bi, bo = blocks
+            k, n = (bo, bi) if t else (bi, bo)
+            p = bk.plan(m, nb, k, n, torch.float32, c["wp"].dtype, t)
+            x, wp = c["x"], c["wp"]
+            s = None if c["s"] is None else c["s"].float().contiguous()
+            y = torch.empty(m, nb * n, device=dev)
+
+            def call(fn):
+                code = fn(x.data_ptr(), wp.data_ptr(),
+                          s.data_ptr() if s is not None else None, None,
+                          y.data_ptr(), None, m, nb, k, n, 0, int(quant), 0,
+                          bk.ROUTES[p.route], int(t),
+                          _build.copy_width(x, k * 4),
+                          _build.copy_width(wp, bo * wp.element_size()),
+                          p.grid[0], p.split, p.k_chunk, stream)
+                if code:
+                    raise SystemExit(f"launch failed: CUDA error {code}")
+            names = (("full", "fwd_bk32", "tn8") if p.route == "simt_f32"
+                     else ("launch", "loads", "products", "full"))
+            print(json.dumps({
+                "kernel": "bdmm_f32", "shape": label, "blocks": blocks, "m": m,
+                "role": "dx" if t else "fwd",
+                "weights": "int8" if quant else "float32",
+                "route": p.route, "split": p.split,
+                **{f"{v}_ms": min(ms(lambda: call(fns[v])), ms(lambda: call(fns[v])))
+                   for v in names}}), flush=True)
+
+
 MODES = {"time": mode_time, "breakdown": mode_breakdown, "decode": mode_decode,
-         "decode_breakdown": mode_decode_breakdown, "decode_sweep": mode_decode_sweep}
+         "decode_breakdown": mode_decode_breakdown, "decode_sweep": mode_decode_sweep,
+         "f32": mode_f32, "f32_sweep": mode_f32_sweep,
+         "f32_breakdown": mode_f32_breakdown}
 
 
 def main() -> int:

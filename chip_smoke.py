@@ -113,19 +113,22 @@ Phases, each printed as one JSON line:
    ``mpd.to_packed`` must give the masked logits within ``FOLD_TOL`` and
    the same accuracy; one eager inference pass per mode at batch 1, 50
    and 2048. Launch counters are reset before and read after that run:
-   bdmm on simt_f32 forward and transposed, bdmm_decode on decode_simt and
-   the three masked kernels must have launched. Then the c = 10 run on the
+   bdmm on an f32 body of its general grid (simt_small for LeNet's narrow
+   blocks) forward and transposed, bdmm_decode on decode_simt and the
+   three masked kernels must have launched. Then the c = 10 run on the
    plain route (within 0.5 points of the kernel route), one f32 step
    kernel vs plain in packed and masked_dense mode under train_exact's
    rule, every accuracy at least 90 %, and the speedup rows
    (benchmarks/torch_speedup.py: one 2048 x 2048 layer at c = 8, the bdmm
    and masked kernels, f32 and bf16; LeNet inference eager and captured).
    The paper's relative claims are recorded, not gated. The kernels phase
-   also holds bdmm on f32 blocks at every LeNet block shape and the
-   masked kernels at LeNet's widths against their plain versions, each on
-   the f32 body its plan names (``simt_small_m`` up to 64 rows, the
-   pipelined ``simt_f32`` above; the SDDMM at the tile ``sddmm_plan``
-   picks).
+   also holds bdmm on f32 blocks at every LeNet block shape and at the
+   speedup's (8, 256, 256) (``decode_simt`` at batch 1, ``simt_small`` for
+   narrow blocks, the tiled ``simt_f32`` for the speedup's, each row with
+   its plan's tile, K split and cluster) and the masked kernels at LeNet's
+   widths against their plain versions, each on the f32 body its plan
+   names (``simt_small_m`` up to 64 rows, the pipelined ``simt_f32``
+   above; the SDDMM at the tile ``sddmm_plan`` picks).
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -195,10 +198,10 @@ MASKED_KERNELS = ("masked_matmul", "masked_matmul_t", "sddmm_masked")
 # family: the tc and small-m tensor-core bodies, the split-K reduction and
 # the f32 SIMT body; a trailing ", true>" marks transpose_rhs
 MASKED_MM_FAMILY = "masked_mm_"
-# bdmm's general grid (csrc/bdmm.cu): the tc, small-m and SIMT bodies and
+# bdmm's general grid (csrc/bdmm.cu) at bf16: the tc and small-m bodies and
 # the small-m body's split-K reduction; "_kernel<true" marks the transposed
-# orientation (dx). The SDDMM's bodies (tc and the f32 SIMT one) share
-# "sddmm_".
+# orientation (dx). (The f32 bodies, bdmm_simt_*, run in no profiled
+# window.) The SDDMM's bodies (tc and the f32 SIMT one) share "sddmm_".
 BDMM_GENERAL_FAMILY = "bdmm_general"
 SDDMM_FAMILY = "sddmm_"
 BDMM_KERNELS = ("bdmm", "bdmm_decode")
@@ -295,6 +298,12 @@ def all_routes():
     from repro_torch.kernels import masked_matmul as mk
     return {"masked_matmul": dict(mk.routes), "sddmm": dict(mk.sddmm_routes),
             "bdmm": dict(bk.routes)}
+
+
+def f32_general(counts):
+    """Launches of bdmm's f32 general-grid bodies (the small and the tiled
+    one) in a route tally: ``decode_simt`` is the decode grid."""
+    return counts["simt_small"] + counts["simt_f32"]
 
 
 def run_routed(fn, counts=None):
@@ -445,12 +454,16 @@ def check_bdmm(torch, dev, timer, rows, summary):
         act = None if dx else act
         x = torch.randn((m, nb * k), generator=gen, device=dev).to(dtype)
         xt = x.view(m, nb, k).transpose(0, 1)
+        yardstick = None
         if quant:
             wq, scale = quantize_blocks(w)
             run = lambda: bk.bdmm(x, wq, None, scale, activation=act)
             plain = lambda: ref.bdmm_quant_ref(x, wq, scale, None, act)
-            library = None          # no PyTorch call takes int8 x bf16 blocks
+            library = None          # no PyTorch call takes int8 blocks
             w_bytes = wq.numel() + scale.numel() * 4
+            if dt == "float32":     # the blocks widened outside the timed call
+                wide = wq.float()
+                yardstick = lambda: torch.bmm(xt, wide) * scale[:, None, :]
         elif dx:
             wf = w.to(dtype)
             run = lambda: bk.bdmm(x, wf, transpose=True)
@@ -473,6 +486,8 @@ def check_bdmm(torch, dev, timer, rows, summary):
         ok = ok and used == [pl.route]
         if dt == "bfloat16":
             ok = ok and pl.route in ("decode_tc", "tc", "tc_small_m")
+        else:
+            ok = ok and pl.route in bk.F32_ROUTES
         es = x.element_size()
         nbytes = m * nb * k * es + w_bytes + m * nb * n * es
         b_ms, b_by = bound(nbytes, 2.0 * m * nb * bi * bo, dt)
@@ -480,12 +495,19 @@ def check_bdmm(torch, dev, timer, rows, summary):
                "role": role, "weights": "int8" if quant else dt, "dtype": dt,
                "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
                "ok": ok, "routes_launched": used,
+               # a K split is one cluster but on tc_small_m (a second pass)
                "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
-                        "split": pl.split, "k_chunk": pl.k_chunk},
+                        "split": pl.split, "k_chunk": pl.k_chunk,
+                        "cluster": (None if pl.route == "tc_small_m"
+                                    else [1, 1, pl.split])},
                "ms": timer.ms(run), "plain_ms": timer.ms(plain),
                "library_ms": timer.ms(library) if library else None,
                "library": "one torch.bmm over the blocks" if library else None,
                "bound_ms": b_ms, "bound_by": b_by}
+        if yardstick:
+            row.update(yardstick_ms=timer.ms(yardstick),
+                       yardstick="torch.bmm over the int8 blocks widened to "
+                                 "f32 outside the timed call, then the scale")
         rows.append(row)
         emit(row)
         s = summary[grid]
@@ -1175,7 +1197,8 @@ def check_lenet(torch, dev, timer, rows, summary):
     the roles the paper path gives it, and the masked matmul, its transpose
     and the SDDMM at LeNet's masked-dense layers (c = 10), each against its
     plain version on the card; f32 runs the SIMT bodies (bdmm: decode_simt
-    at m <= 32, simt_f32 above and for dx; the masked matmul: simt_small_m
+    at m <= 32, simt_small for narrow blocks and up to 64 rows, the tiled
+    simt_f32 for the speedup's wide blocks; the masked matmul: simt_small_m
     at m <= 64, simt_f32 above; the SDDMM at the tile sddmm_plan picks),
     each the one its plan names."""
     from repro_torch.configs.lenet300 import LeNet300
@@ -1212,8 +1235,7 @@ def check_lenet(torch, dev, timer, rows, summary):
         del got
         pl = bk.plan(m, nb, k, n, torch.float32, torch.float32, dx)
         grid = "bdmm_decode" if pl.route in bk.DECODE_ROUTES else "bdmm"
-        ok = ok and used == [pl.route] and pl.route in ("decode_simt",
-                                                        "simt_f32")
+        ok = ok and used == [pl.route] and pl.route in bk.F32_ROUTES
         b_ms, b_by = bound(4.0 * (m * nb * k + nb * bi * bo + m * nb * n),
                            2.0 * m * nb * bi * bo, "float32")
         row = {"phase": "kernels", "kernel": grid, "shape": [nb, bi, bo],
@@ -1221,7 +1243,9 @@ def check_lenet(torch, dev, timer, rows, summary):
                "dtype": "float32", "path": "paper",
                "max_abs_err": err, "err_over_tol": ratio, "tol": tol,
                "ok": ok, "routes_launched": used,
-               "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid},
+               "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
+                        "split": pl.split, "k_chunk": pl.k_chunk,
+                        "cluster": [1, 1, pl.split]},
                "ms": timer.ms(run), "plain_ms": timer.ms(plain),
                "library_ms": timer.ms(library),
                "library": "one torch.bmm over the blocks",
@@ -1429,9 +1453,9 @@ def device_families(torch, prof, n):
     kernels it saw (in their family or in "other")."""
     cuda = torch.autograd.DeviceType.CUDA
     # the paged kernels' combine (paged_attention_kernel_combine,
-    # paged_verify_kernel_combine) counts with its family; "bdmm_decode" and
-    # "fused_ffn" take both bodies of each (bdmm_decode_tc_kernel and
-    # bdmm_decode_kernel, fused_ffn_tc_kernel and fused_ffn_kernel)
+    # paged_verify_kernel_combine) counts with its family; "bdmm_decode" takes
+    # the bf16 decode grid (bdmm_decode_tc_kernel), "fused_ffn" both bodies
+    # (fused_ffn_tc_kernel and fused_ffn_kernel)
     families = {"bdmm_decode": 0.0, BDMM_GENERAL_FAMILY: 0.0,
                 "fused_ffn": 0.0, "paged_attention_kernel": 0.0,
                 "paged_verify_kernel": 0.0, MASKED_MM_FAMILY: 0.0,
@@ -2155,7 +2179,7 @@ def train_packed(torch, dev, ops):
     tokens = TRAIN["batch"] * TRAIN["seq"]
     p50 = statistics.median(out["step_s"])
     ok = (all(math.isfinite(v) for v in losses) and launches["bdmm"] > 0
-          and routes["tc"] > 0 and routes["simt_f32"] == 0)
+          and routes["tc"] > 0 and f32_general(routes) == 0)
     del out
     torch.cuda.empty_cache()
     return {"ok": ok, "mode": cfg.mpd_mode, "argv": " ".join(argv),
@@ -2397,7 +2421,7 @@ def lenet_step_exact(torch, dev, ops):
         max_err, worst = update_errors(pk, pp, params)
         kr = routes["cuda"]
         if mode == "packed":
-            bodies_ok = (kr["bdmm"]["simt_f32"] > kr["bdmm_dx"]["simt_f32"] > 0)
+            bodies_ok = f32_general(kr["bdmm"]) > f32_general(kr["bdmm_dx"]) > 0
         else:                   # every masked call on an f32 SIMT body
             bodies_ok = (sum(kr["masked_matmul"][r] for r in mk.F32_ROUTES)
                          == counts["cuda"]["masked_matmul"]
@@ -2494,7 +2518,7 @@ def paper_phase(torch, dev, ops):
             if "_acc" in r["name"] and "delta" not in r["name"]]
     accs += [fold["masked_acc"], fold["folded_acc"], plain_acc]
     acc_ok = all(math.isfinite(a) and a >= PAPER_MIN_ACC for a in accs)
-    kernels_ok = (routes["bdmm"]["simt_f32"] > routes["bdmm_dx"]["simt_f32"] > 0
+    kernels_ok = (f32_general(routes["bdmm"]) > f32_general(routes["bdmm_dx"]) > 0
                   and routes["bdmm"]["decode_simt"] > 0
                   and all(launches[k] > 0 for k in MASKED_KERNELS))
     gap_ok = abs(kernel_acc - plain_acc) <= PAPER_ROUTE_GAP

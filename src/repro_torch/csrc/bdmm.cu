@@ -33,15 +33,43 @@
 //   memory and, after a cluster barrier, adds a share of the tile from all
 //   of them in the fixed order rank 0, 1, ... (no workspace round trip, no
 //   float atomics, one launch).
-// * decode_simt (f32 x, m <= 32, forward): the parity route, exact f32 (no
-//   TF32). A block owns (block n, 32 output columns), stages the m input
-//   rows of one K chunk in shared memory, and each thread streams 4
-//   adjacent columns of a K slice, keeping m x 4 f32 sums in registers; K
-//   slices are reduced by warp shuffles and one shared-memory pass in a
-//   fixed order.
-//   Both decode bodies give row r of an m-row call bit for bit as row r of
-//   the same input cut to fewer rows (the speculative verify windows rely
-//   on it).
+// * decode_simt, simt_small and simt_f32 (f32 x: the parity routes of the
+//   exact phases and the paper's LeNet path): exact f32, FFMA on the CUDA
+//   cores (no TF32: the parity routes' tolerances would not hold), on the
+//   machinery simt.cuh shares with the masked matmul's f32 bodies.
+//   - small (decode_simt: the forward at m <= 32; simt_small: the transposed
+//     form at m <= 64, and the forward above 32 rows where a 128-channel
+//     tile would be mostly idle or the rows fit one 64-row tile: LeNet's
+//     blocks have N of 1 to 75 and K <= 200). Bound by latency, not by bytes
+//     or products: LeNet's blocks are a few KB and a few MFLOP, and the
+//     olmo-1b parity shapes at m <= 64 a few MB at most. A block owns 32
+//     output channels of one diagonal block over one K range of a split.
+//     Its whole range (up to 256 rows of K, 8 stages) and its x rows are
+//     requested with cp.async before the first product, 16 bytes a copy
+//     where the rows allow and the widest piece they do where not (LeNet
+//     rows of 30, 75 or 5 floats), int8 as stored and widened on chip; so
+//     the block pays about one memory round trip. decode_simt keeps all
+//     m rows of a channel in one thread's registers and splits the stages'
+//     groups of 4 k over its four warps, whose partials it adds in a fixed
+//     order; simt_small takes a 64-row tile, 4 x 4 outputs a thread over
+//     the whole range (8 shared-memory reads for 64 FFMA, no warp sum: on
+//     decode_simt's layout at 64 rows the warp sum and stores took 1.5-3.3
+//     us at m = 50, and the products 4.7 of 17 us at LeNet's m = 2048; H100
+//     80GB HBM3, 700 W, benchmarks/torch_bdmm.py --mode f32_breakdown). K
+//     is split over the z blocks of a cluster of up to 16, added over DSMEM
+//     in rank order:
+//     by simt_small where one row tile's blocks leave SMs idle (LeNet's
+//     batch of 50: 10 diagonal blocks), by decode_simt only past 256 rows
+//     of K (at batch 1 a split ran slower than none). decode_simt's plan
+//     depends on (nb, K, N) alone and no arithmetic on m, so row r of an
+//     m-row call is bit for bit row r of the same input cut to fewer rows
+//     (the speculative verify windows rely on it).
+//   - tiled (simt_f32: wide blocks whose tiles fill the card, the speedup
+//     layer's (8, 256, 256) at 512 and 2048 tokens, forward and dx). Bound
+//     by FFMA issue (2.15 GFLOP at m = 2048: 0.032 ms at 67 TFLOP/s). The
+//     pipelined 128 x 128 tile, 8 x 4 a thread (512 threads), one block an
+//     SM, with the diagonal block a grid axis; K is split over a cluster of
+//     up to 4 where the tiles leave SMs idle (m = 512: 64 tiles).
 // * tc (bf16 x and w above 32 rows, and the transposed form at any m, where
 //   TMA can read the rows: packed training at 4 x 512 tokens, forward and
 //   dx, and bf16 prefill chunks). At olmo-1b's packed shapes (K 256 or 1024,
@@ -72,209 +100,543 @@
 //   the epilogue, per output channel. Where the tiles fill under half the
 //   SMs, K is split over blocks and a second pass adds the f32 partial sums
 //   in the fixed order s = 0, 1, ... (no float atomics).
-// * simt_f32 (f32 x, m > 32, and the transposed form at any m): f32 stays
-//   exact f32 (no TF32: the parity routes' tolerances would not hold), a
-//   plain shared-memory tiled SIMT GEMM (64x64 output tile per block, 4x4 a
-//   thread, K in steps of 16).
 // Ragged m / N / K edges are zero-filled by the copies or masked in-kernel;
 // nothing is padded or copied outside the kernels. Every sum is added in a
 // fixed order, so results do not depend on the blocks' order.
 
-#include "tc.cuh"
+#include <type_traits>
+
+#include "simt.cuh"
+
+// Breakdown variants (benchmarks/torch_bdmm.py) of decode_tc and the small
+// f32 bodies: 1 the loads alone (every copy issued and waited for), 2 + the
+// products (kept in shared memory only), 3 (the small f32 bodies) nothing:
+// the launch alone.
+#ifndef REPRO_CUT
+#define REPRO_CUT 0
+#endif
 
 namespace repro_torch {
 namespace {
 
-// ------------------------------------------------------------------ general
-constexpr int GM = 64, GN = 64, GK = 16, G_THREADS = 256;
+// routes (kernels/bdmm.py ROUTES)
+enum Route {
+  ROUTE_DECODE_SIMT = 0,
+  ROUTE_SIMT_F32 = 1,
+  ROUTE_TC = 2,
+  ROUTE_TC_SMALL_M = 3,
+  ROUTE_DECODE_TC = 4,
+  ROUTE_SIMT_SMALL = 5
+};
 
-__device__ __forceinline__ float epilogue(float v, const float* __restrict__ scale,
-                                          const float* __restrict__ bias, long idx,
-                                          int act) {
-  if (scale) v *= scale[idx];
-  if (bias) v += bias[idx];
-  if (act == ACT_SILU) v = silu(v);
-  return v;
+}  // namespace
+
+// ==================================================== SIMT bodies (f32)
+namespace simt {
+namespace {
+
+struct BArgs {
+  const float* x;      // (m, nb * k)
+  const void* w;       // (nb, k, n), or (nb, n, k) transposed; f32 or int8
+  const float* scale;  // (nb, n) for int8 w, else null
+  const float* bias;   // (nb * n,) or null
+  float* y;            // (m, nb * n)
+  int m, nb, k, n, act;
+  int split, k_chunk;  // K split over the z blocks of one cluster, the K range of each
+  int vec_x, vec_w;    // copy width in bytes of the rows of x and w
+};
+
+// scale -> bias -> activation of packed output channel p, each step rounded
+// on its own so that no call site contracts it differently
+__device__ __forceinline__ float out1(const BArgs& a, long p, float v) {
+  if (a.scale) v = __fmul_rn(v, __ldg(a.scale + p));
+  if (a.bias) v = __fadd_rn(v, __ldg(a.bias + p));
+  return a.act == ACT_SILU ? silu(v) : v;
 }
 
-// The SIMT body: block blockIdx.y of x (m, nb*k) times B_n, w (nb, k, n) or
-// with TRANS (nb, n, k), into y (m, nb*n).
-template <bool TRANS, typename T, typename W>
-__global__ void __launch_bounds__(G_THREADS)
-bdmm_general_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                    const float* __restrict__ scale, const float* __restrict__ bias,
-                    T* __restrict__ y, int m, int nb, int k, int n, int act) {
-  __shared__ float As[GK][GM + 4];  // x tile, k-major
-  __shared__ float Bs[GK][GN + 4];  // w tile
-  const int blk = blockIdx.y;
-  const int col0 = blockIdx.x * GN;
-  const int row0 = blockIdx.z * GM;
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const long ldx = static_cast<long>(nb) * k;
-  const T* xb = x + static_cast<long>(blk) * k;
-  const W* wb = w + static_cast<long>(blk) * k * n;
+// y[r, blk * n + c .. + 3], the channels below n: one 16-byte store where
+// the row allows it
+__device__ __forceinline__ void store4(const BArgs& a, int blk, int r, int c, float4 v) {
+  const long p = static_cast<long>(blk) * a.n + c;
+  float o[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (c + q < a.n) o[q] = out1(a, p + q, o[q]);
+  float* dst = a.y + static_cast<long>(r) * a.nb * a.n + p;
+  if (a.n % 4 == 0 && c + 4 <= a.n) {
+    *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (c + q < a.n) dst[q] = o[q];
+  }
+}
 
+// ------------------------------------------------------ the ring (small)
+// The two small bodies stage K in steps of SM_TK rows through a ring of
+// SS_STAGES cp.async stages, the whole range of a split (up to 256 rows)
+// requested before the first product; deeper ranges cycle through it. A
+// stage holds the W tile first - f32 as simt.cuh lays it out (k-major rows
+// of SM_NC channels, channel-major rows of SM_XLD floats transposed), int8
+// as stored (SM_TK rows of SM_NC bytes) - then the x rows. simt_small,
+// whose 16 row groups all read each weight, widens an int8 tile once a
+// stage into an f32 tile after the ring (SS_WIDE bytes), in the f32
+// forward layout (int-to-float conversions run at an eighth of the FFMA
+// rate); decode_simt's weights are each read by one lane, which widens it.
+constexpr int SS_THREADS = 128, SS_WARPS = SS_THREADS / 32;
+constexpr int SS_STAGES = 8;   // a whole range of 256 rows of K in flight
+
+constexpr int SS_WIDE = SM_TK * SM_NC * 4;
+
+template <bool INT8>
+__host__ __device__ constexpr int ring_w() { return INT8 ? SM_TK * SM_NC : SM_NC * SM_XLD * 4; }
+
+// The W tile of the stage at st as f32: an int8 tile widened by the whole
+// block into `wide` (exact: every int8 value is an f32 value), then a
+// barrier; an f32 tile as it landed.
+template <bool INT8>
+__device__ __forceinline__ const float* stage_w(const uint8_t* st, float* wide, int tid) {
+  if constexpr (!INT8) {
+    return reinterpret_cast<const float*>(st);
+  } else {
+    for (int i = tid; i < SM_TK * SM_NC / 4; i += SS_THREADS) {
+      const uint32_t w4 = reinterpret_cast<const uint32_t*>(st)[i];
+      reinterpret_cast<float4*>(wide)[i] =
+          make_float4(static_cast<float>(static_cast<int8_t>(w4 & 0xFFu)),
+                      static_cast<float>(static_cast<int8_t>((w4 >> 8) & 0xFFu)),
+                      static_cast<float>(static_cast<int8_t>((w4 >> 16) & 0xFFu)),
+                      static_cast<float>(static_cast<int8_t>(w4 >> 24)));
+    }
+    __syncthreads();
+    return wide;
+  }
+}
+
+// Issue this thread's copies of the W tile of the stage at st: SM_NC
+// channels from ch0 over K rows [k0, k0 + SM_TK), zero past ke and n.
+template <bool TRANS, bool INT8>
+__device__ __forceinline__ void issue_w(const BArgs& a, uint32_t st, const uint8_t* wb, int ch0,
+                                        int k0, int ke, int tid) {
+  if constexpr (INT8) {  // k row kk as stored: two pieces of 16 channels
+    for (int i = tid; i < SM_TK * 2; i += SS_THREADS) {
+      const int kk = k0 + i / 2, ch = ch0 + 16 * (i % 2);
+      const int valid = kk < ke ? min(max(a.n - ch, 0), 16) : 0;
+      copy16(st + 16 * i, wb + static_cast<long>(kk) * a.n + ch, wb, valid, a.vec_w);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < SM_TK * SM_NC / 4 / SS_THREADS; ++i) {
+      const int p = tid + i * SS_THREADS;
+      int valid;
+      long off;
+      if (TRANS) {  // channel row cr, k from kk
+        const int cr = p / (SM_TK / 4), kk = k0 + 4 * (p % (SM_TK / 4)), ch = ch0 + cr;
+        valid = ch < a.n ? min(max(ke - kk, 0), 4) : 0;
+        off = static_cast<long>(ch) * a.k + kk;
+      } else {      // k row kk, channels from ch
+        const int kk = k0 + p / (SM_NC / 4), ch = ch0 + 4 * (p % (SM_NC / 4));
+        valid = kk < ke ? min(max(a.n - ch, 0), 4) : 0;
+        off = static_cast<long>(kk) * a.n + ch;
+      }
+      copy16(st + small_w_off<TRANS>(p), wb + 4 * off, wb, 4 * valid, a.vec_w);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- decode
+// route decode_simt (forward, m <= 32). A block owns SM_NC output channels
+// (lane l: channel l) of diagonal block blockIdx.y for all m rows (MT: the
+// power of two that holds them, every row in registers) over split
+// blockIdx.z's K range. Warp w takes k = 4q .. 4q + 3 of every stage for q
+// = w, w + 4: one fma chain per output in increasing k; the four warps'
+// partials are then added in the order 0, 1, 2, 3. A row's arithmetic does
+// not depend on MT, so row r is bit for bit the same at every m.
+template <bool INT8>
+__host__ __device__ constexpr int decode_stage(int mt) { return ring_w<INT8>() + mt * SM_TK * 4; }
+
+template <bool INT8, int MT>
+__global__ void __launch_bounds__(SS_THREADS) bdmm_simt_decode_kernel(const BArgs a) {
+  constexpr int ES = INT8 ? 1 : 4, W = ring_w<INT8>(), STAGE = decode_stage<INT8>(MT);
+  constexpr int QUADS = SM_TK / 4 / SS_WARPS;  // groups of 4 k a warp takes from a stage
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t s0 = tc::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ch0 = blockIdx.x * SM_NC, blk = blockIdx.y, z = blockIdx.z;
+  const int kb = z * a.k_chunk, ke = min(a.k, kb + a.k_chunk);
+  const int steps = (ke - kb + SM_TK - 1) / SM_TK;
+  const int slots = min(SS_STAGES, (a.k_chunk + SM_TK - 1) / SM_TK);
+  const long ldx = 4L * a.nb * a.k;  // bytes between rows of x
+  const auto* xb = reinterpret_cast<const uint8_t*>(a.x) + 4L * blk * a.k;
+  const auto* wb = static_cast<const uint8_t*>(a.w) + static_cast<long>(blk) * a.k * a.n * ES;
+  auto issue = [&](int t) {
+    const uint32_t st = s0 + (t % slots) * STAGE;
+    const int k0 = kb + t * SM_TK;
+    for (int i = tid; i < a.m * (SM_TK / 4); i += SS_THREADS) {  // x: row r, k from kk
+      const int r = i / (SM_TK / 4), kk = k0 + 4 * (i % (SM_TK / 4));
+      copy16(st + W + 16 * i, xb + r * ldx + 4L * kk, xb, 4 * min(max(ke - kk, 0), 4),
+                 a.vec_x);
+    }
+    issue_w<false, INT8>(a, st, wb, ch0, k0, ke, tid);
+  };
+
+  if (REPRO_CUT == 3) return;
+  float acc[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r) acc[r] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < SS_STAGES; ++t) {
+    if (t < min(steps, slots)) issue(t);
+    tc::cp_commit();
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    tc::cp_wait<SS_STAGES - 1>();
+    __syncthreads();
+    const uint8_t* st = smem + (t % slots) * STAGE;
+    const float* xs = reinterpret_cast<const float*>(st + W);
+#pragma unroll
+    for (int h = 0; h < (REPRO_CUT == 1 ? 0 : QUADS); ++h) {
+      const int q = warp + SS_WARPS * h;
+      float wv[4];  // int8: each weight is read, and widened, by one lane alone
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = (4 * q + e) * SM_NC + lane;
+        wv[e] = INT8 ? static_cast<float>(reinterpret_cast<const int8_t*>(st)[i])
+                     : reinterpret_cast<const float*>(st)[i];
+      }
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        const float4 xv = *reinterpret_cast<const float4*>(xs + r * SM_TK + 4 * q);
+        acc[r] = fmaf(xv.x, wv[0], acc[r]);
+        acc[r] = fmaf(xv.y, wv[1], acc[r]);
+        acc[r] = fmaf(xv.z, wv[2], acc[r]);
+        acc[r] = fmaf(xv.w, wv[3], acc[r]);
+      }
+    }
+    if (t + slots < steps) {  // the ring turns: every warp is done with this stage
+      __syncthreads();
+      issue(t + slots);
+    }
+    tc::cp_commit();
+  }
+
+  // The warps' partials added in the order 0, 1, 2, 3; with a split, the
+  // block's sum then goes to the cluster, whose blocks each add a share of
+  // the tile from all of them in rank order.
+  __syncthreads();  // every warp is done with the ring
+  float* part = reinterpret_cast<float*>(smem);  // [SS_WARPS][MT][SM_NC]
+  if (REPRO_CUT != 0) {  // a breakdown variant: the products kept in shared memory only
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < MT; ++r) v += acc[r];
+    part[tid] = v;
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < MT; ++r) part[(warp * MT + r) * SM_NC + lane] = acc[r];
+  __syncthreads();
+  float* sum = part + SS_WARPS * MT * SM_NC;     // [m][SM_NC]
+  for (int i = tid; i < a.m * SM_NC; i += SS_THREADS) {
+    const int r = i / SM_NC, c = i % SM_NC;
+    float v = part[r * SM_NC + c];
+#pragma unroll
+    for (int w = 1; w < SS_WARPS; ++w) v = __fadd_rn(v, part[(w * MT + r) * SM_NC + c]);
+    if (a.split > 1) {
+      sum[i] = v;
+    } else if (ch0 + c < a.n) {
+      const long p = static_cast<long>(blk) * a.n + ch0 + c;
+      a.y[static_cast<long>(r) * a.nb * a.n + p] = out1(a, p, v);
+    }
+  }
+  if (a.split == 1) return;
+  tc::cluster_sync();
+  tc::cluster_add<CLUSTER_MAX>(tc::smem_u32(sum), a.split, a.m * SM_NC / 4, [&](int g, float4 v) {
+    const int c = ch0 + 4 * (g % (SM_NC / 4));
+    if (c < a.n) store4(a, blk, g / (SM_NC / 4), c, v);
+  });
+  tc::cluster_sync();  // the other blocks have read this block's partial
+}
+
+// ----------------------------------------------------------------- small
+// route simt_small: a 64-row x 32-channel tile of diagonal block
+// blockIdx.y (blockIdx.z = token tile * split + z) over split z's K range,
+// 4 x 4 outputs a thread: rows g + 16 i (g = tid / 8), channels 4h .. 4h +
+// 3 forward and h + 8j transposed (h = tid % 8), so that a quarter-warp's
+// 16-byte reads of x rows (padded to ST_XLD floats) and of W's channel
+// rows fall in distinct banks. A group of 4 k costs 8 reads of shared
+// memory for 64 FFMA, and each output is one fma chain in increasing k:
+// no warp sum.
+constexpr int ST_ROWS = 64;
+constexpr int ST_XLD = SM_TK + 4;  // padded x row
+
+template <bool INT8>
+__host__ __device__ constexpr int small_stage() { return ring_w<INT8>() + ST_ROWS * ST_XLD * 4; }
+
+template <bool TRANS, bool INT8>
+__global__ void __launch_bounds__(SS_THREADS) bdmm_simt_small_kernel(const BArgs a) {
+  static_assert(!(TRANS && INT8), "int8 blocks run forward only");
+  constexpr int ES = INT8 ? 1 : 4, W = ring_w<INT8>(), STAGE = small_stage<INT8>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t s0 = tc::smem_u32(smem);
+  const int tid = threadIdx.x, g = tid / 8, h = tid % 8;
+  const int ch0 = blockIdx.x * SM_NC, blk = blockIdx.y;
+  const int tok0 = (blockIdx.z / a.split) * ST_ROWS, z = blockIdx.z % a.split;
+  const int rows = min(ST_ROWS, a.m - tok0);
+  const int kb = z * a.k_chunk, ke = min(a.k, kb + a.k_chunk);
+  const int steps = (ke - kb + SM_TK - 1) / SM_TK;
+  const int slots = min(SS_STAGES, (a.k_chunk + SM_TK - 1) / SM_TK);
+  const long ldx = 4L * a.nb * a.k;  // bytes between rows of x
+  const auto* xb = reinterpret_cast<const uint8_t*>(a.x) + tok0 * ldx + 4L * blk * a.k;
+  const auto* wb = static_cast<const uint8_t*>(a.w) + static_cast<long>(blk) * a.k * a.n * ES;
+  float* wide = reinterpret_cast<float*>(smem + slots * STAGE);
+  auto issue = [&](int t) {
+    const uint32_t st = s0 + (t % slots) * STAGE;
+    const int k0 = kb + t * SM_TK;
+    for (int i = tid; i < rows * (SM_TK / 4); i += SS_THREADS) {  // x: row r, k from kk
+      const int r = i / (SM_TK / 4), q = i % (SM_TK / 4), kk = k0 + 4 * q;
+      copy16(st + W + 4 * (r * ST_XLD + 4 * q), xb + r * ldx + 4L * kk, xb,
+                 4 * min(max(ke - kk, 0), 4), a.vec_x);
+    }
+    issue_w<TRANS, INT8>(a, st, wb, ch0, k0, ke, tid);
+  };
+
+  if (REPRO_CUT == 3) return;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += GK) {
-#pragma unroll
-    for (int i = 0; i < (GM * GK) / G_THREADS; ++i) {
-      const int idx = tid + i * G_THREADS;
-      const int r = idx / GK, kk = idx % GK;
-      const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < m && gk < k) ? to_f32(xb[gr * ldx + gk]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (GK * GN) / G_THREADS; ++i) {
-      const int idx = tid + i * G_THREADS;
-      // consecutive threads read consecutive addresses in either layout
-      const int kk = TRANS ? idx % GK : idx / GN, c = TRANS ? idx / GK : idx % GN;
-      const int gk = k0 + kk, gc = col0 + c;
-      const long off = TRANS ? static_cast<long>(gc) * k + gk : static_cast<long>(gk) * n + gc;
-      Bs[kk][c] = (gk < k && gc < n) ? to_f32(wb[off]) : 0.f;
-    }
+#pragma unroll 1
+  for (int t = 0; t < SS_STAGES; ++t) {
+    if (t < min(steps, slots)) issue(t);
+    tc::cp_commit();
+  }
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    tc::cp_wait<SS_STAGES - 1>();
     __syncthreads();
+    const uint8_t* st = smem + (t % slots) * STAGE;
+    const float* xs = reinterpret_cast<const float*>(st + W);
+    const float* ws = stage_w<INT8>(st, wide, tid);
+#pragma unroll 2
+    for (int q = 0; q < (REPRO_CUT == 1 ? 0 : SM_TK / 4); ++q) {
+      float xv[4][4], wv[4][4];  // [row][k], [k][channel]
 #pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      float a[4], b[4];
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + (g + 16 * i) * ST_XLD + 4 * q);
+        xv[i][0] = v.x; xv[i][1] = v.y; xv[i][2] = v.z; xv[i][3] = v.w;
+      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][tr * 4 + i];
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (TRANS) {  // channel h + 8e, k = 4q .. 4q + 3
+          const float4 v = *reinterpret_cast<const float4*>(
+              st + small_w_off<true>((h + 8 * e) * (SM_TK / 4) + q));
+          wv[0][e] = v.x; wv[1][e] = v.y; wv[2][e] = v.z; wv[3][e] = v.w;
+        } else {                // channels 4h .. 4h + 3 of k row 4q + e
+          const float4 v = *reinterpret_cast<const float4*>(ws + (4 * q + e) * SM_NC + 4 * h);
+          wv[e][0] = v.x; wv[e][1] = v.y; wv[e][2] = v.z; wv[e][3] = v.w;
+        }
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tc * 4 + j];
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i][e], wv[e][j], acc[i][j]);
     }
-    __syncthreads();
+    if (t + slots < steps) {  // the ring turns: every thread is done with this stage
+      __syncthreads();
+      issue(t + slots);
+    }
+    tc::cp_commit();
   }
 
-  const long ldy = static_cast<long>(nb) * n;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + tr * 4 + i;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = col0 + tc * 4 + j;
-      if (gc >= n) continue;
-      const long pidx = static_cast<long>(blk) * n + gc;
-      y[gr * ldy + pidx] = from_f32<T>(epilogue(acc[i][j], scale, bias, pidx, act));
-    }
-  }
-}
-
-// ------------------------------------------------------------------- decode
-constexpr int D_N = 32;                    // output columns per block
-constexpr int D_THREADS = 256;
-constexpr int D_VEC = 4;                   // adjacent columns per thread
-constexpr int D_CT = D_N / D_VEC;          // threads across one K row: 8
-constexpr int D_KS = D_THREADS / D_CT;     // K slices per block: 32
-constexpr int D_KC = 128;                  // K rows staged per chunk
-constexpr int D_WARPS = D_THREADS / 32;
-
-template <typename T, typename W, int MT>
-__global__ void __launch_bounds__(D_THREADS)
-bdmm_decode_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                   const float* __restrict__ scale, const float* __restrict__ bias,
-                   T* __restrict__ y, int m, int nb, int bi, int bo, int act, int vec) {
-  // x chunk [MT][D_KC] during the K loop, then the per-warp partial sums
-  // [D_WARPS][MT][D_N]; the second is the larger
-  __shared__ float smem[D_WARPS * MT * D_N];
-  const int n = blockIdx.y;
-  const int col0 = blockIdx.x * D_N;
-  const int tid = threadIdx.x;
-  const int ct = tid % D_CT;
-  const int ks = tid / D_CT;
-  const int c0 = col0 + ct * D_VEC;
-  const long ldx = static_cast<long>(nb) * bi;
-  const T* xb = x + static_cast<long>(n) * bi;
-  const W* wb = w + static_cast<long>(n) * bi * bo;
-
-  float acc[MT][D_VEC];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int j = 0; j < D_VEC; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < bi; k0 += D_KC) {
-    const int kc = min(D_KC, bi - k0);
-    for (int idx = tid; idx < MT * D_KC; idx += D_THREADS) {
-      const int r = idx / D_KC, kk = idx % D_KC;
-      smem[idx] = (r < m && kk < kc) ? to_f32(xb[r * ldx + k0 + kk]) : 0.f;
-    }
+  // output channel of this thread's column j
+  auto chan = [&](int j) { return TRANS ? h + 8 * j : 4 * h + j; };
+  if (REPRO_CUT != 0) {  // a breakdown variant: the products kept in shared memory only
     __syncthreads();
-    for (int kk = ks; kk < kc; kk += D_KS) {
-      float wv[D_VEC];
-      load4<W>(wb + static_cast<long>(k0 + kk) * bo, c0, bo, vec != 0, wv);
+    float v = 0.f;
 #pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        const float xv = smem[r * D_KC + kk];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < D_VEC; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+      for (int j = 0; j < 4; ++j) v += acc[i][j];
+    reinterpret_cast<float*>(smem)[tid] = v;
+    return;
+  }
+  if (a.split == 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 16 * i;
+      if (r >= rows) continue;
+      if (!TRANS) {
+        store4(a, blk, tok0 + r, ch0 + 4 * h,
+               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = ch0 + chan(j);
+        if (c >= a.n) continue;
+        const long p = static_cast<long>(blk) * a.n + c;
+        a.y[static_cast<long>(tok0 + r) * a.nb * a.n + p] = out1(a, p, acc[i][j]);
       }
     }
-    __syncthreads();
+    return;
   }
-
-  // lane = (ks % 4) * 8 + ct: lanes 8 and 16 apart hold the same columns
-  const int warp = tid / 32, lane = tid % 32;
+  // the split's partials (64 rows x SM_NC channels) in shared memory; each
+  // block then adds a share of the tile from all of them, in rank order
+  __syncthreads();  // every thread is done with the ring
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < D_VEC; ++j) {
-      float v = acc[r][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[r][j] = v;
-    }
-  if (lane < D_CT) {
-#pragma unroll
-    for (int r = 0; r < MT; ++r)
-#pragma unroll
-      for (int j = 0; j < D_VEC; ++j) smem[(warp * MT + r) * D_N + lane * D_VEC + j] = acc[r][j];
-  }
-  __syncthreads();
-
-  const long ldy = static_cast<long>(nb) * bo;
-  for (int idx = tid; idx < MT * D_N; idx += D_THREADS) {
-    const int r = idx / D_N, c = idx % D_N;
-    const int gc = col0 + c;
-    if (r >= m || gc >= bo) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < D_WARPS; ++wi) s += smem[(wi * MT + r) * D_N + c];
-    const long pidx = static_cast<long>(n) * bo + gc;
-    y[r * ldy + pidx] = from_f32<T>(epilogue(s, scale, bias, pidx, act));
-  }
+    for (int j = 0; j < 4; ++j) part[(g + 16 * i) * SM_NC + chan(j)] = acc[i][j];
+  tc::cluster_sync();
+  tc::cluster_add<CLUSTER_MAX>(tc::smem_u32(part), a.split, rows * SM_NC / 4, [&](int q, float4 v) {
+    const int c = ch0 + 4 * (q % (SM_NC / 4));
+    if (c < a.n) store4(a, blk, tok0 + q / (SM_NC / 4), c, v);
+  });
+  tc::cluster_sync();  // the other blocks have read this block's partial
 }
 
-template <typename T, typename W>
-void launch_decode(const void* x, const void* w, const float* scale, const float* bias,
-                   void* y, int m, int nb, int bi, int bo, int act, int vec,
-                   cudaStream_t stream) {
-  const dim3 grid((bo + D_N - 1) / D_N, nb);
-  const auto* xt = static_cast<const T*>(x);
-  const auto* wt = static_cast<const W*>(w);
-  auto* yt = static_cast<T*>(y);
-#define REPRO_DECODE(MT_)                                                          \
-  bdmm_decode_kernel<T, W, MT_><<<grid, D_THREADS, 0, stream>>>(xt, wt, scale, bias, \
-                                                                yt, m, nb, bi, bo, act, vec)
-  if (m <= 1) REPRO_DECODE(1);
-  else if (m <= 2) REPRO_DECODE(2);
-  else if (m <= 4) REPRO_DECODE(4);
-  else if (m <= 8) REPRO_DECODE(8);
-  else if (m <= 16) REPRO_DECODE(16);
-  else REPRO_DECODE(32);
-#undef REPRO_DECODE
+// ---------------------------------------------------------------- tiled
+// route simt_f32: simt.cuh's pipelined 128 x 128 tile (tokens x channels,
+// one block an SM) of diagonal block blockIdx.y, over split z's K range
+// (blockIdx.z = token tile * split + z); a K step of 16 forward, 32
+// transposed, where both operands are read along K. 8 x 4 outputs a
+// thread, 512 threads: with the masked matmul's 8 x 8 and 256 threads two
+// warps a scheduler left FFMA issue idle (the speedup's m = 2048 ran 0.0715
+// ms against 0.0680 at 512 threads, and a forward K step of 32 0.0749; H100
+// 80GB HBM3, 700 W, benchmarks/torch_bdmm.py --mode f32_breakdown).
+#ifndef REPRO_SIMT_FWD_BK
+#define REPRO_SIMT_FWD_BK 16  // the forward K step (a breakdown variant: 32)
+#endif
+#ifndef REPRO_SIMT_TN
+#define REPRO_SIMT_TN 4  // channels a thread (a breakdown variant: 8, 256 threads)
+#endif
+constexpr int BT_TN = REPRO_SIMT_TN, BT_TC = 128 / BT_TN;  // threads across the channels
+template <bool TRANS>
+using BTile = Tile<128, 128, 8, BT_TN, TRANS ? 32 : REPRO_SIMT_FWD_BK>;
+
+template <bool TRANS, bool INT8>
+__global__ void __launch_bounds__(BTile<TRANS>::THREADS, 1) bdmm_simt_tiled_kernel(const BArgs a) {
+  using T = BTile<TRANS>;
+  using W = std::conditional_t<INT8, int8_t, float>;
+  static_assert(!(TRANS && INT8), "int8 blocks run forward only");
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* sa = reinterpret_cast<float*>(smem);
+  float* sb = sa + 2 * T::BK * T::LA;
+  const int col0 = blockIdx.x * 128, blk = blockIdx.y;
+  const int row0 = (blockIdx.z / a.split) * 128, z = blockIdx.z % a.split;
+  const int kb = z * a.k_chunk, ke = min(a.k, kb + a.k_chunk);
+  const int tid = threadIdx.x, tr = tid / BT_TC, tcol = tid % BT_TC;
+  const bool vx = a.vec_x == 16, vw = a.vec_w >= (INT8 ? 4 : 16);
+  const float* xb = a.x + static_cast<long>(blk) * a.k;
+  const W* wb = static_cast<const W*>(a.w) + static_cast<long>(blk) * a.k * a.n;
+  Loader<128, T::BK, T::THREADS, true, false> la;
+  Loader<128, T::BK, T::THREADS, TRANS, false, W> lb;
+  float acc[8][BT_TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < BT_TN; ++j) acc[i][j] = 0.f;
+  tile_loop<T>(
+      sa, sb, la, lb,
+      [&](auto& l, int k0) {
+        l.load(xb, nullptr, static_cast<long>(a.nb) * a.k, row0, a.m, k0, ke, vx, false, tid);
+      },
+      [&](auto& l, int k0) {
+        l.load(wb, nullptr, TRANS ? a.k : a.n, col0, a.n, k0, ke, vw, false, tid);
+      },
+      kb, ke, acc, tr, tcol, tid);
+
+  if (a.split == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 + T::row(tr, i);
+      if (r >= a.m) continue;
+#pragma unroll
+      for (int h = 0; h < BT_TN / 4; ++h) {
+        const int c = col0 + T::col(tcol, 4 * h);
+        if (c < a.n)
+          store4(a, blk, r, c, make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                                           acc[i][4 * h + 3]));
+      }
+    }
+    return;
+  }
+  // the loop's last barrier freed the buffers: the 128 x 128 partial
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < BT_TN / 4; ++h)
+      *reinterpret_cast<float4*>(part + T::row(tr, i) * 128 + T::col(tcol, 4 * h)) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  tc::cluster_sync();
+  const int rows = min(128, a.m - row0);
+  tc::cluster_add<CLUSTER_MAX>(tc::smem_u32(part), a.split, rows * 32, [&](int g, float4 v) {
+    const int c = col0 + 4 * (g % 32);
+    if (c < a.n) store4(a, blk, row0 + g / 32, c, v);
+  });
+  tc::cluster_sync();  // the other blocks have read this block's partial
+}
+
+// ------------------------------------------------------------- launches
+template <bool TRANS, bool INT8>
+cudaError_t launch_tiled(const BArgs& a, cudaStream_t s) {
+  using T = BTile<TRANS>;
+  const dim3 grid((a.n + 127) / 128, a.nb, (a.m + 127) / 128 * a.split);
+  // the ring, or the 128 x 128 partial of a split if that is larger
+  const int part = a.split > 1 ? 128 * 128 * 4 : 0;
+  return launch_split(bdmm_simt_tiled_kernel<TRANS, INT8>, T::THREADS, max(part, T::RING), grid,
+                      a.split, s, a);
+}
+
+template <bool INT8, int MT>
+cudaError_t launch_decode_mt(const BArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n + SM_NC - 1) / SM_NC, a.nb, a.split);
+  const int slots = min(SS_STAGES, (a.k_chunk + SM_TK - 1) / SM_TK);
+  // the ring, or the warps' partials and the block's sum if that is larger
+  const int part = (SS_WARPS + (a.split > 1)) * MT * SM_NC * 4;
+  return launch_split(bdmm_simt_decode_kernel<INT8, MT>, SS_THREADS,
+                      max(slots * decode_stage<INT8>(MT), part), grid, a.split, s, a);
+}
+
+// MT: the power of two that holds the m <= 32 rows
+template <bool INT8>
+cudaError_t launch_decode(const BArgs& a, cudaStream_t s) {
+  if (a.m <= 1) return launch_decode_mt<INT8, 1>(a, s);
+  if (a.m <= 2) return launch_decode_mt<INT8, 2>(a, s);
+  if (a.m <= 4) return launch_decode_mt<INT8, 4>(a, s);
+  if (a.m <= 8) return launch_decode_mt<INT8, 8>(a, s);
+  if (a.m <= 16) return launch_decode_mt<INT8, 16>(a, s);
+  return launch_decode_mt<INT8, 32>(a, s);
+}
+
+template <bool TRANS, bool INT8>
+cudaError_t launch_small(const BArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n + SM_NC - 1) / SM_NC, a.nb, (a.m + ST_ROWS - 1) / ST_ROWS * a.split);
+  const int slots = min(SS_STAGES, (a.k_chunk + SM_TK - 1) / SM_TK);
+  // the ring, or the 64 x SM_NC partial of a split if that is larger
+  const int part = a.split > 1 ? ST_ROWS * SM_NC * 4 : 0;
+  return launch_split(bdmm_simt_small_kernel<TRANS, INT8>, SS_THREADS,
+                      max(slots * small_stage<INT8>() + (INT8 ? SS_WIDE : 0), part), grid,
+                      a.split, s, a);
+}
+
+cudaError_t launch_f32(const BArgs& a, Route route, bool trans, bool int8, cudaStream_t s) {
+  if (route == ROUTE_DECODE_SIMT)
+    return int8 ? launch_decode<true>(a, s) : launch_decode<false>(a, s);
+  if (route == ROUTE_SIMT_F32)
+    return int8 ? launch_tiled<false, true>(a, s)
+                : trans ? launch_tiled<true, false>(a, s) : launch_tiled<false, false>(a, s);
+  return int8 ? launch_small<false, true>(a, s)
+              : trans ? launch_small<true, false>(a, s) : launch_small<false, false>(a, s);
 }
 
 }  // namespace
+}  // namespace simt
 
 // ============================================== tensor-core bodies (bf16)
 namespace tc {
@@ -621,10 +983,6 @@ constexpr int DC_CH = 64;       // output channels of a block
 constexpr int DC_THREADS = 128;
 constexpr int DC_STAGES = 4;    // K stages in flight: a whole 256-row slice
 
-#ifndef REPRO_CUT
-#define REPRO_CUT 0  // breakdown variants (benchmarks/): 1 loads, 2 + products
-#endif
-
 template <bool INT8>
 struct DecodeStage {
   static constexpr int W_ROW = INT8 ? 64 : 128;  // 64 channels as stored
@@ -812,15 +1170,6 @@ __global__ void bdmm_reduce_kernel(const BArgs a) {
 
 namespace {
 
-// routes (kernels/bdmm.py ROUTES)
-enum Route {
-  ROUTE_DECODE_SIMT = 0,
-  ROUTE_SIMT_F32 = 1,
-  ROUTE_TC = 2,
-  ROUTE_TC_SMALL_M = 3,
-  ROUTE_DECODE_TC = 4
-};
-
 template <bool INT8>
 cudaError_t launch_decode_tc(const tc::BArgs& a, cudaStream_t s) {
   const dim3 grid((a.n + tc::DC_CH - 1) / tc::DC_CH, a.nb, a.split);
@@ -838,15 +1187,6 @@ cudaError_t launch_decode_tc(const tc::BArgs& a, cudaStream_t s) {
     default: return REPRO_DECODE_TC(4);
   }
 #undef REPRO_DECODE_TC
-}
-
-template <bool TRANS, typename W>
-void launch_simt(const void* x, const void* w, const float* scale, const float* bias, void* y,
-                 int m, int nb, int k, int n, int act, cudaStream_t stream) {
-  const dim3 grid((n + GN - 1) / GN, nb, (m + GM - 1) / GM);
-  bdmm_general_kernel<TRANS, float, W><<<grid, G_THREADS, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const W*>(w), scale, bias,
-      static_cast<float*>(y), m, nb, k, n, act);
 }
 
 template <bool TRANS, bool INT8>
@@ -894,43 +1234,37 @@ using namespace repro_torch;
 // for w (nb, k, n), or w[n]^T for w (nb, n, k) with transpose. x_dtype:
 // DT_F32 or DT_BF16 (y the same); w_int8: 0 -> w has x's dtype, 1 -> int8
 // with scale (nb, n) f32. The launch plan (kernels/bdmm.py::plan): route 0
-// decode_simt (f32 x, m <= 32, forward), 1 simt_f32 (f32 x), 2 tc (bf16 x
-// and w; x, w and the rows of both 16-byte aligned; `blocks` persistent
-// blocks), 3 tc_small_m (bf16 x, bf16 or, forward only, int8 w), 4
-// decode_tc (bf16 x, m <= 32, forward). On tc_small_m and decode_tc K is
-// split over `split` blocks of k_chunk rows (a multiple of 64): tc_small_m
-// adds the splits from ws, an f32 (split, m, nb*n) workspace, decode_tc
-// inside a cluster of its split blocks (at most 8). vec: the decode_simt
-// kernel's 4-element loads of w rows are aligned; vec_x / vec_w: the copy
-// width in bytes of the rows of x and w.
-// Returns cudaGetLastError() after the launches.
+// decode_simt (f32 x, m <= 32, forward) and 5 simt_small (f32 x; the same
+// small body), 1 simt_f32 (f32 x, the tiled body), 2 tc (bf16 x and w; x, w
+// and the rows of both 16-byte aligned; `blocks` persistent blocks), 3
+// tc_small_m (bf16 x, bf16 or, forward only, int8 w), 4 decode_tc (bf16 x,
+// m <= 32, forward). K is split over `split` blocks of k_chunk rows: on the
+// f32 routes a multiple of 4, inside one cluster of the split's blocks (at
+// most 16, simt_f32 8); on the bf16 routes a multiple of 64, tc_small_m
+// adding the splits from ws, an f32 (split, m, nb*n) workspace, decode_tc
+// inside a cluster (at most 8). vec_x / vec_w: the copy width in bytes of
+// the rows of x and w. Returns cudaGetLastError() after the launches.
 extern "C" int bdmm_launch(const void* x, const void* w, const float* scale,
                            const float* bias, void* y, float* ws, int m, int nb,
                            int k, int n, int x_dtype, int w_int8, int act, int route,
-                           int transpose, int vec, int vec_x, int vec_w, int blocks, int split,
+                           int transpose, int vec_x, int vec_w, int blocks, int split,
                            int k_chunk, void* stream) {
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0 || nb <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_SILU) return bad;
   if (w_int8 && (transpose || !scale)) return bad;
+  if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (route == ROUTE_DECODE_SIMT) {
-    if (m > 32 || transpose || x_dtype != DT_F32) return bad;
-    if (w_int8) launch_decode<float, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
-    else launch_decode<float, float>(x, w, scale, bias, y, m, nb, k, n, act, vec, s);
-    return static_cast<int>(cudaGetLastError());
+  if (route == ROUTE_DECODE_SIMT || route == ROUTE_SIMT_SMALL || route == ROUTE_SIMT_F32) {
+    const int max_split = route == ROUTE_SIMT_F32 ? 8 : simt::CLUSTER_MAX;
+    if (x_dtype != DT_F32 || !simt::split_ok(k, split, k_chunk, 4, max_split)) return bad;
+    if (route == ROUTE_DECODE_SIMT && (m > 32 || transpose)) return bad;
+    const simt::BArgs a{static_cast<const float*>(x), w, scale, bias, static_cast<float*>(y),
+                        m, nb, k, n, act, split, k_chunk, vec_x, vec_w};
+    return static_cast<int>(
+        simt::launch_f32(a, static_cast<Route>(route), transpose != 0, w_int8 != 0, s));
   }
-  if (route == ROUTE_SIMT_F32) {
-    if (x_dtype != DT_F32) return bad;
-    if (w_int8) launch_simt<false, int8_t>(x, w, scale, bias, y, m, nb, k, n, act, s);
-    else if (transpose) launch_simt<true, float>(x, w, scale, bias, y, m, nb, k, n, act, s);
-    else launch_simt<false, float>(x, w, scale, bias, y, m, nb, k, n, act, s);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (x_dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
-  if (split < 1 || k_chunk <= 0 || k_chunk % tc::TK || static_cast<long>(split) * k_chunk < k ||
-      static_cast<long>(split - 1) * k_chunk >= k)
-    return bad;
+  if (x_dtype != DT_BF16 || !simt::split_ok(k, split, k_chunk, tc::TK, 1 << 30)) return bad;
   const tc::BArgs a{static_cast<const __nv_bfloat16*>(x), w, scale, bias,
                     static_cast<__nv_bfloat16*>(y), ws, m, nb, k, n, act, vec_x, vec_w,
                     split, k_chunk};

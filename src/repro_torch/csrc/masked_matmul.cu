@@ -74,20 +74,15 @@
 // reduction range itself and owns its sums in registers: Hopper blocks run
 // in parallel and in no order.
 
-#include "tc.cuh"
+#include "simt.cuh"
 
 namespace repro_torch {
-namespace {
 
 // ===================================================== SIMT routes (f32)
-// f32 stays exact f32: FFMA on the CUDA cores, no TF32, no tensor cores.
-// Every output is one fma chain over its K range in increasing k; a K split
-// is one thread block cluster whose partials are added over DSMEM in rank
-// order (tc::cluster_add), so a result never depends on the blocks' order
-// and a CUDA-graph replay equals the eager call bit for bit.
+// f32 stays exact f32: FFMA on the CUDA cores, no TF32, no tensor cores,
+// on the shared machinery of simt.cuh.
 namespace simt {
-
-constexpr int CLUSTER_MAX = 16;  // a K split is one cluster (non-portable above 8)
+namespace {
 
 struct Args {
   const float* x;       // (m, k); the SDDMM: x (m, d_in)
@@ -113,16 +108,6 @@ __device__ __forceinline__ void copy4(uint32_t dst, const uint8_t* src, const ui
     for (int b = 0; b < valid; ++b) q |= static_cast<uint32_t>(src[b]) << (8 * b);
     asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(q) : "memory");
   }
-}
-
-// w * m for 4 weights and their 4 mask bytes, as the reference multiplies w
-// by m.astype(w.dtype): an off-mask NaN or inf still gives NaN.
-__device__ __forceinline__ float4 apply_mask(float4 v, uint32_t mk) {
-  v.x = __fmul_rn(v.x, static_cast<float>(mk & 0xFFu));
-  v.y = __fmul_rn(v.y, static_cast<float>((mk >> 8) & 0xFFu));
-  v.z = __fmul_rn(v.z, static_cast<float>((mk >> 16) & 0xFFu));
-  v.w = __fmul_rn(v.w, static_cast<float>(mk >> 24));
-  return v;
 }
 
 // y[r, c..c+3] = act(v + bias) for the 4 channels below n; one 16-byte
@@ -155,8 +140,7 @@ __device__ __forceinline__ void store4(const Args& a, int r, int c, float4 v) {
 // stage publishes it. Tiles and split follow from (K, N) alone
 // (kernels/masked_matmul.py::plan) and no arithmetic depends on m, so a
 // row's output is bit for bit the same at every m <= 64.
-constexpr int SM_THREADS = 128, SM_ROWS = 64, SM_NC = 32, SM_TK = 32, SM_STAGES = 4;
-constexpr int SM_XLD = SM_TK + 4;  // padded k row of a channel-major W tile (TRANS_W)
+constexpr int SM_THREADS = 128, SM_ROWS = 64, SM_STAGES = 4;
 
 struct SmallStage {
   static constexpr int X = SM_ROWS * SM_TK * 4;  // x rows of SM_TK floats
@@ -166,13 +150,6 @@ struct SmallStage {
   static_assert(BYTES % 16 == 0 && SM_ROWS * SM_NC * 4 <= SM_STAGES * BYTES,
                 "aligned stages; the partials fit the ring");
 };
-
-// Byte offset in the W tile of piece p (4 floats): k row p / (SM_NC / 4) of
-// SM_NC channels, or channel row p / (SM_TK / 4) of SM_XLD floats (TRANS_W).
-template <bool TRANS_W>
-__device__ __forceinline__ uint32_t small_w_off(int p) {
-  return TRANS_W ? ((p / (SM_TK / 4)) * SM_XLD + 4 * (p % (SM_TK / 4))) * 4 : 16 * p;
-}
 
 template <bool TRANS_W>
 __global__ void __launch_bounds__(SM_THREADS) masked_mm_simt_small_kernel(const Args a) {
@@ -291,166 +268,6 @@ __global__ void __launch_bounds__(SM_THREADS) masked_mm_simt_small_kernel(const 
     store4(a, g / (NC / 4), ch0 + 4 * (g % (NC / 4)), v);
   });
   tc::cluster_sync();  // the other blocks have read this block's partial
-}
-
-// ----------------------------------------------------- the tiled bodies
-// A BM x BN output tile a block, TM x TN outputs a thread, K in steps of
-// BK through two shared buffers: step t + 1 is loaded from device memory
-// into registers (16-byte loads where the rows allow) while step t is
-// multiplied, then stored k-major (transposed where the operand is
-// k-contiguous, masked where it is W) into the other buffer, so one barrier
-// a step orders both. Thread (tr, tc) owns rows tr * 4 + i (+ BM / 2 for i
-// >= 4 when TM = 8) and the same pattern of columns. BK is 32 where the
-// 128 x 128 tile's operands are read along K (transpose_rhs, the SDDMM):
-// a step then reads whole 128-byte lines of each row and whole 32-byte
-// sectors of the mask (olmo-1b's transposed up/gate 2.06 -> 1.96 ms, its
-// SDDMM 1.82 -> 1.64); 16 elsewhere (the forward ran 1.82 at 16, 1.95 at
-// 32; H100 80GB HBM3, 700 W).
-template <int BM, int BN, int TM, int TN, int BK_>
-struct Tile {
-  static constexpr int BK = BK_;
-  static constexpr int THREADS = (BM / TM) * (BN / TN);
-  static constexpr int LA = BM + 4, LB = BN + 4;  // padded rows of the k-major buffers
-  static constexpr int RING = 2 * BK * (LA + LB) * 4;
-  static __device__ __forceinline__ int row(int t, int i) {
-    return (i / 4) * (BM * 4 / TM) + t * 4 + i % 4;
-  }
-  static __device__ __forceinline__ int col(int t, int j) {
-    return (j / 4) * (BN * 4 / TN) + t * 4 + j % 4;
-  }
-};
-
-// One operand's share of a ROWS x BK step in registers, pieces of 4 floats
-// along its contiguous axis. Element (r, k) lives at src[r * ld + k]
-// (KCONTIG: x, W with TRANS_W) or src[k * ld + r] (W forward; x and g of
-// the SDDMM, whose K is the token axis). With MASK each piece keeps its 4
-// mask bytes (same layout as src) and is multiplied by them on the store:
-// nothing reads a load before the step's products, so the loads overlap
-// them. Out of range is 0.
-template <int ROWS, int BK, int THREADS, bool KCONTIG, bool MASK>
-struct Loader {
-  static constexpr int PER = ROWS * BK / 4 / THREADS;
-  static_assert(PER * THREADS * 4 == ROWS * BK, "whole shares");
-  float4 v[PER];
-  uint32_t mk[MASK ? PER : 1];
-
-  static __device__ __forceinline__ void piece(int p, int& r, int& k) {
-    if (KCONTIG) {
-      r = p / (BK / 4);
-      k = 4 * (p % (BK / 4));
-    } else {
-      k = p / (ROWS / 4);
-      r = 4 * (p % (ROWS / 4));
-    }
-  }
-
-  __device__ __forceinline__ void load(const float* __restrict__ src,
-                                       const uint8_t* __restrict__ mask, long ld, int r0,
-                                       int r_end, int k0, int k_end, bool vec, bool vec_m,
-                                       int tid) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int r, k;
-      piece(tid + i * THREADS, r, k);
-      const int gr = r0 + r, gk = k0 + k;
-      const bool in = KCONTIG ? gr < r_end : gk < k_end;
-      const int left = KCONTIG ? k_end - gk : r_end - gr;  // elements left on the row
-      const long off = KCONTIG ? gr * ld + gk : gk * ld + gr;
-      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (in && vec && left >= 4) {
-        f = __ldg(reinterpret_cast<const float4*>(src + off));
-      } else if (in) {
-        if (left > 0) f.x = __ldg(src + off);
-        if (left > 1) f.y = __ldg(src + off + 1);
-        if (left > 2) f.z = __ldg(src + off + 2);
-        if (left > 3) f.w = __ldg(src + off + 3);
-      }
-      if (MASK) {
-        uint32_t q = 0;
-        if (in && vec_m && left >= 4) {
-          q = __ldg(reinterpret_cast<const unsigned int*>(mask + off));
-        } else if (in) {
-          for (int e = 0; e < min(left, 4); ++e)
-            q |= static_cast<uint32_t>(__ldg(mask + off + e)) << (8 * e);
-        }
-        mk[i] = q;
-      }
-      v[i] = f;
-    }
-  }
-
-  // into the k-major buffer s[k][r] (rows of ROWS + 4 floats)
-  __device__ __forceinline__ void store(float* s, int tid) const {
-    constexpr int LD = ROWS + 4;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      int r, k;
-      piece(tid + i * THREADS, r, k);
-      const float4 f = MASK ? apply_mask(v[i], mk[i]) : v[i];
-      if (KCONTIG) {
-        s[(k + 0) * LD + r] = f.x;
-        s[(k + 1) * LD + r] = f.y;
-        s[(k + 2) * LD + r] = f.z;
-        s[(k + 3) * LD + r] = f.w;
-      } else {
-        *reinterpret_cast<float4*>(s + k * LD + r) = f;
-      }
-    }
-  }
-};
-
-// acc[i][j] += sum_kk a[kk][row(i)] * b[kk][col(j)] over one buffered step
-template <class T, int TM, int TN>
-__device__ __forceinline__ void tile_fma(const float* a, const float* b, float (&acc)[TM][TN],
-                                         int tr, int tc) {
-#pragma unroll
-  for (int kk = 0; kk < T::BK; ++kk) {
-    float av[TM], bv[TN];
-#pragma unroll
-    for (int h = 0; h < TM / 4; ++h) {
-      const float4 f = *reinterpret_cast<const float4*>(a + kk * T::LA + T::row(tr, 4 * h));
-      av[4 * h] = f.x; av[4 * h + 1] = f.y; av[4 * h + 2] = f.z; av[4 * h + 3] = f.w;
-    }
-#pragma unroll
-    for (int h = 0; h < TN / 4; ++h) {
-      const float4 f = *reinterpret_cast<const float4*>(b + kk * T::LB + T::col(tc, 4 * h));
-      bv[4 * h] = f.x; bv[4 * h + 1] = f.y; bv[4 * h + 2] = f.z; bv[4 * h + 3] = f.w;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// The pipelined K loop of one block over [kb, ke): step t + 1 is loaded
-// into registers before step t's products and stored after them.
-template <class T, int TM, int TN, class LA_, class LB_, class LoadA, class LoadB>
-__device__ __forceinline__ void tile_loop(float* sa, float* sb, LA_& la, LB_& lb, LoadA load_a,
-                                          LoadB load_b, int kb, int ke, float (&acc)[TM][TN],
-                                          int tr, int tc, int tid) {
-  constexpr int BK = T::BK;
-  const int steps = (ke - kb + BK - 1) / BK;
-  load_a(la, kb);
-  load_b(lb, kb);
-  la.store(sa, tid);
-  lb.store(sb, tid);
-  __syncthreads();
-#pragma unroll 1
-  for (int t = 0; t < steps; ++t) {
-    const int cur = t & 1;
-    const bool next = t + 1 < steps;
-    if (next) {
-      load_a(la, kb + (t + 1) * BK);
-      load_b(lb, kb + (t + 1) * BK);
-    }
-    tile_fma<T>(sa + cur * BK * T::LA, sb + cur * BK * T::LB, acc, tr, tc);
-    if (next) {
-      la.store(sa + (cur ^ 1) * BK * T::LA, tid);
-      lb.store(sb + (cur ^ 1) * BK * T::LB, tid);
-    }
-    __syncthreads();
-  }
 }
 
 // simt_f32 (m > 64): y tile = act(x (M o W) + bias), 128 x 128 tokens x
@@ -580,13 +397,6 @@ __global__ void __launch_bounds__(Tile<BM, BN, TM, TN, BK>::THREADS)
 }
 
 // ------------------------------------------------------------- launches
-template <class... P>
-cudaError_t launch_split(void (*kern)(P...), int threads, int bytes, dim3 grid, int split,
-                         cudaStream_t s, const Args& a) {
-  return split > 1 ? tc::launch_cluster(kern, threads, bytes, grid, dim3(1, 1, split), s, a)
-                   : tc::launch(kern, threads, bytes, grid, s, a);
-}
-
 // The masked matmul's f32 bodies: the tile (rows, channels) must be one
 // they are built for; split blocks along K (one cluster, <= CLUSTER_MAX)
 // of k_chunk each (a multiple of 4 floats).
@@ -624,9 +434,8 @@ cudaError_t launch_sddmm(const Args& a, int tile_p, int tile_q, cudaStream_t s) 
   return cudaErrorInvalidValue;
 }
 
-}  // namespace simt
-
 }  // namespace
+}  // namespace simt
 
 // ============================================== tensor-core routes (bf16)
 namespace tc {
@@ -1287,13 +1096,6 @@ enum Route { ROUTE_SIMT_F32 = 0, ROUTE_TC = 1, ROUTE_TC_SMALL_M = 2, ROUTE_SIMT_
 enum SddmmRoute { SDDMM_SIMT_F32 = 0, SDDMM_TC = 1, SDDMM_SIMT_SMALL_TILE = 2 };
 constexpr int TC_STAGES = 4, SMALL_STAGES = 4, SMALL_TILE = 64;
 
-// A K split of split blocks of k_chunk each (a multiple of `unit`) covers
-// [0, k), every block's range non-empty.
-bool split_ok(int k, int split, int k_chunk, int unit, int max_split) {
-  return split >= 1 && split <= max_split && k_chunk > 0 && k_chunk % unit == 0 &&
-         static_cast<long>(split) * k_chunk >= k && static_cast<long>(split - 1) * k_chunk < k;
-}
-
 }  // namespace
 }  // namespace repro_torch
 
@@ -1322,14 +1124,14 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t*
   if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_w) || !tc::vec_ok(vec_m)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
   if (route == ROUTE_SIMT_F32 || route == ROUTE_SIMT_SMALL_M) {
-    if (dtype != DT_F32 || !split_ok(k, split, k_chunk, 4, simt::CLUSTER_MAX)) return bad;
+    if (dtype != DT_F32 || !simt::split_ok(k, split, k_chunk, 4, simt::CLUSTER_MAX)) return bad;
     const simt::Args a{static_cast<const float*>(x), static_cast<const float*>(w), mask, bias,
                        static_cast<float*>(y), m, k, n, act, split, k_chunk,
                        vec_x, vec_w, vec_m};
     return static_cast<int>(
         simt::launch_mm(a, route == ROUTE_SIMT_SMALL_M, transpose_w != 0, tile_p, tile_q, s));
   }
-  if (dtype != DT_BF16 || !split_ok(k, split, k_chunk, tc::TK, 1 << 30) ||
+  if (dtype != DT_BF16 || !simt::split_ok(k, split, k_chunk, tc::TK, 1 << 30) ||
       (split > 1 && ws == nullptr))
     return bad;
   const tc::Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),

@@ -103,15 +103,16 @@ def test_split_covers_k_exactly_once(m, nb, n, k):
 def test_f32_always_takes_simt(m, w_dtype, transpose):
     """f32 is the parity route of the exact phases: never the tensor cores
     (TF32 would not hold their tolerances); at m <= 32 the forward keeps
-    the decode grid, the transposed form (dx) the SIMT body."""
+    the decode grid, up to 64 rows (and the transposed form at m <= 32)
+    the small SIMT body, above it the tiled one for these wide blocks."""
     if w_dtype == torch.int8 and transpose:
         with pytest.raises(ValueError):
             tbdmm.plan(m, 8, 256, 1024, torch.float32, w_dtype, transpose)
         return
     p = tbdmm.plan(m, 8, 256, 1024, torch.float32, w_dtype, transpose)
     want = ("decode_simt" if m <= tbdmm.SMALL_M_MAX and not transpose
-            else "simt_f32")
-    assert p.route == want
+            else "simt_small" if m <= 64 else "simt_f32")
+    assert p.route == want and p.route in tbdmm.F32_ROUTES
 
 
 @pytest.mark.parametrize("m", range(1, tbdmm.SMALL_M_MAX + 1, 7))
@@ -225,3 +226,128 @@ def test_plan_decides_nothing_about_the_card(monkeypatch):
     for m in (1, 64, 129, 2048):
         tbdmm.plan(m, 8, 256, 1024, torch.bfloat16, torch.bfloat16)
         tbdmm.plan(m, 8, 1024, 256, torch.bfloat16, torch.bfloat16, True)
+
+
+# ------------------------------------------------ f32 on the paper's path
+# LeNet-300-100's packed blocks (nb, bi, bo) under uniform(c, min_block=1)
+# (c = 16 takes c = 10's) and the speedup layer's blocks
+LENET_BLOCKS = {10: [(10, 80, 30), (10, 30, 10), (10, 10, 1)],
+                4: [(4, 200, 75), (4, 75, 25), (2, 50, 5)],
+                8: [(5, 160, 60), (5, 60, 20), (5, 20, 2)]}
+SPEEDUP = (8, 256, 256)
+# (m, transpose) on the paper path: batch-1 inference, a training batch
+# (forward and dx), the 2048-sample eval
+ROLES = {"m1": (1, False), "m50": (50, False), "m50-dx": (50, True),
+         "m2048": (2048, False)}
+D, S, T = "decode_simt", "simt_small", "simt_f32"
+# the plan's (route, K split) in each role, in ROLES' order: narrow blocks
+# take the small body at every m, K split in a cluster at 33-64 rows where
+# their few blocks leave SMs idle (the decode grid splits only K > 256, and
+# many row tiles not at all); the speedup's wide blocks the tiled body at
+# 2048
+F32_PLANS = {
+    (10, 80, 30): ((D, 1), (S, 4), (S, 1), (S, 1)),
+    (10, 30, 10): ((D, 1), (S, 1), (S, 1), (S, 1)),
+    (10, 10, 1): ((D, 1), (S, 1), (S, 1), (S, 1)),
+    (4, 200, 75): ((D, 1), (S, 8), (S, 4), (S, 1)),
+    (4, 75, 25): ((D, 1), (S, 4), (S, 1), (S, 1)),
+    (2, 50, 5): ((D, 1), (S, 2), (S, 1), (S, 1)),
+    (5, 160, 60): ((D, 1), (S, 8), (S, 2), (S, 1)),
+    (5, 60, 20): ((D, 1), (S, 2), (S, 1), (S, 1)),
+    (5, 20, 2): ((D, 1), (S, 1), (S, 1), (S, 1)),
+    SPEEDUP: ((D, 1), (S, 4), (S, 4), (T, 1)),
+}
+# the speedup layer's own rows: (m, transpose) -> (route, split)
+SPEEDUP_PLANS = {(512, False): (T, 2), (512, True): (T, 2), (2048, False): (T, 1)}
+F32_EXPECT = {(blk, *ROLES[r]): want for blk, wants in F32_PLANS.items()
+              for r, want in zip(ROLES, wants)}
+F32_EXPECT.update({(SPEEDUP, m, t): want
+                   for (m, t), want in SPEEDUP_PLANS.items()})
+F32_CASES = list(F32_EXPECT)
+F32_IDS = [f"{nb}x{bi}x{bo}-m{m}{'-dx' if t else ''}"
+           for (nb, bi, bo), m, t in F32_CASES]
+
+
+def _f32_plan(blk, m, transpose, w_dtype=torch.float32):
+    nb, bi, bo = blk
+    k, n = (bo, bi) if transpose else (bi, bo)
+    return tbdmm.plan(m, nb, k, n, torch.float32, w_dtype, transpose), (nb, k, n)
+
+
+def test_lenet_blocks_are_the_configs():
+    """The table's blocks are LeNet300's packed plans at c = 10, 4, 8."""
+    from repro_torch.configs.lenet300 import LeNet300
+    from repro_torch.core.policy import uniform
+    for c, blocks in LENET_BLOCKS.items():
+        specs = LeNet300(policy=uniform(c, min_block=1)).specs
+        assert [(s.mask.nb, s.mask.block_in, s.mask.block_out)
+                for s in specs] == blocks
+
+
+@pytest.mark.parametrize("blk,m,transpose", F32_CASES, ids=F32_IDS)
+def test_f32_paper_shapes_take_the_named_plan(blk, m, transpose):
+    """Each LeNet block and the speedup's blocks, in each role, take the
+    body, tile, K split and cluster (the split's blocks along z) named
+    above; the grid covers the channels, the blocks and the token tiles of
+    every split."""
+    p, (nb, k, n) = _f32_plan(blk, m, transpose)
+    assert (p.route, p.split) == F32_EXPECT[(blk, m, transpose)]
+    assert p.tile == tbdmm.TILES[p.route]
+    tok, ch = p.tile
+    assert p.grid == (_cdiv(n, ch), nb, _cdiv(m, tok) * p.split)
+    body = "simt_f32" if p.route == "simt_f32" else "simt_small"
+    assert p.split <= tbdmm.SIMT_CLUSTER_MAX[body] <= 16
+
+
+@pytest.mark.parametrize("blk,m,transpose", F32_CASES, ids=F32_IDS)
+def test_f32_grid_covers_every_tile_once(blk, m, transpose):
+    """Every (block, token tile, channel tile, K split) of the output
+    belongs to exactly one block of the f32 grid, as the kernels read
+    their blockIdx."""
+    p, (nb, k, n) = _f32_plan(blk, m, transpose)
+    owned = [t for bx in range(p.grid[0]) for by in range(p.grid[1])
+             for bz in range(p.grid[2])
+             for t in tbdmm.block_tiles(p, m, nb, n, bx, by, bz)]
+    assert len(owned) == len(set(owned))
+    tok, ch = p.tile
+    want = {(b, t, c, s) for b in range(nb) for t in range(0, m, tok)
+            for c in range(0, n, ch) for s in range(p.split)}
+    assert set(owned) == want
+
+
+@pytest.mark.parametrize("k", [1, 5, 30, 80, 200, 256, 257, 1000, 1024,
+                               4096, 6288, 8192])
+@pytest.mark.parametrize("m,nb,n,transpose", [
+    (1, 10, 30, False), (50, 10, 30, False), (50, 4, 200, True),
+    (2048, 2, 5, False), (4, 8, 256, False), (64, 8, 1024, False),
+    (512, 8, 256, False), (512, 8, 256, True), (2048, 8, 6288, False)])
+def test_f32_split_covers_k_exactly_once(m, nb, n, transpose, k):
+    """The f32 bodies' K ranges are multiples of 4 floats (16-byte copies),
+    non-empty, disjoint and cover [0, K), in one cluster of at most 16
+    blocks (4 on the tiled body); up to 64 rows a small block's range fits
+    its ring of SIMT_SMALL_K rows unless the cluster is full (more rows
+    take no split and cycle K through the ring)."""
+    p = tbdmm.plan(m, nb, k, n, torch.float32, torch.float32, transpose)
+    assert p.route in tbdmm.F32_ROUTES and p.k_chunk % 4 == 0
+    body = "simt_f32" if p.route == "simt_f32" else "simt_small"
+    assert 1 <= p.split <= tbdmm.SIMT_CLUSTER_MAX[body]
+    rs = [(s * p.k_chunk, min(k, (s + 1) * p.k_chunk)) for s in range(p.split)]
+    assert rs[0][0] == 0 and rs[-1][1] == k
+    assert all(a < b for a, b in rs)
+    assert all(rs[i][1] == rs[i + 1][0] for i in range(len(rs) - 1))
+    if body == "simt_small" and m <= 64 and p.split < tbdmm.SIMT_CLUSTER_MAX[body]:
+        assert p.k_chunk <= tbdmm.SIMT_SMALL_K
+    if p.route == "simt_small" and m > 64:
+        assert p.split == 1
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("blk", [b for bs in LENET_BLOCKS.values() for b in bs]
+                         + list(OLMO.values()))
+def test_decode_simt_plan_is_the_same_at_every_m(blk, w_dtype):
+    """decode_simt's tile, grid and K split depend on (nb, K, N) alone: the
+    same plan at every m <= 32, at LeNet's and olmo-1b's blocks, so row r
+    of an m-row call is bit for bit row r of the same rows cut shorter."""
+    plans = {_f32_plan(blk, m, False, w_dtype)[0]
+             for m in range(1, tbdmm.SMALL_M_MAX + 1)}
+    assert len(plans) == 1 and plans.pop().route == "decode_simt"

@@ -53,7 +53,10 @@ A train step of the smoke model, masked-dense or packed, gives the same
 loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
 as through the plain versions; so does a step of LeNet-300-100 at c = 10,
 whose f32 blocks bdmm runs on its SIMT bodies at every block shape the
-paper's policy gives (the f32 tolerance above).
+paper's policy gives (the f32 tolerance above). bdmm's f32 bodies also
+take the f32 rule on ragged and misaligned rows, reject the plain output
+with a block zeroed, and give the same bits on two runs and under a
+CUDA-graph replay where K is split over a cluster.
 """
 
 import numpy as np
@@ -135,24 +138,25 @@ def _within(got, want, dtype):
         ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
 
 
-def _bdmm_case(m, nb, bi, bo, dev, seed, quant=False, transpose=False):
-    """bf16 inputs for one bdmm (x of width nb*bo when transposed), blocks
-    (int8 with a scale when ``quant``), a bias of the output width, and the
-    f32 plain output with silu; ``plain(wp)`` recomputes it for other
-    blocks."""
+def _bdmm_case(m, nb, bi, bo, dev, seed, quant=False, transpose=False,
+               dtype=torch.bfloat16):
+    """Inputs of ``dtype`` (bf16 unless said) for one bdmm (x of width
+    nb*bo when transposed), blocks (int8 with a scale when ``quant``), a
+    bias of the output width, and the f32 plain output with silu;
+    ``plain(wp)`` recomputes it for other blocks."""
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
     k, n = (bo, bi) if transpose else (bi, bo)
-    x = r(m, nb * k).bfloat16()
+    x = r(m, nb * k).to(dtype)
     w = r(nb, bi, bo) * k ** -0.5
-    b = (0.1 * r(nb * n)).bfloat16()
+    b = (0.1 * r(nb * n)).to(dtype)
     if quant:
         wq, s = quantize_blocks(w)
 
         def plain(wp):
             return tref.bdmm_quant_ref(x.float(), wp, s, b.float(), "silu")
         return x, (wq, s), b, plain
-    wb = w.bfloat16()
+    wb = w.to(dtype)
 
     def plain(wp):
         y = (tref.bdmm_t_ref if transpose else tref.bdmm_ref)(x.float(), wp.float())
@@ -195,20 +199,32 @@ def test_bdmm_tensor_core_bodies_ragged_shapes(cuda_device, shape, quant,
     _close(got, plain(wp).bfloat16(), torch.bfloat16)
 
 
-@pytest.mark.parametrize("m", [64, 2048])
-@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
-def test_bdmm_rule_rejects_a_zeroed_block(cuda_device, m, transpose):
-    """The bf16 rule that the kernel passes at the olmo-1b up/gate shape
-    rejects the plain output with block 3 of the weights zeroed."""
+@pytest.mark.parametrize("m,transpose,dtype,route", [
+    (64, False, torch.bfloat16, "tc"), (64, True, torch.bfloat16, "tc"),
+    (2048, False, torch.bfloat16, "tc"), (2048, True, torch.bfloat16, "tc"),
+    (4, False, torch.float32, "decode_simt"),
+    (64, False, torch.float32, "simt_small"),
+    (50, True, torch.float32, "simt_small"),
+    (2048, False, torch.float32, "simt_f32"),
+    (512, True, torch.float32, "simt_f32")],
+    ids=["64-fwd", "64-t", "2048-fwd", "2048-t", "f32-4-fwd", "f32-64-fwd",
+         "f32-50-t", "f32-2048-fwd", "f32-512-t"])
+def test_bdmm_rule_rejects_a_zeroed_block(cuda_device, m, transpose, dtype,
+                                          route):
+    """The rule of each dtype that the kernel passes at the olmo-1b up/gate
+    shape, on the body the plan names (the tiled f32 one with its K split
+    at m = 512 transposed), rejects the plain output with block 3 of the
+    weights zeroed."""
     x, (wp, _), b, plain = _bdmm_case(m, 8, 256, 1024, cuda_device, seed=3,
-                                      transpose=transpose)
+                                      transpose=transpose, dtype=dtype)
+    before = dict(tbdmm.routes)
     got = tbdmm.bdmm(x, wp, b, activation="silu", transpose=transpose)
-    assert _within(got, plain(wp).bfloat16(), torch.bfloat16)
+    assert tbdmm.routes[route] == before[route] + 1
+    assert _within(got, plain(wp).to(dtype), dtype)
     zeroed = wp.clone()
     zeroed[3] = 0
-    assert not _within(plain(zeroed).bfloat16(), plain(wp).bfloat16(),
-                       torch.bfloat16)
-    assert not _within(got, plain(zeroed).bfloat16(), torch.bfloat16)
+    assert not _within(plain(zeroed).to(dtype), plain(wp).to(dtype), dtype)
+    assert not _within(got, plain(zeroed).to(dtype), dtype)
 
 
 @pytest.mark.parametrize("m,dtype", [(64, torch.bfloat16), (300, torch.bfloat16),
@@ -237,10 +253,12 @@ def test_bdmm_dx_equals_the_transposed_copy_route(cuda_device, m, dtype):
     (64, torch.bfloat16, False, False, "tc"),
     (129, torch.bfloat16, False, True, "tc"), (2048, torch.bfloat16, False, False, "tc"),
     (2048, torch.bfloat16, True, False, "tc_small_m"),
-    (64, torch.float32, False, True, "simt_f32"), (2048, torch.float32, True, False, "simt_f32")])
+    (64, torch.float32, False, True, "simt_small"), (50, torch.float32, True, False, "simt_small"),
+    (2048, torch.float32, True, False, "simt_f32"), (512, torch.float32, False, True, "simt_f32")])
 def test_bdmm_route_tally(cuda_device, m, dtype, quant, transpose, route):
     """bf16 bdmm above 32 rows runs on a tensor-core body (bf16 blocks on
-    the tiled one, int8 blocks on the small-m one), f32 on the SIMT body;
+    the tiled one, int8 blocks on the small-m one), f32 on a SIMT body (the
+    small one up to 64 rows, the tiled one above for these wide blocks);
     the forward at m <= 32 takes the decode grid (mma.sync at bf16, SIMT at
     f32); the tally shows which."""
     x, (wp, s), b, plain = _bdmm_case(m, 8, 256, 512, cuda_device, seed=1,
@@ -262,18 +280,30 @@ OLMO_BDMM = {"qkvo": (8, 256, 256, None), "up_gate": (8, 256, 1024, "silu"),
              "down": (8, 1024, 256, None), "unembed": (8, 256, 6288, None)}
 
 
-@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, False),
-                                         (torch.bfloat16, True),
-                                         (torch.float32, False),
-                                         (torch.float32, True)],
-                         ids=["bf16", "bf16-int8", "f32", "f32-int8"])
-@pytest.mark.parametrize("name", list(OLMO_BDMM))
+# LeNet-300-100's packed blocks (c = 10, 4, 8) as decode shapes, f32 only:
+# the paper path's batch-1 inference
+LENET_DECODE = {f"lenet-{nb}x{bi}x{bo}": (nb, bi, bo, None)
+                for nb, bi, bo in ((10, 80, 30), (10, 30, 10), (10, 10, 1),
+                                   (4, 200, 75), (4, 75, 25), (2, 50, 5),
+                                   (5, 160, 60), (5, 60, 20), (5, 20, 2))}
+DECODE_ROW_CASES = (
+    [(name, dt, q) for name in OLMO_BDMM
+     for dt, q in ((torch.bfloat16, False), (torch.bfloat16, True),
+                   (torch.float32, False), (torch.float32, True))]
+    + [(name, torch.float32, False) for name in LENET_DECODE])
+
+
+@pytest.mark.parametrize(
+    "name,dtype,quant", DECODE_ROW_CASES,
+    ids=[f"{n}-{'bf16' if d == torch.bfloat16 else 'f32'}{'-int8' if q else ''}"
+         for n, d, q in DECODE_ROW_CASES])
 def test_bdmm_decode_rows_do_not_depend_on_m(cuda_device, name, dtype, quant):
     """Row r of an m-row call on the decode grid is bit for bit row r of
     the same input cut to fewer rows (the verify windows of m = 20 are held
     to the decode steps at m = 4): rows of m = 20 and 32 equal the m = 1
-    and m = 4 calls, with bias and the projection's activation."""
-    nb, bi, bo, act = OLMO_BDMM[name]
+    and m = 4 calls, with bias and the projection's activation; at olmo-1b's
+    projections and, f32, at LeNet's blocks (K split in a cluster)."""
+    nb, bi, bo, act = {**OLMO_BDMM, **LENET_DECODE}[name]
     g = torch.Generator(device=cuda_device).manual_seed(bi + bo)
     x = torch.randn((32, nb * bi), generator=g, device=cuda_device).to(dtype)
     w = torch.randn((nb, bi, bo), generator=g, device=cuda_device) * bi ** -0.5
@@ -339,6 +369,99 @@ def test_bdmm_decode_rule_rejects_a_zeroed_block(cuda_device, m, quant):
     zeroed = wp.clone()
     zeroed[3] = 0
     assert not _within(got, plain(zeroed).bfloat16(), torch.bfloat16)
+
+
+# (m, transpose, nb, bi, bo, quant) of f32 calls whose K is split over a
+# cluster: LeNet's first block at batch 50 (small body, split 4), the c = 4
+# block's dx, olmo-1b's down on the decode grid (K 1024, split 4) with int8
+# and f32 blocks, and the speedup's (8, 256, 256) at m = 512 both ways
+# (tiled body, split 2)
+F32_SPLIT_CASES = [(50, False, 10, 80, 30, False), (50, True, 4, 200, 75, False),
+                   (4, False, 8, 1024, 256, True), (32, False, 8, 1024, 256, False),
+                   (512, False, 8, 256, 256, False), (512, True, 8, 256, 256, False)]
+
+
+@pytest.mark.parametrize("m,transpose,nb,bi,bo,quant", F32_SPLIT_CASES)
+def test_bdmm_f32_split_is_deterministic_and_replays(cuda_device, m, transpose,
+                                                     nb, bi, bo, quant):
+    """A K-split f32 call (partials added over DSMEM in rank order, no
+    atomics) gives the same bits on two runs, and a CUDA-graph replay of it
+    equals the eager call bit for bit; the f32 rule holds."""
+    x, (wp, s), b, plain = _bdmm_case(m, nb, bi, bo, cuda_device, seed=m + bo,
+                                      quant=quant, transpose=transpose,
+                                      dtype=torch.float32)
+    k, n = (bo, bi) if transpose else (bi, bo)
+    assert tbdmm.plan(m, nb, k, n, torch.float32, wp.dtype, transpose).split > 1
+    run = lambda: tbdmm.bdmm(x, wp, b, s, activation="silu",  # noqa: E731
+                             transpose=transpose)
+    eager = run()
+    assert torch.equal(run(), eager)
+    _close(eager, plain(wp), torch.float32)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(cuda_device)
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("m", [64, 128])
+def test_bdmm_f32_int8_tiled_body_at_up_gate(cuda_device, m):
+    """The tiled f32 body with int8 blocks (widened exactly on the load)
+    and the per-channel scale at olmo-1b's up/gate, silu and bias: at m =
+    128 as the plan picks it, at m = 64 launched in its place (the plan
+    gives 64 rows to the small body), with the K split of its grid."""
+    x, (wq, s), b, plain = _bdmm_case(m, 8, 256, 1024, cuda_device, seed=m,
+                                      quant=True, dtype=torch.float32)
+    p = tbdmm.plan(128, 8, 256, 1024, torch.float32, torch.int8)
+    assert p.route == "simt_f32" and p.split == 2
+    if m == 128:
+        before = dict(tbdmm.routes)
+        got = tbdmm.bdmm(x, wq, b, s, activation="silu")
+        assert tbdmm.routes["simt_f32"] == before["simt_f32"] + 1
+    else:
+        got = torch.empty(m, 8 * 1024, device=cuda_device)
+        tbdmm.launch(p, x, wq, s.float().contiguous(), b.float(), got, "silu")
+    _close(got, plain(wq), torch.float32)
+
+
+# (m, nb, bi, bo, x offset, w offset, transpose) for the f32 bodies: LeNet's
+# heads (bo 1, 2 and 5: dx reduces over K = 1, 2 or 5), rows of 30, 75 or 5
+# floats (8- or 4-byte copies), x or the blocks starting off a 16-byte
+# boundary, on every f32 body
+F32_RAGGED = [(1, 10, 10, 1, 0, 0, False), (50, 10, 10, 1, 1, 0, True),
+              (3, 5, 20, 2, 0, 3, False), (50, 5, 20, 2, 0, 1, True),
+              (50, 2, 50, 5, 2, 0, False), (2048, 2, 50, 5, 0, 0, False),
+              (7, 4, 200, 75, 1, 2, False), (50, 4, 200, 75, 3, 0, True),
+              (300, 4, 75, 25, 2, 1, False), (20, 3, 136, 200, 0, 1, False),
+              (300, 3, 136, 200, 1, 0, False), (200, 3, 200, 136, 0, 3, True)]
+
+
+@pytest.mark.parametrize("shape,quant", [(s, False) for s in F32_RAGGED]
+                         + [(s, True) for s in F32_RAGGED if not s[-1]])
+def test_bdmm_f32_ragged_and_misaligned(cuda_device, shape, quant):
+    """The f32 bodies' copies on ragged shapes and rows that are no
+    multiple of 16 bytes or start off a 16-byte boundary (copied in the
+    widest piece they allow inside the kernel, never by a plain fallback),
+    with bias, silu and (int8, forward) the scale: the body the plan names
+    ran and the f32 rule holds."""
+    m, nb, bi, bo, x_off, w_off, transpose = shape
+    x, (wp, s), b, plain = _bdmm_case(m, nb, bi, bo, cuda_device, seed=m + bi,
+                                      quant=quant, transpose=transpose,
+                                      dtype=torch.float32)
+    x, wp = _offset(x, x_off), _offset(wp, w_off)
+    k, n = (bo, bi) if transpose else (bi, bo)
+    route = tbdmm.plan(m, nb, k, n, torch.float32, wp.dtype, transpose).route
+    before = dict(tbdmm.routes)
+    got = tbdmm.bdmm(x, wp, b, s, activation="silu", transpose=transpose)
+    assert tbdmm.routes[route] == before[route] + 1
+    _close(got, plain(wp), torch.float32)
 
 
 def test_bdmm_raises_instead_of_falling_back(cuda_device):
@@ -754,8 +877,8 @@ LENET_BLOCKS = [(s.mask.nb, s.mask.block_in, s.mask.block_out)
 
 
 @pytest.mark.parametrize("m,transpose,route", [
-    (1, False, "decode_simt"), (50, False, "simt_f32"),
-    (50, True, "simt_f32"), (2048, False, "simt_f32")],
+    (1, False, "decode_simt"), (50, False, "simt_small"),
+    (50, True, "simt_small"), (2048, False, "simt_small")],
     ids=["b1", "b50", "b50-dx", "b2048"])
 @pytest.mark.parametrize("blocks", LENET_BLOCKS,
                          ids=lambda b: "x".join(map(str, b)))
