@@ -64,7 +64,34 @@ Phases, each printed as one JSON line:
    0.9 with the perfect draft and < 1 with the skewed one; verify launches
    16 x verify calls on the kernel route and no launch on the plain route;
    both page pools conserved at drain.
-7. ``train`` — olmo-1b at its published widths in ``masked_dense`` mode
+7. ``exact_dense`` — phase 5's model and requests through the slot-dense
+   engine (``Engine(paged=False)``), on the kernel route (captured) and the
+   plain route (eager): both streams identical to each other and to phase
+   5's paged kernel-route streams; bdmm launched on the kernel route,
+   nothing on the plain route.
+8. ``dense`` — phase 4's model and traffic through the slot-dense engine:
+   4 slots of 544 rows, one batch-1 prefill a request at its prompt's
+   bucket. ``warmup()`` captures the decode and every bucket's admission
+   (its seconds and graph-pool bytes are reported); nothing is captured
+   while serving. Launch counters reset just before and read just after:
+   8 of 8 served, every token in the vocabulary, bdmm's tensor-core general
+   grid and its decode grid launched (route tally), no paged-attention
+   kernel (dense attention is plain PyTorch, as the reference's is XLA).
+   Then a profiled decode window and phase 4's eager and captured turns:
+   identical streams, equal launch counts and route tallies; per turn the
+   decode step and admission p50s, TTFT, e2e and tok/s; the dense
+   reservation beside phase 4's paged peak.
+9. ``static`` — the legacy lockstep path as the launcher runs it
+   (``launch.serve.main(["--static", "--batch", "4", "--prompt-len",
+   "512", "--gen", "32", "--quantize", "int8"])``, full width, one
+   captured decode graph): prefill ms, decode tok/s; each row's greedy
+   tokens equal to the slot-dense engine's stream for the same prompt.
+10. ``cli`` — the serve launcher in-process at 2 of 16 layers: without
+   ``--paged`` (the slot-dense engine), ``--quantize int4``, and at f32
+   ``--paged`` on the kernel route and with ``--prefill-kernel jnp``,
+   which launches the paged prefill kernel 0 times and streams the kernel
+   route's tokens. Every run serves 4 of 4.
+11. ``train`` — olmo-1b at its published widths in ``masked_dense`` mode
    (the paper-faithful training of Algorithm 1: dense bf16 weights under
    permuted block masks, mpd_c=8), random init from seed 0, ``SyntheticLM``
    batches of 4 x 512 tokens, 4 AdamW steps through
@@ -73,25 +100,25 @@ Phases, each printed as one JSON line:
    masked-matmul kernels (both orientations) and the SDDMM launched
    (counters reset just before, read just after). Then one more step under
    torch.profiler: device time by kernel family.
-8. ``train_exact`` — one step of the same model cut to 4 layers in float32
+12. ``train_exact`` — one step of the same model cut to 4 layers in float32
    on the first batch, through the kernels and through the plain versions:
    loss and updated params agree within the stated tolerance.
-9. ``fold`` — the paper's deploy chain on the card: the float32 model of
-   phase 8 folded to packed (``to_packed``) gives the masked-dense logits
-   within the stated tolerance, and the bf16 model trained in phase 7,
+13. ``fold`` — the paper's deploy chain on the card: the float32 model of
+   phase 12 folded to packed (``to_packed``) gives the masked-dense logits
+   within the stated tolerance, and the bf16 model trained in phase 11,
    folded and quantized to int8, serves 2 greedy requests on the paged
    engine through the kernels.
-10. ``fused_deploy`` — the Fig-3 deploy chain at olmo-1b's published
+14. ``fused_deploy`` — the Fig-3 deploy chain at olmo-1b's published
    widths: the model built in ``masked_dense`` mode with ``mpd_fuse`` from
    seed 0 takes one AdamW step on the next ``SyntheticLM`` batch of phase
-   7's stream, is folded with the permutation fusion and quantized to int8
+   11's stream, is folded with the permutation fusion and quantized to int8
    and written as a packed artifact (``export_packed``) to a temporary
    directory, loaded back (``load_packed``: bit-identical to the in-memory
    fold, every FFN on the fused route) and served on the ``serve`` phase's
    engine and traffic. Every FFN is one ``fused_ffn`` launch: launches equal
    16 x model calls, and bdmm launches per model call are 3 x 16 fewer than
    in phase 4.
-11. ``spec`` — speculative decoding as the deployment runs it: phase 10's
+15. ``spec`` — speculative decoding as the deployment runs it: phase 14's
    trained masked_dense bf16 target drafted by the int8 artifact it
    exported (k = 4), on phase 4's traffic, in turns (non-spec, spec, spec,
    non-spec): 8 of 8 served in every turn, every token in the vocabulary,
@@ -101,10 +128,10 @@ Phases, each printed as one JSON line:
    streams equal the non-spec ones per turn; then profiled windows of
    non-spec and spec steps; then phase 4's eager and captured turns with
    the spec engine.
-12. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
+16. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
    streams through the kernels (fused_ffn on every FFN, captured) and
    through the plain versions (eager) must be identical.
-13. ``paper`` — the paper's own experiments (benchmarks/torch_paper_repro.py):
+17. ``paper`` — the paper's own experiments (benchmarks/torch_paper_repro.py):
    LeNet-300-100 (800-300-100-10, float32) trained on TeacherStudent
    batches of 50 for Table 1 (400 steps), Fig 4a (8 masks, 200 steps),
    Fig 4b, the permutation ablation (400 steps) and Fig 5 (200 steps), one
@@ -1339,15 +1366,17 @@ SERVE_TRAFFIC = dict(n_requests=8, rate=16.0, prompt_len=512, gen=32, seed=0,
 
 def program_calls(engine):
     """The engine's model calls as a serve phase reads them: host ms of
-    every decode step and every prefill chunk (runs of the decode and chunk
+    every decode step and every prefill chunk (dense: every admission's
+    whole-prompt prefill) (runs of the decode and chunk or admission
     programs, eager calls or graph replays, on a synchronised clock: set
     ``engine.time_programs`` before serving), and the number of calls that
-    ran the unembed (every decode step and the final chunk of each
-    prefill)."""
+    ran the unembed (every decode step, the final chunk of each prefill and
+    every admission)."""
     ms, runs = engine.run_ms, engine.runs
-    return {"decode": list(ms["decode"]),
-            "prefill": ms["chunk"] + ms["chunk_final"],
-            "unembed": runs["decode"] + runs["chunk_final"]}
+    return {"decode": ms["decode"] + ms["decode_dense"],
+            "prefill": ms["chunk"] + ms["chunk_final"] + ms["admit"],
+            "unembed": (runs["decode"] + runs["chunk_final"]
+                        + runs["decode_dense"] + runs["admit"])}
 
 
 def warm_engine(torch, engine):
@@ -1478,8 +1507,9 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
     """Where a steady decode step's time goes: ``n_steps`` decode steps
     (speculative steps with ``spec_draft``) of 4 live slots at the serve
     phase's context depths (~250-540 tokens), under torch.profiler; the
-    prefill of those 4 requests (64-token chunks) is profiled on its way
-    (with ``profile_prefill``). The engine captures its programs
+    prefill of those 4 requests (64-token chunks; on the dense engine,
+    ``kw["paged"]`` False, one whole-prompt admission each) is profiled on
+    its way (with ``profile_prefill``). The engine captures its programs
     (``graphs``, the engine's argument) before the profile, so the profile
     holds replays and no capture. Returns wall ms per step, device kernel
     ms per step (per prefill chunk) by kernel family, and the device's busy
@@ -1499,22 +1529,24 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
                            gen=32, seed=0, shared_prefix=128):
         r.max_new_tokens = 96           # every slot stays live in the window
         eng.submit(r)
-    chunks0 = eng.n_prefill_chunks
+    chunks0 = eng.n_prefill_chunks + eng.runs["admit"]
+    queue = getattr(eng, "_prefill_queue", ())
     prefill = None
     if profile_prefill:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            while eng._prefill_queue or eng.scheduler.waiting:
+            while queue or eng.scheduler.waiting:
                 eng.step()
             torch.cuda.synchronize()
         prefill, prefill_ms, _ = device_families(
-            torch, prof, max(eng.n_prefill_chunks - chunks0, 1))
+            torch, prof,
+            max(eng.n_prefill_chunks + eng.runs["admit"] - chunks0, 1))
         prefill = prefill if prefill_ms > 0 else None
     else:
-        while eng._prefill_queue or eng.scheduler.waiting:
+        while queue or eng.scheduler.waiting:
             eng.step()
         torch.cuda.synchronize()
-    chunks = eng.n_prefill_chunks - chunks0
+    chunks = eng.n_prefill_chunks + eng.runs["admit"] - chunks0
 
     def steps():
         live = 0
@@ -1545,8 +1577,8 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
             "combine_in_family": (combines["seen"] > 0
                                   and combines["in_other"] == 0)
             if on else None,
-            # the steps that ran the 4 prompts' chunks (some also decode
-            # the slots already live)
+            # the steps that ran the 4 prompts' chunks or admissions (some
+            # also decode the slots already live)
             "prefill_chunks": chunks,
             "prefill_device_ms_per_chunk": prefill,
             "seconds": time.perf_counter() - t_start}
@@ -1595,12 +1627,13 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
                                n_steps=8 if spec_draft else 16,
                                spec_draft=spec_draft, graphs=graphs,
                                profile_prefill=False)
+        pre = "prefill_chunk" if kw.get("paged", True) else "admit"
         turn = {"route": "eager" if graphs is False else "captured",
                 "requests_done": summary["n_done"],
                 "step_ms_p50": statistics.median(steps["step"]),
                 "decode_steps": len(steps["step"]),
-                "prefill_chunk_ms_p50": statistics.median(calls["prefill"]),
-                "prefill_chunks": len(calls["prefill"]),
+                f"{pre}_ms_p50": statistics.median(calls["prefill"]),
+                f"{pre}s": len(calls["prefill"]),
                 "tok_s": summary["agg_tok_s"],
                 "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
                 "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
@@ -1788,6 +1821,212 @@ def exact_spec_phase(torch, dev, ops, exact_run):
            "weights": "int8", "n_layers": cfg.n_layers, "spec_k": SPEC_K,
            "requests": len(base), "tokens": sum(len(v) for v in base.values()),
            **out}
+    emit(row)
+    return row
+
+
+DENSE_ENGINE = dict(n_slots=SERVE_ENGINE["n_slots"],
+                    max_len=SERVE_ENGINE["max_len"], paged=False)
+
+
+def dense_phase(torch, dev, ops, served):
+    """The ``serve`` phase's model and traffic through the slot-dense engine
+    (``paged=False``): every program (the decode at 4 slots, the admission
+    at every prompt bucket) captured by ``warmup()`` first, nothing captured
+    while serving; counters reset just before and read just after. Then a
+    profiled decode window and the same traffic in eager and captured
+    turns. Returns the row and ``(cfg, model, params)``."""
+    from repro_torch.kernels import bdmm as bk
+    from repro_torch.launch.serve import make_requests, serve_stream
+    from repro_torch.serve import Engine
+
+    cfg, model, params, _ = olmo_engine(torch, dev, "bfloat16")
+    kw = DENSE_ENGINE
+    engine = Engine(model, params, **kw)
+    warm = warm_engine(torch, engine)
+    reqs = make_requests(cfg, **SERVE_TRAFFIC)
+    engine.time_programs = True
+    ops.reset_launch_counts()
+    summary = serve_stream(engine, reqs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    routes = dict(bk.routes)
+    calls = program_calls(engine)
+    captured_serving = engine.n_captures - warm["graphs_captured"]
+    buckets = list(engine.scheduler.buckets)
+    del engine
+    window = decode_window(torch, model, params, kw, cfg)
+    turns = graph_turns(torch, model, params, kw, cfg)
+    done = summary["n_done"] == len(reqs) and all(
+        len(r.generated) == r.max_new_tokens
+        and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
+    # int8 blocks above 32 rows (the whole-prompt prefill) take the small-m
+    # tensor-core body, the decode at 4 slots and the unembed the decode
+    # grid; dense attention is plain PyTorch, as the reference's is XLA
+    general = routes["tc_small_m"] + routes["tc"]
+    bodies_ok = general > 0 and routes["decode_tc"] > 0 and not any(
+        launches[k] for k in ("paged_attention", "paged_prefill_attention",
+                              "paged_attention_verify"))
+    ok = done and bodies_ok and captured_serving == 0 and turns["ok"]
+    paged_turn = served["graph_turns"]["turns"][1]
+    row = {"phase": "dense", "ok": ok, "config": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "weights": "int8",
+        "dtype": cfg.dtype, "slots": kw["n_slots"], "max_len": kw["max_len"],
+        "buckets": buckets}, "traffic": "serve",
+        "requests_done": summary["n_done"], "requests": len(reqs),
+        "new_tokens": [len(r.generated) for r in reqs],
+        "tok_s": summary["agg_tok_s"], "elapsed_s": summary["elapsed_s"],
+        "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
+        "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
+        "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
+        "e2e_p95_ms": summary["e2e_p95_s"] * 1e3,
+        "decode_steps": len(calls["decode"]),
+        "decode_step_ms_p50": statistics.median(calls["decode"]),
+        "admissions": len(calls["prefill"]),
+        "admit_ms_p50": statistics.median(calls["prefill"]),
+        "kv_bytes_reserved": summary["kv_bytes_reserved"],
+        "paged_kv_bytes_allocated_peak": served["kv_bytes_allocated_peak"],
+        "paged_captured_turn": {k: paged_turn.get(k) for k in (
+            "decode_program_ms_p50", "prefill_chunk_ms_p50", "ttft_p50_ms",
+            "e2e_p50_ms", "tok_s")},
+        "occupancy_mean": summary["occupancy_mean"],
+        "bdmm_routes": routes, "bodies_ok": bodies_ok,
+        "decode_window": window, **warm,
+        "graphs_captured_while_serving": captured_serving,
+        "graph_turns": turns, "launches": launches}
+    emit(row)
+    return row, (cfg, model, params)
+
+
+STATIC = dict(batch=4, prompt_len=512, gen=32)
+
+
+def static_phase(torch, dev, ops, dense_run):
+    """The legacy lockstep path as the launcher runs it at full width,
+    int8: ``launch.serve.main(["--static", ...])``, one prefill of 4
+    prompts of 512 tokens and 31 greedy decode steps (one captured decode
+    graph). Each row's tokens must equal the slot-dense engine's stream
+    for the same prompt (the ``dense`` phase's model: the launcher's init
+    from seed 0 is the same)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import Engine, Request
+
+    cfg, model, params = dense_run
+    ops.reset_launch_counts()
+    out = launch.main(["--arch", "olmo-1b", "--static", "--batch",
+                       str(STATIC["batch"]), "--prompt-len",
+                       str(STATIC["prompt_len"]), "--gen", str(STATIC["gen"]),
+                       "--quantize", "int8"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    prompts = SyntheticLM(vocab=cfg.vocab, seq_len=STATIC["prompt_len"],
+                          global_batch=STATIC["batch"],
+                          seed=0).next()["inputs"]
+    engine = Engine(model, params, n_slots=STATIC["batch"],
+                    max_len=STATIC["prompt_len"] + STATIC["gen"], paged=False)
+    streams = engine.run([Request(id=i, prompt=p,
+                                  max_new_tokens=STATIC["gen"])
+                          for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    rows = out["tokens"].tolist()
+    diverge = [{"row": i, "first_index": next(
+        (j for j, (a, b) in enumerate(zip(rows[i], streams[i])) if a != b),
+        None)} for i in range(len(rows)) if rows[i] != streams[i]]
+    ok = (not diverge and out["route"] == "captured"
+          and launches["bdmm"] > 0 and launches["bdmm_decode"] > 0)
+    row = {"phase": "static", "ok": ok, "argv": STATIC, "weights": "int8",
+           "n_layers": cfg.n_layers, "decode_route": out["route"],
+           "prefill_ms": out["prefill_ms"], "decode_ms": out["decode_ms"],
+           "decode_tok_s": out["decode_tok_s"],
+           "decode_step_ms": out["decode_ms"] / (STATIC["gen"] - 1),
+           "diverging_rows": diverge, "launches": launches}
+    emit(row)
+    return row
+
+
+def exact_dense_phase(torch, dev, ops, exact_run):
+    """``exact``'s f32 model and requests through the slot-dense engine on
+    the kernel route (captured) and the plain route (eager): both streams
+    identical to each other and to ``exact``'s paged kernel-route ones."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve import Engine
+
+    cfg, model, params, base = exact_run
+    kw = dict(n_slots=EXACT_ENGINE["n_slots"], max_len=EXACT_ENGINE["max_len"],
+              paged=False)
+    streams, counts, captures = {}, {}, {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        try:
+            engine = Engine(model, params, **kw,
+                            graphs=None if backend == "cuda" else False)
+            streams[backend] = engine.run(make_requests(cfg, **EXACT_TRAFFIC))
+        finally:
+            ops.set_backend("cuda")
+        torch.cuda.synchronize()
+        counts[backend] = ops.launch_counts()
+        captures[backend] = engine.n_captures
+        del engine
+    diverge = [rid for rid in sorted(base)
+               if not (streams["cuda"][rid] == streams["torch"][rid]
+                       == base[rid])]
+    ok = (not diverge and captures["cuda"] > 0 and captures["torch"] == 0
+          and counts["cuda"]["bdmm"] > 0 and counts["cuda"]["bdmm_decode"] > 0
+          and not any(counts["torch"].values()))
+    row = {"phase": "exact_dense", "ok": ok, "dtype": "float32",
+           "weights": "int8", "n_layers": cfg.n_layers,
+           "requests": len(base), "tokens": sum(len(v) for v in base.values()),
+           "diverging_requests": diverge, "graphs_captured": captures,
+           "launches_kernel_route": counts["cuda"],
+           "launches_plain_route": counts["torch"]}
+    emit(row)
+    return row
+
+
+CLI_LAYERS = 2
+CLI = ["--arch", "olmo-1b", "--n-layers", str(CLI_LAYERS), "--requests", "4",
+       "--prompt-len", "256", "--gen", "16", "--quantize", "int8"]
+
+
+def cli_phase(torch, dev, ops):
+    """The launcher in-process, depth cut to ``CLI_LAYERS``: without
+    ``--paged`` (the slot-dense engine), with ``--quantize int4``, and at
+    f32 ``--paged`` on the kernel route and with ``--prefill-kernel jnp``,
+    which must launch the paged prefill kernel 0 times and stream the
+    kernel route's tokens."""
+    from repro_torch.launch import serve as launch
+
+    runs, ok = {}, True
+    f32 = ["--dtype", "float32", "--paged"]
+    for name, extra in (("dense", []),
+                        ("int4", ["--quantize", "int4"]),
+                        ("paged_f32", f32),
+                        ("paged_f32_prefill_jnp",
+                         f32 + ["--prefill-kernel", "jnp"])):
+        ops.reset_launch_counts()
+        s = launch.main(CLI + extra)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        done = s["n_done"] == s["n_requests"] == 4
+        runs[name] = {"ok": done, "tok_s": s["agg_tok_s"],
+                      "ttft_p50_ms": s["ttft_p50_s"] * 1e3,
+                      "kv_bytes_reserved": s["kv_bytes_reserved"],
+                      "launches": launches, "streams": s["streams"]}
+        ok = ok and done
+    kernel, plain = runs["paged_f32"], runs["paged_f32_prefill_jnp"]
+    route_ok = (kernel["launches"]["paged_prefill_attention"] > 0
+                and plain["launches"]["paged_prefill_attention"] == 0
+                and plain["launches"]["paged_attention"] > 0
+                and plain["streams"] == kernel["streams"]
+                and ops.prefill_backend() == "cuda")
+    ok = ok and route_ok and runs["dense"]["launches"]["bdmm_decode"] > 0
+    for r in runs.values():
+        r["tokens"] = sum(len(v) for v in r.pop("streams").values())
+    row = {"phase": "cli", "ok": ok, "argv": CLI,
+           "cut": f"{CLI_LAYERS} of 16 layers", "prefill_route_ok": route_ok,
+           "runs": runs}
     emit(row)
     return row
 
@@ -2656,7 +2895,21 @@ def main() -> int:
     if not timed("exact_spec", exact_spec_phase, torch, dev, ops,
                  exact_run)["ok"]:
         failed.append("exact_spec")
+    if not timed("exact_dense", exact_dense_phase, torch, dev, ops,
+                 exact_run)["ok"]:
+        failed.append("exact_dense")
     del exact_run
+    torch.cuda.empty_cache()
+    dense, dense_run = timed("dense", dense_phase, torch, dev, ops, served)
+    if not dense["ok"]:
+        failed.append("dense")
+    static = timed("static", static_phase, torch, dev, ops, dense_run)
+    if not static["ok"]:
+        failed.append("static")
+    del dense_run
+    torch.cuda.empty_cache()
+    if not timed("cli", cli_phase, torch, dev, ops)["ok"]:
+        failed.append("cli")
     torch.cuda.empty_cache()
     trained, bf16_model, bf16_params, data = timed("train", train_phase,
                                                    torch, dev, ops)
@@ -2687,10 +2940,12 @@ def main() -> int:
     paper = timed("paper", paper_phase, torch, dev, ops)
     if not paper["ok"]:
         failed.append("paper")
-    # the main path's launches: serving, training, the fused deploy, the
-    # speculative turns and the paper's experiments
+    # the main path's launches: paged and slot-dense serving, the static
+    # lockstep batch, training, the fused deploy, the speculative turns and
+    # the paper's experiments
     launches = {k: sum(p["launches"][k]
-                       for p in (served, trained, deployed, spec, paper))
+                       for p in (served, dense, static, trained, deployed,
+                                 spec, paper))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,

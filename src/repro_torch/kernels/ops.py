@@ -8,6 +8,10 @@
   exists so that ``chip_smoke.py`` and the tests can hold the kernels
   against their plain versions on the same inputs. The default is
   ``"cuda"``.
+* ``set_prefill_backend`` routes the paged prefill attention alone: None
+  follows the global backend, ``"cuda"`` or ``"torch"`` overrides it (the
+  serve launcher's ``--prefill-kernel``). It is read when a call is made,
+  so a captured program keeps the route it was captured under.
 
 ``fused_ffn`` runs a perm-fused packed MLP as one kernel; it has no
 autograd rule in the port yet and raises under grad rather than fall back
@@ -42,6 +46,7 @@ from . import ref
 
 BACKENDS = ("cuda", "torch")
 _BACKEND = "cuda"
+_PREFILL_BACKEND: Optional[str] = None
 _KERNEL_MODULES = (bdmm_kernel, ffn_kernel, mm_kernel, paged_attn_kernel,
                    paged_prefill_kernel)
 
@@ -55,6 +60,20 @@ def set_backend(name: str) -> None:
 
 def get_backend() -> str:
     return _BACKEND
+
+
+def set_prefill_backend(name: Optional[str]) -> None:
+    """Route the paged prefill attention: None follows the global backend,
+    ``"cuda"`` or ``"torch"`` overrides it. CPU tensors take the plain
+    version whatever is set."""
+    global _PREFILL_BACKEND
+    if name is not None and name not in BACKENDS:
+        raise ValueError(f"prefill backend {name!r} not in {BACKENDS}")
+    _PREFILL_BACKEND = name
+
+
+def prefill_backend() -> str:
+    return _PREFILL_BACKEND if _PREFILL_BACKEND is not None else _BACKEND
 
 
 def launch_counts() -> Dict[str, int]:
@@ -298,8 +317,10 @@ def paged_attention_verify(q, k_pages, v_pages, block_tables, lengths):
 def paged_prefill_attention(q, k_pages, v_pages, bt_row, start, chunk_len):
     """Chunked-prefill attention for one request's ``(Tc, H, Dh)`` chunk
     against its paged context (chunk K/V already in the pool); ``start``
-    and ``chunk_len`` host integers or 0-d tensors on q's device."""
-    if _plain(q, k_pages, v_pages, bt_row):
+    and ``chunk_len`` host integers or 0-d tensors on q's device. Routed by
+    :func:`prefill_backend`."""
+    if prefill_backend() == "torch" or all(
+            t.device.type == "cpu" for t in (q, k_pages, v_pages, bt_row)):
         return ref.paged_prefill_attention_ref(q, k_pages, v_pages, bt_row,
                                                start, chunk_len)
     return paged_prefill_kernel.paged_prefill_attention(

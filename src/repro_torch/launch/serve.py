@@ -1,30 +1,45 @@
-"""Serving launcher of the port: the paged continuous-batching engine on a
-synthetic Poisson request stream.
+"""Serving launcher of the port: the continuous-batching engine on a
+synthetic Poisson request stream, or the legacy static lockstep batch.
 
+    python -m repro_torch.launch.serve --arch olmo-1b --quantize int8
     python -m repro_torch.launch.serve --arch olmo-1b --paged --quantize int8
+    python -m repro_torch.launch.serve --arch olmo-1b --static --batch 4
 
 builds the config in memory with a random packed init from ``--seed`` on
 the CUDA device (``--device cpu`` runs on the CPU), optionally quantizes
-every packed projection to int8, and serves ``--requests`` synthetic
-requests. ``--mpd-fuse`` builds the Fig-3 perm-fused model, whose FFNs run
-as one fused kernel each. ``--ckpt-dir DIR`` serves the packed artifact in
-``DIR/packed`` instead (written by ``launch.train --fold-to-packed`` or by
-the JAX package's ``export_packed``): its recorded config, fusion and
-quantization win over the flags. Prompt tokens are the first batch of a
-``SyntheticLM`` stream of ``--seed``, and ``np.random.default_rng(seed)``
-draws the arrivals, lengths and budgets, as the JAX launcher does; prompt
-lengths lie in ``[prompt_len/2, prompt_len]``, output budgets in
-``[gen/2, gen]``, and ``--shared-prefix N`` makes the first N prompt tokens
-identical across requests so the prefix trie gets hits. ``--spec-draft DIR``
-turns on speculative decoding with the packed artifact in ``DIR/packed`` as
-the draft (typically the target's own folded int8 export), proposing
-``--spec-k`` tokens a step.
+every packed projection (``--quantize int8``, or ``int4``: 4-bit values
+the kernels read as int8), and serves ``--requests`` synthetic requests on
+the slot-dense engine (the default, as the reference's) or the paged one
+(``--paged``). ``--static`` prefills one batch of ``--batch`` prompts and
+decodes it in lockstep, logging the prefill ms and the decode tok/s.
+``--mpd-fuse`` builds the Fig-3 perm-fused model, whose FFNs run as one
+fused kernel each; ``--mpd-c`` overrides the compression. ``--ckpt-dir
+DIR`` serves the packed artifact in ``DIR/packed`` when there is one
+(written by ``launch.train --fold-to-packed`` or by the JAX package's
+``export_packed``): its recorded config, fusion and quantization win over
+the flags. Otherwise it restores the newest train checkpoint in ``DIR``
+(``{"params": ...}``, written by either package) over the init;
+``--fold-to-packed`` builds the model in ``masked_dense`` mode, restores
+that, and folds it to packed (paper Eq. 2) before serving. Prompt tokens
+are the first batch of a ``SyntheticLM`` stream of ``--seed``, and
+``np.random.default_rng(seed)`` draws the arrivals, lengths and budgets,
+as the JAX launcher does; prompt lengths lie in ``[prompt_len/2,
+prompt_len]``, output budgets in ``[gen/2, gen]``, and ``--shared-prefix
+N`` makes the first N prompt tokens identical across requests so the
+prefix trie gets hits. ``--spec-draft DIR`` (paged) turns on speculative
+decoding with the packed artifact in ``DIR/packed`` as the draft
+(typically the target's own folded int8 export), proposing ``--spec-k``
+tokens a step. ``--prefill-kernel`` routes the paged prefill attention:
+``pallas`` and ``interpret`` (the reference's names for its kernel) take
+the CUDA kernel, ``jnp`` the plain version; CPU tensors always take the
+plain one.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import logging
 import time
 
@@ -35,6 +50,7 @@ from repro_torch import device as device_lib
 from repro_torch.configs.common import ARCHS, get_config
 from repro_torch.core import export as export_lib
 from repro_torch.data import SyntheticLM
+from repro_torch.kernels import ops
 from repro_torch.models import build
 from repro_torch.serve import Engine, Request, SamplingParams
 
@@ -91,14 +107,46 @@ def serve_stream(engine, requests, *, idle_sleep=0.0005):
     return engine.metrics.summary()
 
 
-def load_model(arch, *, smoke=False, dtype=None, n_layers=None, quantize="",
-               seed=0, device=None, mpd_fuse=False, ckpt_dir=""):
-    """(cfg, model, params): the packed artifact under ``ckpt_dir`` when
-    there is one, else the config with its overrides and a random packed
-    init from ``seed`` on ``device``; quantized when asked and not already
-    so."""
+def _restore_latest(ckpt_dir, params, tag="", device=None):
+    """``params`` restored from the newest train checkpoint in ``ckpt_dir``
+    (the reference's ``{"params": ...}`` tree, so a checkpoint of either
+    package restores)."""
     from repro_torch.checkpoint import checkpoint as ckpt_lib
+
+    step = ckpt_lib.latest_step(ckpt_dir)
+    if step is None:
+        raise SystemExit(f"no packed export under {ckpt_dir}/packed and no "
+                         f"checkpoint under {ckpt_dir}")
+    params = ckpt_lib.restore(ckpt_dir, step, {"params": params},
+                              device=device)["params"]
+    log.info("restored %sstep %d from %s", tag, step, ckpt_dir)
+    return params
+
+
+def _quantize_in_memory(model, params, mode):
+    """Post-hoc quantization of a packed (model, params) pair to ``mode``
+    (``int8``, or ``int4``: values in [-7, 7], still int8 for the
+    kernels)."""
     from repro_torch.kernels.quant import BITS
+
+    params, report = export_lib.quantize_packed(model, params,
+                                                bits=BITS[mode])
+    model.quant_report = report
+    log.info("quantized packed weights to %s: %d layers, max rel-rms err "
+             "%.2e", mode, report["n_layers"], report["max_rel_rms"])
+    return params
+
+
+def load_model(arch, *, smoke=False, dtype=None, n_layers=None, quantize="",
+               seed=0, device=None, mpd_fuse=False, mpd_c=0,
+               fold_to_packed=False, ckpt_dir=""):
+    """(cfg, model, params), as the reference's ``_load_model`` resolves
+    them: the packed artifact under ``ckpt_dir`` when there is one; with
+    ``fold_to_packed`` a ``masked_dense`` init from ``seed`` (restored from
+    ``ckpt_dir``'s newest train checkpoint when given) folded to packed;
+    else the config's init from ``seed``, restored likewise. Quantized when
+    asked and not already so."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
 
     over = {}
     if dtype:
@@ -107,13 +155,13 @@ def load_model(arch, *, smoke=False, dtype=None, n_layers=None, quantize="",
         over["n_layers"] = n_layers
     if mpd_fuse:
         over["mpd_fuse"] = True
-    if ckpt_dir:
-        if not ckpt_lib.has_packed(ckpt_dir):
-            raise SystemExit(f"no packed export under {ckpt_dir}/packed "
-                             "(restoring train checkpoints is not ported)")
-        if over:
+    if mpd_c:
+        over["mpd_c"] = mpd_c
+    if ckpt_dir and ckpt_lib.has_packed(ckpt_dir):
+        if over or fold_to_packed:
             log.info("note: packed export found; its recorded config wins, "
-                     "ignoring %s", sorted(over))
+                     "ignoring %s", sorted(over) + (["fold_to_packed"]
+                                                    if fold_to_packed else []))
         model, params = ckpt_lib.load_packed(ckpt_dir, device=device)
         stored = getattr(model, "quant_report", None)
         log.info("loaded packed export from %s/packed%s", ckpt_dir,
@@ -122,19 +170,33 @@ def load_model(arch, *, smoke=False, dtype=None, n_layers=None, quantize="",
             log.info("note: export already quantized (%d-bit); its stored "
                      "form wins, ignoring --quantize %s", stored["bits"],
                      quantize)
-            quantize = ""
-        cfg = model.cfg
-    else:
-        cfg = get_config(arch, smoke=smoke, **over)
-        model = build(cfg)
-        params = model.init(seed, device=device)
+        elif quantize:
+            params = _quantize_in_memory(model, params, quantize)
+        return model.cfg, model, params
+    cfg = get_config(arch, smoke=smoke, **over)
+    if fold_to_packed:
+        model_md = build(dataclasses.replace(cfg, mpd_mode="masked_dense"))
+        params = model_md.init(seed, device=device)
+        if ckpt_dir:
+            params = _restore_latest(ckpt_dir, params, "masked_dense ",
+                                     device)
+        model, params = model_md.to_packed(params, fuse=cfg.mpd_fuse,
+                                           quantize=quantize or None)
+        rep = getattr(model, "quant_report", None)
+        log.info("folded to packed: %s params (was %s)%s",
+                 f"{model.param_count():,}", f"{model_md.param_count():,}",
+                 f", quantized {quantize} (max rel-rms err "
+                 f"{rep['max_rel_rms']:.2e})" if rep else "")
+        return model.cfg, model, params
+    model = build(cfg)
+    params = model.init(seed, device=device)
+    if ckpt_dir:
+        params = _restore_latest(ckpt_dir, params, device=device)
     if quantize:
-        params, report = export_lib.quantize_packed(model, params,
-                                                    bits=BITS[quantize])
-        model.quant_report = report
-        log.info("quantized packed weights to %s: %d layers, max rel-rms "
-                 "err %.2e", quantize, report["n_layers"],
-                 report["max_rel_rms"])
+        if cfg.mpd_mode != "packed":
+            raise SystemExit("--quantize needs packed params: combine with "
+                             "--fold-to-packed for a masked_dense run")
+        params = _quantize_in_memory(model, params, quantize)
     return cfg, model, params
 
 
@@ -154,17 +216,153 @@ def load_spec_draft(spec_dir, *, device=None):
     return draft, params
 
 
+def static_decode(model, params, prompts, gen):
+    """The legacy lockstep path: one prefill of ``prompts (B, T)`` into
+    dense caches of ``T + gen`` rows, then ``gen - 1`` greedy decode steps
+    of the whole batch at one depth, the step captured as one CUDA graph on
+    a CUDA device (eager on the CPU). Returns ``{"tokens" (B, gen) int64
+    on the host, "prefill_ms", "decode_ms", "decode_tok_s", "route"}``, the
+    times on a synchronised clock (the decode's graph capture excluded)."""
+    from repro_torch.serve.graphs import StepGraph
+
+    dev = prompts.device
+    captured = dev.type == "cuda" and gen > 1
+    B, T = prompts.shape
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    with torch.no_grad():
+        caches = model.init_caches(B, T + gen, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, prompts, caches)
+        tok = torch.argmax(logits, dim=-1)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out = [tok.clone()]
+        step = lambda: model.decode_step(params, tok, caches)[0]  # noqa: E731
+        if captured:
+            # the capture's warm runs write K/V at and past the depth (each
+            # written again before it is read) and advance pos: put it back
+            saved = [c["pos"].clone() for c in caches]
+            graph = StepGraph("static_decode", B, step, dev)
+            for c, p in zip(caches, saved):
+                c["pos"].copy_(p)
+            step = graph.replay
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            tok.copy_(torch.argmax(step(), dim=-1))
+            out.append(tok.clone())
+        sync()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+    return {"tokens": torch.stack(out, dim=1).cpu().numpy(),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "decode_tok_s": B * (gen - 1) / max(decode_ms / 1e3, 1e-9),
+            "route": "captured" if captured else "eager"}
+
+
+def _static_main(args, cfg, model, params, device):
+    """``--static``: prompts from ``SyntheticLM(seed=0)``, one prefill, a
+    lockstep greedy decode."""
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.prompt_len,
+                       global_batch=args.batch, seed=0)
+    prompts = torch.as_tensor(data.next()["inputs"], device=device)
+    out = static_decode(model, params, prompts, args.gen)
+    log.info("prefill %dx%d: %.1f ms", args.batch, args.prompt_len,
+             out["prefill_ms"])
+    log.info("decode %d steps (%s): %.1f ms (%.0f tok/s)", args.gen - 1,
+             out["route"], out["decode_ms"], out["decode_tok_s"])
+    return out
+
+
+def _continuous_main(args, cfg, model, params, device):
+    spec_draft = (load_spec_draft(args.spec_draft, device=device)
+                  if args.spec_draft else None)
+    engine = Engine(model, params, n_slots=args.slots,
+                    max_len=args.prompt_len + args.gen, paged=args.paged,
+                    page_size=args.page_size, n_pages=args.pages or None,
+                    prefill_chunk_tokens=args.prefill_chunk or None,
+                    spec_draft=spec_draft, spec_k=args.spec_k)
+    mode = "paged" if args.paged else "continuous"
+    t0 = time.perf_counter()
+    engine.warmup()
+    if engine.use_graphs:
+        log.info("captured %d CUDA graphs (every program at every width "
+                 "rung or bucket) in %.1f s", engine.n_captures,
+                 time.perf_counter() - t0)
+    requests = make_requests(cfg, n_requests=args.requests, rate=args.rate,
+                             prompt_len=args.prompt_len, gen=args.gen,
+                             seed=args.seed, shared_prefix=args.shared_prefix)
+    s = serve_stream(engine, requests)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log.info("%s: %d/%d requests, %d tokens in %.2f s (%.0f tok/s)", mode,
+             s["n_done"], s["n_requests"], s["total_tokens"], s["elapsed_s"],
+             s["agg_tok_s"])
+    log.info("ttft mean/p50/p95: %.0f/%.0f/%.0f ms; e2e p50/p95: %.0f/%.0f ms; "
+             "slot occupancy %.0f%%", s["ttft_mean_s"] * 1e3,
+             s["ttft_p50_s"] * 1e3, s["ttft_p95_s"] * 1e3, s["e2e_p50_s"] * 1e3,
+             s["e2e_p95_s"] * 1e3, s["occupancy_mean"] * 100)
+    if args.paged:
+        c = engine.cache
+        log.info("paged kv: page_size=%d, pool=%d pages; allocated peak "
+                 "%.2f MB vs dense reservation %.2f MB; prefill tokens "
+                 "computed %d (+%d reused via prefix cache) [%s prefill "
+                 "route]", c.page_size, c.n_pages,
+                 s["kv_bytes_allocated_peak"] / 1e6,
+                 s["kv_bytes_reserved"] / 1e6, engine.n_prefill_tokens,
+                 engine.n_prefill_tokens_skipped, ops.prefill_backend())
+    else:
+        log.info("dense kv: %d slots x %d rows reserved, %.2f MB",
+                 engine.n_slots, engine.max_len,
+                 s["kv_bytes_reserved"] / 1e6)
+    if engine.spec_active:
+        log.info("spec decode: k=%d, %.2f tokens/step, %.0f%% draft "
+                 "acceptance", engine.spec_k, s["tokens_per_step_mean"],
+                 s["draft_acceptance_rate"] * 100)
+    s["streams"] = {r.id: list(r.generated) for r in requests}
+    return s
+
+
+# --prefill-kernel: the reference's names for its kernel (pallas on the TPU,
+# interpret its CPU mode) take the CUDA kernel, its dense oracle (jnp) the
+# plain version
+PREFILL_ROUTES = {"pallas": "cuda", "interpret": "cuda", "jnp": "torch"}
+# the reference launcher's flags for the serving surface not ported yet:
+# flag -> (its default, the ROADMAP queue A item that ports it)
+NOT_PORTED = {"--http": (False, 6), "--host": ("127.0.0.1", 6),
+              "--port": (8000, 6), "--queue-limit": (64, 6),
+              "--replicas": (1, 6), "--disagg": (False, 6),
+              "--n-prefill": (1, 6), "--chaos-schedule": ("", 6),
+              "--chaos-seed": (0, 6), "--chaos-verify": (False, 6),
+              "--tp": (1, 8)}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--arch", choices=ARCHS, required=True)
-    p.add_argument("--paged", action="store_true",
-                   help="paged KV engine (the only engine ported so far)")
     p.add_argument("--smoke", action="store_true")
-    p.add_argument("--quantize", choices=("int8",), default="")
+    p.add_argument("--static", action="store_true",
+                   help="legacy fixed-batch lockstep path")
+    p.add_argument("--batch", type=int, default=4, help="static-mode batch")
+    p.add_argument("--paged", action="store_true",
+                   help="paged KV engine (page pool, block tables, prefix "
+                   "reuse, chunked prefill) instead of the slot-dense one")
+    p.add_argument("--quantize", choices=("int8", "int4"), default="",
+                   help="quantize the packed weights (int4: 4-bit values, "
+                   "still int8 for the kernels; scales f32)")
+    p.add_argument("--mpd-c", type=int, default=0,
+                   help="0 = the config's compression")
     p.add_argument("--mpd-fuse", action="store_true",
                    help="Fig-3 perm-fused FFNs (one fused kernel each)")
     p.add_argument("--ckpt-dir", default="",
-                   help="serve the packed artifact in <ckpt-dir>/packed")
+                   help="serve the packed artifact in <ckpt-dir>/packed, "
+                   "else restore its newest train checkpoint")
+    p.add_argument("--fold-to-packed", action="store_true",
+                   help="build masked_dense (restored from --ckpt-dir when "
+                   "given) and fold it to packed before serving (Eq. 2)")
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA device (cpu runs "
                    "on the host)")
@@ -183,6 +381,11 @@ def main(argv=None):
                    help="pool size; 0 = dense-equivalent")
     p.add_argument("--prefill-chunk", type=int, default=0,
                    help="prefill chunk tokens (page multiple); 0 = 4 pages")
+    p.add_argument("--prefill-kernel", default="",
+                   choices=("",) + tuple(PREFILL_ROUTES),
+                   help="paged prefill attention: pallas or interpret = the "
+                   "CUDA kernel, jnp = the plain version; empty = follow "
+                   "the global route")
     p.add_argument("--shared-prefix", type=int, default=0)
     p.add_argument("--spec-draft", default="",
                    help="speculative decoding (requires --paged): directory "
@@ -190,14 +393,28 @@ def main(argv=None):
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens proposed per verify window")
     p.add_argument("--seed", type=int, default=0)
+    for flag, (default, _) in NOT_PORTED.items():
+        if isinstance(default, bool):
+            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, type=type(default), default=default,
+                           help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    for flag, (default, item) in NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            raise SystemExit(f"{flag} is not ported (ROADMAP queue A item "
+                             f"{item})")
+    if args.static and args.paged:
+        raise SystemExit("--static and --paged are mutually exclusive "
+                         "(paged is a continuous-engine memory model)")
     if args.spec_draft and not args.paged:
         raise SystemExit("--spec-draft requires --paged (the verify window "
                          "scatters into paged KV)")
-    if not args.paged:
-        raise SystemExit("only the paged engine is ported: pass --paged")
+    if args.prefill_kernel and not args.paged:
+        raise SystemExit("--prefill-kernel routes paged chunked prefill; "
+                         "combine with --paged")
     try:
         device = device_lib.resolve(args.device)
     except device_lib.NoCudaDevice as e:
@@ -205,46 +422,20 @@ def main(argv=None):
     cfg, model, params = load_model(
         args.arch, smoke=args.smoke, dtype=args.dtype, n_layers=args.n_layers,
         quantize=args.quantize, seed=args.seed, device=device,
-        mpd_fuse=args.mpd_fuse, ckpt_dir=args.ckpt_dir)
-    log.info("serving %s on %s: %s params (%d layers, %s)", cfg.name, device,
-             f"{model.param_count():,}", cfg.n_layers, cfg.dtype)
-    spec_draft = (load_spec_draft(args.spec_draft, device=device)
-                  if args.spec_draft else None)
-    engine = Engine(model, params, n_slots=args.slots,
-                    max_len=args.prompt_len + args.gen, page_size=args.page_size,
-                    n_pages=args.pages or None,
-                    prefill_chunk_tokens=args.prefill_chunk or None,
-                    spec_draft=spec_draft, spec_k=args.spec_k)
-    t0 = time.perf_counter()
-    engine.warmup()
-    if engine.use_graphs:
-        log.info("captured %d CUDA graphs (every program at every width "
-                 "rung) in %.1f s", engine.n_captures,
-                 time.perf_counter() - t0)
-    requests = make_requests(cfg, n_requests=args.requests, rate=args.rate,
-                             prompt_len=args.prompt_len, gen=args.gen,
-                             seed=args.seed, shared_prefix=args.shared_prefix)
-    s = serve_stream(engine, requests)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    log.info("paged: %d/%d requests, %d tokens in %.2f s (%.0f tok/s)",
-             s["n_done"], s["n_requests"], s["total_tokens"], s["elapsed_s"],
-             s["agg_tok_s"])
-    log.info("ttft mean/p50/p95: %.0f/%.0f/%.0f ms; e2e p50/p95: %.0f/%.0f ms; "
-             "slot occupancy %.0f%%", s["ttft_mean_s"] * 1e3,
-             s["ttft_p50_s"] * 1e3, s["ttft_p95_s"] * 1e3, s["e2e_p50_s"] * 1e3,
-             s["e2e_p95_s"] * 1e3, s["occupancy_mean"] * 100)
-    c = engine.cache
-    log.info("paged kv: page_size=%d, pool=%d pages; allocated peak %.2f MB vs "
-             "dense reservation %.2f MB; prefill tokens computed %d (+%d "
-             "reused via prefix cache)", c.page_size, c.n_pages,
-             s["kv_bytes_allocated_peak"] / 1e6, s["kv_bytes_reserved"] / 1e6,
-             engine.n_prefill_tokens, engine.n_prefill_tokens_skipped)
-    if engine.spec_active:
-        log.info("spec decode: k=%d, %.2f tokens/step, %.0f%% draft "
-                 "acceptance", engine.spec_k, s["tokens_per_step_mean"],
-                 s["draft_acceptance_rate"] * 100)
-    return s
+        mpd_fuse=args.mpd_fuse, mpd_c=args.mpd_c,
+        fold_to_packed=args.fold_to_packed, ckpt_dir=args.ckpt_dir)
+    log.info("serving %s on %s: %s params (%d layers, %s, mode=%s)",
+             cfg.name, device, f"{model.param_count():,}", cfg.n_layers,
+             cfg.dtype, cfg.mpd_mode)
+    if args.static:
+        return _static_main(args, cfg, model, params, device)
+    # set before the engine captures its programs: a graph keeps the route
+    # it was captured under
+    ops.set_prefill_backend(PREFILL_ROUTES.get(args.prefill_kernel))
+    try:
+        return _continuous_main(args, cfg, model, params, device)
+    finally:
+        ops.set_prefill_backend(None)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,18 @@
 """Attention (the port of ``repro.models.attention`` for the full-sequence
-training path and the paged serving path: ``AttentionSpec``, ``_qkv``,
-``_attend``, ``attend_full``, ``apply_train``, ``init_paged_cache``,
+training path and both serving paths: ``AttentionSpec``, ``_qkv``,
+``_attend``, ``attend_full``, ``apply_train``; the dense decode cache
+``init_cache``, ``_update_rows`` and ``apply_decode``; ``init_paged_cache``,
 ``apply_decode_paged``, ``apply_verify_paged``, ``prefill_chunk_paged``).
 
 Training attention is plain PyTorch, as the reference's is plain jnp: f32
 softmax with ``-1e30`` causal masking, chunked over the query axis at
 ``q_chunk`` so the logits of one chunk are alive at a time.
 
-Unlike the reference, whose arrays are immutable, the page pools and the
-per-slot ``pos`` counters are updated **in place** (``index_put_``); the
-functions still return the cache so call sites read like the reference.
+Unlike the reference, whose arrays are immutable, the dense K/V, the page
+pools and the ``pos`` counters are updated **in place** (``index_put_``);
+the functions still return the cache so call sites read like the
+reference. Dense decode attention is plain PyTorch, as the reference's is
+plain jnp outside any Pallas body.
 """
 
 from __future__ import annotations
@@ -115,10 +118,11 @@ def _qkv(spec: AttentionSpec, params, x, positions):
     return q, k, v
 
 
-def _attend(q, k, v, q_pos, causal: bool):
+def _attend(q, k, v, q_pos, causal: bool, kv_valid=None):
     """Attention of one query block against the full K/V: ``q (B, Tq, H,
-    Dh)``, ``k``/``v`` ``(B, S, Kh, Dh)``, ``q_pos (Tq,)`` global positions.
-    Scores in f32, ``p`` cast to V's dtype before PV; GQA by head groups."""
+    Dh)``, ``k``/``v`` ``(B, S, Kh, Dh)``, ``q_pos (Tq,)`` global positions,
+    ``kv_valid (B, S)`` bool or None. Scores in f32, masked to ``-1e30``,
+    ``p`` cast to V's dtype before PV; GQA by head groups."""
     B, Tq, H, Dh = q.shape
     S, Kh = k.shape[1], k.shape[2]
     q5 = q.reshape(B, Tq, Kh, H // Kh, Dh)
@@ -127,6 +131,8 @@ def _attend(q, k, v, q_pos, causal: bool):
         kv_pos = torch.arange(S, device=q.device)
         cmask = q_pos[:, None] >= kv_pos[None, :]
         logits = logits.masked_fill(~cmask, -1e30)
+    if kv_valid is not None:
+        logits = logits.masked_fill(~kv_valid[:, None, None, None, :], -1e30)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
     return o.reshape(B, Tq, H, Dh)
@@ -153,6 +159,52 @@ def apply_train(spec: AttentionSpec, params, x):
     o = attend_full(spec, q, k, v)
     return spec.wo.apply(params["wo"],
                          o.reshape(B, T, spec.n_heads * spec.head_dim))
+
+
+def init_cache(spec: AttentionSpec, batch: int, max_len: int,
+               dtype=torch.float32, device=None):
+    """Dense decode cache: ``(batch, max_len, Kh, Dh)`` K/V and a scalar
+    ``pos`` (every row at one depth; the slot caches make it ``(batch,)``)."""
+    shape = (batch, max_len, spec.n_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _update_rows(cache, new, pos):
+    """Write ``new (B, 1, Kh, Dh)`` into ``cache (B, S, Kh, Dh)`` at the
+    per-row position ``pos (B,)``, in place: one ``index_put_``. A position
+    past the end clamps to ``S - 1``, as the reference's
+    ``dynamic_update_slice`` does (a free slot keeps advancing)."""
+    B, S = cache.shape[:2]
+    rows = torch.arange(B, device=cache.device)
+    cache.index_put_((rows, pos.clamp(0, S - 1).long()),
+                     new[:, 0].to(cache.dtype))
+    return cache
+
+
+def apply_decode(spec: AttentionSpec, params, x, cache):
+    """One decode step against the dense cache. ``x: (B, 1, D)``; ``cache``:
+    ``{"k"/"v": (B, S, Kh, Dh), "pos"}`` with ``pos`` a scalar (lockstep:
+    every row at one depth) or ``(B,)`` (slots: each row at its own).
+    RoPE, the K/V write and the validity mask follow each row's ``pos``;
+    attention reads the whole ``S`` under that mask. ``pos`` advances by 1
+    on every row, in place."""
+    B, T, _ = x.shape
+    assert T == 1
+    pos = cache["pos"]
+    pos_b = pos if pos.dim() == 1 else pos.expand(B)
+    q, k_new, v_new = _qkv(spec, params, x, pos_b[:, None])
+    k = _update_rows(cache["k"], k_new, pos_b)
+    v = _update_rows(cache["v"], v_new, pos_b)
+    S = k.shape[1]
+    kv_valid = torch.arange(S, device=x.device)[None, :] <= pos_b[:, None]
+    o = _attend(q, k.to(q.dtype), v.to(q.dtype), None, False,
+                kv_valid=kv_valid)
+    y = spec.wo.apply(params["wo"],
+                      o.reshape(B, 1, spec.n_heads * spec.head_dim))
+    pos.add_(1)
+    return y, cache
 
 
 def init_paged_cache(spec: AttentionSpec, n_slots: int, n_pages: int,

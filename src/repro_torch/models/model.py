@@ -1,9 +1,10 @@
 """Model assembly for the attention family (the port of
 ``repro.models.model`` for ``pattern=("attn",)``: config, init, the
 full-sequence ``forward``/``logits``/``train_loss``, the mask projection and
-fold of masked-dense training, paged caches, ``decode_step``,
-``prefill_chunk`` and the speculative-decoding hooks ``set_paged_pos`` and
-``verify_step``).
+fold of masked-dense training, dense caches (``init_caches``,
+``init_slot_caches``, ``slot_cache_axes``) and ``prefill``, paged caches,
+``decode_step`` on either, ``prefill_chunk`` and the speculative-decoding
+hooks ``set_paged_pos`` and ``verify_step``).
 
 Params keep the reference's tree and key names — block params stacked per
 pattern period on a leading axis (``params["blocks"][i]["mixer"]["wq"]["w"]``
@@ -160,6 +161,35 @@ class Model:
         params["unembed"] = self.unembed.init(gen, dtype, dev)
         return params
 
+    def init_caches(self, batch: int, max_len: int, dtype=None,
+                    device=None) -> List[Dict[str, Any]]:
+        """Per pattern position: dense K/V ``(n_periods, batch, max_len, Kh,
+        Dh)`` in the config dtype unless ``dtype`` is given, and a scalar
+        ``pos`` per period, ``(n_periods,)`` (lockstep decode)."""
+        dev = device_lib.resolve(device)
+        dtype = dtype or self.cfg.tdtype
+        return [_stack([attn_lib.init_cache(spec["mixer"], batch, max_len,
+                                            dtype, dev)
+                        for _ in range(self.n_periods)])
+                for spec in self.block_specs]
+
+    def init_slot_caches(self, n_slots: int, max_len: int, dtype=None,
+                         device=None) -> List[Dict[str, Any]]:
+        """:meth:`init_caches` with a per-slot ``pos (n_periods, n_slots)``,
+        so every slot decodes at its own depth (the slot-dense engine)."""
+        caches = self.init_caches(n_slots, max_len, dtype, device)
+        for c in caches:
+            c["pos"] = torch.zeros((self.n_periods, n_slots),
+                                   dtype=torch.int32, device=c["k"].device)
+        return caches
+
+    def slot_cache_axes(self) -> List[Dict[str, Tuple]]:
+        """Logical axes of :meth:`init_slot_caches`' leaves, the reference's
+        names; the slot axis is ``"batch"``."""
+        return [{"k": ("layers", "batch", "kv_seq", "kv_heads", None),
+                 "v": ("layers", "batch", "kv_seq", "kv_heads", None),
+                 "pos": ("layers", "batch")} for _ in self.block_specs]
+
     def init_paged_caches(self, n_slots: int, n_pages: int, page_size: int,
                           dtype=None, device=None) -> List[Dict[str, Any]]:
         """Per pattern position: K/V pools ``(n_periods, n_pages, page_size,
@@ -255,23 +285,78 @@ class Model:
                                      quantize=quantize)
 
     # ----------------------------------------------------------------- serve
-    def decode_step(self, params, tokens, caches, block_tables, live=None):
-        """One token step of the paged engine. ``tokens (B,)``;
-        ``block_tables (B, P)`` int32 shared by every attention layer;
-        ``live (B,)`` bool marks the rows actually decoding (non-live rows
-        compute but write nothing). Returns ``(logits (B, vocab), caches)``;
-        the caches are updated in place."""
+    def prefill(self, params, tokens, caches, lengths=None):
+        """A whole prompt batch ``tokens (B, T)`` through the trunk, its K/V
+        written into ``caches`` (from :meth:`init_caches`) at rows ``0..T-1``
+        in place. Returns ``(logits (B, vocab), caches)``: the logits at the
+        last token, or with ``lengths (B,)`` (right-padded prompts) at each
+        row's last real token, and ``pos`` (a new tensor) ``T`` or
+        ``lengths`` per row, ``(n_periods, B)``, the state an unpadded
+        prefill of each row leaves (padded K/V is written but masked by
+        ``pos`` in decode). ``lengths`` may be a host sequence or a tensor
+        on the device (read there, without a host sync)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        B, T = tokens.shape
+        dev = x.device
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+        positions = torch.arange(T, device=dev)[None].expand(B, T)
+        out = []
+        for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
+                                        caches):
+            mixer = spec["mixer"]
+            for i in range(self.n_periods):
+                p = _layer(pstack, i)
+                c = _layer(cstack, i)
+                h = layers.apply_norm(cfg.norm, p["norm1"], x)
+                q, k, v = attn_lib._qkv(mixer, p["mixer"], h, positions)
+                c["k"][:, :T] = k.to(c["k"].dtype)
+                c["v"][:, :T] = v.to(c["v"].dtype)
+                o = attn_lib.attend_full(mixer, q, k, v)
+                y = mixer.wo.apply(p["mixer"]["wo"], o.reshape(B, T, -1))
+                x = self._ffn_residual(spec, p, x + y)
+            pos = (torch.full((self.n_periods,), T, dtype=torch.int32,
+                              device=dev) if lengths is None
+                   else lengths[None].expand(self.n_periods, B).clone())
+            out.append(dict(cstack, pos=pos))
+        x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+        if lengths is None:
+            x_last = x[:, -1]
+        else:
+            idx = (lengths - 1).long()[:, None, None].expand(B, 1, x.shape[-1])
+            x_last = torch.gather(x, 1, idx)[:, 0]
+        return self.unembed.apply(params["unembed"], x_last), out
+
+    def _decode_block(self, spec, p, x, cache, block_tables=None, live=None):
+        """One attention block of a decode step: the paged form with
+        ``block_tables``, else the dense one (``cache["pos"]`` scalar or
+        per row)."""
+        h = layers.apply_norm(self.cfg.norm, p["norm1"], x)
+        if block_tables is not None:
+            y, _ = attn_lib.apply_decode_paged(
+                spec["mixer"], p["mixer"], h, cache, block_tables, live=live)
+        else:
+            y, _ = attn_lib.apply_decode(spec["mixer"], p["mixer"], h, cache)
+        return self._ffn_residual(spec, p, x + y)
+
+    def decode_step(self, params, tokens, caches, block_tables=None,
+                    live=None):
+        """One token step. ``tokens (B,)``. With ``block_tables (B, P)``
+        int32 (the paged engine's page maps, shared by every attention
+        layer) the layers run the paged form, and ``live (B,)`` bool marks
+        the rows actually decoding (non-live rows compute but write
+        nothing). Without, the dense caches of :meth:`init_caches` (every
+        row at one depth) or :meth:`init_slot_caches` (each at its own):
+        every row writes and advances. Returns ``(logits (B, vocab),
+        caches)``; the caches are updated in place."""
         cfg = self.cfg
         x = self._embed(params, tokens[:, None])
         for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
                                         caches):
             for i in range(self.n_periods):
-                p = _layer(pstack, i)
-                c = _layer(cstack, i)
-                h = layers.apply_norm(cfg.norm, p["norm1"], x)
-                y, _ = attn_lib.apply_decode_paged(
-                    spec["mixer"], p["mixer"], h, c, block_tables, live=live)
-                x = self._ffn_residual(spec, p, x + y)
+                x = self._decode_block(spec, _layer(pstack, i), x,
+                                       _layer(cstack, i), block_tables, live)
         x = layers.apply_norm(cfg.norm, params["final_norm"], x)
         return self.unembed.apply(params["unembed"], x[:, 0]), caches
 

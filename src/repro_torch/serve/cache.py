@@ -1,9 +1,12 @@
-"""Paged KV memory for the continuous-batching engine (the port of the
-paged half of ``repro.serve.cache``: ``PagePool``, ``PrefixTrie`` over one
-pool or several, ``PagedCache`` with the speculative window's slack and
-``rollback``, ``share_trie`` and ``publish_prefix_shared``).
+"""KV memory for the continuous-batching engine (the port of
+``repro.serve.cache``: the slot-dense ``SlotCache``; ``PagePool``,
+``PrefixTrie`` over one pool or several, ``PagedCache`` with the
+speculative window's slack and ``rollback``, ``share_trie`` and
+``publish_prefix_shared``).
 
-Attention K/V lives in a global pool of fixed-size pages per layer; each
+``SlotCache``: every slot reserves ``max_len`` rows of K/V per layer up
+front; admission writes a batch-1 prefill's caches into its slot. Paged:
+attention K/V lives in a global pool of fixed-size pages per layer; each
 request holds an ordered list of page ids (its block table); a host-side
 free list hands pages out; a ref-counted prefix trie keyed on page-aligned
 prompt chunks lets requests that share a prompt prefix reuse prefilled
@@ -17,8 +20,64 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 NULL_PAGE = 0
+
+
+def _batch_axes(model) -> List[Dict[str, int]]:
+    """Per leaf of the slot caches, the index of its slot (``"batch"``)
+    axis."""
+    return [{k: names.index("batch") for k, names in axes.items()}
+            for axes in model.slot_cache_axes()]
+
+
+def _slot_index(slot, device) -> torch.Tensor:
+    """``slot`` (a host int or a 0-d tensor on the device) as a ``(1,)``
+    int64 index on ``device``, with no host read."""
+    return torch.as_tensor(slot, device=device).reshape(1).long()
+
+
+class SlotCache:
+    """The slot-dense caches (:meth:`Model.init_slot_caches`) and their two
+    maintenance ops, in place: write a batch-1 prefill's caches into one
+    slot, zero one slot. ``kv_bytes`` is the whole dense reservation,
+    ``token_bytes`` its share of one slot row."""
+
+    def __init__(self, model, n_slots: int, max_len: int, dtype=None,
+                 device=None):
+        self.model = model
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.caches = model.init_slot_caches(n_slots, max_len, dtype, device)
+        self.kv_bytes = sum(c["k"].nbytes + c["v"].nbytes
+                            for c in self.caches)
+        self.token_bytes = self.kv_bytes / (n_slots * max_len)
+        self._batch_ix = _batch_axes(model)
+
+    def _write_impl(self, caches, new, slot):
+        """Copy the batch-1 caches ``new`` into row ``slot`` of every leaf
+        of ``caches``; ``slot`` may be a 0-d tensor on the device, so one
+        captured program serves every slot. Returns ``caches``."""
+        for big, small, bix in zip(caches, new, self._batch_ix):
+            for k, b in bix.items():
+                idx = _slot_index(slot, big[k].device)
+                big[k].index_copy_(b, idx, small[k].to(big[k].dtype))
+        return caches
+
+    def _reset_impl(self, caches, slot):
+        """Zero row ``slot`` of every leaf (admission overwrites a slot in
+        full, so this is hygiene). Returns ``caches``."""
+        for big, bix in zip(caches, self._batch_ix):
+            for k, b in bix.items():
+                big[k].index_fill_(b, _slot_index(slot, big[k].device), 0)
+        return caches
+
+    def write_slot(self, prefill_caches, slot: int) -> None:
+        self._write_impl(self.caches, prefill_caches, slot)
+
+    def reset_slot(self, slot: int) -> None:
+        self._reset_impl(self.caches, slot)
 
 
 class PagePool:

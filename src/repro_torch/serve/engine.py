@@ -1,44 +1,53 @@
-"""Paged continuous-batching engine (the port of the paged path of
-``repro.serve.engine``).
+"""Continuous-batching engine (the port of ``repro.serve.engine``: the
+slot-dense and the paged memory models).
 
-Each :meth:`Engine.step`:
+Each :meth:`Engine.step` admits waiting requests into free slots, then runs
+one batched decode of every slot, emits each live slot's token and
+finishes requests at EOS or ``max_new_tokens``. The memory model is chosen
+at construction:
 
-1. admits waiting requests into free slots, one at a time, while the page
-   pool can hold them (admission only builds the block table, reusing
-   trie-cached prefix pages);
-2. runs prefill chunks FCFS under the per-step token budget — fixed-shape,
-   page-multiple chunks, each attending over a power-of-two ladder of
-   block-table columns; the final chunk samples the request's first token;
-3. runs one batched decode of every slot over an active block-table width
-   that tracks the deepest live sequence (power-of-two ladder), with the
-   ``live`` mask keeping mid-prefill rows from writing, then emits each
-   live slot's token and finishes requests at EOS or ``max_new_tokens``.
+* **paged** (``paged=True``, the port's default): admission only builds
+  the block table (one request at a time while the page pool can hold it,
+  reusing trie-cached prefix pages); prefill chunks run FCFS under the
+  per-step token budget — fixed-shape, page-multiple chunks, each
+  attending over a power-of-two ladder of block-table columns, the final
+  one sampling the first token; the decode runs over an active block-table
+  width that tracks the deepest live sequence (power-of-two ladder), the
+  ``live`` mask keeping mid-prefill rows from writing.
+* **slot-dense** (``paged=False``, the reference's default): every slot
+  reserves ``max_len`` K/V rows (:class:`SlotCache`). Admission prefills
+  one request, right-padded to its bucket (the strict-bucket
+  :class:`Scheduler`; a prompt past the largest bucket is refused at
+  submit), samples its first token and writes the batch-1 caches into its
+  slot; the decode runs every slot, each at its own depth.
 
-Speculative decoding (``spec_draft=(model, params)``, ``spec_k``): a draft
-model with its own page pool mirrors every prefill chunk, proposes
-``spec_k`` tokens per step, and the target scores the ``(k+1)``-token
-window in one :meth:`Model.verify_step`; acceptance advances each row by
-1..k+1 tokens and both pools roll back to the accepted depth. One
-token-keyed prefix trie serves both pools. Greedy spec output is token for
-token the non-spec greedy output.
+Speculative decoding (paged only; ``spec_draft=(model, params)``,
+``spec_k``): a draft model with its own page pool mirrors every prefill
+chunk, proposes ``spec_k`` tokens per step, and the target scores the
+``(k+1)``-token window in one :meth:`Model.verify_step`; acceptance
+advances each row by 1..k+1 tokens and both pools roll back to the
+accepted depth. One token-keyed prefix trie serves both pools. Greedy spec
+output is token for token the non-spec greedy output.
 
-Where the reference compiles one program per rung of the width ladder,
-the port captures one CUDA graph (:mod:`.graphs`) per (program, rung):
-the decode step, the draft's decode step, the verify window, the prefill
-chunk (final and not) and the draft's mirror chunk. Each reads static
-input buffers the engine fills before a replay (pending tokens, block
-tables, the live mask, accepted depths, the chunk's tokens and its slot,
-start and length as device scalars) and writes the page pools in place.
-A graph is captured on first use or by :meth:`Engine.warmup`, which
-captures the whole ladder, as the reference's ``warmup`` compiles it.
-Sampling stays eager between replays, with each request's generator on
-the host side: a speculative step is ``spec_k`` replays of the draft
-decode, each followed by ``propose_token``, then one verify replay.
-``graphs=False`` runs every program eagerly (what ``jax.disable_jit`` is
-to the reference); engines on the CPU always do.
+Where the reference compiles one program per rung of the width ladder (or
+per prompt bucket), the port captures one CUDA graph (:mod:`.graphs`) per
+(program, rung): the paged decode step, the draft's decode step, the
+verify window, the prefill chunk (final and not) and the draft's mirror
+chunk at each width; the dense admission at each bucket and the dense
+decode at ``n_slots``. Each reads static input buffers the engine fills
+before a replay (pending tokens, block tables, the live mask, accepted
+depths, the chunk's or the prompt's tokens and its slot, start and length
+as device scalars) and writes the caches in place. A graph is captured on
+first use or by :meth:`Engine.warmup`, which captures them all, as the
+reference's ``warmup`` compiles the paged ladder. Sampling stays eager
+between replays, with each request's generator on the host side: a
+speculative step is ``spec_k`` replays of the draft decode, each followed
+by ``propose_token``, then one verify replay. ``graphs=False`` runs every
+program eagerly (what ``jax.disable_jit`` is to the reference); engines on
+the CPU always do.
 
 Greedy output is token-for-token what the reference engine produces on the
-same params and prompts. Not ported yet: the slot-dense engine,
+same params and prompts, in both memory models. Not ported yet:
 preemption, resilience (the fault sites, the degradation ladder and with
 it ``spec_suspended``), disaggregated handoff.
 """
@@ -54,7 +63,7 @@ import numpy as np
 import torch
 
 from . import sampling as sampling_lib
-from .cache import PagedCache, publish_prefix_shared, share_trie
+from .cache import PagedCache, SlotCache, publish_prefix_shared, share_trie
 from .graphs import StepGraph
 from .metrics import ServeMetrics
 from .scheduler import Request, RequestState, Scheduler
@@ -66,25 +75,33 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-# the engine's programs (one graph each per width rung)
+# the engine's programs (one graph each per width rung; the dense
+# admission's rung is its prompt bucket, the dense decode's n_slots)
 PROGRAMS = ("decode", "draft_decode", "verify", "chunk", "chunk_final",
-            "draft_chunk")
+            "draft_chunk", "admit", "decode_dense")
 
 
 class Engine:
-    """Paged continuous-batching engine around one model and its params.
-    The device is the params' device. ``spec_draft=(model, params)`` turns
-    on speculative decoding with ``spec_k`` proposals a step (the draft's
-    params on the same device). ``graphs``: None captures the programs as
-    CUDA graphs on a CUDA device and runs them eagerly on the CPU; True
-    demands the graphs (a CPU device raises); False runs eagerly.
+    """Continuous-batching engine around one model and its params. The
+    device is the params' device. ``paged`` picks the memory model (the
+    port's default True; the reference's is False, and its launcher passes
+    ``--paged`` through, as the port's does); ``min_bucket`` / ``buckets``
+    set the dense engine's prompt buckets, ``page_size`` / ``n_pages`` /
+    ``prefill_chunk_tokens`` the paged one's pool and chunks.
+    ``spec_draft=(model, params)`` turns on speculative decoding (paged
+    only) with ``spec_k`` proposals a step (the draft's params on the same
+    device). ``graphs``: None captures the programs as CUDA graphs on a
+    CUDA device and runs them eagerly on the CPU; True demands the graphs
+    (a CPU device raises); False runs eagerly.
 
     ``runs`` counts each program's runs (eager calls and replays);
     with ``time_programs`` set, ``run_ms`` records each run's host ms on a
     synchronised clock. ``n_captures`` counts the graphs captured."""
 
     def __init__(self, model, params, *, n_slots: int = 8, max_len: int = 128,
-                 page_size: int = 16, n_pages: Optional[int] = None,
+                 min_bucket: int = 16, buckets: Optional[Sequence[int]] = None,
+                 paged: bool = True, page_size: int = 16,
+                 n_pages: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  spec_draft=None, spec_k: int = 4,
                  graphs: Optional[bool] = None):
@@ -96,6 +113,7 @@ class Engine:
         self.device = params["embed"]["table"].device
         self.n_slots = n_slots
         self.max_len = max_len
+        self.paged = paged
         self.metrics = ServeMetrics()
         if graphs is None:
             graphs = self.device.type == "cuda"
@@ -109,6 +127,9 @@ class Engine:
         self.draft_model = self.draft_params = None
         self.draft_cache: Optional[PagedCache] = None
         if spec_draft is not None:
+            if not paged:
+                raise ValueError("spec_draft requires paged=True (rollback "
+                                 "is block-table truncation)")
             if self.spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
             draft_model, draft_params = spec_draft
@@ -123,29 +144,38 @@ class Engine:
                 log.info("recurrent blocks cannot re-score a token window: "
                          "speculative decoding off, using the plain decode "
                          "loop")
-        slack = self.spec_k if self.spec_active else 0
-        self.cache = PagedCache(model, n_slots, max_len, page_size=page_size,
-                                n_pages=n_pages, device=self.device,
-                                slack_tokens=slack)
-        if self.spec_active:
-            self.draft_cache = PagedCache(
-                self.draft_model, n_slots, max_len, page_size=page_size,
-                n_pages=n_pages, device=self.device, slack_tokens=slack)
-            # one token-keyed trie: draft and target hit a prefix as a unit
-            share_trie([self.cache, self.draft_cache])
-        self.scheduler = Scheduler(n_slots, max_len, strict_buckets=False)
-        ps = self.cache.page_size
-        if prefill_chunk_tokens is None:
-            prefill_chunk_tokens = min(4 * ps, self.cache.max_pages * ps)
-        if prefill_chunk_tokens % ps:
-            raise ValueError(
-                f"prefill_chunk_tokens({prefill_chunk_tokens}) must be a "
-                f"multiple of page_size({ps})")
-        self.chunk_tokens = prefill_chunk_tokens
-        self._prefill_queue: Deque[Request] = collections.deque()
         self.n_prefill_chunks = 0
         self.n_prefill_tokens = 0           # computed
         self.n_prefill_tokens_skipped = 0   # reused from the trie
+        if paged:
+            slack = self.spec_k if self.spec_active else 0
+            self.cache = PagedCache(model, n_slots, max_len,
+                                    page_size=page_size, n_pages=n_pages,
+                                    device=self.device, slack_tokens=slack)
+            if self.spec_active:
+                self.draft_cache = PagedCache(
+                    self.draft_model, n_slots, max_len, page_size=page_size,
+                    n_pages=n_pages, device=self.device, slack_tokens=slack)
+                # one token-keyed trie: draft and target hit a prefix as a
+                # unit
+                share_trie([self.cache, self.draft_cache])
+            # chunks replace buckets: no largest-bucket rejection
+            self.scheduler = Scheduler(n_slots, max_len,
+                                       strict_buckets=False)
+            ps = self.cache.page_size
+            if prefill_chunk_tokens is None:
+                prefill_chunk_tokens = min(4 * ps, self.cache.max_pages * ps)
+            if prefill_chunk_tokens % ps:
+                raise ValueError(
+                    f"prefill_chunk_tokens({prefill_chunk_tokens}) must be a "
+                    f"multiple of page_size({ps})")
+            self.chunk_tokens = prefill_chunk_tokens
+            self._prefill_queue: Deque[Request] = collections.deque()
+        else:
+            self.scheduler = Scheduler(n_slots, max_len,
+                                       min_bucket=min_bucket, buckets=buckets)
+            self.cache = SlotCache(model, n_slots, max_len,
+                                   device=self.device)
 
         # per-slot sampling state: the pending token lives on the device,
         # the policy on the host
@@ -161,14 +191,23 @@ class Engine:
         dev, B = self.device, n_slots
         self._tokens = torch.zeros((B,), dtype=torch.long, device=dev)
         self._live_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
-        self._chunk_toks = torch.zeros((1, self.chunk_tokens),
-                                       dtype=torch.long, device=dev)
-        # the chunk's slot, start and chunk_len, read as 0-d views
-        self._chunk_info = torch.zeros((3,), dtype=torch.int32, device=dev)
+        if paged:
+            self._chunk_toks = torch.zeros((1, self.chunk_tokens),
+                                           dtype=torch.long, device=dev)
+            # the chunk's slot, start and chunk_len, read as 0-d views
+            self._chunk_info = torch.zeros((3,), dtype=torch.int32,
+                                           device=dev)
         self._tables: Dict[Tuple[bool, int], torch.Tensor] = {}
         self._tables_fresh: Dict[bool, Set[int]] = {False: set(),
                                                     True: set()}
         self._rows: Dict[Tuple[bool, int], torch.Tensor] = {}
+        if not paged:
+            # the admitted prompt per bucket, its (slot, length) as 0-d
+            # views, and the batch-1 caches its prefill fills
+            self._prompts: Dict[int, torch.Tensor] = {}
+            self._admit_info = torch.zeros((2,), dtype=torch.int32,
+                                           device=dev)
+            self._admit_caches = model.init_caches(1, max_len, device=dev)
         if self.spec_active:
             self._pos0 = torch.zeros((B,), dtype=torch.int32, device=dev)
             self._draft_in = torch.zeros((B,), dtype=torch.long, device=dev)
@@ -191,6 +230,20 @@ class Engine:
 
     # ------------------------------------------------------------ step logic
     def _admit_one(self, req: Request, slot: int) -> None:
+        """Slot-dense admission, one program run: the prompt right-padded
+        to its bucket is prefilled at batch 1 and its caches written into
+        ``slot``; the first token is sampled from its logits."""
+        padded, n = self.scheduler.pad_prompt(req)
+        self.metrics.on_admit(req.id)
+        bucket = padded.shape[1]
+        self._put(self._prompt(bucket), padded)
+        self._put(self._admit_info, np.array([slot, n], np.int32))
+        logits = self._run("admit", bucket)
+        self._live[slot] = True
+        req.state = RequestState.DECODE
+        self._emit(req, self._arm_slot(req, slot, logits[0]))
+
+    def _admit_one_paged(self, req: Request, slot: int) -> None:
         """Bookkeeping only: the block table (reusing trie-matched prefix
         pages) and a place in the prefill queue."""
         self.metrics.on_admit(req.id)
@@ -207,8 +260,9 @@ class Engine:
         self._prefill_queue.append(req)
 
     def _arm_slot(self, req: Request, slot: int, first_logits: torch.Tensor):
-        """Sample the first token from the final chunk's logits and set the
-        slot's sampling state."""
+        """Sample the first token from the prompt's logits (the final
+        chunk's, paged) and set the slot's sampling state (the reference's
+        ``_set_slot_impl``)."""
         sp = req.sampling
         gen = (sampling_lib.make_generator(sp.seed, self.device)
                if sp.temperature > 0 else None)
@@ -296,6 +350,14 @@ class Engine:
                                            device=self.device)
         return buf
 
+    def _prompt(self, bucket: int) -> torch.Tensor:
+        """The static ``(1, bucket)`` prompt of a dense admission."""
+        buf = self._prompts.get(bucket)
+        if buf is None:
+            buf = self._prompts[bucket] = torch.zeros(
+                (1, bucket), dtype=torch.long, device=self.device)
+        return buf
+
     def _row(self, width: int, draft: bool = False) -> torch.Tensor:
         """The static block-table row of a prefill chunk ``width`` wide."""
         return self._static(self._rows, (draft, width), (width,))
@@ -330,6 +392,22 @@ class Engine:
         inputs alone; returns its logits (None for a draft chunk)."""
         m, p, caches = self.model, self.params, self.cache.caches
         live = self._live_dev
+        if kind == "decode_dense":
+            return lambda: m.decode_step(p, self._tokens, caches)[0]
+        if kind == "admit":
+            prompt, scratch = self._prompt(width), self._admit_caches
+            slot, n = self._admit_info.unbind(0)
+
+            def admit():
+                # the reference prefills into fresh zero caches
+                for c in scratch:
+                    for t in c.values():
+                        t.zero_()
+                logits, new = m.prefill(p, prompt, scratch,
+                                        lengths=n.reshape(1))
+                self.cache._write_impl(caches, new, slot)
+                return logits
+            return admit
         if kind == "decode":
             bt = self._block_tables_dev(width)
             return lambda: m.decode_step(p, self._tokens, caches, bt,
@@ -359,16 +437,26 @@ class Engine:
             return m.verify_step(p, self._window, caches, bt, live=live)[0]
         return verify
 
-    def _graph(self, kind: str, width: int) -> StepGraph:
-        """The captured graph of ``kind`` at ``width``; captured now if it
-        is not yet. The capture runs against null inputs (every block-table
-        entry the null page, no live row, a chunk of one token at slot 0),
-        so no real page is written, and puts back every static input and
-        both pools' ``pos`` afterwards: the engine's state is untouched."""
-        g = self._graphs.get((kind, width))
-        if g is not None:
-            return g
-        fn = self._program(kind, width)
+    def _null_inputs(self, kind: str, width: int):
+        """The static inputs a capture of ``kind`` overwrites, and a function
+        that sets them so its runs write nothing a live request reads:
+        paged, every block-table entry the null page, no live row and a
+        chunk of one token at slot 0; a dense admission, a prompt of one
+        token into a free slot. The dense decode needs none: each row
+        writes its K/V at its own depth and past it, positions the next
+        decode writes before any reads them."""
+        if kind == "decode_dense":
+            return [], lambda: None
+        if kind == "admit":
+            free = np.flatnonzero(~self._live)
+            if not free.size:
+                raise RuntimeError("capturing the admission needs a free "
+                                   "slot: warm up before serving")
+
+            def null():
+                self._admit_info.copy_(torch.tensor([free[0], 1],
+                                                    dtype=torch.int32))
+            return [self._admit_info], null
         draft = kind.startswith("draft")
         if "chunk" in kind:
             inputs = [self._row(width, draft)]
@@ -377,13 +465,29 @@ class Engine:
         inputs += [self._live_dev, self._chunk_info]
         if self.spec_active:
             inputs.append(self._pos0)
+
+        def null():
+            for t in inputs:
+                t.zero_()
+            self._chunk_info[2] = 1
+        return inputs, null
+
+    def _graph(self, kind: str, width: int) -> StepGraph:
+        """The captured graph of ``kind`` at ``width``; captured now if it
+        is not yet. The capture runs against null inputs
+        (:meth:`_null_inputs`) and puts back every static input and every
+        cache's ``pos`` afterwards: the state of every live request is
+        untouched."""
+        g = self._graphs.get((kind, width))
+        if g is not None:
+            return g
+        fn = self._program(kind, width)
+        inputs, null = self._null_inputs(kind, width)
         caches = self.cache.caches + (self.draft_cache.caches
                                       if self.spec_active else [])
         saved = [t.clone() for t in inputs
                  + [c["pos"] for c in caches if "pos" in c]]
-        for t in inputs:
-            t.zero_()
-        self._chunk_info[2] = 1
+        null()
         try:
             with torch.no_grad():
                 g = StepGraph(kind, width, fn, self.device)
@@ -417,7 +521,9 @@ class Engine:
         """The active block-table widths paged decode can run at (the
         power-of-two ladder, capped at ``max_pages``): one graph each of the
         decode step (and in spec mode of the draft decode and the verify
-        window)."""
+        window). None for the dense engine, as in the reference."""
+        if not self.paged:
+            return []
         out, w = [], 1
         while w < self.cache.max_pages:
             out.append(w)
@@ -430,7 +536,10 @@ class Engine:
         decode ladder truncated below the first chunk's width (a chunk
         always attends over at least ``chunk_tokens`` of context, so the
         narrower rungs never occur): one graph per rung per ``final``
-        variant (and in spec mode of the draft's mirror chunk)."""
+        variant (and in spec mode of the draft's mirror chunk). None for
+        the dense engine."""
+        if not self.paged:
+            return []
         w_min = min(_next_pow2(self.cache.pages_for(self.chunk_tokens)),
                     self.cache.max_pages)
         return [w for w in self.decode_widths() if w >= w_min]
@@ -442,9 +551,16 @@ class Engine:
         verify window and the target's decode step, at every decode width;
         the prefill chunk, final and not (and the draft's mirror in spec
         mode), at every prefill width. Against the null page: no real page,
-        ``pos`` or pending token changes. Nothing to do for an eager engine
+        ``pos`` or pending token changes. The dense engine captures its
+        decode and the admission at every prompt bucket (the reference
+        compiles those on first use). Nothing to do for an eager engine
         (``graphs=False``, the CPU)."""
         if not self.use_graphs:
+            return
+        if not self.paged:
+            self._graph("decode_dense", self.n_slots)
+            for b in self.scheduler.buckets:
+                self._graph("admit", b)
             return
         kinds = (("draft_decode", "verify", "decode") if self.spec_active
                  else ("decode",))
@@ -467,10 +583,12 @@ class Engine:
             slot = req.slot
             self.scheduler.finish(req)
             self.metrics.on_done(req.id)
-            self.cache.free_slot(slot)
-            if self.spec_active:
-                self.draft_cache.free_slot(slot)
+            if self.paged:
+                self.cache.free_slot(slot)
+                if self.spec_active:
+                    self.draft_cache.free_slot(slot)
             self._live[slot] = False
+            # the reference's _clear_slot_impl: a freed slot reads greedy
             self._temps[slot], self._top_ks[slot] = 0.0, 0
             self._gens[slot] = None
 
@@ -482,9 +600,14 @@ class Engine:
     def _report_kv(self) -> None:
         logical = sum(self._kv_len(r) for r in self.scheduler.running.values()
                       if r.state == RequestState.DECODE)
-        self.metrics.on_kv(self.cache.kv_bytes_allocated(),
-                           int(logical * self.cache.token_bytes),
-                           self.cache.dense_reserved_bytes)
+        if self.paged:
+            self.metrics.on_kv(self.cache.kv_bytes_allocated(),
+                               int(logical * self.cache.token_bytes),
+                               self.cache.dense_reserved_bytes)
+        else:
+            self.metrics.on_kv(self.cache.kv_bytes,
+                               int(logical * self.cache.token_bytes),
+                               self.cache.kv_bytes)
 
     def _can_admit(self, r: Request) -> bool:
         """Whether the request's pages fit, in both pools in spec mode."""
@@ -496,16 +619,23 @@ class Engine:
         return ok
 
     def step(self) -> bool:
-        """One engine iteration (admit, prefill chunks, one decode or one
-        speculative step). Returns True if any work was done."""
-        admitted = []
-        while True:
-            pairs = self.scheduler.admit(can_admit=self._can_admit, max_n=1)
-            if not pairs:
-                break
-            self._admit_one(*pairs[0])
-            admitted += pairs
-        prefilled = self._prefill_chunks()
+        """One engine iteration (admit; paged, prefill chunks; one decode or
+        one speculative step). Returns True if any work was done."""
+        if self.paged:
+            admitted = []
+            while True:
+                pairs = self.scheduler.admit(can_admit=self._can_admit,
+                                             max_n=1)
+                if not pairs:
+                    break
+                self._admit_one_paged(*pairs[0])
+                admitted += pairs
+            prefilled = self._prefill_chunks()
+        else:
+            admitted = self.scheduler.admit()
+            for req, slot in admitted:
+                self._admit_one(req, slot)
+            prefilled = False
         self.metrics.on_queue_depth(len(self.scheduler.waiting))
 
         if not self._live.any():
@@ -517,21 +647,25 @@ class Engine:
         return self._step_decode()
 
     def _step_decode(self) -> bool:
-        """One batched decode of every live slot."""
-        # materialise this step's write pages; size the active width to the
-        # deepest live sequence
-        needed = 1
-        for slot in np.nonzero(self._live)[0]:
-            req = self.scheduler.running.get(int(slot))
-            if req is None:
-                continue
-            wpos = self._kv_len(req)
-            self.cache.ensure_decode_page(int(slot), wpos)
-            needed = max(needed, self.cache.pages_used(int(slot), wpos + 1))
-        width = min(_next_pow2(needed), self.cache.max_pages)
-        self._block_tables_dev(width)
-        self._live_mask_dev()
-        logits = self._run("decode", width)
+        """One batched decode of every live slot (dense: of every slot)."""
+        if self.paged:
+            # materialise this step's write pages; size the active width to
+            # the deepest live sequence
+            needed = 1
+            for slot in np.nonzero(self._live)[0]:
+                req = self.scheduler.running.get(int(slot))
+                if req is None:
+                    continue
+                wpos = self._kv_len(req)
+                self.cache.ensure_decode_page(int(slot), wpos)
+                needed = max(needed, self.cache.pages_used(int(slot),
+                                                           wpos + 1))
+            width = min(_next_pow2(needed), self.cache.max_pages)
+            self._block_tables_dev(width)
+            self._live_mask_dev()
+            logits = self._run("decode", width)
+        else:
+            logits = self._run("decode_dense", self.n_slots)
         self._tokens.copy_(sampling_lib.sample(logits, self._temps,
                                                self._top_ks, self._gens))
         next_np = self._tokens.cpu().numpy()

@@ -1693,3 +1693,80 @@ def test_captured_serving_counts_equal_eager(cuda_device, spec, dtype):
                         [dict(d) for d in ops.counters()]))
     assert results[0] == results[1]
     assert sum(results[0][2][0].values()) > 0
+
+
+# ------------------------------------------------------ slot-dense serving
+DENSE_KW = dict(n_slots=2, max_len=48, paged=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_engine_captured_equals_eager(cuda_device, dtype):
+    """The slot-dense engine captured (after ``warmup()``: the decode and
+    every bucket's admission) and eager on the same traffic: the same
+    streams, program runs, launch counts and route tallies; serving
+    captures nothing new; bdmm's general grid and decode grid launched, no
+    paged-attention kernel."""
+    from repro_torch.serve import Engine
+    cfg, model, params = _graph_model(cuda_device, dtype)
+    results = []
+    for graphs in (True, False):
+        eng = Engine(model, params, graphs=graphs, **DENSE_KW)
+        eng.warmup()
+        n = eng.n_captures
+        assert n == (1 + len(eng.scheduler.buckets) if graphs else 0)
+        ops.reset_launch_counts()
+        streams = eng.run(_graph_requests(cfg, n=6, seed=7))
+        torch.cuda.synchronize()
+        assert eng.n_captures == n
+        counts = ops.launch_counts()
+        assert counts["bdmm"] > 0 and counts["bdmm_decode"] > 0
+        assert not any(counts[k] for k in ("paged_attention",
+                                           "paged_prefill_attention",
+                                           "paged_attention_verify"))
+        results.append((streams, dict(eng.runs),
+                        [dict(d) for d in ops.counters()]))
+    assert results[0] == results[1]
+
+
+def test_dense_and_paged_engines_stream_alike_on_the_kernel_route(
+        cuda_device):
+    """f32 greedy streams of the slot-dense and the paged engine, both
+    captured on the kernel route, are identical (and the static lockstep
+    greedy of each prompt alone gives them too)."""
+    from repro_torch.launch.serve import static_decode
+    from repro_torch.serve import Engine
+    cfg, model, params = _graph_model(cuda_device, torch.float32)
+    reqs = lambda: _graph_requests(cfg, n=6, seed=11)  # noqa: E731
+    dense = Engine(model, params, **DENSE_KW).run(reqs())
+    paged = Engine(model, params, **GRAPH_KW).run(reqs())
+    assert dense == paged
+    for r in reqs():
+        p = torch.as_tensor(r.prompt, device=cuda_device)[None]
+        out = static_decode(model, params, p, r.max_new_tokens)
+        assert out["route"] == "captured"
+        assert out["tokens"][0].tolist() == dense[r.id]
+
+
+def test_prefill_backend_is_read_at_capture(cuda_device):
+    """``set_prefill_backend`` before a capture decides the route the
+    captured chunks replay on: "torch" captures the plain prefill attention
+    (no kernel launch on replay), "cuda" the kernel; both stream alike at
+    f32, and the route is put back."""
+    cfg, model, params = _graph_model(cuda_device, torch.float32)
+    from repro_torch.serve import Engine
+    out = {}
+    for route in ("torch", "cuda"):
+        ops.set_prefill_backend(route)
+        try:
+            eng = Engine(model, params, **GRAPH_KW)
+            eng.warmup()
+        finally:
+            ops.set_prefill_backend(None)
+        ops.reset_launch_counts()
+        out[route] = eng.run(_graph_requests(cfg, n=4, seed=5))
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()["paged_prefill_attention"]
+        assert (launched > 0) == (route == "cuda"), (route, launched)
+        assert ops.launch_counts()["paged_attention"] > 0
+    assert out["torch"] == out["cuda"]
+    assert ops.prefill_backend() == ops.get_backend() == "cuda"
