@@ -101,8 +101,9 @@ Phases, each printed as one JSON line:
    (counters reset just before, read just after). Then one more step under
    torch.profiler: device time by kernel family.
 12. ``train_exact`` — one step of the same model cut to 4 layers in float32
-   on the first batch, through the kernels and through the plain versions:
-   loss and updated params agree within the stated tolerance.
+   on the first batch, through the kernels and through the plain versions,
+   in masked_dense, packed and perm-fused packed mode: loss and updated
+   params agree within the stated tolerance.
 13. ``fold`` — the paper's deploy chain on the card: the float32 model of
    phase 12 folded to packed (``to_packed``) gives the masked-dense logits
    within the stated tolerance, and the bf16 model trained in phase 11,
@@ -156,6 +157,25 @@ Phases, each printed as one JSON line:
    widths against their plain versions, each on the f32 body its plan
    names (``simt_small_m`` up to 64 rows, the pipelined ``simt_f32``
    above; the SDDMM at the tile ``sddmm_plan`` picks).
+
+18. ``train_fused`` (run after phase 11) — the train launcher's packed
+   mode with ``--mpd-fuse`` at olmo-1b's published widths
+   (``launch.train.main(["--arch", "olmo-1b", "--mpd-fuse", "--steps",
+   "4", "--seq-len", "512", "--global-batch", "4"])``, bf16): every FFN
+   trains through the fused_ffn autograd rule, one fused_ffn launch per
+   layer and step forward (16 x 4) and bdmm launches backward, no bf16
+   bdmm on an f32 body; every loss finite, the first within 1.0 of
+   ln(50304); step time, tokens/s and peak device memory beside phase
+   11's packed launcher run, and a profiled step.
+19. ``resume`` (run after phase 18) — train checkpoints and resume through
+   ``train.run``: the perm-fused packed bf16 model (RESUME's depth, full
+   width) 4 steps with a checkpoint every 2 (written on a background
+   thread), against 2 steps and then a fresh run resuming from the
+   checkpoint at step 2: the resumed losses and every param and moment
+   leaf equal bit for bit; the saves' bytes and seconds and the seconds
+   the step loop waited on them are recorded. Phase 12 also runs its step
+   in ``packed_fused`` mode (the fused_ffn rule at f32), and the kernels
+   phase holds the fused MLP at m = 2048 (a training batch) too.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -231,6 +251,8 @@ MASKED_MM_FAMILY = "masked_mm_"
 # window.) The SDDMM's bodies (tc and the f32 SIMT one) share "sddmm_".
 BDMM_GENERAL_FAMILY = "bdmm_general"
 SDDMM_FAMILY = "sddmm_"
+# the fused MLP's bodies (csrc/fused_ffn.cu: tc and the f32 SIMT one)
+FUSED_FFN_FAMILY = "fused_ffn"
 BDMM_KERNELS = ("bdmm", "bdmm_decode")
 TRAIN = {"batch": 4, "seq": 512, "steps": 4}
 # train_exact: one step at f32 of the model cut to this depth, with SGD
@@ -239,6 +261,9 @@ TRAIN = {"batch": 4, "seq": 512, "steps": 4}
 # f32 ulps of the params plus 1e-3 of each update, from the gradients'
 # summation order. A gradient off by a mask block moves updates by 100 %.
 EXACT_LAYERS = 4
+# resume: the perm-fused packed bf16 model at this depth (16 = full), steps
+# of TRAIN's batch, a checkpoint every ckpt_every steps
+RESUME = {"n_layers": 16, "steps": 4, "ckpt_every": 2}
 EXACT_TOL = {"atol": 1e-7, "update_rtol": 1e-3, "loss_rtol": 1e-5}
 # The fused MLP is held against its plain version computed in f32 on the
 # same values with the matmul-shaped rule of MM_TOL, its magnitude term
@@ -254,7 +279,7 @@ FFN_RULE = ("atol + u_out * |plain_f32| + u_sum * ((|h| + dh) @ |Wd| "
             "+ |b_down|)")
 # (label, m, weights, dtype, activation, gated, biases, f): olmo-1b's fused
 # FFN at mpd_c=8 is nb 8, bi 256, f 1024, bo 256; m = 4 is a decode step
-# of 4 slots, m = 64 one prefill chunk
+# of 4 slots, m = 64 one prefill chunk, m = 2048 a training batch
 FFN_DIMS = (8, 256, 256)                          # nb, bi, bo
 FFN_CASES = [
     ("decode", 4, "int8", "bfloat16", "silu", True, False, 1024),
@@ -268,6 +293,8 @@ FFN_CASES = [
     ("plain gelu, biases", 64, "fp", "bfloat16", "gelu", False, True, 1024),
     ("ragged m and f, biases", 37, "int8", "bfloat16", "silu", True, True,
      1000),
+    # the training forward of phase train_fused: 4 x 512 tokens
+    ("train", 2048, "fp", "bfloat16", "silu", True, False, 1024),
 ]
 # fold: logits of the folded packed model against the masked-dense model at
 # f32 (bdmm over the blocks vs the masked matmul over the full K).
@@ -1167,6 +1194,16 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                     h = ref.ACTIVATIONS[act](u)
                 return bmm(h, a["w_down"], a.get("b_down"), bo)
             yard_label = "three torch.bmm and the gate"
+
+            def unfused():              # the port's unfused route
+                if gated:
+                    h = bk.bdmm(a["x"], a["w_gate"], a.get("b_gate"),
+                                activation=act) * bk.bdmm(
+                                    a["x"], a["w_up"], a.get("b_up"))
+                else:               # the kernel's epilogue runs silu only
+                    h = ref.ACTIVATIONS[act](bk.bdmm(a["x"], a["w_up"],
+                                                     a.get("b_up")))
+                return bk.bdmm(h, a["w_down"], a.get("b_down"))
         got, used = run_routed(run, fk.routes)
         want, mag = ffn_plain32(torch, ref, a, act)
         ok, err, ratio = mm_close(torch, got, want, mag, dt)
@@ -1200,6 +1237,8 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                "ms": timer.ms(run), "plain_ms": timer.ms(plain),
                "library_ms": None, "yardstick_ms": timer.ms(yard),
                "yardstick": yard_label, "bound_ms": b_ms, "bound_by": b_by}
+        if not quant:
+            row["unfused_route_ms"] = timer.ms(unfused)
         rows.append(row)
         emit(row)
         s = summary["fused_ffn"]
@@ -2378,11 +2417,14 @@ def train_phase(torch, dev, ops):
     return row, model, out["params"], data
 
 
-def train_packed(torch, dev, ops):
+def train_packed(torch, dev, ops, fuse=False):
     """The train launcher's default (packed) mode at olmo-1b's published
     widths: every projection a bdmm over mpd_c=8 blocks, bf16, 4 AdamW
     steps of 4 x 512 SyntheticLM tokens, then one more step under
-    torch.profiler. Fails if a bf16 bdmm ran on the SIMT body."""
+    torch.profiler. Fails if a bf16 bdmm ran on the SIMT body. ``fuse``
+    adds ``--mpd-fuse``: every FFN one fused_ffn launch forward (the
+    fused_ffn autograd rule), which must launch once per layer and step,
+    and the first loss must lie within 1.0 of ln(vocab)."""
     import contextlib
     import io
     from repro_torch.configs.common import get_config
@@ -2395,6 +2437,12 @@ def train_packed(torch, dev, ops):
     steps = TRAIN["steps"]
     argv = ["--arch", "olmo-1b", "--steps", str(steps), "--seq-len",
             str(TRAIN["seq"]), "--global-batch", str(TRAIN["batch"])]
+    if fuse:
+        argv.insert(2, "--mpd-fuse")
+    # the peak above what earlier phases still hold, so that two runs of
+    # the launcher compare whatever else is allocated around them
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
@@ -2402,7 +2450,8 @@ def train_packed(torch, dev, ops):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     routes = all_routes()["bdmm"]
-    cfg = get_config("olmo-1b")
+    peak = torch.cuda.max_memory_allocated() - held
+    cfg = get_config("olmo-1b", mpd_fuse=fuse)
     model = build(cfg)
     # the launcher's optimizer, as main() builds it
     tcfg = TrainConfig(opt=OptConfig(lr=3e-3, clip_norm=1.0,
@@ -2414,19 +2463,130 @@ def train_packed(torch, dev, ops):
     data.step = steps
     window = train_window(torch, model, out["params"], out["opt_state"],
                           make_train_step(model, tcfg), data, dev)
-    losses = out["history"]
+    losses, step_s = out["history"], out["step_s"]
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    p50 = statistics.median(out["step_s"])
+    p50 = statistics.median(step_s)
     ok = (all(math.isfinite(v) for v in losses) and launches["bdmm"] > 0
           and routes["tc"] > 0 and f32_general(routes) == 0)
+    fused = {}
+    if fuse:
+        fused = {"fused_ffn_launches_expected": cfg.n_layers * steps,
+                 "every_ffn_fused": all(b["ffn"].fused_packed()
+                                        for b in model.block_specs),
+                 "ln_vocab": math.log(cfg.vocab)}
+        ok = (ok and fused["every_ffn_fused"]
+              and launches["fused_ffn"] == fused["fused_ffn_launches_expected"]
+              and abs(losses[0] - math.log(cfg.vocab)) <= 1.0)
     del out
     torch.cuda.empty_cache()
-    return {"ok": ok, "mode": cfg.mpd_mode, "argv": " ".join(argv),
-            "params": model.param_count(), "losses": losses,
-            "step_ms_p50": p50 * 1e3, "tokens_per_s": tokens / p50,
+    return {"ok": ok, "mode": cfg.mpd_mode, "mpd_fuse": fuse,
+            "argv": " ".join(argv), "params": model.param_count(),
+            "losses": losses, "step_s": step_s, "step_ms_p50": p50 * 1e3,
+            "tokens_per_s": tokens / p50, "peak_mem_added_bytes": peak,
             "launcher_output": text.getvalue().strip().splitlines(),
-            "launches": launches, "bdmm_routes": routes,
+            "launches": launches, "bdmm_routes": routes, **fused,
             "train_window": window}
+
+
+def train_fused_phase(torch, dev, ops, trained):
+    """``launch.train.main(["--arch", "olmo-1b", "--mpd-fuse", ...])``:
+    packed training of the perm-fused model at full width, beside the
+    ``train`` phase's packed (unfused) launcher run of the same call."""
+    row = train_packed(torch, dev, ops, fuse=True)
+    packed = trained["packed"]
+    row = {"phase": "train_fused", **row,
+           "packed_unfused": {k: packed[k] for k in (
+               "step_ms_p50", "tokens_per_s", "peak_mem_added_bytes",
+               "losses")}}
+    emit(row)
+    return row
+
+
+def resume_phase(torch, dev, ops):
+    """Train checkpoints and resume through ``train.run`` at full width,
+    bf16, the perm-fused packed model (RESUME's depth): run A takes
+    RESUME["steps"] steps with a checkpoint every RESUME["ckpt_every"]
+    (written on a background thread); run B takes ckpt_every steps into a
+    fresh directory, then a fresh ``run`` with a fresh data stream resumes
+    from its checkpoint to the same step. B's resumed losses and every
+    param and moment leaf must equal A's bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs.common import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig, run
+
+    cfg = get_config("olmo-1b", mpd_fuse=True, n_layers=RESUME["n_layers"])
+    model = build(cfg)
+    steps, every = RESUME["steps"], RESUME["ckpt_every"]
+    opt = OptConfig(lr=3e-3, clip_norm=1.0, schedule="cosine",
+                    warmup_steps=0, total_steps=steps)
+
+    def go(ckpt_dir, n):
+        tcfg = TrainConfig(opt=opt, ckpt_dir=str(ckpt_dir), ckpt_every=every,
+                           log_every=0)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                           global_batch=TRAIN["batch"], seed=0)
+        t0 = time.perf_counter()
+        out = run(model, tcfg, data, n, seed=0, device=dev)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["data_state"] = data.state()
+        return out
+
+    def summary(out):
+        return {k: out[k] for k in ("start_step", "history", "step_s",
+                                    "ckpt_save_s", "ckpt_wait_s", "wall_s",
+                                    "data_state")}
+
+    log0 = len(ckpt_lib.save_log)
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        a = go(Path(tmp) / "a", steps)
+        shutil.rmtree(Path(tmp) / "a")
+        b1 = go(Path(tmp) / "b", every)
+        del b1["params"], b1["opt_state"]
+        b2 = go(Path(tmp) / "b", steps)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    saves = ckpt_lib.save_log[log0:]
+    want = {"params": a["params"], "opt": a["opt_state"]}
+    got = {"params": b2["params"], "opt": b2["opt_state"]}
+    leaves = list(zip(tree_lib.leaves_with_paths(want),
+                      tree_lib.leaves_with_paths(got)))
+    differing = [ka for (ka, x), (kb, y) in leaves
+                 if ka != kb or not (torch.equal(x, y)
+                                     if isinstance(x, torch.Tensor)
+                                     else x == y)]
+    losses_equal = b2["history"] == a["history"][every:]
+    ok = (a["start_step"] == 0 and b1["start_step"] == 0
+          and len(b1["history"]) == every and b2["start_step"] == every
+          and losses_equal and not differing and len(leaves) > 0
+          and got["opt"]["step"] == steps
+          and all(math.isfinite(v) for v in a["history"])
+          and len(saves) == 2 * (steps // every)
+          and launches["fused_ffn"] > 0 and launches["bdmm"] > 0)
+    row = {"phase": "resume", "ok": ok, "config": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "mpd_c": cfg.mpd_c,
+        "mpd_mode": cfg.mpd_mode, "mpd_fuse": True, "dtype": cfg.dtype,
+        **RESUME, "batch": TRAIN["batch"], "seq": TRAIN["seq"]},
+        "run_a": summary(a), "run_b_first": summary(b1),
+        "run_b_resumed": summary(b2), "resumed_losses_equal": losses_equal,
+        "leaves_compared": len(leaves), "leaves_differing": differing[:8],
+        "saves": saves, "save_bytes": [e["bytes"] for e in saves],
+        "save_write_s": [e["write_s"] for e in saves],
+        "loop_blocked_s": sum(o["ckpt_save_s"] + o["ckpt_wait_s"]
+                              for o in (a, b1, b2)),
+        "launches": launches}
+    del a, b2, want, got, leaves
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
 
 
 def train_window(torch, model, params, opt_state, step_fn, data, dev):
@@ -2441,14 +2601,14 @@ def train_window(torch, model, params, opt_state, step_fn, data, dev):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = step_fn(params, opt_state, batch)
-        float(out[2]["loss"])
+        out = step_fn(params, opt_state, {}, batch)
+        float(out[3]["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
     del out
     cuda = torch.autograd.DeviceType.CUDA
     families = {"masked_matmul": 0.0, "masked_matmul_t": 0.0,
                 "sddmm_masked": 0.0, "bdmm_fwd": 0.0, "bdmm_dx": 0.0,
-                "library_gemm": 0.0, "other": 0.0}
+                "fused_ffn": 0.0, "library_gemm": 0.0, "other": 0.0}
     by_name = {}
     for e in prof.events():
         if e.device_type != cuda:
@@ -2461,6 +2621,8 @@ def train_window(torch, model, params, opt_state, step_fn, data, dev):
             key = "sddmm_masked"
         elif BDMM_GENERAL_FAMILY in e.name or "bdmm_reduce_kernel" in e.name:
             key = "bdmm_dx" if "_kernel<true" in e.name else "bdmm_fwd"
+        elif FUSED_FFN_FAMILY in e.name:
+            key = "fused_ffn"
         elif any(k in e.name.lower() for k in LIBRARY_GEMM_NAMES):
             key = "library_gemm"
         else:
@@ -2494,10 +2656,12 @@ def update_errors(got, want, start):
 def train_exact_phase(torch, dev, ops, data):
     """One f32 step of the model cut to EXACT_LAYERS, through the kernels
     and through the plain versions, from the same init and first batch: in
-    masked_dense mode (the three masked kernels) and in packed mode (bdmm
-    forward and dx). Each route's launch counts are reset before it and
-    read after it: the kernel route must launch every kernel of its mode,
-    the plain route none."""
+    masked_dense mode (the three masked kernels), in packed mode (bdmm
+    forward and dx) and in packed mode with mpd_fuse (every FFN through the
+    fused_ffn autograd rule: the fused kernel forward, bdmm backward). Each
+    route's launch counts are reset before it and read after it: the
+    kernel route must launch every kernel of its mode, the plain route
+    none."""
     from repro_torch.configs.common import get_config
     from repro_torch.kernels import masked_matmul as mk
     from repro_torch.models import build
@@ -2511,8 +2675,10 @@ def train_exact_phase(torch, dev, ops, data):
              for k, v in data.next().items()}
     modes, ok, masked = {}, True, None
     for mode, kernels in (("masked_dense", MASKED_KERNELS),
-                          ("packed", ("bdmm",))):
-        cfg = get_config("olmo-1b", mpd_mode=mode, dtype="float32",
+                          ("packed", ("bdmm",)),
+                          ("packed_fused", ("fused_ffn", "bdmm"))):
+        cfg = get_config("olmo-1b", mpd_mode=mode.replace("_fused", ""),
+                         mpd_fuse=mode == "packed_fused", dtype="float32",
                          n_layers=EXACT_LAYERS)
         model = build(cfg)
         params = model.init(0, device=dev)
@@ -2522,8 +2688,8 @@ def train_exact_phase(torch, dev, ops, data):
             ops.set_backend(backend)
             ops.reset_launch_counts()
             try:
-                new, _, metrics = step(params, init_state(tcfg.opt, params),
-                                       batch)
+                new, _, _, metrics = step(
+                    params, init_state(tcfg.opt, params), {}, batch)
                 res[backend] = (new, float(metrics["loss"]),
                                 float(metrics["grad_norm"]))
             finally:
@@ -2915,6 +3081,14 @@ def main() -> int:
                                                    torch, dev, ops)
     if not trained["ok"]:
         failed.append("train")
+    train_fused = timed("train_fused", train_fused_phase, torch, dev, ops,
+                        trained)
+    if not train_fused["ok"]:
+        failed.append("train_fused")
+    resumed = timed("resume", resume_phase, torch, dev, ops)
+    if not resumed["ok"]:
+        failed.append("resume")
+    torch.cuda.empty_cache()
     exact, f32_model, f32_params, batch = timed(
         "train_exact", train_exact_phase, torch, dev, ops, data)
     if not exact["ok"]:
@@ -2941,11 +3115,11 @@ def main() -> int:
     if not paper["ok"]:
         failed.append("paper")
     # the main path's launches: paged and slot-dense serving, the static
-    # lockstep batch, training, the fused deploy, the speculative turns and
-    # the paper's experiments
+    # lockstep batch, training (perm-fused packed and resumed too), the
+    # fused deploy, the speculative turns and the paper's experiments
     launches = {k: sum(p["launches"][k]
-                       for p in (served, dense, static, trained, deployed,
-                                 spec, paper))
+                       for p in (served, dense, static, trained, train_fused,
+                                 resumed, deployed, spec, paper))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,

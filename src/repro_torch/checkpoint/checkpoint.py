@@ -1,6 +1,7 @@
 """Integrity-checked checkpoints and the packed deployment artifact (the
-port of ``repro.checkpoint.checkpoint``: blocking ``save``, ``restore``,
-``export_packed`` and ``load_packed``).
+port of ``repro.checkpoint.checkpoint``: ``save``, blocking or on a
+background thread, ``wait_pending``, ``restore``, ``export_packed`` and
+``load_packed``).
 
 The on-disk format is the reference's, byte for byte, so an artifact
 passes between the two packages in both directions::
@@ -20,6 +21,16 @@ passes between the two packages in both directions::
   writes and reads those words through ``int16`` (numpy has no bfloat16).
 * A directory is written under ``.tmp`` and published with ``os.replace``
   after its ``.complete`` marker: readers only trust marked directories.
+* ``save(..., blocking=False)`` copies every leaf to host memory before it
+  returns (a device tensor by a synchronous device-to-host copy, a host
+  tensor by a copy of its own), so the caller may update the tensors in
+  place at once; a daemon thread then only writes. ``wait_pending`` joins
+  every pending write and raises the first error one of them met.
+  ``save_log`` records each save's bytes, snapshot and write seconds.
+* The optimizer's step count, a host integer in the port, is stored as the
+  reference stores its step: a 0-d int32 leaf (``opt/step``); ``restore``
+  gives an integer back where ``like`` holds one. A train checkpoint thus
+  restores in either package.
 * A packed export's manifest carries the packed config with the
   reference's full field set (:data:`FOREIGN_CONFIG_DEFAULTS` for the
   fields of architectures the port does not have), so the reference's
@@ -31,6 +42,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -66,22 +79,34 @@ FOREIGN_CONFIG_DEFAULTS = {
 REMAT_VALUES = ("block", "none")
 
 
+_SAVE_LOCK = threading.Lock()
+_PENDING: List[threading.Thread] = []
+_ERRORS: List[Exception] = []
+# one entry a save: {"step", "dir", "bytes", "snapshot_s", "write_s"}
+save_log: List[Dict[str, Any]] = []
+
+
 class ArtifactCorruptError(RuntimeError):
     """A packed deployment artifact failed integrity verification: an
     unreadable manifest or shard, a leaf that fails its crc32 or shape, or
     an ``artifact_crc32`` that does not match the bytes on disk."""
 
 
-def _host_array(t: torch.Tensor) -> np.ndarray:
-    """A leaf as the numpy array the reference writes for it."""
-    t = t.detach().cpu().contiguous()
+def _host_array(t) -> np.ndarray:
+    """A leaf as the numpy array the reference writes for it, in host
+    memory of its own (never a view of the caller's tensor)."""
+    if isinstance(t, int):          # the optimizer's host step count
+        return np.array(t, np.int32)
+    t = t.detach().to("cpu", copy=True).contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_DESCR)
     return t.numpy()
 
 
-def _dtype_name(t: torch.Tensor) -> str:
-    return "bfloat16" if t.dtype == torch.bfloat16 else str(_host_array(t).dtype)
+def _dtype_name(t, arr: np.ndarray) -> str:
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(arr.dtype)
 
 
 def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
@@ -93,12 +118,17 @@ def _to_tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 def _flatten(tree) -> List[Tuple[str, np.ndarray, str]]:
     """``(name, host array, dtype name)`` per leaf, in flatten order."""
-    return [(k, _host_array(v), _dtype_name(v))
-            for k, v in tree_lib.leaves_with_paths(tree)]
+    out = []
+    for k, v in tree_lib.leaves_with_paths(tree):
+        arr = _host_array(v)
+        out.append((k, arr, _dtype_name(v, arr)))
+    return out
 
 
 def _crc(arr: np.ndarray, c: int = 0) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes(), c)
+    # over the array's own bytes: no copy (a background write holding the
+    # interpreter through a 1.5 GB copy would stall the train loop)
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8), c)
 
 
 def _tree_crc32(tree) -> int:
@@ -114,10 +144,44 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: Dict[str, Any],
-         extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write one checkpoint of ``tree`` (nested dicts and lists of tensors)
-    and publish it atomically. Blocking. Returns the step directory."""
+         extra: Optional[Dict[str, Any]] = None,
+         blocking: bool = True) -> str:
+    """Write one checkpoint of ``tree`` (nested dicts and lists of tensors
+    and integers) and publish it atomically. Returns the step directory.
+    With ``blocking=False`` the leaves are copied to the host before this
+    returns and a daemon thread writes them; :func:`wait_pending` waits."""
+    t0 = time.perf_counter()
     flat = _flatten(tree)
+    entry = {"step": step, "dir": _step_dir(ckpt_dir, step),
+             "bytes": sum(arr.nbytes for _, arr, _ in flat),
+             "snapshot_s": time.perf_counter() - t0}
+
+    def write():
+        t1 = time.perf_counter()
+        _write(ckpt_dir, step, flat, extra)
+        entry["write_s"] = time.perf_counter() - t1
+        with _SAVE_LOCK:
+            save_log.append(entry)
+
+    if blocking:
+        write()
+        return entry["dir"]
+
+    def write_recording_errors():
+        try:
+            write()
+        except Exception as e:              # re-raised by wait_pending
+            with _SAVE_LOCK:
+                _ERRORS.append(e)
+
+    t = threading.Thread(target=write_recording_errors, daemon=True)
+    with _SAVE_LOCK:
+        _PENDING.append(t)
+    t.start()
+    return entry["dir"]
+
+
+def _write(ckpt_dir: str, step: int, flat, extra) -> None:
     d = _step_dir(ckpt_dir, step)
     tmp = d + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -134,7 +198,19 @@ def save(ckpt_dir: str, step: int, tree: Dict[str, Any],
     with open(os.path.join(tmp, ".complete"), "w") as f:
         f.write("ok")
     os.replace(tmp, d)                                  # atomic publish
-    return d
+
+
+def wait_pending() -> None:
+    """Join every pending background write; raise the first error any of
+    them met (later ones are dropped with it)."""
+    with _SAVE_LOCK:
+        pend, _PENDING[:] = _PENDING[:], []
+    for t in pend:
+        t.join()
+    with _SAVE_LOCK:
+        errors, _ERRORS[:] = _ERRORS[:], []
+    if errors:
+        raise errors[0]
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -160,9 +236,11 @@ def load_extra(ckpt_dir: str, step: int) -> Dict[str, Any]:
 
 def restore(ckpt_dir: str, step: int, like, device=None):
     """Restore into the structure of ``like`` (any leaves with a ``.shape``,
-    meta tensors included): each leaf is looked up by name, checked against
-    its crc32 and ``like``'s shape, and returned as a tensor on ``device``
-    (the CUDA device unless ``"cpu"`` is asked for), in its stored dtype."""
+    meta tensors included, or integers): each leaf is looked up by name,
+    checked against its crc32 and ``like``'s shape, and returned as a
+    tensor on ``device`` (the CUDA device unless ``"cpu"`` is asked for),
+    in its stored dtype; an integer leaf of ``like`` (the optimizer's step
+    count) comes back as an integer."""
     dev = device_lib.resolve(device)
     manifest, data = _load_manifest(_step_dir(ckpt_dir, step))
     out = []
@@ -171,10 +249,11 @@ def restore(ckpt_dir: str, step: int, like, device=None):
         arr = data[meta["array"]]
         if _crc(arr) != meta["crc32"]:
             raise IOError(f"checkpoint corruption at leaf {k}")
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"shape mismatch at {k}: {arr.shape} vs "
-                             f"{tuple(ref.shape)}")
-        out.append(_to_tensor(arr, meta["dtype"]).to(dev))
+        want = () if isinstance(ref, int) else tuple(ref.shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"shape mismatch at {k}: {arr.shape} vs {want}")
+        out.append(int(arr) if isinstance(ref, int)
+                   else _to_tensor(arr, meta["dtype"]).to(dev))
     return tree_lib.unflatten(like, out)
 
 

@@ -7,7 +7,8 @@ config and masks, packed parameterization), checks that every claimed
 linear carries no weight mass off its mask, folds each stacked weight into
 blocks (paper Eq. 2), optionally rewrites the FFN permutations so the
 hidden stays in block order (:func:`apply_perm_fusion`) and optionally
-quantizes the blocks (:func:`quantize_packed`, int8, or int4 for storage).
+quantizes the blocks (:func:`quantize_packed`, int8, or int4 for storage;
+:func:`dequantize_packed` undoes it up to rounding).
 """
 
 from __future__ import annotations
@@ -127,11 +128,7 @@ def quantize_packed(model, params, *, bits: int = 8,
         parent[key] = new
         n_q += 1
         if compute_report:
-            w = leaf["w"].float()
-            err = w - quant_lib.dequantize_blocks(q, s)
-            report["layers"][tag] = {
-                "max_abs": float(err.abs().max()),
-                "rel_rms": float(err.norm()) / (float(w.norm()) + 1e-30)}
+            report["layers"][tag] = quant_lib.quant_error(leaf["w"], q, s)
     if n_q == 0:
         raise ValueError("quantize_packed: no packed linears found")
     if compute_report:
@@ -140,6 +137,23 @@ def quantize_packed(model, params, *, bits: int = 8,
         report["max_rel_rms"] = max(rms)
         report["mean_rel_rms"] = float(np.mean(rms))
     return out, report
+
+
+def dequantize_packed(model, params):
+    """Inverse of :func:`quantize_packed` (up to rounding): every ``{"w_q",
+    "w_scale"}`` leaf becomes an f32 ``{"w"}`` leaf again, so a quantized
+    artifact runs through the fp kernels (the reference point of drift and
+    equivalence checks)."""
+    out = tree_lib.copy_tree(params)
+    for parent, key, _lin, _tag in iter_linear_leaves(model, out):
+        leaf = parent[key]
+        if "w_q" in leaf:
+            new = {k: v for k, v in leaf.items()
+                   if k not in ("w_q", "w_scale")}
+            new["w"] = quant_lib.dequantize_blocks(leaf["w_q"],
+                                                   leaf["w_scale"])
+            parent[key] = new
+    return out
 
 
 def map_quantized_leaves(model, params, fn):

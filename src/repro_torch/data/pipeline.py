@@ -4,7 +4,9 @@ numpy only).
 Tokens follow a hidden order-2 Markov chain drawn from a seeded
 ``vocab x vocab`` transition table, with 10 % uniform noise, so a model can
 lower its loss. Batches are a stateless function of ``(seed, step, shard)``
-and bit-identical to the reference's.
+and bit-identical to the reference's; ``state()`` / ``restore()`` carry
+the stream across a checkpoint (a stream of another seed raises
+``ValueError`` where the reference asserts).
 
 One difference in how the table is held, not in its values: the reference
 draws it in one call as int64, which at vocab 50304 is 20.2 GB (40 GB while
@@ -123,6 +125,17 @@ class SyntheticLM:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
             yield self.next()
+
+    # checkpointable: batches are a function of (seed, step), so the step
+    # alone resumes the stream exactly
+    def state(self) -> Dict[str, int]:
+        return {"step": self.step, "seed": self.seed}
+
+    def restore(self, st: Dict[str, int]) -> None:
+        if st["seed"] != self.seed:
+            raise ValueError("restoring a SyntheticLM stream with another "
+                             f"seed: {st['seed']} != {self.seed}")
+        self.step = int(st["step"])
 
 
 @dataclasses.dataclass

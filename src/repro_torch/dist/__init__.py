@@ -1,5 +1,5 @@
-"""Distribution helpers of the port (single device so far: the step-time
-monitor)."""
+"""Distribution helpers of the port on one device: the step-time monitor,
+gradient compression with error feedback and microbatching."""
 
 from .straggler import StragglerMonitor
 

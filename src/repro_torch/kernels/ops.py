@@ -13,9 +13,14 @@
   serve launcher's ``--prefill-kernel``). It is read when a call is made,
   so a captured program keeps the route it was captured under.
 
-``fused_ffn`` runs a perm-fused packed MLP as one kernel; it has no
-autograd rule in the port yet and raises under grad rather than fall back
-to a differentiable composition (see ROADMAP, the fused_ffn rule).
+``fused_ffn`` runs a perm-fused packed MLP as one kernel, under grad as
+well: its autograd rule (the reference's ``custom_vjp``) saves x, the
+weights and the biases, not the hidden, and its backward recomputes the
+block-local pre-activations with bdmm launches, takes the (gated)
+activation's vjp elementwise, and composes ``dh`` and ``dx`` from bdmm
+launches with transposed blocks; the weight gradients are einsums, as in
+the reference. ``fused_ffn_quant`` stays inference-only, as the
+reference's, and raises under grad.
 
 ``bdmm`` and ``masked_matmul`` are differentiable, mirroring the
 reference's custom VJPs with ``torch.autograd.Function``. Outside
@@ -247,30 +252,89 @@ def masked_matmul(x, w, mask, bias=None, *, activation: Optional[str] = None):
 
 
 # ----------------------------------------------------------------- fused MLP
-def _ffn_no_grad(name: str, *tensors) -> None:
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name}: the fused MLP has no autograd rule in the port yet "
-            "(ROADMAP: the fused_ffn rule of repro/kernels/ops.py:246-312); "
-            "train a perm-fused model in masked_dense mode and fold it")
-
-
-def fused_ffn(x, w_up, w_down, *, w_gate=None, b_up=None, b_gate=None,
-              b_down=None, activation: Optional[str] = "silu"):
-    """Fused block-diagonal MLP, one kernel launch: ``(act(x@Wg+bg) *
-    (x@Wu+bu)) @ Wd + bd`` when gated, else ``act(x@Wu+bu) @ Wd + bd``.
-    ``x (..., nb*bi)``, ``w_up``/``w_gate (nb, bi, f)``, ``w_down (nb, f,
-    bo)``, biases packed. Inference only: raises under grad."""
-    if w_gate is None and b_gate is not None:
-        raise ValueError("fused_ffn: b_gate given but w_gate is None (the "
-                         "plain form has no gate bias to apply)")
-    tensors = (x, w_up, w_gate, w_down, b_up, b_gate, b_down)
-    _ffn_no_grad("fused_ffn", *tensors)
-    if _plain(*tensors):
+def _fused_ffn_raw(x, w_up, w_gate, w_down, b_up, b_gate, b_down, activation):
+    if _plain(x, w_up, w_gate, w_down, b_up, b_gate, b_down):
         return ref.fused_ffn_ref(x, w_up, w_down, w_gate, b_up, b_gate,
                                  b_down, activation)
     return ffn_kernel.fused_ffn(x, w_up, w_down, w_gate, b_up, b_gate, b_down,
                                 activation=activation)
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_up, w_gate, w_down, b_up, b_gate, b_down,
+                activation):
+        ctx.activation = activation
+        ctx.save_for_backward(x, w_up, w_gate, w_down, b_up, b_gate, b_down)
+        return _fused_ffn_raw(x, w_up, w_gate, w_down, b_up, b_gate, b_down,
+                              activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        """The reference's ``_fused_ffn_bwd``: recompute the (block-local)
+        pre-activations, vjp through the hidden epilogue, then the
+        per-block matmul gradients."""
+        x, w_up, w_gate, w_down, b_up, b_gate, b_down = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        nb, bi, f = w_up.shape
+        bo = w_down.shape[2]
+        lead = x.shape[:-1]
+        gated = w_gate is not None
+        with torch.enable_grad():
+            z_u = _bdmm_raw(x, w_up, b_up, None).detach().requires_grad_(True)
+            z = (z_u,)
+            if gated:
+                z_g = _bdmm_raw(x, w_gate, b_gate, None).detach()
+                z = (z_g.requires_grad_(True), z_u)
+                h = ref.gated(ctx.activation)(*z)
+            else:
+                h = ref.ACTIVATIONS[ctx.activation](z_u)
+        dx = dw_up = dw_gate = dw_down = db_up = db_gate = db_down = None
+        # down projection grads
+        if need[3]:
+            dw_down = torch.einsum("tnk,tno->nko", h.reshape(-1, nb, f),
+                                   g.reshape(-1, nb, bo)).to(w_down.dtype)
+        if need[6]:
+            db_down = g.reshape(-1, nb * bo).sum(0).to(b_down.dtype)
+        if not any(need[i] for i in (0, 1, 2, 4, 5)):
+            return dx, dw_up, dw_gate, dw_down, db_up, db_gate, db_down, None
+        # hidden epilogue grads -> up/gate pre-activation cotangents
+        dh = bdmm_t(g, w_down)
+        dz = torch.autograd.grad(h, z, dh)
+        dz_g, dz_u = dz if gated else (None, dz[0])
+        xb = x.reshape(-1, nb, bi)
+
+        def proj_bwd(dz_, w, b, need_w, need_b):
+            dw = (torch.einsum("tnk,tno->nko", xb, dz_.reshape(-1, nb, f))
+                  .to(w.dtype) if need_w else None)
+            db = dz_.reshape(-1, nb * f).sum(0).to(b.dtype) if need_b else None
+            return dw, db
+
+        dw_up, db_up = proj_bwd(dz_u, w_up, b_up, need[1], need[4])
+        if need[0]:
+            dx = bdmm_t(dz_u, w_up)
+        if gated:
+            dw_gate, db_gate = proj_bwd(dz_g, w_gate, b_gate, need[2], need[5])
+            if need[0]:
+                dx = dx + bdmm_t(dz_g, w_gate)
+        if dx is not None:
+            dx = dx.reshape(*lead, nb * bi)
+        return dx, dw_up, dw_gate, dw_down, db_up, db_gate, db_down, None
+
+
+def fused_ffn(x, w_up, w_down, *, w_gate=None, b_up=None, b_gate=None,
+              b_down=None, activation: Optional[str] = "silu"):
+    """Differentiable fused block-diagonal MLP, one kernel launch forward:
+    ``(act(x@Wg+bg) * (x@Wu+bu)) @ Wd + bd`` when gated, else
+    ``act(x@Wu+bu) @ Wd + bd``. ``x (..., nb*bi)``, ``w_up``/``w_gate (nb,
+    bi, f)``, ``w_down (nb, f, bo)``, biases packed."""
+    if w_gate is None and b_gate is not None:
+        raise ValueError("fused_ffn: b_gate given but w_gate is None (the "
+                         "plain form has no gate bias to apply)")
+    tensors = (x, w_up, w_gate, w_down, b_up, b_gate, b_down)
+    if not _needs_grad(*tensors):
+        return _fused_ffn_raw(*tensors, activation)
+    return _FusedFFN.apply(*tensors, activation)
 
 
 def fused_ffn_quant(x, w_up, w_down, *, s_up, s_down, w_gate=None,
@@ -284,7 +348,10 @@ def fused_ffn_quant(x, w_up, w_down, *, s_up, s_down, w_gate=None,
                          "is None")
     tensors = (x, w_up, w_gate, w_down, s_up, s_gate, s_down, b_up, b_gate,
                b_down)
-    _ffn_no_grad("fused_ffn_quant", *tensors)
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            "fused_ffn_quant: int8 weights are a deployment artifact and are "
+            "never trained through (no autograd rule, as in the reference)")
     if _plain(*tensors):
         return ref.fused_ffn_quant_ref(x, w_up, w_down, w_gate, b_up, b_gate,
                                        b_down, s_up, s_gate, s_down,

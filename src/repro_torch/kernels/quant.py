@@ -14,7 +14,7 @@ load time; the kernels never see nibbles.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -35,6 +35,16 @@ def quantize_blocks(wp: torch.Tensor, bits: int = 8
 
 def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[..., None, :]
+
+
+def quant_error(wp: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
+                ) -> Dict[str, float]:
+    """Round-trip error of one quantized leaf: ``max_abs`` (at most
+    ``scale / 2`` per column) and ``rel_rms`` ``||w - dq|| / ||w||``."""
+    w = wp.detach().float()
+    err = w - dequantize_blocks(q, scale)
+    return {"max_abs": float(err.abs().max()),
+            "rel_rms": float(err.norm()) / (float(w.norm()) + 1e-30)}
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

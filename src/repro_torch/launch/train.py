@@ -16,12 +16,19 @@ The deploy chain of the paper (train masked-dense, fold, serve)::
         --mpd-fuse --steps 4 --fold-to-packed --quantize int8 --ckpt-dir DIR
 
 ``--mpd-fuse`` builds the masks aligned for the Fig-3 permutation fusion;
+in the config's packed mode it trains the perm-fused model in the
+parameterization it is served in, every FFN one ``fused_ffn`` launch
+forward and bdmm launches backward (the fused_ffn autograd rule).
 ``--fold-to-packed`` folds the trained weights after the last step (with the
 fusion rewrite under ``--mpd-fuse``, quantized with ``--quantize``) and
 writes the packed artifact to ``DIR/packed``, which
 ``python -m repro_torch.launch.serve --paged --ckpt-dir DIR`` serves.
-``--ckpt-dir`` is used for that export only: periodic train checkpoints
-and resume are not ported.
+
+``--ckpt-dir DIR`` alone checkpoints params, optimizer state and the data
+stream every 50 steps (written on a background thread) and resumes from
+the newest one when run again. ``--compress-grads`` quantizes the
+gradients to int8 with error feedback before the optimizer.
+``--data-axis`` (a mesh's data-parallel size) is not ported: one device.
 """
 
 from __future__ import annotations
@@ -47,8 +54,8 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--mpd-c", type=int, default=0, help="0 = config default")
     p.add_argument("--mpd-fuse", action="store_true",
-                   help="Fig-3 aligned masks (masked_dense training only: "
-                   "packed training of a fused FFN has no autograd rule yet)")
+                   help="Fig-3 aligned masks; in packed mode every FFN "
+                   "trains as one fused_ffn launch forward")
     p.add_argument("--mpd-mode", choices=("", "packed", "masked_dense"),
                    default="", help="override the config's training "
                    "parameterization (masked_dense = paper-faithful)")
@@ -60,7 +67,12 @@ def main(argv=None):
                    help="with --fold-to-packed: quantize the packed export "
                    "(int8 execution; int4 = nibble-packed storage)")
     p.add_argument("--ckpt-dir", default="",
-                   help="where --fold-to-packed writes the artifact")
+                   help="train checkpoints every 50 steps and resume; "
+                   "--fold-to-packed writes the artifact here too")
+    p.add_argument("--compress-grads", action="store_true",
+                   help="int8 gradient compression with error feedback")
+    p.add_argument("--data-axis", type=int, default=0,
+                   help="mesh data-axis size (not ported: only 0)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the init and of the data stream")
     p.add_argument("--device", default=None,
@@ -85,13 +97,9 @@ def main(argv=None):
         if over.setdefault("mpd_mode", "masked_dense") != "masked_dense":
             raise SystemExit("--fold-to-packed folds a masked_dense run; "
                              "drop --mpd-mode packed")
-    elif args.ckpt_dir:
-        raise SystemExit("--ckpt-dir without --fold-to-packed: periodic "
-                         "train checkpoints and resume are not ported")
-    if args.mpd_fuse and over.get("mpd_mode") != "masked_dense":
-        raise SystemExit("--mpd-fuse trains in masked_dense mode only (add "
-                         "--mpd-mode masked_dense): packed training of the "
-                         "fused FFN needs its autograd rule, not ported")
+    if args.data_axis:
+        raise SystemExit("--data-axis: meshes and data parallelism are not "
+                         "ported (ROADMAP A11); the port trains on one device")
     try:
         device = device_lib.resolve(args.device)
     except device_lib.NoCudaDevice as e:
@@ -101,12 +109,18 @@ def main(argv=None):
     print(f"{cfg.name}: {model.param_count():,} params")
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
                        global_batch=args.global_batch, seed=args.seed)
-    tcfg = TrainConfig(opt=OptConfig(
-        lr=args.lr, clip_norm=1.0, schedule="cosine",
-        warmup_steps=min(20, args.steps // 5), total_steps=args.steps))
+    tcfg = TrainConfig(
+        opt=OptConfig(lr=args.lr, clip_norm=1.0, schedule="cosine",
+                      warmup_steps=min(20, args.steps // 5),
+                      total_steps=args.steps),
+        grad_compress_bits=8 if args.compress_grads else 0,
+        ckpt_dir=args.ckpt_dir, ckpt_every=50 if args.ckpt_dir else 0)
     out = run(model, tcfg, data, num_steps=args.steps, seed=args.seed,
               device=device)
-    print(f"final loss {out['history'][-1]:.4f}")
+    if out["history"]:
+        print(f"final loss {out['history'][-1]:.4f}")
+    else:
+        print(f"resumed at step {out['start_step']}: no step left to run")
 
     if args.fold_to_packed:
         import dataclasses

@@ -277,10 +277,11 @@ def test_launchers_run_the_deploy_chain_on_cpu(tmp_path, capsys):
     assert s["n_done"] == s["n_requests"] == 4
     with pytest.raises(SystemExit, match="masked_dense"):
         ttrain.main(["--arch", "olmo-1b", "--smoke", "--mpd-fuse",
-                     "--steps", "1", "--device", "cpu"])
+                     "--mpd-mode", "packed", "--fold-to-packed",
+                     "--ckpt-dir", ckpt, "--steps", "1", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported"):
         ttrain.main(["--arch", "olmo-1b", "--smoke", "--steps", "1",
-                     "--ckpt-dir", ckpt, "--device", "cpu"])
+                     "--data-axis", "2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="no packed export"):
         tserve.main(["--arch", "olmo-1b", "--smoke", "--paged", "--ckpt-dir",
                      str(tmp_path / "empty"), "--device", "cpu"])

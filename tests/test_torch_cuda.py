@@ -49,8 +49,8 @@ copy of the blocks bit for bit. The SDDMM's tensor-core body takes the
 matmul-shaped rule and writes exact zeros off the mask, NaN and Inf inputs
 included.
 
-A train step of the smoke model, masked-dense or packed, gives the same
-loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
+A train step of the smoke model, masked-dense, packed or perm-fused
+packed (the fused_ffn autograd rule), gives the same loss (atol/rtol 1e-5) and grads (atol 2e-6, rtol 1e-4) through the kernels
 as through the plain versions; so does a step of LeNet-300-100 at c = 10,
 whose f32 blocks bdmm runs on its SIMT bodies at every block shape the
 paper's policy gives (the f32 tolerance above). bdmm's f32 bodies also
@@ -825,11 +825,68 @@ def test_packed_training_step_kernel_route_equals_plain(cuda_device):
     _train_step_routes(cuda_device, "packed", ("bdmm",))
 
 
-def _train_step_routes(cuda_device, mode, kernels):
+def test_fused_packed_training_step_kernel_route_equals_plain(cuda_device):
+    """The perm-fused packed model: every FFN's forward one fused_ffn
+    launch under grad, its backward bdmm launches (the recomputed
+    pre-activations, then dh and dx with transposed blocks)."""
+    _train_step_routes(cuda_device, "packed", ("fused_ffn", "bdmm"),
+                       mpd_fuse=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ffn_grad_launches_the_kernels(cuda_device, dtype):
+    """Under grad, ``ops.fused_ffn`` on the card is one fused_ffn launch
+    forward; its backward is five bdmm launches (z_u and z_g recomputed,
+    then dh, and dx through up and gate, those three transposed) and no
+    fused launch. At f32 the grads equal the plain route's within the
+    bdmm tolerance; at bf16, whose recomputed hidden may differ from the
+    plain one's by an ulp where the sums round differently, each grad
+    within 2e-2 of the plain one in norm."""
+    a = _ffn_case(cuda_device, 96, 4, 64, 256, 64, dtype, False, True, True,
+                  seed=3)
+    names = ("x", "w_up", "w_gate", "w_down", "b_up", "b_gate", "b_down")
+    cot = torch.randn(96, 4 * 64, device=cuda_device).to(dtype)
+    out = {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        try:
+            live = {k: a[k].detach().clone().requires_grad_(True)
+                    for k in names}
+            ops.reset_launch_counts()
+            y = ops.fused_ffn(live["x"], live["w_up"], live["w_down"],
+                              w_gate=live["w_gate"], b_up=live["b_up"],
+                              b_gate=live["b_gate"], b_down=live["b_down"])
+            fwd = ops.launch_counts()
+            ops.reset_launch_counts()
+            grads = torch.autograd.grad((y.float() * cot.float()).sum(),
+                                        [live[k] for k in names])
+            torch.cuda.synchronize(cuda_device)
+            bwd = ops.launch_counts()
+            transposed = sum(tbdmm.transposed_routes.values())
+        finally:
+            ops.set_backend("cuda")
+        if backend == "cuda":
+            assert fwd["fused_ffn"] == 1 and fwd["bdmm"] == 0
+            assert bwd["fused_ffn"] == 0 and bwd["bdmm"] == 5
+            assert transposed == 3
+        else:
+            assert not any(fwd.values()) and not any(bwd.values())
+        out[backend] = grads
+    for k, got, want in zip(names, out["cuda"], out["torch"]):
+        assert got.dtype == want.dtype == dtype, k
+        if dtype == torch.float32:
+            _close(got, want, dtype)
+        else:
+            diff = (got.float() - want.float()).norm()
+            assert bool(torch.isfinite(got).all()), k
+            assert float(diff) <= 2e-2 * float(want.float().norm()), k
+
+
+def _train_step_routes(cuda_device, mode, kernels, **over):
     from repro_torch.configs.common import get_config
     from repro_torch.models import build
 
-    model = build(get_config("olmo-1b", smoke=True, mpd_mode=mode))
+    model = build(get_config("olmo-1b", smoke=True, mpd_mode=mode, **over))
     params = model.init(0, device=cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     toks = torch.randint(0, 96, (2, 33), generator=g, device=cuda_device)
@@ -1462,9 +1519,15 @@ def test_fused_ffn_raises_instead_of_falling_back(cuda_device):
                   False, 0)
     with pytest.raises(ValueError, match="s_up"):
         tffn.fused_ffn(q["x"], q["w_up"], q["w_down"], q["w_gate"])
+    # under grad the autograd rule's forward launches the kernel, which
+    # raises on mixed devices as well: no plain fallback
+    with pytest.raises(ValueError):
+        ops.fused_ffn(a["x"].cpu().requires_grad_(True), a["w_up"],
+                      a["w_down"], w_gate=a["w_gate"])
     with pytest.raises(NotImplementedError, match="autograd"):
-        ops.fused_ffn(a["x"].requires_grad_(True), a["w_up"], a["w_down"],
-                      w_gate=a["w_gate"])
+        ops.fused_ffn_quant(a["x"].requires_grad_(True), q["w_up"],
+                            q["w_down"], w_gate=q["w_gate"], s_up=q["s_up"],
+                            s_gate=q["s_gate"], s_down=q["s_down"])
 
 
 def test_fused_model_engine_kernel_route_equals_plain_route(cuda_device):

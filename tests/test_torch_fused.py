@@ -125,10 +125,15 @@ def test_plain_fused_ffn_int8_matches_jax(gated):
 
 
 def test_fused_ffn_raises_under_grad_and_on_bad_inputs():
+    """The int8 form is inference-only and raises under grad (the fp form
+    has an autograd rule: tests/test_torch_fused_grad.py)."""
     a = _torch(_ffn_inputs(2, 4, 2, 8, 16, 8, True, False))
+    q = _torch(_ffn_inputs(2, 4, 2, 8, 16, 8, True, False, quant=True))
     x = a["x"].clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="autograd"):
-        ops.fused_ffn(x, a["w_up"], a["w_down"], w_gate=a["w_gate"])
+        ops.fused_ffn_quant(x, q["w_up"], q["w_down"], w_gate=q["w_gate"],
+                            s_up=q["s_up"], s_gate=q["s_gate"],
+                            s_down=q["s_down"])
     with pytest.raises(ValueError, match="b_gate"):
         ops.fused_ffn(a["x"], a["w_up"], a["w_down"], b_gate=a["w_up"][0, 0])
     with torch.no_grad():               # no grad is taken: the plain route

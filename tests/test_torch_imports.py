@@ -36,6 +36,8 @@ def test_port_imports_without_jax():
             and "repro_torch.core.policy" in mods)
     assert "repro_torch.serve.engine" in mods and "repro_torch.convert" in mods
     assert "repro_torch.train.loop" in mods and "repro_torch.data.pipeline" in mods
+    assert ("repro_torch.dist.compress" in mods
+            and "repro_torch.dist.microbatch" in mods)
     assert ("repro_torch.checkpoint.checkpoint" in mods
             and "repro_torch.kernels.fused_ffn" in mods)
     assert ("repro_torch.kernels.paged_attention" in mods

@@ -216,7 +216,7 @@ def test_five_masked_dense_steps_match_jax():
     losses = []
     for _ in range(5):
         batch = {k: torch.from_numpy(v).long() for k, v in data.next().items()}
-        params, state, metrics = step(params, state, batch)
+        params, state, _, metrics = step(params, state, {}, batch)
         losses.append(float(metrics["loss"]))
         _off_mask_zero(tm, params)
     assert losses == tout["history"]
