@@ -14,16 +14,27 @@ three ``torch.bmm`` and the gate; no single PyTorch call computes the fused
 MLP) and the bound (bytes at 3.35 TB/s or operations at the dtype's peak),
 with the body and plan that ran.
 
-``breakdown``: ``csrc/fused_ffn.cu`` built with the tensor-core body's
-phases cut (``-DREPRO_CUT``): the loads alone (every cp.async issued and
-waited for), then + the products (GEMM 1, the hidden, GEMM 2, and the
-warps' partials stored, so that every mma is waited for), then the whole
-kernel (+ the warps' partials added, the cluster's split reduction and
-the epilogue), at m = 4 and 64 with int8 and bf16 weights.
-The cut variants compute nothing useful; only their times mean anything.
+``breakdown``: ``csrc/fused_ffn.cu`` built with the tensor-core bodies'
+phases cut (``-DREPRO_CUT``): the loads alone (tc: every cp.async issued
+and waited for; tc_tall: every ring item loaded, published and handed
+back, int8 widened), then + the products (GEMM 1, the hidden, GEMM 2; tc
+also stores the warps' partials, so that every mma is waited for), then
+the whole kernel (+ the partials added, the cluster's split reduction and
+the epilogue), at m = 4 and 64 (tc) and 512, 544 and 2048 (tc_tall) with
+int8 and bf16 weights; for tc_tall also the products without the
+hidden's arithmetic, without GEMM 2 and without GEMM 1, and the whole
+kernel with gated silu on the generic hidden (the branching one of the
+other activations). The cut variants compute nothing useful; only their
+times mean anything.
 
-``sweep``: the tensor-core body with the f axis cut into 16, 8, 4 or 2
-blocks (1, 2, 4 or 8 f tiles a block) at m = 4, 16 and 64.
+``sweep``: the tc body with the f axis cut into 16, 8, 4 or 2 blocks (1,
+2, 4 or 8 f tiles a block) at m = 4, 16 and 64; the tc_tall body with its
+f split over 1, 2, 3, 4, 6, 8 and 16 blocks at m = 128, 512, 544, 1024
+and 2048,
+beside the tc body forced on the same inputs (one block a 16-row tile and
+all f tiles: its plan above 64 rows before tc_tall), the port's unfused
+route (three bdmm launches and the gate) and, for bf16 weights, three
+``torch.bmm`` and the gate.
 
 Times are CUDA-event medians of 10 calls with the L2 cache flushed before
 each (``--hot``: not flushed, so weights and the kernel's code stay in L2). Needs an NVIDIA GPU (sm_90a) and nvcc; prints one JSON object a line
@@ -53,6 +64,10 @@ from repro_torch.kernels.quant import quantize_blocks  # noqa: E402
 
 NB, BI, F_DIM, BO = 8, 256, 1024, 256       # olmo-1b's fused FFN at mpd_c=8
 CUTS = {"loads": 1, "products": 2, "full": 0}
+# tc_tall only: the products without a phase, and the generic hidden
+TALL_CUTS = {"no_hidden": {"REPRO_CUT": 3}, "no_gemm2": {"REPRO_CUT": 4},
+             "no_gemm1": {"REPRO_CUT": 5},
+             "generic_hidden": {"REPRO_TALL_GENERIC": 1}}
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
@@ -141,8 +156,9 @@ def mode_time(dev, ms):
 def build_cuts(out_dir: Path):
     """``{cut: entry point}``: ``csrc/fused_ffn.cu`` built with each phase
     cut of CUTS in parallel (the whole kernel from the package's build)."""
-    libs = _build.variants("fused_ffn", {c: {"REPRO_CUT": v} if v else {}
-                                         for c, v in CUTS.items()}, out_dir)
+    libs = _build.variants("fused_ffn", {**{c: {"REPRO_CUT": v} if v else {}
+                                            for c, v in CUTS.items()},
+                                         **TALL_CUTS}, out_dir)
     P, I = ctypes.c_void_p, ctypes.c_int
     fns = {}
     for c, lib in libs.items():
@@ -153,68 +169,98 @@ def build_cuts(out_dir: Path):
     return fns
 
 
+BREAKDOWN = [(q, m) for q in (True, False) for m in (4, 64)] + [
+    (True, 544), (False, 512), (True, 2048), (False, 2048)]
+
+
 def mode_breakdown(dev, ms):
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_cuts(Path(tmp))
-        for quant in (True, False):
-            for m in (4, 64):
-                a, _ = case(gen, dev, m, torch.bfloat16, quant)
-                p = fk.plan(m, NB, F_DIM, BO, n_sm)
-                y = torch.empty(m, NB * BO, dtype=torch.bfloat16, device=dev)
-                ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-                vec_w = min(_build.copy_width(a[k], a[k].shape[2] * a[k].element_size())
-                            for k in ("w_up", "w_gate", "w_down"))
+        for quant, m in BREAKDOWN:
+            a, _ = case(gen, dev, m, torch.bfloat16, quant)
+            p = fk.plan(m, NB, F_DIM, BO, n_sm)
+            y = torch.empty(m, NB * BO, dtype=torch.bfloat16, device=dev)
+            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            vec_w = min(_build.copy_width(a[k], a[k].shape[2] * a[k].element_size())
+                        for k in ("w_up", "w_gate", "w_down"))
 
-                def call(fn):
-                    code = fn(ptr(a["x"]), ptr(a["w_up"]), ptr(a["w_gate"]),
-                              ptr(a["w_down"]), ptr(a.get("s_up")),
-                              ptr(a.get("s_gate")), ptr(a.get("s_down")), None,
-                              None, None, ptr(y), None, None, m, NB,
-                              BI, F_DIM, BO, 1, int(quant), fk.ACT_CODES["silu"],
-                              fk.ROUTES["tc"], p.rows, p.split, p.fpb, 1,
-                              _build.copy_width(a["x"], BI * 2), vec_w, stream)
-                    if code:
-                        raise SystemExit(f"launch failed: CUDA error {code}")
-                print(json.dumps({
-                    "kernel": "fused_ffn", "m": m,
-                    "weights": "int8" if quant else "bfloat16",
-                    "plan": p._asdict(),
-                    **{f"{c}_ms": ms(lambda: call(fn)) for c, fn in fns.items()}}),
-                    flush=True)
+            def call(fn):
+                code = fn(ptr(a["x"]), ptr(a["w_up"]), ptr(a["w_gate"]),
+                          ptr(a["w_down"]), ptr(a.get("s_up")),
+                          ptr(a.get("s_gate")), ptr(a.get("s_down")), None,
+                          None, None, ptr(y), None, None, m, NB,
+                          BI, F_DIM, BO, 1, int(quant), fk.ACT_CODES["silu"],
+                          fk.ROUTES[p.route], p.rows, p.split, p.fpb, 1,
+                          _build.copy_width(a["x"], BI * 2), vec_w, stream)
+                if code:
+                    raise SystemExit(f"launch failed: CUDA error {code}")
+            print(json.dumps({
+                "kernel": "fused_ffn", "m": m,
+                "weights": "int8" if quant else "bfloat16",
+                "plan": p._asdict(),
+                **{f"{c}_ms": ms(lambda: call(fn)) for c, fn in fns.items()
+                   if c in CUTS or p.route == "tc_tall"}}),
+                flush=True)
 
 
 SWEEP = ((16, 1), (8, 2), (4, 4), (2, 8))
+TALL_SWEEP = (1, 2, 3, 4, 6, 8, 16)
+
+
+def unfused(a, quant):
+    """The port's unfused route: three bdmm launches and the gate."""
+    s = {k: a.get(k) for k in ("s_up", "s_gate", "s_down")}
+    u = bk.bdmm(a["x"], a["w_up"], None, s["s_up"])
+    h = bk.bdmm(a["x"], a["w_gate"], None, s["s_gate"], activation="silu") * u
+    return bk.bdmm(h, a["w_down"], None, s["s_down"])
+
+
+def three_bmm(a, m):
+    xt = a["x"].view(m, NB, BI).transpose(0, 1)
+    u = torch.bmm(xt, a["w_up"])
+    return torch.bmm(F.silu(torch.bmm(xt, a["w_gate"])) * u, a["w_down"])
 
 
 def mode_sweep(dev, ms):
-    """The tensor-core body with the f axis cut into other (split, f tiles a
-    block) than the plan's, at m = 4, 16 and 64: what the split costs and
-    buys."""
+    """The tc body with the f axis cut into other (split, f tiles a block)
+    than the plan's at m = 4, 16 and 64; the tc_tall body under every split
+    at m = 128 ... 2048 beside the tc body, the unfused route and (bf16)
+    three torch.bmm: what each split and body costs and buys."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    stream = torch.cuda.current_stream().cuda_stream
-    lib, fn = fk._launcher()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_ft = -(-F_DIM // fk.F_TILE)
     for quant in (True, False):
-        for m in (4, 16, 64):
+        for m in (4, 16, 64, 128, 512, 544, 1024, 2048):
             a, _ = case(gen, dev, m, torch.bfloat16, quant)
-            y = torch.empty(m, NB * BO, dtype=torch.bfloat16, device=dev)
-            ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+            scales = {k: a.get(k) for k in ("s_up", "s_gate", "s_down")}
+            p = fk.plan(m, NB, F_DIM, BO, n_sm)
             row = {"kernel": "fused_ffn", "m": m,
-                   "weights": "int8" if quant else "bfloat16"}
-            rows = fk.plan(m, NB, F_DIM, BO, 132).rows
-            for split, fpb in SWEEP:
-                def call():
-                    code = fn(ptr(a["x"]), ptr(a["w_up"]), ptr(a["w_gate"]),
-                              ptr(a["w_down"]), ptr(a.get("s_up")),
-                              ptr(a.get("s_gate")), ptr(a.get("s_down")), None,
-                              None, None, ptr(y), None, None, m, NB,
-                              BI, F_DIM, BO, 1, int(quant), fk.ACT_CODES["silu"],
-                              fk.ROUTES["tc"], rows, split, fpb, 1, 16, 16,
-                              stream)
-                    _build.check(lib, "fused_ffn", code)
-                row[f"split{split}_ms"] = ms(call)
+                   "weights": "int8" if quant else "bfloat16",
+                   "plan": p._asdict()}
+
+            def timed(force):
+                try:
+                    return ms(lambda: fk.fused_ffn(
+                        a["x"], a["w_up"], a["w_down"], a["w_gate"],
+                        **scales, force=force))
+                except _build.KernelError as e:
+                    return f"error: {e}"[:200]
+            if p.route == "tc":
+                for split, fpb in SWEEP:
+                    row[f"split{split}_ms"] = timed(fk.Plan("tc", p.rows,
+                                                            split, fpb))
+            else:
+                for split in TALL_SWEEP:
+                    fpb = -(-n_ft // split)
+                    row[f"split{-(-n_ft // fpb)}_ms"] = timed(
+                        fk.Plan("tc_tall", p.rows, -(-n_ft // fpb), fpb))
+                row["tc_body_ms"] = timed(fk.Plan("tc", fk.TC_ROWS, 1, n_ft))
+                row["unfused_route_ms"] = ms(lambda: unfused(a, quant))
+                if not quant:
+                    row["three_bmm_ms"] = ms(lambda: three_bmm(a, m))
             print(json.dumps(row), flush=True)
 
 

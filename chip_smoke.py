@@ -29,9 +29,11 @@ Phases, each printed as one JSON line:
    entries exactly 0, and the forward at the served rows m = 4, 20 and 64;
    the fused MLP at olmo-1b's perm-fused FFN width, nb 8, bi 256, f 1024,
    bo 256, at m = 4 and 64, int8 / bf16 / f32 weights, gated, a plain-gelu
-   form with every bias and a ragged m = 37, f = 1000 case, each of which
-   must also reject the plain output with one f tile of w_down zeroed, and
-   must run on the body its dtype takes),
+   form with every bias and a ragged m = 37, f = 1000 case, and at m = 512,
+   544 (int8) and 2048, each of which must also reject the plain output
+   with one f tile of w_down zeroed, and must run on the body its plan
+   names: bf16 x on a tensor-core body, tc up to 64 rows and tc_tall
+   above, whose rows also time the tc body forced on the same inputs),
    within the tolerance printed beside each check; time kernel, plain
    version and, where one exists, a single PyTorch library call (for the
    fused MLP, which no single call computes, a composition: three
@@ -165,8 +167,9 @@ Phases, each printed as one JSON line:
    trains through the fused_ffn autograd rule, one fused_ffn launch per
    layer and step forward (16 x 4) and bdmm launches backward, no bf16
    bdmm on an f32 body; every loss finite, the first within 1.0 of
-   ln(50304); step time, tokens/s and peak device memory beside phase
-   11's packed launcher run, and a profiled step.
+   ln(50304); every fused launch on the tc_tall body; step time, tokens/s,
+   peak device memory and the profiled step's fused_ffn device ms beside
+   phase 11's packed launcher run.
 19. ``resume`` (run after phase 18) — train checkpoints and resume through
    ``train.run``: the perm-fused packed bf16 model (RESUME's depth, full
    width) 4 steps with a checkpoint every 2 (written on a background
@@ -251,7 +254,7 @@ MASKED_MM_FAMILY = "masked_mm_"
 # window.) The SDDMM's bodies (tc and the f32 SIMT one) share "sddmm_".
 BDMM_GENERAL_FAMILY = "bdmm_general"
 SDDMM_FAMILY = "sddmm_"
-# the fused MLP's bodies (csrc/fused_ffn.cu: tc and the f32 SIMT one)
+# the fused MLP's bodies (csrc/fused_ffn.cu: tc, tc_tall and the f32 SIMT one)
 FUSED_FFN_FAMILY = "fused_ffn"
 BDMM_KERNELS = ("bdmm", "bdmm_decode")
 TRAIN = {"batch": 4, "seq": 512, "steps": 4}
@@ -279,7 +282,9 @@ FFN_RULE = ("atol + u_out * |plain_f32| + u_sum * ((|h| + dh) @ |Wd| "
             "+ |b_down|)")
 # (label, m, weights, dtype, activation, gated, biases, f): olmo-1b's fused
 # FFN at mpd_c=8 is nb 8, bi 256, f 1024, bo 256; m = 4 is a decode step
-# of 4 slots, m = 64 one prefill chunk, m = 2048 a training batch
+# of 4 slots, m = 64 one prefill chunk, m = 512 one 512-token prompt, m =
+# 544 the dense engine's top admission bucket (int8, as served), m = 2048 a
+# training batch
 FFN_DIMS = (8, 256, 256)                          # nb, bi, bo
 FFN_CASES = [
     ("decode", 4, "int8", "bfloat16", "silu", True, False, 1024),
@@ -293,6 +298,8 @@ FFN_CASES = [
     ("plain gelu, biases", 64, "fp", "bfloat16", "gelu", False, True, 1024),
     ("ragged m and f, biases", 37, "int8", "bfloat16", "silu", True, True,
      1000),
+    ("prompt", 512, "fp", "bfloat16", "silu", True, False, 1024),
+    ("admission", 544, "int8", "bfloat16", "silu", True, False, 1024),
     # the training forward of phase train_fused: 4 x 512 tokens
     ("train", 2048, "fp", "bfloat16", "silu", True, False, 1024),
 ]
@@ -1216,7 +1223,7 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
         pl = fk.plan(m, nb, f, bo, torch.cuda.get_device_properties(
             dev).multi_processor_count, dtype)
         ok = ok and rejects and used == [pl.route]
-        ok = ok and (dt != "bfloat16" or pl.route == "tc")
+        ok = ok and (dt != "bfloat16" or pl.route in ("tc", "tc_tall"))
         del got, want, mag, dropped, wd
         es = a["x"].element_size()
         w_bytes = sum(a[k].numel() * a[k].element_size()
@@ -1239,12 +1246,25 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                "yardstick": yard_label, "bound_ms": b_ms, "bound_by": b_by}
         if not quant:
             row["unfused_route_ms"] = timer.ms(unfused)
+        if pl.route == "tc_tall":       # the m <= 64 body on the same inputs
+            old = fk.Plan("tc", fk.TC_ROWS, 1, -(-f // fk.F_TILE))
+            row["tc_body_ms"] = timer.ms(lambda: fk.fused_ffn(
+                a["x"], a["w_up"], a["w_down"], *args, activation=act,
+                force=old))
         rows.append(row)
         emit(row)
         s = summary["fused_ffn"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["err_over_tol"] = max(s["err_over_tol"], ratio)
         s["ok"] = s["ok"] and ok
+        s.setdefault("bodies", {}).setdefault(pl.route, []).append(
+            f"{label} m={m} {row['weights']}")
+        if pl.route == "tc_tall":
+            s.setdefault("tall_rows", []).append({k: row.get(k) for k in (
+                "case", "m", "weights", "plan", "routes_launched", "ms",
+                "plain_ms", "bound_ms", "bound_by", "yardstick_ms",
+                "yardstick", "unfused_route_ms", "tc_body_ms",
+                "max_abs_err", "err_over_tol")})
         if quant and dt == "bfloat16" and label == "decode":
             s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                           "yardstick_ms", "yardstick",
@@ -2429,6 +2449,7 @@ def train_packed(torch, dev, ops, fuse=False):
     import io
     from repro_torch.configs.common import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import fused_ffn as fk
     from repro_torch.launch import train as launcher
     from repro_torch.models import build
     from repro_torch.optim import OptConfig
@@ -2450,6 +2471,7 @@ def train_packed(torch, dev, ops, fuse=False):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     routes = all_routes()["bdmm"]
+    fused_routes = dict(fk.routes)
     peak = torch.cuda.max_memory_allocated() - held
     cfg = get_config("olmo-1b", mpd_fuse=fuse)
     model = build(cfg)
@@ -2470,12 +2492,17 @@ def train_packed(torch, dev, ops, fuse=False):
           and routes["tc"] > 0 and f32_general(routes) == 0)
     fused = {}
     if fuse:
-        fused = {"fused_ffn_launches_expected": cfg.n_layers * steps,
+        expected = cfg.n_layers * steps
+        fused = {"fused_ffn_launches_expected": expected,
                  "every_ffn_fused": all(b["ffn"].fused_packed()
                                         for b in model.block_specs),
-                 "ln_vocab": math.log(cfg.vocab)}
+                 "ln_vocab": math.log(cfg.vocab),
+                 "fused_ffn_routes": fused_routes}
+        # a training batch (4 x 512 tokens) runs on the tc_tall body only
         ok = (ok and fused["every_ffn_fused"]
-              and launches["fused_ffn"] == fused["fused_ffn_launches_expected"]
+              and launches["fused_ffn"] == expected
+              and fused_routes == {r: expected if r == "tc_tall" else 0
+                                   for r in fk.ROUTES}
               and abs(losses[0] - math.log(cfg.vocab)) <= 1.0)
     del out
     torch.cuda.empty_cache()
@@ -2494,10 +2521,14 @@ def train_fused_phase(torch, dev, ops, trained):
     ``train`` phase's packed (unfused) launcher run of the same call."""
     row = train_packed(torch, dev, ops, fuse=True)
     packed = trained["packed"]
+    device = lambda r: r["train_window"]["device_ms"] or {}  # noqa: E731
     row = {"phase": "train_fused", **row,
-           "packed_unfused": {k: packed[k] for k in (
+           "fused_ffn_device_ms": device(row).get("fused_ffn"),
+           "device_ms_total": sum(device(row).values()) or None,
+           "packed_unfused": {**{k: packed[k] for k in (
                "step_ms_p50", "tokens_per_s", "peak_mem_added_bytes",
-               "losses")}}
+               "losses")},
+               "device_ms_total": sum(device(packed).values()) or None}}
     emit(row)
     return row
 
@@ -3148,7 +3179,9 @@ def main() -> int:
                         **({"cuda_body": s["cuda_body"]}
                            if "cuda_body" in s else {}),
                         **({"f32_rows": s["f32_rows"]}
-                           if "f32_rows" in s else {})})
+                           if "f32_rows" in s else {}),
+                        **({k: s[k] for k in ("bodies", "tall_rows")
+                            if k in s})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

@@ -25,9 +25,9 @@
 // deterministic and the grid fills the card (128 blocks at the shapes
 // above). With one split the block writes y directly.
 //
-// Two bodies, chosen by x's dtype (kernels/fused_ffn.py plan):
+// Three bodies, chosen by x's dtype and m (kernels/fused_ffn.py plan):
 //
-// * tc (bf16 x, bf16 or int8 weights). A block owns one mma row tile of 16
+// * tc (bf16 x, m <= 64, bf16 or int8 weights). A block owns one mma row tile of 16
 //   tokens (every tile through the same instructions, so a token's output
 //   does not depend on the chunk it rides in) x 256 output columns x 64 f
 //   channels (split 16 at f = 1024 for every m <= 64: 128 blocks at m <=
@@ -49,6 +49,14 @@
 //   thread block cluster: after a cluster barrier each adds a share of the
 //   tile from all of their sums in rank order (no workspace, no float
 //   atomics, one launch), then s_down, b_down and the cast.
+// * tc_tall (bf16 x, m > 64: training batches, whole-prompt admissions,
+//   the static prefill; bf16 or int8 weights). At m = 2048 the tc body's
+//   1024 blocks each re-read their block's 1.5 MB of weights over 16 tokens
+//   (~1.57 GB of L2 traffic for 25.8 GFLOP). Here a block owns 128 tokens,
+//   two wgmma warpgroups of 64 rows beside a producer warpgroup, and walks
+//   the f tiles with the down sum in registers: 128 blocks at m = 2048 (8x
+//   less weight traffic), the f split only where the row tiles leave SMs
+//   idle. Described at fused_ffn_wg_kernel.
 // * simt_f32 (f32 x: the exact parity route, no TF32): the weight tiles are
 //   copied as stored with cp.async, every thread issuing all its copies
 //   before waiting once; GEMM 1 takes the up/gate tiles in K chunks of 128
@@ -358,6 +366,7 @@ struct FArgs {
   const float *su, *sg, *sd, *bu, *bg, *bd;
   bf16* y;                               // (m, nb * bo)
   int m, nb, bi, f, bo, act, split, fpb, n_chunks, vec_x, vec_w;
+  int tma;                               // tc_tall: loads by TMA (else cp.async)
 };
 
 constexpr int FT_THREADS = 128;  // 4 warps, 16 f channels of the tile each
@@ -369,7 +378,13 @@ constexpr int FT_HALF = FT_COLS / 2;  // output columns of a GEMM-2 half
 constexpr int FT_LDS = FT_HALF + 8;  // row stride (floats) of a warp's partial
 
 #ifndef REPRO_CUT
-#define REPRO_CUT 0  // breakdown variants (benchmarks/): 1 loads, 2 + the products
+// breakdown variants (benchmarks/): 1 loads, 2 + the products; tc_tall
+// also 3 (2 without the hidden's arithmetic), 4 (2 without GEMM 2) and 5
+// (2 without GEMM 1)
+#define REPRO_CUT 0
+#endif
+#ifndef REPRO_TALL_GENERIC
+#define REPRO_TALL_GENERIC 0  // 1: gated silu through tc_tall's generic (branching) hidden
 #endif
 
 // Shared memory of a block: the K ring (Wu, Wg and x rows of 64 K rows a
@@ -683,10 +698,648 @@ __global__ void __launch_bounds__(FT_THREADS) fused_ffn_tc_kernel(const FArgs a)
   cluster_sync();  // the other blocks have read this block's sums
 }
 
+// ================================================= tc_tall (bf16 x, m > 64)
+// A block owns 128 tokens x one diagonal block n x up to 256 output columns
+// and walks its f tiles (64 channels each), so each weight byte it loads
+// serves 128 tokens, not 16. Two consumer warpgroups own 64 token rows each;
+// one producer warpgroup fills a ring of 16 KB slots in the order the
+// consumers take them, tile after tile:
+//   [x K step (bi > 256 only)] [Wu | Wg K step] ... [Wd cols 0-127] [128-255]
+// A GEMM-1 slot is the Wu and Wg panels of one K step (64 K rows x 64 f,
+// MN-major, side by side), so one wgmma.m64n128k16 gives u and g of the
+// tile's 64 channels together (A = x from shared memory, K-major). x's 128 x
+// bi tile stays resident for bi <= 256 (TT_XRES K steps); deeper x takes a
+// slot of its own before each weight slot. The hidden's scale, bias and
+// gate run in f32 on the accumulators; h is repacked in registers as the A
+// operand of the down product (the accumulator-to-A reuse of attention's
+// P V), as a hi + lo pair of bf16, two wgmmas a k16 step, so h keeps f32's
+// precision to 2^-16 |h|. y (64 x 256 f32 a warpgroup, 128 registers a
+// thread) lives across the block's f tiles. Rows TMA can read arrive by TMA
+// from one thread (zero past every edge): bf16 weights straight into their
+// slot (128-byte swizzle), int8 into landing buffers whose rows every
+// producer thread widens exactly to bf16 in the slot's layout TT_LAG items
+// later. Other rows come by cp.async from all producer threads, which
+// publish an item TT_LAG items after issuing it (int8 widened the same way). Where the row tiles leave SMs idle
+// the f tiles are split over a cluster, whose blocks add their f32 partials
+// in rank order over DSMEM (no workspace, no float atomics); with one split
+// the block stages y in shared memory and writes it whole sectors at a time.
+// What bounds it at m = 2048 (olmo-1b, bf16): the products, 34.4 GFLOP with
+// the lo half (0.035 ms at 989 TFLOP/s), beside ~0.19 GB of weight tiles
+// from L2 (a block an SM, each reading its diagonal block's 1.5 MB once);
+// the bytes from device memory (29 MB) are far below both. The hidden
+// between the two products is the part that does not overlap (PERF.md);
+// for gated silu it runs branch-free (fused_ffn_wg_kernel<., true>): a
+// branch while the previous k16 step's wgmmas read their registers cost
+// more than the products.
+constexpr int TT_ROWS = 128;                 // tokens of a block
+constexpr int TT_THREADS = 3 * WG_THREADS;   // two consumer warpgroups, one producer
+constexpr int TT_SLOT = 16384;               // ring slot: two 64 x 64 bf16 panels
+constexpr int TT_XRES = 4;                   // x's K steps kept resident (bi <= 256)
+constexpr int TT_LAG = 4;                    // cp.async: items in flight a producer thread
+constexpr int TT_LAND = 8192;                // int8 landing bytes of an item
+constexpr int TT_NL = TT_LAG + 1;            // int8 landing buffers
+constexpr int TT_BUDGET = 232448;            // dynamic shared memory of a block
+constexpr int CLUSTER_SPLIT_MAX = 16;       // the f split is one cluster
+constexpr int TT_PLD = FT_COLS + 8;          // f32 row stride of a split partial
+constexpr int TT_OUT_LD = 2 * FT_COLS + 16;  // bytes of a staged bf16 output row
+// Registers a thread after the split: 3 x 168 (65,536 / 384, rounded down
+// to 8) = 56 + 2 x 224, so the consumers' increase is always granted.
+constexpr int TT_PRODUCER_REGS = 56, TT_CONSUMER_REGS = 224;
+
+struct TallMaps {
+  CUtensorMap x, wu, wg, wd;
+};
+
+// The block's shared memory from its 1024-aligned base: resident x, the
+// int8 landing buffers, the ring, then the mbarriers. A split partial (128
+// x TT_PLD f32) reuses the bytes from the base once every product is done.
+struct TallLayout {
+  int ksteps, x_bytes, land, slots, bytes;
+};
+__host__ __device__ inline TallLayout tall_layout(int bi, bool int8) {
+  TallLayout l;
+  l.ksteps = (bi + TK - 1) / TK;
+  l.x_bytes = l.ksteps <= TT_XRES ? l.ksteps * TT_SLOT : 0;
+  l.land = int8 ? TT_NL * TT_LAND : 0;
+  l.slots = (TT_BUDGET - 1024 - 512 - l.x_bytes - l.land) / TT_SLOT;
+  l.bytes = 1024 + l.x_bytes + l.land + l.slots * TT_SLOT + (2 * l.slots + 1 + 2 * TT_NL) * 8;
+  return l;
+}
+
+// Two int8 weights of the word v (bytes sel0, sel1 of v ^ 0x80808080) as a
+// bf16 pair, exactly: the byte under the exponent of 2^23 is 2^23 + (q +
+// 128), one subtraction gives q, and the upper half of that f32 is q in
+// bf16 (|q| <= 128 has 8 significant bits).
+__device__ __forceinline__ uint32_t widen2(uint32_t v, uint32_t sel0, uint32_t sel1) {
+  const float bias = 8388736.0f;  // 2^23 + 128
+  const uint32_t f0 = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, sel0)), bias));
+  const uint32_t f1 = __float_as_uint(__fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, sel1)), bias));
+  return __byte_perm(f0, f1, 0x7632);
+}
+// 16 int8 weights at shared address src -> 16 bf16 at dst0 (the first 8)
+// and dst1.
+__device__ __forceinline__ void widen16(uint32_t src, uint32_t dst0, uint32_t dst1) {
+  uint32_t w[4];
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "r"(src) : "memory");
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t v = w[i] ^ 0x80808080u;
+    o[2 * i] = widen2(v, 0x7440, 0x7441);
+    o[2 * i + 1] = widen2(v, 0x7442, 0x7443);
+  }
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst0), "r"(o[0]), "r"(o[1]),
+               "r"(o[2]), "r"(o[3]) : "memory");
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst1), "r"(o[4]), "r"(o[5]),
+               "r"(o[6]), "r"(o[7]) : "memory");
+}
+
+// What item j of a tile holds: K step k of x (kind 0) or of Wu | Wg (kind
+// 1), or half k of the Wd tile (kind 2).
+struct Item {
+  int kind, k;
+};
+__device__ __forceinline__ Item tall_item(int j, int g1, bool resident) {
+  if (j >= g1) return {2, j - g1};
+  if (resident) return {1, j};
+  return {j & 1, j >> 1};
+}
+
+// Keep registers that an asynchronous wgmma reads (its A operand) live and
+// unchanged until it has been waited for.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <bool INT8, bool SILU_GATED>
+__global__ void __launch_bounds__(TT_THREADS, 1)
+    fused_ffn_wg_kernel(const FArgs a, const __grid_constant__ TallMaps maps) {
+  constexpr int ES = INT8 ? 1 : 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const TallLayout L = tall_layout(a.bi, INT8);
+  const bool resident = L.x_bytes > 0, tma = a.tma != 0;
+  const uint32_t s0 = smem_u32(smem), sland = s0 + L.x_bytes, sring = sland + L.land;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.x_bytes + L.land + L.slots * TT_SLOT);
+  uint64_t* empty = full + L.slots;
+  uint64_t* xbar = empty + L.slots;
+  uint64_t* landed = xbar + 1;      // int8 by TMA: an item's bytes have landed
+  uint64_t* lfree = landed + TT_NL;  // and every producer thread has widened them
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  const int n = blockIdx.y;
+  const int r0 = blockIdx.z / a.n_chunks * TT_ROWS, c0 = blockIdx.z % a.n_chunks * FT_COLS;
+  const bool gated = a.wg != nullptr;
+  const int n_ft = (a.f + FT_F - 1) / FT_F;
+  const int t0 = blockIdx.x * a.fpb, t1 = min(t0 + a.fpb, n_ft);
+  const int halves = min(a.bo - c0, FT_COLS) > FT_HALF ? 2 : 1;
+  const int g1 = resident ? L.ksteps : 2 * L.ksteps;  // GEMM-1 items of a tile
+  const int per_tile = g1 + halves;
+  const int n_items = (t1 - t0) * per_tile;
+  if (tid == 0) {
+    for (int i = 0; i < L.slots; ++i) {
+      bar_init(full + i, tma && !INT8 ? 1 : WG_THREADS);
+      bar_init(empty + i, 8);  // every consumer warp
+    }
+    for (int i = 0; i < TT_NL; ++i) {
+      bar_init(landed + i, 1);
+      bar_init(lfree + i, WG_THREADS);
+    }
+    bar_init(xbar, tma ? 1 : WG_THREADS);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TT_PRODUCER_REGS));
+    const int pt = tid - 2 * WG_THREADS;
+    if (tma && INT8) {
+      // int8 by TMA: one thread loads item t into landing buffer t % TT_NL
+      // (x K steps straight into their slot) TT_LAG items ahead; every
+      // thread waits for item t - TT_LAG to land, widens its share into the
+      // slot and publishes it. A landing buffer is reloaded once all
+      // threads have widened what it held (lfree).
+      if (pt == 0 && resident) {
+        bar_expect(xbar, L.ksteps * TT_SLOT);
+        for (int k = 0; k < L.ksteps; ++k)
+          for (int h = 0; h < 2; ++h)
+            tma_load(s0 + k * TT_SLOT + h * 8192, &maps.x, k * TK, n, r0 + 64 * h, xbar);
+      }
+#pragma unroll 1
+      for (int t = 0; t < n_items + TT_LAG; ++t) {
+        if (pt == 0 && t < n_items) {
+          const int li = t % TT_NL, f0 = (t0 + t / per_tile) * FT_F;
+          if (t >= TT_NL) bar_wait(lfree + li, ((t / TT_NL) & 1) ^ 1);
+          const uint32_t land = sland + li * TT_LAND;
+          const Item it = tall_item(t % per_tile, g1, resident);
+          if (it.kind == 0) {
+            const int st = t % L.slots;
+            if (t >= L.slots) bar_wait(empty + st, ((t / L.slots) & 1) ^ 1);
+            const uint32_t dst = sring + st * TT_SLOT;
+            bar_expect(landed + li, TT_SLOT);
+            tma_load(dst, &maps.x, it.k * TK, n, r0, landed + li);
+            tma_load(dst + 8192, &maps.x, it.k * TK, n, r0 + 64, landed + li);
+          } else if (it.kind == 1) {  // Wu, Wg: 64 K rows of 64 bytes each
+            bar_expect(landed + li, gated ? TT_LAND : TT_LAND / 2);
+            tma_load(land, &maps.wu, f0, it.k * TK, n, landed + li);
+            if (gated) tma_load(land + TT_LAND / 2, &maps.wg, f0, it.k * TK, n, landed + li);
+          } else {  // Wd: 64 f rows of 128 bytes
+            bar_expect(landed + li, TT_LAND);
+            tma_load(land, &maps.wd, c0 + FT_HALF * it.k, f0, n, landed + li);
+          }
+        }
+        if (t >= TT_LAG) {
+          const int u = t - TT_LAG, li = u % TT_NL, st = u % L.slots;
+          bar_wait(landed + li, (u / TT_NL) & 1);
+          const Item it = tall_item(u % per_tile, g1, resident);
+          if (it.kind != 0) {
+            if (u >= L.slots) bar_wait(empty + st, ((u / L.slots) & 1) ^ 1);
+            const uint32_t dst = sring + st * TT_SLOT, land = sland + li * TT_LAND;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (it.kind == 1) {
+                if (q >= 2 && !gated) break;
+                const int idx = pt + (q & 1) * WG_THREADS, r = idx / 4, c = idx % 4;
+                const uint32_t panel = dst + (q < 2 ? 0 : 8192);
+                widen16(land + (q < 2 ? 0 : TT_LAND / 2) + r * 64 + c * 16,
+                        panel + MNMajor{}(r, 2 * c), panel + MNMajor{}(r, 2 * c + 1));
+              } else {
+                const int idx = pt + q * WG_THREADS, r = idx / 8, c = idx % 8;
+                widen16(land + r * 128 + c * 16, dst + MNMajor{}(r, 2 * c),
+                        dst + MNMajor{}(r, 2 * c + 1));
+              }
+            }
+          }
+          bar_arrive(lfree + li);
+          fence_async_smem();
+          bar_arrive(full + st);
+        }
+      }
+    } else if (tma) {
+      if (pt == 0) {
+        if (resident) {
+          bar_expect(xbar, L.ksteps * TT_SLOT);
+          for (int k = 0; k < L.ksteps; ++k)
+            for (int h = 0; h < 2; ++h)
+              tma_load(s0 + k * TT_SLOT + h * 8192, &maps.x, k * TK, n, r0 + 64 * h, xbar);
+        }
+#pragma unroll 1
+        for (int i = 0; i < n_items; ++i) {
+          const int st = i % L.slots;
+          if (i >= L.slots) bar_wait(empty + st, ((i / L.slots) & 1) ^ 1);
+          const uint32_t dst = sring + st * TT_SLOT;
+          const int f0 = (t0 + i / per_tile) * FT_F;
+          const Item it = tall_item(i % per_tile, g1, resident);
+          if (it.kind == 0) {
+            bar_expect(full + st, TT_SLOT);
+            tma_load(dst, &maps.x, it.k * TK, n, r0, full + st);
+            tma_load(dst + 8192, &maps.x, it.k * TK, n, r0 + 64, full + st);
+          } else if (it.kind == 1) {
+            bar_expect(full + st, gated ? TT_SLOT : TT_SLOT / 2);
+            tma_load(dst, &maps.wu, f0, it.k * TK, n, full + st);
+            if (gated) tma_load(dst + 8192, &maps.wg, f0, it.k * TK, n, full + st);
+          } else {
+            bar_expect(full + st, TT_SLOT);
+            tma_load(dst, &maps.wd, c0 + FT_HALF * it.k, f0, n, full + st);
+            tma_load(dst + 8192, &maps.wd, c0 + FT_HALF * it.k + 64, f0, n, full + st);
+          }
+        }
+      }
+    } else {
+      const long wblk = static_cast<long>(n) * a.bi * a.f * ES;
+      const auto* wub = static_cast<const uint8_t*>(a.wu) + wblk;
+      const auto* wgb = gated ? static_cast<const uint8_t*>(a.wg) + wblk : wub;
+      const auto* wdb = static_cast<const uint8_t*>(a.wd) + static_cast<long>(n) * a.f * a.bo * ES;
+      const Rows gx{reinterpret_cast<const uint8_t*>(a.x) + static_cast<long>(n) * a.bi * 2,
+                    2L * a.nb * a.bi, a.m, 2 * a.bi, a.vec_x};
+      // x K step k (128 rows x 64, K-major) at dst: 8 chunks a thread
+      auto copy_x = [&](uint32_t dst, int k) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int idx = pt + q * WG_THREADS, r = idx / 8, c = idx % 8;
+          copy_chunk(dst + KMajor{}(r, c), gx, r0 + r, 2 * k * TK + 16 * c);
+        }
+      };
+      if (resident) {
+        for (int k = 0; k < L.ksteps; ++k) copy_x(s0 + k * TT_SLOT, k);
+        cp_commit();
+        cp_wait<0>();
+        fence_async_smem();
+        bar_arrive(xbar);
+      }
+      // Item i is issued at iteration i and published at i + TT_LAG. A
+      // thread's int8 chunks of an item land at bytes [64 pt, 64 pt + 64)
+      // of its landing buffer, whatever the item, so each thread reads back
+      // only what it copied itself.
+#pragma unroll 1
+      for (int i = 0; i < n_items + TT_LAG; ++i) {
+        if (i < n_items) {
+          const int st = i % L.slots, f0 = (t0 + i / per_tile) * FT_F;
+          const uint32_t dst = sring + st * TT_SLOT;
+          const uint32_t land = sland + (i % TT_NL) * TT_LAND + 64 * pt;
+          const Item it = tall_item(i % per_tile, g1, resident);
+          if ((!INT8 || it.kind == 0) && i >= L.slots)
+            bar_wait(empty + st, ((i / L.slots) & 1) ^ 1);
+          if (it.kind == 0) {
+            copy_x(dst, it.k);
+          } else if (it.kind == 1) {
+            const Rows gu{wub + f0 * ES, static_cast<long>(a.f) * ES, a.bi, (a.f - f0) * ES,
+                          a.vec_w};
+            const Rows gg{wgb + f0 * ES, static_cast<long>(a.f) * ES, a.bi, (a.f - f0) * ES,
+                          a.vec_w};
+            if constexpr (INT8) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                if (q >= 2 && !gated) break;
+                const int idx = pt + (q & 1) * WG_THREADS, r = idx / 4, c = idx % 4;
+                copy_chunk(land + 16 * q, q < 2 ? gu : gg, it.k * TK + r, 16 * c);
+              }
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int idx = pt + q * WG_THREADS, r = idx / 8, c = idx % 8;
+                copy_chunk(dst + MNMajor{}(r, c), gu, it.k * TK + r, 16 * c);
+                if (gated) copy_chunk(dst + 8192 + MNMajor{}(r, c), gg, it.k * TK + r, 16 * c);
+              }
+            }
+          } else {
+            const int cb = c0 + FT_HALF * it.k;
+            const Rows gd{wdb + (static_cast<long>(f0) * a.bo + cb) * ES,
+                          static_cast<long>(a.bo) * ES, a.f - f0, (a.bo - cb) * ES, a.vec_w};
+            if constexpr (INT8) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int idx = pt + q * WG_THREADS, r = idx / 8, c = idx % 8;
+                copy_chunk(land + 16 * q, gd, r, 16 * c);
+              }
+            } else {
+#pragma unroll
+              for (int q = 0; q < 8; ++q) {
+                const int idx = pt + q * WG_THREADS, r = idx / 16, c = idx % 16;
+                copy_chunk(dst + MNMajor{}(r, c), gd, r, 16 * c);
+              }
+            }
+          }
+        }
+        cp_commit();
+        if (i >= TT_LAG) {
+          const int u = i - TT_LAG, st = u % L.slots;
+          cp_wait<TT_LAG>();
+          if constexpr (INT8) {
+            const Item it = tall_item(u % per_tile, g1, resident);
+            if (it.kind != 0) {
+              if (u >= L.slots) bar_wait(empty + st, ((u / L.slots) & 1) ^ 1);
+              const uint32_t dst = sring + st * TT_SLOT;
+              const uint32_t land = sland + (u % TT_NL) * TT_LAND + 64 * pt;
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                if (it.kind == 1) {
+                  if (q >= 2 && !gated) break;
+                  const int idx = pt + (q & 1) * WG_THREADS, r = idx / 4, c = idx % 4;
+                  const uint32_t panel = dst + (q < 2 ? 0 : 8192);
+                  widen16(land + 16 * q, panel + MNMajor{}(r, 2 * c),
+                          panel + MNMajor{}(r, 2 * c + 1));
+                } else {
+                  const int idx = pt + q * WG_THREADS, r = idx / 8, c = idx % 8;
+                  widen16(land + 16 * q, dst + MNMajor{}(r, 2 * c), dst + MNMajor{}(r, 2 * c + 1));
+                }
+              }
+            }
+          }
+          fence_async_smem();
+          bar_arrive(full + st);
+        }
+      }
+    }
+    if (a.split > 1 && REPRO_CUT == 0) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TT_CONSUMER_REGS));
+    const int warp = (tid / 32) % 4, lane = tid % 32, gq = lane / 4, c = lane % 4;
+    const bool lane0 = lane == 0;
+    float acc[2][64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 64; ++q) acc[h][q] = 0.f;
+    if (resident) bar_wait(xbar, 0);
+    auto take = [&](int i) {
+      bar_wait(full + i % L.slots, (i / L.slots) & 1);
+      return sring + (i % L.slots) * TT_SLOT;
+    };
+    auto give = [&](int i) {
+      if (lane0) bar_arrive(empty + i % L.slots);
+    };
+    int i = 0;
+#pragma unroll 1
+    for (int t = t0; t < t1; ++t) {
+      const int f0 = t * FT_F;
+      // ------------------------- GEMM 1: [u | g] (64 x 128) = x @ [Wu | Wg]
+      float ug[64];
+#pragma unroll
+      for (int q = 0; q < 64; ++q) ug[q] = 0.f;
+      int prev = -1;
+#pragma unroll 1
+      for (int k = 0; k < L.ksteps; ++k) {
+        uint32_t xs = s0 + k * TT_SLOT;
+        if (!resident) xs = take(i++);
+        const int wi = i++;
+        const uint32_t ws = take(wi);
+        if (REPRO_CUT != 1 && REPRO_CUT != 5) {
+          fence_acc(ug);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < TK / 16; ++kk)
+            wgmma_n128<0, 1>(ug, desc(xs + wg * 8192 + kk * 32, 16, 1024), desc_mn(ws, kk));
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_acc(ug);
+        }
+        if (prev >= 0) {
+          if (!resident) give(prev - 1);
+          give(prev);
+        }
+        prev = wi;
+      }
+      wgmma_wait<0>();
+      fence_acc(ug);
+      if (!resident) give(prev - 1);
+      give(prev);
+
+      // ------------- the hidden and GEMM 2: y (64 x 256) += h @ Wd (64 f)
+      // Accumulator 4q + 2rh + e: token row 16 warp + gq + 8 rh, channel 8q
+      // + 2c + e (u; g at + 32). Per k16 step j (channels 16j .. 16j + 15:
+      // n8 groups 2j, 2j + 1) the hidden's scale, bias and gate in f32, h as
+      // the A fragment of registers 8j .. 8j + 7 two by two, a hi + lo pair
+      // of bf16, and its wgmmas on both column halves issued at once, so
+      // step j's products overlap step j + 1's epilogue.
+      int di[2] = {0, 0};
+      uint32_t ds[2] = {0u, 0u};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (hf < halves) {
+          di[hf] = i++;
+          ds[hf] = take(di[hf]);
+        }
+      uint32_t hi[4][4], lo[4][4];
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int q = 2 * j; q < 2 * j + 2; ++q)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int fg = f0 + 8 * q + 2 * c + e;
+            const long pf = static_cast<long>(n) * a.f + fg;
+            const bool in = fg < a.f;
+            const float su = a.su && in ? __ldg(a.su + pf) : 1.f;
+            const float bu = a.bu && in ? __ldg(a.bu + pf) : 0.f;
+            const float sg = a.sg && in ? __ldg(a.sg + pf) : 1.f;
+            const float bg = a.bg && in ? __ldg(a.bg + pf) : 0.f;
+#pragma unroll
+            for (int rh = 0; rh < 2; ++rh) {
+              const int r = 4 * q + 2 * rh + e;
+              float h = 0.f;  // padded channels contribute exactly 0
+              if (REPRO_CUT == 3) {
+                h = ug[r];
+              } else if (SILU_GATED) {
+                // branch-free (a branch here, while the previous step's
+                // wgmmas read their registers, cost more than the products)
+                const float u = __fadd_rn(__fmul_rn(ug[r], su), bu);
+                const float g = __fadd_rn(__fmul_rn(ug[32 + r], sg), bg);
+                h = __fmul_rn(__fdividef(g, 1.0f + __expf(-g)), u);
+                h = in ? h : 0.f;
+              } else if (in) {
+                const float u = __fadd_rn(__fmul_rn(ug[r], su), bu);
+                h = gated ? __fmul_rn(activate_tc(__fadd_rn(__fmul_rn(ug[32 + r], sg), bg), a.act), u)
+                          : activate_tc(u, a.act);
+              }
+              ug[r] = h;
+            }
+          }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float h0 = ug[8 * j + 2 * q], h1 = ug[8 * j + 2 * q + 1];
+          const __nv_bfloat162 b = __floats2bfloat162_rn(h0, h1);
+          const float2 back = __bfloat1622float2(b);
+          hi[j][q] = *reinterpret_cast<const uint32_t*>(&b);
+          lo[j][q] = pack_bf16(__fsub_rn(h0, back.x), __fsub_rn(h1, back.y));
+        }
+        if (REPRO_CUT != 1 && REPRO_CUT != 4) {
+          wgmma_fence();
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            if (hf < halves) {
+              wgmma_n128_rs<1>(acc[hf], hi[j], desc_mn(ds[hf], j));
+              wgmma_n128_rs<1>(acc[hf], lo[j], desc_mn(ds[hf], j));
+            }
+          wgmma_commit();
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        fence_regs(hi[j]);
+        fence_regs(lo[j]);
+      }
+      give(di[0]);
+      if (halves > 1) give(di[1]);
+    }
+
+    if (REPRO_CUT != 0) {
+      // the cut variants keep their products alive and store nothing
+      if (acc[0][0] == 1.2345e-38f && acc[1][63] == 1.2345e-38f) a.y[0] = from_f32<bf16>(0.f);
+      return;
+    }
+    // ------------------------------------------------------------ epilogue
+    const long ldy = static_cast<long>(a.nb) * a.bo;
+    const int row0 = 64 * wg + 16 * warp + gq;
+    if (a.split == 1) {
+      // s_down, b_down and bf16 on the accumulators, each warpgroup's 64
+      // rows staged in shared memory (rows padded to TT_OUT_LD bytes, so a
+      // store's 8 rows hit distinct banks) once both consumers' products
+      // have retired (the staging reuses x and the ring), then written 16
+      // bytes a thread, 32 threads a row: every output sector whole.
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * WG_THREADS) : "memory");
+      uint8_t* buf = smem + wg * 64 * TT_OUT_LD;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (hf >= halves) break;
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          const int cl = FT_HALF * hf + 8 * q + 2 * c;
+          float sd[2], bd[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const long pc = static_cast<long>(n) * a.bo + c0 + cl + e;
+            const bool in = c0 + cl + e < a.bo;
+            sd[e] = a.sd && in ? __ldg(a.sd + pc) : 1.f;
+            bd[e] = a.bd && in ? __ldg(a.bd + pc) : 0.f;
+          }
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+            *reinterpret_cast<__nv_bfloat162*>(buf + (16 * warp + gq + 8 * rh) * TT_OUT_LD + 2 * cl) =
+                __floats2bfloat162_rn(__fadd_rn(__fmul_rn(acc[hf][4 * q + 2 * rh], sd[0]), bd[0]),
+                                      __fadd_rn(__fmul_rn(acc[hf][4 * q + 2 * rh + 1], sd[1]), bd[1]));
+        }
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
+      const bool vec = a.bo % 8 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 15) == 0;
+#pragma unroll 4
+      for (int i = tid % WG_THREADS; i < 64 * (FT_COLS / 8); i += WG_THREADS) {
+        const int r = i / (FT_COLS / 8), col = c0 + 8 * (i % (FT_COLS / 8));
+        const int row = r0 + 64 * wg + r;
+        if (row >= a.m || col >= a.bo) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(buf + r * TT_OUT_LD + 2 * (col - c0));
+        bf16* dst = a.y + row * ldy + static_cast<long>(n) * a.bo + col;
+        if (vec && col + 8 <= a.bo) {
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          const bf16* e = reinterpret_cast<const bf16*>(&v);
+          for (int q = 0; q < 8 && col + q < a.bo; ++q) dst[q] = e[q];
+        }
+      }
+      return;
+    }
+    // split f: this block's f32 partial into its own shared memory, once
+    // every product of both consumers has retired (it reuses x and the
+    // ring); then the blocks of the split add the tile's partials in rank
+    // order (the consumer threads, a share of the 4-column groups each),
+    // then s_down, b_down and bf16. The producers join both cluster
+    // barriers.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(2 * WG_THREADS) : "memory");
+    float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+          *reinterpret_cast<float2*>(part + (row0 + 8 * rh) * TT_PLD + FT_HALF * hf + 8 * q + 2 * c) =
+              make_float2(acc[hf][4 * q + 2 * rh], acc[hf][4 * q + 2 * rh + 1]);
+    cluster_sync();
+    // block `rank` adds a contiguous share of the tile's 4-column groups,
+    // neighbouring threads on neighbouring groups (conflict-free remote reads)
+    const int rows = min(TT_ROWS, a.m - r0), split = a.split, rank = cluster_rank();
+    const int groups = rows * (FT_COLS / 4), share = (groups + split - 1) / split;
+    const bool vec_y = a.bo % 4 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 7) == 0;
+    for (int g = rank * share + tid; g < min(groups, (rank + 1) * share); g += 2 * WG_THREADS) {
+      const int row = g / (FT_COLS / 4), col = 4 * (g % (FT_COLS / 4));
+      if (c0 + col >= a.bo) continue;
+      const uint32_t addr = s0 + (row * TT_PLD + col) * 4;
+      float4 t[CLUSTER_SPLIT_MAX];
+#pragma unroll
+      for (int r = 0; r < CLUSTER_SPLIT_MAX; ++r)
+        if (r < split) t[r] = ld_cluster4(addr, r);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < CLUSTER_SPLIT_MAX; ++r)
+        if (r < split) {
+          v[0] = __fadd_rn(v[0], t[r].x);
+          v[1] = __fadd_rn(v[1], t[r].y);
+          v[2] = __fadd_rn(v[2], t[r].z);
+          v[3] = __fadd_rn(v[3], t[r].w);
+        }
+      bf16 o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const long pc = static_cast<long>(n) * a.bo + c0 + col + q;
+        const bool in = c0 + col + q < a.bo;
+        const float sd = a.sd && in ? __ldg(a.sd + pc) : 1.f;
+        const float bd = a.bd && in ? __ldg(a.bd + pc) : 0.f;
+        o[q] = from_f32<bf16>(__fadd_rn(__fmul_rn(v[q], sd), bd));
+      }
+      bf16* dst = a.y + static_cast<long>(r0 + row) * ldy + static_cast<long>(n) * a.bo + c0 + col;
+      if (vec_y && c0 + col + 4 <= a.bo) {
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(o);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (c0 + col + q < a.bo) dst[q] = o[q];
+      }
+    }
+    cluster_sync();  // the other blocks have read this block's partial
+  }
+}
+
 }  // namespace
 }  // namespace tc
 
 namespace {
+
+template <bool INT8, bool SILU_GATED>
+cudaError_t launch_tall(const tc::FArgs& a, cudaStream_t s) {
+  tc::TallMaps maps{};
+  if (a.tma) {  // every row 16-byte aligned
+    // bf16 weights land swizzled in their slot; int8 as plain rows in a
+    // landing buffer (Wd 128 columns a box), widened from there
+    constexpr int es = INT8 ? 1 : 2;
+    const long nb = a.nb, bi = a.bi, f = a.f, bo = a.bo;
+    const long xd[3] = {bi, nb, a.m}, xs[2] = {2 * bi, 2 * nb * bi};
+    const long ud[3] = {f, bi, nb}, us[2] = {es * f, es * bi * f};
+    const long dd[3] = {bo, f, nb}, ds[2] = {es * bo, es * f * bo};
+    const int xb[3] = {tc::TK, 1, 64}, wb[3] = {64, tc::TK, 1};
+    const int db[3] = {INT8 ? tc::FT_HALF : 64, tc::TK, 1};
+    if (!tc::tensor_map_nd(&maps.x, a.x, 2, 3, xd, xs, xb, true) ||
+        !tc::tensor_map_nd(&maps.wu, a.wu, es, 3, ud, us, wb, !INT8) ||
+        !tc::tensor_map_nd(&maps.wg, a.wg ? a.wg : a.wu, es, 3, ud, us, wb, !INT8) ||
+        !tc::tensor_map_nd(&maps.wd, a.wd, es, 3, dd, ds, db, !INT8))
+      return cudaErrorNotSupported;
+  }
+  const dim3 grid(a.split, a.nb, (a.m + tc::TT_ROWS - 1) / tc::TT_ROWS * a.n_chunks);
+  return tc::launch_cluster(tc::fused_ffn_wg_kernel<INT8, SILU_GATED>, tc::TT_THREADS,
+                            tc::tall_layout(a.bi, INT8).bytes, grid, dim3(a.split, 1, 1), s, a,
+                            maps);
+}
 
 template <bool INT8>
 cudaError_t launch_tc(const tc::FArgs& a, cudaStream_t s) {
@@ -704,11 +1357,12 @@ using namespace repro_torch;
 
 // route 0 (simt_f32): x_dtype DT_F32; bm rows per block (4, 8, 16, 32 or
 // 64). route 1 (tc): x_dtype DT_BF16; bm 16 rows per block (one mma row
-// tile); vec_x / vec_w the copy width in bytes of the rows of x and of the
+// tile). route 2 (tc_tall): x_dtype DT_BF16; bm 128 rows per block (two
+// wgmma row tiles); loads by TMA when vec_x = vec_w = 16. vec_x / vec_w the copy width in bytes of the rows of x and of the
 // weights. w_int8:
 // 0 -> weights in x's dtype, 1 -> int8 (+ scales). wg, the scales and the
 // biases may be null. split: blocks along f, each owning fpb f tiles of 64
-// (tc: the split is a cluster, at most 16 blocks). simt_f32 only: part,
+// (tc, tc_tall: the split is a cluster, at most 16 blocks). simt_f32 only: part,
 // split * m * nb * bo f32 (unused when split == 1), and counters, one int
 // per (m tile, column chunk, block), zero on entry and left zero. vec: the
 // SIMT body's weight rows take 4-element copies. Returns cudaGetLastError()
@@ -733,6 +1387,22 @@ extern "C" int fused_ffn_launch(const void* x, const void* wu, const void* wg, c
                       static_cast<__nv_bfloat16*>(y), m, nb, bi, f, bo, act, split, fpb, n_chunks,
                       vec_x, vec_w};
     err = w_int8 ? launch_tc<true>(a, s) : launch_tc<false>(a, s);
+  } else if (route == 2) {
+    if (x_dtype != DT_BF16 || !tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
+    const int n_chunks = (bo + tc::FT_COLS - 1) / tc::FT_COLS;
+    const int n_ft = (f + tc::FT_F - 1) / tc::FT_F;
+    if (bm != tc::TT_ROWS || split > tc::CLUSTER_SPLIT_MAX || (split - 1) * fpb >= n_ft ||
+        split * fpb < n_ft)
+      return bad;
+    const int tma = vec_x == 16 && vec_w == 16;
+    const tc::FArgs a{static_cast<const __nv_bfloat16*>(x), wu, wg, wd, su, sg, sd, bu, bg, bd,
+                      static_cast<__nv_bfloat16*>(y), m, nb, bi, f, bo, act, split, fpb, n_chunks,
+                      vec_x, vec_w, tma};
+    // gated silu (SwiGLU, every olmo-1b FFN) on a branch-free hidden
+    if (wg != nullptr && act == ACT_SILU && !REPRO_TALL_GENERIC)
+      err = w_int8 ? launch_tall<true, true>(a, s) : launch_tall<false, true>(a, s);
+    else
+      err = w_int8 ? launch_tall<true, false>(a, s) : launch_tall<false, false>(a, s);
   } else if (route == 0 && x_dtype == DT_F32) {
     if ((bm != 4 && bm != 8 && bm != 16 && bm != 32 && bm != 64) ||
         (split > 1 && (part == nullptr || counters == nullptr)))

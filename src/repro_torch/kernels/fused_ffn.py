@@ -10,12 +10,16 @@ structure, and block ``n`` of the MLP is independent of the others::
 :func:`fused_ffn` runs that as one launch of ``csrc/fused_ffn.cu``: the
 ``(tokens, d_ff)`` hidden stays in the kernel and never reaches device
 memory. Weights are fp (x's dtype) or int8 with per-output-channel scales
-(``s_up``/``s_gate (nb, f)``, ``s_down (nb, bo)``). bf16 x runs on the
-tensor-core body (mma.sync; the hidden stays in registers as a hi + lo
-pair of bf16), f32 x on the exact SIMT body. The f axis is split across
-blocks to fill the card; the split's f32 partial sums are added in a fixed
-order (tc: inside a cluster of the split's blocks; SIMT: by the last block
-of each output tile, from a workspace), so the result is deterministic. Inputs must lie on one CUDA device;
+(``s_up``/``s_gate (nb, f)``, ``s_down (nb, bo)``). bf16 x runs on a
+tensor-core body, the hidden kept in registers as a hi + lo pair of bf16:
+``tc`` (mma.sync, 16-token blocks) up to ``SPLIT_M_MAX`` rows (decode,
+one prefill chunk), ``tc_tall`` (wgmma, 128-token blocks that reuse each
+block's weights over their tokens) above (training batches, whole-prompt
+admissions, the static prefill). f32 x runs on the exact SIMT body. The f
+axis is split across blocks to fill the card; the split's f32 partial sums
+are added in a fixed order (tc, tc_tall: inside a cluster of the split's
+blocks; SIMT: by the last block of each output tile, from a workspace), so
+the result is deterministic. Inputs must lie on one CUDA device;
 :mod:`repro_torch.kernels.ops` sends CPU tensors to the plain version
 before they get here. ``launches`` counts kernel launches, ``routes`` the
 launches by the body that ran them.
@@ -34,11 +38,13 @@ ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 F_TILE = 64                         # f channels per tile (csrc FS, FT_F)
 COLS_PER_BLOCK = 256                # output columns per block (csrc BO_T, FT_COLS)
 ROW_TILES = (4, 8, 16, 32, 64)      # rows per block of the SIMT body
-TC_ROWS = 16                        # rows per block of the tensor-core body
-SPLIT_M_MAX = 64                    # at or below, the tc split is the same for every m
-ROUTES = {"simt_f32": 0, "tc": 1}   # the bodies of csrc/fused_ffn.cu
+TC_ROWS = 16                        # rows per block of the tc body
+TALL_ROWS = 128                     # rows per block of the tc_tall body
+SPLIT_M_MAX = 64                    # at or below, tc (its split the same for every m)
+ROUTES = {"simt_f32": 0, "tc": 1, "tc_tall": 2}  # the bodies of csrc/fused_ffn.cu
 
 CLUSTER_MAX = 16                    # tc: a tile's f split is one cluster
+TALL_CLUSTER_MAX = 8                # tc_tall: the same, in a portable cluster
 
 launches = {"fused_ffn": 0}
 routes = {r: 0 for r in ROUTES}
@@ -88,30 +94,39 @@ def plan(m: int, nb: int, f: int, bo: int, n_sm: int,
          dtype: torch.dtype = torch.bfloat16) -> Plan:
     """The body, rows per block, blocks along f and f tiles per block.
 
-    bf16 (``tc``): tiles of 16 tokens, a block each; up to ``SPLIT_M_MAX``
-    rows every f tile is its own block whatever m is (16 blocks along f at
-    f = 1024, 128 blocks at olmo-1b's width and m = 4), so a token's output
-    does not depend on the chunk it rides in; above, enough f splits that
-    the grid covers the card's ``n_sm`` SMs. A tile's split is one
-    cluster, so at most ``CLUSTER_MAX`` blocks. f32 (``simt_f32``): the
+    bf16 up to ``SPLIT_M_MAX`` rows (``tc``): tiles of 16 tokens, every f
+    tile its own block whatever m is (16 blocks along f at f = 1024, 128
+    blocks at olmo-1b's width and m = 4), so a token's output does not
+    depend on the chunk it rides in; a tile's split is one cluster, so at
+    most ``CLUSTER_MAX`` blocks. bf16 above (``tc_tall``, int8 weights too):
+    tiles of 128 tokens, split along f into the most blocks (at most
+    ``TALL_CLUSTER_MAX``, one portable cluster) whose grid stays within
+    three quarters of the card's ``n_sm`` SMs (a block an SM), or into two
+    where nothing wider fits and two fill the card: in the sweep of
+    ``benchmarks/torch_fused_ffn.py`` a full wave of wider clusters ran
+    slower. None at m = 2048 and olmo-1b's width (128 blocks), 2 at m = 544
+    and 1024, 3 at 512, 8 at 128. f32 (``simt_f32``): the
     smallest row tile that holds ``m``, then enough f splits that the grid
     covers the card (one block per SM by register use)."""
     n_ft = -(-f // F_TILE)
     chunks = -(-bo // COLS_PER_BLOCK)
     if dtype == torch.bfloat16:
-        route, bm = "tc", TC_ROWS
+        route, bm = (("tc", TC_ROWS) if m <= SPLIT_M_MAX
+                     else ("tc_tall", TALL_ROWS))
     elif dtype == torch.float32:
         route, bm = "simt_f32", next((t for t in ROW_TILES if m <= t),
                                      ROW_TILES[-1])
     else:
         raise ValueError(f"fused_ffn kernel: x dtype {dtype}")
-    if route == "tc" and m <= SPLIT_M_MAX:
+    cells = -(-m // bm) * nb * chunks
+    if route == "tc":
         split = min(n_ft, CLUSTER_MAX)
+    elif route == "tc_tall":
+        split = min(n_ft, TALL_CLUSTER_MAX, max(1, 3 * n_sm // 4 // cells))
+        if split == 1 and n_ft > 1 and 2 * cells <= n_sm:
+            split = 2
     else:
-        cells = -(-m // bm) * nb * chunks
         split = min(n_ft, max(1, -(-n_sm // cells)))
-        if route == "tc":
-            split = min(split, CLUSTER_MAX)
     fpb = -(-n_ft // split)
     return Plan(route, bm, -(-n_ft // fpb), fpb)
 
@@ -132,12 +147,15 @@ def fused_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
               s_up: Optional[torch.Tensor] = None,
               s_gate: Optional[torch.Tensor] = None,
               s_down: Optional[torch.Tensor] = None, *,
-              activation: Optional[str] = "silu") -> torch.Tensor:
+              activation: Optional[str] = "silu",
+              force: Optional[Plan] = None) -> torch.Tensor:
     """Fused block-diagonal MLP ``(..., nb*bi) -> (..., nb*bo)``.
 
     ``w_up``/``w_gate (nb, bi, f)``, ``w_down (nb, f, bo)``, contiguous, in
     x's dtype or all int8 with their scales; biases packed ``(nb*f,)`` /
-    ``(nb*bo,)``. Gated when ``w_gate`` is given."""
+    ``(nb*bo,)``. Gated when ``w_gate`` is given. ``force`` replaces
+    :func:`plan`'s choice (the card tests and the benchmark's sweep run
+    other bodies and splits with it)."""
     nb, bi, f = w_up.shape
     if w_down.dim() != 3 or tuple(w_down.shape[:2]) != (nb, f):
         raise ValueError(f"fused_ffn: w_up {tuple(w_up.shape)} vs w_down "
@@ -188,7 +206,7 @@ def fused_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     if dev.index not in _sm_count:
         _sm_count[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    p = plan(m, nb, f, bo, _sm_count[dev.index], x.dtype)
+    p = force or plan(m, nb, f, bo, _sm_count[dev.index], x.dtype)
     part = counters = None
     if p.split > 1 and p.route == "simt_f32":
         part = torch.empty((p.split, m, nb * bo), dtype=torch.float32,

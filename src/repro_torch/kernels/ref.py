@@ -167,14 +167,17 @@ def hi_lo(h):
 def fused_ffn_split_ref(x, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
                         b_down=None, s_up=None, s_gate=None, s_down=None,
                         activation: Optional[str] = "silu", f_tile: int = 64,
-                        f_warp: int = 16):
-    """The order of the fused MLP's tensor-core body, in plain PyTorch. Per
-    f tile (one block of the split) and per ``f_warp`` channels of it (one
-    warp): u and g in f32, scale, bias and gate in f32, the hidden as a hi +
-    lo pair of bf16 and its down product in f32; the warps' partials added
-    in warp order, the tiles' in the order s = 0, 1, ... from zero; then
-    ``* s_down``, ``+ b_down`` and one cast to x's dtype. Weights in x's
-    dtype, or int8 with their scales."""
+                        f_warp: int = 16, body: str = "tc", split: int = 1):
+    """The order of the fused MLP's tensor-core bodies, in plain PyTorch: u
+    and g in f32, scale, bias and gate in f32, the hidden as a hi + lo pair
+    of bf16 and its down product in f32, then ``* s_down``, ``+ b_down`` and
+    one cast to x's dtype. ``body="tc"``: per f tile (one block of the
+    split) and per ``f_warp`` channels of it (one warp), the warps' partials
+    added in warp order, the tiles' in the order s = 0, 1, ... from zero.
+    ``body="tc_tall"``: the f tiles cut into ``split`` runs of consecutive
+    tiles (one block each), each run's tiles (hi, then lo) accumulated from
+    zero in one sum, the runs' partials added in rank order from zero.
+    Weights in x's dtype, or int8 with their scales."""
     nb, bi, f = w_up.shape
     bo = w_down.shape[2]
     lead = x.shape[:-1]
@@ -192,15 +195,27 @@ def fused_ffn_split_ref(x, w_up, w_down, w_gate=None, b_up=None, b_gate=None,
     h = act(proj(w_gate, s_gate, b_gate)) * u if w_gate is not None else act(u)
     hi, lo = hi_lo(h)
     wd = w_down.float()
+    down = lambda h, sl: torch.einsum("mnf,nfo->mno",  # noqa: E731
+                                      h[..., sl].float(), wd[:, sl])
     y = torch.zeros(xb.shape[0], nb, bo, dtype=torch.float32, device=x.device)
-    for t0 in range(0, f, f_tile):
-        tile = None
-        for w0 in range(t0, min(t0 + f_tile, f), f_warp):
-            sl = slice(w0, min(w0 + f_warp, f))
-            part = (torch.einsum("mnf,nfo->mno", hi[..., sl].float(), wd[:, sl])
-                    + torch.einsum("mnf,nfo->mno", lo[..., sl].float(), wd[:, sl]))
-            tile = part if tile is None else tile + part
-        y = y + tile
+    if body == "tc_tall":
+        n_ft = -(-f // f_tile)
+        fpb = -(-n_ft // split)
+        for r0 in range(0, n_ft, fpb):
+            part = torch.zeros_like(y)
+            for t in range(r0, min(r0 + fpb, n_ft)):
+                sl = slice(t * f_tile, min((t + 1) * f_tile, f))
+                part = part + down(hi, sl)
+                part = part + down(lo, sl)
+            y = y + part
+    else:
+        for t0 in range(0, f, f_tile):
+            tile = None
+            for w0 in range(t0, min(t0 + f_tile, f), f_warp):
+                sl = slice(w0, min(w0 + f_warp, f))
+                part = down(hi, sl) + down(lo, sl)
+                tile = part if tile is None else tile + part
+            y = y + tile
     if s_down is not None:
         y = y * s_down.float()
     if b_down is not None:

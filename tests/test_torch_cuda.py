@@ -39,7 +39,9 @@ where mag = (|h| + dh) @ |Wd| (times s_down) + |b_down| and dh = |act(g)|
 |x|@|Wu| + 1.2 |u| |x|@|Wg| bounds how far the summation order of the up
 and gate sums moves the hidden (1.2 bounds |act'| for silu, gelu and relu;
 1.2 |x|@|Wu| for the plain form). u_out as above. The same rule must reject
-the plain output with the first f tile (64 channels) of w_down zeroed.
+the plain output with the first f tile (64 channels) of w_down zeroed. Both
+bf16 bodies take it: tc up to 64 rows, tc_tall above (with its f split over
+a cluster or forced to one block).
 
 bdmm's tensor-core bodies (bf16 above 32 rows, both orientations) take
 the bf16 rule above against the plain version in float32 on the same
@@ -1437,10 +1439,16 @@ def _ffn_within(got, want32, mag, dtype):
 # (m, nb, bi, f, bo): decode and a prefill chunk at olmo-1b's width, then
 # every edge ragged (m, bi, f and bo against the 4..64-row, 32-deep, 64-f
 # and 256-column tiles; f = 200 splits into 4 tiles, the last partial), and
-# bi 320, deeper than the tensor-core body keeps resident (its K ring turns)
+# bi 320, deeper than the tensor-core body keeps resident (its K ring
+# turns). Above 64 rows the tc_tall body: a training batch and the dense
+# engine's top admission bucket at olmo-1b's width, ragged edges against
+# its 128-row tiles (bo 300: rows TMA refuses), bi 320 past its resident x,
+# and olmo-1b's width at mpd_c=4 (bi 512, bo 512: two column chunks)
 FFN_SHAPES = [(4, 8, 256, 1024, 256), (64, 8, 256, 1024, 256),
               (1, 2, 40, 200, 24), (37, 3, 72, 200, 300), (100, 2, 64, 130, 20),
-              (20, 2, 320, 200, 24)]
+              (20, 2, 320, 200, 24), (2048, 8, 256, 1024, 256),
+              (544, 8, 256, 1024, 256), (200, 3, 72, 200, 300),
+              (129, 2, 320, 200, 24), (512, 4, 512, 2048, 512)]
 
 
 @pytest.mark.parametrize("act,gated,bias", [("silu", True, False),
@@ -1460,7 +1468,7 @@ def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
                          a.get("s_up"), a.get("s_gate"), a.get("s_down"),
                          activation=act)
     assert tffn.launches["fused_ffn"] == before + 1
-    body = "tc" if dtype == torch.bfloat16 else "simt_f32"
+    body = tffn.plan(m, nb, f, bo, _sm_count(cuda_device), dtype).route
     assert {r: tffn.routes[r] - routes[r] for r in routes} == {
         r: int(r == body) for r in routes}
     assert got.dtype == dtype and got.shape == (m, nb * bo)
@@ -1476,6 +1484,35 @@ def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
                            a.get("s_up"), a.get("s_gate"), a.get("s_down"),
                            activation=act)
     assert torch.equal(got, again)
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_fused_ffn_tall_split_equals_one_split(cuda_device, quant, gated):
+    """The tc_tall body with its f split over a cluster (m = 512 at
+    olmo-1b's width: 4 blocks of 4 f tiles) against the same call forced to
+    one block of all 16 tiles: both within the bf16 rule of the plain
+    version in f32."""
+    a = _ffn_case(cuda_device, 512, 8, 256, 1024, 256, torch.bfloat16, quant,
+                  gated, True, seed=11)
+    act = "silu" if gated else "gelu"
+    p = tffn.plan(512, 8, 1024, 256, _sm_count(cuda_device))
+    assert p.route == "tc_tall" and p.split > 1
+
+    def run(force=None):
+        return tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                              a.get("b_up"), a.get("b_gate"), a.get("b_down"),
+                              a.get("s_up"), a.get("s_gate"), a.get("s_down"),
+                              activation=act, force=force)
+    split = run()
+    one = run(tffn.Plan("tc_tall", tffn.TALL_ROWS, 1, 16))
+    want, mag = _ffn_plain32(a, act)
+    assert _ffn_within(split, want, mag, torch.bfloat16)
+    assert _ffn_within(one, want, mag, torch.bfloat16)
 
 
 @pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])

@@ -142,15 +142,28 @@ def test_fused_ffn_raises_under_grad_and_on_bad_inputs():
 
 def test_kernel_plan_fills_the_card_at_olmo_width():
     """(body, rows per block, f splits, f tiles per block) at olmo-1b's
-    fused FFN (nb 8, f 1024, bo 256) on 132 SMs. bf16 (the tensor-core
-    body): 16-token tiles, every f tile its own block up to 64 rows (decode
-    and one prefill chunk: 16 x 8 blocks a row tile); a long prefill needs
-    no split. f32 (the SIMT body): the smallest row tile that holds m, and
-    f split 16 ways (128 blocks) at decode and one prefill chunk."""
+    fused FFN (nb 8, f 1024, bo 256) on 132 SMs. bf16 x up to 64 rows (tc):
+    16-token tiles, every f tile its own block (decode and one prefill
+    chunk: 16 x 8 blocks a row tile). Above (tc_tall, bf16 or int8
+    weights: the plan depends on x's dtype alone): 128-token tiles, the f
+    split as wide as three quarters of the card allow, two-way where that
+    fills it: none for a training batch (2048 rows: 16 x 8 blocks), 8 ways
+    at 128 rows, 2 ways at the dense engine's 544-row admission (80
+    blocks) and at 1024 rows (128 blocks). f32 (the SIMT body): the
+    smallest row tile that holds m, and f split 16 ways (128 blocks) at
+    decode and one prefill chunk."""
     bf16 = lambda m, f=1024: tuple(tffn.plan(m, 8, f, 256, 132))  # noqa: E731
     assert bf16(4) == bf16(64) == ("tc", 16, 16, 1)
     assert bf16(37, 1000) == ("tc", 16, 16, 1)
-    assert bf16(2048) == ("tc", 16, 1, 16)
+    assert bf16(2048) == ("tc_tall", 128, 1, 16)
+    assert bf16(128) == bf16(65) == ("tc_tall", 128, 8, 2)
+    assert bf16(512) == ("tc_tall", 128, 3, 6)
+    assert bf16(544) == ("tc_tall", 128, 2, 8)
+    assert bf16(1024) == ("tc_tall", 128, 2, 8)
+    assert bf16(1536) == ("tc_tall", 128, 1, 16)
+    # olmo-1b at mpd_c=4 (nb 4, f 2048, bo 512: two column chunks)
+    assert tuple(tffn.plan(2048, 4, 2048, 512, 132)) == ("tc_tall", 128, 1, 32)
+    assert tuple(tffn.plan(512, 4, 2048, 512, 132)) == ("tc_tall", 128, 3, 11)
     f32 = lambda m, f=1024: tuple(tffn.plan(m, 8, f, 256, 132,  # noqa: E731
                                             torch.float32))
     assert f32(4) == ("simt_f32", 4, 16, 1)
@@ -171,23 +184,50 @@ def test_kernel_plan_does_not_depend_on_m_up_to_a_chunk(nb, f, bo):
     assert plans == {("tc", tffn.TC_ROWS, -(-f // tffn.F_TILE), 1)}
 
 
+@pytest.mark.parametrize("m", [65, 300, 4096])
+@pytest.mark.parametrize("nb,f,bo", [(8, 1024, 256), (4, 2048, 512),
+                                     (3, 200, 300), (2, 130, 20)])
+def test_tall_plan_keeps_one_wave_of_clusters(nb, f, bo, m):
+    """Above 64 rows every bf16 call takes tc_tall on 128-row tiles. Its f
+    split is one portable cluster (at most ``TALL_CLUSTER_MAX``, within
+    ``CLUSTER_MAX``) of blocks that each own at least one f tile, and the
+    grid stays within one wave of blocks (a block an SM); a grid of row
+    tiles that fills the card alone takes no split. A split wider than
+    two keeps a quarter of the card free."""
+    n_sm, n_ft = 132, -(-f // tffn.F_TILE)
+    p = tffn.plan(m, nb, f, bo, n_sm)
+    cells = -(-m // tffn.TALL_ROWS) * nb * -(-bo // tffn.COLS_PER_BLOCK)
+    assert (p.route, p.rows) == ("tc_tall", tffn.TALL_ROWS)
+    assert 1 <= p.split <= tffn.TALL_CLUSTER_MAX <= tffn.CLUSTER_MAX
+    assert p.split == 1 or cells * p.split <= n_sm
+    assert p.split <= 2 or 4 * cells * p.split <= 3 * n_sm
+    assert (p.split - 1) * p.fpb < n_ft <= p.split * p.fpb
+    if cells >= n_sm:
+        assert p.split == 1
+
+
+@pytest.mark.parametrize("body,split", [("tc", 1), ("tc_tall", 1),
+                                        ("tc_tall", 3)])
 @pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
-def test_split_f_hi_lo_order_matches_jax_interpret_kernel(gated, quant):
-    """The tensor-core body's order (``ref.fused_ffn_split_ref``: the hidden
-    in f32 as a hi + lo pair of bf16, its down product per 16 f channels
-    added in warp order, the 64-channel f tiles in split order from zero)
-    against the Pallas kernel in interpret mode at float32 (h and the down
-    product in f32). f = 200 leaves a partial last tile and warp. Tolerance,
-    elementwise: 2^-15 (|h| @ |Wd| (* s_down)) + 1e-5 |y| + 1e-6; hi + lo
-    is within 2^-16 |h| of h, and the rest is summation order. One bf16
-    rounding of h (2^-8 |h|) would not pass."""
+def test_split_f_hi_lo_order_matches_jax_interpret_kernel(gated, quant, body,
+                                                         split):
+    """The tensor-core bodies' orders (``ref.fused_ffn_split_ref``: the
+    hidden in f32 as a hi + lo pair of bf16; tc: its down product per 16 f
+    channels added in warp order, the 64-channel f tiles in split order
+    from zero; tc_tall: runs of f tiles, one a block, each summed from zero,
+    the runs in rank order) against the Pallas kernel in interpret mode at
+    float32 (h and the down product in f32). f = 200 leaves a partial last
+    tile and warp. Tolerance, elementwise: 2^-15 (|h| @ |Wd| (* s_down)) +
+    1e-5 |y| + 1e-6; hi + lo is within 2^-16 |h| of h, and the rest is
+    summation order. One bf16 rounding of h (2^-8 |h|) would not pass."""
     a = _ffn_inputs(5, 9, 2, 40, 200, 24, gated, True, quant=quant)
     act = "silu" if gated else "gelu"
     t, j = _torch(a), _jax(a)
     keys = ("w_gate", "b_up", "b_gate", "b_down", "s_up", "s_gate", "s_down")
     got = tref.fused_ffn_split_ref(t["x"], t["w_up"], t["w_down"],
-                                   activation=act, **{k: t.get(k) for k in keys})
+                                   activation=act, body=body, split=split,
+                                   **{k: t.get(k) for k in keys})
     want = np.asarray(jffn.fused_ffn(j["x"], j["w_up"], j["w_down"],
                                      activation=act, interpret=True, bm=8,
                                      bf=8, **{k: j.get(k) for k in keys}))
