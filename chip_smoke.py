@@ -179,6 +179,26 @@ Phases, each printed as one JSON line:
    the step loop waited on them are recorded. Phase 12 also runs its step
    in ``packed_fused`` mode (the fused_ffn rule at f32), and the kernels
    phase holds the fused MLP at m = 2048 (a training batch) too.
+20. ``surface`` (run after phase 15) — the serving surface at full width
+   on phase 4's model (int8, bf16, captured, 4 slots, page 16, prompts of
+   64-128 tokens): 4 batch requests fill the slots and 4 interactive ones
+   arrive (at least one preemption; every stream equal to the request's
+   stream served alone); the storm schedule (NaN and Inf logits, an
+   engine-step exception, a slow step, pool exhaustion) under the
+   launcher's ``--chaos-verify`` rule (every completed stream equal to a
+   fault-free engine's, the pools conserved, the metrics' counters equal
+   to the injections, one caught step fault per injected one and no
+   other); the same with speculation on phase 14's target and its int8
+   draft, the schedule poisoning the draft and the target window at the
+   first step of the fault-free run where both slots decode; a deadline
+   abort whose pages come back within the step; ``GenerateServer`` on
+   127.0.0.1 with 4 SSE clients streaming the direct engine's tokens, one
+   more that disconnects (its pages come back), ``/metrics`` parsing as
+   Prometheus text and ``/healthz``; then serve_bench's degraded traffic
+   (mixed priorities with SLOs) on a self-drafting spec engine at ladder
+   stages 0 and 1: SLO attainment per class and decode tok/s, recorded.
+   No engine captures a graph after its ``warmup()``. Every earlier
+   serving phase also fails on a step fault caught and retried.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -1494,7 +1514,7 @@ def serve_phase(torch, dev, ops):
     # the same traffic eager and captured, in turns
     turns = graph_turns(torch, model, params, kw, cfg)
 
-    done = summary["n_done"] == len(reqs) and all(
+    done = summary["n_done"] == len(reqs) and no_hidden_faults(summary) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
     # bf16 prefill chunks and decode steps on the tensor-core body
@@ -1678,7 +1698,8 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
         runs = dict(engine.runs)
         draft_ms = engine.run_ms["draft_decode"]
         verify_ms = engine.run_ms["verify"]
-        done = summary["n_done"] == len(reqs)
+        done = (summary["n_done"] == len(reqs)
+                and no_hidden_faults(summary))
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -1748,7 +1769,7 @@ def exact_phase(torch, dev, ops, fuse=False):
 
     over = dict(mpd_fuse=True, n_layers=EXACT_FUSED_LAYERS) if fuse else {}
     cfg, model, params, _ = olmo_engine(torch, dev, "float32", **over)
-    streams, counts, captures = {}, {}, {}
+    streams, counts, captures, faults = {}, {}, {}, {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
         ops.reset_launch_counts()
@@ -1763,6 +1784,7 @@ def exact_phase(torch, dev, ops, fuse=False):
         torch.cuda.synchronize()
         counts[backend] = ops.launch_counts()
         captures[backend] = engine.n_captures
+        faults[backend] = engine.metrics.summary()
         del engine
     a, b = streams["cuda"], streams["torch"]
     diverge = []
@@ -1775,7 +1797,9 @@ def exact_phase(torch, dev, ops, fuse=False):
                              and not any(counts["torch"].values()))
     captured = captures["cuda"] > 0 and captures["torch"] == 0
     row = {"phase": "exact_fused" if fuse else "exact",
-           "ok": not diverge and routes_ok and captured, "dtype": "float32",
+           "ok": (not diverge and routes_ok and captured
+                  and all(map(no_hidden_faults, faults.values()))),
+           "dtype": "float32",
            "graphs_captured": captures,
            "weights": "int8", "n_layers": cfg.n_layers,
            "cut": f"{cfg.n_layers} of 16 layers", "requests": len(a),
@@ -1811,6 +1835,16 @@ def instrument_steps(torch, engine):
     setattr(engine, name, timed_step)
     engine._verify = counted_verify
     return calls
+
+
+def no_hidden_faults(summary, step_faults: int = 0,
+                     quarantines: int = 0) -> bool:
+    """No engine-step fault was caught and no row was quarantined beyond
+    the ones a schedule injected: a real kernel fault that a retry hid, or
+    a real non-finite row that a quarantine regenerated, fails the
+    phase."""
+    return (summary["n_step_faults"] == step_faults
+            and summary["n_quarantines"] == quarantines)
 
 
 def pools_conserved(engine) -> bool:
@@ -1857,7 +1891,9 @@ def exact_spec_phase(torch, dev, ops, exact_run):
                 "tokens_per_step": s["tokens_per_step_mean"],
                 "verify_calls": calls["verify"], "launches": counts,
                 "graphs_captured": engine.n_captures,
-                "pools_conserved": pools_conserved(engine)}
+                "pools_conserved": pools_conserved(engine),
+                "step_faults": s["n_step_faults"],
+                "quarantines": s["n_quarantines"]}
         k_route, p_route = res["cuda"], res["torch"]
         diverge = [rid for rid in sorted(base)
                    if not (streams["cuda"][rid] == streams["torch"][rid]
@@ -1871,7 +1907,9 @@ def exact_spec_phase(torch, dev, ops, exact_run):
                     and k_route["pools_conserved"]
                     and p_route["pools_conserved"]
                     and k_route["graphs_captured"] > 0
-                    and p_route["graphs_captured"] == 0)
+                    and p_route["graphs_captured"] == 0
+                    and k_route["step_faults"] == p_route["step_faults"] == 0
+                    and k_route["quarantines"] == p_route["quarantines"] == 0)
         ok = ok and draft_ok
         out[name] = {"ok": draft_ok, "diverging_requests": diverge,
                      "acceptance_ok": acc_ok, "launches_ok": launches_ok,
@@ -1916,7 +1954,7 @@ def dense_phase(torch, dev, ops, served):
     del engine
     window = decode_window(torch, model, params, kw, cfg)
     turns = graph_turns(torch, model, params, kw, cfg)
-    done = summary["n_done"] == len(reqs) and all(
+    done = summary["n_done"] == len(reqs) and no_hidden_faults(summary) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
     # int8 blocks above 32 rows (the whole-prompt prefill) take the small-m
@@ -1993,6 +2031,7 @@ def static_phase(torch, dev, ops, dense_run):
         (j for j, (a, b) in enumerate(zip(rows[i], streams[i])) if a != b),
         None)} for i in range(len(rows)) if rows[i] != streams[i]]
     ok = (not diverge and out["route"] == "captured"
+          and no_hidden_faults(engine.metrics.summary())
           and launches["bdmm"] > 0 and launches["bdmm_decode"] > 0)
     row = {"phase": "static", "ok": ok, "argv": STATIC, "weights": "int8",
            "n_layers": cfg.n_layers, "decode_route": out["route"],
@@ -2014,7 +2053,7 @@ def exact_dense_phase(torch, dev, ops, exact_run):
     cfg, model, params, base = exact_run
     kw = dict(n_slots=EXACT_ENGINE["n_slots"], max_len=EXACT_ENGINE["max_len"],
               paged=False)
-    streams, counts, captures = {}, {}, {}
+    streams, counts, captures, faults = {}, {}, {}, {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
         ops.reset_launch_counts()
@@ -2027,11 +2066,13 @@ def exact_dense_phase(torch, dev, ops, exact_run):
         torch.cuda.synchronize()
         counts[backend] = ops.launch_counts()
         captures[backend] = engine.n_captures
+        faults[backend] = engine.metrics.summary()
         del engine
     diverge = [rid for rid in sorted(base)
                if not (streams["cuda"][rid] == streams["torch"][rid]
                        == base[rid])]
     ok = (not diverge and captures["cuda"] > 0 and captures["torch"] == 0
+          and all(map(no_hidden_faults, faults.values()))
           and counts["cuda"]["bdmm"] > 0 and counts["cuda"]["bdmm_decode"] > 0
           and not any(counts["torch"].values()))
     row = {"phase": "exact_dense", "ok": ok, "dtype": "float32",
@@ -2068,7 +2109,7 @@ def cli_phase(torch, dev, ops):
         s = launch.main(CLI + extra)
         torch.cuda.synchronize()
         launches = ops.launch_counts()
-        done = s["n_done"] == s["n_requests"] == 4
+        done = s["n_done"] == s["n_requests"] == 4 and no_hidden_faults(s)
         runs[name] = {"ok": done, "tok_s": s["agg_tok_s"],
                       "ttft_p50_ms": s["ttft_p50_s"] * 1e3,
                       "kv_bytes_reserved": s["kv_bytes_reserved"],
@@ -2119,7 +2160,8 @@ def spec_phase(torch, dev, ops, target, draft):
         counts = ops.launch_counts()
         routes = mm_routes()
         attn_routes = dict(pa.routes)
-        done = summary["n_done"] == len(reqs) and all(
+        done = summary["n_done"] == len(reqs) and no_hidden_faults(
+            summary) and all(
             len(r.generated) == r.max_new_tokens
             and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
         got = {r.id: list(r.generated) for r in reqs}
@@ -2209,6 +2251,445 @@ def divergence(torch, model, params, req, base):
             "top2_logit_gap": float(top[0] - top[1])}
 
 
+# the serving surface: priorities and preemption, the watchdog under chaos
+# (with and without speculation), deadlines, the HTTP/SSE frontend and the
+# degradation ladder. Prompts of 64-128 tokens (one or two chunks) put the
+# storm schedule's steps 3-13 among live decodes.
+SURFACE_ENGINE = dict(n_slots=4, max_len=128 + 32, page_size=16,
+                      prefill_chunk_tokens=64)
+SURFACE_TRAFFIC = dict(n_requests=8, rate=1e9, prompt_len=128, gen=32,
+                       seed=0, shared_prefix=32)
+# serve_bench.run_degraded's mixed-priority stream and engine
+# (benchmarks/serve_bench.py _mixed_requests and bench(), its full tier at
+# its highest rate: 64 requests, max_gen 64, 8 slots, page 8)
+DEGRADED = dict(n=64, rate=256.0, prompt_len=8, max_gen=64, seed=0)
+DEGRADED_ENGINE = dict(n_slots=8, max_len=8 + 64, page_size=8)
+PROM_SAMPLE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? -?([0-9.e+-]+|inf|nan)$'
+
+
+def mixed_requests(cfg, *, n, rate, prompt_len, max_gen, seed):
+    """``benchmarks/serve_bench.py::_mixed_requests`` on the port's
+    ``Request``: alternating interactive (short answers, TTFT 2 s and e2e
+    8 s SLOs) and batch (long answers, e2e 60 s) Poisson arrivals."""
+    import numpy as np
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(n, prompt_len)).astype(np.int32)
+    t, out = 0.0, []
+    for i in range(n):
+        t += rng.exponential(1.0 / rate)
+        if i % 2 == 0:
+            out.append(Request(
+                id=i, prompt=toks[i], priority="interactive",
+                max_new_tokens=int(rng.integers(2, max(max_gen // 8, 3))),
+                ttft_slo_s=2.0, e2e_slo_s=8.0, arrival_time=t))
+        else:
+            out.append(Request(
+                id=i, prompt=toks[i], priority="batch",
+                max_new_tokens=int(rng.integers(max_gen - max_gen // 4,
+                                                max_gen + 1)),
+                e2e_slo_s=60.0, arrival_time=t))
+    return out
+
+
+def surface_requests(cfg, priorities=None):
+    from repro_torch.launch.serve import make_requests
+
+    reqs = make_requests(cfg, **SURFACE_TRAFFIC)
+    for r, p in zip(reqs, priorities or ()):
+        r.priority = p
+    return reqs
+
+
+def step_log(engine):
+    """Record ``(step, live slots)`` of every speculative step of
+    ``engine``; delete the instance attribute to undo."""
+    log, step = [], engine._step_spec
+
+    def logged():
+        log.append((engine.step_count - 1,
+                    [int(s) for s in engine._live.nonzero()[0]]))
+        return step()
+    engine._step_spec = logged
+    return log
+
+
+def serve_all(engine, reqs):
+    """Serve ``reqs`` (all arrived) and whatever ``engine`` already holds
+    to the end, within a bound of steps; the streams of ``reqs``."""
+    engine.run(reqs, max_steps=20_000)
+    return {r.id: list(r.generated) for r in reqs}
+
+
+def chaos_check(engine, reqs, base, quarantines):
+    """The launcher's ``--chaos-verify`` rule and the counters: every
+    request the chaos run completed streamed the fault-free tokens; the
+    pools are conserved; the metrics counted every injection, a caught step
+    fault for each injected one and no other, and exactly ``quarantines``
+    quarantines, the poisoned rows that were live (one more is a real
+    non-finite row that a quarantine hid)."""
+    inj = engine.resilience.injector
+    aborted = [r.id for r in reqs if r.finish_reason in ("fault", "deadline")]
+    diverged = [r.id for r in reqs
+                if r.id not in aborted and list(r.generated) != base[r.id]]
+    s = engine.metrics.summary()
+    counted = engine.metrics.faults_injected == {
+        k: v for k, v in inj.counts.items() if v}
+    out = {"injected": {k: v for k, v in inj.counts.items() if v},
+           "n_quarantines": engine.n_quarantines,
+           "n_step_faults": s["n_step_faults"],
+           "n_fault_failures": s["n_fault_failures"],
+           "degradation_max_stage": (engine.resilience.ladder.max_stage
+                                     if engine.resilience.ladder else None),
+           "completed_identical": len(reqs) - len(aborted) - len(diverged),
+           "aborted": aborted, "diverged": diverged,
+           "pools_conserved": pools_conserved(engine),
+           "counters_equal_injections": counted}
+    out["ok"] = (not diverged and not aborted and counted
+                 and out["pools_conserved"] and s["n_done"] == len(reqs)
+                 and no_hidden_faults(s, inj.counts["engine_step"],
+                                      quarantines)
+                 and engine.n_quarantines == s["n_quarantines"])
+    return out
+
+
+def sse_clients(torch, engine, reqs, base):
+    """``GenerateServer`` on 127.0.0.1 over ``engine``: one SSE client per
+    request in ``reqs`` (each must stream its ``base`` tokens) and one more
+    that disconnects after its first token (its pages must come back), then
+    ``/metrics`` (every sample line parses as Prometheus text) and
+    ``/healthz``. The clients are ``examples/torch_serve_http_client.py``'s."""
+    import asyncio
+    import contextlib
+    import importlib.util
+    import io
+    import re
+
+    from repro_torch.serve import GenerateServer
+
+    path = ROOT / "examples" / "torch_serve_http_client.py"
+    spec = importlib.util.spec_from_file_location("torch_serve_http_client",
+                                                  path)
+    client = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(client)
+    host = "127.0.0.1"
+
+    def body(req):
+        return {"prompt": [int(t) for t in req.prompt],
+                "max_new_tokens": req.max_new_tokens}
+
+    async def generate(port, req):
+        try:
+            return await client.generate(host, port, body(req), str(req.id))
+        except SystemExit:              # the client's non-200 exit
+            return None, None
+
+    async def drop(port, req):
+        reader, writer = await asyncio.open_connection(host, port)
+        data = json.dumps(body(req)).encode()
+        writer.write(b"POST /v1/generate HTTP/1.1\r\nHost: t\r\n"
+                     + f"Content-Length: {len(data)}\r\n\r\n".encode()
+                     + data)
+        await writer.drain()
+        got = b""
+        while b"event: token" not in got:
+            chunk = await reader.read(4096)
+            if not chunk:
+                break
+            got += chunk
+        writer.close()
+        await writer.wait_closed()
+
+    async def main():
+        server = GenerateServer(engine, host=host, port=0, queue_limit=16)
+        await server.start()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = await asyncio.wait_for(asyncio.gather(
+                *[generate(server.port, r) for r in reqs],
+                drop(server.port, reqs[0])), timeout=120)
+        for _ in range(12_000):             # the cancelled request drains
+            if not engine.has_work():
+                break
+            await asyncio.sleep(0.01)
+        seconds = time.perf_counter() - t0
+        metrics = await client.fetch_metrics(host, server.port)
+        health = await client.wait_ready(host, server.port, 10)
+        await server.close()
+        return results[:-1], seconds, metrics, health
+
+    results, seconds, metrics, info = asyncio.run(main())
+    torch.cuda.synchronize()
+    same = [toks == base[r.id] and done is not None
+            and done["n_tokens"] == len(base[r.id])
+            for r, (toks, done) in zip(reqs, results)]
+    sample = re.compile(PROM_SAMPLE)
+    lines = metrics.strip().splitlines()
+    parses = bool(lines) and all(ln.startswith("# ") or sample.match(ln)
+                                 for ln in lines)
+    types = [ln.split()[2] for ln in lines if ln.startswith("# TYPE")]
+    out = {"clients": len(reqs), "streams_equal_direct": sum(same),
+           "seconds": seconds, "n_cancelled": engine.metrics.n_cancelled,
+           "pools_conserved": pools_conserved(engine),
+           "metrics_lines": len(lines), "metrics_families": len(types),
+           "metrics_parse": parses and len(types) == len(set(types)),
+           "healthz": info}
+    out["ok"] = (all(same) and out["n_cancelled"] == 1
+                 and out["pools_conserved"] and out["metrics_parse"]
+                 and len(types) > 0 and info["ok"]
+                 and info["n_slots"] == engine.n_slots
+                 and no_hidden_faults(engine.metrics.summary()))
+    return out
+
+
+def timed_steps(torch, engine):
+    """Host ms of every decode step, speculative or plain, on a
+    synchronised clock; delete the instance attributes to undo."""
+    ms = []
+
+    def wrap(step):
+        def timed():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        return timed
+    engine._step_spec = wrap(engine._step_spec)
+    engine._step_decode = wrap(engine._step_decode)
+    return ms
+
+
+def surface_phase(torch, dev, ops, target, draft):
+    """The serving surface at full width on the serve phase's model (int8,
+    bf16, captured): preemption, chaos with and without speculation (the
+    latter on ``fused_deploy``'s target and draft), a deadline abort, the
+    HTTP/SSE frontend, and serve_bench's degraded traffic at ladder stages
+    0 and 1 (recorded, not gated)."""
+    import gc
+
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.serve import (DegradationLadder, Engine, FaultInjector,
+                                   FaultSpec, Resilience, storm_schedule)
+
+    cfg, model, params, _ = olmo_engine(torch, dev, "bfloat16")
+    launches, parts, t_part = {}, {}, {}
+
+    def count(fn, *a):
+        """Run ``fn`` with the launch counters reset just before and read
+        just after; add them to the phase's."""
+        ops.reset_launch_counts()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    def engine(res=None, spec=None, kw=SURFACE_ENGINE):
+        """A surface engine, every program captured first; ``spec``:
+        ``(target model, params, draft)``."""
+        m, p, d = spec if spec is not None else (model, params, None)
+        eng = Engine(m, p, spec_draft=d, spec_k=SPEC_K, resilience=res,
+                     **kw)
+        warm_engine(torch, eng)
+        eng.warm_captures = eng.n_captures
+        return eng
+
+    def done(name, row, *engines):
+        """Record a part; no engine captured anything while serving."""
+        row["graphs_captured_while_serving"] = sum(
+            e.n_captures - e.warm_captures for e in engines)
+        row["ok"] = row["ok"] and row["graphs_captured_while_serving"] == 0
+        parts[name] = row
+
+    # -- preemption: 4 batch requests fill the slots, 4 interactive arrive
+    t0 = time.perf_counter()
+    eng = engine()
+    reqs = surface_requests(cfg, ["batch"] * 4 + ["interactive"] * 4)
+
+    def preempt_run():
+        for r in reqs[:4]:
+            eng.submit(r)
+        for _ in range(1000):
+            if all(r.state.value == "decode" for r in reqs[:4]):
+                break
+            eng.step()
+        for r in reqs[4:]:
+            eng.submit(r)
+        serve_all(eng, [])
+    count(preempt_run)
+    s = eng.metrics.summary()
+    alone = {}
+    for r in surface_requests(cfg):
+        alone.update(serve_all(eng, [r]))
+    got = {r.id: list(r.generated) for r in reqs}
+    row = {"n_preemptions": eng.n_preemptions,
+           "preempted": [r.id for r in reqs if r.n_preemptions],
+           "streams_equal_alone": sum(got[i] == alone[i] for i in alone),
+           "requests": len(reqs), "pools_conserved": pools_conserved(eng),
+           "interactive_ttft_p50_ms": s["interactive_ttft_p50_s"] * 1e3,
+           "batch_ttft_p50_ms": s["batch_ttft_p50_s"] * 1e3}
+    row["ok"] = (eng.n_preemptions >= 1 and got == alone
+                 and row["pools_conserved"] and no_hidden_faults(s)
+                 and all(launches.get(k, 0) > 0 for k in SERVING_KERNELS))
+    done("preemption", row, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part["preemption"] = time.perf_counter() - t0
+
+    # -- chaos: the storm schedule against a fault-free run of the stream
+    t0 = time.perf_counter()
+    base_eng = engine(Resilience(ladder=DegradationLadder()))
+    base = count(serve_all, base_eng, surface_requests(cfg))
+    eng = engine(Resilience(injector=FaultInjector(storm_schedule()),
+                            ladder=DegradationLadder()))
+    reqs = surface_requests(cfg)
+    count(serve_all, eng, reqs)
+    # both decode_logits poisons land on live rows (steps 3 and 9, 8
+    # requests on 4 slots)
+    done("chaos", chaos_check(eng, reqs, base, quarantines=2), eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part["chaos"] = time.perf_counter() - t0
+
+    # -- a deadline abort: its pages freed within the step
+    t0 = time.perf_counter()
+    now = [0.0]
+    clock = base_eng.metrics.clock
+    base_eng.metrics.clock = lambda: now[0]
+    a, b = surface_requests(cfg)[:2]
+    a.e2e_slo_s = b.e2e_slo_s = 0.5
+    a.enforce_deadline = True
+
+    def deadline_run():
+        for r in (a, b):
+            base_eng.submit(r)
+        for _ in range(1000):
+            if all(r.state.value == "decode" for r in (a, b)):
+                break
+            base_eng.step()
+        base_eng.step()
+        slot, pool = a.slot, base_eng.cache.pool
+        held = int((base_eng.cache.block_tables[slot] != 0).sum())
+        refs = int(pool.ref.sum())
+        now[0] = 1.0
+        base_eng.step()
+        # the survivor's decode may take one new page in that step
+        freed = (a.finish_reason == "deadline" and a.slot is None
+                 and not base_eng.cache.block_tables[slot].any()
+                 and refs - int(pool.ref.sum()) in (held, held - 1))
+        serve_all(base_eng, [])
+        return held, freed
+    held, freed = count(deadline_run)
+    base_eng.metrics.clock = clock
+    row = {"pages_held": held, "freed_within_step": freed,
+           "finish_reason": a.finish_reason,
+           "n_deadline_aborts": base_eng.n_deadline_aborts,
+           "survivor_equal": list(b.generated) == base[b.id],
+           "pools_conserved": pools_conserved(base_eng)}
+    row["ok"] = (freed and row["survivor_equal"] and row["pools_conserved"]
+                 and base_eng.n_deadline_aborts == 1
+                 and no_hidden_faults(base_eng.metrics.summary()))
+    parts["deadline"] = row
+    t_part["deadline"] = time.perf_counter() - t0
+
+    # -- the HTTP/SSE frontend over the fault-free engine
+    t0 = time.perf_counter()
+    row = count(sse_clients, torch, base_eng, surface_requests(cfg)[:4],
+                base)
+    done("server", row, base_eng)
+    del base_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part["server"] = time.perf_counter() - t0
+
+    # -- chaos with speculation: fused_deploy's target and its int8 draft;
+    # the schedule poisons the draft on slot 0 and the target on slot 1 at
+    # the first speculative step of the fault-free run where both decode
+    t0 = time.perf_counter()
+    tmodel, tparams = target
+    spec = (tmodel, tparams, draft)
+    base_eng = engine(spec=spec)
+    log = step_log(base_eng)
+    base = count(serve_all, base_eng, surface_requests(tmodel.cfg))
+    step = next(s for s, live in log if 0 in live and 1 in live)
+    sched = [FaultSpec("draft_logits", step=step, slot=0),
+             FaultSpec("decode_logits", step=step, slot=1,
+                       value=float("inf"))]
+    eng = engine(Resilience(injector=FaultInjector(sched, seed=1)),
+                 spec=spec)
+    reqs = surface_requests(tmodel.cfg)
+    count(serve_all, eng, reqs)
+    # one quarantine, the target's window: the greedy draft's poisoned
+    # proposal comes from a one-hot distribution, finite, and is rejected
+    row = chaos_check(eng, reqs, base, quarantines=1)
+    row["schedule"] = [dict(site=f.site, step=f.step, slot=f.slot,
+                            value=str(f.value)) for f in sched]
+    row["spec_steps_fault_free"] = len(log)
+    row["ok"] = row["ok"] and launches.get("paged_attention_verify", 0) > 0
+    done("chaos_spec", row, eng, base_eng)
+    del eng, base_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part["chaos_spec"] = time.perf_counter() - t0
+
+    # -- serve_bench's degraded traffic: ladder stage 0 (spec on) and 1
+    # (spec off), the int8 model drafting for itself; recorded, not gated
+    t0 = time.perf_counter()
+    lad = DegradationLadder()
+    eng = engine(Resilience(ladder=lad), spec=(model, params,
+                                               (model, params)),
+                 kw=DEGRADED_ENGINE)
+    degraded = {}
+    for stage in (0, 1):
+        lad.force(stage)
+        ms = timed_steps(torch, eng)
+        reqs = mixed_requests(cfg, **DEGRADED)
+        eng.metrics = type(eng.metrics)()
+        s = count(serve_stream, eng, reqs)
+        del eng._step_spec, eng._step_decode
+        decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+        degraded[f"stage_{stage}"] = {
+            "n_done": s["n_done"], "requests": len(reqs),
+            "no_hidden_faults": no_hidden_faults(s),
+            "decode_tok_s": decode_tokens / (sum(ms) / 1e3),
+            "agg_tok_s": s["agg_tok_s"], "decode_steps": len(ms),
+            "decode_step_ms_p50": statistics.median(ms),
+            "tokens_per_step_mean": s["tokens_per_step_mean"],
+            "draft_acceptance_rate": s["draft_acceptance_rate"],
+            "n_preempted": s["n_preempted"],
+            **{f"{c}_{k}_slo_attainment": s[f"{c}_{k}_slo_attainment"]
+               for c in ("interactive", "batch") for k in ("ttft", "e2e")},
+            "interactive_ttft_p95_ms": s["interactive_ttft_p95_s"] * 1e3,
+            "batch_e2e_p95_ms": s["batch_e2e_p95_s"] * 1e3}
+    lad.force(0)
+    lad.force(None)
+    row = {"traffic": "benchmarks/serve_bench.py run_degraded: "
+                      f"{DEGRADED}, spec k={SPEC_K}",
+           "engine": DEGRADED_ENGINE, **degraded}
+    row["ok"] = all(d["n_done"] == d["requests"] and d["no_hidden_faults"]
+                    for d in degraded.values())
+    done("degraded", row, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_part["degraded"] = time.perf_counter() - t0
+
+    ok = all(p["ok"] for p in parts.values())
+    row = {"phase": "surface", "ok": ok, "config": {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab, "mpd_c": cfg.mpd_c, "weights": "int8",
+        "dtype": cfg.dtype, **SURFACE_ENGINE,
+        "traffic": SURFACE_TRAFFIC}, **parts, "seconds": t_part,
+        "launches": launches}
+    emit(row)
+    return row
+
+
 def fused_deploy_phase(torch, dev, ops, data, served):
     """The Fig-3 deploy chain at full width: masked_dense + mpd_fuse, one
     AdamW step, fold with the permutation fusion and int8, export_packed,
@@ -2275,12 +2756,12 @@ def fused_deploy_phase(torch, dev, ops, data, served):
     launches_ok = (launches["fused_ffn"] == layers * n_calls
                    and served["bdmm_launches_per_call"] - per_call
                    == 3 * layers)
-    done = summary["n_done"] == len(reqs) and all(
+    done = summary["n_done"] == len(reqs) and no_hidden_faults(summary) and all(
         len(r.generated) == r.max_new_tokens
         and all(0 <= t < cfg.vocab for t in r.generated) for r in reqs)
     ok = identical and fused and done and launches_ok and math.isfinite(
         loss) and all(launches[k] > 0 for k in SERVING_KERNELS) and (
-        captured_serving == 0)
+        captured_serving == 0) and all(t["ok"] for t in turns)
     row = {"phase": "fused_deploy", "ok": ok, "config": {
         "arch": cfg.name, "n_layers": layers, "d_model": cfg.d_model,
         "d_ff": cfg.d_ff, "vocab": cfg.vocab, "mpd_c": cfg.mpd_c,
@@ -2337,7 +2818,8 @@ def route_turns(torch, dev, fused_model, fused_params):
         calls = program_calls(engine)
         del engine
         turns.append({
-            "route": route, "tok_s": summary["agg_tok_s"],
+            "route": route, "ok": no_hidden_faults(summary),
+            "tok_s": summary["agg_tok_s"],
             "ttft_p50_ms": summary["ttft_p50_s"] * 1e3,
             "decode_step_ms_p50": statistics.median(calls["decode"]),
             "prefill_chunk_ms_p50": statistics.median(calls["prefill"])})
@@ -2778,14 +3260,16 @@ def fold_phase(torch, dev, ops, f32_model, f32_params, batch, bf16_model,
     reqs = make_requests(q_model.cfg, n_requests=2, rate=1e9, prompt_len=256,
                          gen=16, seed=0, shared_prefix=64)
     ops.reset_launch_counts()
-    streams = Engine(q_model, q_params, n_slots=2, max_len=256 + 16,
-                     page_size=16, prefill_chunk_tokens=64).run(reqs)
+    engine = Engine(q_model, q_params, n_slots=2, max_len=256 + 16,
+                    page_size=16, prefill_chunk_tokens=64)
+    streams = engine.run(reqs)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     served = (len(streams) == 2 and all(
         len(streams[r.id]) == r.max_new_tokens
         and all(0 <= t < q_model.cfg.vocab for t in streams[r.id])
-        for r in reqs))
+        for r in reqs) and no_hidden_faults(engine.metrics.summary()))
+    del engine
     kernels_used = all(launches[k] > 0 for k in SERVING_KERNELS)
     row = {"phase": "fold", "ok": logits_ok and served and kernels_used,
            "logits": {"dtype": "float32", "n_layers": f32_model.cfg.n_layers,
@@ -3137,6 +3621,10 @@ def main() -> int:
     spec = timed("spec", spec_phase, torch, dev, ops, target, draft)
     if not spec["ok"]:
         failed.append("spec")
+    torch.cuda.empty_cache()
+    surface = timed("surface", surface_phase, torch, dev, ops, target, draft)
+    if not surface["ok"]:
+        failed.append("surface")
     del target, draft
     torch.cuda.empty_cache()
     if not timed("exact_fused", exact_phase, torch, dev, ops, True)[0]["ok"]:
@@ -3147,10 +3635,11 @@ def main() -> int:
         failed.append("paper")
     # the main path's launches: paged and slot-dense serving, the static
     # lockstep batch, training (perm-fused packed and resumed too), the
-    # fused deploy, the speculative turns and the paper's experiments
+    # fused deploy, the speculative turns, the serving surface and the
+    # paper's experiments
     launches = {k: sum(p["launches"][k]
                        for p in (served, dense, static, trained, train_fused,
-                                 resumed, deployed, spec, paper))
+                                 resumed, deployed, spec, surface, paper))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,

@@ -33,6 +33,16 @@ tokens a step. ``--prefill-kernel`` routes the paged prefill attention:
 ``pallas`` and ``interpret`` (the reference's names for its kernel) take
 the CUDA kernel, ``jnp`` the plain version; CPU tensors always take the
 plain one.
+
+Every engine the launcher builds carries the degradation ladder (the
+reference's production posture). ``--chaos-schedule`` (``storm``, a JSON
+list of fault specs or ``@file``) adds a seeded fault injector
+(``--chaos-seed``); ``--chaos-verify`` then serves the same stream on a
+fault-free engine and exits non-zero unless every request the chaos run
+completed streamed the same tokens. ``--http`` serves real traffic over
+the asyncio HTTP/SSE frontend on ``--host``/``--port`` (``POST
+/v1/generate``, ``GET /metrics``, ``GET /healthz``), turning requests away
+with 429 beyond ``--queue-limit`` waiting ones.
 """
 
 from __future__ import annotations
@@ -52,7 +62,9 @@ from repro_torch.core import export as export_lib
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.models import build
-from repro_torch.serve import Engine, Request, SamplingParams
+from repro_torch.serve import (DegradationLadder, Engine, FaultInjector,
+                               Request, Resilience, SamplingParams,
+                               parse_schedule)
 
 log = logging.getLogger("repro_torch.serve.launch")
 
@@ -277,14 +289,30 @@ def _static_main(args, cfg, model, params, device):
     return out
 
 
-def _continuous_main(args, cfg, model, params, device):
-    spec_draft = (load_spec_draft(args.spec_draft, device=device)
-                  if args.spec_draft else None)
+def _build_resilience(args, *, chaos=True):
+    """The launcher's engines always get the degradation ladder; a fault
+    injector rides along only with ``--chaos-schedule`` (and never in the
+    ``chaos=False`` baseline of ``--chaos-verify``)."""
+    injector = None
+    if chaos and args.chaos_schedule:
+        schedule = parse_schedule(args.chaos_schedule)
+        injector = FaultInjector(schedule, seed=args.chaos_seed)
+        log.info("chaos: %d fault specs from %r (seed %d)", len(schedule),
+                 args.chaos_schedule, args.chaos_seed)
+    return Resilience(injector=injector, ladder=DegradationLadder(),
+                      seed=args.chaos_seed)
+
+
+def _build_engine(args, model, params, device, spec_draft=None, *,
+                  chaos=True):
+    """The engine the flags describe, every program captured
+    (``warmup()``; eager on the CPU). Returns ``(engine, mode label)``."""
     engine = Engine(model, params, n_slots=args.slots,
                     max_len=args.prompt_len + args.gen, paged=args.paged,
                     page_size=args.page_size, n_pages=args.pages or None,
                     prefill_chunk_tokens=args.prefill_chunk or None,
-                    spec_draft=spec_draft, spec_k=args.spec_k)
+                    spec_draft=spec_draft, spec_k=args.spec_k,
+                    resilience=_build_resilience(args, chaos=chaos))
     mode = "paged" if args.paged else "continuous"
     t0 = time.perf_counter()
     engine.warmup()
@@ -292,9 +320,20 @@ def _continuous_main(args, cfg, model, params, device):
         log.info("captured %d CUDA graphs (every program at every width "
                  "rung or bucket) in %.1f s", engine.n_captures,
                  time.perf_counter() - t0)
-    requests = make_requests(cfg, n_requests=args.requests, rate=args.rate,
-                             prompt_len=args.prompt_len, gen=args.gen,
-                             seed=args.seed, shared_prefix=args.shared_prefix)
+    return engine, mode
+
+
+def _requests(args, cfg):
+    return make_requests(cfg, n_requests=args.requests, rate=args.rate,
+                         prompt_len=args.prompt_len, gen=args.gen,
+                         seed=args.seed, shared_prefix=args.shared_prefix)
+
+
+def _continuous_main(args, cfg, model, params, device):
+    spec_draft = (load_spec_draft(args.spec_draft, device=device)
+                  if args.spec_draft else None)
+    engine, mode = _build_engine(args, model, params, device, spec_draft)
+    requests = _requests(args, cfg)
     s = serve_stream(engine, requests)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -322,22 +361,68 @@ def _continuous_main(args, cfg, model, params, device):
         log.info("spec decode: k=%d, %.2f tokens/step, %.0f%% draft "
                  "acceptance", engine.spec_k, s["tokens_per_step_mean"],
                  s["draft_acceptance_rate"] * 100)
+    res = engine.resilience
+    if res.injector is not None or s["degradation_transitions"]:
+        log.info("resilience: %s", res.summary())
     s["streams"] = {r.id: list(r.generated) for r in requests}
+    s["resilience"] = res.summary()
+    if args.chaos_verify:
+        del engine
+        s["chaos_verify"] = _chaos_verify(args, cfg, model, params, device,
+                                          spec_draft, requests)
     return s
+
+
+def _chaos_verify(args, cfg, model, params, device, spec_draft,
+                  chaos_requests):
+    """Serve the same request stream on a fault-free engine and demand that
+    every request the chaos run completed normally streamed the same
+    tokens; exits non-zero on any divergence (quarantine and retry must
+    never perturb the surviving traffic). Returns the counts."""
+    engine, _ = _build_engine(args, model, params, device, spec_draft,
+                              chaos=False)
+    baseline = _requests(args, cfg)
+    serve_stream(engine, baseline)
+    base = {r.id: list(r.generated) for r in baseline}
+    aborted = [r.id for r in chaos_requests
+               if r.finish_reason in ("fault", "deadline")]
+    mismatched = [r.id for r in chaos_requests
+                  if r.id not in aborted and list(r.generated) != base[r.id]]
+    if mismatched:
+        raise SystemExit(
+            f"chaos-verify FAILED: requests {mismatched} diverged from the "
+            "fault-free baseline")
+    log.info("chaos-verify OK: %d/%d requests token-identical to fault-free "
+             "baseline (%d aborted by injected faults)",
+             len(chaos_requests) - len(aborted), len(chaos_requests),
+             len(aborted))
+    return {"identical": len(chaos_requests) - len(aborted),
+            "aborted": len(aborted), "requests": len(chaos_requests)}
+
+
+def _http_main(args, cfg, model, params, device):
+    """``--http``: serve real traffic over the asyncio SSE frontend until
+    interrupted."""
+    from repro_torch.serve import server as server_lib
+
+    spec_draft = (load_spec_draft(args.spec_draft, device=device)
+                  if args.spec_draft else None)
+    engine, mode = _build_engine(args, model, params, device, spec_draft)
+    engine.metrics.clock = time.perf_counter
+    log.info("http frontend over %s engine: %d slots, max_len %d", mode,
+             engine.n_slots, engine.max_len)
+    server_lib.run(engine, host=args.host, port=args.port,
+                   queue_limit=args.queue_limit)
 
 
 # --prefill-kernel: the reference's names for its kernel (pallas on the TPU,
 # interpret its CPU mode) take the CUDA kernel, its dense oracle (jnp) the
 # plain version
 PREFILL_ROUTES = {"pallas": "cuda", "interpret": "cuda", "jnp": "torch"}
-# the reference launcher's flags for the serving surface not ported yet:
-# flag -> (its default, the ROADMAP queue A item that ports it)
-NOT_PORTED = {"--http": (False, 6), "--host": ("127.0.0.1", 6),
-              "--port": (8000, 6), "--queue-limit": (64, 6),
-              "--replicas": (1, 6), "--disagg": (False, 6),
-              "--n-prefill": (1, 6), "--chaos-schedule": ("", 6),
-              "--chaos-seed": (0, 6), "--chaos-verify": (False, 6),
-              "--tp": (1, 8)}
+# the reference launcher's flags not ported yet: flag -> (its default, the
+# ROADMAP queue A item that ports it)
+NOT_PORTED = {"--replicas": (1, 4), "--disagg": (False, 4),
+              "--n-prefill": (1, 4), "--tp": (1, 6)}
 
 
 def main(argv=None):
@@ -393,6 +478,20 @@ def main(argv=None):
     p.add_argument("--spec-k", type=int, default=4,
                    help="draft tokens proposed per verify window")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--http", action="store_true",
+                   help="serve over the HTTP/SSE frontend instead of a "
+                   "synthetic request stream")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--queue-limit", type=int, default=64,
+                   help="waiting requests before --http answers 429")
+    p.add_argument("--chaos-schedule", default="",
+                   help="fault-injection schedule: 'storm', a JSON list of "
+                   "fault specs, or @path to a JSON file")
+    p.add_argument("--chaos-seed", type=int, default=0)
+    p.add_argument("--chaos-verify", action="store_true",
+                   help="re-serve the stream fault-free and fail unless "
+                   "every completed request is token-identical")
     for flag, (default, _) in NOT_PORTED.items():
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -415,15 +514,27 @@ def main(argv=None):
     if args.prefill_kernel and not args.paged:
         raise SystemExit("--prefill-kernel routes paged chunked prefill; "
                          "combine with --paged")
+    if args.chaos_verify and not args.chaos_schedule:
+        raise SystemExit("--chaos-verify needs --chaos-schedule")
+    if args.chaos_verify and args.http:
+        raise SystemExit("--chaos-verify drives the synthetic stream; it "
+                         "cannot combine with --http")
     try:
         device = device_lib.resolve(args.device)
     except device_lib.NoCudaDevice as e:
         raise SystemExit(str(e))
-    cfg, model, params = load_model(
-        args.arch, smoke=args.smoke, dtype=args.dtype, n_layers=args.n_layers,
-        quantize=args.quantize, seed=args.seed, device=device,
-        mpd_fuse=args.mpd_fuse, mpd_c=args.mpd_c,
-        fold_to_packed=args.fold_to_packed, ckpt_dir=args.ckpt_dir)
+    try:
+        cfg, model, params = load_model(
+            args.arch, smoke=args.smoke, dtype=args.dtype,
+            n_layers=args.n_layers, quantize=args.quantize, seed=args.seed,
+            device=device, mpd_fuse=args.mpd_fuse, mpd_c=args.mpd_c,
+            fold_to_packed=args.fold_to_packed, ckpt_dir=args.ckpt_dir)
+    except SystemExit:
+        raise
+    except Exception as e:
+        # startup fails with one clear line: a corrupt packed artifact lands
+        # here as ArtifactCorruptError
+        raise SystemExit(f"startup failed: {type(e).__name__}: {e}")
     log.info("serving %s on %s: %s params (%d layers, %s, mode=%s)",
              cfg.name, device, f"{model.param_count():,}", cfg.n_layers,
              cfg.dtype, cfg.mpd_mode)
@@ -433,6 +544,8 @@ def main(argv=None):
     # it was captured under
     ops.set_prefill_backend(PREFILL_ROUTES.get(args.prefill_kernel))
     try:
+        if args.http:
+            return _http_main(args, cfg, model, params, device)
         return _continuous_main(args, cfg, model, params, device)
     finally:
         ops.set_prefill_backend(None)

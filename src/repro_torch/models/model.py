@@ -369,10 +369,12 @@ class Model:
 
     def set_paged_pos(self, caches, pos):
         """Write the host's accepted depth ``pos (B,)`` into every attention
-        layer's paged-cache ``pos``, **in place** (the reference returns new
-        caches); returns the caches. The spec engine calls it before each
-        propose and verify, which is what makes rollback free: rejected
-        positions are written over under the corrected depth next step."""
+        layer's cache ``pos`` (paged or per-slot dense), **in place** (the
+        reference returns new caches); returns the caches. The spec engine
+        calls it before each propose and verify, which is what makes
+        rollback free: rejected positions are written over under the
+        corrected depth next step; the engine's decode calls it before each
+        replay, which makes a retried step write what the first try did."""
         for spec, c in zip(self.block_specs, caches):
             if spec["kind"] in ("attn", "attn_moe"):
                 c["pos"].copy_(pos.to(c["pos"].dtype)[None].expand_as(c["pos"]))

@@ -1,7 +1,9 @@
 """KV memory for the continuous-batching engine (the port of
 ``repro.serve.cache``: the slot-dense ``SlotCache``; ``PagePool``,
 ``PrefixTrie`` over one pool or several, ``PagedCache`` with the
-speculative window's slack and ``rollback``, ``share_trie`` and
+speculative window's slack and ``rollback``, the resilience hooks
+``preempt_slot``, ``flush_trie``, ``publish_enabled`` and the fault
+injector's ``pool_exhaust`` seam, ``share_trie`` and
 ``publish_prefix_shared``).
 
 ``SlotCache``: every slot reserves ``max_len`` rows of K/V per layer up
@@ -268,6 +270,14 @@ class PagedCache:
                               for c in self.caches)
         self.token_bytes = self.page_bytes / page_size
         self.dense_reserved_bytes = int(n_slots * max_len * self.token_bytes)
+        # degradation ladder: at the flush_prefix stage the engine stops
+        # publishing new prefixes (and has flushed the trie); misses just
+        # recompute
+        self.publish_enabled = True
+        # fault-injection seam (site "pool_exhaust"): the injector withholds
+        # pages from available() — admission pressure, never a failed
+        # allocation, so the allocator's bookkeeping stays exact
+        self.injector = None
 
     # ------------------------------------------------------------ accounting
     def kv_bytes_allocated(self) -> int:
@@ -278,9 +288,13 @@ class PagedCache:
 
     def available(self) -> int:
         """Free pages plus trie pages reclaimable by cascading eviction,
-        minus outstanding reservations."""
-        return (self.pool.free_count + self.trie.reclaimable_count()
-                - self.reserved)
+        minus outstanding reservations (and the pages a ``pool_exhaust``
+        fault withholds)."""
+        avail = (self.pool.free_count + self.trie.reclaimable_count()
+                 - self.reserved)
+        if self.injector is not None:
+            avail -= self.injector.withheld_pages()
+        return avail
 
     # ------------------------------------------------------------- admission
     def _match_nodes(self, prompt: np.ndarray, touch: bool = True) -> List[Any]:
@@ -292,10 +306,14 @@ class PagedCache:
         cap = (len(prompt) - 1) // self.page_size
         return self.trie.match(prompt, cap, touch=touch)
 
+    def _own_pid(self, node_value) -> int:
+        """This pool's page id in a trie node's value."""
+        return (node_value[self._trie_slot] if isinstance(node_value, tuple)
+                else node_value)
+
     def _match(self, prompt: np.ndarray, touch: bool = True) -> List[int]:
         """This pool's page ids of the longest cached prefix."""
-        return [v[self._trie_slot] if isinstance(v, tuple) else v
-                for v in self._match_nodes(prompt, touch)]
+        return [self._own_pid(v) for v in self._match_nodes(prompt, touch)]
 
     def can_admit(self, prompt_len: int, max_new_tokens: int,
                   prompt: Optional[np.ndarray] = None) -> bool:
@@ -338,7 +356,10 @@ class PagedCache:
                        from_tokens: int = 0) -> None:
         """Insert the slot's full, prefilled prompt pages in tokens
         ``[from_tokens, upto_tokens)`` into the trie (partial pages never:
-        decode may still write into the last prompt page)."""
+        decode may still write into the last prompt page). Nothing while
+        publishing is suspended (``publish_enabled``)."""
+        if not self.publish_enabled:
+            return
         assert len(self.trie.pools) == 1, \
             "shared trie: publish with publish_prefix_shared"
         n_full = min(upto_tokens, len(prompt)) // self.page_size
@@ -393,6 +414,26 @@ class PagedCache:
         self._slot_reserved[slot] = 0
         self.dirty = True
 
+    def flush_trie(self) -> int:
+        """The degradation ladder's flush_prefix stage: cascade-evict every
+        reclaimable trie node, its trie-only pages back to the free list(s)
+        (a shared trie drains every pool). Pages a live request also holds
+        keep its refs. Returns the number of nodes evicted."""
+        n = 0
+        while self.trie.evict_one() is not None:
+            n += 1
+        return n
+
+    def preempt_slot(self, slot: int) -> int:
+        """Evict a live slot whose request will come back (preemption,
+        quarantine): drop its page refs and its reservation as
+        :meth:`free_slot` does. Trie-shared pages survive (the trie holds
+        its own ref), so the request's re-admission hits its published
+        prefix. Returns the number of page refs dropped."""
+        n = int((self.block_tables[slot] != NULL_PAGE).sum())
+        self.free_slot(slot)
+        return n
+
 
 # --------------------------------------------------------------- shared trie
 def share_trie(caches: List[PagedCache]) -> PrefixTrie:
@@ -416,7 +457,10 @@ def publish_prefix_shared(caches: List[PagedCache], prompt: np.ndarray,
     """:meth:`PagedCache.publish_prefix` for a shared trie: insert the
     slot's full, prefilled prompt pages in tokens ``[from_tokens,
     upto_tokens)`` as joint nodes. Every cache must have prefilled that
-    range into the same slot."""
+    range into the same slot. Nothing while any cache has publishing
+    suspended."""
+    if not all(c.publish_enabled for c in caches):
+        return
     trie = caches[0].trie
     assert all(c.trie is trie for c in caches), "caches must share one trie"
     ps = trie.page_size

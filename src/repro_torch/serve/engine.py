@@ -47,9 +47,25 @@ program eagerly (what ``jax.disable_jit`` is to the reference); engines on
 the CPU always do.
 
 Greedy output is token-for-token what the reference engine produces on the
-same params and prompts, in both memory models. Not ported yet:
-preemption, resilience (the fault sites, the degradation ladder and with
-it ``spec_suspended``), disaggregated handoff.
+same params and prompts, in both memory models.
+
+The serving surface around the step, as the reference's: priority
+admission with preemption by page eviction (paged; ``preemption``),
+``cancel``, the ``token_cb`` / ``done_cb`` streaming hooks, and the
+watchdog of :mod:`.resilience` (``resilience=``; a bare engine gets the
+inert default). Every decode, verify and draft decode adds the injector's
+per-slot logit poison (only in a step that schedules one) to the logits a
+program returns, and a per-slot finite check rides the sampled tokens'
+one copy to the host; a non-finite row is quarantined (pages freed, the
+request requeued with backoff, after ``max_fault_retries`` failed with
+``finish_reason="fault"``) while the other rows go on untouched. An
+exception in a decode step is retried next step (the injected
+``engine_step`` fault fires before the step writes anything) and
+re-raised after ``max_consecutive_step_faults``. Deadlines abort
+``enforce_deadline`` requests; the degradation ladder holds speculation
+off (``spec_suspended``: the plain paged decode serves), flushes the
+prefix trie and suspends publishing. Not ported yet: disaggregated
+handoff and the replica router.
 """
 
 from __future__ import annotations
@@ -57,7 +73,8 @@ from __future__ import annotations
 import collections
 import logging
 import time
-from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
+from typing import (Callable, Deque, Dict, List, Optional, Sequence,
+                    Set, Tuple)
 
 import numpy as np
 import torch
@@ -66,6 +83,7 @@ from . import sampling as sampling_lib
 from .cache import PagedCache, SlotCache, publish_prefix_shared, share_trie
 from .graphs import StepGraph
 from .metrics import ServeMetrics
+from .resilience import STAGE_NAMES, Resilience
 from .scheduler import Request, RequestState, Scheduler
 
 log = logging.getLogger("repro_torch.serve.engine")
@@ -94,6 +112,9 @@ class Engine:
     CUDA device and runs them eagerly on the CPU; True demands the graphs
     (a CPU device raises); False runs eagerly.
 
+    ``preemption`` lets an interactive head evict a batch slot (paged
+    only); ``resilience`` is the watchdog, injector and ladder bundle.
+
     ``runs`` counts each program's runs (eager calls and replays);
     with ``time_programs`` set, ``run_ms`` records each run's host ms on a
     synchronised clock. ``n_captures`` counts the graphs captured."""
@@ -104,7 +125,9 @@ class Engine:
                  n_pages: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  spec_draft=None, spec_k: int = 4,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None,
+                 preemption: bool = True,
+                 resilience: Optional[Resilience] = None):
         cfg = model.cfg
         if not cfg.causal:
             raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
@@ -115,6 +138,18 @@ class Engine:
         self.max_len = max_len
         self.paged = paged
         self.metrics = ServeMetrics()
+        self.step_count = 0
+        # the watchdog is always on; the injector and the ladder act when
+        # the caller's bundle has them
+        self.resilience = (resilience if resilience is not None
+                           else Resilience())
+        if self.resilience.injector is not None:
+            self.resilience.injector.on_inject = self.metrics.on_fault_injected
+        if self.resilience.ladder is not None:
+            self.resilience.ladder.on_transition = self._on_ladder_transition
+        self.n_quarantines = 0
+        self.n_fault_failures = 0
+        self.n_deadline_aborts = 0
         if graphs is None:
             graphs = self.device.type == "cuda"
         elif graphs and self.device.type != "cuda":
@@ -152,10 +187,12 @@ class Engine:
             self.cache = PagedCache(model, n_slots, max_len,
                                     page_size=page_size, n_pages=n_pages,
                                     device=self.device, slack_tokens=slack)
+            self.cache.injector = self.resilience.injector
             if self.spec_active:
                 self.draft_cache = PagedCache(
                     self.draft_model, n_slots, max_len, page_size=page_size,
                     n_pages=n_pages, device=self.device, slack_tokens=slack)
+                self.draft_cache.injector = self.resilience.injector
                 # one token-keyed trie: draft and target hit a prefix as a
                 # unit
                 share_trie([self.cache, self.draft_cache])
@@ -208,8 +245,9 @@ class Engine:
             self._admit_info = torch.zeros((2,), dtype=torch.int32,
                                            device=dev)
             self._admit_caches = model.init_caches(1, max_len, device=dev)
+        # each live slot's accepted depth, written before every decode
+        self._pos0 = torch.zeros((B,), dtype=torch.int32, device=dev)
         if self.spec_active:
-            self._pos0 = torch.zeros((B,), dtype=torch.int32, device=dev)
             self._draft_in = torch.zeros((B,), dtype=torch.long, device=dev)
             self._window = torch.zeros((B, self.spec_k + 1),
                                        dtype=torch.long, device=dev)
@@ -220,13 +258,111 @@ class Engine:
         self.run_ms: Dict[str, List[float]] = {k: [] for k in PROGRAMS}
         self.time_programs = False
 
+        # streaming hooks (the HTTP server wires them): token_cb fires for
+        # every emitted token with its index in the request's output (a
+        # preempted or quarantined request regenerates and fires again from
+        # index 0, so consumers dedup by index); done_cb once at a stop or
+        # a terminal failure, never for a cancel or a preemption
+        self.token_cb: Optional[Callable[[Request, int, int], None]] = None
+        self.done_cb: Optional[Callable[[Request], None]] = None
+        # interactive-over-batch preemption evicts pages: paged only
+        self.preemption = bool(preemption) and paged
+        self.n_preemptions = 0
+
     # -------------------------------------------------------------- requests
     def submit(self, req: Request) -> None:
         self.scheduler.submit(req)
-        self.metrics.on_submit(req.id, len(req.prompt))
+        self.metrics.on_submit(req.id, len(req.prompt),
+                               priority=req.priority,
+                               ttft_slo_s=req.ttft_slo_s,
+                               e2e_slo_s=req.e2e_slo_s)
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
+
+    def stats_gauges(self) -> Dict[str, float]:
+        """Instantaneous engine gauges for the ``/metrics`` scrape."""
+        g = {
+            "repro_serve_slots_live": float(self._live.sum()),
+            "repro_serve_slots_total": float(self.n_slots),
+            "repro_serve_engine_steps_total": float(self.step_count),
+        }
+        if self.paged:
+            g["repro_serve_kv_pages_allocated"] = float(
+                self.cache.pool.allocated_count)
+            g["repro_serve_kv_pages_free"] = float(self.cache.pool.free_count)
+        return g
+
+    def _vacate(self, req: Request, keep: bool = False) -> None:
+        """Take ``req`` out of the prefill queue and free its slot, if it
+        holds one: its page refs and reservation in every pool (``keep``:
+        the request comes back, :meth:`PagedCache.preempt_slot`), its
+        liveness and its sampling state (a freed slot reads greedy, as the
+        reference's ``_clear_slot_impl``). The scheduler's bookkeeping is
+        the caller's."""
+        if self.paged:
+            try:
+                self._prefill_queue.remove(req)
+            except ValueError:
+                pass
+        slot = req.slot
+        if slot is None:
+            return
+        if self.paged:
+            for c in (self.cache, self.draft_cache):
+                if c is not None:
+                    (c.preempt_slot if keep else c.free_slot)(slot)
+        self._live[slot] = False
+        self._temps[slot], self._top_ks[slot] = 0.0, 0
+        self._gens[slot] = None
+
+    def cancel(self, req: Request) -> None:
+        """Abort a request (client disconnect): out of whichever stage it is
+        in, its pages back to the pool at once. Safe between steps; a no-op
+        once the request is DONE."""
+        if req.state == RequestState.DONE:
+            return
+        self._vacate(req)
+        self.scheduler.finish(req)
+        self.metrics.on_cancel(req.id)
+        log.info("request %d cancelled (%s, %d tokens streamed)",
+                 req.id, req.priority, len(req.generated))
+
+    # ----------------------------------------------------------- preemption
+    def _preempt(self, victim: Request) -> None:
+        """Evict ``victim`` from its slot: its non-shared pages go back to
+        the pool (trie-shared prefix pages survive), the slot frees, and
+        the request requeues at its original arrival position; it
+        regenerates from its prompt on re-admission."""
+        slot = victim.slot
+        self._vacate(victim, keep=True)
+        self.scheduler.preempt(victim)
+        self.metrics.on_preempt(victim.id)
+        self.n_preemptions += 1
+        log.info("preempted request %d (%s, slot %d, %d tokens in) for a "
+                 "higher-priority admission", victim.id, victim.priority,
+                 slot, len(victim.generated))
+
+    def _preempt_for_head(self) -> bool:
+        """The queue head cannot admit: evict the lowest-priority running
+        request (youngest first within its class) if it ranks strictly
+        below the head. The head is the first *eligible* waiter: a
+        quarantined request in backoff is skipped by admission, so
+        evicting for it would make no progress. Returns True if a slot was
+        evicted."""
+        if not self.preemption or not self.scheduler.waiting:
+            return False
+        head = next((r for r in self.scheduler.waiting
+                     if self._retry_eligible(r)), None)
+        if head is None:
+            return False
+        victims = [r for r in self.scheduler.running.values()
+                   if r.priority_rank > head.priority_rank]
+        if not victims:
+            return False
+        self._preempt(max(victims,
+                          key=lambda r: (r.priority_rank, r.arrival_seq)))
+        return True
 
     # ------------------------------------------------------------ step logic
     def _admit_one(self, req: Request, slot: int) -> None:
@@ -577,20 +713,16 @@ class Engine:
         """Record one generated token; finish the request if it stops."""
         req.generated.append(tok)
         self.metrics.on_token(req.id)
+        if self.token_cb is not None:
+            self.token_cb(req, tok, len(req.generated) - 1)
         stop = (len(req.generated) >= req.max_new_tokens
                 or (req.eos_id >= 0 and tok == req.eos_id))
         if stop:
-            slot = req.slot
+            self._vacate(req)
             self.scheduler.finish(req)
             self.metrics.on_done(req.id)
-            if self.paged:
-                self.cache.free_slot(slot)
-                if self.spec_active:
-                    self.draft_cache.free_slot(slot)
-            self._live[slot] = False
-            # the reference's _clear_slot_impl: a freed slot reads greedy
-            self._temps[slot], self._top_ks[slot] = 0.0, 0
-            self._gens[slot] = None
+            if self.done_cb is not None:
+                self.done_cb(req)
 
     def _kv_len(self, req: Request) -> int:
         """Cached KV depth of a live request: the prompt plus every
@@ -609,66 +741,248 @@ class Engine:
                                int(logical * self.cache.token_bytes),
                                self.cache.kv_bytes)
 
-    def _can_admit(self, r: Request) -> bool:
-        """Whether the request's pages fit, in both pools in spec mode."""
-        ok = self.cache.can_admit(len(r.prompt), r.max_new_tokens,
-                                  prompt=r.prompt)
-        if ok and self.spec_active:
-            ok = self.draft_cache.can_admit(len(r.prompt), r.max_new_tokens,
-                                            prompt=r.prompt)
-        return ok
+    # ----------------------------------------------------------- resilience
+    def _poison(self, site: str) -> Optional[torch.Tensor]:
+        """The injector's per-slot additive logit poison ``(n_slots,)`` for
+        this step at ``site``, or None when nothing is scheduled (the
+        logits then go on untouched: adding the reference's zeros changes
+        nothing)."""
+        inj = self.resilience.injector
+        if inj is None:
+            return None
+        vec = inj.poison(site, inj.step, self.n_slots)
+        return None if vec is None else torch.from_numpy(vec).to(self.device)
 
-    def step(self) -> bool:
-        """One engine iteration (admit; paged, prefill chunks; one decode or
-        one speculative step). Returns True if any work was done."""
+    def _retry_eligible(self, req: Request) -> bool:
+        """Quarantined requests wait out their backoff; everyone else
+        admits at once (the scheduler's skip predicate)."""
+        return req.retry_at_step <= self.step_count
+
+    def _fail_request(self, req: Request, reason: str) -> None:
+        """Terminal failure: free everything the request holds within this
+        step and surface ``finish_reason`` through ``done_cb``."""
+        req.finish_reason = reason
+        self._vacate(req)
+        self.scheduler.finish(req)
+        self.metrics.on_abort(req.id, reason)
+        if self.done_cb is not None:
+            self.done_cb(req)
+        log.warning("request %d failed: finish_reason=%s (%d retries, "
+                    "%d tokens streamed)", req.id, reason,
+                    req.n_fault_retries, len(req.generated))
+
+    def _enforce_deadlines(self) -> None:
+        """Abort every ``enforce_deadline`` request past its e2e SLO, its
+        pages freed within this step (finish_reason="deadline")."""
+        now = self.metrics.clock()
+        for req in (list(self.scheduler.running.values())
+                    + list(self.scheduler.waiting)):
+            if not req.enforce_deadline or req.e2e_slo_s is None:
+                continue
+            rm = self.metrics.requests.get(req.id)
+            if rm is None or now - rm.t_submit <= req.e2e_slo_s:
+                continue
+            self.n_deadline_aborts += 1
+            self._fail_request(req, "deadline")
+
+    def _quarantine(self, req: Request) -> None:
+        """Non-finite logits in this slot only: free its pages, requeue it
+        at its arrival position after a backoff, and after
+        ``max_fault_retries`` fail it (finish_reason="fault"). Every other
+        slot is untouched: the rows are independent, so survivors stay
+        what a fault-free run gives, and the request regenerates on
+        retry."""
+        res = self.resilience
+        res.note_fault()
+        self.n_quarantines += 1
+        self.metrics.on_quarantine(req.id)
+        if req.n_fault_retries >= res.max_fault_retries:
+            self.n_fault_failures += 1
+            self._fail_request(req, "fault")
+            return
+        req.n_fault_retries += 1
+        req.retry_at_step = self.step_count + res.backoff_steps(
+            req.id, req.n_fault_retries)
+        slot = req.slot
+        self._vacate(req, keep=True)
+        self.scheduler.requeue(req)
+        log.warning("quarantined request %d (slot %d, non-finite logits): "
+                    "retry %d/%d no earlier than step %d", req.id, slot,
+                    req.n_fault_retries, res.max_fault_retries,
+                    req.retry_at_step)
+
+    def _handle_step_fault(self, err: Exception) -> bool:
+        """A decode step raised. The injected fault fires before the step
+        writes anything; a fault after the replay leaves K/V the retry
+        writes again and a ``pos`` the retry sets back from the host, and
+        the pending tokens change only last, so the next step re-runs the
+        same work (a sampled row draws again from its generator). Bounded:
+        after ``max_consecutive_step_faults`` the fault is persistent and
+        re-raised (a real CUDA error is sticky and ends there). Backoff is
+        exponential with seeded jitter."""
+        res = self.resilience
+        res.note_fault()
+        res.consecutive_step_faults += 1
+        self.metrics.on_step_fault()
+        if res.consecutive_step_faults > res.max_consecutive_step_faults:
+            log.error("engine step faulted %d consecutive times: persistent "
+                      "fault, giving up", res.consecutive_step_faults)
+            raise err
+        delay = min(0.001 * (2 ** (res.consecutive_step_faults - 1)), 0.05)
+        rng = np.random.default_rng((res.seed, self.step_count))
+        delay *= 1.0 + 0.25 * float(rng.random())
+        log.warning("engine step fault (%s): retrying next step after "
+                    "%.1fms backoff (%d/%d)", err, delay * 1e3,
+                    res.consecutive_step_faults,
+                    res.max_consecutive_step_faults)
+        time.sleep(delay)
+        return True
+
+    def _on_ladder_transition(self, old: int, new: int) -> None:
+        self.metrics.on_degradation(new)
+        log.warning("degradation ladder: %s -> %s", STAGE_NAMES[old],
+                    STAGE_NAMES[new])
+        if not self.paged:
+            return
+        caches = [c for c in (self.cache, self.draft_cache) if c is not None]
+        if new >= 2 and old < 2:        # entering flush_prefix
+            n = self.cache.flush_trie()
+            for c in caches:
+                c.publish_enabled = False
+            log.warning("flushed %d trie-only prefix nodes; prefix "
+                        "publishing suspended", n)
+        elif new < 2 and old >= 2:      # pressure cleared: re-enable
+            for c in caches:
+                c.publish_enabled = True
+            log.warning("prefix publishing re-enabled")
+
+    def _apply_ladder(self, page_blocked: bool) -> None:
+        """Feed this step's pressure into the ladder: pool contention (1.0
+        when admission was page-blocked or nothing is obtainable, else the
+        committed fraction) or the fault-rate EWMA, the worse of the two."""
+        res = self.resilience
+        if res.ladder is None:
+            return
         if self.paged:
+            cap = max(self.cache.pool.n_pages - 1, 1)
+            avail = self.cache.available()
+            util = (1.0 if (page_blocked or avail <= 0)
+                    else 1.0 - min(avail, cap) / cap)
+        else:
+            util = 1.0 if page_blocked else 0.0
+        res.ladder.observe(res.pressure(util), self.step_count)
+
+    @property
+    def spec_suspended(self) -> bool:
+        """True while the degradation ladder holds speculation off: the
+        plain paged decode serves (draft K/V goes stale for the tokens
+        generated meanwhile, which costs acceptance after resuming, never
+        correctness)."""
+        ladder = self.resilience.ladder
+        return self.spec_active and ladder is not None and ladder.spec_disabled
+
+    # ------------------------------------------------------------- the step
+    def step(self) -> bool:
+        """One engine iteration (deadlines; admit, with preemption; paged,
+        prefill chunks; one decode or one speculative step) inside the
+        resilience bracket (slow-step faults in ``begin_step``, the step-time
+        monitor and the fault-rate decay in ``end_step``). Returns True if
+        any work was done."""
+        res = self.resilience
+        t0 = time.perf_counter()
+        res.begin_step(self.step_count)
+        try:
+            return self._step_inner()
+        finally:
+            res.end_step(time.perf_counter() - t0)
+
+    def _step_inner(self) -> bool:
+        self._enforce_deadlines()
+        page_blocked = False
+        if self.paged:
+            def can(r):
+                nonlocal page_blocked
+                ok = self.cache.can_admit(len(r.prompt), r.max_new_tokens,
+                                          prompt=r.prompt)
+                if ok and self.spec_active:
+                    ok = self.draft_cache.can_admit(
+                        len(r.prompt), r.max_new_tokens, prompt=r.prompt)
+                if not ok:
+                    page_blocked = True     # pressure for the ladder
+                return ok
+            # one at a time (each admission takes pages the next probe must
+            # see); a blocked head may evict a lower-priority slot, then
+            # admission retries
             admitted = []
             while True:
-                pairs = self.scheduler.admit(can_admit=self._can_admit,
-                                             max_n=1)
-                if not pairs:
+                pairs = self.scheduler.admit(can_admit=can, max_n=1,
+                                             eligible=self._retry_eligible)
+                if pairs:
+                    self._admit_one_paged(*pairs[0])
+                    admitted += pairs
+                elif not self._preempt_for_head():
                     break
-                self._admit_one_paged(*pairs[0])
-                admitted += pairs
             prefilled = self._prefill_chunks()
         else:
-            admitted = self.scheduler.admit()
+            admitted = self.scheduler.admit(eligible=self._retry_eligible)
             for req, slot in admitted:
                 self._admit_one(req, slot)
             prefilled = False
+        self.step_count += 1
         self.metrics.on_queue_depth(len(self.scheduler.waiting))
+        self._apply_ladder(page_blocked)
 
         if not self._live.any():
             self.metrics.on_step(0, self.n_slots)
             self._report_kv()
             return bool(admitted) or prefilled
-        if self.spec_active:
+        if self.spec_active and not self.spec_suspended:
             return self._step_spec()
         return self._step_decode()
 
     def _step_decode(self) -> bool:
         """One batched decode of every live slot (dense: of every slot)."""
-        if self.paged:
-            # materialise this step's write pages; size the active width to
-            # the deepest live sequence
+        res = self.resilience
+        try:
+            # the injected fault fires before the step writes anything
+            if res.injector is not None:
+                res.injector.check("engine_step")
+            wpos = np.zeros((self.n_slots,), np.int32)
             needed = 1
             for slot in np.nonzero(self._live)[0]:
                 req = self.scheduler.running.get(int(slot))
                 if req is None:
                     continue
-                wpos = self._kv_len(req)
-                self.cache.ensure_decode_page(int(slot), wpos)
-                needed = max(needed, self.cache.pages_used(int(slot),
-                                                           wpos + 1))
-            width = min(_next_pow2(needed), self.cache.max_pages)
-            self._block_tables_dev(width)
-            self._live_mask_dev()
-            logits = self._run("decode", width)
-        else:
-            logits = self._run("decode_dense", self.n_slots)
-        self._tokens.copy_(sampling_lib.sample(logits, self._temps,
-                                               self._top_ks, self._gens))
-        next_np = self._tokens.cpu().numpy()
+                wpos[slot] = self._kv_len(req)
+                if self.paged:
+                    # materialise this step's write pages; size the active
+                    # width to the deepest live sequence
+                    self.cache.ensure_decode_page(int(slot), int(wpos[slot]))
+                    needed = max(needed, self.cache.pages_used(
+                        int(slot), int(wpos[slot]) + 1))
+            # ``pos`` from the host's depths before every replay: a retried
+            # step may have advanced it before it raised, and a verify held
+            # off mid-flight left it at the window's entry
+            self._put(self._pos0, wpos)
+            self.model.set_paged_pos(self.cache.caches, self._pos0)
+            if self.paged:
+                width = min(_next_pow2(needed), self.cache.max_pages)
+                self._block_tables_dev(width)
+                self._live_mask_dev()
+                logits = self._run("decode", width)
+            else:
+                logits = self._run("decode_dense", self.n_slots)
+            poison = self._poison("decode_logits")
+            if poison is not None:
+                logits = logits + poison[:, None]
+            ok = torch.isfinite(logits).all(dim=-1)
+            self._tokens.copy_(sampling_lib.sample(logits, self._temps,
+                                                   self._top_ks, self._gens))
+        except Exception as e:          # noqa: BLE001 - bounded retry
+            return self._handle_step_fault(e)
+        res.consecutive_step_faults = 0
+        # the tokens and the watchdog's verdict in one copy to the host
+        host = torch.stack([self._tokens, ok.long()], dim=1).cpu().numpy()
 
         self.metrics.on_step(int(self._live.sum()), self.n_slots)
         self._report_kv()
@@ -676,23 +990,29 @@ class Engine:
             req = self.scheduler.running.get(int(slot))
             if req is None:
                 continue
+            if not host[slot, 1]:
+                self._quarantine(req)
+                continue
             self.metrics.on_decode_step(req.id, 1)
-            self._emit(req, int(next_np[slot]))
+            self._emit(req, int(host[slot, 0]))
         return True
 
     # ------------------------------------------------- speculative decoding
-    def _propose(self, width: int):
+    def _propose(self, width: int, poison=None):
         """``spec_k`` draft decode steps from the accepted depth (the
         static ``_pos0``), the pending token first, so the draft pool ends
         holding K/V for window positions ``pos0 .. pos0+k-1``: ``spec_k``
         runs of the draft decode program, each followed by
-        ``propose_token``. Returns the proposals ``(B, k)`` and the
+        ``propose_token`` (on the logits plus the ``draft_logits`` poison,
+        when one is given). Returns the proposals ``(B, k)`` and the
         distributions ``q (B, k, V)`` they were drawn from."""
         self.draft_model.set_paged_pos(self.draft_cache.caches, self._pos0)
         self._draft_in.copy_(self._tokens)
         seq_t, seq_q = [], []
         for _ in range(self.spec_k):
             logits = self._run("draft_decode", width)
+            if poison is not None:
+                logits = logits + poison[:, None]
             toks, q = sampling_lib.propose_token(logits, self._temps,
                                                  self._top_ks, self._gens)
             seq_t.append(toks)
@@ -700,58 +1020,83 @@ class Engine:
             self._draft_in.copy_(toks)
         return torch.stack(seq_t, dim=1), torch.stack(seq_q, dim=1)
 
-    def _verify(self, width: int, draft_toks, draft_q):
+    def _verify(self, width: int, draft_toks, draft_q, poison=None):
         """Score the window ``[pending, d_1 .. d_k]`` in one target pass
-        (the verify program sets the accepted depth first) and accept.
-        Returns ``(out (B, k+1), n_accepted (B,))`` and moves each live
-        slot's pending token to ``out[n_accepted]``."""
+        (the verify program sets the accepted depth first), add the
+        ``decode_logits`` poison when one is given, and accept. Returns
+        ``(out (B, k+1), n_accepted (B,), ok (B,))``, ``ok`` the watchdog's
+        verdict (finite target logits and finite draft distributions: a
+        poisoned draft must not leak through the residual draw), and moves
+        each live slot's pending token to ``out[n_accepted]``."""
         self._window[:, 0].copy_(self._tokens)
         self._window[:, 1:].copy_(draft_toks)
         logits = self._run("verify", width)
+        if poison is not None:
+            logits = logits + poison[:, None, None]
+        ok = (torch.isfinite(logits).all(dim=-1).all(dim=-1)
+              & torch.isfinite(draft_q).all(dim=-1).all(dim=-1))
         out, n_acc = sampling_lib.spec_accept(
             logits, draft_toks, draft_q, self._temps, self._top_ks,
             self._gens)
         new_tok = torch.gather(out, 1, n_acc[:, None])[:, 0]
         self._tokens.copy_(torch.where(self._live_dev, new_tok,
                                        self._tokens))
-        return out, n_acc
+        return out, n_acc, ok
 
     def _step_spec(self) -> bool:
         """One speculative step: window pages in both pools, draft propose,
         target verify, then emit 1..k+1 tokens per live slot (stop checks
         inside the window) and roll both pools back to the accepted
-        depth."""
+        depth. A non-finite row is quarantined; an exception retries the
+        step (propose and verify as a unit)."""
         k = self.spec_k
-        pos0 = np.zeros((self.n_slots,), np.int32)
-        needed = 1
-        for slot in np.nonzero(self._live)[0]:
-            req = self.scheduler.running.get(int(slot))
-            if req is None:
-                continue
-            wpos = self._kv_len(req)
-            pos0[slot] = wpos
-            # the target writes window positions wpos .. wpos+k, the draft
-            # wpos .. wpos+k-1, against the slack in the reservation
-            for t in range(k + 1):
-                self.cache.ensure_decode_page(int(slot), wpos + t)
-                if t < k:
-                    self.draft_cache.ensure_decode_page(int(slot), wpos + t)
-            needed = max(needed, self.cache.pages_used(int(slot),
-                                                       wpos + k + 1))
-        width = min(_next_pow2(needed), self.cache.max_pages)
-        self._live_mask_dev()
-        self._put(self._pos0, pos0)
-        self._block_tables_dev(width, draft=True)
-        self._block_tables_dev(width)
-        draft_toks, draft_q = self._propose(width)
-        out, n_acc = self._verify(width, draft_toks, draft_q)
-        host = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
+        res = self.resilience
+        try:
+            # the injected fault fires before the step writes anything
+            if res.injector is not None:
+                res.injector.check("engine_step")
+            pos0 = np.zeros((self.n_slots,), np.int32)
+            needed = 1
+            for slot in np.nonzero(self._live)[0]:
+                req = self.scheduler.running.get(int(slot))
+                if req is None:
+                    continue
+                wpos = self._kv_len(req)
+                pos0[slot] = wpos
+                # the target writes window positions wpos .. wpos+k, the
+                # draft wpos .. wpos+k-1, against the slack in the
+                # reservation
+                for t in range(k + 1):
+                    self.cache.ensure_decode_page(int(slot), wpos + t)
+                    if t < k:
+                        self.draft_cache.ensure_decode_page(int(slot),
+                                                            wpos + t)
+                needed = max(needed, self.cache.pages_used(int(slot),
+                                                           wpos + k + 1))
+            width = min(_next_pow2(needed), self.cache.max_pages)
+            self._live_mask_dev()
+            self._put(self._pos0, pos0)
+            self._block_tables_dev(width, draft=True)
+            self._block_tables_dev(width)
+            draft_toks, draft_q = self._propose(
+                width, self._poison("draft_logits"))
+            out, n_acc, ok = self._verify(width, draft_toks, draft_q,
+                                          self._poison("decode_logits"))
+        except Exception as e:          # noqa: BLE001 - bounded retry
+            return self._handle_step_fault(e)
+        res.consecutive_step_faults = 0
+        # the window, its acceptance and the watchdog's verdict in one copy
+        host = torch.cat([out, n_acc[:, None], ok[:, None].long()],
+                         dim=1).cpu().numpy()
 
         self.metrics.on_step(int(self._live.sum()), self.n_slots)
         self._report_kv()
         for slot in np.nonzero(self._live)[0]:
             req = self.scheduler.running.get(int(slot))
             if req is None:
+                continue
+            if not host[slot, k + 2]:
+                self._quarantine(req)
                 continue
             n = int(host[slot, k + 1])
             self.metrics.on_decode_step(req.id, n + 1, n_proposed=k,

@@ -43,6 +43,8 @@ def test_port_imports_without_jax():
     assert ("repro_torch.kernels.paged_attention" in mods
             and "repro_torch.serve.sampling" in mods
             and "repro_torch.launch.serve" in mods)
+    assert ("repro_torch.serve.resilience" in mods
+            and "repro_torch.serve.server" in mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
@@ -57,6 +59,8 @@ def test_port_imports_without_jax():
         "assert callable(ref.paged_attention_verify_ref)\n"
         "assert 'paged_verify' in _build.SOURCES\n"
         "assert callable(sampling.spec_accept) and callable(cache.share_trie)\n"
+        "from repro_torch.serve import resilience, server\n"
+        "assert callable(server.run) and resilience.storm_schedule()\n"
         "from repro_torch.data import TeacherStudent\n"
         "from repro_torch.core.policy import uniform\n"
         "assert TeacherStudent().next()['inputs'].shape == (50, 800)\n"

@@ -11,7 +11,10 @@ and greedy decode. Also held: ``--quantize int4`` against the reference's
 ``quantize_packed(bits=4)`` (values exact, scales within 1e-6), a
 masked-dense train checkpoint served with ``--fold-to-packed --ckpt-dir``
 against the reference ``_load_model``'s packed params (within 1e-6), the
-``--prefill-kernel`` routes and the launcher's refusals.
+``--prefill-kernel`` routes and the launcher's refusals. ``--chaos-schedule
+storm --chaos-verify`` streams the reference launcher's tokens and injects
+its faults (exact), and ``--http`` hands the engine, host, port and queue
+limit to the server.
 """
 
 import argparse
@@ -210,12 +213,13 @@ def test_default_engine_is_dense_and_paged_needs_the_flag(monkeypatch):
     (["--static", "--paged"], "mutually exclusive"),
     (["--spec-draft", "x"], "--paged"),
     (["--prefill-kernel", "jnp"], "combine with --paged"),
-    (["--http"], "queue A item 6"),
-    (["--replicas", "2"], "queue A item 6"),
-    (["--disagg", "--paged"], "queue A item 6"),
-    (["--chaos-schedule", "storm"], "queue A item 6"),
-    (["--port", "0"], "queue A item 6"),
-    (["--tp", "2"], "queue A item 8"),
+    (["--chaos-verify"], "needs --chaos-schedule"),
+    (["--replicas", "2"], "queue A item 4"),
+    (["--disagg", "--paged"], "queue A item 4"),
+    (["--n-prefill", "2"], "queue A item 4"),
+    (["--chaos-schedule", "storm", "--chaos-verify", "--http"],
+     "cannot combine with --http"),
+    (["--tp", "2"], "queue A item 6"),
 ])
 def test_launcher_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -228,3 +232,48 @@ def test_empty_ckpt_dir_is_refused(tmp_path):
     with pytest.raises(SystemExit, match="no checkpoint under"):
         tserve.main(SMOKE + ["--fold-to-packed", "--ckpt-dir", str(tmp_path),
                              "--device", "cpu"])
+
+
+def test_chaos_verify_streams_the_reference_tokens(ckpt, monkeypatch):
+    """``--paged --chaos-schedule storm --chaos-verify``: the chaos run's
+    streams, the faults it injected and the verify's verdict are the
+    reference launcher's."""
+    d = ckpt[0]
+    argv = SMOKE + ["--requests", "6", "--ckpt-dir", d, "--paged",
+                    "--page-size", "8", "--chaos-schedule", "storm",
+                    "--chaos-verify"]
+    got = tserve.main(argv + ["--device", "cpu"])
+    assert got["chaos_verify"] == {"identical": 6, "aborted": 0,
+                                   "requests": 6}
+    seen = []
+    real = jserve.serve_stream
+
+    def capture(engine, requests, **kw):
+        seen.append((engine, requests))
+        return real(engine, requests, **kw)
+    monkeypatch.setattr(jserve, "serve_stream", capture)
+    monkeypatch.setattr(jops, "_PREFILL_BACKEND", None)
+    jserve.main(argv)
+    engine, reqs = seen[0]
+    assert got["streams"] == {r.id: list(r.generated) for r in reqs}
+    faults = got["resilience"]["faults_injected"]
+    assert faults == engine.resilience.summary()["faults_injected"]
+    assert faults["decode_logits"] == 2 and faults["engine_step"] == 1
+    assert got["n_step_faults"] == 1 and got["n_quarantines"] >= 1
+
+
+def test_http_hands_the_engine_to_the_server(monkeypatch):
+    """``--http``: the launcher builds the engine (with the degradation
+    ladder) and calls the server's ``run`` with the host, port and queue
+    limit."""
+    from repro_torch.serve import server as server_lib
+
+    seen = {}
+    monkeypatch.setattr(server_lib, "run",
+                        lambda engine, **kw: seen.update(engine=engine, **kw))
+    tserve.main(SMOKE + ["--http", "--paged", "--port", "0",
+                         "--queue-limit", "3", "--device", "cpu"])
+    assert seen["host"] == "127.0.0.1" and seen["port"] == 0
+    assert seen["queue_limit"] == 3
+    assert seen["engine"].paged
+    assert seen["engine"].resilience.ladder is not None
