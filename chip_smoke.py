@@ -199,6 +199,29 @@ Phases, each printed as one JSON line:
    stages 0 and 1: SLO attainment per class and decode tok/s, recorded.
    No engine captures a graph after its ``warmup()``. Every earlier
    serving phase also fails on a step fault caught and retried.
+21. ``gqa`` (run after phase 17) — granite-8b at its published widths (36
+   layers, d 4096, 32 heads over 8 KV heads of 128, d_ff 14336, vocab
+   49152, rms; packed ``mpd_c=8``, int8, bf16), its bytes on a first
+   line: 8 requests through ``launch.serve.main([..., "--paged",
+   "--quantize", "int8", ...])`` (8 of 8), then the same traffic at once
+   in an eager and a captured turn (``graph_turns``: identical streams,
+   equal launch counts and route tallies); every paged-attention plan at
+   4 heads per KV head, the decode and prefill kernels launched. The
+   kernels phase holds both at granite's heads too.
+22. ``moe`` — qwen2-moe-a2.7b at its published widths (24 layers, d 2048,
+   60 routed experts padded to 64, top-4 of d_ff 1408, a gated 5632-wide
+   shared expert, vocab 151936; packed ``mpd_c=8``, int8 with bf16 routed
+   experts and an f32 router, bf16) on the paged engine, its bytes on a
+   first line: 8 requests at once (prompts of 256-512 tokens from
+   ``default_rng``, 128 shared, 16-32 new) in an eager and a captured
+   turn: 8 of 8, identical streams, equal launches; a profiled captured
+   decode window (the routed-expert einsums in the ``library_gemm``
+   family) and an eager window's MoE kernel time by part (router,
+   routed-expert einsums, shared expert, dispatch and combine).
+23. ``exact_moe`` — qwen2-moe cut to 4 of its 24 layers at float32 (int8
+   projections): greedy streams through the kernels (captured) and the
+   plain versions (eager) identical; the smallest gap between the K-th
+   and (K+1)-th router probability over every row the plain run routed.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -261,6 +284,9 @@ MM_SHAPES = [("qkvo", 2048, 2048, None), ("up_gate", 2048, 8192, "silu"),
 MM_TOKENS = 2048                                 # 4 sequences x 512
 # cuBLAS / cuBLASLt kernel names (attention einsums, CE) in the profiler
 LIBRARY_GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet")
+# device families: cuBLAS/CUTLASS GEMMs and GEMVs (on the serving paths only
+# the MoE routed-expert einsums and the shared expert's d -> 1 gate)
+LIBRARY_GEMM_FAMILY = "library_gemm"
 SERVING_KERNELS = ("bdmm", "bdmm_decode", "paged_attention",
                    "paged_prefill_attention")
 MASKED_KERNELS = ("masked_matmul", "masked_matmul_t", "sddmm_masked")
@@ -647,6 +673,7 @@ def check_paged_attention(torch, dev, timer, rows, summary):
         # around a split's edge: S * 16 - 1, S * 16 and S * 16 + 1 positions
         (16, 16, [1, 63, 64, 65], "bfloat16"),
         (16, 16, [1, 63, 64, 65], "float32"),
+        (32, 8, [511, 512, 530, 544], "bfloat16"),    # granite-8b, timed
     ]
     for idx, (H, kh, lengths, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -706,6 +733,11 @@ def check_paged_attention(torch, dev, timer, rows, summary):
                                           "bound_ms", "bound_by")})
             s["at"] = f"B=4 H=Kh=16 lengths={lengths}"
             s["cuda_body"] = used
+        if (H, kh) == (32, 8):
+            s["granite_8b"] = dict(
+                {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")},
+                at=f"B=4 H=32 Kh=8 lengths={lengths}")
 
 
 def check_paged_prefill(torch, dev, timer, rows, summary):
@@ -722,6 +754,7 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
         (16, 4, 128, 37, "bfloat16"),       # GQA 4:1
         (16, 16, 128, 37, "float32"),
         (16, 16, 448, 21, "bfloat16"),      # a short last chunk at 448
+        (32, 8, 448, 64, "bfloat16"),       # granite-8b, timed
     ]
     for idx, (H, kh, start, clen, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -785,6 +818,11 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
                                           "bound_ms", "bound_by")})
             s["at"] = f"Tc=64 start={start} chunk_len={clen}"
             s["cuda_body"] = used
+        if (H, kh) == (32, 8):
+            s["granite_8b"] = dict(
+                {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")},
+                at=f"Tc=64 H=32 Kh=8 start={start} chunk_len={clen}")
 
 
 # (H, Kh, Tq, lengths, dtype): the spec phase's window (4 slots, k = 4) at the
@@ -1567,12 +1605,14 @@ def device_families(torch, prof, n):
     families = {"bdmm_decode": 0.0, BDMM_GENERAL_FAMILY: 0.0,
                 "fused_ffn": 0.0, "paged_attention_kernel": 0.0,
                 "paged_verify_kernel": 0.0, MASKED_MM_FAMILY: 0.0,
-                "other": 0.0}
+                LIBRARY_GEMM_FAMILY: 0.0, "other": 0.0}
     combines = {"seen": 0, "in_other": 0}
     for e in prof.events():
         if e.device_type != cuda:
             continue
         name = e.name.replace("bdmm_reduce_kernel", BDMM_GENERAL_FAMILY)
+        if any(g in name.lower() for g in LIBRARY_GEMM_NAMES + ("gemv",)):
+            name = LIBRARY_GEMM_FAMILY
         key = next((k for k in families if k in name), "other")
         families[key] += getattr(e, "self_device_time_total", 0) / 1e3
         if "_kernel_combine" in name:
@@ -1582,7 +1622,7 @@ def device_families(torch, prof, n):
 
 
 def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
-                  graphs=None, profile_prefill=True):
+                  graphs=None, profile_prefill=True, reqs=None):
     """Where a steady decode step's time goes: ``n_steps`` decode steps
     (speculative steps with ``spec_draft``) of 4 live slots at the serve
     phase's context depths (~250-540 tokens), under torch.profiler; the
@@ -1595,7 +1635,8 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
     share; then the wall of ``n_steps`` more steps without the profiler
     (whose recording of every host op slows the host, not the device) and
     the busy share against it. The device entries are None when the
-    profiler records no device activity."""
+    profiler records no device activity. ``reqs``: the 4 requests to
+    use instead of the serve traffic's (448-token prompts)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Engine
@@ -1604,8 +1645,10 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
     eng = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K,
                  graphs=graphs, **kw)
     eng.warmup()
-    for r in make_requests(cfg, n_requests=4, rate=1e9, prompt_len=448,
-                           gen=32, seed=0, shared_prefix=128):
+    if reqs is None:
+        reqs = make_requests(cfg, n_requests=4, rate=1e9, prompt_len=448,
+                             gen=32, seed=0, shared_prefix=128)
+    for r in reqs:
         r.max_new_tokens = 96           # every slot stays live in the window
         eng.submit(r)
     chunks0 = eng.n_prefill_chunks + eng.runs["admit"]
@@ -1663,30 +1706,37 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
             "seconds": time.perf_counter() - t_start}
 
 
-def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
-    """The serve traffic served by eager and captured engines in turns
-    (eager, captured, captured, eager; speculative with ``spec_draft``).
-    Every request arrives at once, so the schedule, and with it every
-    launch count, does not depend on how fast the host is. Per turn: the
-    engine step's and the programs' p50 ms (synchronised clock), TTFT and
-    e2e p50/p95, tok/s, a profiled decode window and, captured, the
-    warmup's seconds and graph-pool bytes. ``ok``: the four turns' greedy
-    streams are identical and the captured turns' launch counts and route
-    tallies equal the eager turns'."""
+def graph_turns(torch, model, params, kw, cfg, spec_draft=None,
+                make_reqs=None, order=(False, None, None, False),
+                windows=True):
+    """The serve traffic (``make_reqs()``'s requests when given) served by
+    eager and captured engines in turns (``order``: ``graphs=False`` eager,
+    None captured; speculative with ``spec_draft``). Every request arrives
+    at once, so the schedule, and with it every launch count, does not
+    depend on how fast the host is. Per turn: the engine step's and the
+    programs' p50 ms (synchronised clock), TTFT and e2e p50/p95, tok/s, a
+    profiled decode window (with ``windows``) and, captured, the warmup's
+    seconds, graph-pool bytes and the graphs captured while serving.
+    ``ok``: every turn serves every request with no hidden fault and
+    captures nothing after its warmup, the turns' greedy streams are
+    identical and the captured turns' launch counts and route tallies
+    equal the eager turns'."""
     import gc
 
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import make_requests, serve_stream
     from repro_torch.serve import Engine
 
-    traffic = dict(SERVE_TRAFFIC, rate=1e9)
+    if make_reqs is None:
+        make_reqs = lambda: make_requests(  # noqa: E731
+            cfg, **dict(SERVE_TRAFFIC, rate=1e9))
     turns, streams, tallies = [], [], []
-    for graphs in (False, None, None, False):
+    for graphs in order:
         t_turn = time.perf_counter()
         engine = Engine(model, params, spec_draft=spec_draft, spec_k=SPEC_K,
                         graphs=graphs, **kw)
         warm = warm_engine(torch, engine) if graphs is None else {}
-        reqs = make_requests(cfg, **traffic)
+        reqs = make_reqs()
         engine.time_programs = True
         steps = instrument_steps(torch, engine)
         ops.reset_launch_counts()
@@ -1698,15 +1748,12 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
         runs = dict(engine.runs)
         draft_ms = engine.run_ms["draft_decode"]
         verify_ms = engine.run_ms["verify"]
+        captured = engine.n_captures - warm.get("graphs_captured", 0)
         done = (summary["n_done"] == len(reqs)
-                and no_hidden_faults(summary))
+                and no_hidden_faults(summary) and captured == 0)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        window = decode_window(torch, model, params, kw, cfg,
-                               n_steps=8 if spec_draft else 16,
-                               spec_draft=spec_draft, graphs=graphs,
-                               profile_prefill=False)
         pre = "prefill_chunk" if kw.get("paged", True) else "admit"
         turn = {"route": "eager" if graphs is False else "captured",
                 "requests_done": summary["n_done"],
@@ -1720,6 +1767,13 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
                 "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
                 "e2e_p95_ms": summary["e2e_p95_s"] * 1e3,
                 "program_runs": runs,
+                "graphs_captured_while_serving": captured, **warm}
+        if windows:
+            window = decode_window(torch, model, params, kw, cfg,
+                                   n_steps=8 if spec_draft else 16,
+                                   spec_draft=spec_draft, graphs=graphs,
+                                   profile_prefill=False)
+            turn.update({
                 "window_wall_ms_per_step": window["wall_ms_per_step"],
                 "window_device_ms_per_step":
                     window["device_ms_per_step_total"],
@@ -1729,8 +1783,7 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None):
                 "window_busy_share_unprofiled":
                     window["device_busy_share_unprofiled"],
                 "window_live_rows": window["live_rows_per_step"],
-                "window_device_ms_by_family": window["device_ms_per_step"],
-                **warm}
+                "window_device_ms_by_family": window["device_ms_per_step"]})
         if spec_draft is None:
             turn["decode_program_ms_p50"] = statistics.median(calls["decode"])
         else:
@@ -3477,6 +3530,309 @@ def paper_phase(torch, dev, ops):
     return row
 
 
+# ------------------------------------------------ gqa, moe and exact_moe
+GQA_ARGV = ["--arch", "granite-8b", "--paged", "--quantize", "int8",
+            "--requests", "8", "--prompt-len", "512", "--gen", "32",
+            "--shared-prefix", "128", "--slots", "4", "--page-size", "16",
+            "--prefill-chunk", "64"]
+MOE_TRAFFIC = dict(n=8, prompt_len=512, gen=32, shared_prefix=128, seed=0)
+EXACT_MOE_LAYERS = 4
+EXACT_MOE_TRAFFIC = dict(n=6, prompt_len=256, gen=16, shared_prefix=64,
+                         seed=0)
+
+
+def model_bytes(torch, model, params, kw):
+    """Device bytes of a served model by part, and of its K/V pool at
+    ``kw``'s slots and depth."""
+    def nbytes(tree):
+        from repro_torch import tree as tree_lib
+        return sum(t.numel() * t.element_size()
+                   for t in tree_lib.leaves(tree))
+    cfg = model.cfg
+    out = {"embed": nbytes(params["embed"]),
+           "unembed": nbytes(params["unembed"])}
+    routed = router = 0
+    for spec, p in zip(model.block_specs, params["blocks"]):
+        if spec["kind"] == "attn_moe":
+            routed += sum(nbytes(p["ffn"][k]) for k in ("w_up", "w_gate",
+                                                        "w_down"))
+            router += nbytes(p["ffn"]["router"])
+    out["blocks"] = nbytes(params["blocks"]) - routed - router
+    if routed:
+        out["moe_routed_experts"] = routed
+        out["moe_router"] = router
+    out["kv_pool"] = (cfg.n_layers * kw["n_slots"] * kw["max_len"] * 2
+                      * cfg.n_kv_heads * cfg.hd
+                      * torch.tensor([], dtype=cfg.tdtype).element_size())
+    return out
+
+
+def moe_requests(cfg, *, n, prompt_len, gen, shared_prefix, seed):
+    """``make_requests``' lengths and budgets, every request arriving at
+    t = 0, with prompt tokens drawn by ``default_rng(seed).integers(0,
+    vocab)``: a ``SyntheticLM`` table at qwen2-moe's vocab (151936) would
+    take ~92 GB of host memory."""
+    import numpy as np
+    from repro_torch.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (n, prompt_len))
+    toks[:, :shared_prefix] = toks[0, :shared_prefix]
+    out = []
+    for i in range(n):
+        plen = max(int(rng.integers(max(prompt_len // 2, 1), prompt_len + 1)),
+                   shared_prefix)
+        out.append(Request(
+            id=i, prompt=toks[i, :plen],
+            max_new_tokens=int(rng.integers(max(gen // 2, 1), gen + 1)),
+            sampling=SamplingParams(temperature=0.0, seed=seed * 1000 + i),
+            arrival_time=0.0))
+    return out
+
+
+def record_groups(pa):
+    """Wrap ``paged_attention.plan`` to record the (call, heads per KV
+    head) of every paged-attention launch planned on the host (eager calls
+    and captures; a replay plans nothing). Returns ``(seen, undo)``."""
+    seen, plan = set(), pa.plan
+
+    def recording(T, H, Kh, *a, **k):
+        call = ("prefill" if k.get("prefill") else "decode" if T == 1
+                else "verify")
+        seen.add((call, H // Kh))
+        return plan(T, H, Kh, *a, **k)
+    pa.plan = recording
+    return seen, lambda: setattr(pa, "plan", plan)
+
+
+def gqa_phase(torch, dev, ops):
+    """granite-8b at its published widths (GQA 32 heads over 8 KV heads, head
+    dim 128, rms norm) through the serve launcher, then eager and captured
+    turns of the same traffic arriving at once."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as launch
+
+    t0 = time.perf_counter()
+    cfg, model, params = launch.load_model("granite-8b", quantize="int8",
+                                           device=dev)
+    torch.cuda.synchronize()
+    kw = dict(SERVE_ENGINE)
+    emit({"phase": "gqa", "stage": "config", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "norm": cfg.norm, "mpd_c": cfg.mpd_c, "weights": "int8",
+          "dtype": cfg.dtype, "bytes": model_bytes(torch, model, params, kw),
+          "setup_s": time.perf_counter() - t0})
+    seen, undo = record_groups(pa)
+    try:
+        ops.reset_launch_counts()
+        s = launch.main(GQA_ARGV)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        turns = graph_turns(torch, model, params, kw, cfg,
+                            order=(False, None), windows=False)
+    finally:
+        undo()
+    group = cfg.n_heads // cfg.n_kv_heads
+    groups_ok = {("decode", group), ("prefill", group)} <= seen and all(
+        g == group for _, g in seen)
+    served = (s["n_done"] == s["n_requests"] == 8 and no_hidden_faults(s)
+              and launches["paged_attention"] > 0
+              and launches["paged_prefill_attention"] > 0)
+    row = {"phase": "gqa", "ok": served and groups_ok and turns["ok"],
+           "argv": GQA_ARGV, "requests_done": s["n_done"],
+           "tok_s": s["agg_tok_s"], "ttft_p50_ms": s["ttft_p50_s"] * 1e3,
+           "ttft_p95_ms": s["ttft_p95_s"] * 1e3,
+           "e2e_p50_ms": s["e2e_p50_s"] * 1e3,
+           "e2e_p95_ms": s["e2e_p95_s"] * 1e3,
+           "kv_bytes_allocated_peak": s["kv_bytes_allocated_peak"],
+           "attention_groups_planned": sorted(seen),
+           "graph_turns": turns, "launches": launches}
+    emit(row)
+    del model, params
+    return row
+
+
+def moe_scopes(torch, model, params, kw, reqs, n_steps=8):
+    """Kernel ms per decode step inside the MoE layers, on an eager engine
+    (a graph replay hides which call launched a kernel): ``MoESpec``'s
+    ``apply``, ``route`` (router + top-k + places), ``_expert_mm`` (the
+    routed-expert einsums) and the shared expert (``FFNSpec.apply``, which
+    qwen2-moe's blocks call only there) under ``record_function`` scopes,
+    each the sum of the kernels launched inside it; dispatch and combine
+    are the rest of ``apply``. The scopes are put on for this window
+    alone."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ffn as ffn_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serve import Engine
+
+    names = {"moe": (moe_lib.MoESpec, "apply"),
+             "moe.router": (moe_lib.MoESpec, "route"),
+             "moe.experts": (moe_lib.MoESpec, "_expert_mm"),
+             "moe.shared": (ffn_lib.FFNSpec, "apply")}
+    saved = {n: getattr(c, a) for n, (c, a) in names.items()}
+
+    def scoped(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+    eng = Engine(model, params, graphs=False, **kw)
+    for r in reqs:
+        r.max_new_tokens = 96
+        eng.submit(r)
+    while eng._prefill_queue or eng.scheduler.waiting:
+        eng.step()
+    torch.cuda.synchronize()
+    try:
+        for n, (c, a) in names.items():
+            setattr(c, a, scoped(n, saved[n]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        for n, (c, a) in names.items():
+            setattr(c, a, saved[n])
+    # kernel time under a scope: the kernels every op inside it launched
+    # (a scope's own device span would count the gaps an eager host leaves)
+    def kernel_us(e):
+        return (sum(k.duration for k in e.kernels)
+                + sum(kernel_us(c) for c in e.cpu_children))
+    cpu = torch.autograd.DeviceType.CPU
+    events = [e for e in prof.events() if e.device_type == cpu]
+    dev_ms = {n: 0.0 for n in names}
+    for e in events:
+        if e.name in names:
+            dev_ms[e.name] += kernel_us(e) / 1e3 / n_steps
+    total = sum(sum(k.duration for k in e.kernels) for e in events) / 1e3
+    if not dev_ms["moe"]:
+        return {"kernel_ms_per_step": None, "steps": n_steps}
+    part = {"router": dev_ms.get("moe.router", 0.0),
+            "routed_expert_einsums": dev_ms.get("moe.experts", 0.0),
+            "shared_expert": dev_ms.get("moe.shared", 0.0)}
+    part["dispatch_and_combine"] = dev_ms["moe"] - sum(part.values())
+    return {"steps": n_steps, "route": "eager",
+            "kernel_ms_per_step": part,
+            "moe_kernel_ms_per_step": dev_ms["moe"],
+            "step_kernel_ms": total / n_steps,
+            "routed_expert_share": (part["routed_expert_einsums"]
+                                    / (total / n_steps) if total else None),
+            "moe_share": dev_ms["moe"] / (total / n_steps) if total else None}
+
+
+def moe_phase(torch, dev, ops):
+    """qwen2-moe-a2.7b at its published widths on the paged engine: eager
+    and captured turns of the same 8 requests, a profiled captured decode
+    window by kernel family and an eager window by MoE scope."""
+    from repro_torch.launch import serve as launch
+
+    t0 = time.perf_counter()
+    cfg, model, params = launch.load_model("qwen2-moe-a2.7b",
+                                           quantize="int8", device=dev)
+    torch.cuda.synchronize()
+    kw = dict(SERVE_ENGINE)
+    ffn = model.block_specs[0]["ffn"]
+    emit({"phase": "moe", "stage": "config", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "experts": cfg.moe_experts, "experts_padded": ffn.n_experts_padded,
+          "top_k": cfg.moe_top_k, "expert_d_ff": cfg.moe_d_ff,
+          "shared_d_ff": cfg.moe_shared_d_ff, "vocab": cfg.vocab,
+          "mpd_c": cfg.mpd_c, "router_packed": ffn.router.spec.mask is not None,
+          "weights": "int8 (routed experts bf16, router f32)",
+          "dtype": cfg.dtype, "bytes": model_bytes(torch, model, params, kw),
+          "capacity": {"decode": ffn.capacity(kw["n_slots"]),
+                       "chunk": ffn.capacity(kw["prefill_chunk_tokens"])},
+          "setup_s": time.perf_counter() - t0})
+    turns = graph_turns(torch, model, params, kw, cfg,
+                        make_reqs=lambda: moe_requests(cfg, **MOE_TRAFFIC),
+                        order=(False, None), windows=False)
+    launches = turns["launches_per_turn"]
+    window = decode_window(torch, model, params, kw, cfg, reqs=moe_requests(
+        cfg, **dict(MOE_TRAFFIC, n=4, prompt_len=448)))
+    scopes = moe_scopes(torch, model, params, kw, moe_requests(
+        cfg, **dict(MOE_TRAFFIC, n=4, prompt_len=448)))
+    ok = (turns["ok"] and launches["bdmm_decode"] > 0
+          and launches["paged_attention"] > 0
+          and launches["paged_prefill_attention"] > 0)
+    row = {"phase": "moe", "ok": ok, "graph_turns": turns,
+           "decode_window": window, "moe_scopes": scopes,
+           "launches": launches}
+    emit(row)
+    del model, params
+    return row
+
+
+def exact_moe_phase(torch, dev, ops):
+    """qwen2-moe cut to ``EXACT_MOE_LAYERS`` layers in float32 (int8
+    projections, f32 routed experts and router): greedy streams through the
+    kernels (captured) and through the plain versions (eager) on the same
+    requests; the smallest gap between the K-th and (K+1)-th router
+    probability over every row the plain run routed."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serve import Engine
+
+    cfg, model, params = launch.load_model(
+        "qwen2-moe-a2.7b", quantize="int8", dtype="float32",
+        n_layers=EXACT_MOE_LAYERS, device=dev)
+    emit({"phase": "exact_moe", "stage": "config", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+          "bytes": model_bytes(torch, model, params, EXACT_ENGINE)})
+    route = moe_lib.MoESpec.route
+    margin = {"min": torch.full((), float("inf"), device=dev), "calls": 0}
+
+    def margined(self, p, xf):
+        out = route(self, p, xf)
+        top = torch.topk(out[0], self.top_k + 1, dim=-1).values
+        margin["min"] = torch.minimum(
+            margin["min"], (top[:, -2] - top[:, -1]).min())
+        margin["calls"] += 1
+        return out
+    streams, counts, captures, faults = {}, {}, {}, {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        if backend == "torch":
+            moe_lib.MoESpec.route = margined
+        try:
+            engine = Engine(model, params, **EXACT_ENGINE,
+                            graphs=None if backend == "cuda" else False)
+            streams[backend] = engine.run(
+                moe_requests(cfg, **EXACT_MOE_TRAFFIC))
+        finally:
+            ops.set_backend("cuda")
+            moe_lib.MoESpec.route = route
+        torch.cuda.synchronize()
+        counts[backend] = ops.launch_counts()
+        captures[backend] = engine.n_captures
+        faults[backend] = engine.metrics.summary()
+        del engine
+    a, b = streams["cuda"], streams["torch"]
+    diverge = [rid for rid in sorted(a) if a[rid] != b[rid]]
+    routes_ok = (counts["cuda"]["bdmm_decode"] > 0
+                 and not any(counts["torch"].values()))
+    row = {"phase": "exact_moe",
+           "ok": (not diverge and routes_ok and captures["cuda"] > 0
+                  and captures["torch"] == 0
+                  and all(map(no_hidden_faults, faults.values()))),
+           "dtype": "float32", "weights": "int8 (routed experts and router "
+           "f32)", "cut": f"{cfg.n_layers} of 24 layers",
+           "requests": len(a), "tokens": sum(len(v) for v in a.values()),
+           "diverging_requests": diverge,
+           "router_margin_min": float(margin["min"]),
+           "router_calls_measured": margin["calls"],
+           "graphs_captured": captures,
+           "launches_kernel_route": counts["cuda"],
+           "launches_plain_route": counts["torch"]}
+    emit(row)
+    del model, params
+    return row
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import resource
@@ -3633,13 +3989,26 @@ def main() -> int:
     paper = timed("paper", paper_phase, torch, dev, ops)
     if not paper["ok"]:
         failed.append("paper")
+    torch.cuda.empty_cache()
+    gqa = timed("gqa", gqa_phase, torch, dev, ops)
+    if not gqa["ok"]:
+        failed.append("gqa")
+    torch.cuda.empty_cache()
+    moe = timed("moe", moe_phase, torch, dev, ops)
+    if not moe["ok"]:
+        failed.append("moe")
+    torch.cuda.empty_cache()
+    if not timed("exact_moe", exact_moe_phase, torch, dev, ops)["ok"]:
+        failed.append("exact_moe")
     # the main path's launches: paged and slot-dense serving, the static
     # lockstep batch, training (perm-fused packed and resumed too), the
-    # fused deploy, the speculative turns, the serving surface and the
-    # paper's experiments
+    # fused deploy, the speculative turns, the serving surface, the
+    # paper's experiments, granite-8b through the launcher and qwen2-moe's
+    # captured turn
     launches = {k: sum(p["launches"][k]
                        for p in (served, dense, static, trained, train_fused,
-                                 resumed, deployed, spec, surface, paper))
+                                 resumed, deployed, spec, surface, paper, gqa,
+                                 moe))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,
@@ -3669,8 +4038,8 @@ def main() -> int:
                            if "cuda_body" in s else {}),
                         **({"f32_rows": s["f32_rows"]}
                            if "f32_rows" in s else {}),
-                        **({k: s[k] for k in ("bodies", "tall_rows")
-                            if k in s})})
+                        **({k: s[k] for k in ("bodies", "tall_rows",
+                                              "granite_8b") if k in s})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

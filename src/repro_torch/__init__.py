@@ -23,8 +23,11 @@ the paper's Fig-3 deploy chain through a packed artifact on disk):
   ``paged_attention`` (decode), ``paged_prefill_attention``, their plain
   versions, routing and the autograd rules;
 - ``models``: norms, RoPE, embeddings, the unfused and the fused FFN,
-  training and paged attention, and the attention-only ``Model`` (loss,
-  mask projection, ``to_packed``);
+  MoE (capacity-bounded top-k routing, a shared expert), training and
+  paged attention, and ``Model`` for attention and attention + MoE
+  patterns (loss with the MoE aux term, mask projection, ``to_packed``);
+- ``configs``: olmo-1b, granite-8b, minitron-4b, command-r-plus-104b,
+  qwen2-moe-a2.7b, llama4-maverick-400b-a17b and LeNet-300-100;
 - ``checkpoint``: ``save``/``restore`` and the packed artifact
   (``export_packed``/``load_packed``), in the reference's format;
 - ``optim``, ``data`` (``SyntheticLM``), ``dist`` (the step-time monitor)

@@ -31,6 +31,10 @@ passes between the two packages in both directions::
   reference stores its step: a 0-d int32 leaf (``opt/step``); ``restore``
   gives an integer back where ``like`` holds one. A train checkpoint thus
   restores in either package.
+* An MoE model's routed expert stacks are raw arrays, not ``{"w"}``
+  leaves (``params/blocks/0/ffn/w_up``), stored fp in an int8 export as
+  the reference stores them; they take their place in the same flatten
+  order and crc32 chain.
 * A packed export's manifest carries the packed config with the
   reference's full field set (:data:`FOREIGN_CONFIG_DEFAULTS` for the
   fields of architectures the port does not have), so the reference's
@@ -58,7 +62,7 @@ BF16_DESCR = np.dtype("V2")         # how numpy stores a bfloat16 leaf
 
 # The reference's ModelConfig fields, in its order (``dataclasses.asdict``
 # writes them so), and the defaults of those the port's config lacks: they
-# belong to architectures not ported (MoE, Mamba, RWKV, M-RoPE) or to the
+# belong to architectures not ported (Mamba, RWKV, M-RoPE) or to the
 # reference's rematerialization.
 CONFIG_FIELDS = (
     "name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
@@ -70,10 +74,8 @@ CONFIG_FIELDS = (
     "mpd_mode", "mpd_min_block", "mpd_permuted", "mpd_seed", "mpd_per_kind",
     "mpd_fuse")
 FOREIGN_CONFIG_DEFAULTS = {
-    "mrope_sections": (16, 24, 24), "moe_experts": 0, "moe_top_k": 0,
-    "moe_d_ff": 0, "moe_shared_d_ff": 0, "moe_shared_gated": False,
-    "moe_capacity": 1.25, "moe_experts_pad": 0, "rwkv_head_dim": 64,
-    "mamba_expand": 2, "aux_loss_weight": 0.01, "remat": "block"}
+    "mrope_sections": (16, 24, 24), "rwkv_head_dim": 64, "mamba_expand": 2,
+    "remat": "block"}
 # remat changes what the reference's backward recomputes, not the function;
 # the port keeps activations, which computes the same values as either
 REMAT_VALUES = ("block", "none")

@@ -1,6 +1,6 @@
 """Whole-model fold of masked-dense training into the packed deployment
 form, the Fig-3 permutation-fusion rewrite and post-fold quantization (the
-port of ``repro.core.export`` for the attention family).
+port of ``repro.core.export`` for the attention and MoE families).
 
 :func:`fold_model` builds the packed twin of a ``masked_dense`` model (same
 config and masks, packed parameterization), checks that every claimed
@@ -9,6 +9,13 @@ blocks (paper Eq. 2), optionally rewrites the FFN permutations so the
 hidden stays in block order (:func:`apply_perm_fusion`) and optionally
 quantizes the blocks (:func:`quantize_packed`, int8, or int4 for storage;
 :func:`dequantize_packed` undoes it up to rounding).
+
+An MoE block, as in the reference: its stacked expert weights ``(periods,
+E, d_in, d_out)`` fold with the layer's one shared mask and stay raw fp
+arrays (never quantized: the routed product is gather-bound, not
+weight-stream-bound); its shared expert's linears fold and quantize like
+any other; its router stays as trained; the perm-fusion rewrite skips its
+FFN.
 """
 
 from __future__ import annotations
@@ -73,6 +80,17 @@ def fold_model(model, params, *, fuse: bool = False,
         parent[key] = dict(parent[key], w=_fold_stacked(
             lin.spec.mask, parent[key]["w"], tag))
         n_folded += 1
+    # MoE experts: one mask per layer, weights (periods, E, d_in, d_out)
+    for bi_, (spec, pstack) in enumerate(zip(model_pk.block_specs,
+                                             out["blocks"])):
+        ffn = spec["ffn"]
+        if spec["kind"] != "attn_moe" or ffn.mode != "packed":
+            continue
+        for key, mask in ffn.expert_masks():
+            if mask is not None:
+                pstack["ffn"][key] = _fold_stacked(
+                    mask, pstack["ffn"][key], f"blocks[{bi_}]/ffn/{key}")
+                n_folded += 1
     if n_folded == 0:
         raise ValueError(f"fold_model: no compressed linears found "
                          f"(mpd_c={cfg.mpd_c}): nothing to fold")
@@ -85,15 +103,21 @@ def fold_model(model, params, *, fuse: bool = False,
     return model_pk, out
 
 
-def iter_linear_leaves(model, params, mode: str = "packed"
+def iter_linear_leaves(model, params, mode: str = "packed", *,
+                       moe_shared: bool = True
                        ) -> Iterator[Tuple[dict, str, Any, str]]:
     """Yield ``(parent, key, lin, tag)`` for every compressed linear of
-    ``mode`` (mixer projections, FFN, unembed) so passes can rewrite
-    ``parent[key]`` (the reference's ``_iter_packed_leaves``, and the walk
-    of its ``mask_projection``)."""
+    ``mode`` (mixer projections, FFN, the MoE shared expert unless
+    ``moe_shared=False``, unembed) so passes can rewrite ``parent[key]``
+    (the reference's ``_iter_packed_leaves``; without the shared expert,
+    the walk of its ``mask_projection``). MoE routed experts are raw
+    stacked arrays, not linears, and are not yielded."""
     for bi_, (spec, pstack) in enumerate(zip(model.block_specs,
                                              params["blocks"])):
-        for path, lin in model.block_linears(spec):
+        pairs = model.block_linears(spec)
+        if moe_shared:
+            pairs = pairs + model.moe_shared_linears(spec)
+        for path, lin in pairs:
             if lin.spec.mode != mode or lin.spec.mask is None:
                 continue
             node = pstack
@@ -183,6 +207,8 @@ def apply_perm_fusion(model_pk, params: Optional[Dict[str, Any]] = None):
     whose stored bias is rewritten already).
     """
     for bi_, spec in enumerate(model_pk.block_specs):
+        if spec["kind"] == "attn_moe":
+            continue                            # MoE FFNs are not rewritten
         ffn = spec["ffn"]
         up, gate, down = ffn.w_up, ffn.w_gate, ffn.w_down
         su, sd = up.spec, down.spec

@@ -1,4 +1,4 @@
-"""Model zoo of the port (attention family so far)."""
+"""Model zoo of the port (the attention and attention + MoE families)."""
 
 from .model import Model, ModelConfig, build
 

@@ -218,6 +218,20 @@ def init_paged_cache(spec: AttentionSpec, n_slots: int, n_pages: int,
             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
 
 
+def _last_writes(dest: torch.Tensor) -> torch.Tensor:
+    """For each write ``i`` to ``dest (N,)``, the last write ``j >= i`` to the
+    same destination. Gathering the written values through it gives every
+    write to one destination the same value, the last one's, as the
+    reference's scatter and a sequential ``index_put_`` leave it: a CUDA
+    ``index_put_`` with duplicate indices keeps an arbitrary one. Non-live
+    rows all write to the null page, which they also read, and an MoE layer
+    routes them with the live rows, so its contents must not depend on
+    which duplicate landed."""
+    same = dest[:, None] == dest[None, :]
+    order = torch.arange(dest.shape[0], device=dest.device)
+    return torch.where(same, order[None, :], -1).amax(dim=1)
+
+
 def apply_decode_paged(spec: AttentionSpec, params, x, cache, block_tables,
                        live=None):
     """One decode step against the paged KV pool. x: (B, 1, D).
@@ -244,8 +258,9 @@ def apply_decode_paged(spec: AttentionSpec, params, x, cache, block_tables,
     if live is not None:
         pages = torch.where(live, pages, torch.zeros_like(pages))
     offs = (pos % page_size).long()
-    kp.index_put_((pages, offs), k_new[:, 0].to(kp.dtype))
-    vp.index_put_((pages, offs), v_new[:, 0].to(vp.dtype))
+    last = _last_writes(pages * page_size + offs)
+    kp.index_put_((pages, offs), k_new[last, 0].to(kp.dtype))
+    vp.index_put_((pages, offs), v_new[last, 0].to(vp.dtype))
     o = ops.paged_attention(q[:, 0], kp, vp, block_tables, pos + 1)
     y = spec.wo.apply(params["wo"],
                       o.reshape(B, 1, spec.n_heads * spec.head_dim))
@@ -281,8 +296,11 @@ def apply_verify_paged(spec: AttentionSpec, params, x, cache, block_tables,
     if live is not None:
         pages = torch.where(live[:, None], pages, torch.zeros_like(pages))
     offs = (pos_bt % page_size).long()
-    kp.index_put_((pages, offs), k_new.to(kp.dtype))
-    vp.index_put_((pages, offs), v_new.to(vp.dtype))
+    last = _last_writes((pages * page_size + offs).reshape(-1))
+    kp.index_put_((pages, offs), k_new.flatten(0, 1)[last].reshape(
+        k_new.shape).to(kp.dtype))
+    vp.index_put_((pages, offs), v_new.flatten(0, 1)[last].reshape(
+        v_new.shape).to(vp.dtype))
     o = ops.paged_attention_verify(q, kp, vp, block_tables, pos + Tq)
     y = spec.wo.apply(params["wo"],
                       o.reshape(B, Tq, spec.n_heads * spec.head_dim))
@@ -320,10 +338,11 @@ def prefill_chunk_paged(spec: AttentionSpec, params, x, cache, bt_row,
     page_ids = torch.where(idx < P, bt_row[torch.clamp(idx, 0, P - 1)].long(),
                            torch.zeros_like(idx))
     Kh, Dh = spec.n_kv_heads, spec.head_dim
+    last = _last_writes(page_ids)           # pages past the table: null
     kp.index_put_((page_ids,), k[0].reshape(n_chunk_pages, page_size, Kh,
-                                            Dh).to(kp.dtype))
+                                            Dh)[last].to(kp.dtype))
     vp.index_put_((page_ids,), v[0].reshape(n_chunk_pages, page_size, Kh,
-                                            Dh).to(vp.dtype))
+                                            Dh)[last].to(vp.dtype))
     o = ops.paged_prefill_attention(q[0], kp, vp, bt_row, start, chunk_len)
     y = spec.wo.apply(params["wo"],
                       o.reshape(1, Tc, spec.n_heads * spec.head_dim))

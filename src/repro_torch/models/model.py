@@ -1,7 +1,8 @@
-"""Model assembly for the attention family (the port of
-``repro.models.model`` for ``pattern=("attn",)``: config, init, the
-full-sequence ``forward``/``logits``/``train_loss``, the mask projection and
-fold of masked-dense training, dense caches (``init_caches``,
+"""Model assembly for the attention and MoE families (the port of
+``repro.models.model`` for patterns of ``"attn"`` and ``"attn_moe"``
+blocks: config, init, the full-sequence ``forward``/``logits``/
+``train_loss``, the mask projection and fold of masked-dense training,
+dense caches (``init_caches``,
 ``init_slot_caches``, ``slot_cache_axes``) and ``prefill``, paged caches,
 ``decode_step`` on either, ``prefill_chunk`` and the speculative-decoding
 hooks ``set_paged_pos`` and ``verify_step``).
@@ -15,6 +16,14 @@ path, so the gradient of a stacked leaf is one stack, not one full-size
 scatter per period). Caches are updated in place. The reference's
 ``remat="block"`` rematerialization is not ported: the training path keeps
 its activations.
+
+As in the reference, the full-sequence trunk runs the blocks period by
+period (``A0 M0 A1 M1`` for a pattern ``("attn", "attn_moe")``), while
+the serving paths (``prefill``, ``decode_step``, ``verify_step``,
+``prefill_chunk``) run each pattern position over all its periods before
+the next (``A0 A1 M0 M1``): for a multi-position pattern the two orders
+are different functions, and the port keeps each where the reference has
+it.
 """
 
 from __future__ import annotations
@@ -32,12 +41,18 @@ from . import attention as attn_lib
 from . import layers
 from .ffn import FFNSpec
 from .linear import Linear
+from .moe import MoESpec
+
+# the block kinds the port builds (the reference also has mamba, mamba_moe
+# and rwkv)
+BLOCK_KINDS = ("attn", "attn_moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Field-for-field the reference config; only ``pattern=("attn",)``
-    with token frontends is ported so far."""
+    """Field-for-field the reference config, less the fields of families
+    not ported (Mamba, RWKV, M-RoPE) and ``remat``; patterns of
+    ``"attn"`` / ``"attn_moe"`` blocks with token frontends."""
     name: str = "model"
     n_layers: int = 2
     d_model: int = 128
@@ -53,10 +68,19 @@ class ModelConfig:
     rope: str = "rope"              # rope | none
     rope_theta: float = 10000.0
     pattern: Tuple[str, ...] = ("attn",)
+    # MoE
+    moe_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    moe_shared_d_ff: int = 0
+    moe_shared_gated: bool = False
+    moe_capacity: float = 1.25
+    moe_experts_pad: int = 0        # physical expert padding
     frontend: str = "token"
     q_chunk: int = 128
     loss_chunk: int = 512           # CE sequence chunk
     dtype: str = "float32"
+    aux_loss_weight: float = 0.01
     mpd_c: int = 1
     mpd_mode: str = "packed"
     mpd_min_block: int = 8
@@ -106,12 +130,18 @@ class Model:
     """Static specs here, params as plain dicts of tensors."""
 
     def __init__(self, cfg: ModelConfig):
-        if tuple(cfg.pattern) != ("attn",):
+        if not set(cfg.pattern) <= set(BLOCK_KINDS):
             raise NotImplementedError(
-                f"{cfg.name}: pattern {cfg.pattern} — only attention models "
-                "are ported (mamba, moe and rwkv are not yet)")
+                f"{cfg.name}: pattern {cfg.pattern} — only attention and "
+                "attention + MoE blocks are ported (mamba and rwkv are not "
+                "yet)")
         if cfg.frontend != "token":
-            raise NotImplementedError("only token frontends are ported")
+            raise NotImplementedError("only token frontends are ported (not "
+                                      "the embed frontends of the audio and "
+                                      "vision models)")
+        if cfg.n_layers % len(cfg.pattern):
+            raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is no "
+                             f"multiple of the pattern {cfg.pattern}")
         self.cfg = cfg
         self.n_periods = cfg.n_layers // len(cfg.pattern)
         pol = cfg.policy
@@ -122,17 +152,27 @@ class Model:
 
     def _make_block(self, pol: CompressionPolicy, kind: str, idx: int):
         cfg = self.cfg
-        return {
+        spec = {
             "kind": kind,
             "mixer": attn_lib.AttentionSpec.make(
                 pol, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 causal=cfg.causal, rope=cfg.rope, rope_theta=cfg.rope_theta,
                 q_chunk=cfg.q_chunk, use_bias=cfg.use_bias, seed_salt=idx + 1,
-                fuse_perms=cfg.mpd_fuse),
-            "ffn": FFNSpec.make(pol, cfg.d_model, cfg.d_ff, cfg.ffn_kind,
-                                cfg.use_bias, seed_salt=idx + 100,
-                                fuse_perms=cfg.mpd_fuse),
-        }
+                fuse_perms=cfg.mpd_fuse)}
+        if kind == "attn_moe":
+            spec["ffn"] = MoESpec.make(
+                pol, cfg.d_model, cfg.moe_d_ff, cfg.moe_experts,
+                cfg.moe_top_k, capacity_factor=cfg.moe_capacity,
+                d_ff_shared=cfg.moe_shared_d_ff,
+                shared_gated=cfg.moe_shared_gated,
+                mode=cfg.mpd_mode if cfg.mpd_c > 1 else "dense",
+                seed_salt=idx + 100, n_experts_padded=cfg.moe_experts_pad)
+        else:
+            spec["ffn"] = FFNSpec.make(pol, cfg.d_model, cfg.d_ff,
+                                       cfg.ffn_kind, cfg.use_bias,
+                                       seed_salt=idx + 100,
+                                       fuse_perms=cfg.mpd_fuse)
+        return spec
 
     # ----------------------------------------------------------------- params
     def init(self, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -211,32 +251,45 @@ class Model:
         # weak-typed scalar is (host-side: no device copy per step)
         return x * float(torch.tensor(self._sqrt_d, dtype=x.dtype))
 
-    def _ffn_residual(self, spec, p, x):
+    def _ffn_out(self, spec, p, x, with_aux: bool = True):
+        """``x + FFN(norm2(x))`` and the block's MoE aux term (None for a
+        dense FFN, or without ``with_aux``)."""
         h2 = layers.apply_norm(self.cfg.norm, p["norm2"], x)
-        return x + spec["ffn"].apply(p["ffn"], h2)
+        if spec["kind"] == "attn_moe":
+            y, aux = spec["ffn"].apply(p["ffn"], h2, with_aux=with_aux)
+            return x + y, aux
+        return x + spec["ffn"].apply(p["ffn"], h2), None
+
+    def _ffn_residual(self, spec, p, x):
+        """The serving paths' FFN residual (no aux term)."""
+        return self._ffn_out(spec, p, x, with_aux=False)[0]
 
     def _apply_block(self, spec, p, x):
-        """One attention block over the full sequence."""
+        """One block over the full sequence: ``(x, aux or None)``."""
         h = layers.apply_norm(self.cfg.norm, p["norm1"], x)
         x = x + attn_lib.apply_train(spec["mixer"], p["mixer"], h)
-        return self._ffn_residual(spec, p, x)
+        return self._ffn_out(spec, p, x)
 
     def forward(self, params, tokens):
-        """Full-sequence trunk: ``tokens (B, T)`` -> final-normed hidden
-        states ``(B, T, d_model)`` (the reference also returns a MoE aux
-        loss, always 0 for the attention family)."""
+        """Full-sequence trunk: ``tokens (B, T)`` -> ``(final-normed hidden
+        states (B, T, d_model), aux)``, ``aux`` the f32 sum of every MoE
+        block's load-balance term (0 without MoE blocks). Blocks run period
+        by period."""
         cfg = self.cfg
         x = self._embed(params, tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         per_spec = [_unstack(pstack, self.n_periods)
                     for pstack in params["blocks"]]
         for i in range(self.n_periods):
             for spec, periods in zip(self.block_specs, per_spec):
-                x = self._apply_block(spec, periods[i], x)
-        return layers.apply_norm(cfg.norm, params["final_norm"], x)
+                x, a = self._apply_block(spec, periods[i], x)
+                if a is not None:
+                    aux = aux + a
+        return layers.apply_norm(cfg.norm, params["final_norm"], x), aux
 
     def logits(self, params, tokens):
         return self.unembed.apply(params["unembed"],
-                                  self.forward(params, tokens))
+                                  self.forward(params, tokens)[0])
 
     def _ce_chunk(self, params, x_chunk, labels_chunk):
         lg = self.unembed.apply(params["unembed"], x_chunk).float()
@@ -247,17 +300,24 @@ class Model:
     def train_loss(self, params, batch):
         """Mean next-token cross-entropy, in f32, over ``batch = {"inputs":
         (B, T), "labels": (B, T)}``; the unembed and CE run per sequence
-        chunk of ``loss_chunk`` tokens (one chunk when T is no multiple)."""
-        x = self.forward(params, batch["inputs"])
+        chunk of ``loss_chunk`` tokens (one chunk when T is no multiple).
+        A model with MoE blocks adds ``aux_loss_weight * aux /
+        len(pattern)``."""
+        cfg = self.cfg
+        x, aux = self.forward(params, batch["inputs"])
         labels = batch["labels"]
         T = labels.shape[1]
-        c = min(self.cfg.loss_chunk, T)
+        c = min(cfg.loss_chunk, T)
         if T % c:
             c = T
         ce = torch.cat([self._ce_chunk(params, x[:, i:i + c],
                                        labels[:, i:i + c])
                         for i in range(0, T, c)], dim=1)
-        return ce.mean()
+        loss = ce.mean()
+        if cfg.aux_loss_weight and any(k.endswith("_moe")
+                                       for k in cfg.pattern):
+            loss = loss + cfg.aux_loss_weight * aux / max(len(cfg.pattern), 1)
+        return loss
 
     # --------------------------------------------- masked-dense training
     def mask_projection(self, params):
@@ -265,12 +325,24 @@ class Model:
         Algorithm 1 line 14). Returns a new tree; packed and dense leaves
         are shared, masked-dense weights are new tensors."""
         from repro_torch.core import export as export_lib
+        from repro_torch.core import fold as fold_lib
         from repro_torch.core import mpd
 
         out = tree_lib.copy_tree(params)
+        # as the reference: the MoE blocks' attention and the stacked
+        # experts, not the shared expert or the router
         for parent, key, lin, _ in export_lib.iter_linear_leaves(
-                self, out, "masked_dense"):
+                self, out, "masked_dense", moe_shared=False):
             parent[key] = mpd.reapply_mask(lin.spec, parent[key])
+        for spec, pstack in zip(self.block_specs, out["blocks"]):
+            ffn = spec["ffn"]
+            if spec["kind"] != "attn_moe" or ffn.mode != "masked_dense":
+                continue
+            for key, mask in ffn.expert_masks():
+                if mask is not None:
+                    w = pstack["ffn"][key]
+                    pstack["ffn"][key] = w * fold_lib.mask_tensor(mask,
+                                                                  w.device)
         return out
 
     def to_packed(self, params, *, fuse: bool = False, quantize=None):
@@ -364,7 +436,8 @@ class Model:
     def spec_decode_supported(self) -> bool:
         """Speculative decoding rolls a window back by truncating the block
         table, which only attention blocks allow (recurrent state cannot be
-        re-scored). Every block the port builds is attention."""
+        re-scored). Every block the port builds is attention (with a dense
+        or an MoE FFN)."""
         return all(s["kind"] in ("attn", "attn_moe") for s in self.block_specs)
 
     def set_paged_pos(self, caches, pos):
@@ -440,15 +513,32 @@ class Model:
         return self.unembed.apply(params["unembed"], x_last), caches
 
     # ------------------------------------------------------------- accounting
-    def block_linears(self, spec) -> List[Tuple[Tuple[str, str], Linear]]:
-        """(param key path, Linear) pairs of one block spec."""
+    def block_linears(self, spec) -> List[Tuple[Tuple[str, ...], Linear]]:
+        """(param key path, Linear) pairs of one block spec (the
+        reference's ``_block_linears``): an MoE block's FFN is left out
+        (its router stays dense f32 and unfolded; its experts are stacked
+        raw weights, see :meth:`moe_shared_linears`)."""
         mixer, ffn = spec["mixer"], spec["ffn"]
         out = [(("mixer", n), getattr(mixer, n)) for n in ("wq", "wk", "wv", "wo")]
+        if spec["kind"] == "attn_moe":
+            return out
         out.append((("ffn", "w_up"), ffn.w_up))
         if ffn.w_gate is not None:
             out.append((("ffn", "w_gate"), ffn.w_gate))
         out.append((("ffn", "w_down"), ffn.w_down))
         return out
+
+    @staticmethod
+    def moe_shared_linears(spec) -> List[Tuple[Tuple[str, ...], Linear]]:
+        """(param key path, Linear) pairs of an MoE block's shared expert
+        (none for other blocks): folded and quantized with the block's
+        linears, though not in :meth:`block_linears`."""
+        shared = spec["ffn"].shared if spec["kind"] == "attn_moe" else None
+        if shared is None:
+            return []
+        return [(("ffn", "shared", k), getattr(shared, k))
+                for k in ("w_up", "w_gate", "w_down")
+                if getattr(shared, k) is not None]
 
     def param_count(self) -> int:
         """Elements of every param leaf (a masked-dense weight counts in
@@ -457,20 +547,41 @@ class Model:
                    for t in tree_lib.leaves(self.init(0, device="meta")))
 
     def matmul_params(self, *, dense: bool) -> int:
-        """Weights of every projection (unembed included, the embedding
-        gather excluded). ``dense=False`` counts each compressed linear at
-        its packed size, as the reference's ``active_matmul_params`` does;
-        ``dense=True`` counts what a masked-dense kernel multiplies
-        (``d_in * d_out``). Model FLOPs per token are six times this."""
+        """Weights of every projection a token runs through (unembed
+        included, the embedding gather excluded; an MoE block's router,
+        shared expert and ``top_k`` routed experts). ``dense=False``
+        counts each compressed linear at its packed size, as the
+        reference's ``active_matmul_params`` does; ``dense=True`` counts
+        what a masked-dense kernel multiplies (``d_in * d_out``). Model
+        FLOPs per token are six times this."""
         def count(lin):
             s = lin.spec
             if not dense:
                 return s.param_count()
             return s.d_in * s.d_out + (s.d_out if s.use_bias else 0)
 
-        n = sum(count(lin) for spec in self.block_specs
-                for _, lin in self.block_linears(spec))
+        n = 0
+        for spec in self.block_specs:
+            lins = [lin for _, lin in self.block_linears(spec)]
+            ffn = spec["ffn"]
+            if spec["kind"] == "attn_moe":
+                # the router, the shared expert and top_k routed experts
+                lins += [ffn.router] + [
+                    lin for _, lin in self.moe_shared_linears(spec)]
+                per_expert = (3 if ffn.gated else 2) * ffn.d_model * ffn.d_ff
+                if not dense and ffn.mask_up is not None \
+                        and ffn.mode == "packed":
+                    per_expert //= ffn.mask_up.nb
+                n += per_expert * ffn.top_k
+            n += sum(count(lin) for lin in lins)
         return self.n_periods * n + count(self.unembed)
+
+    def active_matmul_params(self) -> int:
+        """Matmul weights one token touches (the reference's
+        ``active_matmul_params``): the embedding gather excluded, packed
+        linears at their packed size, an MoE block's router, ``top_k``
+        routed experts and its shared expert."""
+        return self.matmul_params(dense=False)
 
 
 def build(cfg: ModelConfig) -> Model:

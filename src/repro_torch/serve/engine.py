@@ -608,12 +608,29 @@ class Engine:
             self._chunk_info[2] = 1
         return inputs, null
 
+    def _capture_writes(self, kind: str) -> List[torch.Tensor]:
+        """Views of the cache rows a capture's warm-up runs write under
+        null inputs (call after the null inputs are set): the null page of
+        every pool, paged; the admission's free slot, dense. Non-live rows
+        read them (the null page, or a free slot's own rows), and an MoE
+        layer routes those rows with the live ones, so a capture puts them
+        back: a captured engine serves what an eager one does."""
+        if self.paged:
+            caches = self.cache.caches + (self.draft_cache.caches
+                                          if self.spec_active else [])
+            return [c[k][:, 0] for c in caches for k in ("kp", "vp")]
+        if kind != "admit":
+            return []
+        slot = int(self._admit_info[0])
+        return [c[k][:, slot] for c in self.cache.caches for k in ("k", "v")]
+
     def _graph(self, kind: str, width: int) -> StepGraph:
         """The captured graph of ``kind`` at ``width``; captured now if it
         is not yet. The capture runs against null inputs
-        (:meth:`_null_inputs`) and puts back every static input and every
-        cache's ``pos`` afterwards: the state of every live request is
-        untouched."""
+        (:meth:`_null_inputs`) and puts back every static input, every
+        cache's ``pos`` and the rows its runs wrote
+        (:meth:`_capture_writes`) afterwards: the state of every request
+        is untouched."""
         g = self._graphs.get((kind, width))
         if g is not None:
             return g
@@ -621,15 +638,17 @@ class Engine:
         inputs, null = self._null_inputs(kind, width)
         caches = self.cache.caches + (self.draft_cache.caches
                                       if self.spec_active else [])
-        saved = [t.clone() for t in inputs
-                 + [c["pos"] for c in caches if "pos" in c]]
+        state = inputs + [c["pos"] for c in caches if "pos" in c]
+        saved = [t.clone() for t in state]
         null()
+        writes = self._capture_writes(kind)
+        state += writes
+        saved += [t.clone() for t in writes]
         try:
             with torch.no_grad():
                 g = StepGraph(kind, width, fn, self.device)
         finally:
-            for t, v in zip(inputs + [c["pos"] for c in caches
-                                      if "pos" in c], saved):
+            for t, v in zip(state, saved):
                 t.copy_(v)
         self._graphs[(kind, width)] = g
         self.n_captures += 1
@@ -964,11 +983,18 @@ class Engine:
             # step may have advanced it before it raised, and a verify held
             # off mid-flight left it at the window's entry
             self._put(self._pos0, wpos)
-            self.model.set_paged_pos(self.cache.caches, self._pos0)
+            live = self._live_mask_dev()
+            if self.spec_active:
+                self.model.set_paged_pos(self.cache.caches, self._pos0)
+            else:
+                # a non-live row keeps the depth it had, as in the
+                # reference (whose decode sets no depth here): it still
+                # computes, and an MoE layer routes it with the live rows
+                for c in self.cache.caches:
+                    c["pos"].copy_(torch.where(live, self._pos0, c["pos"]))
             if self.paged:
                 width = min(_next_pow2(needed), self.cache.max_pages)
                 self._block_tables_dev(width)
-                self._live_mask_dev()
                 logits = self._run("decode", width)
             else:
                 logits = self._run("decode_dense", self.n_slots)

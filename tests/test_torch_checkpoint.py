@@ -195,8 +195,11 @@ def test_config_fields_and_foreign_defaults_equal_reference():
     assert d == json.loads(json.dumps(
         dataclasses.asdict(JModelConfig(**dict(CFG, mpd_fuse=True)))))
     assert tckpt.config_from_dict(d) == cfg
-    with pytest.raises(ValueError, match="moe_experts"):
-        tckpt.config_from_dict(dict(d, moe_experts=8))
+    # the MoE fields are the port's own now; a foreign family still raises
+    moe = tckpt.config_from_dict(dict(d, moe_experts=8, moe_top_k=2))
+    assert (moe.moe_experts, moe.moe_top_k) == (8, 2)
+    with pytest.raises(ValueError, match="rwkv_head_dim"):
+        tckpt.config_from_dict(dict(d, rwkv_head_dim=32))
     with pytest.raises(ValueError, match="no_such_field"):
         tckpt.config_from_dict(dict(d, no_such_field=1))
 

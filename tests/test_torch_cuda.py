@@ -1002,6 +1002,7 @@ DECODE_SHAPES = [  # (B, H, Kh, Dh, page_size, n_pages, P)
     (4, 4, 4, 16, 8, 24, 5),
     (3, 8, 2, 32, 16, 20, 4),
     (4, 16, 16, 128, 16, 140, 34),     # olmo-1b heads, page 16
+    (4, 32, 8, 128, 16, 140, 34),      # granite-8b: GQA 4:1, page 16
 ]
 
 
@@ -1033,6 +1034,7 @@ PREFILL_SHAPES = [  # (H, Kh, Dh, page_size, n_pages, P, Tc, start, chunk_len)
     (4, 4, 16, 8, 24, 8, 16, 16, 11),
     (8, 2, 16, 4, 32, 8, 8, 8, 5),
     (16, 16, 128, 16, 40, 16, 64, 128, 37),   # olmo-1b heads, chunk 64
+    (32, 8, 128, 16, 40, 16, 64, 128, 37),    # granite-8b: GQA 4:1
 ]
 
 
@@ -1870,3 +1872,22 @@ def test_prefill_backend_is_read_at_capture(cuda_device):
         assert ops.launch_counts()["paged_attention"] > 0
     assert out["torch"] == out["cuda"]
     assert ops.prefill_backend() == ops.get_backend() == "cuda"
+
+
+def test_duplicate_page_writes_keep_the_last_row(cuda_device):
+    """Non-live rows all scatter their K/V to the null page; a CUDA
+    ``index_put_`` with duplicate destinations keeps an arbitrary one, so
+    the paged writes gather every duplicate's value from the last writer
+    first (``attention._last_writes``): the null page then holds the last
+    row's K/V on every run, as a sequential scatter leaves it."""
+    from repro_torch.models import attention as tattn
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    dest = torch.tensor([0, 5, 0, 0, 5, 7, 0], device=cuda_device)
+    vals = torch.randn((7, 64), generator=gen, device=cuda_device)
+    last = tattn._last_writes(dest)
+    assert last.tolist() == [6, 4, 6, 6, 4, 5, 6]
+    for _ in range(20):
+        pool = torch.zeros((8, 64), device=cuda_device)
+        pool.index_put_((dest,), vals[last])
+        assert torch.equal(pool[0], vals[6]) and torch.equal(pool[5], vals[4])
+        assert torch.equal(pool[7], vals[5])

@@ -45,6 +45,8 @@ def test_port_imports_without_jax():
             and "repro_torch.launch.serve" in mods)
     assert ("repro_torch.serve.resilience" in mods
             and "repro_torch.serve.server" in mods)
+    assert ("repro_torch.models.moe" in mods
+            and "repro_torch.configs.qwen2_moe_a2_7b" in mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
