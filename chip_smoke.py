@@ -51,10 +51,10 @@ Phases, each printed as one JSON line:
    attention call on the tensor-core body, and the profiled decode window
    must count the attention combine kernel in its family. Then the same
    traffic, every request arriving at once, in turns of an eager engine
-   (``graphs=False``) and a captured one (eager, captured, captured,
-   eager): all four greedy streams identical, the captured turns' launch
-   counts and route tallies equal to the eager turns'; per turn the step
-   and chunk p50s, TTFT, e2e, tok/s and a profiled decode window.
+   (``graphs=False``) and a captured one: both greedy streams identical,
+   the captured turn's launch counts and route tallies equal to the eager
+   turn's; per turn the step and chunk p50s, TTFT, e2e, tok/s and a
+   profiled decode window.
 5. ``exact`` — the same configuration in float32, served once through the
    kernels (captured) and once with ``ops.set_backend("torch")`` (plain
    versions on the card, eager) on the same requests: the greedy streams
@@ -222,6 +222,34 @@ Phases, each printed as one JSON line:
    projections): greedy streams through the kernels (captured) and the
    plain versions (eager) identical; the smallest gap between the K-th
    and (K+1)-th router probability over every row the plain run routed.
+24. ``rwkv`` — rwkv6-3b at its published widths (32 layers, d 2560, 40
+   heads of 64, d_ff 8960, vocab 65536, ln; packed ``mpd_c=8``, int8,
+   bf16) on the paged engine (4 slots, page 16, chunk 64), its bytes on a
+   first line (the recurrent state beside the weights): ``moe``'s 8
+   requests at once in an eager and a captured turn: 8 of 8 with no
+   quarantined (non-finite) row, identical streams, equal launches, no
+   prefix-trie reuse (recurrent state cannot be rebuilt from a matched
+   prefix), no paged-attention launch, bdmm launched with the sqrelu and
+   sigmoid epilogues (int8); a profiled captured decode window and the
+   time scan's share of its device time a step and a chunk
+   (``scan_share``: one layer's scan captured alone and replayed).
+25. ``jamba`` — jamba-v0.1-52b at its published widths (32 layers of the
+   8-layer mamba/mamba_moe/attn period, d 4096, 32 heads over 8 KV heads,
+   16 experts top-2 of d_ff 14336, vocab 65536, rms; int8 with bf16 routed
+   experts, bf16) in ``rwkv``'s turns and windows: also every
+   paged-attention plan at 4 heads per KV head with the decode and prefill
+   kernels launched, and bdmm with the softplus epilogue (``w_dt``'s, with
+   ``dt_bias``).
+26. ``exact_recurrent`` — rwkv6-3b cut to 4 of 32 layers and jamba to one
+   period (8 of 32) at float32 (fp packed blocks): greedy streams through
+   the kernels (captured) and the plain versions (eager) identical; each
+   recurrent leaf a chunked prefill (64-token chunks) leaves within 1e-5
+   (1 + |whole|) of a whole-prompt ``prefill``'s. The kernels phase holds
+   bdmm with every new epilogue code (gelu, relu, sigmoid, softplus,
+   sqrelu) on each of its bodies, fp and int8, and at the recurrent block
+   shapes (jamba's w_x 1024 -> 36 and w_dt 32 -> 1024, rwkv's 320 x 320,
+   320 -> 1120 and back), and the masked matmul's forward with the new
+   codes, beside torch.bmm (or torch.matmul) plus the activation.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -1707,8 +1735,7 @@ def decode_window(torch, model, params, kw, cfg, n_steps=16, spec_draft=None,
 
 
 def graph_turns(torch, model, params, kw, cfg, spec_draft=None,
-                make_reqs=None, order=(False, None, None, False),
-                windows=True):
+                make_reqs=None, order=(False, None), windows=True):
     """The serve traffic (``make_reqs()``'s requests when given) served by
     eager and captured engines in turns (``order``: ``graphs=False`` eager,
     None captured; speculative with ``spec_draft``). Every request arrives
@@ -1730,6 +1757,9 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None,
     if make_reqs is None:
         make_reqs = lambda: make_requests(  # noqa: E731
             cfg, **dict(SERVE_TRAFFIC, rate=1e9))
+    from repro_torch.kernels import bdmm as bk
+    epilogue_tally = next(i for i, d in enumerate(ops.counters())
+                          if d is bk.epilogues)
     turns, streams, tallies = [], [], []
     for graphs in order:
         t_turn = time.perf_counter()
@@ -1746,6 +1776,7 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None,
         streams.append({r.id: list(r.generated) for r in reqs})
         calls = program_calls(engine)
         runs = dict(engine.runs)
+        reused = getattr(engine, "n_prefill_tokens_skipped", 0)
         draft_ms = engine.run_ms["draft_decode"]
         verify_ms = engine.run_ms["verify"]
         captured = engine.n_captures - warm.get("graphs_captured", 0)
@@ -1766,7 +1797,7 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None,
                 "ttft_p95_ms": summary["ttft_p95_s"] * 1e3,
                 "e2e_p50_ms": summary["e2e_p50_s"] * 1e3,
                 "e2e_p95_ms": summary["e2e_p95_s"] * 1e3,
-                "program_runs": runs,
+                "program_runs": runs, "prefix_tokens_reused": reused,
                 "graphs_captured_while_serving": captured, **warm}
         if windows:
             window = decode_window(torch, model, params, kw, cfg,
@@ -1802,6 +1833,7 @@ def graph_turns(torch, model, params, kw, cfg, spec_draft=None,
             "launch_counts_and_routes_equal": same_counts,
             "launches_per_turn": {k: v for d in tallies[0][:5]
                                   for k, v in d.items()},
+            "bdmm_epilogues": tallies[0][epilogue_tally],
             "turns": turns}
 
 
@@ -2273,9 +2305,10 @@ def spec_phase(torch, dev, ops, target, draft):
                                      spec_draft=draft, n_steps=8)}
     ok = ok and all(w["combine_in_family"] is not False
                     for w in windows.values())
-    # the spec traffic eager and captured, in turns
+    # the spec traffic eager and captured, in turns (the windows above
+    # profile the spec step)
     spec_turns = graph_turns(torch, model, params, SERVE_ENGINE, cfg,
-                             spec_draft=draft)
+                             spec_draft=draft, windows=False)
     ok = ok and spec_turns["ok"]
     row = {"phase": "spec", "ok": ok, "config": {
         "target": f"{cfg.name} masked_dense + mpd_fuse, bf16, 1 AdamW step "
@@ -3553,17 +3586,23 @@ def model_bytes(torch, model, params, kw):
            "unembed": nbytes(params["unembed"])}
     routed = router = 0
     for spec, p in zip(model.block_specs, params["blocks"]):
-        if spec["kind"] == "attn_moe":
+        if spec["kind"].endswith("_moe"):
             routed += sum(nbytes(p["ffn"][k]) for k in ("w_up", "w_gate",
-                                                        "w_down"))
+                                                        "w_down")
+                          if k in p["ffn"])
             router += nbytes(p["ffn"]["router"])
     out["blocks"] = nbytes(params["blocks"]) - routed - router
     if routed:
         out["moe_routed_experts"] = routed
         out["moe_router"] = router
-    out["kv_pool"] = (cfg.n_layers * kw["n_slots"] * kw["max_len"] * 2
+    n_attn = model.n_periods * sum(s["kind"] in ("attn", "attn_moe")
+                                   for s in model.block_specs)
+    out["kv_pool"] = (n_attn * kw["n_slots"] * kw["max_len"] * 2
                       * cfg.n_kv_heads * cfg.hd
                       * torch.tensor([], dtype=cfg.tdtype).element_size())
+    state = recurrent_state_bytes(model, kw["n_slots"])
+    if state:
+        out["recurrent_state"] = state
     return out
 
 
@@ -3833,6 +3872,473 @@ def exact_moe_phase(torch, dev, ops):
     return row
 
 
+# ---------------------------------- the epilogues of the recurrent families
+# every epilogue code the recurrent families added to bdmm (ref.ACTIVATIONS
+# beyond None and silu), on each body of bdmm as (m, dtype, int8) takes it
+# at the olmo-1b up/gate blocks (nb 8, bi 256, bo 1024): decode_tc,
+# tc / tc_small_m, decode_simt, simt_small and simt_f32
+NEW_ACTS = ("gelu", "relu", "sigmoid", "softplus", "sqrelu")
+EPILOGUE_BODIES = [(m, dt, q) for m, dt in ((4, "bfloat16"), (64, "bfloat16"),
+                                            (4, "float32"), (64, "float32"),
+                                            (2048, "float32"))
+                   for q in (False, True)]
+# the packed projections of rwkv6-3b and jamba-v0.1-52b at mpd_c = 8 (name,
+# nb, bi, bo, activation), at a decode batch and a prefill chunk, bf16 fp and
+# int8 (served) and f32 fp (exact_recurrent)
+RECURRENT_BDMM = [("jamba_w_x", 8, 1024, 36, None),
+                  ("jamba_w_dt", 8, 32, 1024, "softplus"),
+                  ("rwkv_wr", 8, 320, 320, None),
+                  ("rwkv_ck", 8, 320, 1120, "sqrelu"),
+                  ("rwkv_cv", 8, 1120, 320, None),
+                  ("rwkv_cr", 8, 320, 320, "sigmoid")]
+RECURRENT_BDMM_CASES = [(m, dt, q) for m in (4, 64)
+                        for dt, q in (("bfloat16", False), ("bfloat16", True),
+                                      ("float32", False))]
+# the masked matmul's forward with the new codes (name, d_in, d_out,
+# activation): the channel mix's k and r of rwkv6-3b, jamba's w_dt and
+# olmo-1b's up/gate with gelu and relu
+MASKED_EPILOGUES = [("rwkv_ck", 2560, 8960, "sqrelu"),
+                    ("rwkv_cr", 2560, 2560, "sigmoid"),
+                    ("jamba_w_dt", 256, 8192, "softplus"),
+                    ("up_gate", 2048, 8192, "gelu"),
+                    ("up_gate", 2048, 8192, "relu")]
+MASKED_EPILOGUE_M = (64, 2048)
+
+
+def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant):
+    """One bdmm with bias and ``act`` against its plain version computed in
+    f32 on the same values under the dtype's bdmm rule; timed beside the
+    plain version in the dtype and the composed yardstick, one torch.bmm
+    over the blocks (int8: widened outside the timed call) with the scale,
+    the bias and the activation."""
+    from repro_torch.kernels import bdmm as bk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import quantize_blocks
+
+    dtype = getattr(torch, dt)
+    w = torch.randn((nb, bi, bo), generator=gen, device=dev) * bi ** -0.5
+    x = torch.randn((m, nb * bi), generator=gen, device=dev).to(dtype)
+    b = (0.5 * torch.randn((nb * bo,), generator=gen, device=dev)).to(dtype)
+    xt = x.view(m, nb, bi).transpose(0, 1)
+    bb = b.view(nb, 1, bo)
+    fn = ref.ACTIVATIONS[act]
+    if quant:
+        wq, scale = quantize_blocks(w)
+        run = lambda: bk.bdmm(x, wq, b, scale, activation=act)  # noqa: E731
+        plain = lambda: ref.bdmm_quant_ref(x, wq, scale, b, act)  # noqa: E731
+        want = ref.bdmm_quant_ref(x.float(), wq, scale, b.float(), act)
+        wide = wq.to(dtype)
+        yard = lambda: fn(torch.bmm(xt, wide) * scale[:, None, :].to(  # noqa
+            dtype) + bb)
+        library = None
+        w_bytes = wq.numel() + scale.numel() * 4
+    else:
+        wf = w.to(dtype)
+        run = lambda: bk.bdmm(x, wf, b, activation=act)  # noqa: E731
+        plain = lambda: ref.bdmm_ref(x, wf, b, act)  # noqa: E731
+        want = ref.bdmm_ref(x.float(), wf.float(), b.float(), act)
+        yard = lambda: fn(torch.bmm(xt, wf) + bb)  # noqa: E731
+        library = lambda: torch.bmm(xt, wf)  # noqa: E731
+        w_bytes = wf.numel() * wf.element_size()
+    got, used = run_routed(run, bk.routes)
+    ok, err, ratio, tol = close(torch, got, want, "bdmm", dt)
+    del got, want
+    pl = bk.plan(m, nb, bi, bo, dtype, torch.int8 if quant else dtype, False,
+                 bk._build.copy_width(x, bi * x.element_size()),
+                 bk._build.copy_width(wq if quant else wf,
+                                      bo * (1 if quant else x.element_size())))
+    grid = "bdmm_decode" if pl.route in bk.DECODE_ROUTES else "bdmm"
+    bodies = (bk.F32_ROUTES if dt == "float32"
+              else ("decode_tc", "tc", "tc_small_m"))
+    ok = ok and used == [pl.route] and pl.route in bodies
+    es = x.element_size()
+    nbytes = m * nb * bi * es + w_bytes + b.numel() * es + m * nb * bo * es
+    b_ms, b_by = bound(nbytes, 2.0 * m * nb * bi * bo, dt)
+    row = {"phase": "kernels", "kernel": grid, "shape": name, "m": m,
+           "role": "fwd", "nb": nb, "bi": bi, "bo": bo, "activation": act,
+           "weights": "int8" if quant else dt, "dtype": dt,
+           "max_abs_err": err, "err_over_tol": ratio,
+           "tol": dict(tol, against="plain version in f32 on the same values"),
+           "ok": ok, "routes_launched": used,
+           "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
+                    "split": pl.split, "k_chunk": pl.k_chunk},
+           "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+           "library_ms": timer.ms(library) if library else None,
+           "library": "one torch.bmm over the blocks" if library else None,
+           "yardstick_ms": timer.ms(yard),
+           "yardstick": ("torch.bmm over the blocks"
+                         + (" widened outside the timed call, the scale"
+                            if quant else "")
+                         + f", the bias and {act or 'no activation'}"),
+           "bound_ms": b_ms, "bound_by": b_by}
+    return row, grid
+
+
+def check_bdmm_epilogues(torch, dev, timer, rows, summary):
+    """bdmm with every new epilogue code on each body, fp and int8, at the
+    olmo-1b up/gate blocks, and at the recurrent families' block shapes
+    with their own epilogues."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    cases = [("up_gate", 8, 256, 1024, act, m, dt, q) for act in NEW_ACTS
+             for m, dt, q in EPILOGUE_BODIES]
+    cases += [(name, nb, bi, bo, act, m, dt, q)
+              for name, nb, bi, bo, act in RECURRENT_BDMM
+              for m, dt, q in RECURRENT_BDMM_CASES]
+    for case in cases:
+        row, grid = epilogue_row(torch, dev, timer, gen, *case)
+        rows.append(row)
+        emit(row)
+        s = summary[grid]
+        s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
+        s["err_over_tol"] = max(s["err_over_tol"], row["err_over_tol"])
+        s["ok"] = s["ok"] and row["ok"]
+        if row["weights"] == "int8":        # the served forms, in the line
+            s.setdefault("epilogue_rows", []).append({k: row[k] for k in (
+                "shape", "m", "activation", "ms", "plain_ms", "yardstick_ms",
+                "bound_ms", "bound_by", "routes_launched")})
+    torch.cuda.empty_cache()
+
+
+def check_masked_epilogues(torch, dev, timer, rows, summary):
+    """The masked matmul's forward with the new epilogue codes at the
+    recurrent families' masked-dense shapes (and olmo-1b's up/gate with
+    gelu and relu), bf16 and f32, under the MM_TOL rule, which must reject
+    one mask block dropped."""
+    from repro_torch.core.fold import mask_tensor
+    from repro_torch.core.mask import block_id_of, make_mask_spec
+    from repro_torch.kernels import masked_matmul as mk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    s = summary["masked_matmul"]
+    for name, d_in, d_out, act in MASKED_EPILOGUES:
+        spec = make_mask_spec(d_in, d_out, 8, seed=d_out)
+        mask = mask_tensor(spec, dev)
+        in_block = torch.as_tensor(block_id_of(spec)[0], device=dev)
+        dropped = mask * (in_block != 0).to(torch.uint8)[:, None]
+        nnz = int(mask.sum())
+        fn = ref.ACTIVATIONS[act]
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+            w = (r(d_in, d_out) * d_in ** -0.5).to(dtype)
+            b = (0.5 * r(d_out)).to(dtype)
+            w32, b32 = w.float(), b.float()
+            wm = w * mask.to(dtype)
+            for m in MASKED_EPILOGUE_M:
+                x = r(m, d_in).to(dtype)
+                x32 = x.float()
+                run = lambda: mk.masked_matmul(x, w, mask, b, activation=act)
+                got, used = run_routed(run)
+                want = ref.masked_matmul_ref(x32, w32, mask, b32, act)
+                mag = x32.abs() @ (w32.abs() * mask) + b32.abs()
+                ok, err, ratio = mm_close(torch, got, want, mag, dt)
+                rejects = not mm_close(torch, ref.masked_matmul_ref(
+                    x32, w32, dropped, b32, act), want, mag, dt)[0]
+                del got, want, mag
+                plan = masked_plan(mk, "masked_matmul", m, d_in, d_out, dtype)
+                ok = ok and rejects and used == [plan["route"]]
+                es = x.element_size()
+                nbytes = ((m * d_in + nnz + m * d_out) * es + d_in * d_out
+                          + d_out * es)
+                b_ms, b_by = bound(nbytes, 2.0 * m * nnz, dt)
+                row = {"phase": "kernels", "kernel": "masked_matmul",
+                       "shape": name, "role": "epilogue", "m": m,
+                       "d_in": d_in, "d_out": d_out, "activation": act,
+                       "dtype": dt, "max_abs_err": err, "err_over_tol": ratio,
+                       "tol": dict(MM_TOL[dt], rule=MM_RULE),
+                       "rejects_dropped_block": rejects, "ok": ok,
+                       "routes_launched": used, "plan": plan,
+                       "ms": timer.ms(run),
+                       "plain_ms": timer.ms(lambda: ref.masked_matmul_ref(
+                           x, w, mask, b, act)),
+                       "library_ms": timer.ms(lambda: torch.matmul(x, wm)),
+                       "library": "one torch.matmul on the pre-masked weight",
+                       "yardstick_ms": timer.ms(
+                           lambda: fn(torch.matmul(x, wm) + b)),
+                       "yardstick": f"torch.matmul on the pre-masked weight, "
+                                    f"the bias and {act}",
+                       "bound_ms": b_ms, "bound_by": b_by}
+                rows.append(row)
+                emit(row)
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                s["err_over_tol"] = max(s["err_over_tol"], ratio)
+                s["ok"] = s["ok"] and ok
+                s.setdefault("epilogue_rows", []).append({k: row[k] for k in (
+                    "shape", "m", "activation", "dtype", "ms", "plain_ms",
+                    "library_ms", "yardstick_ms", "bound_ms", "bound_by",
+                    "routes_launched")})
+            del w, wm
+        del mask, dropped
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------- rwkv, jamba and exact_recurrent
+RECURRENT_ARCHS = {"rwkv": "rwkv6-3b", "jamba": "jamba-v0.1-52b"}
+# the epilogues each family's served (int8) projections must have launched
+RECURRENT_EPILOGUES = {"rwkv": ("sqrelu/int8", "sigmoid/int8"),
+                       "jamba": ("softplus/int8",)}
+# exact_recurrent: the depth each model is cut to at f32 (rwkv6-3b 4 of 32
+# layers, jamba one 8-layer period of 32), fp packed blocks; the state a
+# chunked prefill leaves within STATE_TOL * (1 + |whole|) of a whole-prompt
+# prefill's. An MoE layer's capacity counts the tokens of its call, so a
+# 64-token chunk and a whole prompt drop different choices: the state check
+# runs the same params at a capacity factor of n_experts, where no choice
+# drops (every expert can take every token of a call).
+EXACT_RECURRENT = {"rwkv6-3b": 4, "jamba-v0.1-52b": 8}
+STATE_TOL = 1e-5
+
+
+def recurrent_state_bytes(model, n_slots) -> int:
+    """Bytes of the recurrent layers' state at ``n_slots`` rows (a shape
+    template on the meta device)."""
+    caches = model.init_caches(n_slots, 1, device="meta")
+    return sum(t.numel() * t.element_size()
+               for spec, c in zip(model.block_specs, caches)
+               if spec["kind"] not in ("attn", "attn_moe")
+               for t in c.values())
+
+
+def scan_share(torch, model, window, kw, n_replays=20):
+    """The time scan's device ms in a captured decode step and prefill
+    chunk: one layer's ``_scan`` at the step's shape (``n_slots`` rows,
+    one token) and at the chunk's (one row of ``prefill_chunk_tokens``,
+    its last 5 padded), captured alone as a CUDA graph and replayed under
+    CUDA events, times the model's recurrent layers; and its share of the
+    decode window's device ms a step and a chunk (a replay of the whole
+    program hides which call launched a kernel)."""
+    from repro_torch.serve.graphs import StepGraph
+
+    attn = ("attn", "attn_moe")
+    spec = next(s for s in model.block_specs if s["kind"] not in attn)
+    mix, dev, dt = spec["mixer"], window["device"], model.cfg.tdtype
+    layers = model.n_periods * sum(s["kind"] not in attn
+                                   for s in model.block_specs)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                   device=dev)
+
+    def scan(B, T):
+        valid = (torch.arange(T, device=dev)[None] < T - 5) if T > 1 else None
+        if spec["kind"] == "rwkv":
+            H, N = mix.n_heads, mix.head_dim
+            q, k, v = (r(B, T, H, N).to(dt) for _ in range(3))
+            w = torch.rand((B, T, H, N), generator=gen, device=dev)
+            u, S = r(H, N).to(dt), r(B, H, N, N)
+            return lambda: mix._scan(q, k, v, w, u, S, valid)
+        di, ds = mix.d_inner, mix.d_state
+        xc, dtv = r(B, T, di).to(dt), r(B, T, di).abs().to(dt) * 0.1
+        Bm, Cm = r(B, T, ds).to(dt), r(B, T, ds).to(dt)
+        A, h = -torch.rand((di, ds), generator=gen, device=dev), r(B, di, ds)
+        return lambda: mix._scan(xc, dtv, Bm, Cm, A, h, valid)
+    out = {"layers": layers, "route": "captured"}
+    totals = {"decode": window["device_ms_per_step_total"],
+              "chunk": (sum(window["prefill_device_ms_per_chunk"].values())
+                        if window["prefill_device_ms_per_chunk"] else None)}
+    for name, (B, T) in (("decode", (kw["n_slots"], 1)),
+                         ("chunk", (1, kw["prefill_chunk_tokens"]))):
+        with torch.no_grad():
+            g = StepGraph("scan", T, scan(B, T), dev)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        g.replay()
+        a.record()
+        for _ in range(n_replays):
+            g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / n_replays * layers
+        out[name] = {"scan_device_ms": ms, "program_device_ms": totals[name],
+                     "scan_share": ms / totals[name] if totals[name] else None}
+        del g
+    return out
+
+
+def recurrent_phase(torch, dev, ops, phase):
+    """rwkv6-3b (``phase`` "rwkv") or jamba-v0.1-52b ("jamba") at its
+    published widths, packed ``mpd_c=8``, int8, bf16, on the paged engine:
+    its bytes on a first line, then eager and captured turns of 8 requests
+    arriving at once (``moe_requests``' prompts from ``default_rng``), a
+    profiled captured decode window and the time scan's share of its
+    device ms a step and a chunk (``scan_share``)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve as launch
+
+    arch = RECURRENT_ARCHS[phase]
+    t0 = time.perf_counter()
+    cfg, model, params = launch.load_model(arch, quantize="int8", device=dev)
+    torch.cuda.synchronize()
+    kw = dict(SERVE_ENGINE)
+    kinds = [s["kind"] for s in model.block_specs]
+    emit({"phase": phase, "stage": "config", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "pattern": list(cfg.pattern), "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+          "norm": cfg.norm, "mpd_c": cfg.mpd_c,
+          "weights": "int8" + (" (routed experts bf16, router f32)"
+                               if cfg.moe_experts else ""),
+          "dtype": cfg.dtype, "bytes": model_bytes(torch, model, params, kw),
+          "spec_decode_supported": model.spec_decode_supported,
+          "capacity": ({"decode": next(
+              s["ffn"] for s in model.block_specs
+              if s["kind"].endswith("_moe")).capacity(kw["n_slots"])}
+              if cfg.moe_experts else None),
+          "setup_s": time.perf_counter() - t0})
+    seen, undo = record_groups(pa)
+    try:
+        turns = graph_turns(torch, model, params, kw, cfg,
+                            make_reqs=lambda: moe_requests(cfg, **MOE_TRAFFIC),
+                            order=(False, None), windows=False)
+    finally:
+        undo()
+    launches = turns["launches_per_turn"]
+    epilogues = turns["bdmm_epilogues"]
+    # the window at prompts of 32-64 tokens (one chunk each) on a 160-row
+    # engine: a recurrent step does not depend on the depth, and a shorter
+    # ladder captures fewer graphs
+    wkw = dict(kw, max_len=160)
+    window = decode_window(torch, model, params, wkw, cfg, reqs=moe_requests(
+        cfg, **dict(MOE_TRAFFIC, n=4, prompt_len=64, shared_prefix=32)))
+    window["device"] = dev
+    scan = scan_share(torch, model, window, wkw)
+    del window["device"]
+    reused = [t["prefix_tokens_reused"] for t in turns["turns"]]
+    checks = {"graph_turns": turns["ok"],
+              "bdmm_grids": launches["bdmm"] > 0 and launches["bdmm_decode"] > 0,
+              "epilogues": all(epilogues[k] > 0
+                               for k in RECURRENT_EPILOGUES[phase]),
+              "no_prefix_reuse": not any(reused)}
+    if "attn" in kinds:
+        group = cfg.n_heads // cfg.n_kv_heads
+        checks["attention_groups"] = (
+            {("decode", group), ("prefill", group)} <= seen
+            and all(g == group for _, g in seen))
+        checks["paged_kernels"] = (launches["paged_attention"] > 0
+                                   and launches["paged_prefill_attention"] > 0)
+    else:
+        checks["no_attention"] = (launches["paged_attention"] == 0
+                                  and launches["paged_prefill_attention"] == 0)
+    row = {"phase": phase, "ok": all(checks.values()), "checks": checks,
+           "graph_turns": turns, "decode_window": window,
+           "scan_share": scan, "prefix_tokens_reused": reused,
+           "attention_groups_planned": sorted(seen),
+           "bdmm_epilogues": {k: v for k, v in epilogues.items() if v},
+           "launches": launches}
+    emit(row)
+    del model, params
+    return row
+
+
+def chunked_state_gap(torch, model, params, prompts, ps=16, tc=64):
+    """Each prompt prefilled chunk by chunk (``tc`` tokens, the paged
+    engine's) into its own slot of paged caches, against a whole-prompt
+    ``prefill`` of it: per recurrent leaf, the largest ``|chunked - whole|``
+    and the largest ``|chunked - whole| / (1 + |whole|)``."""
+    n_pages = 1 + sum(-(-len(p) // ps) for p in prompts)
+    dev = params["embed"]["table"].device
+    paged = model.init_paged_caches(len(prompts), n_pages, ps, device=dev)
+    gap = {}
+    nxt = 1
+    for slot, prompt in enumerate(prompts):
+        n_p = -(-len(prompt) // ps)
+        row = torch.zeros((-(-len(prompt) // tc) * tc // ps,),
+                          dtype=torch.int32, device=dev)
+        row[:n_p] = torch.arange(nxt, nxt + n_p, dtype=torch.int32)
+        nxt += n_p
+        toks = torch.as_tensor(prompt, device=dev).long()
+        for pos in range(0, len(prompt), tc):
+            n = min(len(prompt) - pos, tc)
+            chunk = torch.zeros((1, tc), dtype=torch.long, device=dev)
+            chunk[0, :n] = toks[pos:pos + n]
+            model.prefill_chunk(params, chunk, paged, row, slot, pos, n,
+                                 final=pos + n >= len(prompt))
+        whole = model.init_caches(1, len(prompt), device=dev)
+        model.prefill(params, toks[None], whole)
+        for i, (spec, c, w) in enumerate(zip(model.block_specs, paged,
+                                             whole)):
+            if spec["kind"] in ("attn", "attn_moe"):
+                continue
+            for k in w:
+                a, b = c[k][:, slot].float(), w[k][:, 0].float()
+                err = (a - b).abs()
+                g = gap.setdefault(f"{i}.{k}", {"max_abs": 0.0,
+                                                "max_rel": 0.0})
+                g["max_abs"] = max(g["max_abs"], float(err.max()))
+                g["max_rel"] = max(g["max_rel"],
+                                   float((err / (1 + b.abs())).max()))
+    return gap
+
+
+def exact_recurrent_phase(torch, dev, ops):
+    """rwkv6-3b cut to 4 of 32 layers and jamba to one period (8 of 32) at
+    float32, fp packed blocks: greedy streams through the kernels
+    (captured) and the plain versions (eager) on the same requests; then,
+    on the kernel route, the state a chunked prefill leaves against a
+    whole-prompt ``prefill`` (jamba's MoE at a capacity that drops
+    nothing)."""
+    import dataclasses
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+
+    out = {"phase": "exact_recurrent", "dtype": "float32",
+           "weights": "fp packed (f32 blocks)", "models": {}}
+    ok = True
+    for arch, n_layers in EXACT_RECURRENT.items():
+        cfg, model, params = launch.load_model(
+            arch, dtype="float32", n_layers=n_layers, device=dev)
+        emit({"phase": "exact_recurrent", "stage": "config", "arch": cfg.name,
+              "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+              "bytes": model_bytes(torch, model, params, EXACT_ENGINE)})
+        streams, counts, captures, faults = {}, {}, {}, {}
+        for backend in ("cuda", "torch"):
+            ops.set_backend(backend)
+            ops.reset_launch_counts()
+            try:
+                engine = Engine(model, params, **EXACT_ENGINE,
+                                graphs=None if backend == "cuda" else False)
+                streams[backend] = engine.run(
+                    moe_requests(cfg, **EXACT_MOE_TRAFFIC))
+            finally:
+                ops.set_backend("cuda")
+            torch.cuda.synchronize()
+            counts[backend] = ops.launch_counts()
+            captures[backend] = engine.n_captures
+            faults[backend] = engine.metrics.summary()
+            del engine
+        a, b = streams["cuda"], streams["torch"]
+        diverge = [rid for rid in sorted(a) if a[rid] != b[rid]]
+        routes_ok = (counts["cuda"]["bdmm_decode"] > 0
+                     and counts["cuda"]["bdmm"] > 0
+                     and not any(counts["torch"].values()))
+        full = (build(dataclasses.replace(
+            cfg, moe_capacity=float(cfg.moe_experts))) if cfg.moe_experts
+            else model)
+        with torch.no_grad():
+            gap = chunked_state_gap(torch, full, params, [
+                r.prompt for r in moe_requests(cfg, **EXACT_MOE_TRAFFIC)[:2]])
+        state_ok = all(g["max_rel"] <= STATE_TOL for g in gap.values())
+        m_ok = (not diverge and routes_ok and captures["cuda"] > 0
+                and captures["torch"] == 0 and state_ok
+                and all(map(no_hidden_faults, faults.values())))
+        ok = ok and m_ok
+        out["models"][cfg.name] = {
+            "ok": m_ok, "cut": f"{cfg.n_layers} of 32 layers",
+            "requests": len(a), "tokens": sum(len(v) for v in a.values()),
+            "diverging_requests": diverge, "graphs_captured": captures,
+            "chunked_state_gap": gap,
+            "state_check_capacity": full.cfg.moe_capacity,
+            "state_tol": f"|chunked - whole| <= {STATE_TOL} (1 + |whole|)",
+            "launches_kernel_route": counts["cuda"],
+            "launches_plain_route": counts["torch"]}
+        del model, params
+        torch.cuda.empty_cache()
+    out["ok"] = ok
+    emit(out)
+    return out
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import resource
@@ -3918,6 +4424,10 @@ def main() -> int:
     timed("kernels_fused_ffn", check_fused_ffn, torch, dev, timer, rows,
           summary)
     timed("kernels_lenet", check_lenet, torch, dev, timer, rows, summary)
+    timed("kernels_epilogues", check_bdmm_epilogues, torch, dev, timer, rows,
+          summary)
+    timed("kernels_masked_epilogues", check_masked_epilogues, torch, dev,
+          timer, rows, summary)
     del timer
     (OUT_DIR / "kernels.jsonl").write_text(
         "\n".join(json.dumps(r) for r in rows) + "\n")
@@ -4000,15 +4510,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     if not timed("exact_moe", exact_moe_phase, torch, dev, ops)["ok"]:
         failed.append("exact_moe")
+    torch.cuda.empty_cache()
+    recurrent = {}
+    for phase in RECURRENT_ARCHS:
+        recurrent[phase] = timed(phase, recurrent_phase, torch, dev, ops,
+                                 phase)
+        if not recurrent[phase]["ok"]:
+            failed.append(phase)
+        torch.cuda.empty_cache()
+    if not timed("exact_recurrent", exact_recurrent_phase, torch, dev,
+                 ops)["ok"]:
+        failed.append("exact_recurrent")
     # the main path's launches: paged and slot-dense serving, the static
     # lockstep batch, training (perm-fused packed and resumed too), the
     # fused deploy, the speculative turns, the serving surface, the
-    # paper's experiments, granite-8b through the launcher and qwen2-moe's
-    # captured turn
+    # paper's experiments, granite-8b through the launcher, qwen2-moe's,
+    # rwkv6-3b's and jamba's captured turns
     launches = {k: sum(p["launches"][k]
                        for p in (served, dense, static, trained, train_fused,
                                  resumed, deployed, spec, surface, paper, gqa,
-                                 moe))
+                                 moe, *recurrent.values()))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,
@@ -4039,7 +4560,8 @@ def main() -> int:
                         **({"f32_rows": s["f32_rows"]}
                            if "f32_rows" in s else {}),
                         **({k: s[k] for k in ("bodies", "tall_rows",
-                                              "granite_8b") if k in s})})
+                                              "granite_8b", "epilogue_rows")
+                            if k in s})})
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

@@ -37,7 +37,7 @@ passes between the two packages in both directions::
   order and crc32 chain.
 * A packed export's manifest carries the packed config with the
   reference's full field set (:data:`FOREIGN_CONFIG_DEFAULTS` for the
-  fields of architectures the port does not have), so the reference's
+  fields the port's config lacks: M-RoPE's and ``remat``), so the reference's
   ``load_packed`` rebuilds the model from the directory alone.
 """
 
@@ -62,8 +62,8 @@ BF16_DESCR = np.dtype("V2")         # how numpy stores a bfloat16 leaf
 
 # The reference's ModelConfig fields, in its order (``dataclasses.asdict``
 # writes them so), and the defaults of those the port's config lacks: they
-# belong to architectures not ported (Mamba, RWKV, M-RoPE) or to the
-# reference's rematerialization.
+# belong to M-RoPE (the vision frontend, not ported) or to the reference's
+# rematerialization.
 CONFIG_FIELDS = (
     "name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
     "head_dim", "norm", "ffn_kind", "use_bias", "causal", "rope",
@@ -73,9 +73,7 @@ CONFIG_FIELDS = (
     "q_chunk", "loss_chunk", "dtype", "aux_loss_weight", "remat", "mpd_c",
     "mpd_mode", "mpd_min_block", "mpd_permuted", "mpd_seed", "mpd_per_kind",
     "mpd_fuse")
-FOREIGN_CONFIG_DEFAULTS = {
-    "mrope_sections": (16, 24, 24), "rwkv_head_dim": 64, "mamba_expand": 2,
-    "remat": "block"}
+FOREIGN_CONFIG_DEFAULTS = {"mrope_sections": (16, 24, 24), "remat": "block"}
 # remat changes what the reference's backward recomputes, not the function;
 # the port keeps activations, which computes the same values as either
 REMAT_VALUES = ("block", "none")

@@ -1,7 +1,7 @@
 """Config registry of the port (``ARCHS`` / ``get_config`` of
-``repro.configs.common``, restricted to the architectures ported so far:
-the attention family and the attention + MoE family; hubert, qwen2-vl,
-rwkv6 and jamba wait for their families)."""
+``repro.configs.common``, restricted to the token-frontend architectures:
+the attention, attention + MoE, RWKV and Mamba hybrid families; hubert and
+qwen2-vl wait for their embed frontends)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,8 @@ import importlib
 from repro_torch.models.model import ModelConfig
 
 ARCHS = ("olmo-1b", "granite-8b", "command-r-plus-104b", "minitron-4b",
-         "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b")
+         "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b", "rwkv6-3b",
+         "jamba-v0.1-52b")
 
 _MODULES = {
     "olmo-1b": "olmo_1b",
@@ -20,6 +21,8 @@ _MODULES = {
     "minitron-4b": "minitron_4b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "rwkv6-3b": "rwkv6_3b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 

@@ -1,6 +1,6 @@
 """Whole-model fold of masked-dense training into the packed deployment
 form, the Fig-3 permutation-fusion rewrite and post-fold quantization (the
-port of ``repro.core.export`` for the attention and MoE families).
+port of ``repro.core.export``).
 
 :func:`fold_model` builds the packed twin of a ``masked_dense`` model (same
 config and masks, packed parameterization), checks that every claimed
@@ -15,7 +15,11 @@ E, d_in, d_out)`` fold with the layer's one shared mask and stay raw fp
 arrays (never quantized: the routed product is gather-bound, not
 weight-stream-bound); its shared expert's linears fold and quantize like
 any other; its router stays as trained; the perm-fusion rewrite skips its
-FFN.
+FFN. A mamba or rwkv block's projections fold and quantize like an
+attention block's; its raw leaves (the conv and its bias, ``A_log``, ``D``,
+``dt_bias``; the mixes, ``w0``, the decay LoRA, ``u`` and ``ln_x``) stay
+fp, and a mamba block's dense FFN takes the perm-fusion rewrite as an
+attention block's does.
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ def fold_model(model, params, *, fuse: bool = False,
     for bi_, (spec, pstack) in enumerate(zip(model_pk.block_specs,
                                              out["blocks"])):
         ffn = spec["ffn"]
-        if spec["kind"] != "attn_moe" or ffn.mode != "packed":
+        if not spec["kind"].endswith("_moe") or ffn.mode != "packed":
             continue
         for key, mask in ffn.expert_masks():
             if mask is not None:
@@ -207,9 +211,9 @@ def apply_perm_fusion(model_pk, params: Optional[Dict[str, Any]] = None):
     whose stored bias is rewritten already).
     """
     for bi_, spec in enumerate(model_pk.block_specs):
-        if spec["kind"] == "attn_moe":
-            continue                            # MoE FFNs are not rewritten
         ffn = spec["ffn"]
+        if ffn is None or spec["kind"].endswith("_moe"):
+            continue              # no FFN (rwkv); MoE FFNs are not rewritten
         up, gate, down = ffn.w_up, ffn.w_gate, ffn.w_down
         su, sd = up.spec, down.spec
         if not (su.mode == "packed" and sd.mode == "packed"

@@ -127,7 +127,7 @@ def reapply_mask(spec: MPDLinearSpec, params: Params) -> Params:
 
 
 def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
-          activation: Optional[str] = None,
+          activation: Optional[str] = None, extra_bias=None,
           packed_input: bool = False) -> torch.Tensor:
     """``y = act(x @ W_eff + b)`` for every mode.
 
@@ -138,11 +138,16 @@ def apply(spec: MPDLinearSpec, params: Params, x: torch.Tensor, *,
     quantized leaves route to the int8 form. ``packed_input`` says that
     ``x`` was packed already (a packed-mode layer then skips its input
     gather), so layers that share an input permutation pack once.
+    ``extra_bias (d_out,)`` adds to the layer's own bias (or stands in for
+    it) before the packed re-index, so it rides the same epilogue (Mamba's
+    ``dt_bias``).
     """
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.quant import is_quantized
 
     b = params["b"] if spec.use_bias else None
+    if extra_bias is not None:
+        b = extra_bias if b is None else b + extra_bias
     if spec.mask is None or spec.mode == "dense":
         y = x @ params["w"]
         if b is not None:

@@ -151,7 +151,7 @@ struct BArgs {
 __device__ __forceinline__ float out1(const BArgs& a, long p, float v) {
   if (a.scale) v = __fmul_rn(v, __ldg(a.scale + p));
   if (a.bias) v = __fadd_rn(v, __ldg(a.bias + p));
-  return a.act == ACT_SILU ? silu(v) : v;
+  return activate(v, a.act);
 }
 
 // y[r, blk * n + c .. + 3], the channels below n: one 16-byte store where
@@ -654,13 +654,13 @@ struct BArgs {
   int split, k_chunk;  // tc_small_m, decode_tc: K split over blocks, K range of a split
 };
 
-// scale -> bias -> activation of output channel ch of block blk
-__device__ __forceinline__ float bdmm_out(const BArgs& a, int blk, int ch, float v) {
+// scale -> bias -> activation act of output channel ch of block blk
+__device__ __forceinline__ float bdmm_out(const BArgs& a, int blk, int ch, float v, int act) {
   if (ch >= a.n) return 0.f;
   const long p = static_cast<long>(blk) * a.n + ch;
   if (a.scale) v *= __ldg(a.scale + p);
   if (a.bias) v += __ldg(a.bias + p);
-  return activate_tc(v, a.act);
+  return activate_tc(v, act);
 }
 
 // ------------------------------------------------------------------- tc
@@ -705,9 +705,9 @@ __device__ __forceinline__ void bt_stage(uint8_t* out, const float (&acc)[BT_BQ 
     for (int h = 0; h < 2; ++h) {
       const int r = warp * 16 + lane / 4 + 8 * h;
       float v0 = acc[4 * g + 2 * h] + b0, v1 = acc[4 * g + 2 * h + 1] + b1;
-      if (ACT == ACT_SILU) {
-        v0 = activate_tc(v0, ACT_SILU);
-        v1 = activate_tc(v1, ACT_SILU);
+      if (ACT != ACT_NONE) {
+        v0 = activate_tc(v0, ACT);
+        v1 = activate_tc(v1, ACT);
       }
       *reinterpret_cast<__nv_bfloat162*>(out + (g / 8) * 8192 + r * 128 +
                                          (((g % 8) ^ (r % 8)) << 4) + 4 * (lane % 4)) =
@@ -804,10 +804,15 @@ __global__ void __launch_bounds__(BT_THREADS, 1)
     if (leader) bulk_wait<0, true>();
     asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
     const float* bias = a.bias ? a.bias + static_cast<long>(blk) * a.n + ch0 : nullptr;
-    if (a.act == ACT_SILU)
-      bt_stage<ACT_SILU>(out, acc, bias, a.n - ch0, t);
-    else
-      bt_stage<ACT_NONE>(out, acc, bias, a.n - ch0, t);
+    switch (a.act) {
+      case ACT_SILU: bt_stage<ACT_SILU>(out, acc, bias, a.n - ch0, t); break;
+      case ACT_GELU: bt_stage<ACT_GELU>(out, acc, bias, a.n - ch0, t); break;
+      case ACT_RELU: bt_stage<ACT_RELU>(out, acc, bias, a.n - ch0, t); break;
+      case ACT_SIGMOID: bt_stage<ACT_SIGMOID>(out, acc, bias, a.n - ch0, t); break;
+      case ACT_SOFTPLUS: bt_stage<ACT_SOFTPLUS>(out, acc, bias, a.n - ch0, t); break;
+      case ACT_SQRELU: bt_stage<ACT_SQRELU>(out, acc, bias, a.n - ch0, t); break;
+      default: bt_stage<ACT_NONE>(out, acc, bias, a.n - ch0, t);
+    }
     fence_async_smem();
     asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
     if (leader) {
@@ -948,21 +953,23 @@ __global__ void __launch_bounds__(WG_THREADS) bdmm_general_small_kernel(const BA
   const int r0 = warp * 16 + lane / 4, c0 = 2 * (lane % 4);
   const long ldy = static_cast<long>(a.nb) * a.n;
   float* part = a.split > 1 ? a.ws + static_cast<long>(z) * a.m * ldy : nullptr;
+  dispatch_act(part ? ACT_NONE : a.act, [&](auto A) {
 #pragma unroll
-  for (int g = 0; g < BS_TILE / 8; ++g)
+    for (int g = 0; g < BS_TILE / 8; ++g)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int tok = tok0 + 8 * g + c0 + e, ch = ch0 + r0 + 8 * h;
-        if (tok >= a.m || ch >= a.n) continue;
-        const long off = tok * ldy + static_cast<long>(blk) * a.n + ch;
-        const float v = acc[4 * g + 2 * h + e];
-        if (part)
-          part[off] = v;
-        else
-          a.y[off] = from_f32<bf16>(bdmm_out(a, blk, ch, v));
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int tok = tok0 + 8 * g + c0 + e, ch = ch0 + r0 + 8 * h;
+          if (tok >= a.m || ch >= a.n) continue;
+          const long off = tok * ldy + static_cast<long>(blk) * a.n + ch;
+          const float v = acc[4 * g + 2 * h + e];
+          if (part)
+            part[off] = v;
+          else
+            a.y[off] = from_f32<bf16>(bdmm_out(a, blk, ch, v, A.value));
+        }
+  });
 }
 
 // ------------------------------------------------------------ decode_tc
@@ -1132,14 +1139,16 @@ __global__ void __launch_bounds__(DC_THREADS) bdmm_decode_tc_kernel(const BArgs 
     return;
   }
   bf16* tile = reinterpret_cast<bf16*>(smem);  // m x 64, 128-byte rows
+  dispatch_act(a.act, [&](auto A) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int tok = 8 * j + 2 * c + (e & 1);
-      const int cl = 16 * warp + (INT8 ? 2 * gq + (e >> 1) : gq + 8 * (e >> 1));
-      tile[tok * DC_CH + cl] = decode_out(acc[j][e], s_scale[cl], s_bias[cl], a.act);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int tok = 8 * j + 2 * c + (e & 1);
+        const int cl = 16 * warp + (INT8 ? 2 * gq + (e >> 1) : gq + 8 * (e >> 1));
+        tile[tok * DC_CH + cl] = decode_out(acc[j][e], s_scale[cl], s_bias[cl], A.value);
+      }
+  });
   __syncthreads();
   for (int idx = tid; idx < a.m * (DC_CH / 8); idx += DC_THREADS) {
     const int tok = idx / (DC_CH / 8), cl = 8 * (idx % (DC_CH / 8));
@@ -1162,7 +1171,7 @@ __global__ void bdmm_reduce_kernel(const BArgs a) {
   float v = 0.f;
   for (int z = 0; z < a.split; ++z) v += a.ws[z * total + i];
   const int p = static_cast<int>(i % ldy);
-  a.y[i] = from_f32<bf16>(bdmm_out(a, p / a.n, p % a.n, v));
+  a.y[i] = from_f32<bf16>(bdmm_out(a, p / a.n, p % a.n, v, a.act));
 }
 
 }  // namespace
@@ -1251,7 +1260,7 @@ extern "C" int bdmm_launch(const void* x, const void* w, const float* scale,
                            int k_chunk, void* stream) {
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (m <= 0 || nb <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_SILU) return bad;
+  if (m <= 0 || nb <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_LAST) return bad;
   if (w_int8 && (transpose || !scale)) return bad;
   if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_w)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);

@@ -7,12 +7,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace repro_torch {
 
 // dtype codes passed by the wrappers (kernels/_build.py DTYPE_CODES)
 enum DType { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
-// activation codes (kernels/bdmm.py and kernels/masked_matmul.py ACT_CODES)
-enum Act { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3 };
+// activation codes (kernels/bdmm.py and kernels/masked_matmul.py ACT_CODES:
+// every entry of the reference's ref.ACTIVATIONS; fused_ffn.py takes the
+// first four)
+enum Act {
+  ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3,
+  ACT_SIGMOID = 4, ACT_SOFTPLUS = 5, ACT_SQRELU = 6, ACT_LAST = ACT_SQRELU
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -78,12 +85,44 @@ __device__ __forceinline__ void load4<float>(const float* __restrict__ p, int c0
   }
 }
 
+// jax.nn.sigmoid == 1 / (1 + exp(-x))
+__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// jax.nn.softplus == logaddexp(x, 0) == max(x, 0) + log1p(exp(-|x|)) (not
+// torch's threshold form)
+__device__ __forceinline__ float softplus(float v) {
+  return fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
+}
+
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
     case ACT_SILU: return silu(v);
     case ACT_GELU: return gelu_tanh(v);
     case ACT_RELU: return fmaxf(v, 0.0f);
+    case ACT_SIGMOID: return sigmoid(v);
+    case ACT_SOFTPLUS: return softplus(v);
+    case ACT_SQRELU: {  // RWKV's channel mix: squared ReLU
+      const float r = fmaxf(v, 0.0f);
+      return r * r;
+    }
     default: return v;
+  }
+}
+
+// f(std::integral_constant<int, A>()) for the runtime activation code act:
+// an epilogue that unrolls over a whole tile calls its activation with the
+// constant A.value, so it inlines one activation, not a switch of all of
+// them at every element (which costs registers, and spills, on every path).
+template <typename F>
+__device__ __forceinline__ void dispatch_act(int act, F&& f) {
+  switch (act) {
+    case ACT_SILU: f(std::integral_constant<int, ACT_SILU>()); break;
+    case ACT_GELU: f(std::integral_constant<int, ACT_GELU>()); break;
+    case ACT_RELU: f(std::integral_constant<int, ACT_RELU>()); break;
+    case ACT_SIGMOID: f(std::integral_constant<int, ACT_SIGMOID>()); break;
+    case ACT_SOFTPLUS: f(std::integral_constant<int, ACT_SOFTPLUS>()); break;
+    case ACT_SQRELU: f(std::integral_constant<int, ACT_SQRELU>()); break;
+    default: f(std::integral_constant<int, ACT_NONE>());
   }
 }
 

@@ -608,21 +608,23 @@ __device__ __forceinline__ void store_small(const Args& a, const float (&acc)[BQ
     const int ch = ch0 + r0 + 8 * h;
     b[h] = a.bias && ch < a.n ? __ldg(a.bias + ch) : 0.f;
   }
+  dispatch_act(split ? ACT_NONE : a.act, [&](auto A) {
 #pragma unroll
-  for (int g = 0; g < BQ / 8; ++g)
+    for (int g = 0; g < BQ / 8; ++g)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int tok = 8 * g + c0 + e, ch = ch0 + r0 + 8 * h;
-        if (tok >= a.m || ch >= a.n) continue;
-        const long off = static_cast<long>(tok) * a.n + ch;
-        const float v = acc[4 * g + 2 * h + e];
-        if (split)
-          a.ws[z * mn + off] = v;
-        else
-          a.y[off] = from_f32<bf16>(activate_tc(v + b[h], a.act));
-      }
+        for (int e = 0; e < 2; ++e) {
+          const int tok = 8 * g + c0 + e, ch = ch0 + r0 + 8 * h;
+          if (tok >= a.m || ch >= a.n) continue;
+          const long off = static_cast<long>(tok) * a.n + ch;
+          const float v = acc[4 * g + 2 * h + e];
+          if (split)
+            a.ws[z * mn + off] = v;
+          else
+            a.y[off] = from_f32<bf16>(activate_tc(v + b[h], A.value));
+        }
+  });
 }
 
 // Shared-memory bytes of one pipeline stage: the x tile (XR token rows),
@@ -738,21 +740,23 @@ constexpr int RASTER = 8;
 __device__ __forceinline__ void store_tc(const Args& a, const float (&acc)[2][TC_BQ / 2],
                                          uint8_t* buf, int tok0, int ch0, int wg, int tid) {
   const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32, c0 = 2 * (lane % 4);
+  dispatch_act(a.act, [&](auto A) {
 #pragma unroll
-  for (int g = 0; g < TC_BQ / 8; ++g) {
-    const int ch = ch0 + 8 * g + c0;
-    const float b0 = a.bias && ch < a.n ? __ldg(a.bias + ch) : 0.f;
-    const float b1 = a.bias && ch + 1 < a.n ? __ldg(a.bias + ch + 1) : 0.f;
+    for (int g = 0; g < TC_BQ / 8; ++g) {
+      const int ch = ch0 + 8 * g + c0;
+      const float b0 = a.bias && ch < a.n ? __ldg(a.bias + ch) : 0.f;
+      const float b1 = a.bias && ch + 1 < a.n ? __ldg(a.bias + ch + 1) : 0.f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = j * 64 + warp * 16 + lane / 4 + 8 * h;
-        *reinterpret_cast<__nv_bfloat162*>(buf + r * OUT_LD + (8 * g + c0) * 2) =
-            __floats2bfloat162_rn(activate_tc(acc[j][4 * g + 2 * h] + b0, a.act),
-                                  activate_tc(acc[j][4 * g + 2 * h + 1] + b1, a.act));
-      }
-  }
+        for (int h = 0; h < 2; ++h) {
+          const int r = j * 64 + warp * 16 + lane / 4 + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(buf + r * OUT_LD + (8 * g + c0) * 2) =
+              __floats2bfloat162_rn(activate_tc(acc[j][4 * g + 2 * h] + b0, A.value),
+                                    activate_tc(acc[j][4 * g + 2 * h + 1] + b1, A.value));
+        }
+    }
+  });
   asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG_THREADS) : "memory");
   const bool vec = a.n % 8 == 0;
 #pragma unroll 4
@@ -1120,7 +1124,7 @@ extern "C" int masked_matmul_launch(const void* x, const void* w, const uint8_t*
                                     int vec_m, void* stream) {
   cudaGetLastError();  // clear a stale error so the one returned is this launch's
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (m <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_RELU) return bad;
+  if (m <= 0 || k <= 0 || n <= 0 || act < ACT_NONE || act > ACT_LAST) return bad;
   if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_w) || !tc::vec_ok(vec_m)) return bad;
   const auto s = static_cast<cudaStream_t>(stream);
   if (route == ROUTE_SIMT_F32 || route == ROUTE_SIMT_SMALL_M) {

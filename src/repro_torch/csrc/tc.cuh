@@ -201,13 +201,20 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The activation of the tensor-core epilogues: silu through the fast
-// exponential and division, a few f32 ulps from the reference and far below
-// the bf16 rounding that follows (the IEEE forms call a slow path that cost
-// the m = 2048 epilogue more than its whole product); the others as the
-// reference computes them.
+// The activation of the tensor-core epilogues: silu, sigmoid and softplus
+// through the fast exponential (and division), a few f32 ulps from the
+// reference and far below the bf16 rounding that follows (the IEEE forms
+// call a slow path that cost the m = 2048 epilogue more than its whole
+// product; sigmoid's exponent is clamped where 1 + e^-v would pass 2^126,
+// past which the fast division gives 0); the others as the reference
+// computes them.
 __device__ __forceinline__ float activate_tc(float v, int act) {
-  return act == ACT_SILU ? __fdividef(v, 1.0f + __expf(-v)) : activate(v, act);
+  switch (act) {
+    case ACT_SILU: return __fdividef(v, 1.0f + __expf(-v));
+    case ACT_SIGMOID: return __fdividef(1.0f, 1.0f + __expf(fminf(-v, 80.0f)));
+    case ACT_SOFTPLUS: return fmaxf(v, 0.0f) + log1pf(__expf(-fabsf(v)));
+    default: return activate(v, act);
+  }
 }
 
 __device__ __forceinline__ uint32_t bar_u32(const uint64_t* b) { return smem_u32(b); }

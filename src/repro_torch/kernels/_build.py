@@ -29,6 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the epilogue activations of bdmm and the masked matmul (csrc/common.cuh
+# Act): every entry of kernels/ref.py ACTIVATIONS
+ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3, "sigmoid": 4,
+             "softplus": 5, "sqrelu": 6}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}      # nvcc output per source (ptxas -v lines)

@@ -14,8 +14,9 @@ above; for f32 (exact, FFMA) a small body (``decode_simt`` at ``m <= 32``,
 (``simt_f32``). Inputs must lie on one CUDA device;
 :mod:`repro_torch.kernels.ops` sends CPU tensors to the plain version
 before they get here. ``launches`` counts kernel launches per grid shape,
-``routes`` the launches by the body that ran them and ``transposed_routes``
-the transposed launches among those.
+``routes`` the launches by the body that ran them, ``transposed_routes``
+the transposed launches among those and ``epilogues`` the launches by
+activation and weight type.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ TILE_K = 64                         # K step of the tensor-core bodies
 SMS = 132                           # the H100's streaming multiprocessors
 DECODE_K_CHUNK = 256                # decode_tc: K rows a block holds in flight (4 stages)
 DECODE_SPLIT_MAX = 8                # decode_tc: a K split is one cluster, at most 8 blocks
-ACT_CODES = {None: 0, "silu": 1}    # activations the kernel epilogue runs
+ACT_CODES = _build.ACT_CODES       # activations the kernel epilogue runs
 # the bodies of csrc/bdmm.cu (Route)
 ROUTES = {"decode_simt": 0, "simt_f32": 1, "tc": 2, "tc_small_m": 3,
           "decode_tc": 4, "simt_small": 5}
@@ -62,6 +63,9 @@ SIMT_MIN_SPLIT_K = 16
 SIMT_SMALL_K = 256
 
 launches = {"bdmm": 0, "bdmm_decode": 0}
+# launches by epilogue: "<activation>/<int8 or fp>" ("none" without one)
+epilogues = {f"{a or 'none'}/{w}": 0 for a in ACT_CODES
+             for w in ("fp", "int8")}
 routes = {r: 0 for r in ROUTES}
 transposed_routes = {r: 0 for r in ROUTES}
 _entry = None
@@ -259,6 +263,7 @@ def bdmm(x: torch.Tensor, wp: torch.Tensor, bias: Optional[torch.Tensor] = None,
     p = plan(m, nb, k, n, x.dtype, wp.dtype, transpose, vec_x, vec_w)
     launch(p, x2, wp, s, b, y, activation, transpose)
     launches["bdmm_decode" if p.route in DECODE_ROUTES else "bdmm"] += 1
+    epilogues[f"{activation or 'none'}/{'int8' if quant else 'fp'}"] += 1
     routes[p.route] += 1
     if transpose:
         transposed_routes[p.route] += 1

@@ -25,7 +25,7 @@ import torch
 
 from . import _build
 
-ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
+ACT_CODES = _build.ACT_CODES       # activations the kernel epilogue runs
 # the masked matmul's bodies (csrc/masked_matmul.cu Route)
 ROUTES = {"simt_f32": 0, "tc": 1, "tc_small_m": 2, "simt_small_m": 3}
 # the SDDMM's bodies (csrc/masked_matmul.cu SddmmRoute): bf16 on tc, f32 on

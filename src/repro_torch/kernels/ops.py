@@ -91,21 +91,21 @@ def launch_counts() -> Dict[str, int]:
 
 def counters() -> Tuple[Dict[str, int], ...]:
     """Every counting dict the kernel wrappers add to: each kernel module's
-    ``launches`` and the tallies by route of bdmm (all launches, and the
+    ``launches``, the tallies by route of bdmm (all launches, and the
     transposed ones), the fused MLP, the masked matmul, the SDDMM and the
-    paged attention kernels. A captured CUDA graph
-    (:mod:`repro_torch.serve.graphs`) adds its capture's share to them on
-    every replay."""
+    paged attention kernels, and bdmm's launches by epilogue. A captured
+    CUDA graph (:mod:`repro_torch.serve.graphs`) adds its capture's share
+    to them on every replay."""
     return (*(mod.launches for mod in _KERNEL_MODULES), bdmm_kernel.routes,
             bdmm_kernel.transposed_routes, ffn_kernel.routes,
             mm_kernel.routes, mm_kernel.sddmm_routes,
-            paged_attn_kernel.routes)
+            paged_attn_kernel.routes, bdmm_kernel.epilogues)
 
 
 def reset_launch_counts() -> None:
     """Zero every kernel's launch count (and the tallies by route of bdmm,
     its transposed launches, the fused MLP, the masked matmul, the SDDMM
-    and the paged attention kernels)."""
+    and the paged attention kernels, and bdmm's by epilogue)."""
     for counts in counters():
         for k in counts:
             counts[k] = 0

@@ -22,7 +22,9 @@ ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
     "sigmoid": torch.sigmoid,
-    "softplus": F.softplus,
+    # jax.nn.softplus: logaddexp(x, 0), not torch's threshold form
+    "softplus": lambda x: torch.clamp_min(x, 0) + torch.log1p(
+        torch.exp(-x.abs())),
     "sqrelu": lambda x: torch.square(torch.relu(x)),
 }
 

@@ -256,11 +256,13 @@ def static_decode(model, params, prompts, gen):
         step = lambda: model.decode_step(params, tok, caches)[0]  # noqa: E731
         if captured:
             # the capture's warm runs write K/V at and past the depth (each
-            # written again before it is read) and advance pos: put it back
-            saved = [c["pos"].clone() for c in caches]
+            # written again before it is read) and advance pos and any
+            # recurrent state: put those back
+            state = model.step_state(caches)
+            saved = [t.clone() for t in state]
             graph = StepGraph("static_decode", B, step, dev)
-            for c, p in zip(caches, saved):
-                c["pos"].copy_(p)
+            for t, v in zip(state, saved):
+                t.copy_(v)
             step = graph.replay
         sync()
         t0 = time.perf_counter()

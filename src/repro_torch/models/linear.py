@@ -37,9 +37,11 @@ class Linear:
              device=None):
         return mpd.init(generator, self.spec, dtype, device)
 
-    def apply(self, params, x, *, activation=None, packed_input=False):
+    def apply(self, params, x, *, activation=None, extra_bias=None,
+              packed_input=False):
         """Forward with the bias/activation epilogue fused into the kernel
-        call; quantized leaves route to the int8 kernels. ``packed_input``:
-        ``x`` is already in this layer's packed input order."""
+        call; quantized leaves route to the int8 kernels. ``extra_bias``
+        joins the layer's bias in that epilogue; ``packed_input``: ``x`` is
+        already in this layer's packed input order."""
         return mpd.apply(self.spec, params, x, activation=activation,
-                         packed_input=packed_input)
+                         extra_bias=extra_bias, packed_input=packed_input)

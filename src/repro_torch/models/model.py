@@ -1,11 +1,19 @@
-"""Model assembly for the attention and MoE families (the port of
-``repro.models.model`` for patterns of ``"attn"`` and ``"attn_moe"``
-blocks: config, init, the full-sequence ``forward``/``logits``/
-``train_loss``, the mask projection and fold of masked-dense training,
-dense caches (``init_caches``,
+"""Model assembly (the port of ``repro.models.model`` for every block kind
+of the token frontends: ``"attn"``, ``"attn_moe"``, ``"mamba"``,
+``"mamba_moe"`` and ``"rwkv"``: config, init, the full-sequence
+``forward``/``logits``/``train_loss``, the mask projection and fold of
+masked-dense training, dense caches (``init_caches``,
 ``init_slot_caches``, ``slot_cache_axes``) and ``prefill``, paged caches,
 ``decode_step`` on either, ``prefill_chunk`` and the speculative-decoding
 hooks ``set_paged_pos`` and ``verify_step``).
+
+A recurrent block (mamba, rwkv) keeps O(1) state a row instead of K/V:
+``{"conv", "h"}`` or ``{"S", "x_tm", "x_cm"}`` stacked per period, the
+paged engine's one pinned row a slot. Every serving path computes a
+block's new state as new tensors from the old and then writes it in
+place: ``prefill`` from zeros, ``prefill_chunk`` from the slot's row (read
+as zeros at ``start == 0``, selected on the device), ``decode_step`` under
+``live`` as ``where(live, new, old)`` (a non-live row keeps its state).
 
 Params keep the reference's tree and key names — block params stacked per
 pattern period on a leading axis (``params["blocks"][i]["mixer"]["wq"]["w"]``
@@ -39,20 +47,22 @@ from repro_torch import tree as tree_lib
 from repro_torch.core.policy import CompressionPolicy
 from . import attention as attn_lib
 from . import layers
+from . import mamba as mamba_lib
+from . import rwkv as rwkv_lib
 from .ffn import FFNSpec
 from .linear import Linear
+from .mamba import MambaSpec
 from .moe import MoESpec
+from .rwkv import RWKVSpec
 
-# the block kinds the port builds (the reference also has mamba, mamba_moe
-# and rwkv)
-BLOCK_KINDS = ("attn", "attn_moe")
+BLOCK_KINDS = ("attn", "attn_moe", "mamba", "mamba_moe", "rwkv")
+ATTN_KINDS = ("attn", "attn_moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Field-for-field the reference config, less the fields of families
-    not ported (Mamba, RWKV, M-RoPE) and ``remat``; patterns of
-    ``"attn"`` / ``"attn_moe"`` blocks with token frontends."""
+    """Field-for-field the reference config, less M-RoPE's
+    ``mrope_sections`` and ``remat``; token frontends."""
     name: str = "model"
     n_layers: int = 2
     d_model: int = 128
@@ -76,6 +86,9 @@ class ModelConfig:
     moe_shared_gated: bool = False
     moe_capacity: float = 1.25
     moe_experts_pad: int = 0        # physical expert padding
+    # SSM families
+    rwkv_head_dim: int = 64
+    mamba_expand: int = 2
     frontend: str = "token"
     q_chunk: int = 128
     loss_chunk: int = 512           # CE sequence chunk
@@ -131,10 +144,8 @@ class Model:
 
     def __init__(self, cfg: ModelConfig):
         if not set(cfg.pattern) <= set(BLOCK_KINDS):
-            raise NotImplementedError(
-                f"{cfg.name}: pattern {cfg.pattern} — only attention and "
-                "attention + MoE blocks are ported (mamba and rwkv are not "
-                "yet)")
+            raise ValueError(f"{cfg.name}: pattern {cfg.pattern} has a kind "
+                             f"not in {BLOCK_KINDS}")
         if cfg.frontend != "token":
             raise NotImplementedError("only token frontends are ported (not "
                                       "the embed frontends of the audio and "
@@ -151,15 +162,24 @@ class Model:
         self._sqrt_d = math.sqrt(cfg.d_model)
 
     def _make_block(self, pol: CompressionPolicy, kind: str, idx: int):
+        """The block's mixer (salt ``idx + 1``) and its FFN or MoE (salt
+        ``idx + 100``); an rwkv block's channel mix lives in its mixer
+        (``ffn`` None)."""
         cfg = self.cfg
-        spec = {
-            "kind": kind,
-            "mixer": attn_lib.AttentionSpec.make(
+        spec: Dict[str, Any] = {"kind": kind}
+        if kind in ATTN_KINDS:
+            spec["mixer"] = attn_lib.AttentionSpec.make(
                 pol, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 causal=cfg.causal, rope=cfg.rope, rope_theta=cfg.rope_theta,
                 q_chunk=cfg.q_chunk, use_bias=cfg.use_bias, seed_salt=idx + 1,
-                fuse_perms=cfg.mpd_fuse)}
-        if kind == "attn_moe":
+                fuse_perms=cfg.mpd_fuse)
+        elif kind in ("mamba", "mamba_moe"):
+            spec["mixer"] = MambaSpec.make(pol, cfg.d_model, cfg.mamba_expand,
+                                           seed_salt=idx + 1)
+        else:
+            spec["mixer"] = RWKVSpec.make(pol, cfg.d_model, cfg.d_ff,
+                                          cfg.rwkv_head_dim, seed_salt=idx + 1)
+        if kind.endswith("_moe"):
             spec["ffn"] = MoESpec.make(
                 pol, cfg.d_model, cfg.moe_d_ff, cfg.moe_experts,
                 cfg.moe_top_k, capacity_factor=cfg.moe_capacity,
@@ -167,11 +187,13 @@ class Model:
                 shared_gated=cfg.moe_shared_gated,
                 mode=cfg.mpd_mode if cfg.mpd_c > 1 else "dense",
                 seed_salt=idx + 100, n_experts_padded=cfg.moe_experts_pad)
-        else:
+        elif kind in ("attn", "mamba"):
             spec["ffn"] = FFNSpec.make(pol, cfg.d_model, cfg.d_ff,
                                        cfg.ffn_kind, cfg.use_bias,
                                        seed_salt=idx + 100,
                                        fuse_perms=cfg.mpd_fuse)
+        else:
+            spec["ffn"] = None
         return spec
 
     # ----------------------------------------------------------------- params
@@ -190,12 +212,14 @@ class Model:
                                            dev)}
         params["blocks"] = []
         for spec in self.block_specs:
-            periods = [{
-                "norm1": layers.init_norm(cfg.norm, cfg.d_model, dev),
-                "mixer": spec["mixer"].init(gen, dtype, dev),
-                "norm2": layers.init_norm(cfg.norm, cfg.d_model, dev),
-                "ffn": spec["ffn"].init(gen, dtype, dev),
-            } for _ in range(self.n_periods)]
+            periods = []
+            for _ in range(self.n_periods):
+                p = {"norm1": layers.init_norm(cfg.norm, cfg.d_model, dev),
+                     "mixer": spec["mixer"].init(gen, dtype, dev),
+                     "norm2": layers.init_norm(cfg.norm, cfg.d_model, dev)}
+                if spec["ffn"] is not None:
+                    p["ffn"] = spec["ffn"].init(gen, dtype, dev)
+                periods.append(p)
             params["blocks"].append(_stack(periods))
         params["final_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dev)
         params["unembed"] = self.unembed.init(gen, dtype, dev)
@@ -205,44 +229,86 @@ class Model:
                     device=None) -> List[Dict[str, Any]]:
         """Per pattern position: dense K/V ``(n_periods, batch, max_len, Kh,
         Dh)`` in the config dtype unless ``dtype`` is given, and a scalar
-        ``pos`` per period, ``(n_periods,)`` (lockstep decode)."""
+        ``pos`` per period, ``(n_periods,)`` (lockstep decode); a recurrent
+        position's state ``(n_periods, batch, ...)``."""
         dev = device_lib.resolve(device)
         dtype = dtype or self.cfg.tdtype
-        return [_stack([attn_lib.init_cache(spec["mixer"], batch, max_len,
-                                            dtype, dev)
-                        for _ in range(self.n_periods)])
-                for spec in self.block_specs]
+        out = []
+        for spec in self.block_specs:
+            if spec["kind"] in ATTN_KINDS:
+                one = [attn_lib.init_cache(spec["mixer"], batch, max_len,
+                                           dtype, dev)
+                       for _ in range(self.n_periods)]
+            else:
+                one = [spec["mixer"].init_state(batch, dtype, dev)
+                       for _ in range(self.n_periods)]
+            out.append(_stack(one))
+        return out
 
     def init_slot_caches(self, n_slots: int, max_len: int, dtype=None,
                          device=None) -> List[Dict[str, Any]]:
         """:meth:`init_caches` with a per-slot ``pos (n_periods, n_slots)``,
         so every slot decodes at its own depth (the slot-dense engine)."""
         caches = self.init_caches(n_slots, max_len, dtype, device)
-        for c in caches:
-            c["pos"] = torch.zeros((self.n_periods, n_slots),
-                                   dtype=torch.int32, device=c["k"].device)
+        for spec, c in zip(self.block_specs, caches):
+            if spec["kind"] in ATTN_KINDS:
+                c["pos"] = torch.zeros((self.n_periods, n_slots),
+                                       dtype=torch.int32, device=c["k"].device)
         return caches
 
     def slot_cache_axes(self) -> List[Dict[str, Tuple]]:
         """Logical axes of :meth:`init_slot_caches`' leaves, the reference's
         names; the slot axis is ``"batch"``."""
-        return [{"k": ("layers", "batch", "kv_seq", "kv_heads", None),
-                 "v": ("layers", "batch", "kv_seq", "kv_heads", None),
-                 "pos": ("layers", "batch")} for _ in self.block_specs]
+        axes = []
+        for spec in self.block_specs:
+            kind = spec["kind"]
+            if kind in ATTN_KINDS:
+                axes.append({"k": ("layers", "batch", "kv_seq", "kv_heads",
+                                   None),
+                             "v": ("layers", "batch", "kv_seq", "kv_heads",
+                                   None),
+                             "pos": ("layers", "batch")})
+            elif kind in ("mamba", "mamba_moe"):
+                axes.append({"conv": ("layers", "batch", None, "inner"),
+                             "h": ("layers", "batch", "inner", None)})
+            else:
+                axes.append({"S": ("layers", "batch", "kv_heads", None, None),
+                             "x_tm": ("layers", "batch", None, None),
+                             "x_cm": ("layers", "batch", None, None)})
+        return axes
 
     def init_paged_caches(self, n_slots: int, n_pages: int, page_size: int,
                           dtype=None, device=None) -> List[Dict[str, Any]]:
         """Per pattern position: K/V pools ``(n_periods, n_pages, page_size,
-        Kh, Dh)`` (page 0 is the null page) and ``pos (n_periods, n_slots)``."""
+        Kh, Dh)`` (page 0 is the null page) and ``pos (n_periods, n_slots)``;
+        a recurrent position's state is one pinned row a slot, ``(n_periods,
+        n_slots, ...)``, as :meth:`init_slot_caches` has it."""
         dev = device_lib.resolve(device)
         dtype = dtype or self.cfg.tdtype
         caches = []
         for spec in self.block_specs:
-            one = [attn_lib.init_paged_cache(spec["mixer"], n_slots, n_pages,
-                                             page_size, dtype, dev)
-                   for _ in range(self.n_periods)]
+            if spec["kind"] in ATTN_KINDS:
+                one = [attn_lib.init_paged_cache(spec["mixer"], n_slots,
+                                                 n_pages, page_size, dtype,
+                                                 dev)
+                       for _ in range(self.n_periods)]
+            else:
+                one = [spec["mixer"].init_state(n_slots, dtype, dev)
+                       for _ in range(self.n_periods)]
             caches.append(_stack(one))
         return caches
+
+    def step_state(self, caches) -> List[torch.Tensor]:
+        """The cache tensors a decode step advances in place: each
+        attention position's ``pos`` and every leaf of a recurrent
+        position's state (a capture saves and puts them back)."""
+        out = []
+        for spec, c in zip(self.block_specs, caches):
+            if spec["kind"] in ATTN_KINDS:
+                out.append(c["pos"])
+            else:
+                out += list(c.values())
+        return out
 
     # ---------------------------------------------------------------- forward
     def _embed(self, params, tokens):
@@ -255,7 +321,7 @@ class Model:
         """``x + FFN(norm2(x))`` and the block's MoE aux term (None for a
         dense FFN, or without ``with_aux``)."""
         h2 = layers.apply_norm(self.cfg.norm, p["norm2"], x)
-        if spec["kind"] == "attn_moe":
+        if spec["kind"].endswith("_moe"):
             y, aux = spec["ffn"].apply(p["ffn"], h2, with_aux=with_aux)
             return x + y, aux
         return x + spec["ffn"].apply(p["ffn"], h2), None
@@ -264,8 +330,35 @@ class Model:
         """The serving paths' FFN residual (no aux term)."""
         return self._ffn_out(spec, p, x, with_aux=False)[0]
 
+    def _recurrent(self, spec, p, x, state=None, valid=None,
+                   with_aux: bool = True):
+        """One recurrent block from ``state`` (None: zeros, a whole
+        prompt), its FFN or MoE residual included: ``(x, new state, aux or
+        None)``, the state as new tensors (``state`` is only read).
+        ``valid (B, T)`` marks a right-padded batch's real tokens; the
+        serving paths pass ``with_aux=False``."""
+        cfg = self.cfg
+        mix = spec["mixer"]
+        h = layers.apply_norm(cfg.norm, p["norm1"], x)
+        if spec["kind"] != "rwkv":
+            y, new = mix.apply(p["mixer"], h, state, valid=valid)
+            x, aux = self._ffn_out(spec, p, x + y, with_aux=with_aux)
+            return x, new, aux
+        if state is None:
+            state = mix.init_state(x.shape[0], x.dtype, x.device)
+        y, S, x_tm = mix.time_mix(p["mixer"], h, state["S"], state["x_tm"],
+                                  valid=valid)
+        x = x + y
+        h2 = layers.apply_norm(cfg.norm, p["norm2"], x)
+        y2, x_cm = mix.channel_mix(p["mixer"], h2, state["x_cm"],
+                                   valid=valid)
+        return x + y2, {"S": S, "x_tm": x_tm, "x_cm": x_cm}, None
+
     def _apply_block(self, spec, p, x):
         """One block over the full sequence: ``(x, aux or None)``."""
+        if spec["kind"] not in ATTN_KINDS:
+            x, _, aux = self._recurrent(spec, p, x)
+            return x, aux
         h = layers.apply_norm(self.cfg.norm, p["norm1"], x)
         x = x + attn_lib.apply_train(spec["mixer"], p["mixer"], h)
         return self._ffn_out(spec, p, x)
@@ -336,7 +429,7 @@ class Model:
             parent[key] = mpd.reapply_mask(lin.spec, parent[key])
         for spec, pstack in zip(self.block_specs, out["blocks"]):
             ffn = spec["ffn"]
-            if spec["kind"] != "attn_moe" or ffn.mode != "masked_dense":
+            if not spec["kind"].endswith("_moe") or ffn.mode != "masked_dense":
                 continue
             for key, mask in ffn.expert_masks():
                 if mask is not None:
@@ -365,19 +458,33 @@ class Model:
         row's last real token, and ``pos`` (a new tensor) ``T`` or
         ``lengths`` per row, ``(n_periods, B)``, the state an unpadded
         prefill of each row leaves (padded K/V is written but masked by
-        ``pos`` in decode). ``lengths`` may be a host sequence or a tensor
-        on the device (read there, without a host sync)."""
+        ``pos`` in decode). A recurrent block runs from zeros, whatever its
+        cache holds, its state frozen at padded steps, and writes the final
+        state into its cache. ``lengths`` may be a host sequence or a
+        tensor on the device (read there, without a host sync)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         B, T = tokens.shape
         dev = x.device
+        valid = None
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
+            valid = torch.arange(T, device=dev)[None] < lengths[:, None]
         positions = torch.arange(T, device=dev)[None].expand(B, T)
         out = []
         for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
                                         caches):
             mixer = spec["mixer"]
+            if spec["kind"] not in ATTN_KINDS:
+                # recurrent: from zeros, the state written in place
+                for i in range(self.n_periods):
+                    c = _layer(cstack, i)
+                    x, new, _ = self._recurrent(spec, _layer(pstack, i), x,
+                                                valid=valid, with_aux=False)
+                    for k, t in new.items():
+                        c[k].copy_(t)
+                out.append(cstack)
+                continue
             for i in range(self.n_periods):
                 p = _layer(pstack, i)
                 c = _layer(cstack, i)
@@ -401,9 +508,20 @@ class Model:
         return self.unembed.apply(params["unembed"], x_last), out
 
     def _decode_block(self, spec, p, x, cache, block_tables=None, live=None):
-        """One attention block of a decode step: the paged form with
+        """One block of a decode step. Attention: the paged form with
         ``block_tables``, else the dense one (``cache["pos"]`` scalar or
-        per row)."""
+        per row). Recurrent: the new state computed from the cache, then
+        written in place, under ``live`` as ``where(live, new, old)`` (the
+        reference's ``freeze``: a non-live row computes but keeps its
+        state)."""
+        if spec["kind"] not in ATTN_KINDS:
+            x, new, _ = self._recurrent(spec, p, x, cache, with_aux=False)
+            for k, t in new.items():
+                if live is not None:
+                    t = torch.where(live.reshape((-1,) + (1,) * (t.dim() - 1)),
+                                    t, cache[k])
+                cache[k].copy_(t)
+            return x
         h = layers.apply_norm(self.cfg.norm, p["norm1"], x)
         if block_tables is not None:
             y, _ = attn_lib.apply_decode_paged(
@@ -436,9 +554,9 @@ class Model:
     def spec_decode_supported(self) -> bool:
         """Speculative decoding rolls a window back by truncating the block
         table, which only attention blocks allow (recurrent state cannot be
-        re-scored). Every block the port builds is attention (with a dense
-        or an MoE FFN)."""
-        return all(s["kind"] in ("attn", "attn_moe") for s in self.block_specs)
+        re-scored): False for a model with a mamba or rwkv block (the engine
+        then decodes one token a step)."""
+        return all(s["kind"] in ATTN_KINDS for s in self.block_specs)
 
     def set_paged_pos(self, caches, pos):
         """Write the host's accepted depth ``pos (B,)`` into every attention
@@ -449,7 +567,7 @@ class Model:
         corrected depth next step; the engine's decode calls it before each
         replay, which makes a retried step write what the first try did."""
         for spec, c in zip(self.block_specs, caches):
-            if spec["kind"] in ("attn", "attn_moe"):
+            if spec["kind"] in ATTN_KINDS:
                 c["pos"].copy_(pos.to(c["pos"].dtype)[None].expand_as(c["pos"]))
         return caches
 
@@ -487,13 +605,39 @@ class Model:
         and ``chunk_len`` are host integers or 0-d integer tensors on the
         device, as the reference's scalars are; from tensors every
         position, page id, the ``pos`` write and the last real token's row
-        are computed on the device. ``final`` is static. Returns ``(logits
-        (1, vocab) at the last real token, caches)`` on the final chunk and
-        ``(None, caches)`` otherwise (no final norm or unembed)."""
+        are computed on the device. ``final`` is static. A recurrent block
+        carries the slot's state row across chunks: it reads as zeros at
+        ``start == 0`` (a ``torch.where`` on the device, so the slot's
+        previous occupant never leaks in), the chunk's padded tail leaves
+        it frozen, and the new state is written back into the row. Returns
+        ``(logits (1, vocab) at the last real token, caches)`` on the final
+        chunk and ``(None, caches)`` otherwise (no final norm or
+        unembed)."""
         cfg = self.cfg
         x = self._embed(params, tokens)
+        Tc = x.shape[1]
+        dev = x.device
+        valid = torch.arange(Tc, device=dev)[None] < (
+            chunk_len.to(dev) if torch.is_tensor(chunk_len) else chunk_len)
+        row = torch.as_tensor(slot, device=dev).reshape(1).long()
+        first = start == 0               # a 0-d tensor, or a host bool
+
+        def carried(leaf):
+            old = leaf.index_select(0, row)
+            if torch.is_tensor(first):
+                return torch.where(first.to(dev), torch.zeros_like(old), old)
+            return torch.zeros_like(old) if first else old
         for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
                                         caches):
+            if spec["kind"] not in ATTN_KINDS:
+                for i in range(self.n_periods):
+                    c = _layer(cstack, i)
+                    state = {k: carried(t) for k, t in c.items()}
+                    x, new, _ = self._recurrent(spec, _layer(pstack, i), x,
+                                                state, valid, with_aux=False)
+                    for k, t in new.items():
+                        c[k].index_copy_(0, row, t.to(c[k].dtype))
+                continue
             for i in range(self.n_periods):
                 p = _layer(pstack, i)
                 c = _layer(cstack, i)
@@ -515,12 +659,16 @@ class Model:
     # ------------------------------------------------------------- accounting
     def block_linears(self, spec) -> List[Tuple[Tuple[str, ...], Linear]]:
         """(param key path, Linear) pairs of one block spec (the
-        reference's ``_block_linears``): an MoE block's FFN is left out
-        (its router stays dense f32 and unfolded; its experts are stacked
-        raw weights, see :meth:`moe_shared_linears`)."""
-        mixer, ffn = spec["mixer"], spec["ffn"]
-        out = [(("mixer", n), getattr(mixer, n)) for n in ("wq", "wk", "wv", "wo")]
-        if spec["kind"] == "attn_moe":
+        reference's ``_block_linears``): the mixer's projections (a mamba
+        or rwkv block's raw leaves, its conv, decay LoRA, mixes and gains,
+        are not linears), then a dense FFN's; an MoE block's FFN is left
+        out (its router stays dense f32 and unfolded; its experts are
+        stacked raw weights, see :meth:`moe_shared_linears`)."""
+        mixer, ffn, kind = spec["mixer"], spec["ffn"], spec["kind"]
+        names = (("wq", "wk", "wv", "wo") if kind in ATTN_KINDS
+                 else rwkv_lib.PROJ if kind == "rwkv" else mamba_lib.PROJ)
+        out = [(("mixer", n), getattr(mixer, n)) for n in names]
+        if ffn is None or kind.endswith("_moe"):
             return out
         out.append((("ffn", "w_up"), ffn.w_up))
         if ffn.w_gate is not None:
@@ -533,7 +681,8 @@ class Model:
         """(param key path, Linear) pairs of an MoE block's shared expert
         (none for other blocks): folded and quantized with the block's
         linears, though not in :meth:`block_linears`."""
-        shared = spec["ffn"].shared if spec["kind"] == "attn_moe" else None
+        shared = (spec["ffn"].shared if spec["kind"].endswith("_moe")
+                  else None)
         if shared is None:
             return []
         return [(("ffn", "shared", k), getattr(shared, k))
@@ -564,7 +713,7 @@ class Model:
         for spec in self.block_specs:
             lins = [lin for _, lin in self.block_linears(spec)]
             ffn = spec["ffn"]
-            if spec["kind"] == "attn_moe":
+            if spec["kind"].endswith("_moe"):
                 # the router, the shared expert and top_k routed experts
                 lins += [ffn.router] + [
                     lin for _, lin in self.moe_shared_linears(spec)]

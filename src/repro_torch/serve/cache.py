@@ -24,6 +24,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import device as device_lib
+
 NULL_PAGE = 0
 
 
@@ -40,11 +42,19 @@ def _slot_index(slot, device) -> torch.Tensor:
     return torch.as_tensor(slot, device=device).reshape(1).long()
 
 
+def _attention(model, caches):
+    """The caches of ``model``'s attention positions (a recurrent
+    position's state is the same size under every memory model, so the
+    byte accounting leaves it out, as the reference's does)."""
+    return [c for spec, c in zip(model.block_specs, caches)
+            if spec["kind"] in ("attn", "attn_moe")]
+
+
 class SlotCache:
     """The slot-dense caches (:meth:`Model.init_slot_caches`) and their two
     maintenance ops, in place: write a batch-1 prefill's caches into one
-    slot, zero one slot. ``kv_bytes`` is the whole dense reservation,
-    ``token_bytes`` its share of one slot row."""
+    slot, zero one slot. ``kv_bytes`` is the attention layers' whole dense
+    reservation, ``token_bytes`` its share of one slot row."""
 
     def __init__(self, model, n_slots: int, max_len: int, dtype=None,
                  device=None):
@@ -53,7 +63,7 @@ class SlotCache:
         self.max_len = max_len
         self.caches = model.init_slot_caches(n_slots, max_len, dtype, device)
         self.kv_bytes = sum(c["k"].nbytes + c["v"].nbytes
-                            for c in self.caches)
+                            for c in _attention(model, self.caches))
         self.token_bytes = self.kv_bytes / (n_slots * max_len)
         self._batch_ix = _batch_axes(model)
 
@@ -240,7 +250,10 @@ class PagedCache:
     always finish. ``slack_tokens``: speculative decoding writes a k-token
     window past the accepted depth, so a slot can need pages beyond prompt
     + ``max_new_tokens``; the slack widens the block table and every
-    reservation by that much."""
+    reservation by that much. Recurrent layers keep one pinned state row a
+    slot beside the pools; with any of them the trie is off
+    (``prefix_cache_enabled``: recurrent state cannot be rebuilt from a
+    matched prefix), and the page accounting counts attention K/V only."""
 
     def __init__(self, model, n_slots: int, max_len: int, *,
                  page_size: int = 16, n_pages: Optional[int] = None,
@@ -256,8 +269,8 @@ class PagedCache:
         self.n_pages = n_pages
         self.caches = model.init_paged_caches(n_slots, n_pages, page_size,
                                               device=device)
-        self.dtype = self.caches[0]["kp"].dtype
-        self.device = self.caches[0]["kp"].device
+        self.dtype = model.cfg.tdtype
+        self.device = device_lib.resolve(device)
         self.pool = PagePool(n_pages)
         self.trie = PrefixTrie(self.pool, page_size)
         # this cache's place in a shared trie's node tuples (share_trie)
@@ -266,8 +279,10 @@ class PagedCache:
         self.dirty = True
         self.reserved = 0
         self._slot_reserved = [0] * n_slots
+        self.prefix_cache_enabled = all(
+            s["kind"] in ("attn", "attn_moe") for s in model.block_specs)
         self.page_bytes = sum((c["kp"].nbytes + c["vp"].nbytes) // n_pages
-                              for c in self.caches)
+                              for c in _attention(model, self.caches))
         self.token_bytes = self.page_bytes / page_size
         self.dense_reserved_bytes = int(n_slots * max_len * self.token_bytes)
         # degradation ladder: at the flush_prefix stage the engine stops
@@ -299,8 +314,8 @@ class PagedCache:
     # ------------------------------------------------------------- admission
     def _match_nodes(self, prompt: np.ndarray, touch: bool = True) -> List[Any]:
         """Trie node values (page ids, or per-pool tuples when shared) of
-        the longest cached prefix."""
-        if len(prompt) <= self.page_size:
+        the longest cached prefix (none while the trie is off)."""
+        if not self.prefix_cache_enabled or len(prompt) <= self.page_size:
             return []
         # never the entire prompt: the last token's logits must be computed
         cap = (len(prompt) - 1) // self.page_size
@@ -357,8 +372,9 @@ class PagedCache:
         """Insert the slot's full, prefilled prompt pages in tokens
         ``[from_tokens, upto_tokens)`` into the trie (partial pages never:
         decode may still write into the last prompt page). Nothing while
-        publishing is suspended (``publish_enabled``)."""
-        if not self.publish_enabled:
+        publishing is suspended (``publish_enabled``) or the trie is off
+        (``prefix_cache_enabled``)."""
+        if not self.prefix_cache_enabled or not self.publish_enabled:
             return
         assert len(self.trie.pools) == 1, \
             "shared trie: publish with publish_prefix_shared"
@@ -458,8 +474,8 @@ def publish_prefix_shared(caches: List[PagedCache], prompt: np.ndarray,
     slot's full, prefilled prompt pages in tokens ``[from_tokens,
     upto_tokens)`` as joint nodes. Every cache must have prefilled that
     range into the same slot. Nothing while any cache has publishing
-    suspended."""
-    if not all(c.publish_enabled for c in caches):
+    suspended or its trie off."""
+    if not all(c.prefix_cache_enabled and c.publish_enabled for c in caches):
         return
     trie = caches[0].trie
     assert all(c.trie is trie for c in caches), "caches must share one trie"

@@ -47,7 +47,12 @@ program eagerly (what ``jax.disable_jit`` is to the reference); engines on
 the CPU always do.
 
 Greedy output is token-for-token what the reference engine produces on the
-same params and prompts, in both memory models.
+same params and prompts, in both memory models. A model with mamba or rwkv
+blocks keeps one state row a slot beside the pools: its prompts prefill
+chunk by chunk (the paged engine; no prefix reuse) or at once (dense) and
+its slots decode one token a step (no speculation); a freed slot keeps
+its state, which a non-live row reads, until its next request's first
+chunk, as in the reference.
 
 The serving surface around the step, as the reference's: priority
 admission with preemption by page eviction (paged; ``preemption``),
@@ -61,7 +66,8 @@ request requeued with backoff, after ``max_fault_retries`` failed with
 ``finish_reason="fault"``) while the other rows go on untouched. An
 exception in a decode step is retried next step (the injected
 ``engine_step`` fault fires before the step writes anything) and
-re-raised after ``max_consecutive_step_faults``. Deadlines abort
+re-raised after ``max_consecutive_step_faults`` (at once when the step had
+already advanced a recurrent layer's state). Deadlines abort
 ``enforce_deadline`` requests; the degradation ladder holds speculation
 off (``spec_suspended``: the plain paged decode serves), flushes the
 prefix trie and suspends publishing. Not ported yet: disaggregated
@@ -134,6 +140,8 @@ class Engine:
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
+        # mamba or rwkv blocks: state a decode step advances in place
+        self.recurrent = not model.spec_decode_supported
         self.n_slots = n_slots
         self.max_len = max_len
         self.paged = paged
@@ -618,11 +626,13 @@ class Engine:
         if self.paged:
             caches = self.cache.caches + (self.draft_cache.caches
                                           if self.spec_active else [])
-            return [c[k][:, 0] for c in caches for k in ("kp", "vp")]
+            return [c[k][:, 0] for c in caches if "kp" in c
+                    for k in ("kp", "vp")]
         if kind != "admit":
             return []
         slot = int(self._admit_info[0])
-        return [c[k][:, slot] for c in self.cache.caches for k in ("k", "v")]
+        return [c[k][:, slot] for c in self.cache.caches if "k" in c
+                for k in ("k", "v")]
 
     def _graph(self, kind: str, width: int) -> StepGraph:
         """The captured graph of ``kind`` at ``width``; captured now if it
@@ -630,15 +640,16 @@ class Engine:
         (:meth:`_null_inputs`) and puts back every static input, every
         cache's ``pos`` and the rows its runs wrote
         (:meth:`_capture_writes`) afterwards: the state of every request
-        is untouched."""
+        is untouched (a recurrent layer's state among it: the warm-up
+        chunk writes slot 0's row)."""
         g = self._graphs.get((kind, width))
         if g is not None:
             return g
         fn = self._program(kind, width)
         inputs, null = self._null_inputs(kind, width)
-        caches = self.cache.caches + (self.draft_cache.caches
-                                      if self.spec_active else [])
-        state = inputs + [c["pos"] for c in caches if "pos" in c]
+        state = inputs + self.model.step_state(self.cache.caches)
+        if self.spec_active:
+            state += self.draft_model.step_state(self.draft_cache.caches)
         saved = [t.clone() for t in state]
         null()
         writes = self._capture_writes(kind)
@@ -830,15 +841,24 @@ class Engine:
                     req.n_fault_retries, res.max_fault_retries,
                     req.retry_at_step)
 
-    def _handle_step_fault(self, err: Exception) -> bool:
+    def _handle_step_fault(self, err: Exception,
+                           advanced: bool = False) -> bool:
         """A decode step raised. The injected fault fires before the step
         writes anything; a fault after the replay leaves K/V the retry
         writes again and a ``pos`` the retry sets back from the host, and
         the pending tokens change only last, so the next step re-runs the
-        same work (a sampled row draws again from its generator). Bounded:
-        after ``max_consecutive_step_faults`` the fault is persistent and
-        re-raised (a real CUDA error is sticky and ends there). Backoff is
-        exponential with seeded jitter."""
+        same work (a sampled row draws again from its generator). That
+        does not hold for a recurrent layer's state, which the decode
+        program advances in place with nothing to set it back:
+        ``advanced`` (the fault came in or after the decode program of a
+        model with recurrent blocks) re-raises at once instead of
+        retrying. Bounded: after ``max_consecutive_step_faults`` the fault
+        is persistent and re-raised (a real CUDA error is sticky and ends
+        there). Backoff is exponential with seeded jitter."""
+        if advanced:
+            log.error("engine step fault after the decode advanced the "
+                      "recurrent state: a retry would advance it twice")
+            raise err
         res = self.resilience
         res.note_fault()
         res.consecutive_step_faults += 1
@@ -962,6 +982,7 @@ class Engine:
     def _step_decode(self) -> bool:
         """One batched decode of every live slot (dense: of every slot)."""
         res = self.resilience
+        advanced = False
         try:
             # the injected fault fires before the step writes anything
             if res.injector is not None:
@@ -989,9 +1010,14 @@ class Engine:
             else:
                 # a non-live row keeps the depth it had, as in the
                 # reference (whose decode sets no depth here): it still
-                # computes, and an MoE layer routes it with the live rows
+                # computes, and an MoE layer routes it with the live rows;
+                # only attention layers have a depth
                 for c in self.cache.caches:
-                    c["pos"].copy_(torch.where(live, self._pos0, c["pos"]))
+                    if "pos" in c:
+                        c["pos"].copy_(torch.where(live, self._pos0,
+                                                   c["pos"]))
+            # from here on a recurrent layer's state may have advanced
+            advanced = self.recurrent
             if self.paged:
                 width = min(_next_pow2(needed), self.cache.max_pages)
                 self._block_tables_dev(width)
@@ -1005,7 +1031,7 @@ class Engine:
             self._tokens.copy_(sampling_lib.sample(logits, self._temps,
                                                    self._top_ks, self._gens))
         except Exception as e:          # noqa: BLE001 - bounded retry
-            return self._handle_step_fault(e)
+            return self._handle_step_fault(e, advanced)
         res.consecutive_step_faults = 0
         # the tokens and the watchdog's verdict in one copy to the host
         host = torch.stack([self._tokens, ok.long()], dim=1).cpu().numpy()

@@ -466,11 +466,94 @@ def test_bdmm_f32_ragged_and_misaligned(cuda_device, shape, quant):
     _close(got, plain(wp), torch.float32)
 
 
+# every epilogue code of ref.ACTIVATIONS, and the body each (m, dtype,
+# weights) takes at nb 8, bi 256, bo 1024
+ALL_ACTS = [None, "silu", "gelu", "relu", "sigmoid", "softplus", "sqrelu"]
+ACT_BODIES = [(4, torch.bfloat16, False, "decode_tc"),
+              (4, torch.bfloat16, True, "decode_tc"),
+              (64, torch.bfloat16, False, "tc"),
+              (64, torch.bfloat16, True, "tc_small_m"),
+              (4, torch.float32, False, "decode_simt"),
+              (4, torch.float32, True, "decode_simt"),
+              (64, torch.float32, False, "simt_small"),
+              (64, torch.float32, True, "simt_small"),
+              (2048, torch.float32, False, "simt_f32"),
+              (2048, torch.float32, True, "simt_f32")]
+
+
+def _act_case(m, nb, bi, bo, dev, dtype, quant, act, seed):
+    """One bdmm with bias and ``act`` and its plain version in f32 on the
+    same values (int8: the kernel's own order, rounded to ``dtype``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, nb * bi), generator=g, device=dev).to(dtype)
+    w = torch.randn((nb, bi, bo), generator=g, device=dev) * bi ** -0.5
+    b = (0.5 * torch.randn((nb * bo,), generator=g, device=dev)).to(dtype)
+    if quant:
+        wq, s = quantize_blocks(w)
+        return ((lambda: tbdmm.bdmm(x, wq, b, s, activation=act)),
+                tref.bdmm_quant_ref(x, wq, s, b, act))
+    wd = w.to(dtype)
+    return ((lambda: tbdmm.bdmm(x, wd, b, activation=act)),
+            tref.bdmm_ref(x.float(), wd.float(), b.float(), act).to(dtype))
+
+
+@pytest.mark.parametrize("act", ALL_ACTS)
+@pytest.mark.parametrize("m,dtype,quant,route", ACT_BODIES,
+                         ids=[f"{r}-{'int8' if q else str(d)[6:]}-{m}"
+                              for m, d, q, r in ACT_BODIES])
+def test_bdmm_every_activation_on_every_body(cuda_device, m, dtype, quant,
+                                             route, act):
+    """Each epilogue code (scale, then bias, then the activation, each
+    rounded on its own) on each body, fp and int8: the body the plan names
+    ran and the dtype's rule holds against the plain version."""
+    run, want = _act_case(m, 8, 256, 1024, cuda_device, dtype, quant, act,
+                          seed=m + ALL_ACTS.index(act))
+    before = dict(tbdmm.routes)
+    got = run()
+    assert tbdmm.routes[route] == before[route] + 1
+    _close(got, want, dtype)
+
+
+# the packed projections of the recurrent families at mpd_c = 8 (name, nb,
+# bi, bo, activation): jamba's w_x (bo 36) and w_dt (bi 32, softplus with
+# dt_bias), rwkv6's time-mix projections (320 x 320) and its channel mix's
+# k (sqrelu), v and r (sigmoid)
+RECURRENT_BLOCKS = [("w_x", 8, 1024, 36, None),
+                    ("w_dt", 8, 32, 1024, "softplus"),
+                    ("rwkv_proj", 8, 320, 320, None),
+                    ("ck", 8, 320, 1120, "sqrelu"),
+                    ("cv", 8, 1120, 320, None),
+                    ("cr", 8, 320, 320, "sigmoid")]
+
+
+@pytest.mark.parametrize("m,dtype", [(4, torch.bfloat16), (64, torch.bfloat16),
+                                     (4, torch.float32), (64, torch.float32)])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("block", RECURRENT_BLOCKS, ids=lambda b: b[0])
+def test_bdmm_at_the_recurrent_block_shapes(cuda_device, block, quant, m,
+                                            dtype):
+    """The recurrent families' block shapes with their epilogues, at a
+    decode batch and a prefill chunk: one launch, on a body of the dtype
+    (bf16 on the tensor cores, f32 on an exact SIMT body), and the rule
+    holds."""
+    _, nb, bi, bo, act = block
+    run, want = _act_case(m, nb, bi, bo, cuda_device, dtype, quant, act,
+                          seed=bi + bo + m)
+    before = dict(tbdmm.routes)
+    got = run()
+    used = [r for r in tbdmm.routes for _ in range(tbdmm.routes[r]
+                                                   - before[r])]
+    bodies = (tbdmm.F32_ROUTES if dtype == torch.float32
+              else ("decode_tc", "tc", "tc_small_m"))
+    assert len(used) == 1 and used[0] in bodies, used
+    _close(got, want, dtype)
+
+
 def test_bdmm_raises_instead_of_falling_back(cuda_device):
     x = torch.zeros(2, 64, device=cuda_device)
     with pytest.raises(ValueError):
         tbdmm.bdmm(x, torch.zeros(4, 16, 8, device=cuda_device),
-                   activation="gelu")
+                   activation="tanh")
     with pytest.raises(ValueError):
         tbdmm.bdmm(x.cpu(), torch.zeros(4, 16, 8, device=cuda_device))
 
@@ -501,7 +584,7 @@ def _mm_case(m, d_in, d_out, dev, dtype, seed, nb=8):
 MM_SHAPES = [(64, 256, 512), (100, 384, 200), (33, 136, 1000)]
 
 
-@pytest.mark.parametrize("act", [None, "silu", "gelu", "relu"])
+@pytest.mark.parametrize("act", ALL_ACTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", MM_SHAPES)
 def test_masked_matmul_matches_plain(cuda_device, shape, dtype, act):
@@ -539,7 +622,7 @@ MM_RAGGED = [(1, 200, 1000, 8), (65, 136, 200, 8), (64, 130, 250, 2),
              (3, 75, 45, 5)]
 
 
-@pytest.mark.parametrize("act", [None, "silu", "gelu", "relu"])
+@pytest.mark.parametrize("act", ALL_ACTS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "t"])
 @pytest.mark.parametrize("shape", MM_RAGGED)
@@ -698,7 +781,7 @@ def test_masked_kernels_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):
         tmm.masked_matmul(x, w, mask.float())            # not a binary mask
     with pytest.raises(ValueError):
-        tmm.masked_matmul(x, w, mask, activation="sigmoid")
+        tmm.masked_matmul(x, w, mask, activation="tanh")
     with pytest.raises(ValueError):
         tmm.masked_matmul(x.cpu(), w, mask)              # mixed devices
     with pytest.raises(ValueError):
@@ -1371,6 +1454,45 @@ def test_engine_kernel_route_equals_plain_route(cuda_device):
         serving = ("bdmm", "bdmm_decode", "paged_attention",
                    "paged_prefill_attention")
         assert all(counts[k] > 0 for k in serving) == (backend == "cuda"), counts
+    assert streams["cuda"] == streams["torch"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_recurrent_engine_kernel_route_equals_plain_route(cuda_device, arch,
+                                                          paged):
+    """The recurrent smokes (int8 packed projections, f32) served on the
+    card through the kernels (captured) and through the plain versions
+    (eager) give the same greedy streams; the kernel run launched bdmm's
+    grids (and, jamba, the paged attention kernels)."""
+    from repro_torch.configs.common import get_config
+    from repro_torch.core.export import quantize_packed
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build
+    from repro_torch.serve import Engine
+
+    cfg = get_config(arch, smoke=True)
+    model = build(cfg)
+    params, _ = quantize_packed(model, model.init(0, device=cuda_device))
+    streams = {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        try:
+            reqs = make_requests(cfg, n_requests=5, rate=1e9, prompt_len=40,
+                                 gen=8, seed=3, shared_prefix=16)
+            streams[backend] = Engine(
+                model, params, n_slots=2, max_len=48, page_size=8,
+                prefill_chunk_tokens=40, paged=paged,
+                graphs=None if backend == "cuda" else False).run(reqs)
+        finally:
+            ops.set_backend("cuda")
+        counts = ops.launch_counts()
+        kernels = ["bdmm", "bdmm_decode"]
+        if paged and arch.startswith("jamba"):
+            kernels += ["paged_attention", "paged_prefill_attention"]
+        assert all(counts[k] > 0 for k in kernels) == (backend == "cuda"), \
+            counts
     assert streams["cuda"] == streams["torch"]
 
 

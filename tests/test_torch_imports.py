@@ -47,6 +47,10 @@ def test_port_imports_without_jax():
             and "repro_torch.serve.server" in mods)
     assert ("repro_torch.models.moe" in mods
             and "repro_torch.configs.qwen2_moe_a2_7b" in mods)
+    assert ("repro_torch.models.rwkv" in mods
+            and "repro_torch.models.mamba" in mods
+            and "repro_torch.configs.rwkv6_3b" in mods
+            and "repro_torch.configs.jamba_v0_1_52b" in mods)
     code = (
         "import sys, importlib\n"
         "for blocked in ('jax', 'jaxlib', 'repro'):\n"
