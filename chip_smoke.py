@@ -250,6 +250,19 @@ Phases, each printed as one JSON line:
    shapes (jamba's w_x 1024 -> 36 and w_dt 32 -> 1024, rwkv's 320 x 320,
    320 -> 1120 and back), and the masked matmul's forward with the new
    codes, beside torch.bmm (or torch.matmul) plus the activation.
+27. ``router`` — ``serve``'s model and traffic behind the replica router
+   through ``launch.serve.main([..., "--replicas", "2"])``, then
+   ``[..., "--replicas", "3", "--disagg", "--n-prefill", "1"]``, then that
+   disaggregated fleet in-process with replica 1 (a decode replica)
+   killed mid-run: every greedy stream and the token total equal
+   ``serve``'s one engine's, 8 of 8, one copy of the weights (every
+   parameter at one address across replicas), no graph captured after
+   ``warmup()``, no step fault or quarantine, one ``# TYPE`` line a family
+   in the fleet's ``/metrics``; disaggregated, handoffs out of the prefill
+   replica = into the decode replicas = the fleet metrics' = one a
+   request; killed, the drained requests finish on the survivor. TTFT,
+   tok/s, per-replica busy seconds and one 32-page handoff's gather and
+   adoption (CUDA events) recorded.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -357,8 +370,8 @@ FFN_RULE = ("atol + u_out * |plain_f32| + u_sum * ((|h| + dh) @ |Wd| "
 # (label, m, weights, dtype, activation, gated, biases, f): olmo-1b's fused
 # FFN at mpd_c=8 is nb 8, bi 256, f 1024, bo 256; m = 4 is a decode step
 # of 4 slots, m = 64 one prefill chunk, m = 512 one 512-token prompt, m =
-# 544 the dense engine's top admission bucket (int8, as served), m = 2048 a
-# training batch
+# 544 the dense engine's top admission bucket (int8, as served; fp beside
+# three torch.bmm), m = 2048 a training batch
 FFN_DIMS = (8, 256, 256)                          # nb, bi, bo
 FFN_CASES = [
     ("decode", 4, "int8", "bfloat16", "silu", True, False, 1024),
@@ -374,6 +387,7 @@ FFN_CASES = [
      1000),
     ("prompt", 512, "fp", "bfloat16", "silu", True, False, 1024),
     ("admission", 544, "int8", "bfloat16", "silu", True, False, 1024),
+    ("admission", 544, "fp", "bfloat16", "silu", True, False, 1024),
     # the training forward of phase train_fused: 4 x 512 tokens
     ("train", 2048, "fp", "bfloat16", "silu", True, False, 1024),
 ]
@@ -1618,6 +1632,8 @@ def serve_phase(torch, dev, ops):
         "graph_turns": turns,
         "launches": launches}
     emit(row)
+    # the router phase holds its fleets to these streams
+    row["streams"] = {r.id: list(r.generated) for r in reqs}
     return row
 
 
@@ -3115,6 +3131,7 @@ def resume_phase(torch, dev, ops):
     from repro_torch.checkpoint import checkpoint as ckpt_lib
     from repro_torch.configs.common import get_config
     from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import fused_ffn as fk
     from repro_torch.models import build
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig, run
@@ -3152,6 +3169,7 @@ def resume_phase(torch, dev, ops):
         b2 = go(Path(tmp) / "b", steps)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    fused_routes = dict(fk.routes)
     saves = ckpt_lib.save_log[log0:]
     want = {"params": a["params"], "opt": a["opt_state"]}
     got = {"params": b2["params"], "opt": b2["opt_state"]}
@@ -3181,7 +3199,7 @@ def resume_phase(torch, dev, ops):
         "save_write_s": [e["write_s"] for e in saves],
         "loop_blocked_s": sum(o["ckpt_save_s"] + o["ckpt_wait_s"]
                               for o in (a, b1, b2)),
-        "launches": launches}
+        "launches": launches, "fused_ffn_routes": fused_routes}
     del a, b2, want, got, leaves
     torch.cuda.empty_cache()
     emit(row)
@@ -4339,6 +4357,224 @@ def exact_recurrent_phase(torch, dev, ops):
     return out
 
 
+# ------------------------------------------------------------------- router
+# serve's model (olmo-1b, packed int8, bf16; 4 slots a replica, page 16,
+# chunk 64) and traffic through the launcher, as replica fleets
+ROUTER_ARGV = ["--arch", "olmo-1b", "--paged", "--quantize", "int8",
+               "--requests", "8", "--rate", "16", "--prompt-len", "512",
+               "--gen", "32", "--shared-prefix", "128", "--slots", "4",
+               "--page-size", "16", "--prefill-chunk", "64"]
+ROUTER_FLEETS = {"replicas": ["--replicas", "2"],
+                 "disagg": ["--replicas", "3", "--disagg", "--n-prefill", "1"]}
+ROUTER_KILL_AFTER = 8       # decode steps of replica 1 before it dies
+HANDOFF_WIDTH = 32          # pages of a 505-token prompt at page 16
+
+
+def fleet_checks(router, captured_at_warmup, single, reqs):
+    """The gates every fleet run shares: 8 of 8, every stream the single
+    engine's, the token total the single engine's, one copy of the weights
+    (every parameter tensor at one address across replicas), no capture
+    after ``warmup()``, no step fault or quarantine, and the fleet's
+    ``/metrics`` with one ``# TYPE`` line a family."""
+    from repro_torch import tree as tree_lib
+
+    s = router.metrics.summary()
+    streams = {r.id: list(r.generated) for r in reqs}
+    ptrs = [[t.data_ptr() for t in tree_lib.leaves(e.params)]
+            for e in router.replicas]
+    text = router.metrics.prometheus(router.stats_gauges())
+    types = [ln.split()[2] for ln in text.splitlines()
+             if ln.startswith("# TYPE ")]
+    captured = [e.n_captures - c
+                for e, c in zip(router.replicas, captured_at_warmup)]
+    checks = {"done": s["n_done"] == len(reqs) == 8,
+              "streams": streams == single,
+              "tokens": s["total_tokens"] == sum(map(len, single.values())),
+              "one_weight_copy": all(p == ptrs[0] for p in ptrs),
+              "no_capture_after_warmup": not any(captured),
+              "no_hidden_faults": no_hidden_faults(s),
+              "one_type_a_family": len(types) == len(set(types)) > 0}
+    decode = [m.decode_tok_s for m in router.metrics.requests.values()
+              if m.decode_tok_s is not None]
+    return checks, {
+        "requests_done": s["n_done"], "tokens": s["total_tokens"],
+        "diverging_requests": sorted(k for k in single
+                                     if streams.get(k) != single[k]),
+        "ttft_p50_ms": s["ttft_p50_s"] * 1e3,
+        "ttft_p95_ms": s["ttft_p95_s"] * 1e3,
+        "e2e_p50_ms": s["e2e_p50_s"] * 1e3,
+        "e2e_p95_ms": s["e2e_p95_s"] * 1e3,
+        "agg_tok_s": s["agg_tok_s"],
+        "decode_tok_s_mean": statistics.fmean(decode) if decode else None,
+        "busy_s": list(router.busy_s),
+        "steps": [e.step_count for e in router.replicas],
+        "program_runs": [{k: n for k, n in e.runs.items() if n}
+                         for e in router.replicas],
+        "affinity_hit_rate": s["affinity_hit_rate"],
+        "graphs_captured": [e.n_captures for e in router.replicas],
+        "graphs_captured_while_serving": captured,
+        "metric_families": len(types)}
+
+
+def handoff_counts(router, reqs):
+    """Handoffs out of the prefill replicas, into the decode replicas and
+    in the fleet metrics: all equal, one for each request that did not
+    stop at EOS in prefill (a request with no EOS id hands off)."""
+    out = sum(e.n_handoffs_out for e in router.replicas)
+    inn = sum(e.n_handoffs_in for e in router.replicas)
+    expected = sum(1 for r in reqs
+                   if not (r.eos_id >= 0 and r.generated[0] == r.eos_id))
+    return (out == inn == router.metrics.n_handoffs == expected,
+            {"out": out, "in": inn, "metrics": router.metrics.n_handoffs,
+             "expected": expected})
+
+
+def handoff_timing(torch, dev, router, width=HANDOFF_WIDTH):
+    """A handoff of ``width`` pages as the engines run it, under CUDA events
+    (L2 flushed first): the prefill replica's gather (its graph's replay
+    and the payload's copy out of the graph's pool) and a decode
+    replica's adoption (the payload staged into the graph's inputs, then
+    the replay's scatter), on pages 1..width of a served fleet (run after
+    its traffic: the pages' contents no longer matter). The bytes are the
+    payload's; each step reads and writes them twice."""
+    pre = router.replicas[router.roles.index("prefill")]
+    dec = router.replicas[router.roles.index("decode")]
+    ids = torch.arange(1, width + 1, device=dev)
+    pre._ids(width).copy_(ids)
+    dec._ids(width).copy_(ids)
+    gather, adopt = pre._graph("gather", width), dec._graph("adopt", width)
+    payload = {}
+
+    def extract():
+        payload["pages"] = [None if p is None else
+                            {k: v.clone() for k, v in p.items()}
+                            for p in gather.replay()]
+
+    def stage():
+        for dst, src in zip(dec._staged(width), payload["pages"]):
+            if dst is not None:
+                for k in dst:
+                    dst[k].copy_(src[k])
+        adopt.replay()
+    timer = Timer(torch, dev)
+    gather_ms, adopt_ms = timer.ms(extract), timer.ms(stage)
+    nbytes = sum(t.nbytes for p in payload["pages"] if p is not None
+                 for t in p.values())
+    del timer, payload
+    return {"width_pages": width, "payload_bytes": nbytes,
+            "gather_ms": gather_ms, "adopt_ms": adopt_ms,
+            "bound_ms_each": 4 * nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def router_phase(torch, dev, ops, single):
+    """olmo-1b at full width behind the replica router: serve's 8 requests
+    through ``launch.serve.main`` on 2 replicas, then on 3 with the first
+    as the prefill replica (``--disagg``), then that disaggregated fleet
+    in-process with replica 1 (a decode replica) killed mid-run. Every
+    greedy stream must be ``single``'s (the serve phase's one engine)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.serve import make_requests, serve_stream
+    from repro_torch.serve import (DegradationLadder, Engine, Resilience,
+                                   Router, RequestState)
+
+    built = []
+    real = launch._build_serving
+
+    def recording(*a, **k):
+        serving, mode = real(*a, **k)
+        built.append((serving, [e.n_captures for e in serving.replicas]))
+        return serving, mode
+    out, ok, launches = {"phase": "router"}, True, {}
+
+    def count(k, v):
+        launches[k] = launches.get(k, 0) + v
+    launch._build_serving = recording
+    try:
+        for name, flags in ROUTER_FLEETS.items():
+            seen = {}
+            real_stream = launch.serve_stream
+
+            def capture(engine, requests, **kw):
+                seen["reqs"] = requests
+                return real_stream(engine, requests, **kw)
+            launch.serve_stream = capture
+            try:
+                ops.reset_launch_counts()
+                launch.main(ROUTER_ARGV + flags)
+                torch.cuda.synchronize()
+                for k, v in ops.launch_counts().items():
+                    count(k, v)
+            finally:
+                launch.serve_stream = real_stream
+            router, at_warmup = built.pop()
+            checks, rec = fleet_checks(router, at_warmup, single,
+                                       seen["reqs"])
+            if "--disagg" in flags:
+                checks["handoffs"], rec["handoffs"] = handoff_counts(
+                    router, seen["reqs"])
+                rec["handoff"] = handoff_timing(torch, dev, router)
+            out[name] = {"argv": flags, "ok": all(checks.values()),
+                         "checks": checks, **rec}
+            ok = ok and out[name]["ok"]
+            del router, seen
+            torch.cuda.empty_cache()
+    finally:
+        launch._build_serving = real
+
+    # the disaggregated fleet in-process; replica 1 dies mid-run
+    cfg, model, params = launch.load_model("olmo-1b", quantize="int8",
+                                           device=dev)
+    kw = dict(SERVE_ENGINE)
+    engines = [Engine(model, params, resilience=Resilience(
+        ladder=DegradationLadder()), **kw) for _ in range(3)]
+    router = Router(engines, disagg=True, n_prefill=1)
+    router.warmup()
+    at_warmup = [e.n_captures for e in engines]
+    victim, victims, steps = engines[1], [], [0]
+    live_step = victim.step
+
+    def dying():
+        if steps[0] >= ROUTER_KILL_AFTER and victim.scheduler.running:
+            victims.extend(sorted(
+                r.id for r in (list(victim.scheduler.waiting)
+                               + list(victim.scheduler.running.values()))
+                if r.state != RequestState.DONE))
+            raise RuntimeError("injected replica death")
+        steps[0] += 1
+        return live_step()
+    victim.step = dying
+    reqs = make_requests(cfg, **SERVE_TRAFFIC)
+    ops.reset_launch_counts()
+    serve_stream(router, reqs)
+    torch.cuda.synchronize()
+    for k, v in ops.launch_counts().items():
+        count(k, v)
+    checks, rec = fleet_checks(router, at_warmup, single, reqs)
+    m = router.metrics
+    checks.update({
+        "replica_1_died": router.live == [True, False, True]
+        and m.n_replica_deaths == 1,
+        "drained": bool(victims) and m.n_drained == len(victims),
+        "drained_to_survivor": all(router._owner[v] == 2 for v in victims)})
+    out["kill"] = {"ok": all(checks.values()), "checks": checks,
+                   "killed_after_decode_steps": steps[0],
+                   "drained_requests": victims, **rec,
+                   "handoffs": {"out": sum(e.n_handoffs_out for e in engines),
+                                "in": sum(e.n_handoffs_in for e in engines),
+                                "metrics": m.n_handoffs}}
+    ok = ok and out["kill"]["ok"]
+    del router, engines, victim, model, params
+    torch.cuda.empty_cache()
+    out.update({"ok": ok and all(launches.get(k, 0) > 0
+                                 for k in SERVING_KERNELS),
+                "config": {"arch": "olmo-1b", "weights": "int8",
+                           "dtype": "bfloat16", "slots_a_replica": 4,
+                           "page_size": 16, "prefill_chunk": 64},
+                "launches": launches})
+    emit(out)
+    return out
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import resource
@@ -4521,15 +4757,20 @@ def main() -> int:
     if not timed("exact_recurrent", exact_recurrent_phase, torch, dev,
                  ops)["ok"]:
         failed.append("exact_recurrent")
+    torch.cuda.empty_cache()
+    routed = timed("router", router_phase, torch, dev, ops,
+                   served["streams"])
+    if not routed["ok"]:
+        failed.append("router")
     # the main path's launches: paged and slot-dense serving, the static
     # lockstep batch, training (perm-fused packed and resumed too), the
     # fused deploy, the speculative turns, the serving surface, the
     # paper's experiments, granite-8b through the launcher, qwen2-moe's,
-    # rwkv6-3b's and jamba's captured turns
+    # rwkv6-3b's and jamba's captured turns, olmo-1b's replica fleets
     launches = {k: sum(p["launches"][k]
                        for p in (served, dense, static, trained, train_fused,
                                  resumed, deployed, spec, surface, paper, gqa,
-                                 moe, *recurrent.values()))
+                                 moe, *recurrent.values(), routed))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,
@@ -4562,6 +4803,10 @@ def main() -> int:
                         **({k: s[k] for k in ("bodies", "tall_rows",
                                               "granite_8b", "epilogue_rows")
                             if k in s})})
+    # the fused MLP's launches on its m > 64 body: training batches
+    # (train_fused, resume; the serving phases run it at m <= 64)
+    kernels[list(names).index("fused_ffn")]["tall_launches"] = sum(
+        p["fused_ffn_routes"]["tc_tall"] for p in (train_fused, resumed))
     if failed:
         emit({"phase": "result", "ok": False, "failed": failed[:20]})
         return 1

@@ -43,6 +43,14 @@ completed streamed the same tokens. ``--http`` serves real traffic over
 the asyncio HTTP/SSE frontend on ``--host``/``--port`` (``POST
 /v1/generate``, ``GET /metrics``, ``GET /healthz``), turning requests away
 with 429 beyond ``--queue-limit`` waiting ones.
+
+``--replicas N`` serves through N engine replicas behind the
+prefix-affinity :class:`~repro_torch.serve.router.Router` (one model and
+one set of weight tensors; each replica its own page pool, trie, graphs
+and sampling state); ``--disagg`` (with ``--paged``) gives the first
+``--n-prefill`` replicas the prefill role, handing each request to a
+decode replica at its first token. ``--tp`` is not ported (ROADMAP queue
+A, distribution).
 """
 
 from __future__ import annotations
@@ -63,7 +71,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.models import build
 from repro_torch.serve import (DegradationLadder, Engine, FaultInjector,
-                               Request, Resilience, SamplingParams,
+                               Request, Resilience, Router, SamplingParams,
                                parse_schedule)
 
 log = logging.getLogger("repro_torch.serve.launch")
@@ -307,22 +315,43 @@ def _build_resilience(args, *, chaos=True):
 
 def _build_engine(args, model, params, device, spec_draft=None, *,
                   chaos=True):
-    """The engine the flags describe, every program captured
-    (``warmup()``; eager on the CPU). Returns ``(engine, mode label)``."""
-    engine = Engine(model, params, n_slots=args.slots,
-                    max_len=args.prompt_len + args.gen, paged=args.paged,
-                    page_size=args.page_size, n_pages=args.pages or None,
-                    prefill_chunk_tokens=args.prefill_chunk or None,
-                    spec_draft=spec_draft, spec_k=args.spec_k,
-                    resilience=_build_resilience(args, chaos=chaos))
+    """An engine the flags describe, not yet warmed up."""
+    return Engine(model, params, n_slots=args.slots,
+                  max_len=args.prompt_len + args.gen, paged=args.paged,
+                  page_size=args.page_size, n_pages=args.pages or None,
+                  prefill_chunk_tokens=args.prefill_chunk or None,
+                  spec_draft=spec_draft, spec_k=args.spec_k,
+                  resilience=_build_resilience(args, chaos=chaos))
+
+
+def _build_serving(args, model, params, device, spec_draft=None, *,
+                   chaos=True):
+    """One engine, or ``--replicas N`` of them behind a :class:`Router`
+    (the facade is Engine-shaped, so the stream loop and the HTTP
+    frontend do not branch on it); every replica shares ``model`` and
+    ``params``. Every program is captured (``warmup()``, after the router
+    gave each replica its role; eager on the CPU). Returns ``(engine or
+    router, mode label)``."""
+    engines = [_build_engine(args, model, params, device, spec_draft,
+                             chaos=chaos) for _ in range(args.replicas)]
+    serving = engines[0]
     mode = "paged" if args.paged else "continuous"
+    if args.replicas > 1:
+        try:
+            serving = Router(engines, disagg=args.disagg,
+                             n_prefill=args.n_prefill)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        mode += f" x{args.replicas}"
+        if args.disagg:
+            mode += f" (disagg: {args.n_prefill} prefill)"
     t0 = time.perf_counter()
-    engine.warmup()
-    if engine.use_graphs:
+    serving.warmup()
+    if engines[0].use_graphs:
         log.info("captured %d CUDA graphs (every program at every width "
-                 "rung or bucket) in %.1f s", engine.n_captures,
-                 time.perf_counter() - t0)
-    return engine, mode
+                 "rung or bucket) in %.1f s",
+                 sum(e.n_captures for e in engines), time.perf_counter() - t0)
+    return serving, mode
 
 
 def _requests(args, cfg):
@@ -334,7 +363,10 @@ def _requests(args, cfg):
 def _continuous_main(args, cfg, model, params, device):
     spec_draft = (load_spec_draft(args.spec_draft, device=device)
                   if args.spec_draft else None)
-    engine, mode = _build_engine(args, model, params, device, spec_draft)
+    engine, mode = _build_serving(args, model, params, device, spec_draft)
+    # per-engine internals (cache, prefill counters, resilience) read off
+    # replica 0 of a router
+    eng0 = engine.replicas[0] if isinstance(engine, Router) else engine
     requests = _requests(args, cfg)
     s = serve_stream(engine, requests)
     if device.type == "cuda":
@@ -347,23 +379,30 @@ def _continuous_main(args, cfg, model, params, device):
              s["ttft_p50_s"] * 1e3, s["ttft_p95_s"] * 1e3, s["e2e_p50_s"] * 1e3,
              s["e2e_p95_s"] * 1e3, s["occupancy_mean"] * 100)
     if args.paged:
-        c = engine.cache
+        c = eng0.cache
         log.info("paged kv: page_size=%d, pool=%d pages; allocated peak "
                  "%.2f MB vs dense reservation %.2f MB; prefill tokens "
                  "computed %d (+%d reused via prefix cache) [%s prefill "
                  "route]", c.page_size, c.n_pages,
                  s["kv_bytes_allocated_peak"] / 1e6,
-                 s["kv_bytes_reserved"] / 1e6, engine.n_prefill_tokens,
-                 engine.n_prefill_tokens_skipped, ops.prefill_backend())
+                 s["kv_bytes_reserved"] / 1e6, eng0.n_prefill_tokens,
+                 eng0.n_prefill_tokens_skipped, ops.prefill_backend())
     else:
         log.info("dense kv: %d slots x %d rows reserved, %.2f MB",
                  engine.n_slots, engine.max_len,
                  s["kv_bytes_reserved"] / 1e6)
-    if engine.spec_active:
+    if eng0.spec_active:
         log.info("spec decode: k=%d, %.2f tokens/step, %.0f%% draft "
-                 "acceptance", engine.spec_k, s["tokens_per_step_mean"],
+                 "acceptance", eng0.spec_k, s["tokens_per_step_mean"],
                  s["draft_acceptance_rate"] * 100)
-    res = engine.resilience
+    if isinstance(engine, Router):
+        log.info("router: %d replicas (%d live), affinity hit rate %.0f%%, "
+                 "%d handoffs, per-replica busy %s s",
+                 len(engine.replicas), engine.n_live,
+                 engine.metrics.affinity_hit_rate * 100,
+                 engine.metrics.n_handoffs,
+                 [round(b, 2) for b in engine.busy_s])
+    res = eng0.resilience
     if res.injector is not None or s["degradation_transitions"]:
         log.info("resilience: %s", res.summary())
     s["streams"] = {r.id: list(r.generated) for r in requests}
@@ -381,8 +420,8 @@ def _chaos_verify(args, cfg, model, params, device, spec_draft,
     every request the chaos run completed normally streamed the same
     tokens; exits non-zero on any divergence (quarantine and retry must
     never perturb the surviving traffic). Returns the counts."""
-    engine, _ = _build_engine(args, model, params, device, spec_draft,
-                              chaos=False)
+    engine, _ = _build_serving(args, model, params, device, spec_draft,
+                               chaos=False)
     baseline = _requests(args, cfg)
     serve_stream(engine, baseline)
     base = {r.id: list(r.generated) for r in baseline}
@@ -409,7 +448,7 @@ def _http_main(args, cfg, model, params, device):
 
     spec_draft = (load_spec_draft(args.spec_draft, device=device)
                   if args.spec_draft else None)
-    engine, mode = _build_engine(args, model, params, device, spec_draft)
+    engine, mode = _build_serving(args, model, params, device, spec_draft)
     engine.metrics.clock = time.perf_counter
     log.info("http frontend over %s engine: %d slots, max_len %d", mode,
              engine.n_slots, engine.max_len)
@@ -423,8 +462,7 @@ def _http_main(args, cfg, model, params, device):
 PREFILL_ROUTES = {"pallas": "cuda", "interpret": "cuda", "jnp": "torch"}
 # the reference launcher's flags not ported yet: flag -> (its default, the
 # ROADMAP queue A item that ports it)
-NOT_PORTED = {"--replicas": (1, 4), "--disagg": (False, 4),
-              "--n-prefill": (1, 4), "--tp": (1, 6)}
+NOT_PORTED = {"--tp": (1, 6)}
 
 
 def main(argv=None):
@@ -494,6 +532,17 @@ def main(argv=None):
     p.add_argument("--chaos-verify", action="store_true",
                    help="re-serve the stream fault-free and fail unless "
                    "every completed request is token-identical")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="engine replicas behind the prefix-affinity router "
+                   "(one model and one copy of the weights; each replica "
+                   "its own page pool, trie and graphs); 1 = one engine")
+    p.add_argument("--disagg", action="store_true",
+                   help="prefill/decode disaggregation (needs --paged and "
+                   "--replicas >= 2): prefill replicas hand each request "
+                   "to a decode replica at its first token, pages and all")
+    p.add_argument("--n-prefill", type=int, default=1,
+                   help="--disagg: replicas that take the prefill role "
+                   "(the rest decode)")
     for flag, (default, _) in NOT_PORTED.items():
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -510,6 +559,19 @@ def main(argv=None):
     if args.static and args.paged:
         raise SystemExit("--static and --paged are mutually exclusive "
                          "(paged is a continuous-engine memory model)")
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
+    if args.replicas > 1 and args.static:
+        raise SystemExit("--replicas routes the continuous engine; it "
+                         "cannot combine with --static")
+    if args.disagg and args.replicas < 2:
+        raise SystemExit("--disagg needs --replicas >= 2 (dedicated "
+                         "prefill and decode replicas)")
+    if args.disagg and not args.paged:
+        raise SystemExit("--disagg migrates KV pages; combine with --paged")
+    if args.disagg and args.spec_draft:
+        raise SystemExit("--disagg cannot combine with --spec-draft (the "
+                         "draft page pool is not migrated)")
     if args.spec_draft and not args.paged:
         raise SystemExit("--spec-draft requires --paged (the verify window "
                          "scatters into paged KV)")

@@ -70,23 +70,35 @@ re-raised after ``max_consecutive_step_faults`` (at once when the step had
 already advanced a recurrent layer's state). Deadlines abort
 ``enforce_deadline`` requests; the degradation ladder holds speculation
 off (``spec_suspended``: the plain paged decode serves), flushes the
-prefix trie and suspends publishing. Not ported yet: disaggregated
-handoff and the replica router.
+prefix trie and suspends publishing.
+
+Disaggregated serving (:mod:`.router`, ``disagg=True``): a prefill-role
+engine runs a ``prefill_only`` request to its first token, gathers the
+prompt's pages out of every attention pool (:meth:`Engine.extract_handoff`)
+and hands the :class:`Handoff` to the router's ``handoff_cb``; a
+decode-role engine adopts it (:meth:`Engine._admit_handoff`): the usual
+reservation-accounted admission, the pages scattered into its pools, the
+slot armed with the first token and the request's generator state, so a
+sampled stream goes on as it would on one engine. The gather and the
+scatter are programs like the others ("gather", "adopt"), captured per
+power-of-two page width by the warmup of an engine the router gave a role.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import logging
 import time
-from typing import (Callable, Deque, Dict, List, Optional, Sequence,
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
                     Set, Tuple)
 
 import numpy as np
 import torch
 
 from . import sampling as sampling_lib
-from .cache import PagedCache, SlotCache, publish_prefix_shared, share_trie
+from .cache import (NULL_PAGE, PagedCache, SlotCache, publish_prefix_shared,
+                    share_trie)
 from .graphs import StepGraph
 from .metrics import ServeMetrics
 from .resilience import STAGE_NAMES, Resilience
@@ -100,9 +112,29 @@ def _next_pow2(n: int) -> int:
 
 
 # the engine's programs (one graph each per width rung; the dense
-# admission's rung is its prompt bucket, the dense decode's n_slots)
+# admission's rung is its prompt bucket, the dense decode's n_slots; the
+# handoff's gather and adopt rungs are page widths)
 PROGRAMS = ("decode", "draft_decode", "verify", "chunk", "chunk_final",
-            "draft_chunk", "admit", "decode_dense")
+            "draft_chunk", "admit", "decode_dense", "gather", "adopt")
+
+
+@dataclasses.dataclass
+class Handoff:
+    """Prefill-to-decode migration payload (disaggregated serving): the
+    prompt's page contents per attention position (gathered before the
+    prefill engine freed them, padded to a power-of-two ``width`` with
+    null-page columns), the first sampled token, the prompt depth, and the
+    state of the request's sampling generator after the first draw (None
+    when greedy). Block tables stay per engine: the receiver builds its own
+    through the usual admission."""
+    prompt_len: int
+    n_pages: int                 # real pages; <= width (pow-2 padded)
+    width: int
+    first_token: int
+    # per block {"kp", "vp"} or None; out of the repr (tens of MB of K/V)
+    pages: List[Optional[Dict[str, Any]]] = dataclasses.field(repr=False)
+    gen_state: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                          repr=False)
 
 
 class Engine:
@@ -273,6 +305,25 @@ class Engine:
         # a terminal failure, never for a cancel or a preemption
         self.token_cb: Optional[Callable[[Request, int, int], None]] = None
         self.done_cb: Optional[Callable[[Request], None]] = None
+        # disaggregation (the router wires these): handoff_cb fires instead
+        # of done_cb when a ``prefill_only`` request reaches its clamped
+        # budget without EOS, ``req.handoff`` already extracted;
+        # handoff_role ("prefill" or "decode") says which handoff programs
+        # warmup captures
+        self.handoff_cb: Optional[Callable[[Request], None]] = None
+        self.handoff_role: Optional[str] = None
+        self.n_handoffs_out = 0
+        self.n_handoffs_in = 0
+        if paged:
+            # the handoff programs' static inputs: the page ids per width,
+            # the adopted slot as a (1,) index and its depth, the payload
+            # staged per width
+            self._handoff_ids: Dict[int, torch.Tensor] = {}
+            self._adopt_slot = torch.zeros((1,), dtype=torch.long,
+                                           device=dev)
+            self._adopt_pos = torch.zeros((1,), dtype=torch.int32,
+                                          device=dev)
+            self._adopt_pages: Dict[int, list] = {}
         # interactive-over-batch preemption evicts pages: paged only
         self.preemption = bool(preemption) and paged
         self.n_preemptions = 0
@@ -308,11 +359,10 @@ class Engine:
         liveness and its sampling state (a freed slot reads greedy, as the
         reference's ``_clear_slot_impl``). The scheduler's bookkeeping is
         the caller's."""
-        if self.paged:
-            try:
-                self._prefill_queue.remove(req)
-            except ValueError:
-                pass
+        # found by identity first: a miss's ValueError would format the
+        # request's repr, a handoff's page tensors and all
+        if self.paged and any(r is req for r in self._prefill_queue):
+            self._prefill_queue.remove(req)
         slot = req.slot
         if slot is None:
             return
@@ -389,8 +439,12 @@ class Engine:
 
     def _admit_one_paged(self, req: Request, slot: int) -> None:
         """Bookkeeping only: the block table (reusing trie-matched prefix
-        pages) and a place in the prefill queue."""
+        pages) and a place in the prefill queue. A request that carries a
+        :class:`Handoff` adopts its pages instead."""
         self.metrics.on_admit(req.id)
+        if req.handoff is not None:
+            self._admit_handoff(req, slot)
+            return
         matched = self.cache.admit_request(slot, req.prompt,
                                            req.max_new_tokens)
         if self.spec_active:
@@ -416,6 +470,71 @@ class Engine:
                                       gen)
         self._tokens[slot] = tok
         return int(tok)
+
+    # ------------------------------------------------ disaggregated serving
+    def extract_handoff(self, req: Request) -> Handoff:
+        """Gather the prompt's page contents for a decode-role engine. Runs
+        while the request still owns its block-table row and its generator
+        (``_emit`` calls it before the stop path frees them)."""
+        assert self.paged and req.slot is not None
+        n_tok = len(req.prompt)
+        n_pages = self.cache.pages_for(n_tok)
+        width = min(_next_pow2(n_pages), self.cache.max_pages)
+        ids = np.full((width,), NULL_PAGE, np.int64)
+        ids[:n_pages] = self.cache.block_tables[req.slot][:n_pages]
+        self._put(self._ids(width), ids)
+        pages = self._run("gather", width)
+        if self.use_graphs:
+            # the graph's outputs are rewritten by its next replay
+            pages = [None if p is None else {k: v.clone() for k, v in p.items()}
+                     for p in pages]
+        gen = self._gens[req.slot]
+        self.n_handoffs_out += 1
+        return Handoff(prompt_len=n_tok, n_pages=n_pages, width=width,
+                       first_token=int(req.generated[0]), pages=pages,
+                       gen_state=None if gen is None else gen.get_state())
+
+    def _admit_handoff(self, req: Request, slot: int) -> None:
+        """Adopt a prefilled request: the reservation-accounted admission
+        builds the block table (``can_admit`` already cleared the worst-case
+        page count, so a handoff cannot deadlock the pool), the payload is
+        scattered into every prompt page (trie-matched ones too: they
+        receive the bytes they hold, and one program per width serves
+        every match), and the slot is armed with the first token and the
+        generator resumed after its first draw. No token is emitted: index
+        0 streamed from the prefill engine."""
+        h: Handoff = req.handoff
+        assert h.prompt_len == len(req.prompt)
+        matched = self.cache.admit_request(slot, req.prompt,
+                                           req.max_new_tokens)
+        ids = np.full((h.width,), NULL_PAGE, np.int64)
+        ids[:h.n_pages] = self.cache.block_tables[slot][:h.n_pages]
+        self._put(self._ids(h.width), ids)
+        for dst, src in zip(self._staged(h.width), h.pages):
+            if dst is not None:
+                for k in dst:
+                    dst[k].copy_(src[k])
+        self._adopt_slot.fill_(slot)
+        self._adopt_pos.fill_(h.prompt_len)
+        self._run("adopt", h.width)
+        sp = req.sampling
+        gen = None
+        if h.gen_state is not None:
+            gen = sampling_lib.make_generator(sp.seed, self.device)
+            gen.set_state(h.gen_state)
+        self._temps[slot], self._top_ks[slot] = sp.temperature, sp.top_k
+        self._gens[slot] = gen
+        self._tokens[slot] = h.first_token
+        req.handoff = None
+        req.prefill_pos = h.prompt_len
+        req.n_matched = matched
+        req.generated = [h.first_token]
+        req.state = RequestState.DECODE
+        self._live[slot] = True
+        # adopted pages hold real K/V: later handoffs of the same prefix
+        # adopt into cached pages
+        self.cache.publish_prefix(req.prompt, slot, h.prompt_len)
+        self.n_handoffs_in += 1
 
     def _prefill_chunks(self) -> bool:
         """Run prefill chunks FCFS under the per-step token budget (one
@@ -486,11 +605,12 @@ class Engine:
         buf.copy_(torch.from_numpy(np.ascontiguousarray(host)),
                   non_blocking=True)
 
-    def _static(self, store: dict, key, shape) -> torch.Tensor:
-        """The int32 buffer ``store[key]``, made on first use."""
+    def _static(self, store: dict, key, shape,
+                dtype=torch.int32) -> torch.Tensor:
+        """The buffer ``store[key]``, made on first use."""
         buf = store.get(key)
         if buf is None:
-            buf = store[key] = torch.zeros(shape, dtype=torch.int32,
+            buf = store[key] = torch.zeros(shape, dtype=dtype,
                                            device=self.device)
         return buf
 
@@ -505,6 +625,23 @@ class Engine:
     def _row(self, width: int, draft: bool = False) -> torch.Tensor:
         """The static block-table row of a prefill chunk ``width`` wide."""
         return self._static(self._rows, (draft, width), (width,))
+
+    def _ids(self, width: int) -> torch.Tensor:
+        """The static page ids ``(width,)`` of a handoff's gather or adopt
+        (int64: ``index_copy_`` takes no other)."""
+        return self._static(self._handoff_ids, width, (width,), torch.long)
+
+    def _staged(self, width: int) -> list:
+        """The static payload an adoption ``width`` pages wide scatters:
+        per block, ``{"kp", "vp"}`` of ``(n_periods, width, page_size, Kh,
+        Dh)`` or None for a recurrent block."""
+        buf = self._adopt_pages.get(width)
+        if buf is None:
+            buf = self._adopt_pages[width] = [
+                {k: c[k].new_zeros((c[k].shape[0], width) + c[k].shape[2:])
+                 for k in ("kp", "vp")} if "kp" in c else None
+                for c in self.cache.caches]
+        return buf
 
     def _live_mask_dev(self) -> torch.Tensor:
         """The static liveness mask, re-uploaded only on change."""
@@ -556,6 +693,23 @@ class Engine:
             bt = self._block_tables_dev(width)
             return lambda: m.decode_step(p, self._tokens, caches, bt,
                                          live=live)[0]
+        if kind == "gather":
+            ids = self._ids(width)
+            return lambda: [{k: c[k].index_select(1, ids)
+                             for k in ("kp", "vp")} if "kp" in c else None
+                            for c in caches]
+        if kind == "adopt":
+            ids, staged = self._ids(width), self._staged(width)
+            slot, pos = self._adopt_slot, self._adopt_pos
+
+            def adopt():
+                for c, src in zip(caches, staged):
+                    if src is not None:
+                        c["kp"].index_copy_(1, ids, src["kp"])
+                        c["vp"].index_copy_(1, ids, src["vp"])
+                        c["pos"].index_copy_(
+                            1, slot, pos.expand(c["pos"].shape[0], 1))
+            return adopt
         slot, start, n = self._chunk_info.unbind(0)
         if kind in ("chunk", "chunk_final"):
             row = self._row(width)
@@ -591,6 +745,14 @@ class Engine:
         decode writes before any reads them."""
         if kind == "decode_dense":
             return [], lambda: None
+        if kind in ("gather", "adopt"):
+            # every id the null page, slot 0's depth: put back afterwards
+            inputs = [self._ids(width), self._adopt_slot]
+
+            def null():
+                for t in inputs:
+                    t.zero_()
+            return inputs, null
         if kind == "admit":
             free = np.flatnonzero(~self._live)
             if not free.size:
@@ -738,6 +900,13 @@ class Engine:
         for w in self.prefill_widths():
             for kind in chunks:
                 self._graph(kind, w)
+        # a router's roles: a prefill engine gathers, and adopts once the
+        # decode side has died; a decode engine adopts
+        handoff = {"prefill": ("gather", "adopt"),
+                   "decode": ("adopt",)}.get(self.handoff_role, ())
+        for w in self.decode_widths():
+            for kind in handoff:
+                self._graph(kind, w)
 
     def _emit(self, req: Request, tok: int) -> None:
         """Record one generated token; finish the request if it stops."""
@@ -745,14 +914,24 @@ class Engine:
         self.metrics.on_token(req.id)
         if self.token_cb is not None:
             self.token_cb(req, tok, len(req.generated) - 1)
-        stop = (len(req.generated) >= req.max_new_tokens
-                or (req.eos_id >= 0 and tok == req.eos_id))
-        if stop:
-            self._vacate(req)
-            self.scheduler.finish(req)
-            self.metrics.on_done(req.id)
-            if self.done_cb is not None:
-                self.done_cb(req)
+        eos = req.eos_id >= 0 and tok == req.eos_id
+        if not (eos or len(req.generated) >= req.max_new_tokens):
+            return
+        # disaggregation: a prefill_only request that reached its clamped
+        # budget hands off (an EOS stop is a real completion), its payload
+        # gathered while the slot still owns its pages and generator
+        handing_off = (req.prefill_only and self.handoff_cb is not None
+                       and self.paged and not eos)
+        if handing_off:
+            req.handoff = self.extract_handoff(req)
+        self._vacate(req)
+        self.scheduler.finish(req)
+        if handing_off:
+            self.handoff_cb(req)
+            return
+        self.metrics.on_done(req.id)
+        if self.done_cb is not None:
+            self.done_cb(req)
 
     def _kv_len(self, req: Request) -> int:
         """Cached KV depth of a live request: the prompt plus every

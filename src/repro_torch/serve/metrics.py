@@ -1,6 +1,5 @@
-"""Serving metrics (copy of ``repro.serve.metrics`` without the replica
-router's ``RouterMetrics``): per-request TTFT / tok/s / SLO and engine
-aggregates.
+"""Serving metrics (copy of ``repro.serve.metrics``): per-request TTFT /
+tok/s / SLO, engine aggregates and the replica router's fleet view.
 
 The engine reports events through :class:`ServeMetrics` with an injectable
 clock (tests pass a fake; production uses ``time.perf_counter``). Nothing
@@ -362,8 +361,7 @@ class ServeMetrics:
         """The metric families behind :meth:`prometheus`, as
         ``(name, type, help, samples)`` tuples with ``samples`` a list of
         ``(labels_dict, value)`` pairs. The structured form exists so a
-        fleet view (the reference's ``RouterMetrics``) can merge several
-        replicas' families into
+        :class:`RouterMetrics` can merge several replicas' families into
         ONE exposition (same family emitted once, samples labelled
         ``replica="i"``) — text concatenation would duplicate HELP/TYPE
         headers, which scrapers reject."""
@@ -510,3 +508,183 @@ def merge_request_metrics(dst: RequestMetrics,
     dst.n_quarantines += src.n_quarantines
     dst.cancelled = dst.cancelled or src.cancelled
     dst.aborted = dst.aborted or src.aborted
+
+
+class RouterMetrics:
+    """Fleet view over N replica :class:`ServeMetrics`: one ``/metrics``
+    scrape and one ``summary()`` for the whole router.
+
+    Nothing is double-counted by construction: replica metrics objects
+    stay the source of truth (each engine reports to its own), and this
+    class *derives* the fleet view on demand — per-request records are
+    merged with :func:`merge_request_metrics` (handoff and drain can put
+    the same request id on two replicas), scalar counters sum, the
+    degradation stage takes the max across live replicas. Router-level
+    events that happen before any replica is chosen (admission rejects,
+    sheds) and router-only counters (affinity hits, handoffs, drains,
+    replica deaths) are held here and appear as ``repro_serve_router_*``
+    families plus merged into the fleet summary."""
+
+    def __init__(self, replicas: List[ServeMetrics],
+                 clock: Callable[[], float] = time.perf_counter):
+        self.replicas = replicas
+        self._clock = clock
+        # router-local events (no replica involved yet)
+        self.n_rejected = 0
+        self.n_shed = 0
+        # routing observability
+        self.n_dispatched = 0
+        self.n_affinity_hits = 0              # dispatch overrode least-loaded
+        self.n_handoffs = 0                   # prefill->decode migrations
+        self.n_replica_deaths = 0
+        self.n_drained = 0                    # requests rescued from the dead
+        self.n_replicas_live = len(replicas)
+
+    # clock fans out: the server installs one wall clock on the "engine"
+    # it talks to, and every replica must share it or cross-replica merges
+    # of t_submit/t_done would compare different timebases
+    @property
+    def clock(self) -> Callable[[], float]:
+        return self._clock
+
+    @clock.setter
+    def clock(self, fn: Callable[[], float]) -> None:
+        self._clock = fn
+        for m in self.replicas:
+            m.clock = fn
+
+    # ------------------------------------------------- router-local events
+    def on_reject(self) -> None:
+        self.n_rejected += 1
+
+    def on_shed(self) -> None:
+        self.n_shed += 1
+
+    def on_dispatch(self, affinity_hit: bool) -> None:
+        self.n_dispatched += 1
+        if affinity_hit:
+            self.n_affinity_hits += 1
+
+    @property
+    def affinity_hit_rate(self) -> float:
+        return self.n_affinity_hits / max(self.n_dispatched, 1)
+
+    # ---------------------------------------------------------- fleet view
+    @property
+    def requests(self) -> Dict[int, RequestMetrics]:
+        """Merged per-request records (copies — mutate per-replica ones)."""
+        out: Dict[int, RequestMetrics] = {}
+        for m in self.replicas:
+            for rid, rm in m.requests.items():
+                if rid in out:
+                    merge_request_metrics(out[rid], rm)
+                else:
+                    out[rid] = dataclasses.replace(rm)
+        return out
+
+    def merged(self) -> ServeMetrics:
+        """A synthetic :class:`ServeMetrics` holding the fleet totals, so
+        ``merged().summary()`` reports fleet TTFT/e2e percentiles and
+        aggregate tok/s with the exact same schema as one engine."""
+        out = ServeMetrics(clock=self._clock)
+        out.requests = self.requests
+        for m in self.replicas:
+            if m.t_start is not None:
+                out.t_start = (m.t_start if out.t_start is None
+                               else min(out.t_start, m.t_start))
+            if m.t_last is not None:
+                out.t_last = (m.t_last if out.t_last is None
+                              else max(out.t_last, m.t_last))
+            out._occupancy.extend(m._occupancy)
+            out.prefill_tokens_computed += m.prefill_tokens_computed
+            out.prefill_kv_bytes_read += m.prefill_kv_bytes_read
+            out.kv_bytes_reserved += m.kv_bytes_reserved
+            out.kv_bytes_allocated_peak += m.kv_bytes_allocated_peak
+            out.kv_bytes_logical_peak += m.kv_bytes_logical_peak
+            for cls, n in m.n_preemptions.items():
+                out.n_preemptions[cls] = out.n_preemptions.get(cls, 0) + n
+            out.n_cancelled += m.n_cancelled
+            out.n_rejected += m.n_rejected
+            for site, n in m.faults_injected.items():
+                out.faults_injected[site] = \
+                    out.faults_injected.get(site, 0) + n
+            out.n_quarantines += m.n_quarantines
+            out.n_fault_failures += m.n_fault_failures
+            out.n_deadline_aborts += m.n_deadline_aborts
+            out.n_shed += m.n_shed
+            out.n_step_faults += m.n_step_faults
+            out.degradation_stage = max(out.degradation_stage,
+                                        m.degradation_stage)
+            out.degradation_transitions += m.degradation_transitions
+            out.queue_depth += m.queue_depth
+            out.queue_depth_peak += m.queue_depth_peak
+        out.n_rejected += self.n_rejected
+        out.n_shed += self.n_shed
+        return out
+
+    def summary(self) -> Dict[str, float]:
+        s = self.merged().summary()
+        s.update({
+            "n_replicas": len(self.replicas),
+            "n_replicas_live": self.n_replicas_live,
+            "affinity_hit_rate": self.affinity_hit_rate,
+            "n_handoffs": self.n_handoffs,
+            "n_replica_deaths": self.n_replica_deaths,
+            "n_drained": self.n_drained,
+        })
+        return s
+
+    def families(self, extra_gauges: Optional[Dict[str, float]] = None
+                 ) -> List[tuple]:
+        fams: List[tuple] = []
+        for i, m in enumerate(self.replicas):
+            for name, mtype, help_, samples in m.families():
+                fams.append((name, mtype, help_,
+                             [({**lab, "replica": str(i)}, v)
+                              for lab, v in samples]))
+        fleet = self.merged().summary()
+        router = [
+            ("repro_serve_router_replicas", "gauge",
+             "Engine replicas configured.", len(self.replicas)),
+            ("repro_serve_router_replicas_live", "gauge",
+             "Engine replicas currently live (not quarantined dead).",
+             self.n_replicas_live),
+            ("repro_serve_router_agg_tok_s", "gauge",
+             "Fleet aggregate decode throughput (merged across replicas).",
+             fleet["agg_tok_s"]),
+            ("repro_serve_router_affinity_hit_rate", "gauge",
+             "Fraction of dispatches where prefix affinity overrode "
+             "least-loaded placement.", self.affinity_hit_rate),
+            ("repro_serve_router_affinity_hits_total", "counter",
+             "Dispatches routed by prefix affinity.", self.n_affinity_hits),
+            ("repro_serve_router_handoffs_total", "counter",
+             "Prefill->decode request migrations (disaggregated mode).",
+             self.n_handoffs),
+            ("repro_serve_router_replica_deaths_total", "counter",
+             "Replicas declared dead after a step fault.",
+             self.n_replica_deaths),
+            ("repro_serve_router_drained_total", "counter",
+             "Requests drained off a dead replica and redispatched.",
+             self.n_drained),
+            ("repro_serve_router_rejected_total", "counter",
+             "Requests rejected at the router (fleet queue full).",
+             self.n_rejected),
+            ("repro_serve_router_shed_total", "counter",
+             "batch-class requests shed with 503 at the router.",
+             self.n_shed),
+        ]
+        fams.extend((n, t, h, [({}, v)]) for n, t, h, v in router)
+        fams.append(("repro_serve_router_replica_occupancy", "gauge",
+                     "Mean live-slot fraction per step, per replica.",
+                     [({"replica": str(i)}, m.summary()["occupancy_mean"])
+                      for i, m in enumerate(self.replicas)]))
+        for name, val in (extra_gauges or {}).items():
+            fams.append((name, "gauge", "Router gauge.", [({}, val)]))
+        return fams
+
+    def prometheus(self, extra_gauges: Optional[Dict[str, float]] = None
+                   ) -> str:
+        """One exposition for the whole fleet: every per-engine family is
+        emitted once with its samples labelled ``replica="i"``, followed by
+        the router-level aggregates."""
+        return render_prometheus(self.families(extra_gauges))

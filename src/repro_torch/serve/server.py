@@ -1,4 +1,5 @@
-"""Streaming HTTP/SSE frontend for the continuous-batching engine (copy of
+"""Streaming HTTP/SSE frontend for the continuous-batching engine or a
+replica :class:`~repro_torch.serve.router.Router` (copy of
 ``repro.serve.server`` on the port's engine).
 
 A single-threaded asyncio server on stdlib ``asyncio`` streams — no HTTP
@@ -367,8 +368,9 @@ class GenerateServer:
             if method == "POST" and target == "/v1/generate":
                 await self._handle_generate(reader, writer, body)
             elif method == "GET" and target == "/metrics":
-                # one method on the engine: the server never peeks at engine
-                # internals
+                # one method on the engine (or replica Router): the server
+                # never peeks at engine internals, so a Router's fleet
+                # gauges and a single Engine's slot gauges both just work
                 gauges = self.engine.stats_gauges()
                 text = self.engine.metrics.prometheus(extra_gauges=gauges)
                 writer.write(_response(

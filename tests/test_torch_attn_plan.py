@@ -19,6 +19,7 @@ from repro.kernels import paged_attention as jpa
 from repro.kernels import paged_prefill as jpp
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL, RTOL = 2e-5, 1e-5
 S = tpa.SPLIT_PAGES

@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import bdmm as tbdmm
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 # (nb, bi, bo) of olmo-1b's packed projections at mpd_c=8
 OLMO = {"qkvo": (8, 256, 256), "up_gate": (8, 256, 1024),

@@ -36,6 +36,7 @@ from repro_torch.serve import FaultInjector, FaultSpec
 from repro_torch.serve.cache import (NULL_PAGE, PagedCache, PagePool,
                                      PrefixTrie, publish_prefix_shared,
                                      share_trie)
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 PAGE = 4
 ALPHABET = 6          # tiny vocab so random prompts actually share prefixes

@@ -42,6 +42,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import ModelConfig as TModelConfig
 from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, Request
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 CFG = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
            vocab=96, mpd_c=4, mpd_mode="masked_dense", use_bias=True)

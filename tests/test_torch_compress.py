@@ -45,6 +45,7 @@ from repro_torch.kernels import quant as tquant
 from repro_torch.models import build as tbuild
 from repro_torch.optim import optimizer as topt
 from repro_torch.train import TrainConfig, run
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SEQ, BATCH = 16, 4
 

@@ -50,6 +50,7 @@ from repro_torch.configs import common as tcommon
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, Request
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 ARCHS = ["granite-8b", "minitron-4b", "command-r-plus-104b",

@@ -26,6 +26,7 @@ from repro_torch.core import permute as tpermute
 from repro_torch.core import policy as tpolicy
 from repro_torch.kernels import quant as tquant
 from repro_torch.models import build as tbuild
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 PROJ = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down", "unembed")
 

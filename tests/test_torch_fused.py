@@ -41,6 +41,7 @@ from repro_torch.models import ModelConfig as TModelConfig
 from repro_torch.models import build as tbuild
 from repro_torch.models.attention import AttentionSpec as TAttentionSpec
 from repro_torch.models.ffn import FFNSpec as TFFNSpec
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 REL = 2e-5
 ATOL = RTOL = 1e-5

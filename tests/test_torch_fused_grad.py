@@ -41,6 +41,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import build as tbuild
 from repro_torch.optim import optimizer as topt
 from repro_torch.train import TrainConfig, run
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ARGS = ("x", "w_up", "w_gate", "w_down", "b_up", "b_gate", "b_down")
 SEQ, BATCH = 32, 4

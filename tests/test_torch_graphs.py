@@ -38,6 +38,7 @@ from repro_torch.kernels import paged_attention as tpa
 from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, Request
 from repro_torch.serve import graphs
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 ATTN_ATOL, ATTN_RTOL = 2e-5, 1e-5

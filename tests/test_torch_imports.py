@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
@@ -44,7 +45,8 @@ def test_port_imports_without_jax():
             and "repro_torch.serve.sampling" in mods
             and "repro_torch.launch.serve" in mods)
     assert ("repro_torch.serve.resilience" in mods
-            and "repro_torch.serve.server" in mods)
+            and "repro_torch.serve.server" in mods
+            and "repro_torch.serve.router" in mods)
     assert ("repro_torch.models.moe" in mods
             and "repro_torch.configs.qwen2_moe_a2_7b" in mods)
     assert ("repro_torch.models.rwkv" in mods
@@ -67,6 +69,8 @@ def test_port_imports_without_jax():
         "assert callable(sampling.spec_accept) and callable(cache.share_trie)\n"
         "from repro_torch.serve import resilience, server\n"
         "assert callable(server.run) and resilience.storm_schedule()\n"
+        "from repro_torch.serve import Handoff, Router, RouterMetrics\n"
+        "assert callable(Router.step) and RouterMetrics([]).summary\n"
         "from repro_torch.data import TeacherStudent\n"
         "from repro_torch.core.policy import uniform\n"
         "assert TeacherStudent().next()['inputs'].shape == (50, 800)\n"

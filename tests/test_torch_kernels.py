@@ -23,6 +23,7 @@ from repro_torch.kernels import bdmm as tbdmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL, RTOL = 2e-5, 1e-5
 

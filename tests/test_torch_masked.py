@@ -30,6 +30,7 @@ from repro_torch.core import mask as tmask
 from repro_torch.core import mpd as tmpd
 from repro_torch.kernels import masked_matmul as tmm
 from repro_torch.kernels import ops
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL, RTOL = 2e-5, 1e-5
 G_ATOL, G_RTOL = 1e-5, 1e-4

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import masked_matmul as tmm
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 # (K, N) of every olmo-1b projection in both orientations: the forward takes
 # (d_in, d_out), the transposed form (dx) (d_out, d_in)

@@ -27,6 +27,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import export as texport
 from repro_torch.models import build as tbuild
 from repro_torch.models import layers as tlayers
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 PS, N_PAGES, N_SLOTS = 8, 12, 2

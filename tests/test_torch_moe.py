@@ -42,6 +42,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.policy import CompressionPolicy as TPolicy
 from repro_torch.models import build as tbuild
 from repro_torch.models import moe as tmoe
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 D, FF = 32, 32

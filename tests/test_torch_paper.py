@@ -43,6 +43,7 @@ from repro_torch.core import policy as tpolicy
 from repro_torch.core.mask import make_mask_spec
 from repro_torch.data import TeacherStudent
 from repro_torch.optim import OptConfig, init_state
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 G_ATOL, G_RTOL = 2e-6, 1e-4

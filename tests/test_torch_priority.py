@@ -31,6 +31,7 @@ from repro_torch.serve import Engine, Request, Scheduler
 from repro_torch.serve.cache import NULL_PAGE
 
 from test_torch_graphs import stub_capture  # noqa: F401 - a fixture
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 # summary keys that read a host clock, and the KV bytes the prefill
 # attention read (the JAX engine's CPU route is the dense gather, which reads

@@ -55,6 +55,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.models import build as tbuild
 from repro_torch.models import mamba as tmamba
 from repro_torch.models import rwkv as trwkv
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 MODES = ["dense", "masked_dense", "packed"]

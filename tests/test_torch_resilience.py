@@ -39,6 +39,7 @@ from repro_torch.models import build as tbuild
 from repro_torch.serve.cache import NULL_PAGE
 
 from test_torch_graphs import stub_capture  # noqa: F401 - a fixture
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 TIMED = ("_s", "tok_s", "slo_attainment", "prefill_kv_bytes_read")
 PAGED = dict(n_slots=2, max_len=64, page_size=8)

@@ -39,6 +39,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import build as tbuild
 from repro_torch.optim import optimizer as topt
 from repro_torch.train import TrainConfig, run
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 SEQ, BATCH = 16, 2
 OPT = dict(lr=3e-3, clip_norm=1.0, schedule="cosine", warmup_steps=1,

@@ -33,6 +33,7 @@ from repro_torch.launch.serve import make_requests
 from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, PagedCache, PagePool, PrefixTrie, Request
 from repro_torch.serve.cache import NULL_PAGE
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 
 @functools.lru_cache(maxsize=None)

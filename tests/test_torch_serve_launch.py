@@ -13,8 +13,9 @@ masked-dense train checkpoint served with ``--fold-to-packed --ckpt-dir``
 against the reference ``_load_model``'s packed params (within 1e-6), the
 ``--prefill-kernel`` routes and the launcher's refusals. ``--chaos-schedule
 storm --chaos-verify`` streams the reference launcher's tokens and injects
-its faults (exact), and ``--http`` hands the engine, host, port and queue
-limit to the server.
+its faults (exact), ``--replicas 2 --disagg --paged`` streams the
+reference launcher's tokens, and ``--http`` hands the engine (or a router
+of replicas), host, port and queue limit to the server.
 """
 
 import argparse
@@ -37,6 +38,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import build as tbuild
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 TOL = 1e-6
 SMOKE = ["--arch", "olmo-1b", "--smoke"]
@@ -214,9 +216,12 @@ def test_default_engine_is_dense_and_paged_needs_the_flag(monkeypatch):
     (["--spec-draft", "x"], "--paged"),
     (["--prefill-kernel", "jnp"], "combine with --paged"),
     (["--chaos-verify"], "needs --chaos-schedule"),
-    (["--replicas", "2"], "queue A item 4"),
-    (["--disagg", "--paged"], "queue A item 4"),
-    (["--n-prefill", "2"], "queue A item 4"),
+    (["--disagg", "--paged"], "needs --replicas >= 2"),
+    (["--disagg", "--replicas", "2"], "migrates KV pages"),
+    (["--disagg", "--replicas", "2", "--paged", "--spec-draft", "x"],
+     "cannot combine with --spec-draft"),
+    (["--replicas", "2", "--static"], "cannot combine with --static"),
+    (["--replicas", "0"], "must be >= 1"),
     (["--chaos-schedule", "storm", "--chaos-verify", "--http"],
      "cannot combine with --http"),
     (["--tp", "2"], "queue A item 6"),
@@ -262,18 +267,46 @@ def test_chaos_verify_streams_the_reference_tokens(ckpt, monkeypatch):
     assert got["n_step_faults"] == 1 and got["n_quarantines"] >= 1
 
 
-def test_http_hands_the_engine_to_the_server(monkeypatch):
+@pytest.mark.parametrize("extra", [[], ["--replicas", "2"]],
+                         ids=["engine", "router"])
+def test_http_hands_the_engine_to_the_server(monkeypatch, extra):
     """``--http``: the launcher builds the engine (with the degradation
-    ladder) and calls the server's ``run`` with the host, port and queue
-    limit."""
+    ladder), or with ``--replicas 2`` a router of two, and calls the
+    server's ``run`` with the host, port and queue limit."""
+    from repro_torch.serve import Router
     from repro_torch.serve import server as server_lib
 
     seen = {}
     monkeypatch.setattr(server_lib, "run",
                         lambda engine, **kw: seen.update(engine=engine, **kw))
     tserve.main(SMOKE + ["--http", "--paged", "--port", "0",
-                         "--queue-limit", "3", "--device", "cpu"])
+                         "--queue-limit", "3", "--device", "cpu"] + extra)
     assert seen["host"] == "127.0.0.1" and seen["port"] == 0
     assert seen["queue_limit"] == 3
     assert seen["engine"].paged
     assert seen["engine"].resilience.ladder is not None
+    assert isinstance(seen["engine"], Router) == bool(extra)
+    if extra:
+        assert seen["engine"].n_slots == 8
+
+
+def test_disagg_replicas_stream_the_reference_tokens(ckpt, monkeypatch):
+    """``--replicas 2 --disagg --paged``: a prefill and a decode replica of
+    one set of weights stream the reference launcher's tokens for the same
+    flags, every request handed off once."""
+    argv = SMOKE + ["--requests", "6", "--ckpt-dir", ckpt[0], "--paged",
+                    "--page-size", "8", "--replicas", "2", "--disagg"]
+    built = []
+    real = tserve._build_serving
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw)[0])
+        return built[-1], "fleet"
+    monkeypatch.setattr(tserve, "_build_serving", spy)
+    got = tserve.main(argv + ["--device", "cpu"])
+    assert got["n_done"] == 6 and got["n_handoffs"] == 6
+    assert got["streams"] == _ref_streams(monkeypatch, argv)
+    router, = built
+    assert router.replicas[0].params is router.replicas[1].params
+    assert [e.n_handoffs_out for e in router.replicas] == [6, 0]
+    assert [e.n_handoffs_in for e in router.replicas] == [0, 6]

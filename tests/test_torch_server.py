@@ -36,6 +36,7 @@ from repro_torch.models import build as tbuild
 from repro_torch.serve.cache import NULL_PAGE
 
 from test_serve_server import _drive, _generate, _get, _parse_sse, _post
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ROOT = Path(__file__).resolve().parent.parent
 PAGED = dict(max_len=64, page_size=8)

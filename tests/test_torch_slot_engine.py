@@ -36,6 +36,7 @@ from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, Request, Scheduler, SlotCache
 from repro_torch.serve import graphs
 from repro_torch.serve.scheduler import make_buckets
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 

@@ -44,6 +44,7 @@ from repro_torch.models import build as tbuild
 from repro_torch.serve import Engine, Request, RequestState
 from repro_torch.serve import sampling as tsampling
 from repro_torch.serve.cache import PagedCache, publish_prefix_shared, share_trie
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ROOT = Path(__file__).resolve().parent.parent
 ATTN_TOL = 1e-5

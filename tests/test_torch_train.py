@@ -45,6 +45,7 @@ from repro_torch.launch import train as tlaunch
 from repro_torch.models import build as tbuild
 from repro_torch.optim import optimizer as topt
 from repro_torch.train import TrainConfig, make_train_step, run
+from test_torch_threads import one_torch_thread  # noqa: F401 - autouse
 
 ATOL = RTOL = 1e-5
 G_ATOL, G_RTOL = 2e-6, 1e-4
