@@ -132,8 +132,9 @@ Phases, each printed as one JSON line:
    non-spec and spec steps; then phase 4's eager and captured turns with
    the spec engine.
 16. ``exact_fused`` — phase 5 for the perm-fused model: float32 greedy
-   streams through the kernels (fused_ffn on every FFN, captured) and
-   through the plain versions (eager) must be identical.
+   streams through the kernels (fused_ffn on every FFN, captured, every
+   launch on an f32 SIMT body plan() picks) and through the plain
+   versions (eager) must be identical.
 17. ``paper`` — the paper's own experiments (benchmarks/torch_paper_repro.py):
    LeNet-300-100 (800-300-100-10, float32) trained on TeacherStudent
    batches of 50 for Table 1 (400 steps), Fig 4a (8 masks, 200 steps),
@@ -177,8 +178,10 @@ Phases, each printed as one JSON line:
    checkpoint at step 2: the resumed losses and every param and moment
    leaf equal bit for bit; the saves' bytes and seconds and the seconds
    the step loop waited on them are recorded. Phase 12 also runs its step
-   in ``packed_fused`` mode (the fused_ffn rule at f32), and the kernels
-   phase holds the fused MLP at m = 2048 (a training batch) too.
+   in ``packed_fused`` mode (the fused_ffn rule at f32, every launch on
+   ``simt_tall``), and the kernels phase holds the fused MLP at m = 2048
+   (a training batch) too, bf16 and f32, the f32 rows beside the first
+   f32 body forced.
 20. ``surface`` (run after phase 15) — the serving surface at full width
    on phase 4's model (int8, bf16, captured, 4 slots, page 16, prompts of
    64-128 tokens): 4 batch requests fill the slots and 4 interactive ones
@@ -371,7 +374,9 @@ FFN_RULE = ("atol + u_out * |plain_f32| + u_sum * ((|h| + dh) @ |Wd| "
 # FFN at mpd_c=8 is nb 8, bi 256, f 1024, bo 256; m = 4 is a decode step
 # of 4 slots, m = 64 one prefill chunk, m = 512 one 512-token prompt, m =
 # 544 the dense engine's top admission bucket (int8, as served; fp beside
-# three torch.bmm), m = 2048 a training batch
+# three torch.bmm), m = 2048 a training batch. The f32 rows (simt_small up
+# to 64 rows, simt_tall above) also time the first f32 body (simt_f32,
+# forced under its own plan) and three torch.bmm in f32 (TF32 off)
 FFN_DIMS = (8, 256, 256)                          # nb, bi, bo
 FFN_CASES = [
     ("decode", 4, "int8", "bfloat16", "silu", True, False, 1024),
@@ -382,6 +387,8 @@ FFN_CASES = [
     ("prefill", 64, "fp", "float32", "silu", True, False, 1024),
     ("decode", 4, "int8", "float32", "silu", True, False, 1024),
     ("prefill", 64, "int8", "float32", "silu", True, False, 1024),
+    ("admission", 544, "fp", "float32", "silu", True, False, 1024),
+    ("train", 2048, "fp", "float32", "silu", True, False, 1024),
     ("plain gelu, biases", 64, "fp", "bfloat16", "gelu", False, True, 1024),
     ("ragged m and f, biases", 37, "int8", "bfloat16", "silu", True, True,
      1000),
@@ -1320,10 +1327,11 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
                                  w_down=wd if quant else wd.float())
         rejects = not mm_close(torch, dropped, want, mag, dt)[0]
         # the body the plan names ran: bf16 on the tensor cores
-        pl = fk.plan(m, nb, f, bo, torch.cuda.get_device_properties(
-            dev).multi_processor_count, dtype)
+        pl_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        pl = fk.device_plan(m, nb, f, bo, dev, dtype, quant)
         ok = ok and rejects and used == [pl.route]
-        ok = ok and (dt != "bfloat16" or pl.route in ("tc", "tc_tall"))
+        ok = ok and pl.route in (("tc", "tc_tall") if dt == "bfloat16"
+                                 else fk.F32_ROUTES)
         del got, want, mag, dropped, wd
         es = a["x"].element_size()
         w_bytes = sum(a[k].numel() * a[k].element_size()
@@ -1351,6 +1359,33 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
             row["tc_body_ms"] = timer.ms(lambda: fk.fused_ffn(
                 a["x"], a["w_up"], a["w_down"], *args, activation=act,
                 force=old))
+        if dt == "float32":
+            # the first f32 body under its own plan, and three torch.bmm in
+            # f32 (TF32 off) over the weights (int8 widened once, outside
+            # the timed call, then scaled)
+            old = fk.simt_f32_plan(m, nb, f, bo, pl_sm)
+            row["simt_f32_plan"] = old._asdict()
+            row["simt_f32_body_ms"] = timer.ms(lambda: fk.fused_ffn(
+                a["x"], a["w_up"], a["w_down"], *args, activation=act,
+                force=old))
+            if quant:
+                wide = {k: (a[k].float(), a["s_" + k[2:]][:, None, :])
+                        for k in ("w_up", "w_gate", "w_down") if k in a}
+                xt = a["x"].view(m, nb, bi).transpose(0, 1)
+
+                def yard32():
+                    def mm(x3, k):
+                        return torch.bmm(x3, wide[k][0]) * wide[k][1]
+                    u = mm(xt, "w_up")
+                    h = (F.silu(mm(xt, "w_gate")) * u if gated
+                         else ref.ACTIVATIONS[act](u))
+                    return mm(h, "w_down")
+                row["f32_yardstick_ms"] = timer.ms(yard32)
+                del wide
+            else:
+                row["f32_yardstick_ms"] = row["yardstick_ms"]
+            row["f32_yardstick"] = ("three torch.bmm in f32 (TF32 off) and "
+                                    "the gate")
         rows.append(row)
         emit(row)
         s = summary["fused_ffn"]
@@ -1359,6 +1394,12 @@ def check_fused_ffn(torch, dev, timer, rows, summary):
         s["ok"] = s["ok"] and ok
         s.setdefault("bodies", {}).setdefault(pl.route, []).append(
             f"{label} m={m} {row['weights']}")
+        if dt == "float32":
+            s.setdefault("f32_rows", []).append({k: row.get(k) for k in (
+                "case", "m", "weights", "plan", "routes_launched", "ms",
+                "simt_f32_plan", "simt_f32_body_ms", "plain_ms", "bound_ms",
+                "bound_by", "f32_yardstick_ms", "yardstick_ms", "yardstick",
+                "unfused_route_ms", "max_abs_err", "err_over_tol")})
         if pl.route == "tc_tall":
             s.setdefault("tall_rows", []).append({k: row.get(k) for k in (
                 "case", "m", "weights", "plan", "routes_launched", "ms",
@@ -1868,9 +1909,11 @@ def exact_phase(torch, dev, ops, fuse=False):
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve import Engine
 
+    from repro_torch.kernels import fused_ffn as fk
+
     over = dict(mpd_fuse=True, n_layers=EXACT_FUSED_LAYERS) if fuse else {}
     cfg, model, params, _ = olmo_engine(torch, dev, "float32", **over)
-    streams, counts, captures, faults = {}, {}, {}, {}
+    streams, counts, captures, faults, fused_routes = {}, {}, {}, {}, {}
     for backend in ("cuda", "torch"):
         ops.set_backend(backend)
         ops.reset_launch_counts()
@@ -1884,6 +1927,7 @@ def exact_phase(torch, dev, ops, fuse=False):
             ops.set_backend("cuda")
         torch.cuda.synchronize()
         counts[backend] = ops.launch_counts()
+        fused_routes[backend] = dict(fk.routes)
         captures[backend] = engine.n_captures
         faults[backend] = engine.metrics.summary()
         del engine
@@ -1894,8 +1938,12 @@ def exact_phase(torch, dev, ops, fuse=False):
             first = next((i for i, (x, y) in enumerate(zip(a[rid], b[rid]))
                           if x != y), min(len(a[rid]), len(b[rid])))
             diverge.append({"request": rid, "first_index": first})
-    routes_ok = not fuse or (counts["cuda"]["fused_ffn"] > 0
-                             and not any(counts["torch"].values()))
+    # f32 runs the fused MLP on the SIMT bodies plan() picks (the first
+    # f32 body never: it runs only when forced)
+    routes_ok = not fuse or (
+        counts["cuda"]["fused_ffn"] > 0 and not any(counts["torch"].values())
+        and sum(fused_routes["cuda"][r] for r in fk.F32_ROUTES)
+        == counts["cuda"]["fused_ffn"])
     captured = captures["cuda"] > 0 and captures["torch"] == 0
     row = {"phase": "exact_fused" if fuse else "exact",
            "ok": (not diverge and routes_ok and captured
@@ -1910,6 +1958,7 @@ def exact_phase(torch, dev, ops, fuse=False):
            "launches_plain_route": counts["torch"]}
     if fuse:
         row["mpd_fuse"] = True
+        row["fused_ffn_routes_kernel_route"] = fused_routes["cuda"]
     emit(row)
     return row, (cfg, model, params, a)
 
@@ -3280,6 +3329,7 @@ def train_exact_phase(torch, dev, ops, data):
     kernel route must launch every kernel of its mode, the plain route
     none."""
     from repro_torch.configs.common import get_config
+    from repro_torch.kernels import fused_ffn as fk
     from repro_torch.kernels import masked_matmul as mk
     from repro_torch.models import build
     from repro_torch.optim import OptConfig, init_state
@@ -3300,7 +3350,7 @@ def train_exact_phase(torch, dev, ops, data):
         model = build(cfg)
         params = model.init(0, device=dev)
         step = make_train_step(model, tcfg)
-        res, counts, routes = {}, {}, {}
+        res, counts, routes, fused_routes = {}, {}, {}, {}
         for backend in ("cuda", "torch"):
             ops.set_backend(backend)
             ops.reset_launch_counts()
@@ -3314,14 +3364,18 @@ def train_exact_phase(torch, dev, ops, data):
             torch.cuda.synchronize()
             counts[backend] = ops.launch_counts()
             routes[backend] = mm_routes()
+            fused_routes[backend] = dict(fk.routes)
         (pk, lk, gk), (pp, lp, gp) = res["cuda"], res["torch"]
         max_err, worst = update_errors(pk, pp, params)
         loss_ok = abs(lk - lp) <= EXACT_TOL["loss_rtol"] * abs(lp)
-        # f32 stays on the exact SIMT bodies
+        # f32 stays on the exact SIMT bodies (the fused MLP's that plan()
+        # picks)
         f32_mm = counts["cuda"]["masked_matmul"] + counts["cuda"]["masked_matmul_t"]
         routes_ok = (all(counts["cuda"][k] > 0 for k in kernels)
                      and not any(counts["torch"].values())
                      and sum(routes["cuda"][r] for r in mk.F32_ROUTES) == f32_mm
+                     and sum(fused_routes["cuda"][r] for r in fk.F32_ROUTES)
+                     == counts["cuda"]["fused_ffn"]
                      and not any(routes["torch"].values()))
         mode_ok = math.isfinite(lk) and loss_ok and worst <= 1.0 and routes_ok
         ok = ok and mode_ok
@@ -3331,7 +3385,8 @@ def train_exact_phase(torch, dev, ops, data):
                        "param_err_over_tol": worst,
                        "launches_kernel_route": counts["cuda"],
                        "launches_plain_route": counts["torch"],
-                       "mm_routes_kernel_route": routes["cuda"]}
+                       "mm_routes_kernel_route": routes["cuda"],
+                       "fused_ffn_routes_kernel_route": fused_routes["cuda"]}
         if mode == "masked_dense":
             masked = (model, pk)
         del params, res, pp

@@ -19,13 +19,15 @@
 // VMEM; a CUDA block has no such carry, and one block per (m tile, block n)
 // would stream 6.3 MB through only 8 SMs. So the f axis is split across
 // blocks: block (s, n, m tile) computes the hidden of its f tiles and their
-// contribution to y_n, f32 partial sums go to a workspace, and the last
-// block of each (m tile, n) to finish (an atomic ticket) sums the partials
-// in the fixed order s = 0, 1, ... and runs the epilogue. The result is
-// deterministic and the grid fills the card (128 blocks at the shapes
-// above). With one split the block writes y directly.
+// contribution to y_n, and the f32 partial sums are added in the fixed
+// order s = 0, 1, ... before the epilogue: inside a cluster of the split's
+// blocks over DSMEM (tc, tc_tall, simt_small, simt_tall), or from a
+// workspace by the last block of each (m tile, n) to finish, behind an
+// atomic ticket (simt_f32). The result is deterministic and the grid fills
+// the card (128 blocks at the shapes above). With one split the block
+// writes y directly.
 //
-// Three bodies, chosen by x's dtype and m (kernels/fused_ffn.py plan):
+// Five bodies; kernels/fused_ffn.py plan picks one by x's dtype and m:
 //
 // * tc (bf16 x, m <= 64, bf16 or int8 weights). A block owns one mma row tile of 16
 //   tokens (every tile through the same instructions, so a token's output
@@ -57,13 +59,18 @@
 //   the f tiles with the down sum in registers: 128 blocks at m = 2048 (8x
 //   less weight traffic), the f split only where the row tiles leave SMs
 //   idle. Described at fused_ffn_wg_kernel.
-// * simt_f32 (f32 x: the exact parity route, no TF32): the weight tiles are
-//   copied as stored with cp.async, every thread issuing all its copies
-//   before waiting once; GEMM 1 takes the up/gate tiles in K chunks of 128
-//   with x staged in f32 and accumulates u and g in registers; the epilogue
-//   writes h (BM x 64) to shared memory; GEMM 2 adds h @ Wd, whose whole 64
-//   x 256 tile was copied during GEMM 1, into a BM x 256 register tile of y
-//   that lives across the block's f tiles.
+// * simt_small (f32 x, m <= 64) and simt_tall (f32 x, m > 64): the exact
+//   parity route (FFMA only, no TF32) through one pipelined cp.async ring,
+//   with 16-byte shared loads into register tiles. Described at
+//   fused_ffn_simt_kernel.
+// * simt_f32 (f32 x, the first f32 body; plan never picks it, `force` runs
+//   it beside the two above): the weight tiles are copied as stored with
+//   cp.async, every thread issuing all its copies before waiting once; GEMM
+//   1 takes the up/gate tiles in K chunks of 128 with x staged in f32 and
+//   accumulates u and g in registers; the epilogue writes h (BM x 64) to
+//   shared memory; GEMM 2 adds h @ Wd, whose whole 64 x 256 tile was copied
+//   during GEMM 1, into a BM x 256 register tile of y that lives across the
+//   block's f tiles; its split goes through the workspace.
 // Ragged m, bi, f and bo are bounds-checked in the kernels: padded f
 // channels give h = 0 and read zero rows of Wd, so they contribute exactly
 // 0.
@@ -1314,6 +1321,494 @@ __global__ void __launch_bounds__(TT_THREADS, 1)
 }  // namespace
 }  // namespace tc
 
+// ========================================== simt_small / simt_tall (f32 x)
+// The exact parity route on the CUDA cores (FFMA only: no TF32, no tensor
+// cores). Every output is one fma chain: u and g over k in increasing order
+// within an f tile, y over a tile's f channels in order and over the
+// block's f tiles in order; the blocks of an f split form one cluster whose
+// partials are added in rank order over DSMEM (tc::cluster_add): no
+// workspace, no ticket, no float atomics, so a graph replay equals the
+// eager call bit for bit.
+//
+// A block owns BM tokens x one diagonal block n x up to 256 output columns
+// and walks its f tiles: 128 channels (simt_small) or 64 (simt_tall).
+// Everything it reads comes through one ring of SLOTS slots, SLOTS - 1
+// items ahead of the products, one barrier an item: by TMA from one thread
+// (boxes as stored, zeros past every edge, completing on the slot's
+// mbarrier) where every row is 16-byte aligned, else by 16-byte cp.async
+// copies from every thread. A tile's items: ceil(bi / KC) GEMM-1 items (KC
+// K rows of Wu and of Wg as stored, int8 as int8, and the same KC columns
+// of the block's x rows in f32), then F / DC Wd items (DC f rows of 256
+// columns as stored: as many weights as a GEMM-1 item, so every item fills
+// its slot alike). KC is 16, 64 at row tiles of 8 or fewer (fewer items,
+// fewer barriers: decode). x thus arrives once per block wherever the
+// block owns one f tile (every plan at m <= 64 up to f = 1024 on the
+// H100).
+//   GEMM 1: RT1 x CT1 threads, each TM1 rows (strided by RT1: a warp's two
+// rows fall in other banks) x TN1 channels of u and of g in runs of 4
+// (strided by CT1 runs: a warp's loads of a run are contiguous): a 16-byte
+// load of x gives 4 k of a row, one of Wu and of Wg 4 channels of a k
+// (int8 widened exactly in registers), 8 TM1 fmas for each. The hidden
+// (scale, bias, activation, gate in f32) goes to shared memory f-major.
+//   GEMM 2: RT2 x CQ2 threads, each TM2 consecutive rows x QN2 quads of
+// columns: h by 16-byte loads along the rows, Wd a quad at a time.
+// simt_small (BM <= 64: decode, verify, a prefill chunk) keeps y in
+// registers across the tiles; the row tile only selects how many threads
+// share the work, so a token's output does not depend on its chunk.
+// simt_tall (BM = 128: whole-prompt admissions, f32 training batches) reads
+// each weight byte once for 128 tokens; its y (128 registers a thread)
+// waits in shared memory while GEMM 1 holds its 64 accumulators, and is
+// loaded for each tile's down product.
+// What bounds it on the H100 at olmo-1b's width (nb 8, bi 256, f 1024, bo
+// 256, gated): at m = 4 the 25 MB of f32 weights (7.5 us at 3.35 TB/s),
+// from m = 64 up the fmas (67 TFLOP/s: 12 us at m = 64, 0.385 ms at m =
+// 2048). What holds it from there (PERF.md; H100 80GB HBM3, 700 W): a
+// block an SM, and the card co-schedules 7 clusters of 16 such blocks, so
+// m <= 64 splits 8 ways (64 SMs, each pulling 384 KB at ~30 GB/s); FFMA
+// issue at ~60 % inside a tile.
+namespace sf {
+namespace {
+
+struct SArgs {
+  const float* x;                        // (m, nb * bi)
+  const void *wu, *wg, *wd;              // (nb, bi, f) x 2, (nb, f, bo): f32 or int8
+  const float *su, *sg, *sd, *bu, *bg, *bd;
+  float* y;                              // (m, nb * bo)
+  int m, nb, bi, f, bo, act, split, fpb, n_chunks, vec_x, vec_w;
+  int tma;                               // items land by TMA (else cp.async)
+};
+
+// x (bi, nb, m), Wu and Wg (f, bi, nb), Wd (bo, f, nb), innermost first,
+// each read in the boxes of one item
+struct SfMaps {
+  CUtensorMap x, wu, wg, wd;
+};
+
+#ifndef REPRO_SF_CUT
+// breakdown variants (benchmarks/): 1 the loads alone, 2 + GEMM 1 and the
+// hidden, 3 + GEMM 2 (the whole body without its epilogue)
+#define REPRO_SF_CUT 0
+#endif
+constexpr int THREADS = 256;
+constexpr int COLS = 256;       // output columns of a block
+constexpr int BUDGET = 229376;  // dynamic shared memory of a block (the column scales beside)
+constexpr int SLOTS_MAX = 16;
+constexpr int SPLIT_MAX = 16;   // the f split is one cluster (non-portable above 8)
+constexpr int TALL_ROWS = 128;
+constexpr int SMALL_F = 128;    // f channels of a simt_small tile
+constexpr int TALL_F = 64;      // of a simt_tall tile
+
+template <typename W, int BM>
+struct Geo {
+  using Wt = W;
+  static constexpr bool TALL = BM > 64;            // y in shared memory between tiles
+  static constexpr int F = TALL ? TALL_F : SMALL_F;
+  static constexpr int KC = BM <= 8 ? 64 : 16;     // K rows of a GEMM-1 item
+  static constexpr int DC = 2 * KC * F / COLS;     // f rows of a Wd item (as many weights)
+  static constexpr int N2 = F / DC;                // Wd items of a tile
+  static constexpr int ES = static_cast<int>(sizeof(W));
+  static constexpr int W_BYTES = 2 * KC * F * ES;  // Wu | Wg of an item, or its Wd rows
+  static constexpr int LDX = KC;                   // x row (floats) of an item (where a
+                                                   // warp reads two, 64 bytes apart)
+  static constexpr int SLOT = W_BYTES + BM * LDX * 4;
+  static constexpr int LDH = BM + 4;               // padded f row (floats) of the hidden
+  static constexpr int H_BYTES = F * LDH * 4;
+  static constexpr int Y_BYTES = TALL ? BM * COLS * 4 : 0;
+  static constexpr int FIT = (BUDGET - H_BYTES - Y_BYTES - 8 * SLOTS_MAX) / SLOT;
+  static constexpr int SLOTS = FIT < SLOTS_MAX ? FIT : SLOTS_MAX;
+  static constexpr int BAR_OFF = H_BYTES + Y_BYTES + SLOTS * SLOT;  // a TMA barrier a slot
+  static constexpr int BYTES = BAR_OFF + 8 * SLOTS;
+  // GEMM 1: RT1 x CT1 threads, each TM1 rows (tr1 + i RT1) x TN1 channels in
+  // NQ runs of QW (channel QW (tc1 + q CT1) + e), so that a warp's loads of
+  // a run are contiguous
+  static constexpr int PAIRS = BM * F / THREADS;
+  static constexpr int TN1 = PAIRS < F / 16 ? PAIRS : F / 16;
+  static constexpr int CT1 = F / TN1, RT1 = THREADS / CT1, TM1 = BM / RT1;
+  static constexpr int QW = TN1 < 4 ? TN1 : 4, NQ = TN1 / QW;
+  // GEMM 2: RT2 x CQ2 threads, each TM2 consecutive rows x QN2 column quads
+  static constexpr int TM2 = BM >= 32 ? 8 : BM / 4, RT2 = BM / TM2;
+  static constexpr int CQ2 = THREADS / RT2, QN2 = COLS / 4 / CQ2;
+  static_assert(SLOTS >= 3, "a ring of at least three slots");
+  static_assert(TALL || BM * COLS * 4 <= SLOTS * SLOT, "the partial reuses the ring");
+  static_assert(RT1 * TM1 == BM && CT1 * TN1 == F, "GEMM 1 covers the tile");
+  static_assert(RT2 * CQ2 == THREADS && CQ2 * QN2 == COLS / 4, "GEMM 2 covers the tile");
+  // channel j of GEMM-1 thread column tc1
+  static __device__ __forceinline__ int channel(int tc1, int j) {
+    return QW * (tc1 + (j / QW) * CT1) + j % QW;
+  }
+};
+
+// N consecutive weights as f32: floats as they are; int8 widened exactly
+// (byte q ^ 0x80 under the exponent of 2^23 is the float 2^23 + q + 128,
+// one subtraction leaves q)
+template <int N>
+__device__ __forceinline__ void ldw(const float* p, float* v) {
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void ldw(const int8_t* p, float* v) {
+  uint32_t q;
+  if constexpr (N == 4)
+    q = *reinterpret_cast<const uint32_t*>(p);
+  else if constexpr (N == 2)
+    q = *reinterpret_cast<const uint16_t*>(p);
+  else
+    q = static_cast<uint8_t>(*p);
+  q ^= 0x80808080u;
+  const float bias = 8388736.0f;  // 2^23 + 128
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+    v[e] = __fsub_rn(__uint_as_float(__byte_perm(q, 0x4B000000u, 0x7440 + e)), bias);
+}
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const int8_t* p) {
+  float v[4];
+  ldw<4>(p, v);
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// u, g += x @ Wu, x @ Wg over one GEMM-1 item
+template <class G, bool GATED>
+__device__ __forceinline__ void gemm1(const uint8_t* slot, int tr1, int tc1,
+                                      float (&au)[G::TM1][G::TN1], float (&ag)[G::TM1][G::TN1]) {
+  using W = typename G::Wt;
+  const W* wu = reinterpret_cast<const W*>(slot);
+  const W* wg = wu + G::KC * G::F;
+  const float* xs = reinterpret_cast<const float*>(slot + G::W_BYTES);
+#pragma unroll
+  for (int k4 = 0; k4 < G::KC; k4 += 4) {
+    float4 xv[G::TM1];
+#pragma unroll
+    for (int i = 0; i < G::TM1; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(xs + (tr1 + i * G::RT1) * G::LDX + k4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float u[G::TN1], g[G::TN1];
+#pragma unroll
+      for (int q = 0; q < G::NQ; ++q) {
+        const int off = (k4 + kk) * G::F + G::QW * (tc1 + q * G::CT1);
+        ldw<G::QW>(wu + off, u + q * G::QW);
+        if (GATED) ldw<G::QW>(wg + off, g + q * G::QW);
+      }
+#pragma unroll
+      for (int i = 0; i < G::TM1; ++i) {
+        const float a = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+        for (int j = 0; j < G::TN1; ++j) {
+          au[i][j] = fmaf(a, u[j], au[i][j]);
+          if (GATED) ag[i][j] = fmaf(a, g[j], ag[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// the hidden of this thread's rows and channels (scale, bias, activation
+// and gate in f32; channels at or past f give 0) into the f-major tile hs
+template <class G>
+__device__ __forceinline__ void hidden(float* hs, const float (&au)[G::TM1][G::TN1],
+                                       const float (&ag)[G::TM1][G::TN1],
+                                       const float (&p)[G::TN1][4], int live, int tr1, int tc1,
+                                       bool gated, int act) {
+  dispatch_act(act, [&](auto A) {
+#pragma unroll
+    for (int j = 0; j < G::TN1; ++j) {
+      const int c = G::channel(tc1, j);
+#pragma unroll
+      for (int i = 0; i < G::TM1; ++i) {
+        float h = 0.f;  // padded channels contribute exactly 0
+        if (c < live) {
+          const float u = __fadd_rn(__fmul_rn(au[i][j], p[j][0]), p[j][1]);
+          h = gated ? __fmul_rn(activate(__fadd_rn(__fmul_rn(ag[i][j], p[j][2]), p[j][3]),
+                                         A.value), u)
+                    : activate(u, A.value);
+        }
+        hs[c * G::LDH + tr1 + i * G::RT1] = h;
+      }
+    }
+  });
+}
+
+// y += h @ Wd over one Wd item (f rows dl0 .. dl0 + DC of the tile)
+template <class G>
+__device__ __forceinline__ void gemm2(const uint8_t* slot, const float* hs, int dl0, int tr2,
+                                      int tc2, float (&acc)[G::TM2][4 * G::QN2]) {
+  using W = typename G::Wt;
+  const W* wd = reinterpret_cast<const W*>(slot);
+#pragma unroll
+  for (int dd = 0; dd < G::DC; ++dd) {
+    const float* hrow = hs + (dl0 + dd) * G::LDH + tr2 * G::TM2;
+    float hv[G::TM2];
+    if constexpr (G::TM2 % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < G::TM2; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(hrow + i);
+        hv[i] = v.x;
+        hv[i + 1] = v.y;
+        hv[i + 2] = v.z;
+        hv[i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < G::TM2; ++i) hv[i] = hrow[i];
+    }
+    float4 w[G::QN2];
+#pragma unroll
+    for (int q = 0; q < G::QN2; ++q) w[q] = lds4(wd + dd * COLS + 4 * (tc2 + q * G::CQ2));
+#pragma unroll
+    for (int i = 0; i < G::TM2; ++i)
+#pragma unroll
+      for (int q = 0; q < G::QN2; ++q) {
+        acc[i][4 * q] = fmaf(hv[i], w[q].x, acc[i][4 * q]);
+        acc[i][4 * q + 1] = fmaf(hv[i], w[q].y, acc[i][4 * q + 1]);
+        acc[i][4 * q + 2] = fmaf(hv[i], w[q].z, acc[i][4 * q + 2]);
+        acc[i][4 * q + 3] = fmaf(hv[i], w[q].w, acc[i][4 * q + 3]);
+      }
+  }
+}
+
+// this thread's share of y (rows tr2 TM2 + i, column quads tc2 + q CQ2) at
+// ys, a BM x 256 f32 tile: loaded (zero when `zero`) or stored
+template <class G, bool STORE>
+__device__ __forceinline__ void y_tile(float* ys, float (&acc)[G::TM2][4 * G::QN2], int tr2,
+                                       int tc2, bool zero = false) {
+#pragma unroll
+  for (int i = 0; i < G::TM2; ++i)
+#pragma unroll
+    for (int q = 0; q < G::QN2; ++q) {
+      float4* p = reinterpret_cast<float4*>(ys + (tr2 * G::TM2 + i) * COLS + 4 * (tc2 + q * G::CQ2));
+      if (STORE) {
+        *p = make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2], acc[i][4 * q + 3]);
+      } else {
+        const float4 v = zero ? make_float4(0.f, 0.f, 0.f, 0.f) : *p;
+        acc[i][4 * q] = v.x;
+        acc[i][4 * q + 1] = v.y;
+        acc[i][4 * q + 2] = v.z;
+        acc[i][4 * q + 3] = v.w;
+      }
+    }
+}
+
+template <typename W, int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_ffn_simt_kernel(const SArgs a, const __grid_constant__ SfMaps maps) {
+  using G = Geo<W, BM>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float s_sd[COLS], s_bd[COLS];
+  float* hs = reinterpret_cast<float*>(smem);
+  float* ys = reinterpret_cast<float*>(smem + G::H_BYTES);
+  uint8_t* ring = smem + G::H_BYTES + G::Y_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR_OFF);
+  const uint32_t ring_s = tc::smem_u32(ring);
+  const int tid = threadIdx.x, n = blockIdx.y;
+  const bool tma = a.tma != 0;
+  const int r0 = blockIdx.z / a.n_chunks * BM, c0 = blockIdx.z % a.n_chunks * COLS;
+  const bool gated = a.wg != nullptr;
+  const int n_ft = (a.f + G::F - 1) / G::F;
+  const int t0 = blockIdx.x * a.fpb, t1 = min(t0 + a.fpb, n_ft);
+  const int n1 = (a.bi + G::KC - 1) / G::KC, per = n1 + G::N2;
+  const int n_items = (t1 - t0) * per;
+  const long wblk = static_cast<long>(n) * a.bi * a.f * G::ES;
+  const auto* wub = static_cast<const uint8_t*>(a.wu) + wblk;
+  const auto* wgb = gated ? static_cast<const uint8_t*>(a.wg) + wblk : wub;
+  const auto* wdb = static_cast<const uint8_t*>(a.wd) + static_cast<long>(n) * a.f * a.bo * G::ES;
+  const tc::Rows gx{reinterpret_cast<const uint8_t*>(a.x + static_cast<long>(n) * a.bi),
+                    4L * a.nb * a.bi, a.m, 4 * a.bi, a.vec_x};
+  for (int i = tid; i < COLS; i += THREADS) {
+    const long pc = static_cast<long>(n) * a.bo + c0 + i;
+    const bool in = c0 + i < a.bo;
+    s_sd[i] = a.sd && in ? __ldg(a.sd + pc) : 1.f;
+    s_bd[i] = a.bd && in ? __ldg(a.bd + pc) : 0.f;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < G::SLOTS; ++i) tc::bar_init(full + i, 1);
+    tc::bar_init_fence();
+  }
+  __syncthreads();
+
+  // item i of the block into slot i % SLOTS, zeros past every edge: by TMA
+  // from one thread, completing on the slot's barrier, where every row is
+  // 16-byte aligned; else by cp.async from every thread, one commit group
+  // an item (empty past the last)
+  auto issue = [&](int i) {
+    if (tma) {
+      if (tid != 0 || i >= n_items) return;
+      const int j = i % per, f0 = (t0 + i / per) * G::F;
+      const uint32_t s = ring_s + (i % G::SLOTS) * G::SLOT;
+      const uint64_t* b = full + i % G::SLOTS;
+      tc::fence_async_smem();  // the slot's last reads before the copy's writes
+      if (j < n1) {
+        tc::bar_expect(b, (gated ? 2 : 1) * G::KC * G::F * G::ES + BM * G::KC * 4);
+        tc::tma_load(s, &maps.wu, f0, j * G::KC, n, b);
+        if (gated) tc::tma_load(s + G::KC * G::F * G::ES, &maps.wg, f0, j * G::KC, n, b);
+        tc::tma_load(s + G::W_BYTES, &maps.x, j * G::KC, n, r0, b);
+      } else {
+        tc::bar_expect(b, G::DC * COLS * G::ES);
+        tc::tma_load(s, &maps.wd, c0, f0 + (j - n1) * G::DC, n, b);
+      }
+      return;
+    }
+    if (i < n_items) {
+      const int j = i % per, f0 = (t0 + i / per) * G::F;
+      const uint32_t s = ring_s + (i % G::SLOTS) * G::SLOT;
+      if (j < n1) {
+        const int k0 = j * G::KC;
+        const long ld = static_cast<long>(a.f) * G::ES;
+        const tc::Rows gu{wub + f0 * G::ES, ld, a.bi, (a.f - f0) * G::ES, a.vec_w};
+        const tc::Rows gg{wgb + f0 * G::ES, ld, a.bi, (a.f - f0) * G::ES, a.vec_w};
+        constexpr int WC = G::F * G::ES / 16, WN = G::KC * WC;  // chunks a row, an item
+#pragma unroll
+        for (int e = 0; e < (WN + THREADS - 1) / THREADS; ++e) {
+          const int q = tid + e * THREADS, r = q / WC, c = q % WC;
+          if (WN % THREADS == 0 || q < WN) {
+            tc::copy_chunk(s + r * G::F * G::ES + 16 * c, gu, k0 + r, 16 * c);
+            if (gated)
+              tc::copy_chunk(s + (G::KC + r) * G::F * G::ES + 16 * c, gg, k0 + r, 16 * c);
+          }
+        }
+        constexpr int XC = G::KC * 4 / 16, XN = BM * XC;
+#pragma unroll
+        for (int e = 0; e < (XN + THREADS - 1) / THREADS; ++e) {
+          const int q = tid + e * THREADS, r = q / XC, c = q % XC;
+          if (XN % THREADS == 0 || q < XN)
+            tc::copy_chunk(s + G::W_BYTES + r * G::LDX * 4 + 16 * c, gx, r0 + r, 4 * k0 + 16 * c);
+        }
+      } else {
+        const tc::Rows gd{wdb + (static_cast<long>(f0) * a.bo + c0) * G::ES,
+                          static_cast<long>(a.bo) * G::ES, a.f - f0, (a.bo - c0) * G::ES,
+                          a.vec_w};
+        const int d0 = (j - n1) * G::DC;
+        constexpr int DCH = COLS * G::ES / 16, DN = G::DC * DCH;
+#pragma unroll
+        for (int e = 0; e < (DN + THREADS - 1) / THREADS; ++e) {
+          const int q = tid + e * THREADS, r = q / DCH, c = q % DCH;
+          if (DN % THREADS == 0 || q < DN)
+            tc::copy_chunk(s + r * COLS * G::ES + 16 * c, gd, d0 + r, 16 * c);
+        }
+      }
+    }
+    tc::cp_commit();
+  };
+#pragma unroll 1
+  for (int i = 0; i < G::SLOTS - 1; ++i) issue(i);
+  int it = 0;  // the next item to take
+  // wait for item `it`, refill the slot the previous item left, hand it out
+  auto take = [&]() {
+    if (tma)
+      tc::bar_wait(full + it % G::SLOTS, (it / G::SLOTS) & 1);
+    else
+      tc::cp_wait<G::SLOTS - 2>();
+    __syncthreads();
+    issue(it + G::SLOTS - 1);
+    return static_cast<const uint8_t*>(ring + (it++ % G::SLOTS) * G::SLOT);
+  };
+
+  const int tr1 = tid / G::CT1, tc1 = tid % G::CT1, tr2 = tid / G::CQ2, tc2 = tid % G::CQ2;
+  float acc[G::TM2][4 * G::QN2];
+#pragma unroll
+  for (int i = 0; i < G::TM2; ++i)
+#pragma unroll
+    for (int q = 0; q < 4 * G::QN2; ++q) acc[i][q] = 0.f;
+#pragma unroll 1
+  for (int t = t0; t < t1; ++t) {
+    const int f0 = t * G::F;
+    // the up and gate scales and biases of this thread's channels
+    float p[G::TN1][4];
+#pragma unroll
+    for (int j = 0; j < G::TN1; ++j) {
+      const int fg = f0 + G::channel(tc1, j);
+      const bool in = fg < a.f;
+      const long pf = static_cast<long>(n) * a.f + fg;
+      p[j][0] = a.su && in ? __ldg(a.su + pf) : 1.f;
+      p[j][1] = a.bu && in ? __ldg(a.bu + pf) : 0.f;
+      p[j][2] = a.sg && in ? __ldg(a.sg + pf) : 1.f;
+      p[j][3] = a.bg && in ? __ldg(a.bg + pf) : 0.f;
+    }
+    float au[G::TM1][G::TN1], ag[G::TM1][G::TN1];
+#pragma unroll
+    for (int i = 0; i < G::TM1; ++i)
+#pragma unroll
+      for (int j = 0; j < G::TN1; ++j) au[i][j] = ag[i][j] = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < n1; ++j) {
+      const uint8_t* s = take();
+      if (REPRO_SF_CUT != 1) {
+        if (gated)
+          gemm1<G, true>(s, tr1, tc1, au, ag);
+        else
+          gemm1<G, false>(s, tr1, tc1, au, ag);
+      }
+    }
+    if (REPRO_SF_CUT != 1) hidden<G>(hs, au, ag, p, a.f - f0, tr1, tc1, gated, a.act);
+    if constexpr (G::TALL) y_tile<G, false>(ys, acc, tr2, tc2, t == t0);
+#pragma unroll 1
+    for (int d = 0; d < G::N2; ++d) {
+      const uint8_t* s = take();
+      if (REPRO_SF_CUT == 0 || REPRO_SF_CUT == 3) gemm2<G>(s, hs, d * G::DC, tr2, tc2, acc);
+    }
+    if constexpr (G::TALL) y_tile<G, true>(ys, acc, tr2, tc2);
+  }
+
+  // ------------------------------------------------------------ epilogue
+  // the block's f32 partial (simt_small: into the ring's bytes), then
+  // s_down, b_down; with a split each block of the cluster adds a share of
+  // the tile from all of the partials, in rank order
+  tc::cp_wait<0>();
+  __syncthreads();
+  float* part = G::TALL ? ys : reinterpret_cast<float*>(ring);
+  if constexpr (!G::TALL) y_tile<G, true>(part, acc, tr2, tc2);
+  if (REPRO_SF_CUT != 0) {  // the cut variants keep their work alive and store nothing
+    if (part[tid] == 1.2345e-38f && hs[tid] == 1.2345e-38f) a.y[0] = 0.f;
+    return;
+  }
+  const long ldy = static_cast<long>(a.nb) * a.bo;
+  const int rows = min(BM, a.m - r0);
+  float* y0 = a.y + static_cast<long>(r0) * ldy + static_cast<long>(n) * a.bo + c0;
+  const bool vec_y = a.bo % 4 == 0 && (reinterpret_cast<uintptr_t>(a.y) & 15) == 0;
+  auto out = [&](int g, float4 v) {
+    const int row = g / (COLS / 4), col = 4 * (g % (COLS / 4));
+    if (c0 + col >= a.bo) return;
+    const float o[4] = {__fadd_rn(__fmul_rn(v.x, s_sd[col]), s_bd[col]),
+                        __fadd_rn(__fmul_rn(v.y, s_sd[col + 1]), s_bd[col + 1]),
+                        __fadd_rn(__fmul_rn(v.z, s_sd[col + 2]), s_bd[col + 2]),
+                        __fadd_rn(__fmul_rn(v.w, s_sd[col + 3]), s_bd[col + 3])};
+    float* dst = y0 + row * ldy + col;
+    if (vec_y && c0 + col + 4 <= a.bo) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c0 + col + q < a.bo) dst[q] = o[q];
+    }
+  };
+  if (a.split == 1) {
+    __syncthreads();
+    for (int g = tid; g < rows * (COLS / 4); g += THREADS)
+      out(g, *reinterpret_cast<const float4*>(part + 4 * g));
+    return;
+  }
+  tc::cluster_sync();
+  tc::cluster_add<SPLIT_MAX>(tc::smem_u32(part), a.split, rows * (COLS / 4), out);
+  tc::cluster_sync();  // the other blocks have read this block's partial
+}
+
+}  // namespace
+}  // namespace sf
+
 namespace {
 
 template <bool INT8, bool SILU_GATED>
@@ -1341,6 +1836,27 @@ cudaError_t launch_tall(const tc::FArgs& a, cudaStream_t s) {
                             maps);
 }
 
+template <typename W, int BM>
+cudaError_t launch_simt(const sf::SArgs& a, cudaStream_t s) {
+  using G = sf::Geo<W, BM>;
+  sf::SfMaps maps{};
+  if (a.tma) {  // every row 16-byte aligned: the items' boxes by TMA, as stored
+    const long es = G::ES, nb = a.nb, bi = a.bi, f = a.f, bo = a.bo;
+    const long xd[3] = {bi, nb, a.m}, xs[2] = {4 * bi, 4 * nb * bi};
+    const long ud[3] = {f, bi, nb}, us[2] = {es * f, es * bi * f};
+    const long dd[3] = {bo, f, nb}, ds[2] = {es * bo, es * f * bo};
+    const int xb[3] = {G::KC, 1, BM}, wb[3] = {G::F, G::KC, 1}, db[3] = {sf::COLS, G::DC, 1};
+    if (!tc::tensor_map_nd(&maps.x, a.x, 4, 3, xd, xs, xb, false) ||
+        !tc::tensor_map_nd(&maps.wu, a.wu, G::ES, 3, ud, us, wb, false) ||
+        !tc::tensor_map_nd(&maps.wg, a.wg ? a.wg : a.wu, G::ES, 3, ud, us, wb, false) ||
+        !tc::tensor_map_nd(&maps.wd, a.wd, G::ES, 3, dd, ds, db, false))
+      return cudaErrorNotSupported;
+  }
+  const dim3 grid(a.split, a.nb, (a.m + BM - 1) / BM * a.n_chunks);
+  return tc::launch_cluster(sf::fused_ffn_simt_kernel<W, BM>, sf::THREADS, G::BYTES, grid,
+                            dim3(a.split, 1, 1), s, a, maps);
+}
+
 template <bool INT8>
 cudaError_t launch_tc(const tc::FArgs& a, cudaStream_t s) {
   using L = tc::FfnSmem<INT8>;
@@ -1355,18 +1871,21 @@ cudaError_t launch_tc(const tc::FArgs& a, cudaStream_t s) {
 
 using namespace repro_torch;
 
-// route 0 (simt_f32): x_dtype DT_F32; bm rows per block (4, 8, 16, 32 or
-// 64). route 1 (tc): x_dtype DT_BF16; bm 16 rows per block (one mma row
-// tile). route 2 (tc_tall): x_dtype DT_BF16; bm 128 rows per block (two
-// wgmma row tiles); loads by TMA when vec_x = vec_w = 16. vec_x / vec_w the copy width in bytes of the rows of x and of the
-// weights. w_int8:
-// 0 -> weights in x's dtype, 1 -> int8 (+ scales). wg, the scales and the
-// biases may be null. split: blocks along f, each owning fpb f tiles of 64
-// (tc, tc_tall: the split is a cluster, at most 16 blocks). simt_f32 only: part,
-// split * m * nb * bo f32 (unused when split == 1), and counters, one int
-// per (m tile, column chunk, block), zero on entry and left zero. vec: the
-// SIMT body's weight rows take 4-element copies. Returns cudaGetLastError()
-// after the launch (0 on success).
+// route 0 (simt_f32, the first f32 body, run only when forced):
+// x_dtype DT_F32; bm rows per block (4, 8, 16, 32 or 64). route 1 (tc):
+// x_dtype DT_BF16; bm 16 rows per block (one mma row tile). route 2
+// (tc_tall): x_dtype DT_BF16; bm 128 rows per block (two wgmma row tiles);
+// loads by TMA when vec_x = vec_w = 16. route 3 (simt_small): x_dtype
+// DT_F32; bm 4, 8, 16, 32 or 64. route 4 (simt_tall): x_dtype DT_F32; bm
+// 128. vec_x / vec_w the copy width in bytes of the rows of x and of the
+// weights. w_int8: 0 -> weights in x's dtype, 1 -> int8 (+ scales). wg, the
+// scales and the biases may be null. split: blocks along f, each owning fpb
+// f tiles of 64 (routes 1-4: the split is a cluster, at most 16 blocks,
+// each owning at least one tile). simt_f32 only: part, split * m * nb * bo
+// f32 (unused when split == 1), and counters, one int per (m tile, column
+// chunk, block), zero on entry and left zero; vec: its weight rows take
+// 4-element copies. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int fused_ffn_launch(const void* x, const void* wu, const void* wg, const void* wd,
                                 const float* su, const float* sg, const float* sd,
                                 const float* bu, const float* bg, const float* bd, void* y,
@@ -1403,6 +1922,28 @@ extern "C" int fused_ffn_launch(const void* x, const void* wu, const void* wg, c
       err = w_int8 ? launch_tall<true, true>(a, s) : launch_tall<false, true>(a, s);
     else
       err = w_int8 ? launch_tall<true, false>(a, s) : launch_tall<false, false>(a, s);
+  } else if ((route == 3 || route == 4) && x_dtype == DT_F32) {
+    const int n_ft = (f + (route == 4 ? sf::TALL_F : sf::SMALL_F) - 1) /
+                     (route == 4 ? sf::TALL_F : sf::SMALL_F);
+    if (!tc::vec_ok(vec_x) || !tc::vec_ok(vec_w) || split > sf::SPLIT_MAX ||
+        (split - 1) * fpb >= n_ft || split * fpb < n_ft || (route == 4) != (bm == sf::TALL_ROWS))
+      return bad;
+    const sf::SArgs a{static_cast<const float*>(x), wu, wg, wd, su, sg, sd, bu, bg, bd,
+                      static_cast<float*>(y), m, nb, bi, f, bo, act, split, fpb,
+                      (bo + sf::COLS - 1) / sf::COLS, vec_x, vec_w,
+                      vec_x == 16 && vec_w == 16};
+#define REPRO_SF(BM_) \
+  err = w_int8 ? launch_simt<int8_t, BM_>(a, s) : launch_simt<float, BM_>(a, s)
+    switch (bm) {
+      case 4: REPRO_SF(4); break;
+      case 8: REPRO_SF(8); break;
+      case 16: REPRO_SF(16); break;
+      case 32: REPRO_SF(32); break;
+      case 64: REPRO_SF(64); break;
+      case sf::TALL_ROWS: REPRO_SF(sf::TALL_ROWS); break;
+      default: return bad;
+    }
+#undef REPRO_SF
   } else if (route == 0 && x_dtype == DT_F32) {
     if ((bm != 4 && bm != 8 && bm != 16 && bm != 32 && bm != 64) ||
         (split > 1 && (part == nullptr || counters == nullptr)))
@@ -1418,6 +1959,51 @@ extern "C" int fused_ffn_launch(const void* x, const void* wu, const void* wg, c
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of `split` blocks of the SIMT body (route 3 or 4, bm
+// rows, int8 or fp weights) the card can run at once (0 on error).
+extern "C" int fused_ffn_max_clusters(int route, int bm, int w_int8, int split) {
+  int n = 0;
+#define REPRO_SF_Q(W_, BM_)                                                                 \
+  {                                                                                          \
+    auto* kern = sf::fused_ffn_simt_kernel<W_, BM_>;                                         \
+    constexpr int bytes = sf::Geo<W_, BM_>::BYTES;                                           \
+    if (tc::prepare(kern, bytes, split) != cudaSuccess) return 0;                            \
+    cudaLaunchConfig_t cfg = {};                                                             \
+    cfg.gridDim = dim3(split, 1, 1);                                                         \
+    cfg.blockDim = dim3(sf::THREADS);                                                        \
+    cfg.dynamicSmemBytes = bytes;                                                            \
+    cudaLaunchAttribute attr[1];                                                             \
+    attr[0].id = cudaLaunchAttributeClusterDimension;                                        \
+    attr[0].val.clusterDim.x = split;                                                        \
+    attr[0].val.clusterDim.y = 1;                                                            \
+    attr[0].val.clusterDim.z = 1;                                                            \
+    cfg.attrs = attr;                                                                        \
+    cfg.numAttrs = 1;                                                                        \
+    if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess) n = 0;                \
+  }
+#define REPRO_SF_QB(BM_)          \
+  if (w_int8) {                   \
+    REPRO_SF_Q(int8_t, BM_)       \
+  } else {                        \
+    REPRO_SF_Q(float, BM_)        \
+  }
+  cudaGetLastError();
+  if ((route != 3 && route != 4) || split < 1 || split > sf::SPLIT_MAX) return 0;
+  switch (bm) {
+    case 4: REPRO_SF_QB(4); break;
+    case 8: REPRO_SF_QB(8); break;
+    case 16: REPRO_SF_QB(16); break;
+    case 32: REPRO_SF_QB(32); break;
+    case 64: REPRO_SF_QB(64); break;
+    case sf::TALL_ROWS: REPRO_SF_QB(sf::TALL_ROWS); break;
+    default: return 0;
+  }
+#undef REPRO_SF_QB
+#undef REPRO_SF_Q
+  cudaGetLastError();
+  return n;
 }
 
 extern "C" const char* fused_ffn_error_string(int code) {

@@ -471,7 +471,7 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor of `rank` dims of 1- or 2-byte elements, dims[0] innermost and
+// A tensor of `rank` dims of 1-, 2- or 4-byte elements (uint8, bf16, f32), dims[0] innermost and
 // contiguous, strides[i] the bytes between steps of dims[i + 1], read in
 // boxes of box[0..rank), 128-byte swizzled (the wgmma tiles) or plain.
 // The base and every stride must be 16-byte aligned.
@@ -486,7 +486,10 @@ inline bool tensor_map_nd(CUtensorMap* map, const void* base, int elem_bytes, in
     bx[i] = static_cast<cuuint32_t>(box[i]);
     if (i + 1 < rank) st[i] = static_cast<cuuint64_t>(strides[i]);
   }
-  return fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+  return fn(map,
+            elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+            : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_UINT8,
             rank, const_cast<void*>(base), d, st, bx, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -15,33 +15,39 @@ tensor-core body, the hidden kept in registers as a hi + lo pair of bf16:
 ``tc`` (mma.sync, 16-token blocks) up to ``SPLIT_M_MAX`` rows (decode,
 one prefill chunk), ``tc_tall`` (wgmma, 128-token blocks that reuse each
 block's weights over their tokens) above (training batches, whole-prompt
-admissions, the static prefill). f32 x runs on the exact SIMT body. The f
-axis is split across blocks to fill the card; the split's f32 partial sums
-are added in a fixed order (tc, tc_tall: inside a cluster of the split's
-blocks; SIMT: by the last block of each output tile, from a workspace), so
-the result is deterministic. Inputs must lie on one CUDA device;
-:mod:`repro_torch.kernels.ops` sends CPU tensors to the plain version
-before they get here. ``launches`` counts kernel launches, ``routes`` the
-launches by the body that ran them.
+admissions, the static prefill). f32 x runs on the exact SIMT bodies (FFMA
+only), ``simt_small`` up to ``SPLIT_M_MAX`` rows and ``simt_tall`` (128
+rows a block) above; the first f32 body, ``simt_f32``, runs only when
+``force`` asks for it. The f axis is split across blocks to fill the
+card; the split's f32 partial sums are added in a fixed order (inside a
+cluster of the split's blocks; ``simt_f32``: by the last block of each
+output tile, from a workspace), so the result is deterministic. Inputs
+must lie on one CUDA device; :mod:`repro_torch.kernels.ops` sends CPU
+tensors to the plain version before they get here. ``launches`` counts
+kernel launches, ``routes`` the launches by the body that ran them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 ACT_CODES = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
-F_TILE = 64                         # f channels per tile (csrc FS, FT_F)
+F_TILE = 64                         # f channels per tile (csrc FS, FT_F, TALL_F)
+SMALL_F_TILE = 128                  # simt_small's (csrc SMALL_F)
 COLS_PER_BLOCK = 256                # output columns per block (csrc BO_T, FT_COLS)
-ROW_TILES = (4, 8, 16, 32, 64)      # rows per block of the SIMT body
+ROW_TILES = (4, 8, 16, 32, 64)      # rows per block of simt_small (and simt_f32)
 TC_ROWS = 16                        # rows per block of the tc body
-TALL_ROWS = 128                     # rows per block of the tc_tall body
-SPLIT_M_MAX = 64                    # at or below, tc (its split the same for every m)
-ROUTES = {"simt_f32": 0, "tc": 1, "tc_tall": 2}  # the bodies of csrc/fused_ffn.cu
+TALL_ROWS = 128                     # rows per block of tc_tall and simt_tall
+SPLIT_M_MAX = 64                    # at or below, tc / simt_small (one split for every m)
+# the bodies of csrc/fused_ffn.cu
+ROUTES = {"simt_f32": 0, "tc": 1, "tc_tall": 2, "simt_small": 3,
+          "simt_tall": 4}
+F32_ROUTES = ("simt_small", "simt_tall")    # what plan() runs f32 x on
 
 CLUSTER_MAX = 16                    # tc: a tile's f split is one cluster
 TALL_CLUSTER_MAX = 8                # tc_tall: the same, in a portable cluster
@@ -51,11 +57,12 @@ routes = {r: 0 for r in ROUTES}
 _entry = None
 _sm_count: Dict[int, int] = {}
 _counters: Dict[Tuple[Optional[int], int], torch.Tensor] = {}
+_clusters: Dict[Tuple[Optional[int], str, bool, int], int] = {}
 
 
 def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 tickets of the SIMT body's split-f
-    reduction on the current stream; the kernel leaves them zero, so one
+    """At least ``n`` zeroed int32 tickets of the ``simt_f32`` body's
+    split-f reduction on the current stream; the kernel leaves them zero, so one
     buffer serves every launch on the stream. A call being captured into a
     CUDA graph gets tickets of its own, zeroed inside the graph (in the
     graph's memory pool), never the buffer of the capture stream."""
@@ -78,6 +85,20 @@ class Plan(NamedTuple):
     fpb: int
 
 
+def _max_clusters(dev: torch.device, route: str, quant: bool,
+                  split: int) -> int:
+    """How many clusters of ``split`` blocks of the SIMT body ``route``
+    (simt_small at its 64-row tile) the card runs at once, asked of the
+    CUDA runtime once per device and kind."""
+    rows = TALL_ROWS if route == "simt_tall" else ROW_TILES[-1]
+    key = (dev.index, route, quant, split)
+    if key not in _clusters:
+        lib, _ = _launcher()
+        _clusters[key] = lib.fused_ffn_max_clusters(ROUTES[route], rows,
+                                                    int(quant), split)
+    return _clusters[key]
+
+
 def _launcher():
     global _entry
     if _entry is None:
@@ -86,38 +107,53 @@ def _launcher():
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P] * 13 + [I] * 15 + [P]
         fn.restype = I
+        lib.fused_ffn_max_clusters.argtypes = [I] * 4
+        lib.fused_ffn_max_clusters.restype = I
         _entry = (lib, fn)
     return _entry
 
 
 def plan(m: int, nb: int, f: int, bo: int, n_sm: int,
-         dtype: torch.dtype = torch.bfloat16) -> Plan:
+         dtype: torch.dtype = torch.bfloat16,
+         clusters: Optional[Callable[[str, int], int]] = None) -> Plan:
     """The body, rows per block, blocks along f and f tiles per block.
 
     bf16 up to ``SPLIT_M_MAX`` rows (``tc``): tiles of 16 tokens, every f
     tile its own block whatever m is (16 blocks along f at f = 1024, 128
-    blocks at olmo-1b's width and m = 4), so a token's output does not
-    depend on the chunk it rides in; a tile's split is one cluster, so at
-    most ``CLUSTER_MAX`` blocks. bf16 above (``tc_tall``, int8 weights too):
+    blocks at olmo-1b's width), so a token's output does not depend on the
+    chunk it rides in; a tile's split is one cluster, so at most
+    ``CLUSTER_MAX`` blocks. bf16 above (``tc_tall``, int8 weights too):
     tiles of 128 tokens, split along f into the most blocks (at most
     ``TALL_CLUSTER_MAX``, one portable cluster) whose grid stays within
     three quarters of the card's ``n_sm`` SMs (a block an SM), or into two
     where nothing wider fits and two fill the card: in the sweep of
     ``benchmarks/torch_fused_ffn.py`` a full wave of wider clusters ran
     slower. None at m = 2048 and olmo-1b's width (128 blocks), 2 at m = 544
-    and 1024, 3 at 512, 8 at 128. f32 (``simt_f32``): the
-    smallest row tile that holds ``m``, then enough f splits that the grid
-    covers the card (one block per SM by register use)."""
-    n_ft = -(-f // F_TILE)
+    and 1024, 3 at 512, 8 at 128.
+
+    f32 (``simt_small`` up to ``SPLIT_M_MAX`` rows, on the smallest of
+    ``ROW_TILES`` that holds m and f tiles of ``SMALL_F_TILE`` channels;
+    ``simt_tall`` above, on 128-row tiles of ``F_TILE`` channels; a block
+    an SM): the split of least cost, waves of clusters times f tiles a
+    block, the fewest blocks among equals. ``clusters(route, split)`` is
+    how many clusters of ``split`` blocks of the route's body the card runs
+    at once (the wrapper asks the card, for simt_small at its 64-row tile
+    whatever m is, so that the split is the same for every m up to a
+    chunk); by default ``n_sm // split``. On the H100 80GB HBM3 a cluster
+    of 16 such blocks fits 7 times, of 8 15 times, of 3 39 times (not 44),
+    so at olmo-1b's width the plan splits 8 ways up to 64 rows (one
+    128-channel tile a block), 8 at 544 rows (3 waves of 2 tiles a block)
+    and not at 2048."""
     chunks = -(-bo // COLS_PER_BLOCK)
+    small = m <= SPLIT_M_MAX
     if dtype == torch.bfloat16:
-        route, bm = (("tc", TC_ROWS) if m <= SPLIT_M_MAX
-                     else ("tc_tall", TALL_ROWS))
+        route, bm = ("tc", TC_ROWS) if small else ("tc_tall", TALL_ROWS)
     elif dtype == torch.float32:
-        route, bm = "simt_f32", next((t for t in ROW_TILES if m <= t),
-                                     ROW_TILES[-1])
+        route, bm = (("simt_small", next(t for t in ROW_TILES if m <= t))
+                     if small else ("simt_tall", TALL_ROWS))
     else:
         raise ValueError(f"fused_ffn kernel: x dtype {dtype}")
+    n_ft = -(-f // tile_f(route))
     cells = -(-m // bm) * nb * chunks
     if route == "tc":
         split = min(n_ft, CLUSTER_MAX)
@@ -126,9 +162,54 @@ def plan(m: int, nb: int, f: int, bo: int, n_sm: int,
         if split == 1 and n_ft > 1 and 2 * cells <= n_sm:
             split = 2
     else:
-        split = min(n_ft, max(1, -(-n_sm // cells)))
+        fit = clusters or (lambda r, s: n_sm // s)
+        best = None
+        for split in range(1, min(n_ft, CLUSTER_MAX if small
+                                  else TALL_CLUSTER_MAX) + 1):
+            fpb = -(-n_ft // split)
+            if -(-n_ft // fpb) != split:    # the same blocks as a smaller split
+                continue
+            at_once = max(fit(route, split), int(split == 1))
+            if at_once < 1:             # no cluster of that size fits
+                continue
+            cost = -(-cells // at_once) * fpb
+            if best is None or cost < best[0]:
+                best = (cost, split)
+        split = best[1]
     fpb = -(-n_ft // split)
     return Plan(route, bm, -(-n_ft // fpb), fpb)
+
+
+def device_plan(m: int, nb: int, f: int, bo: int, dev: torch.device,
+                dtype: torch.dtype, quant: bool = False) -> Plan:
+    """:func:`plan` on the card ``dev``: its SM count, and how many clusters
+    of each size of the SIMT bodies (int8 weights: ``quant``) it runs at
+    once. What :func:`fused_ffn` runs unless forced."""
+    if dev.index not in _sm_count:
+        _sm_count[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return plan(m, nb, f, bo, _sm_count[dev.index], dtype,
+                lambda route, split: _max_clusters(dev, route, quant, split))
+
+
+def tile_f(route: str) -> int:
+    """The f channels of one tile of the body ``route`` (a plan's ``fpb``
+    counts these)."""
+    return SMALL_F_TILE if route == "simt_small" else F_TILE
+
+
+def simt_f32_plan(m: int, nb: int, f: int, bo: int, n_sm: int) -> Plan:
+    """The plan the first f32 body (``simt_f32``) ran under: the smallest
+    row tile that holds m (64 above), then enough f splits that the grid
+    covers the card. :func:`plan` never picks that body; ``fused_ffn(...,
+    force=simt_f32_plan(...))`` times it beside the bodies that replaced
+    it."""
+    n_ft = -(-f // F_TILE)
+    bm = next((t for t in ROW_TILES if m <= t), ROW_TILES[-1])
+    cells = -(-m // bm) * nb * -(-bo // COLS_PER_BLOCK)
+    split = min(n_ft, max(1, -(-n_sm // cells)))
+    fpb = -(-n_ft // split)
+    return Plan("simt_f32", bm, -(-n_ft // fpb), fpb)
 
 
 def _f32(t: Optional[torch.Tensor], shape, name: str):
@@ -203,10 +284,7 @@ def fused_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     _build.require_cuda("fused_ffn", x2, *weights,
                         *(t for t in extras if t is not None))
     dev = x.device
-    if dev.index not in _sm_count:
-        _sm_count[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    p = force or plan(m, nb, f, bo, _sm_count[dev.index], x.dtype)
+    p = force or device_plan(m, nb, f, bo, dev, x.dtype, quant)
     part = counters = None
     if p.split > 1 and p.route == "simt_f32":
         part = torch.empty((p.split, m, nb * bo), dtype=torch.float32,
@@ -223,7 +301,8 @@ def fused_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
               *(ptr(t) for t in extras), y.data_ptr(), ptr(part),
               ptr(counters), m, nb, bi, f, bo, _build.DTYPE_CODES[x.dtype],
               int(quant), ACT_CODES[activation], ROUTES[p.route], p.rows,
-              p.split, p.fpb, vec, _build.copy_width(x2, bi * 2), vec_w,
+              p.split, p.fpb, vec, _build.copy_width(x2, bi * x2.element_size()),
+              vec_w,
               _build.stream_ptr(dev))
     _build.check(lib, "fused_ffn", code)
     launches["fused_ffn"] += 1

@@ -1583,8 +1583,15 @@ FFN_SHAPES = [(4, 8, 256, 1024, 256), (64, 8, 256, 1024, 256),
 @pytest.mark.parametrize("shape", FFN_SHAPES)
 def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
                                  bias):
+    _check_fused_ffn(cuda_device, shape, quant, dtype, act, gated, bias)
+
+
+def _check_fused_ffn(dev, shape, quant, dtype, act, gated, bias):
+    """One launch of the body the plan names, within the fused rule of the
+    plain version in f32, which rejects w_down's first f tile zeroed; a
+    rerun equal bit for bit."""
     m, nb, bi, f, bo = shape
-    a = _ffn_case(cuda_device, m, nb, bi, f, bo, dtype, quant, gated, bias,
+    a = _ffn_case(dev, m, nb, bi, f, bo, dtype, quant, gated, bias,
                   seed=m + f)
     before, routes = tffn.launches["fused_ffn"], dict(tffn.routes)
     got = tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
@@ -1592,7 +1599,7 @@ def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
                          a.get("s_up"), a.get("s_gate"), a.get("s_down"),
                          activation=act)
     assert tffn.launches["fused_ffn"] == before + 1
-    body = tffn.plan(m, nb, f, bo, _sm_count(cuda_device), dtype).route
+    body = tffn.plan(m, nb, f, bo, _sm_count(dev), dtype).route
     assert {r: tffn.routes[r] - routes[r] for r in routes} == {
         r: int(r == body) for r in routes}
     assert got.dtype == dtype and got.shape == (m, nb * bo)
@@ -1608,6 +1615,27 @@ def test_fused_ffn_matches_plain(cuda_device, shape, quant, dtype, act, gated,
                            a.get("s_up"), a.get("s_gate"), a.get("s_down"),
                            activation=act)
     assert torch.equal(got, again)
+
+
+# f32 x on both SIMT bodies at ragged f (1000) and bo (300): simt_small at
+# a 37-row chunk, simt_tall with its f split over a cluster at 65, 200 and
+# 544 rows
+F32_FFN_SHAPES = [(37, 8, 256, 1000, 300), (65, 8, 256, 1000, 300),
+                  (200, 8, 256, 1000, 300), (544, 8, 256, 1000, 300)]
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
+@pytest.mark.parametrize("act", [None, "silu", "gelu", "relu"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("shape", F32_FFN_SHAPES)
+def test_fused_ffn_f32_bodies_match_plain(cuda_device, shape, quant, act,
+                                          gated, bias):
+    """Every activation code, gated and plain, with and without biases, fp
+    and int8 weights, on the f32 SIMT bodies: the checks of
+    test_fused_ffn_matches_plain."""
+    _check_fused_ffn(cuda_device, shape, quant, torch.float32, act, gated,
+                     bias)
 
 
 def _sm_count(dev):
@@ -1637,6 +1665,86 @@ def test_fused_ffn_tall_split_equals_one_split(cuda_device, quant, gated):
     want, mag = _ffn_plain32(a, act)
     assert _ffn_within(split, want, mag, torch.bfloat16)
     assert _ffn_within(one, want, mag, torch.bfloat16)
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_fused_ffn_f32_tall_split_equals_one_split(cuda_device, quant, gated):
+    """simt_tall with its f split over a cluster (m = 544 at olmo-1b's
+    width: on the H100 8 blocks of 2 f tiles, added in rank order) against
+    the same call forced to one block of all 16 tiles: both within the f32
+    rule of the plain version, and within 2^-20 (|h| + dh) @ |Wd| + 1e-6
+    of each other (the two orders round the three partials' sum, a few f32
+    ulps of the magnitude, nothing more)."""
+    a = _ffn_case(cuda_device, 544, 8, 256, 1024, 256, torch.float32, quant,
+                  gated, True, seed=12)
+    act = "silu" if gated else "gelu"
+    p = tffn.device_plan(544, 8, 1024, 256, cuda_device, torch.float32, quant)
+    assert p.route == "simt_tall" and p.split > 1
+
+    def run(force=None):
+        return tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                              a.get("b_up"), a.get("b_gate"), a.get("b_down"),
+                              a.get("s_up"), a.get("s_gate"), a.get("s_down"),
+                              activation=act, force=force)
+    split = run()
+    one = run(tffn.Plan("simt_tall", tffn.TALL_ROWS, 1, 16))
+    want, mag = _ffn_plain32(a, act)
+    assert _ffn_within(split, want, mag, torch.float32)
+    assert _ffn_within(one, want, mag, torch.float32)
+    assert bool(((split - one).abs() <= 2.0 ** -20 * mag + 1e-6).all())
+
+
+@pytest.mark.parametrize("m", [4, 64, 544, 2048])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_fused_ffn_f32_replay_equals_eager(cuda_device, quant, m):
+    """A CUDA-graph replay of each f32 body (simt_small at decode and one
+    chunk, simt_tall with a split at 544 rows and none at 2048)
+    equals the eager call bit for bit: no workspace, no ticket, no float
+    atomics."""
+    a = _ffn_case(cuda_device, m, 8, 256, 1024, 256, torch.float32, quant,
+                  True, True, seed=13)
+
+    def run():
+        return tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                              a.get("b_up"), a.get("b_gate"), a.get("b_down"),
+                              a.get("s_up"), a.get("s_gate"), a.get("s_down"))
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    before = dict(tffn.routes)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert tffn.routes == before          # a replay launches nothing new
+
+
+@pytest.mark.parametrize("m", [4, 64, 544])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_fused_ffn_old_simt_f32_body_forced_matches_plain(cuda_device, quant,
+                                                          m):
+    """The first f32 body stays reachable through ``force`` (its plan,
+    ``simt_f32_plan``: a 16-way split through the workspace at m <= 64),
+    launches simt_f32 alone and holds the f32 rule."""
+    a = _ffn_case(cuda_device, m, 8, 256, 1024, 256, torch.float32, quant,
+                  True, True, seed=14)
+    old = tffn.simt_f32_plan(m, 8, 1024, 256, _sm_count(cuda_device))
+    before = dict(tffn.routes)
+    got = tffn.fused_ffn(a["x"], a["w_up"], a["w_down"], a.get("w_gate"),
+                         a.get("b_up"), a.get("b_gate"), a.get("b_down"),
+                         a.get("s_up"), a.get("s_gate"), a.get("s_down"),
+                         force=old)
+    assert {r: tffn.routes[r] - before[r] for r in before} == {
+        r: int(r == "simt_f32") for r in before}
+    want, mag = _ffn_plain32(a, "silu")
+    assert _ffn_within(got, want, mag, torch.float32)
 
 
 @pytest.mark.parametrize("gated", [True, False], ids=["gated", "plain"])
@@ -1676,6 +1784,18 @@ def test_fused_ffn_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):
         tffn.fused_ffn(a["x"], a["w_up"].transpose(1, 2).contiguous()
                        .transpose(1, 2), a["w_down"], a["w_gate"])
+    # the f32 bodies refuse what they were not built for: bf16 x, a row
+    # tile of the other body, a split past one cluster or with an empty block
+    run = lambda x, p: tffn.fused_ffn(  # noqa: E731
+        x, a["w_up"].to(x.dtype), a["w_down"].to(x.dtype),
+        a["w_gate"].to(x.dtype), force=p)
+    for x, p in ((a["x"].bfloat16(), tffn.Plan("simt_small", 4, 1, 1)),
+                 (a["x"], tffn.Plan("simt_small", tffn.TALL_ROWS, 1, 1)),
+                 (a["x"], tffn.Plan("simt_tall", 64, 1, 1)),
+                 (a["x"], tffn.Plan("simt_small", 4, 2, 1)),
+                 (a["x"].bfloat16(), tffn.Plan("simt_tall", 128, 1, 1))):
+        with pytest.raises(tffn._build.KernelError):
+            run(x, p)
     q = _ffn_case(cuda_device, 4, 2, 16, 32, 8, torch.float32, True, True,
                   False, 0)
     with pytest.raises(ValueError, match="s_up"):

@@ -150,9 +150,12 @@ def test_kernel_plan_fills_the_card_at_olmo_width():
     split as wide as three quarters of the card allow, two-way where that
     fills it: none for a training batch (2048 rows: 16 x 8 blocks), 8 ways
     at 128 rows, 2 ways at the dense engine's 544-row admission (80
-    blocks) and at 1024 rows (128 blocks). f32 (the SIMT body): the
-    smallest row tile that holds m, and f split 16 ways (128 blocks) at
-    decode and one prefill chunk."""
+    blocks) and at 1024 rows (128 blocks). f32 up to 64 rows (simt_small):
+    the smallest row tile that holds m, f split 16 ways (128 blocks) at
+    decode, verify and one prefill chunk; above (simt_tall): 128-token
+    tiles, the f split as wide as one wave allows (3 ways at 544 rows: 120
+    blocks; none at 2048). The first f32 body's plan (simt_f32, forced
+    only) is what it was."""
     bf16 = lambda m, f=1024: tuple(tffn.plan(m, 8, f, 256, 132))  # noqa: E731
     assert bf16(4) == bf16(64) == ("tc", 16, 16, 1)
     assert bf16(37, 1000) == ("tc", 16, 16, 1)
@@ -165,24 +168,91 @@ def test_kernel_plan_fills_the_card_at_olmo_width():
     # olmo-1b at mpd_c=4 (nb 4, f 2048, bo 512: two column chunks)
     assert tuple(tffn.plan(2048, 4, 2048, 512, 132)) == ("tc_tall", 128, 1, 32)
     assert tuple(tffn.plan(512, 4, 2048, 512, 132)) == ("tc_tall", 128, 3, 11)
-    f32 = lambda m, f=1024: tuple(tffn.plan(m, 8, f, 256, 132,  # noqa: E731
-                                            torch.float32))
-    assert f32(4) == ("simt_f32", 4, 16, 1)
-    assert f32(64) == ("simt_f32", 64, 16, 1)
-    assert f32(37, 1000) == ("simt_f32", 64, 16, 1)
-    assert f32(2048) == ("simt_f32", 64, 1, 16)
-    p = tffn.plan(256, 8, 1024, 256, 132, torch.float32)
+    f32 = lambda m, f=1024, fit=None: tuple(tffn.plan(  # noqa: E731
+        m, 8, f, 256, 132, torch.float32, fit))
+    h100 = lambda route, split: H100_CLUSTERS[split]  # noqa: E731
+    for fit in (None, h100):
+        assert f32(4, fit=fit) == ("simt_small", 4, 8, 1)
+        assert f32(20, fit=fit) == ("simt_small", 32, 8, 1)
+        assert (f32(37, fit=fit) == f32(37, 1000, fit) == f32(64, fit=fit)
+                == ("simt_small", 64, 8, 1))
+        assert f32(65, fit=fit) == f32(128, fit=fit) == ("simt_tall", 128, 8, 2)
+        assert f32(2048, fit=fit) == ("simt_tall", 128, 1, 16)
+    # 40 cells: 3 ways fill one wave of ideal clusters, but on the H100 only
+    # 39 clusters of 3 fit; 3 waves of 15 clusters of 8 cost least there
+    assert f32(544) == ("simt_tall", 128, 3, 6)
+    assert f32(544, fit=h100) == ("simt_tall", 128, 8, 2)
+    assert {tffn.plan(m, 8, 1024, 256, 132, torch.float32).route
+            for m in range(1, 4097, 7)} == set(tffn.F32_ROUTES)
+    old = lambda m, f=1024: tuple(tffn.simt_f32_plan(m, 8, f, 256, 132))  # noqa: E731
+    assert old(4) == ("simt_f32", 4, 16, 1)
+    assert old(64) == ("simt_f32", 64, 16, 1)
+    assert old(37, 1000) == ("simt_f32", 64, 16, 1)
+    assert old(2048) == ("simt_f32", 64, 1, 16)
+    p = tffn.simt_f32_plan(256, 8, 1024, 256, 132)
     assert p.split * p.fpb >= 16 and (p.split - 1) * p.fpb < 16
 
 
-@pytest.mark.parametrize("nb,f,bo", [(8, 1024, 256), (3, 200, 300),
-                                     (2, 130, 20)])
-def test_kernel_plan_does_not_depend_on_m_up_to_a_chunk(nb, f, bo):
+_F32 = torch.float32
+# clusters of 1 ... 16 blocks of an f32 SIMT body (a block an SM) that an
+# H100 80GB HBM3 runs at once (cudaOccupancyMaxActiveClusters)
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15,
+                 9: 9, 10: 7, 11: 7, 12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+@pytest.mark.parametrize("nb,f,bo,dtype", [
+    pytest.param(8, 1024, 256, torch.bfloat16, id="8-1024-256"),
+    pytest.param(3, 200, 300, torch.bfloat16, id="3-200-300"),
+    pytest.param(2, 130, 20, torch.bfloat16, id="2-130-20"),
+    pytest.param(8, 1024, 256, _F32, id="f32-8-1024-256"),
+    pytest.param(8, 1000, 300, _F32, id="f32-8-1000-300"),
+    pytest.param(2, 130, 20, _F32, id="f32-2-130-20")])
+def test_kernel_plan_does_not_depend_on_m_up_to_a_chunk(nb, f, bo, dtype):
     """A token's output must not change with the chunk it rides in: the
-    tensor-core body's plan (rows per block, f splits, f tiles a block) is
-    the same for every m up to one prefill chunk (64 rows)."""
-    plans = {tffn.plan(m, nb, f, bo, 132) for m in range(1, tffn.SPLIT_M_MAX + 1)}
-    assert plans == {("tc", tffn.TC_ROWS, -(-f // tffn.F_TILE), 1)}
+    plan's body, f splits and f tiles a block are the same for every m up
+    to one prefill chunk (64 rows). bf16 (tc): the rows per block too. f32
+    (simt_small): the rows per block follow m (4 ... 64), which changes
+    only how many threads share a tile, never an output's fma chain; the
+    card test holds those rows bit for bit."""
+    if dtype == torch.bfloat16:
+        plans = {tffn.plan(m, nb, f, bo, 132, dtype)
+                 for m in range(1, tffn.SPLIT_M_MAX + 1)}
+        assert plans == {("tc", tffn.TC_ROWS, -(-f // tffn.F_TILE), 1)}
+        return
+    n_ft = -(-f // tffn.SMALL_F_TILE)
+    for fit in (None, lambda route, split: H100_CLUSTERS[split]):
+        plans = {tffn.plan(m, nb, f, bo, 132, dtype, fit)
+                 for m in range(1, tffn.SPLIT_M_MAX + 1)}
+        (route, split, fpb), = {(p.route, p.split, p.fpb) for p in plans}
+        assert route == "simt_small" and (split - 1) * fpb < n_ft <= split * fpb
+        assert {p.rows for p in plans} == set(tffn.ROW_TILES)
+
+
+@pytest.mark.parametrize("card", ["ideal", "h100"])
+@pytest.mark.parametrize("m", [65, 200, 544, 2048, 4096])
+@pytest.mark.parametrize("nb,f,bo", [(8, 1024, 256), (4, 2048, 512),
+                                     (8, 1000, 300), (2, 130, 20)])
+def test_f32_tall_plan_costs_the_fewest_waves(nb, f, bo, m, card):
+    """Above 64 rows every f32 call takes simt_tall on 128-row tiles. Its f
+    split is one portable cluster (at most ``TALL_CLUSTER_MAX``, within
+    ``CLUSTER_MAX``) of blocks that each own at least one f tile, and no
+    other split costs less in waves of clusters (as many as the card runs
+    at once: every SM's block in one, or the H100's count) times f tiles a
+    block; a grid of row tiles that fills the card alone takes no split."""
+    n_sm, n_ft = 132, -(-f // tffn.F_TILE)
+    fit = ((lambda route, s: n_sm // s) if card == "ideal"
+           else (lambda route, s: H100_CLUSTERS[s]))
+    p = tffn.plan(m, nb, f, bo, n_sm, torch.float32,
+                  None if card == "ideal" else fit)
+    cells = -(-m // tffn.TALL_ROWS) * nb * -(-bo // tffn.COLS_PER_BLOCK)
+    assert (p.route, p.rows) == ("simt_tall", tffn.TALL_ROWS)
+    assert 1 <= p.split <= tffn.TALL_CLUSTER_MAX <= tffn.CLUSTER_MAX
+    assert (p.split - 1) * p.fpb < n_ft <= p.split * p.fpb
+    cost = lambda s: -(-cells // fit("simt_tall", s)) * -(-n_ft // s)  # noqa: E731
+    assert all(cost(p.split) <= cost(s)
+               for s in range(1, min(n_ft, tffn.TALL_CLUSTER_MAX) + 1))
+    if cells >= n_sm:
+        assert p.split == 1
 
 
 @pytest.mark.parametrize("m", [65, 300, 4096])
