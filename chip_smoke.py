@@ -235,7 +235,9 @@ Phases, each printed as one JSON line:
    prefix), no paged-attention launch, bdmm launched with the sqrelu and
    sigmoid epilogues (int8); a profiled captured decode window and the
    time scan's share of its device time a step and a chunk
-   (``scan_share``: one layer's scan captured alone and replayed).
+   (``scan_share``: one layer's scan captured alone and replayed); the
+   engine's copy of the recurrent state before each decode program, alone
+   at 4 slots (``state_copy``: device and host ms, bytes, bound).
 25. ``jamba`` — jamba-v0.1-52b at its published widths (32 layers of the
    8-layer mamba/mamba_moe/attn period, d 4096, 32 heads over 8 KV heads,
    16 experts top-2 of d_ff 14336, vocab 65536, rms; int8 with bf16 routed
@@ -266,6 +268,32 @@ Phases, each printed as one JSON line:
    request; killed, the drained requests finish on the survivor. TTFT,
    tok/s, per-replica busy seconds and one 32-page handoff's gather and
    adoption (CUDA events) recorded.
+28. ``embed`` — the embed frontends at their published widths, nothing
+   cut, each with its bytes on a first line. qwen2-vl-72b (80 layers, d
+   8192, 64 heads over 8 KV heads of 128, d_ff 29568, vocab 152064,
+   M-RoPE sections (16, 24, 24), theta 1e6; packed ``mpd_c=8``, int8,
+   bf16) through ``launch.serve.main(["--arch", "qwen2-vl-72b",
+   "--static", "--batch", "4", "--prompt-len", "512", "--quantize",
+   "int8"])``: one prefill of 4 x 512 standard-normal embeds into dense
+   caches (the decode skipped), every bdmm launch on a tensor-core body,
+   the last-token logits finite; the launcher's prefill ms (the first
+   call of every kernel shape), peak device memory, and the same prefill
+   again timed (``Timer.ms``) and profiled (device ms by kernel family,
+   busy share, the top kernels) recorded. hubert-xlarge (48 layers, d
+   1280, 16 heads, d_ff 5120, vocab 504, ln, gelu, biases, non-causal;
+   packed ``mpd_c=8``, bf16): ``Model.logits`` over 4 x 1024 frame
+   embeddings, timed and profiled as the prefill is, finite, its unembed
+   (126-byte block rows) on a named CUDA body. Then both at 2 layers in
+   float32, the kernel route against the plain route on the same inputs,
+   every output within 1e-4 + 1e-4 |y|:
+   qwen2-vl's ``logits``, dense ``prefill``, a paged ``prefill_chunk`` of
+   64 embeds and 4 ``decode_step`` calls on (1, 1, d) embeds (the paged
+   kernels launched at 8 heads per KV head), hubert's ``logits``. The
+   kernels phase holds bdmm at every block shape of both: qwen2-vl's q/o,
+   k/v, up/gate, down (4 x 512 rows) and unembed (4 rows), bf16 and int8,
+   and hubert's q/k/v/o, up (gelu) and down with biases and its unembed
+   (4 x 1024 rows), and the paged decode, prefill and verify kernels at 64
+   heads over 8.
 
 The lines before the last are the ``nvidia-smi`` line and the ``kernels``
 summary; the last line is ``{"ok": true, "device": {...}}``. Any failure
@@ -290,6 +318,9 @@ OUT_DIR = ROOT / "chiprun_out" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 TC / fp32 SIMT
 
+# the configs whose attention heads the paged kernel rows also run (H, Kh):
+# GQA 4:1 and 8:1 at head dim 128, each row kept in the kernels line
+HEAD_ROWS = {(32, 8): "granite_8b", (64, 8): "qwen2_vl_72b"}
 # (name, nb, bi, bo, activation): the four packed projection shapes of
 # olmo-1b at mpd_c=8 (q/k/v/o, up/gate, down, unembed)
 BDMM_SHAPES = [("qkvo", 8, 256, 256, None), ("up_gate", 8, 256, 1024, "silu"),
@@ -617,9 +648,9 @@ def check_bdmm(torch, dev, timer, rows, summary):
             plain = lambda: ref.bdmm_quant_ref(x, wq, scale, None, act)
             library = None          # no PyTorch call takes int8 blocks
             w_bytes = wq.numel() + scale.numel() * 4
-            if dt == "float32":     # the blocks widened outside the timed call
-                wide = wq.float()
-                yardstick = lambda: torch.bmm(xt, wide) * scale[:, None, :]
+            # the blocks widened outside the timed call, then the scale
+            wide, sc = wq.to(dtype), scale.to(dtype)[:, None, :]
+            yardstick = lambda: torch.bmm(xt, wide) * sc
         elif dx:
             wf = w.to(dtype)
             run = lambda: bk.bdmm(x, wf, transpose=True)
@@ -662,8 +693,9 @@ def check_bdmm(torch, dev, timer, rows, summary):
                "bound_ms": b_ms, "bound_by": b_by}
         if yardstick:
             row.update(yardstick_ms=timer.ms(yardstick),
-                       yardstick="torch.bmm over the int8 blocks widened to "
-                                 "f32 outside the timed call, then the scale")
+                       yardstick=f"torch.bmm over the int8 blocks widened to "
+                                 f"{dt} outside the timed call, then the "
+                                 f"scale")
         rows.append(row)
         emit(row)
         s = summary[grid]
@@ -677,7 +709,8 @@ def check_bdmm(torch, dev, timer, rows, summary):
                 (grid == "bdmm_decode" and name == "unembed" and m == 4)
                 or (grid == "bdmm" and name == "up_gate")):
             s.update({k: row[k] for k in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")})
+                                          "bound_ms", "bound_by",
+                                          "yardstick_ms", "yardstick")})
             s["at"] = f"int8 {name} m={m}"
             s["cuda_body"] = used
         # the other general-grid rows of the main paths: a bf16 prefill
@@ -723,6 +756,8 @@ def check_paged_attention(torch, dev, timer, rows, summary):
         (16, 16, [1, 63, 64, 65], "bfloat16"),
         (16, 16, [1, 63, 64, 65], "float32"),
         (32, 8, [511, 512, 530, 544], "bfloat16"),    # granite-8b, timed
+        (64, 8, [511, 512, 530, 544], "bfloat16"),    # qwen2-vl-72b, timed
+        (64, 8, [1, 37, 300, 544], "float32"),        # its parity route
     ]
     for idx, (H, kh, lengths, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -782,11 +817,11 @@ def check_paged_attention(torch, dev, timer, rows, summary):
                                           "bound_ms", "bound_by")})
             s["at"] = f"B=4 H=Kh=16 lengths={lengths}"
             s["cuda_body"] = used
-        if (H, kh) == (32, 8):
-            s["granite_8b"] = dict(
+        if (H, kh) in HEAD_ROWS and dt == "bfloat16":
+            s[HEAD_ROWS[H, kh]] = dict(
                 {k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by", "max_abs_err")},
-                at=f"B=4 H=32 Kh=8 lengths={lengths}")
+                at=f"B=4 H={H} Kh={kh} lengths={lengths}")
 
 
 def check_paged_prefill(torch, dev, timer, rows, summary):
@@ -804,6 +839,8 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
         (16, 16, 128, 37, "float32"),
         (16, 16, 448, 21, "bfloat16"),      # a short last chunk at 448
         (32, 8, 448, 64, "bfloat16"),       # granite-8b, timed
+        (64, 8, 448, 64, "bfloat16"),       # qwen2-vl-72b, timed
+        (64, 8, 0, 64, "float32"),          # its parity route's first chunk
     ]
     for idx, (H, kh, start, clen, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -867,11 +904,11 @@ def check_paged_prefill(torch, dev, timer, rows, summary):
                                           "bound_ms", "bound_by")})
             s["at"] = f"Tc=64 start={start} chunk_len={clen}"
             s["cuda_body"] = used
-        if (H, kh) == (32, 8):
-            s["granite_8b"] = dict(
+        if (H, kh) in HEAD_ROWS and dt == "bfloat16":
+            s[HEAD_ROWS[H, kh]] = dict(
                 {k: row[k] for k in ("ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by", "max_abs_err")},
-                at=f"Tc=64 H=32 Kh=8 start={start} chunk_len={clen}")
+                at=f"Tc=64 H={H} Kh={kh} start={start} chunk_len={clen}")
 
 
 # (H, Kh, Tq, lengths, dtype): the spec phase's window (4 slots, k = 4) at the
@@ -888,6 +925,8 @@ VERIFY_CASES = [
     # windows across a split's edge (S * 16 = 64 positions)
     (16, 16, 5, [5, 64, 65, 68], "bfloat16"),
     (16, 16, 5, [5, 64, 65, 68], "float32"),
+    # qwen2-vl-72b's heads (GQA 8:1), timed
+    (64, 8, 5, [511, 530, 544, 548], "bfloat16"),
 ]
 
 
@@ -988,6 +1027,11 @@ def check_paged_verify(torch, dev, timer, rows, summary):
                                           "bound_ms", "bound_by")})
             s["at"] = f"B=4 Tq=5 H=Kh=16 lengths={lengths}"
             s["cuda_body"] = used
+        if (H, kh) in HEAD_ROWS and dt == "bfloat16":
+            s[HEAD_ROWS[H, kh]] = dict(
+                {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")},
+                at=f"B=4 Tq={Tq} H={H} Kh={kh} lengths={lengths}")
 
 
 def masked_plan(mk, kname, m, d_in, d_out, dtype):
@@ -3655,7 +3699,7 @@ def model_bytes(torch, model, params, kw):
         return sum(t.numel() * t.element_size()
                    for t in tree_lib.leaves(tree))
     cfg = model.cfg
-    out = {"embed": nbytes(params["embed"]),
+    out = {"embed": nbytes(params.get("embed", {})),
            "unembed": nbytes(params["unembed"])}
     routed = router = 0
     for spec, p in zip(model.block_specs, params["blocks"]):
@@ -3978,12 +4022,14 @@ MASKED_EPILOGUES = [("rwkv_ck", 2560, 8960, "sqrelu"),
 MASKED_EPILOGUE_M = (64, 2048)
 
 
-def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant):
-    """One bdmm with bias and ``act`` against its plain version computed in
-    f32 on the same values under the dtype's bdmm rule; timed beside the
-    plain version in the dtype and the composed yardstick, one torch.bmm
-    over the blocks (int8: widened outside the timed call) with the scale,
-    the bias and the activation."""
+def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant,
+                 bias=True):
+    """One bdmm with bias (unless ``bias`` is False) and ``act`` against its
+    plain version computed in f32 on the same values under the dtype's bdmm
+    rule, which must reject the plain output with block 0 of the weights
+    zeroed; timed beside the plain version in the dtype and the composed
+    yardstick, one torch.bmm over the blocks (int8: widened outside the
+    timed call) with the scale, the bias and the activation."""
     from repro_torch.kernels import bdmm as bk
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant import quantize_blocks
@@ -3991,15 +4037,20 @@ def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant):
     dtype = getattr(torch, dt)
     w = torch.randn((nb, bi, bo), generator=gen, device=dev) * bi ** -0.5
     x = torch.randn((m, nb * bi), generator=gen, device=dev).to(dtype)
-    b = (0.5 * torch.randn((nb * bo,), generator=gen, device=dev)).to(dtype)
+    b = ((0.5 * torch.randn((nb * bo,), generator=gen, device=dev)).to(dtype)
+         if bias else None)
+    bf = b.float() if bias else None
     xt = x.view(m, nb, bi).transpose(0, 1)
-    bb = b.view(nb, 1, bo)
+    bb = b.view(nb, 1, bo) if bias else 0
     fn = ref.ACTIVATIONS[act]
     if quant:
         wq, scale = quantize_blocks(w)
         run = lambda: bk.bdmm(x, wq, b, scale, activation=act)  # noqa: E731
         plain = lambda: ref.bdmm_quant_ref(x, wq, scale, b, act)  # noqa: E731
-        want = ref.bdmm_quant_ref(x.float(), wq, scale, b.float(), act)
+        want = ref.bdmm_quant_ref(x.float(), wq, scale, bf, act)
+        zeroed = wq.clone()
+        zeroed[0] = 0
+        dropped = ref.bdmm_quant_ref(x.float(), zeroed, scale, bf, act)
         wide = wq.to(dtype)
         yard = lambda: fn(torch.bmm(xt, wide) * scale[:, None, :].to(  # noqa
             dtype) + bb)
@@ -4009,13 +4060,18 @@ def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant):
         wf = w.to(dtype)
         run = lambda: bk.bdmm(x, wf, b, activation=act)  # noqa: E731
         plain = lambda: ref.bdmm_ref(x, wf, b, act)  # noqa: E731
-        want = ref.bdmm_ref(x.float(), wf.float(), b.float(), act)
+        want = ref.bdmm_ref(x.float(), wf.float(), bf, act)
+        zeroed = wf.float().clone()
+        zeroed[0] = 0
+        dropped = ref.bdmm_ref(x.float(), zeroed, bf, act)
         yard = lambda: fn(torch.bmm(xt, wf) + bb)  # noqa: E731
         library = lambda: torch.bmm(xt, wf)  # noqa: E731
         w_bytes = wf.numel() * wf.element_size()
     got, used = run_routed(run, bk.routes)
     ok, err, ratio, tol = close(torch, got, want, "bdmm", dt)
-    del got, want
+    rejects = not close(torch, dropped, want, "bdmm", dt)[0]
+    ok = ok and rejects
+    del got, want, dropped, zeroed
     pl = bk.plan(m, nb, bi, bo, dtype, torch.int8 if quant else dtype, False,
                  bk._build.copy_width(x, bi * x.element_size()),
                  bk._build.copy_width(wq if quant else wf,
@@ -4025,14 +4081,16 @@ def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant):
               else ("decode_tc", "tc", "tc_small_m"))
     ok = ok and used == [pl.route] and pl.route in bodies
     es = x.element_size()
-    nbytes = m * nb * bi * es + w_bytes + b.numel() * es + m * nb * bo * es
+    nbytes = (m * nb * bi * es + w_bytes + (b.numel() * es if bias else 0)
+              + m * nb * bo * es)
     b_ms, b_by = bound(nbytes, 2.0 * m * nb * bi * bo, dt)
     row = {"phase": "kernels", "kernel": grid, "shape": name, "m": m,
            "role": "fwd", "nb": nb, "bi": bi, "bo": bo, "activation": act,
-           "weights": "int8" if quant else dt, "dtype": dt,
+           "bias": bias, "weights": "int8" if quant else dt, "dtype": dt,
            "max_abs_err": err, "err_over_tol": ratio,
            "tol": dict(tol, against="plain version in f32 on the same values"),
-           "ok": ok, "routes_launched": used,
+           "rejects_zeroed_block": rejects, "ok": ok,
+           "routes_launched": used,
            "plan": {"route": pl.route, "tile": pl.tile, "grid": pl.grid,
                     "split": pl.split, "k_chunk": pl.k_chunk},
            "ms": timer.ms(run), "plain_ms": timer.ms(plain),
@@ -4042,7 +4100,8 @@ def epilogue_row(torch, dev, timer, gen, name, nb, bi, bo, act, m, dt, quant):
            "yardstick": ("torch.bmm over the blocks"
                          + (" widened outside the timed call, the scale"
                             if quant else "")
-                         + f", the bias and {act or 'no activation'}"),
+                         + (", the bias" if bias else ", no bias")
+                         + f" and {act or 'no activation'}"),
            "bound_ms": b_ms, "bound_by": b_by}
     return row, grid
 
@@ -4172,6 +4231,32 @@ def recurrent_state_bytes(model, n_slots) -> int:
                for t in c.values())
 
 
+def state_copy(torch, model, n_slots, dev, iters=15):
+    """The engine's copy of ``model.recurrent_state`` before each decode
+    program, alone, at ``n_slots`` rows: one ``copy_`` a leaf, its device
+    ms (``Timer.ms``: CUDA events, L2 flushed), the host's ms to enqueue it
+    (median of ``iters``), the bytes it reads and writes and their bound."""
+    caches = model.init_caches(n_slots, 1, device=dev)
+    state = model.recurrent_state(caches)
+    keep = [torch.empty_like(t) for t in state]
+
+    def copy():
+        for k, t in zip(keep, state):
+            k.copy_(t)
+    device_ms = Timer(torch, dev).ms(copy, iters)
+    host = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        copy()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in state)
+    return {"leaves": len(state), "bytes": nbytes, "device_ms": device_ms,
+            "host_enqueue_ms": statistics.median(host),
+            "bound_ms": bound(nbytes, 0, "bfloat16")[0]}
+
+
 def scan_share(torch, model, window, kw, n_replays=20):
     """The time scan's device ms in a captured decode step and prefill
     chunk: one layer's ``_scan`` at the step's shape (``n_slots`` rows,
@@ -4275,6 +4360,7 @@ def recurrent_phase(torch, dev, ops, phase):
     window["device"] = dev
     scan = scan_share(torch, model, window, wkw)
     del window["device"]
+    copy = state_copy(torch, model, kw["n_slots"], dev)
     reused = [t["prefix_tokens_reused"] for t in turns["turns"]]
     checks = {"graph_turns": turns["ok"],
               "bdmm_grids": launches["bdmm"] > 0 and launches["bdmm_decode"] > 0,
@@ -4293,7 +4379,8 @@ def recurrent_phase(torch, dev, ops, phase):
                                   and launches["paged_prefill_attention"] == 0)
     row = {"phase": phase, "ok": all(checks.values()), "checks": checks,
            "graph_turns": turns, "decode_window": window,
-           "scan_share": scan, "prefix_tokens_reused": reused,
+           "scan_share": scan, "state_copy": copy,
+           "prefix_tokens_reused": reused,
            "attention_groups_planned": sorted(seen),
            "bdmm_epilogues": {k: v for k, v in epilogues.items() if v},
            "launches": launches}
@@ -4631,6 +4718,287 @@ def router_phase(torch, dev, ops, single):
 
 
 # --------------------------------------------------------------------- main
+# --------------------------------------------------------------- embed
+# qwen2-vl-72b through the serve launcher: the static prefill of 4 x 512
+# standard-normal embeds into dense caches of 512 + --gen rows, int8
+EMBED_ARGV = ["--arch", "qwen2-vl-72b", "--static", "--batch", "4",
+              "--prompt-len", "512", "--quantize", "int8"]
+EMBED_GEN = 16                  # the launcher's default --gen
+HUBERT_FRAMES = (4, 1024)       # hubert-xlarge: 4 clips of 1024 frames
+EMBED_EXACT_LAYERS = 2          # the float32 kernel-vs-plain checks' depth
+EMBED_CHUNK, EMBED_DECODE = 64, 4   # the paged check: a chunk, then steps
+TC_BODIES = ("decode_tc", "tc", "tc_small_m")   # bdmm's bf16 bodies
+# bdmm at every block shape of the embed configs (mpd_c=8), bf16: (name,
+# nb, bi, bo, activation, m, int8, bias): qwen2-vl's q/o, k/v, up/gate and
+# down over the static prefill's 4 x 512 rows and its unembed at 4 last
+# tokens, fp and int8, no bias; hubert's q/k/v/o, up (gelu) and down with
+# their biases and its unembed (63 channels a block: 126-byte rows, 2-byte
+# copies, no TMA) over 4 x 1024 frames, fp as served
+EMBED_BDMM = {
+    "qwen2_vl_72b": [(name, 8, bi, bo, act, m, q, False)
+                     for name, bi, bo, act, m in (
+                         ("qkvo", 1024, 1024, None, 2048),
+                         ("kv", 1024, 128, None, 2048),
+                         ("up_gate", 1024, 3696, "silu", 2048),
+                         ("down", 3696, 1024, None, 2048),
+                         ("unembed", 1024, 19008, None, 4))
+                     for q in (False, True)],
+    "hubert_xlarge": [("qkvo", 8, 160, 160, None, 4096, False, True),
+                      ("up", 8, 160, 640, "gelu", 4096, False, True),
+                      ("down", 8, 640, 160, None, 4096, False, True),
+                      ("unembed", 8, 160, 63, None, 4096, False, False)],
+}
+
+
+def check_embed_bdmm(torch, dev, timer, rows, summary):
+    """bdmm at ``EMBED_BDMM``'s blocks: each against its plain version in
+    f32 under the bf16 bdmm rule (which must reject the plain output with
+    a block zeroed), timed beside the plain version, one torch.bmm (fp) or
+    the widened-block yardstick (int8) and its bound."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for key, cases in EMBED_BDMM.items():
+        for name, nb, bi, bo, act, m, quant, bias in cases:
+            row, grid = epilogue_row(torch, dev, timer, gen, name, nb, bi,
+                                     bo, act, m, "bfloat16", quant,
+                                     bias=bias)
+            row["config"] = key
+            rows.append(row)
+            emit(row)
+            s = summary[grid]
+            s["max_abs_err"] = max(s["max_abs_err"], row["max_abs_err"])
+            s["err_over_tol"] = max(s["err_over_tol"], row["err_over_tol"])
+            s["ok"] = s["ok"] and row["ok"]
+            s.setdefault(key, []).append({k: row[k] for k in (
+                "shape", "m", "weights", "ms", "plain_ms", "library_ms",
+                "yardstick_ms", "bound_ms", "bound_by", "routes_launched",
+                "rejects_zeroed_block")})
+            torch.cuda.empty_cache()
+
+
+def embed_breakdown(torch, timer, fn, n=3, top_n=8):
+    """Where a call's time goes: ``fn()``'s CUDA-event ms (``Timer.ms``,
+    median of ``n``), then one call under torch.profiler: device ms by
+    kernel family, their sum and its share of the profiled call's wall ms,
+    and the ``top_n`` kernels by device ms."""
+    ms = timer.ms(fn, iters=n)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    families, busy, _ = device_families(torch, prof, 1)
+    top = sorted((e for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0) > 0),
+                 key=lambda e: -e.self_device_time_total)[:top_n]
+    return {"warm_ms": ms, "profiled_wall_ms": wall,
+            "device_ms": busy, "busy_share_profiled": busy / wall,
+            "busy_share_warm": busy / ms,
+            "device_ms_by_family": {k: v for k, v in families.items() if v},
+            "top_kernels": [{"name": e.key[:100], "calls": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def embed_config_line(torch, cfg, model, params, kw, **extra):
+    emit({"phase": "embed", "stage": "config", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "norm": cfg.norm, "ffn": cfg.ffn_kind, "bias": cfg.use_bias,
+          "causal": cfg.causal, "rope": cfg.rope,
+          "mrope_sections": (list(cfg.mrope_sections)
+                             if cfg.rope == "mrope" else None),
+          "rope_theta": cfg.rope_theta, "frontend": cfg.frontend,
+          "mpd_c": cfg.mpd_c, "dtype": cfg.dtype,
+          "param_count": model.param_count(),
+          "bytes": model_bytes(torch, model, params, kw), **extra})
+
+
+def embed_exact(torch, dev, ops, arch):
+    """``arch`` cut to ``EMBED_EXACT_LAYERS`` layers at float32 (qwen2-vl
+    int8 as served, hubert fp): the kernel route against the plain route
+    on the same inputs, every output within ``FOLD_TOL``'s 1e-4 + 1e-4 |y|.
+    qwen2-vl: ``logits`` and the dense ``prefill`` of 64 embeds, a paged
+    ``prefill_chunk`` of them and 4 ``decode_step`` calls on (1, 1, d)
+    embeds; hubert: ``logits`` over 4 x 1024 frames. The kernel route
+    launches every kernel of the path (the paged ones at qwen2-vl's 8 heads
+    per KV head), the plain route none."""
+    from repro_torch.launch import serve as launch
+
+    qwen = arch == "qwen2-vl-72b"
+    cfg, model, params = launch.load_model(
+        arch, quantize="int8" if qwen else "", dtype="float32",
+        n_layers=EMBED_EXACT_LAYERS, device=dev)
+    D = cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(((1, EMBED_CHUNK) if qwen else HUBERT_FRAMES) + (D,),
+                    generator=gen, device=dev)
+    steps = [torch.randn((1, 1, D), generator=gen, device=dev)
+             for _ in range(EMBED_DECODE if qwen else 0)]
+    ps = 16
+    n_pages = -(-(EMBED_CHUNK + EMBED_DECODE) // ps)
+    bt = torch.arange(1, n_pages + 1, dtype=torch.int32, device=dev)
+    live = torch.ones((1,), dtype=torch.bool, device=dev)
+
+    def run():
+        out = {"logits": model.logits(params, x)}
+        if not qwen:
+            return out
+        caches = model.init_caches(1, EMBED_CHUNK + EMBED_DECODE,
+                                   device=dev)
+        out["prefill"] = model.prefill(params, x, caches)[0]
+        paged = model.init_paged_caches(1, n_pages + 1, ps, device=dev)
+        out["prefill_chunk"] = model.prefill_chunk(
+            params, x, paged, bt, 0, 0, EMBED_CHUNK)[0]
+        for i, e in enumerate(steps):
+            out[f"decode_step_{i}"] = model.decode_step(
+                params, e, paged, bt[None], live)[0]
+        return out
+    results, counts = {}, {}
+    for backend in ("cuda", "torch"):
+        ops.set_backend(backend)
+        ops.reset_launch_counts()
+        try:
+            with torch.no_grad():
+                results[backend] = run()
+        finally:
+            ops.set_backend("cuda")
+        torch.cuda.synchronize()
+        counts[backend] = ops.launch_counts()
+    outputs, ok = {}, True
+    for k, got in results["cuda"].items():
+        want = results["torch"][k]
+        err = (got - want).abs()
+        lim = FOLD_TOL["atol"] + FOLD_TOL["rtol"] * want.abs()
+        k_ok = (bool(torch.isfinite(got).all())
+                and bool(torch.isfinite(want).all())
+                and bool((err <= lim).all()))
+        ok = ok and k_ok
+        outputs[k] = {"ok": k_ok, "shape": list(got.shape),
+                      "max_abs_err": float(err.max()),
+                      "err_over_tol": float((err / lim).max())}
+    need = ["bdmm", "bdmm_decode"] if qwen else ["bdmm"]
+    if qwen:
+        need += ["paged_attention", "paged_prefill_attention"]
+    routes_ok = (all(counts["cuda"][k] > 0 for k in need)
+                 and not any(counts["torch"].values()))
+    del model, params, results
+    torch.cuda.empty_cache()
+    return {"ok": ok and routes_ok, "cut": f"{cfg.n_layers} layers",
+            "dtype": "float32", "weights": "int8" if qwen else "float32",
+            "tol": dict(FOLD_TOL, rule="atol + rtol * |plain|"),
+            "outputs": outputs, "launches_kernel_route": counts["cuda"],
+            "launches_plain_route": counts["torch"]}
+
+
+def embed_phase(torch, dev, ops):
+    """qwen2-vl-72b's static prefill through the serve launcher and
+    hubert-xlarge's logits, both at their published widths, then each at
+    2 layers in float32 through the kernels and the plain versions
+    (``embed_exact``). See phase 28 in the module docstring."""
+    from repro_torch.kernels import bdmm as bk
+    from repro_torch.launch import serve as launch
+
+    out = {"phase": "embed"}
+    checks = {}
+    timer = Timer(torch, dev)
+    # qwen2-vl-72b through the launcher (its model recorded on the way)
+    loaded, real = [], launch.load_model
+
+    def recording(*a, **k):
+        got = real(*a, **k)
+        loaded.append(got)
+        return got
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launch.load_model = recording
+    try:
+        ops.reset_launch_counts()
+        static = launch.main(EMBED_ARGV)
+        torch.cuda.synchronize()
+        q_launches = ops.launch_counts()
+        q_routes = {k: v for k, v in bk.routes.items() if v}
+    finally:
+        launch.load_model = real
+    cfg, model, params = loaded.pop()
+    embed_config_line(torch, cfg, model, params,
+                      {"n_slots": 4, "max_len": 512 + EMBED_GEN},
+                      weights="int8",
+                      setup_and_prefill_s=time.perf_counter() - t0)
+    logits = static["logits"]
+    checks["qwen2_vl_logits"] = (tuple(logits.shape) == (4, cfg.vocab)
+                                 and bool(torch.isfinite(logits).all()))
+    checks["qwen2_vl_bdmm_bodies"] = (
+        q_launches["bdmm"] > 0 and q_launches["bdmm_decode"] > 0
+        and set(q_routes) <= set(TC_BODIES)
+        and sum(q_routes.values())
+        == q_launches["bdmm"] + q_launches["bdmm_decode"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the launcher's one prefill is the first call of every kernel shape;
+    # the same embeds (generator seeded 1) again, warm, and profiled
+    embeds = torch.randn((4, 512, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    caches = model.init_caches(4, 512 + EMBED_GEN, device=dev)
+    with torch.no_grad():
+        warm = embed_breakdown(
+            torch, timer, lambda: model.prefill(params, embeds, caches))
+    out["qwen2_vl_72b"] = {
+        "argv": EMBED_ARGV, "prefill_ms": static["prefill_ms"],
+        "tokens": 4 * 512,
+        "prefill_tok_s": 4 * 512 / (static["prefill_ms"] / 1e3),
+        "warm_prefill": warm, "peak_device_bytes": peak,
+        "bdmm_routes": q_routes, "launches": q_launches}
+    del model, params, static, logits, embeds, caches
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge's logits over 4 x 1024 frames
+    t0 = time.perf_counter()
+    cfg, model, params = launch.load_model("hubert-xlarge", device=dev)
+    embed_config_line(torch, cfg, model, params,
+                      {"n_slots": 0, "max_len": 0}, weights=cfg.dtype,
+                      setup_s=time.perf_counter() - t0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn(HUBERT_FRAMES + (cfg.d_model,), generator=gen,
+                         device=dev).to(cfg.tdtype)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        y = model.logits(params, frames)
+        torch.cuda.synchronize()
+        h_launches = ops.launch_counts()
+        h_routes = {k: v for k, v in bk.routes.items() if v}
+        hidden = model.forward(params, frames)[0]
+        _, unembed_route = run_routed(
+            lambda: model.unembed.apply(params["unembed"], hidden), bk.routes)
+        timed = embed_breakdown(torch, timer,
+                                lambda: model.logits(params, frames))
+    checks["hubert_logits"] = (tuple(y.shape) == HUBERT_FRAMES + (cfg.vocab,)
+                               and bool(torch.isfinite(y).all()))
+    checks["hubert_bdmm_bodies"] = (h_launches["bdmm"] > 0
+                                    and set(h_routes) <= set(TC_BODIES))
+    checks["hubert_unembed_route"] = (len(unembed_route) == 1
+                                      and unembed_route[0] in TC_BODIES)
+    ms = timed["warm_ms"]
+    out["hubert_xlarge"] = {
+        "frames": list(HUBERT_FRAMES), "logits_ms": ms, "logits": timed,
+        "frames_per_s": HUBERT_FRAMES[0] * HUBERT_FRAMES[1] / (ms / 1e3),
+        "unembed_route": unembed_route, "bdmm_routes": h_routes,
+        "launches": h_launches}
+    del model, params, frames, y, hidden, timer
+    torch.cuda.empty_cache()
+
+    exact = {arch: embed_exact(torch, dev, ops, arch)
+             for arch in ("qwen2-vl-72b", "hubert-xlarge")}
+    checks.update({f"exact_{arch}": e["ok"] for arch, e in exact.items()})
+    out.update(ok=all(checks.values()), checks=checks, exact=exact,
+               launches={k: q_launches[k] + h_launches[k]
+                         for k in q_launches})
+    emit(out)
+    return out
+
+
 def main() -> int:
     import resource
 
@@ -4719,6 +5087,7 @@ def main() -> int:
           summary)
     timed("kernels_masked_epilogues", check_masked_epilogues, torch, dev,
           timer, rows, summary)
+    timed("kernels_embed", check_embed_bdmm, torch, dev, timer, rows, summary)
     del timer
     (OUT_DIR / "kernels.jsonl").write_text(
         "\n".join(json.dumps(r) for r in rows) + "\n")
@@ -4817,15 +5186,20 @@ def main() -> int:
                    served["streams"])
     if not routed["ok"]:
         failed.append("router")
+    torch.cuda.empty_cache()
+    embed = timed("embed", embed_phase, torch, dev, ops)
+    if not embed["ok"]:
+        failed.append("embed")
     # the main path's launches: paged and slot-dense serving, the static
     # lockstep batch, training (perm-fused packed and resumed too), the
     # fused deploy, the speculative turns, the serving surface, the
     # paper's experiments, granite-8b through the launcher, qwen2-moe's,
-    # rwkv6-3b's and jamba's captured turns, olmo-1b's replica fleets
+    # rwkv6-3b's and jamba's captured turns, olmo-1b's replica fleets,
+    # qwen2-vl-72b's static prefill and hubert-xlarge's logits
     launches = {k: sum(p["launches"][k]
                        for p in (served, dense, static, trained, train_fused,
                                  resumed, deployed, spec, surface, paper, gqa,
-                                 moe, *recurrent.values(), routed))
+                                 moe, *recurrent.values(), routed, embed))
                 for k in launches}
     from repro_torch.data import pipeline
     emit({"phase": "timing", "seconds": seconds,
@@ -4856,7 +5230,9 @@ def main() -> int:
                         **({"f32_rows": s["f32_rows"]}
                            if "f32_rows" in s else {}),
                         **({k: s[k] for k in ("bodies", "tall_rows",
-                                              "granite_8b", "epilogue_rows")
+                                              "epilogue_rows",
+                                              *HEAD_ROWS.values(),
+                                              *EMBED_BDMM)
                             if k in s})})
     # the fused MLP's launches on its m > 64 body: training batches
     # (train_fused, resume; the serving phases run it at m <= 64)

@@ -37,8 +37,9 @@ passes between the two packages in both directions::
   order and crc32 chain.
 * A packed export's manifest carries the packed config with the
   reference's full field set (:data:`FOREIGN_CONFIG_DEFAULTS` for the
-  fields the port's config lacks: M-RoPE's and ``remat``), so the reference's
-  ``load_packed`` rebuilds the model from the directory alone.
+  one field the port's config lacks, ``remat``), so the reference's
+  ``load_packed`` rebuilds the model from the directory alone. An embed
+  frontend's export has no ``embed`` leaf, as the reference's has none.
 """
 
 from __future__ import annotations
@@ -61,9 +62,8 @@ PACKED_SUBDIR = "packed"
 BF16_DESCR = np.dtype("V2")         # how numpy stores a bfloat16 leaf
 
 # The reference's ModelConfig fields, in its order (``dataclasses.asdict``
-# writes them so), and the defaults of those the port's config lacks: they
-# belong to M-RoPE (the vision frontend, not ported) or to the reference's
-# rematerialization.
+# writes them so), and the default of the one the port's config lacks: the
+# reference's rematerialization, ``remat``.
 CONFIG_FIELDS = (
     "name", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
     "head_dim", "norm", "ffn_kind", "use_bias", "causal", "rope",
@@ -73,7 +73,7 @@ CONFIG_FIELDS = (
     "q_chunk", "loss_chunk", "dtype", "aux_loss_weight", "remat", "mpd_c",
     "mpd_mode", "mpd_min_block", "mpd_permuted", "mpd_seed", "mpd_per_kind",
     "mpd_fuse")
-FOREIGN_CONFIG_DEFAULTS = {"mrope_sections": (16, 24, 24), "remat": "block"}
+FOREIGN_CONFIG_DEFAULTS = {"remat": "block"}
 # remat changes what the reference's backward recomputes, not the function;
 # the port keeps activations, which computes the same values as either
 REMAT_VALUES = ("block", "none")
@@ -268,9 +268,8 @@ def config_to_dict(cfg) -> Dict[str, Any]:
 
 def config_from_dict(d: Dict[str, Any]):
     """Rebuild the port's config from a manifest's ``packed_config``.
-    Raises ``ValueError`` on a field that selects an architecture the port
-    does not have (a non-default value of a foreign field) or on a field
-    neither package knows."""
+    Raises ``ValueError`` on a ``remat`` value the reference does not
+    have or on a field neither package knows."""
     from repro_torch.models import ModelConfig
 
     own = {f.name for f in dataclasses.fields(ModelConfig)}
@@ -284,12 +283,6 @@ def config_from_dict(d: Dict[str, Any]):
             if v not in REMAT_VALUES:
                 raise ValueError(f"packed_config: remat={v!r} not in "
                                  f"{REMAT_VALUES}")
-        elif k in FOREIGN_CONFIG_DEFAULTS:
-            if v != FOREIGN_CONFIG_DEFAULTS[k]:
-                raise ValueError(
-                    f"packed_config: {k}={v!r} (default "
-                    f"{FOREIGN_CONFIG_DEFAULTS[k]!r}) selects an "
-                    "architecture the port does not support")
         else:
             raise ValueError(f"packed_config: unknown field {k!r}")
     return ModelConfig(**kw)

@@ -11,7 +11,11 @@ every packed projection (``--quantize int8``, or ``int4``: 4-bit values
 the kernels read as int8), and serves ``--requests`` synthetic requests on
 the slot-dense engine (the default, as the reference's) or the paged one
 (``--paged``). ``--static`` prefills one batch of ``--batch`` prompts and
-decodes it in lockstep, logging the prefill ms and the decode tok/s.
+decodes it in lockstep, logging the prefill ms and the decode tok/s; for
+an embed frontend (qwen2-vl-72b) the prompts are standard-normal embeds
+and the decode is skipped (no token stream to feed back), and only
+``--static`` serves one. An encoder (hubert-xlarge) has no decode and is
+refused.
 ``--mpd-fuse`` builds the Fig-3 perm-fused model, whose FFNs run as one
 fused kernel each; ``--mpd-c`` overrides the compression. ``--ckpt-dir
 DIR`` serves the packed artifact in ``DIR/packed`` when there is one
@@ -236,6 +240,11 @@ def load_spec_draft(spec_dir, *, device=None):
     return draft, params
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def static_decode(model, params, prompts, gen):
     """The legacy lockstep path: one prefill of ``prompts (B, T)`` into
     dense caches of ``T + gen`` rows, then ``gen - 1`` greedy decode steps
@@ -248,17 +257,13 @@ def static_decode(model, params, prompts, gen):
     dev = prompts.device
     captured = dev.type == "cuda" and gen > 1
     B, T = prompts.shape
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
     with torch.no_grad():
         caches = model.init_caches(B, T + gen, device=dev)
-        sync()
+        _sync(dev)
         t0 = time.perf_counter()
         logits, caches = model.prefill(params, prompts, caches)
         tok = torch.argmax(logits, dim=-1)
-        sync()
+        _sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         out = [tok.clone()]
         step = lambda: model.decode_step(params, tok, caches)[0]  # noqa: E731
@@ -272,12 +277,12 @@ def static_decode(model, params, prompts, gen):
             for t, v in zip(state, saved):
                 t.copy_(v)
             step = graph.replay
-        sync()
+        _sync(dev)
         t0 = time.perf_counter()
         for _ in range(gen - 1):
             tok.copy_(torch.argmax(step(), dim=-1))
             out.append(tok.clone())
-        sync()
+        _sync(dev)
         decode_ms = (time.perf_counter() - t0) * 1e3
     return {"tokens": torch.stack(out, dim=1).cpu().numpy(),
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
@@ -287,7 +292,13 @@ def static_decode(model, params, prompts, gen):
 
 def _static_main(args, cfg, model, params, device):
     """``--static``: prompts from ``SyntheticLM(seed=0)``, one prefill, a
-    lockstep greedy decode."""
+    lockstep greedy decode. An embed frontend prefills ``(batch,
+    prompt_len, d_model)`` standard-normal embeds drawn on the device from a
+    generator seeded 1 (the reference draws ``jax.random.normal`` of
+    ``PRNGKey(1)``: other values) into dense caches, timed on a synchronised
+    clock, and skips the decode; it returns ``{"prefill_ms", "logits"}``."""
+    if cfg.frontend != "token":
+        return _static_embed(args, cfg, model, params, device)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.prompt_len,
                        global_batch=args.batch, seed=0)
     prompts = torch.as_tensor(data.next()["inputs"], device=device)
@@ -297,6 +308,27 @@ def _static_main(args, cfg, model, params, device):
     log.info("decode %d steps (%s): %.1f ms (%.0f tok/s)", args.gen - 1,
              out["route"], out["decode_ms"], out["decode_tok_s"])
     return out
+
+
+def _static_embed(args, cfg, model, params, device):
+    gen = torch.Generator(device=device).manual_seed(1)
+    embeds = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                         generator=gen, device=device)
+    with torch.no_grad():
+        caches = model.init_caches(args.batch, args.prompt_len + args.gen,
+                                   device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, _ = model.prefill(params, embeds, caches)
+        _sync(device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    log.info("prefill %dx%d: %.1f ms", args.batch, args.prompt_len,
+             prefill_ms)
+    # embed frontends have no incremental token stream to feed back; timing
+    # an empty loop would report a bogus decode rate
+    log.info("decode: skipped (embed frontend — no autoregressive token "
+             "stream)")
+    return {"prefill_ms": prefill_ms, "logits": logits}
 
 
 def _build_resilience(args, *, chaos=True):
@@ -556,6 +588,13 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) != default:
             raise SystemExit(f"{flag} is not ported (ROADMAP queue A item "
                              f"{item})")
+    cfg0 = get_config(args.arch, smoke=args.smoke)
+    if not cfg0.causal:
+        raise SystemExit(f"{args.arch} is encoder-only (no decode)")
+    if cfg0.frontend != "token" and not args.static:
+        raise SystemExit(
+            f"{args.arch} has an embed frontend — the continuous engine "
+            "serves token streams; use --static for prefill timing")
     if args.static and args.paged:
         raise SystemExit("--static and --paged are mutually exclusive "
                          "(paged is a continuous-engine memory model)")

@@ -100,11 +100,15 @@ def main(argv=None):
     if args.data_axis:
         raise SystemExit("--data-axis: meshes and data parallelism are not "
                          "ported (ROADMAP A11); the port trains on one device")
+    cfg = get_config(args.arch, smoke=args.smoke, **over)
+    if cfg.frontend != "token":
+        raise SystemExit(f"{args.arch} uses an embedding frontend; training "
+                         "on embed inputs is not ported (ROADMAP queue A "
+                         "item 5)")
     try:
         device = device_lib.resolve(args.device)
     except device_lib.NoCudaDevice as e:
         raise SystemExit(str(e)) from e
-    cfg = get_config(args.arch, smoke=args.smoke, **over)
     model = build(cfg)
     print(f"{cfg.name}: {model.param_count():,} params")
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,

@@ -1,5 +1,6 @@
 """Attention (the port of ``repro.models.attention`` for the full-sequence
-training path and both serving paths: ``AttentionSpec``, ``_qkv``,
+training path and both serving paths: ``AttentionSpec`` (RoPE, M-RoPE or
+none), ``_cos_sin``, ``_qkv``,
 ``_attend``, ``attend_full``, ``apply_train``; the dense decode cache
 ``init_cache``, ``_update_rows`` and ``apply_decode``; ``init_paged_cache``,
 ``apply_decode_paged``, ``apply_verify_paged``, ``prefill_chunk_paged``).
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -37,8 +39,9 @@ class AttentionSpec:
     n_kv_heads: int
     head_dim: int
     causal: bool = True
-    rope: str = "rope"  # rope | none
+    rope: str = "rope"  # rope | mrope | none
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     q_chunk: int = 128
     use_bias: bool = False
     wq: Linear = None
@@ -48,14 +51,14 @@ class AttentionSpec:
 
     @staticmethod
     def make(policy: CompressionPolicy, d_model, n_heads, n_kv_heads, head_dim,
-             *, causal=True, rope="rope", rope_theta=1e4, q_chunk=128,
-             use_bias=False, seed_salt=0,
-             fuse_perms=False) -> "AttentionSpec":
+             *, causal=True, rope="rope", rope_theta=1e4,
+             mrope_sections=(16, 24, 24), q_chunk=128, use_bias=False,
+             seed_salt=0, fuse_perms=False) -> "AttentionSpec":
         """``fuse_perms``: k and v take q's input permutation (each keeps its
         own output permutation: RoPE and the head split need natural output
         order), so :func:`_qkv` packs ``x`` once for all three."""
-        if rope not in ("rope", "none"):
-            raise NotImplementedError(f"rope={rope!r} is not ported")
+        if rope not in ("rope", "mrope", "none"):
+            raise ValueError(f"rope={rope!r} not in rope | mrope | none")
         overrides = {}
         if fuse_perms:
             mq = policy.plan(d_model, n_heads * head_dim, "attn_qkv",
@@ -76,7 +79,7 @@ class AttentionSpec:
                                mask_override=overrides.get(name))
         return AttentionSpec(
             d_model, n_heads, n_kv_heads, head_dim, causal, rope, rope_theta,
-            q_chunk, use_bias,
+            tuple(mrope_sections), q_chunk, use_bias,
             wq=mk(d_model, n_heads * head_dim, "attn_qkv", 0),
             wk=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 1, "wk"),
             wv=mk(d_model, n_kv_heads * head_dim, "attn_qkv", 2, "wv"),
@@ -99,6 +102,27 @@ class AttentionSpec:
                 for n in ("wq", "wk", "wv", "wo")}
 
 
+def _cos_sin(spec: AttentionSpec, positions):
+    """cos/sin ``(B, T, head_dim/2)`` at ``positions``: ``(B, T)``, or
+    ``(3, B, T)`` (temporal, height, width) for M-RoPE; ``(None, None)``
+    without a rotary encoding."""
+    if spec.rope == "mrope":
+        return layers.mrope_cos_sin(positions, spec.head_dim,
+                                    spec.mrope_sections, spec.rope_theta)
+    if spec.rope == "rope":
+        return layers.rope_cos_sin(positions, spec.head_dim, spec.rope_theta)
+    return None, None
+
+
+def text_positions(spec: AttentionSpec, positions):
+    """``positions (B, T)`` as the encoding takes them: three identical
+    rows ``(3, B, T)`` for M-RoPE (text only: t == h == w ids), as is
+    otherwise."""
+    if spec.rope == "mrope":
+        return torch.stack([positions, positions, positions])
+    return positions
+
+
 def _qkv(spec: AttentionSpec, params, x, positions):
     B, T, _ = x.shape
     packed = spec.shared_pack
@@ -110,9 +134,8 @@ def _qkv(spec: AttentionSpec, params, x, positions):
     q = proj("wq").reshape(B, T, spec.n_heads, spec.head_dim)
     k = proj("wk").reshape(B, T, spec.n_kv_heads, spec.head_dim)
     v = proj("wv").reshape(B, T, spec.n_kv_heads, spec.head_dim)
-    if spec.rope == "rope":
-        cos, sin = layers.rope_cos_sin(positions, spec.head_dim,
-                                       spec.rope_theta)
+    cos, sin = _cos_sin(spec, positions)
+    if cos is not None:
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
     return q, k, v
@@ -150,11 +173,14 @@ def attend_full(spec: AttentionSpec, q, k, v):
                               spec.causal) for i in range(0, T, cq)], dim=1)
 
 
-def apply_train(spec: AttentionSpec, params, x):
-    """Full-sequence attention (training) at positions ``0..T-1``.
-    ``x: (B, T, D)``."""
+def apply_train(spec: AttentionSpec, params, x, positions=None):
+    """Full-sequence attention (training). ``x: (B, T, D)``; ``positions``
+    ``(B, T)`` (``(3, B, T)`` for M-RoPE), by default ``0..T-1`` on every
+    row (M-RoPE: the same ids in all three rows)."""
     B, T, _ = x.shape
-    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    if positions is None:
+        positions = text_positions(
+            spec, torch.arange(T, device=x.device)[None].expand(B, T))
     q, k, v = _qkv(spec, params, x, positions)
     o = attend_full(spec, q, k, v)
     return spec.wo.apply(params["wo"],
@@ -194,7 +220,8 @@ def apply_decode(spec: AttentionSpec, params, x, cache):
     assert T == 1
     pos = cache["pos"]
     pos_b = pos if pos.dim() == 1 else pos.expand(B)
-    q, k_new, v_new = _qkv(spec, params, x, pos_b[:, None])
+    q, k_new, v_new = _qkv(spec, params, x,
+                           text_positions(spec, pos_b[:, None]))
     k = _update_rows(cache["k"], k_new, pos_b)
     v = _update_rows(cache["v"], v_new, pos_b)
     S = k.shape[1]
@@ -252,7 +279,8 @@ def apply_decode_paged(spec: AttentionSpec, params, x, cache, block_tables,
     page_size = kp.shape[1]
     P = block_tables.shape[1]
     pos = cache["pos"]
-    q, k_new, v_new = _qkv(spec, params, x, pos[:, None])
+    q, k_new, v_new = _qkv(spec, params, x,
+                           text_positions(spec, pos[:, None]))
     pidx = torch.clamp(pos // page_size, 0, P - 1).long()
     pages = torch.gather(block_tables, 1, pidx[:, None])[:, 0].long()
     if live is not None:
@@ -290,7 +318,7 @@ def apply_verify_paged(spec: AttentionSpec, params, x, cache, block_tables,
     P = block_tables.shape[1]
     pos = cache["pos"]
     pos_bt = pos[:, None] + torch.arange(Tq, device=x.device)[None, :]
-    q, k_new, v_new = _qkv(spec, params, x, pos_bt)
+    q, k_new, v_new = _qkv(spec, params, x, text_positions(spec, pos_bt))
     pidx = torch.clamp(pos_bt // page_size, 0, P - 1).long()
     pages = torch.gather(block_tables, 1, pidx).long()          # (B, Tq)
     if live is not None:
@@ -332,7 +360,8 @@ def prefill_chunk_paged(spec: AttentionSpec, params, x, cache, bt_row,
     assert Tc % page_size == 0, (Tc, page_size)
     n_chunk_pages = Tc // page_size
     dev = x.device
-    positions = (start + torch.arange(Tc, device=dev))[None]
+    positions = text_positions(
+        spec, (start + torch.arange(Tc, device=dev))[None])
     q, k, v = _qkv(spec, params, x, positions)
     idx = start // page_size + torch.arange(n_chunk_pages, device=dev)
     page_ids = torch.where(idx < P, bt_row[torch.clamp(idx, 0, P - 1)].long(),

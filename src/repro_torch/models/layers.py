@@ -1,5 +1,5 @@
-"""Norms, rotary encodings and embeddings (the port of
-``repro.models.layers``; no M-RoPE, no sharded embedding).
+"""Norms, rotary encodings (RoPE and Qwen2-VL's M-RoPE) and embeddings
+(the port of ``repro.models.layers``; no sharded embedding).
 
 Numerics follow the reference: norms run in f32 (population variance) and
 cast back; RoPE is half-split, with cos/sin in f32 and the product promoted
@@ -75,6 +75,24 @@ def apply_rope(x, cos, sin):
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def mrope_cos_sin(positions3, head_dim: int, sections=(16, 24, 24),
+                  theta: float = 1_000_000.0):
+    """Qwen2-VL's M-RoPE (arXiv:2409.12191): the rotary frequencies split
+    into (temporal, height, width) sections, each rotated by its own row of
+    ``positions3 (3, B, T)``. ``sections`` count half-dims and sum to
+    ``head_dim / 2``. Returns cos/sin of shape ``(B, T, head_dim/2)``."""
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    freqs = rope_freqs(head_dim, theta, positions3.device)
+    # each section's slots from its own position row (no host-made index:
+    # a captured program may call this)
+    parts, off = [], 0
+    for row, n in zip(positions3, sections):
+        parts.append(row[..., None].float() * freqs[off:off + n])
+        off += n
+    ang = torch.cat(parts, dim=-1)                       # (B, T, D/2)
+    return torch.cos(ang), torch.sin(ang)
 
 
 def init_embedding(generator: torch.Generator, vocab: int, dim: int,

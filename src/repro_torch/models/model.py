@@ -1,6 +1,8 @@
-"""Model assembly (the port of ``repro.models.model`` for every block kind
-of the token frontends: ``"attn"``, ``"attn_moe"``, ``"mamba"``,
-``"mamba_moe"`` and ``"rwkv"``: config, init, the full-sequence
+"""Model assembly (the port of ``repro.models.model`` for every block kind,
+``"attn"``, ``"attn_moe"``, ``"mamba"``, ``"mamba_moe"`` and ``"rwkv"``,
+and both frontends: token ids, or ``(B, T, d_model)`` embeds for
+``frontend="embed"`` (the audio and vision stubs): config, init, the
+full-sequence
 ``forward``/``logits``/``train_loss``, the mask projection and fold of
 masked-dense training, dense caches (``init_caches``,
 ``init_slot_caches``, ``slot_cache_axes``) and ``prefill``, paged caches,
@@ -61,8 +63,7 @@ ATTN_KINDS = ("attn", "attn_moe")
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Field-for-field the reference config, less M-RoPE's
-    ``mrope_sections`` and ``remat``; token frontends."""
+    """Field-for-field the reference config, less ``remat``."""
     name: str = "model"
     n_layers: int = 2
     d_model: int = 128
@@ -74,9 +75,10 @@ class ModelConfig:
     norm: str = "rms"               # rms | ln | none (olmo)
     ffn_kind: str = "swiglu"        # swiglu | gelu | relu
     use_bias: bool = False
-    causal: bool = True
-    rope: str = "rope"              # rope | none
+    causal: bool = True             # False -> encoder (hubert)
+    rope: str = "rope"              # rope | mrope | none
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     pattern: Tuple[str, ...] = ("attn",)
     # MoE
     moe_experts: int = 0
@@ -89,7 +91,7 @@ class ModelConfig:
     # SSM families
     rwkv_head_dim: int = 64
     mamba_expand: int = 2
-    frontend: str = "token"
+    frontend: str = "token"         # token | embed ((B, T, D) inputs)
     q_chunk: int = 128
     loss_chunk: int = 512           # CE sequence chunk
     dtype: str = "float32"
@@ -146,10 +148,6 @@ class Model:
         if not set(cfg.pattern) <= set(BLOCK_KINDS):
             raise ValueError(f"{cfg.name}: pattern {cfg.pattern} has a kind "
                              f"not in {BLOCK_KINDS}")
-        if cfg.frontend != "token":
-            raise NotImplementedError("only token frontends are ported (not "
-                                      "the embed frontends of the audio and "
-                                      "vision models)")
         if cfg.n_layers % len(cfg.pattern):
             raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is no "
                              f"multiple of the pattern {cfg.pattern}")
@@ -171,7 +169,8 @@ class Model:
             spec["mixer"] = attn_lib.AttentionSpec.make(
                 pol, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 causal=cfg.causal, rope=cfg.rope, rope_theta=cfg.rope_theta,
-                q_chunk=cfg.q_chunk, use_bias=cfg.use_bias, seed_salt=idx + 1,
+                mrope_sections=cfg.mrope_sections, q_chunk=cfg.q_chunk,
+                use_bias=cfg.use_bias, seed_salt=idx + 1,
                 fuse_perms=cfg.mpd_fuse)
         elif kind in ("mamba", "mamba_moe"):
             spec["mixer"] = MambaSpec.make(pol, cfg.d_model, cfg.mamba_expand,
@@ -201,15 +200,17 @@ class Model:
         """Random init from ``seed`` on ``device`` (the CUDA device unless
         ``device="cpu"``). Draws differ from ``jax.random``; parity tests
         carry the reference's params over with :mod:`repro_torch.convert`.
-        ``device="meta"`` builds the shape template only."""
+        ``device="meta"`` builds the shape template only. An embed
+        frontend has no ``embed`` leaf."""
         dev = device_lib.resolve(device)
         cfg = self.cfg
         dtype = cfg.tdtype
         gen = (None if dev.type == "meta"
                else torch.Generator(device=dev).manual_seed(seed))
-        params: Dict[str, Any] = {
-            "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dtype,
-                                           dev)}
+        params: Dict[str, Any] = {}
+        if cfg.frontend == "token":
+            params["embed"] = layers.init_embedding(gen, cfg.vocab,
+                                                    cfg.d_model, dtype, dev)
         params["blocks"] = []
         for spec in self.block_specs:
             periods = []
@@ -298,21 +299,27 @@ class Model:
             caches.append(_stack(one))
         return caches
 
+    def recurrent_state(self, caches) -> List[torch.Tensor]:
+        """Every leaf of each recurrent position's state: what a decode
+        step advances in place with nothing on the host to set it back."""
+        return [t for spec, c in zip(self.block_specs, caches)
+                if spec["kind"] not in ATTN_KINDS for t in c.values()]
+
     def step_state(self, caches) -> List[torch.Tensor]:
         """The cache tensors a decode step advances in place: each
-        attention position's ``pos`` and every leaf of a recurrent
-        position's state (a capture saves and puts them back)."""
-        out = []
-        for spec, c in zip(self.block_specs, caches):
-            if spec["kind"] in ATTN_KINDS:
-                out.append(c["pos"])
-            else:
-                out += list(c.values())
-        return out
+        attention position's ``pos`` and ``recurrent_state`` (a capture
+        saves and puts them back)."""
+        return ([c["pos"] for spec, c in zip(self.block_specs, caches)
+                 if spec["kind"] in ATTN_KINDS]
+                + self.recurrent_state(caches))
 
     # ---------------------------------------------------------------- forward
-    def _embed(self, params, tokens):
-        x = layers.embed(params["embed"], tokens)
+    def _embed_inputs(self, params, inputs):
+        """Token ids ``(B, T)`` embedded times sqrt(d_model), or an embed
+        frontend's ``(B, T, d_model)`` embeds cast to the config dtype."""
+        if self.cfg.frontend != "token":
+            return inputs.to(self.cfg.tdtype)
+        x = layers.embed(params["embed"], inputs)
         # sqrt(d_model) rounded to the config dtype first, as the reference's
         # weak-typed scalar is (host-side: no device copy per step)
         return x * float(torch.tensor(self._sqrt_d, dtype=x.dtype))
@@ -363,13 +370,14 @@ class Model:
         x = x + attn_lib.apply_train(spec["mixer"], p["mixer"], h)
         return self._ffn_out(spec, p, x)
 
-    def forward(self, params, tokens):
-        """Full-sequence trunk: ``tokens (B, T)`` -> ``(final-normed hidden
-        states (B, T, d_model), aux)``, ``aux`` the f32 sum of every MoE
+    def forward(self, params, inputs):
+        """Full-sequence trunk: ``inputs`` (token ids ``(B, T)`` or embeds
+        ``(B, T, d_model)``) -> ``(final-normed hidden states (B, T,
+        d_model), aux)``, ``aux`` the f32 sum of every MoE
         block's load-balance term (0 without MoE blocks). Blocks run period
         by period."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed_inputs(params, inputs)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         per_spec = [_unstack(pstack, self.n_periods)
                     for pstack in params["blocks"]]
@@ -380,9 +388,9 @@ class Model:
                     aux = aux + a
         return layers.apply_norm(cfg.norm, params["final_norm"], x), aux
 
-    def logits(self, params, tokens):
+    def logits(self, params, inputs):
         return self.unembed.apply(params["unembed"],
-                                  self.forward(params, tokens)[0])
+                                  self.forward(params, inputs)[0])
 
     def _ce_chunk(self, params, x_chunk, labels_chunk):
         lg = self.unembed.apply(params["unembed"], x_chunk).float()
@@ -392,8 +400,9 @@ class Model:
 
     def train_loss(self, params, batch):
         """Mean next-token cross-entropy, in f32, over ``batch = {"inputs":
-        (B, T), "labels": (B, T)}``; the unembed and CE run per sequence
-        chunk of ``loss_chunk`` tokens (one chunk when T is no multiple).
+        (B, T) or (B, T, d_model), "labels": (B, T)}``; the unembed and CE
+        run per sequence chunk of ``loss_chunk`` tokens (one chunk when T is
+        no multiple).
         A model with MoE blocks adds ``aux_loss_weight * aux /
         len(pattern)``."""
         cfg = self.cfg
@@ -450,8 +459,9 @@ class Model:
                                      quantize=quantize)
 
     # ----------------------------------------------------------------- serve
-    def prefill(self, params, tokens, caches, lengths=None):
-        """A whole prompt batch ``tokens (B, T)`` through the trunk, its K/V
+    def prefill(self, params, inputs, caches, lengths=None):
+        """A whole prompt batch ``inputs`` (token ids ``(B, T)`` or embeds
+        ``(B, T, d_model)``) through the trunk, its K/V
         written into ``caches`` (from :meth:`init_caches`) at rows ``0..T-1``
         in place. Returns ``(logits (B, vocab), caches)``: the logits at the
         last token, or with ``lengths (B,)`` (right-padded prompts) at each
@@ -463,14 +473,13 @@ class Model:
         state into its cache. ``lengths`` may be a host sequence or a
         tensor on the device (read there, without a host sync)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
-        B, T = tokens.shape
+        x = self._embed_inputs(params, inputs)
+        B, T = x.shape[:2]
         dev = x.device
         valid = None
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
             valid = torch.arange(T, device=dev)[None] < lengths[:, None]
-        positions = torch.arange(T, device=dev)[None].expand(B, T)
         out = []
         for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
                                         caches):
@@ -485,6 +494,8 @@ class Model:
                         c[k].copy_(t)
                 out.append(cstack)
                 continue
+            positions = attn_lib.text_positions(
+                mixer, torch.arange(T, device=dev)[None].expand(B, T))
             for i in range(self.n_periods):
                 p = _layer(pstack, i)
                 c = _layer(cstack, i)
@@ -539,9 +550,11 @@ class Model:
         nothing). Without, the dense caches of :meth:`init_caches` (every
         row at one depth) or :meth:`init_slot_caches` (each at its own):
         every row writes and advances. Returns ``(logits (B, vocab),
-        caches)``; the caches are updated in place."""
+        caches)``; the caches are updated in place. An embed frontend
+        takes ``(B, 1, d_model)`` embeds for ``tokens``."""
         cfg = self.cfg
-        x = self._embed(params, tokens[:, None])
+        x = self._embed_inputs(
+            params, tokens[:, None] if cfg.frontend == "token" else tokens)
         for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
                                         caches):
             for i in range(self.n_periods):
@@ -578,11 +591,12 @@ class Model:
         position ``i``, what :meth:`decode_step` gives when the window is fed
         one token at a time. The caller sets the accepted depth first
         (:meth:`set_paged_pos`); ``pos`` stays there. Returns ``(logits (B,
-        Tq, vocab), caches)``, the caches updated in place."""
+        Tq, vocab), caches)``, the caches updated in place. An embed
+        frontend takes ``(B, Tq, d_model)`` embeds for ``tokens``."""
         assert self.spec_decode_supported, \
             "verify_step: recurrent blocks cannot roll state back"
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed_inputs(params, tokens)
         for spec, pstack, cstack in zip(self.block_specs, params["blocks"],
                                         caches):
             for i in range(self.n_periods):
@@ -599,7 +613,8 @@ class Model:
                       chunk_len, final: bool = True):
         """One page-aligned chunk of a single request's prefill (batch 1).
 
-        ``tokens (1, Tc)`` with ``Tc`` a page multiple; ``start``
+        ``tokens (1, Tc)`` (an embed frontend: embeds ``(1, Tc,
+        d_model)``) with ``Tc`` a page multiple; ``start``
         (page-aligned) is the chunk's global offset; ``chunk_len <= Tc``
         real tokens (the final chunk is right-padded). ``slot``, ``start``
         and ``chunk_len`` are host integers or 0-d integer tensors on the
@@ -614,7 +629,7 @@ class Model:
         chunk and ``(None, caches)`` otherwise (no final norm or
         unembed)."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed_inputs(params, tokens)
         Tc = x.shape[1]
         dev = x.device
         valid = torch.arange(Tc, device=dev)[None] < (

@@ -65,9 +65,10 @@ one copy to the host; a non-finite row is quarantined (pages freed, the
 request requeued with backoff, after ``max_fault_retries`` failed with
 ``finish_reason="fault"``) while the other rows go on untouched. An
 exception in a decode step is retried next step (the injected
-``engine_step`` fault fires before the step writes anything) and
-re-raised after ``max_consecutive_step_faults`` (at once when the step had
-already advanced a recurrent layer's state). Deadlines abort
+``engine_step`` fault fires before the step writes anything; a recurrent
+layer's state, which the decode program advances in place, is put back
+from a copy taken just before it) and re-raised after
+``max_consecutive_step_faults``. Deadlines abort
 ``enforce_deadline`` requests; the degradation ladder holds speculation
 off (``spec_suspended``: the plain paged decode serves), flushes the
 prefix trie and suspends publishing.
@@ -169,6 +170,10 @@ class Engine:
         cfg = model.cfg
         if not cfg.causal:
             raise ValueError(f"{cfg.name}: encoder-only arch has no decode step")
+        if cfg.frontend != "token":
+            raise ValueError(
+                f"{cfg.name}: the engine serves token frontends only "
+                "(embed-frontend archs have no incremental token stream)")
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
@@ -287,6 +292,11 @@ class Engine:
             self._admit_caches = model.init_caches(1, max_len, device=dev)
         # each live slot's accepted depth, written before every decode
         self._pos0 = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # the model's recurrent state and its copy from just before each
+        # decode program: a fault in or after the program puts the state
+        # back, so the retry advances it once
+        self._state = model.recurrent_state(self.cache.caches)
+        self._state_copy = [torch.empty_like(t) for t in self._state]
         if self.spec_active:
             self._draft_in = torch.zeros((B,), dtype=torch.long, device=dev)
             self._window = torch.zeros((B, self.spec_k + 1),
@@ -1020,24 +1030,17 @@ class Engine:
                     req.n_fault_retries, res.max_fault_retries,
                     req.retry_at_step)
 
-    def _handle_step_fault(self, err: Exception,
-                           advanced: bool = False) -> bool:
+    def _handle_step_fault(self, err: Exception) -> bool:
         """A decode step raised. The injected fault fires before the step
         writes anything; a fault after the replay leaves K/V the retry
-        writes again and a ``pos`` the retry sets back from the host, and
+        writes again, a ``pos`` the retry sets back from the host and a
+        recurrent state the step has already put back from its copy, and
         the pending tokens change only last, so the next step re-runs the
-        same work (a sampled row draws again from its generator). That
-        does not hold for a recurrent layer's state, which the decode
-        program advances in place with nothing to set it back:
-        ``advanced`` (the fault came in or after the decode program of a
-        model with recurrent blocks) re-raises at once instead of
-        retrying. Bounded: after ``max_consecutive_step_faults`` the fault
-        is persistent and re-raised (a real CUDA error is sticky and ends
-        there). Backoff is exponential with seeded jitter."""
-        if advanced:
-            log.error("engine step fault after the decode advanced the "
-                      "recurrent state: a retry would advance it twice")
-            raise err
+        same work (a sampled row draws again from its generator), as the
+        reference's retry does. Bounded: after
+        ``max_consecutive_step_faults`` the fault is persistent and
+        re-raised (a real CUDA error is sticky and ends there). Backoff is
+        exponential with seeded jitter."""
         res = self.resilience
         res.note_fault()
         res.consecutive_step_faults += 1
@@ -1161,7 +1164,7 @@ class Engine:
     def _step_decode(self) -> bool:
         """One batched decode of every live slot (dense: of every slot)."""
         res = self.resilience
-        advanced = False
+        copied = False
         try:
             # the injected fault fires before the step writes anything
             if res.injector is not None:
@@ -1195,8 +1198,11 @@ class Engine:
                     if "pos" in c:
                         c["pos"].copy_(torch.where(live, self._pos0,
                                                    c["pos"]))
-            # from here on a recurrent layer's state may have advanced
-            advanced = self.recurrent
+            # from here on a recurrent layer's state may advance in place:
+            # keep what it was (one copy_ a leaf, outside the program)
+            for keep, t in zip(self._state_copy, self._state):
+                keep.copy_(t)
+            copied = bool(self._state)
             if self.paged:
                 width = min(_next_pow2(needed), self.cache.max_pages)
                 self._block_tables_dev(width)
@@ -1210,7 +1216,10 @@ class Engine:
             self._tokens.copy_(sampling_lib.sample(logits, self._temps,
                                                    self._top_ks, self._gens))
         except Exception as e:          # noqa: BLE001 - bounded retry
-            return self._handle_step_fault(e, advanced)
+            if copied:
+                for keep, t in zip(self._state_copy, self._state):
+                    t.copy_(keep)
+            return self._handle_step_fault(e)
         res.consecutive_step_faults = 0
         # the tokens and the watchdog's verdict in one copy to the host
         host = torch.stack([self._tokens, ok.long()], dim=1).cpu().numpy()

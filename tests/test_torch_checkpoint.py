@@ -196,14 +196,17 @@ def test_config_fields_and_foreign_defaults_equal_reference():
     assert d == json.loads(json.dumps(
         dataclasses.asdict(JModelConfig(**dict(CFG, mpd_fuse=True)))))
     assert tckpt.config_from_dict(d) == cfg
-    # the MoE and recurrent fields are the port's own now; a foreign
-    # family (M-RoPE) still raises
+    # the MoE, recurrent and M-RoPE fields are the port's own; a remat the
+    # reference does not have still raises
     moe = tckpt.config_from_dict(dict(d, moe_experts=8, moe_top_k=2,
-                                      rwkv_head_dim=32, mamba_expand=4))
+                                      rwkv_head_dim=32, mamba_expand=4,
+                                      mrope_sections=[8, 8, 16]))
     assert (moe.moe_experts, moe.moe_top_k, moe.rwkv_head_dim,
-            moe.mamba_expand) == (8, 2, 32, 4)
-    with pytest.raises(ValueError, match="mrope_sections"):
-        tckpt.config_from_dict(dict(d, mrope_sections=[8, 8, 16]))
+            moe.mamba_expand, moe.mrope_sections) == (8, 2, 32, 4, (8, 8, 16))
+    assert tckpt.config_to_dict(moe)["mrope_sections"] == (8, 8, 16)
+    assert tckpt.config_from_dict(dict(d, remat="none")) == cfg
+    with pytest.raises(ValueError, match="remat"):
+        tckpt.config_from_dict(dict(d, remat="everything"))
     with pytest.raises(ValueError, match="no_such_field"):
         tckpt.config_from_dict(dict(d, no_such_field=1))
 

@@ -193,8 +193,9 @@ def test_embedding_scale_rounds_in_config_dtype():
     ids = np.array([[1, 5, 95]], np.int32)
     jt = jnp.asarray(table).astype(jnp.bfloat16)
     want = jlayers.embed({"table": jt}, jnp.asarray(ids)) * float(np.sqrt(2048))
-    got = tm._embed({"embed": {"table": torch.from_numpy(table).bfloat16()}},
-                    torch.from_numpy(ids).long())
+    got = tm._embed_inputs(
+        {"embed": {"table": torch.from_numpy(table).bfloat16()}},
+        torch.from_numpy(ids).long())
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))

@@ -28,6 +28,7 @@ import math
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.serve as J
 import repro_torch.serve as T
@@ -439,37 +440,63 @@ def test_persistent_step_fault_reraises_after_its_bound():
     assert seen[0] == seen[1] and seen[1][1] == 3
 
 
-@pytest.mark.parametrize("mode", ["paged", "dense", "spec"])
+@functools.lru_cache(maxsize=None)
+def _recurrent_models(arch):
+    """``_models()`` for a recurrent arch's smoke config."""
+    jm = jbuild(jcommon.get_config(arch, smoke=True))
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    tm = tbuild(tcommon.get_config(arch, smoke=True))
+    tp = params_from_numpy(tm, jax.tree.map(np.asarray, jp), device="cpu")
+    return jm, jp, tm, tp
+
+
+@pytest.mark.parametrize("mode", ["paged", "dense", "spec"] + [
+    f"{arch}-{m}" for arch in ("rwkv6-3b", "jamba-v0.1-52b")
+    for m in ("paged", "dense")])
 def test_fault_after_the_replay_retries_exactly(mode, monkeypatch):
     """A fault raised once after the step's replay ran (in sampling, or in
     the speculative acceptance after the verify) is caught and the step
     retried: every replay starts from the host's depths (the retry sets
     ``pos`` back from the host and writes the same K/V again), every stream
-    equals the fault-free run's, and one step fault is counted."""
+    equals the fault-free run's, and one step fault is counted. A recurrent
+    model (the rwkv6 and jamba smokes, ``ARCH-paged`` / ``ARCH-dense``):
+    the faulted replay advanced the state in place, and the retry starts
+    from the state the faulted replay started from (advanced once, not
+    twice); the streams also equal the JAX engine's with a fault raised
+    once after its third decode dispatch, and it counts one step fault."""
     import repro_torch.serve.engine as engine_mod
 
-    _, _, tm, tp = _models()
-    kw = (dict(n_slots=2, max_len=64, paged=False) if mode == "dense"
+    arch, _, engine_mode = mode.rpartition("-")
+    jm, jp, tm, tp = _recurrent_models(arch) if arch else _models()
+    kw = (dict(n_slots=2, max_len=64, paged=False) if engine_mode == "dense"
           else dict(PAGED))
     spec = mode == "spec"
     eng = T.Engine(tm, tp, **kw, **(dict(spec_draft=(tm, tp), spec_k=3)
                                     if spec else {}))
+    assert bool(eng._state) == bool(arch)
     replay = {"paged": "decode", "dense": "decode_dense",
-              "spec": "verify"}[mode]
+              "spec": "verify"}[engine_mode]
     name = "spec_accept" if spec else "sample"
     run, real = eng._run, getattr(engine_mod.sampling_lib, name)
     state = {"replays": 0, "armed": False, "raised": 0}
+    # each decode replay: the live mask and the recurrent state before and
+    # after it
+    lives, before, after = [], [], []
 
     def counted_run(kind, width):
         if kind == replay:
             # the verify sets ``pos`` from ``_pos0`` itself
             pos = (eng._pos0[None] if spec
-                   else eng.cache.caches[0]["pos"])
+                   else next((c["pos"] for c in eng.cache.caches
+                              if "pos" in c), None))
             for slot, req in eng.scheduler.running.items():
-                if eng._live[slot]:
+                if eng._live[slot] and pos is not None:
                     assert (pos[:, slot] == eng._kv_len(req)).all()
+            lives.append(torch.from_numpy(eng._live.copy()))
+            before.append([t.clone() for t in eng._state])
         out = run(kind, width)
         if kind == replay:
+            after.append([t.clone() for t in eng._state])
             state["replays"] += 1
             state["armed"] = state["replays"] == 3
         return out
@@ -485,7 +512,35 @@ def test_fault_after_the_replay_retries_exactly(mode, monkeypatch):
     got = eng.run(_requests(T, 4, 21), max_steps=400)
     assert state["raised"] == 1 and eng.metrics.n_step_faults == 1
     assert eng.n_quarantines == 0
-    assert got == _fault_free(4, 21, tuple(sorted(kw.items())), spec=spec)
+    if not arch:
+        assert got == _fault_free(4, 21, tuple(sorted(kw.items())),
+                                  spec=spec)
+        return
+    # the slots live at the faulted (third) replay are live at its retry
+    # (no token was emitted); their state rows: advanced by the faulted
+    # replay, put back before the retry
+    live = lives[2]
+    assert (lives[3] >= live).all()
+    assert any(not torch.equal(a[:, live], b[:, live])
+               for a, b in zip(before[2], after[2]))
+    assert all(torch.equal(a[:, live], b[:, live])
+               for a, b in zip(before[2], before[3]))
+    monkeypatch.undo()
+    assert got == T.Engine(tm, tp, **kw).run(_requests(T, 4, 21),
+                                             max_steps=400)
+    jeng = J.Engine(jm, jp, **dict(kw, paged=engine_mode == "paged"))
+    attr = "_decode_paged" if engine_mode == "paged" else "_decode"
+    dispatch, calls = getattr(jeng, attr), []
+
+    def jfaulty(*a, **k):
+        out = dispatch(*a, **k)
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("fault after the decode dispatch")
+        return out
+    setattr(jeng, attr, jfaulty)
+    assert jeng.run(_requests(J, 4, 21), max_steps=400) == got
+    assert jeng.metrics.n_step_faults == 1
 
 
 def test_quarantine_on_the_slot_dense_engine():
